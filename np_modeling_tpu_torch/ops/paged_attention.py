@@ -1,0 +1,180 @@
+"""Paged attention for decode and chunked append (serving path).
+
+Counterpart of np_modeling_tpu/ops/paged_attention.py. On CUDA tensors
+``paged_attention`` launches the hand-written Hopper kernel in
+``csrc/paged_attention.cu``; on CPU tensors (or under
+``dispatch.force_plain()``) it runs ``paged_attention_reference``, the port
+of the JAX oracle.
+
+Shapes (the JAX layout):
+  q            [batch, num_q_heads, head_dim]        (one decode token)
+               or [batch, sq, num_q_heads, head_dim] (chunked append)
+  k/v_pages    [num_kv_heads, total_pages, page_size, head_dim]
+  lengths      [batch] int32 (tokens in cache INCLUDING the sq query tokens:
+               query token t sits at position lengths - sq + t and attends
+               to positions <= its own)
+  page_indices [batch, pages_per_seq] int32
+  k/v_scales   [num_kv_heads, total_pages, page_size, 1] fp32 (int8 pages)
+Returns [batch, num_q_heads, head_dim] or [batch, sq, num_q_heads, head_dim]
+in q's dtype.
+
+A sequence with length 0 differs between the two versions, as it does in
+the JAX package: the kernel stores 0, the plain version returns the mean of
+v over the table's positions (its mask value is finite).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from np_modeling_tpu_torch.ops import dispatch
+
+# np_modeling_tpu/ops/attention.py DEFAULT_MASK_VALUE.
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _normalize_bias(bias, b, hq, sq):
+    """[b, hq, kv_len] (broadcast over query tokens) or [b, hq, sq, kv_len]
+    -> fp32 [b, hq, sq, kv_len]."""
+    if bias is None:
+        return None
+    if bias.dim() == 3:
+        bias = bias[:, :, None]
+    return bias.float().expand(b, hq, sq, bias.shape[-1])
+
+
+def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices,
+                              scale=None, window=None, bias=None,
+                              softcap=None, sinks=None):
+    """Plain PyTorch version: gather each sequence's pages, masked softmax.
+
+    ``window``: query at position p sees [p-W+1, p]. ``bias``: additive score
+    bias over absolute cache positions. ``softcap``: cap*tanh(s/cap) on the
+    scaled scores. ``sinks``: per-q-head logit of a virtual no-value key."""
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    b, sq, hq, d = q.shape
+    hkv, _, psize, _ = k_pages.shape
+    g = hq // hkv
+    max_len = page_indices.shape[1] * psize
+
+    idx = page_indices.long()
+    k_seq = k_pages[:, idx].movedim(1, 0).reshape(b, hkv, max_len, d)
+    v_seq = v_pages[:, idx].movedim(1, 0).reshape(b, hkv, max_len, d)
+
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, hkv, g, d).movedim(1, 2)          # [b,hkv,sq,g,d]
+    s = torch.einsum("bhtgd,bhkd->bhtgk", qg.float(), k_seq.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    bias = _normalize_bias(bias, b, hq, sq)
+    if bias is not None:
+        kv = min(max_len, bias.shape[-1])
+        bg = bias.reshape(b, hkv, g, sq, -1).movedim(2, 3)  # [b,hkv,sq,g,kv]
+        s[..., :kv] += bg[..., :kv]
+    pos = torch.arange(max_len, device=q.device)
+    own = (lengths.long()[:, None, None, None, None] - sq
+           + torch.arange(sq, device=q.device)[None, None, :, None, None])
+    keep = pos <= own
+    if window is not None:
+        keep = keep & (pos > own - window)
+    s = torch.where(keep, s, DEFAULT_MASK_VALUE)
+    if sinks is not None:
+        sk = sinks.float().reshape(hkv, g)[None, :, None, :, None]
+        comb = torch.cat([s, sk.expand(*s.shape[:-1], 1)], dim=-1)
+        p = torch.softmax(comb, dim=-1)[..., :-1]
+    else:
+        p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhtgk,bhkd->bhtgd", p, v_seq.float())
+    o = o.movedim(2, 1).reshape(b, sq, hq, d).to(q.dtype)
+    return o[:, 0] if squeeze else o
+
+
+def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
+                    k_scales=None, v_scales=None, window=None, bias=None,
+                    softcap=None, sinks=None):
+    """Paged-KV attention: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors. The kernel takes the GPT-2 subset: fp32 or bf16
+    q and pages, head_dim 64 or 128, any GQA group, any sq >= 1, page sizes
+    8..128 (powers of two). It raises on int8 pages, bias, softcap, sinks
+    and window."""
+    if not dispatch.use_kernel(q):
+        if k_scales is not None:
+            k_pages = k_pages.float() * k_scales
+            v_pages = v_pages.float() * v_scales
+        return paged_attention_reference(q, k_pages, v_pages, lengths,
+                                         page_indices, scale, window, bias,
+                                         softcap, sinks)
+    unported = {"k_scales": k_scales, "v_scales": v_scales, "window": window,
+                "bias": bias, "softcap": softcap, "sinks": sinks}
+    unported = [k for k, v in unported.items() if v is not None]
+    if unported:
+        raise NotImplementedError(
+            f"the CUDA paged-attention kernel does not take {unported} yet "
+            "(ROADMAP.md Queue 2, K3)")
+    return _launch(q, k_pages, v_pages, lengths, page_indices, scale)
+
+
+# Kernel launches since import (or since a caller reset it to 0): a run
+# shows with it that its attention went through the kernel.
+paged_attention.launches = 0
+
+
+def _launch(q, k_pages, v_pages, lengths, page_indices, scale):
+    q4 = q[:, None] if q.dim() == 3 else q
+    if q4.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)} / pages {tuple(k_pages.shape)}:"
+                         " want q [b,(sq,)hq,d], pages [hkv,P,ps,d]")
+    b, sq, hq, d = q4.shape
+    hkv, total_pages, psize, dk = k_pages.shape
+    if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype:
+        raise ValueError("k_pages and v_pages differ in shape or dtype")
+    if dk != d or d not in (64, 128):
+        raise ValueError(f"head_dim {d} (pages {dk}): the kernel takes 64 or "
+                         "128")
+    if hq % hkv:
+        raise ValueError(f"{hq} q heads do not group over {hkv} kv heads")
+    if psize < 8 or psize > 128 or psize & (psize - 1):
+        raise ValueError(f"page_size {psize}: want a power of two in 8..128")
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype not in _DTYPE_CODES:
+        raise ValueError(f"dtypes q {q.dtype} / pages {k_pages.dtype}: want "
+                         "float32 or bfloat16")
+    if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
+        raise ValueError("lengths and page_indices must be int32")
+    if lengths.shape != (b,) or page_indices.dim() != 2 \
+            or page_indices.shape[0] != b:
+        raise ValueError(f"lengths {tuple(lengths.shape)} / page_indices "
+                         f"{tuple(page_indices.shape)} do not match batch {b}")
+    tensors = (q, k_pages, v_pages, lengths, page_indices)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all inputs must lie on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged attention takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("q and pages must be 16-byte aligned")
+
+    from np_modeling_tpu_torch.ops import cuda_build
+    fn = cuda_build.load("paged_attention").lib.np_paged_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
+    out = torch.empty_like(q)
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
+                _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], b, sq, hq,
+                hkv, d, total_pages, psize.bit_length() - 1,
+                page_indices.shape[1], scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    paged_attention.launches += 1
+    return out

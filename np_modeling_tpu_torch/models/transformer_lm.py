@@ -7,8 +7,9 @@ with an MLP FFN (relu or tanh-gelu), biases optional, tied embeddings; a
 config outside it raises NotImplementedError. ``GPT`` owns its parameters
 under the JAX parameter paths (``embedding.table``, ``layer_{i}.
 self_attention.wq``, ``layer_{i}.dense1.linear.w``, ...). ``GPT.apply``
-(dense forward over flash attention) comes with the training slice; the
-serving engine runs the model.
+is the dense forward over flash attention and ``GPT.loss`` the next-token
+loss that training differentiates; the serving engine runs the same modules
+over paged attention.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import dataclasses
 import torch
 from torch import nn
 
-from np_modeling_tpu_torch.nn import Embedding, LayerNorm
+from np_modeling_tpu_torch import ops
+from np_modeling_tpu_torch.nn import Dropout, Embedding, LayerNorm
+from np_modeling_tpu_torch.nn.module import maybe_cast
 from np_modeling_tpu_torch.nn.transformer import TransformerEncoderBlock
 
 
@@ -116,8 +119,10 @@ class GPT(nn.Module):
                 num_kv_heads=c.num_kv_heads, dtype=c.dtype,
                 activation=c.activation, ln_eps=c.ln_eps,
                 use_bias=c.use_bias, qkv_bias=c.qkv_bias,
-                head_dim=c.head_dim, device=device))
+                head_dim=c.head_dim, causal=True, drop_rate=c.drop_rate,
+                device=device))
         self.final_norm = LayerNorm(c.d_model, c.ln_eps, device)
+        self.drop = Dropout(c.drop_rate)
 
     def _block_for(self, i: int) -> TransformerEncoderBlock:
         return getattr(self, f"layer_{i}")
@@ -130,3 +135,46 @@ class GPT(nn.Module):
             self._block_for(i).init(generator)
         self.final_norm.init(generator)
         return self
+
+    def apply(self, tokens, training=False, return_hidden=False,
+              logits_dtype=None):
+        """Dense forward (JAX :221-333): token embedding plus learned
+        positions, cast to the compute dtype, the blocks, the final norm.
+        Returns the final-norm hidden states with ``return_hidden=True``,
+        else the tied-head logits, fp32 unless ``logits_dtype`` says
+        otherwise."""
+        c = self.config
+        if tokens.shape[-1] > c.max_len:
+            raise ValueError(f"{tokens.shape[-1]} tokens: the position table "
+                             f"holds max_len {c.max_len}")
+        x = self.embedding(tokens)
+        x = x + self.pos_embedding(torch.arange(tokens.shape[-1],
+                                                device=tokens.device))
+        x = self.drop(maybe_cast(x, c.dtype), training)
+        for i in range(c.num_layers):
+            x = self._block_for(i)(x, training=training)
+        x = self.final_norm(x)
+        if return_hidden:
+            return x
+        # The tied head's product accumulates in fp32 (JAX:
+        # preferred_element_type), here as the product of the exact fp32
+        # copies of the compute-dtype operands.
+        table = maybe_cast(self.embedding.table, c.dtype)
+        logits = torch.matmul(x.float(), table.float().t())
+        return logits.to(logits_dtype or torch.float32)
+
+    def loss(self, tokens, training=False):
+        """Mean next-token CE (JAX :381-448) at full length: the targets are
+        the tokens rolled by one, and ``valid`` masks the last position
+        (whose rolled target is the first token)."""
+        c = self.config
+        targets = torch.roll(tokens, -1, dims=-1)
+        valid = torch.ones_like(tokens, dtype=torch.float32)
+        valid[..., -1] = 0.0
+        out = self.apply(tokens, training=training,
+                         return_hidden=c.fused_loss, logits_dtype=c.dtype)
+        if c.fused_loss:
+            return ops.fused_lm_head_loss(out, self.embedding.table, targets,
+                                          valid=valid)
+        ce = ops.softmax_cross_entropy_with_integer_labels(out, targets)
+        return (ce * valid).sum() / valid.sum().clamp(min=1.0)

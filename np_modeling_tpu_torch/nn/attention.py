@@ -2,8 +2,10 @@
 
 Counterpart of np_modeling_tpu/nn/attention.py ``MultiHeadAttention`` with
 its parameter layout: wq [d, hq, dk], wk/wv [d, hkv, dk], wo [hq, dk, d],
-bq [hq, dk], bk/bv [hkv, dk], bo [d]. The serving slice uses ``_dims`` and
-``_project``; the dense ``apply`` (flash attention) comes with training.
+bq [hq, dk], bk/bv [hkv, dk], bo [d]. The serving engine uses ``_dims`` and
+``_project`` around paged attention; ``forward`` is the dense
+self-attention path of the JAX ``apply`` (no cache, no ``attn_impl``), over
+``ops.flash_attention``.
 """
 
 from __future__ import annotations
@@ -22,11 +24,11 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, features: int, num_heads: int,
                  num_kv_heads: Optional[int] = None,
                  head_dim: Optional[int] = None, use_bias: bool = True,
-                 qkv_bias: Optional[bool] = None,
+                 qkv_bias: Optional[bool] = None, causal: bool = False,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
-        self.head_dim, self.dtype = head_dim, dtype
+        self.head_dim, self.dtype, self.causal = head_dim, dtype, causal
         hq, hkv, dk = self._dims(features)
         shapes = {"wq": (features, hq, dk), "wk": (features, hkv, dk),
                   "wv": (features, hkv, dk), "wo": (hq, dk, features)}
@@ -66,3 +68,17 @@ class MultiHeadAttention(nn.Module):
         y = ops.linear(x, w.reshape(d, h * dk),
                        b.reshape(h * dk) if b is not None else None)
         return y.reshape(*x.shape[:-1], h, dk).transpose(-3, -2)
+
+    def forward(self, x):
+        """Dense self-attention over [b, s, d]: projections, flash attention
+        (causal if the module is), output projection."""
+        q = self._project(x, self.wq, self.bq)
+        k = self._project(x, self.wk, self.bk)
+        v = self._project(x, self.wv, self.bv)
+        o = ops.flash_attention(q, k, v, causal=self.causal)
+        wo, bo = maybe_cast(self.wo, self.dtype), maybe_cast(self.bo,
+                                                             self.dtype)
+        hq, dk, d_out = wo.shape
+        o = o.transpose(-3, -2)
+        o = o.reshape(*o.shape[:-2], hq * dk)
+        return ops.linear(o, wo.reshape(hq * dk, d_out), bo)

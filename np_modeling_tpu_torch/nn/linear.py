@@ -1,4 +1,4 @@
-"""Linear, Dense and LayerNorm modules.
+"""Linear, Dense, LayerNorm and Dropout modules.
 
 Counterpart of np_modeling_tpu/nn/linear.py, with the same parameter names:
 Linear ``w`` [in, out] and ``b`` [out]; Dense wraps a Linear named
@@ -83,3 +83,20 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return ops.layer_norm(x, self.gamma, self.beta, self.epsilon)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (JAX :113-132). Rate 0, or ``training=False``, is the
+    identity; a rate above 0 in training needs the in-kernel dropout (TPU
+    kernel K7), which is not ported yet, and raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, training: bool = False):
+        if not training or self.rate == 0.0:
+            return x
+        raise NotImplementedError(
+            "dropout with rate > 0 in training needs kernel K7, not ported "
+            "yet (ROADMAP.md Queue 2)")

@@ -1,10 +1,11 @@
 """Transformer block, pre-norm, MLP FFN.
 
 Counterpart of np_modeling_tpu/nn/transformer.py ``TransformerEncoderBlock``
-for what the serving slice runs: ``norm1``, ``self_attention``, ``norm2``
-and the ``mlp`` FFN ``dense2(dense1(y))`` (``dense1`` carries the
-activation). The engine's ``_block_step`` composes them around paged
-attention; the dense ``apply`` (flash attention) comes with training.
+(pre-norm form): ``norm1``, ``self_attention``, ``norm2`` and the ``mlp``
+FFN ``dense2(dense1(y))`` (``dense1`` carries the activation). ``forward``
+is the dense path, in JAX's order of dropout, norm, sublayer and residual
+(JAX :243-278); the serving engine's ``_block_step`` composes the same
+modules around paged attention.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 from torch import nn
 
 from np_modeling_tpu_torch.nn.attention import MultiHeadAttention
-from np_modeling_tpu_torch.nn.linear import Dense, LayerNorm, Linear
+from np_modeling_tpu_torch.nn.linear import Dense, Dropout, LayerNorm, Linear
 
 
 class TransformerEncoderBlock(nn.Module):
@@ -24,12 +25,15 @@ class TransformerEncoderBlock(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  activation: str = "relu", ln_eps: float = 1e-3,
                  use_bias: bool = True, qkv_bias: Optional[bool] = None,
-                 head_dim: Optional[int] = None, device=None):
+                 head_dim: Optional[int] = None, causal: bool = False,
+                 drop_rate: float = 0.0, device=None):
         super().__init__()
         self.dtype = dtype
         self.self_attention = MultiHeadAttention(
             features, num_heads, num_kv_heads, head_dim=head_dim,
-            use_bias=use_bias, qkv_bias=qkv_bias, dtype=dtype, device=device)
+            use_bias=use_bias, qkv_bias=qkv_bias, causal=causal, dtype=dtype,
+            device=device)
+        self.drop = Dropout(drop_rate)
         self.norm1 = LayerNorm(features, ln_eps, device)
         self.norm2 = LayerNorm(features, ln_eps, device)
         self.dense1 = Dense(features, hidden_units, activation, use_bias,
@@ -44,3 +48,10 @@ class TransformerEncoderBlock(nn.Module):
 
     def _ffn(self, y):
         return self.dense2(self.dense1(y))
+
+    def forward(self, x, training: bool = False):
+        skip = x
+        y = self.self_attention(self.norm1(self.drop(x, training))) + skip
+        skip = y
+        y = self._ffn(self.norm2(self.drop(y, training)))
+        return y + skip

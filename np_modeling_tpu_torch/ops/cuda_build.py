@@ -47,30 +47,54 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def load(name: str) -> Library:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    if name in _loaded:
-        return _loaded[name]
+def _target(name: str):
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = BUILD_DIR / f"lib{name}_{digest}.so"
-    log_path = path.with_suffix(".log")
-    seconds = 0.0
-    if not path.exists():
+    return src, path, path.with_suffix(".log")
+
+
+def build(*names: str) -> dict[str, Library]:
+    """Build the named libraries that are not built yet (one nvcc each, all
+    started together) and load them; cached per process."""
+    todo = [name for name in names if name not in _loaded]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = {}
+    for name in todo:
+        src, path, log_path = _target(name)
+        if path.exists():
+            continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log_path.write_text(proc.stdout + proc.stderr)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, time.perf_counter(), tmp)
+    seconds, failed = {}, []
+    for name, (proc, t0, tmp) in started.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        src, path, log_path = _target(name)
+        log_path.write_text(out)
         if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed on {src.name} (rc {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
-    log = log_path.read_text() if log_path.exists() else ""
-    _loaded[name] = Library(lib, path, seconds, log)
-    return _loaded[name]
+            failed.append(f"nvcc failed on {src.name} (rc {proc.returncode}):"
+                          f"\n{out}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    for name in todo:
+        _, path, log_path = _target(name)
+        log = log_path.read_text() if log_path.exists() else ""
+        _loaded[name] = Library(ctypes.CDLL(str(path)), path,
+                                seconds.get(name, 0.0), log)
+    return {name: _loaded[name] for name in names}
+
+
+def load(name: str) -> Library:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process
+    (a loaded library costs one dict lookup: wrappers call this per launch)."""
+    if name in _loaded:
+        return _loaded[name]
+    return build(name)[name]

@@ -1,5 +1,7 @@
 """Utilities of the PyTorch port."""
 
-from np_modeling_tpu_torch.utils.convert import params_from_numpy
+from np_modeling_tpu_torch.utils.convert import (params_from_numpy,
+                                                 params_to_numpy,
+                                                 tree_to_numpy)
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "tree_to_numpy"]

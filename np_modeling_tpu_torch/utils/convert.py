@@ -1,4 +1,4 @@
-"""JAX parameter pytree -> the port's modules.
+"""JAX parameter pytree <-> the port's modules.
 
 ``params_from_numpy`` takes the JAX GPT's parameter tree as nested dicts of
 arrays (numpy, or anything ``np.asarray`` reads) with the JAX keys
@@ -6,6 +6,9 @@ arrays (numpy, or anything ``np.asarray`` reads) with the JAX keys
 ``embedding/table``, ...) and returns a port ``GPT`` holding those weights.
 The port's parameter names are the JAX paths with ``.`` for ``/``, so the
 mapping is by name; a missing, extra or mis-shaped leaf raises.
+``params_to_numpy`` and ``tree_to_numpy`` are the way back: the port's
+parameters, or any ``{name: tensor}`` dict such as their gradients, as the
+JAX-shaped nested dict of fp32 numpy arrays, for a leaf-by-leaf comparison.
 """
 
 from __future__ import annotations
@@ -43,3 +46,20 @@ def params_from_numpy(tree: dict, config: GPTConfig, device=None) -> GPT:
                              f"{tuple(p.shape)}")
         p.copy_(torch.tensor(arr))
     return gpt
+
+
+def tree_to_numpy(named: dict) -> dict:
+    """``{"a.b.c": tensor}`` -> ``{"a": {"b": {"c": ndarray}}}`` (fp32)."""
+    tree: dict = {}
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t.detach().float().cpu().numpy()
+    return tree
+
+
+def params_to_numpy(gpt: GPT) -> dict:
+    """The port GPT's parameters as the JAX parameter tree."""
+    return tree_to_numpy(dict(gpt.named_parameters()))

@@ -70,6 +70,72 @@ def test_embedding():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_linear_bf16_rounds_once_like_jax():
+    """Integer-valued bf16 x and w with quarter-integer b: every fp32 sum is
+    exact, so the one rounding of JAX's ``(x @ w + b) -> bf16`` must be
+    matched bit for bit (a product rounded to bf16 before the bias add is
+    not)."""
+    x = rng.integers(-8, 9, (64, 32)).astype(np.float32)
+    w = rng.integers(-8, 9, (32, 48)).astype(np.float32)
+    b = rng.integers(-16, 17, (48,)).astype(np.float32) / 4
+    want = jops.linear(jnp.asarray(x, jnp.bfloat16),
+                       jnp.asarray(w, jnp.bfloat16),
+                       jnp.asarray(b, jnp.bfloat16))
+    got = ops.linear(torch.tensor(x).bfloat16(), torch.tensor(w).bfloat16(),
+                     torch.tensor(b).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_linear_backward_vs_jax_vjp(bias):
+    x, w, b, dy = _randn(2, 5, 24), _randn(24, 40), _randn(40), _randn(2, 5, 40)
+    args = (x, w, b) if bias else (x, w)
+    _, vjp = jax.vjp(lambda *a: jops.linear(*a), *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(dy))
+    leaves = [torch.tensor(a, requires_grad=True) for a in args]
+    ops.linear(*leaves).backward(torch.tensor(dy))
+    for t, g in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **TOL)
+
+
+@pytest.mark.parametrize("name", ["relu", "gelu"])
+def test_activation_backward_vs_jax_vjp(name):
+    x, dy = _randn(3, 5, 16) * 3, _randn(3, 5, 16)
+    x[0, 0, :4] = 0.0                 # relu passes the gradient at x == 0
+    _, vjp = jax.vjp(getattr(jops, name), jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(dy))
+    tx = torch.tensor(x, requires_grad=True)
+    getattr(ops, name)(tx).backward(torch.tensor(dy))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want), **TOL)
+
+
+def test_layer_norm_backward_vs_jax_vjp():
+    x, g, b = _randn(4, 6, 32) * 2 + 1, _randn(32), _randn(32)
+    dz = _randn(4, 6, 32)
+    _, vjp = jax.vjp(lambda x, g, b: jops.layer_norm(x, g, b, 1e-3),
+                     *map(jnp.asarray, (x, g, b)))
+    want = vjp(jnp.asarray(dz))
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, g, b)]
+    ops.layer_norm(*leaves, 1e-3).backward(torch.tensor(dz))
+    for t, w in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   rtol=1e-5, atol=5e-5)
+
+
+def test_embedding_backward_vs_jax_vjp():
+    table = _randn(20, 8)
+    ids = rng.integers(0, 20, (4, 9)).astype(np.int32)   # with repeats
+    dy = _randn(4, 9, 8)
+    _, vjp = jax.vjp(lambda t: jops.embedding_lookup(t, jnp.asarray(ids)),
+                     jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(dy))
+    tt = torch.tensor(table, requires_grad=True)
+    ops.embedding_lookup(tt, torch.tensor(ids)).backward(torch.tensor(dy))
+    np.testing.assert_allclose(tt.grad.numpy(), np.asarray(want), **TOL)
+
+
 def test_lecun_normal_distribution():
     g = torch.Generator().manual_seed(0)
     w = initializers.lecun_normal(g, (256, 4, 64))        # fan_in 1024

@@ -5,7 +5,8 @@ The plain PyTorch version is held against JAX ``paged_attention_reference``
 interpret mode, on the same numpy inputs, in fp32 at rtol 1e-5 / atol 2e-5.
 Rows are compared only where every query row sees at least one position
 (lengths >= sq): for emptier rows the TPU kernel and the oracle disagree by
-design. The CUDA kernel itself runs only on the card (``cuda`` marker).
+design. The CUDA kernel itself runs only on the card
+(tests/test_torch_cuda.py).
 """
 
 import jax.numpy as jnp
@@ -137,29 +138,3 @@ def test_paged_kv_cache_appends_and_views():
     torch.testing.assert_close(pages, k, rtol=0, atol=0)
     cache.free(0)
     assert cache.free_pages == 8
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("sq,hq,hkv,d,psize", [
-    (None, 12, 12, 64, 16), (5, 12, 12, 64, 64), (256, 12, 12, 64, 16),
-    (None, 8, 2, 128, 64), (5, 8, 2, 128, 16)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_vs_plain(sq, hq, hkv, d, psize, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rows = sq or 1
-    pps = max(8, -(-(rows + 64) // psize))
-    q, k, v, lengths, table = _case(b=4, sq=sq, hq=hq, hkv=hkv, d=d,
-                                    psize=psize, pages_per_seq=pps,
-                                    total=4 * pps + 2)
-    lengths[:2] = [rows, psize * -(-rows // psize)]  # shortest; whole pages
-    q, k, v, lengths, table = (t.cuda() for t in _torch(q, k, v, lengths,
-                                                         table))
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    got = ops.paged_attention(q, k, v, lengths, table)
-    with dispatch.force_plain():
-        want = ops.paged_attention(q, k, v, lengths, table)
-    torch.cuda.synchronize()
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    assert (got.float() - want.float()).abs().max().item() <= tol

@@ -21,7 +21,8 @@ from torch import nn
 
 from np_modeling_tpu_torch import ops
 from np_modeling_tpu_torch.nn import Dropout, Embedding, LayerNorm
-from np_modeling_tpu_torch.nn.module import maybe_cast
+from np_modeling_tpu_torch.nn.module import (maybe_cast, resolve_rngs,
+                                             split_rngs)
 from np_modeling_tpu_torch.nn.transformer import TransformerEncoderBlock
 
 
@@ -136,13 +137,15 @@ class GPT(nn.Module):
         self.final_norm.init(generator)
         return self
 
-    def apply(self, tokens, training=False, return_hidden=False,
+    def apply(self, tokens, training=False, rngs=None, return_hidden=False,
               logits_dtype=None):
         """Dense forward (JAX :221-333): token embedding plus learned
-        positions, cast to the compute dtype, the blocks, the final norm.
-        Returns the final-norm hidden states with ``return_hidden=True``,
-        else the tied-head logits, fp32 unless ``logits_dtype`` says
-        otherwise."""
+        positions, cast to the compute dtype, dropout (salt 1000), the
+        blocks (layer ``i`` with ``split_rngs(rngs, i)``), the final norm.
+        In training, ``rngs={"dropout": g}`` with ``g`` a CPU generator (one
+        seed drawn from it a call) or an integer seed. Returns the
+        final-norm hidden states with ``return_hidden=True``, else the
+        tied-head logits, fp32 unless ``logits_dtype`` says otherwise."""
         c = self.config
         if tokens.shape[-1] > c.max_len:
             raise ValueError(f"{tokens.shape[-1]} tokens: the position table "
@@ -150,9 +153,11 @@ class GPT(nn.Module):
         x = self.embedding(tokens)
         x = x + self.pos_embedding(torch.arange(tokens.shape[-1],
                                                 device=tokens.device))
-        x = self.drop(maybe_cast(x, c.dtype), training)
+        rngs = resolve_rngs(rngs) if training else None
+        x = self.drop(maybe_cast(x, c.dtype), training, rngs, salt=1000)
         for i in range(c.num_layers):
-            x = self._block_for(i)(x, training=training)
+            x = self._block_for(i)(x, training=training,
+                                   rngs=split_rngs(rngs, i))
         x = self.final_norm(x)
         if return_hidden:
             return x
@@ -163,15 +168,16 @@ class GPT(nn.Module):
         logits = torch.matmul(x.float(), table.float().t())
         return logits.to(logits_dtype or torch.float32)
 
-    def loss(self, tokens, training=False):
+    def loss(self, tokens, training=False, rngs=None):
         """Mean next-token CE (JAX :381-448) at full length: the targets are
         the tokens rolled by one, and ``valid`` masks the last position
-        (whose rolled target is the first token)."""
+        (whose rolled target is the first token). ``rngs`` as in
+        ``apply``."""
         c = self.config
         targets = torch.roll(tokens, -1, dims=-1)
         valid = torch.ones_like(tokens, dtype=torch.float32)
         valid[..., -1] = 0.0
-        out = self.apply(tokens, training=training,
+        out = self.apply(tokens, training=training, rngs=rngs,
                          return_hidden=c.fused_loss, logits_dtype=c.dtype)
         if c.fused_loss:
             return ops.fused_lm_head_loss(out, self.embedding.table, targets,

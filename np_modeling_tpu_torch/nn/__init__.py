@@ -4,9 +4,10 @@ from np_modeling_tpu_torch.nn import initializers
 from np_modeling_tpu_torch.nn.attention import MultiHeadAttention
 from np_modeling_tpu_torch.nn.embedding import Embedding
 from np_modeling_tpu_torch.nn.linear import Dense, Dropout, LayerNorm, Linear
-from np_modeling_tpu_torch.nn.module import maybe_cast
+from np_modeling_tpu_torch.nn.module import (Sequential, maybe_cast,
+                                             resolve_rngs, split_rngs)
 from np_modeling_tpu_torch.nn.transformer import TransformerEncoderBlock
 
 __all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "Linear",
-           "MultiHeadAttention", "TransformerEncoderBlock", "initializers",
-           "maybe_cast"]
+           "MultiHeadAttention", "Sequential", "TransformerEncoderBlock",
+           "initializers", "maybe_cast", "resolve_rngs", "split_rngs"]

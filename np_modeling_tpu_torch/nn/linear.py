@@ -4,7 +4,8 @@ Counterpart of np_modeling_tpu/nn/linear.py, with the same parameter names:
 Linear ``w`` [in, out] and ``b`` [out]; Dense wraps a Linear named
 ``linear``; LayerNorm ``gamma``/``beta``. Parameters are allocated at
 construction and filled by ``init(generator)`` (or loaded, see
-``utils.convert``).
+``utils.convert``). ``forward`` takes JAX's ``training`` and ``rngs``, which
+only Dropout reads, so any of them can sit in a ``Sequential``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
-from np_modeling_tpu_torch import ops
+from np_modeling_tpu_torch import ops, rng
 from np_modeling_tpu_torch.nn import initializers
 from np_modeling_tpu_torch.nn.module import maybe_cast
 
@@ -42,7 +43,8 @@ class Linear(nn.Module):
             self.b.copy_(initializers.zeros(generator, self.b.shape))
         return self
 
-    def forward(self, x):
+    def forward(self, x, training: bool = False, rngs=None):
+        del training, rngs
         return ops.linear(maybe_cast(x, self.dtype),
                           maybe_cast(self.w, self.dtype),
                           maybe_cast(self.b, self.dtype))
@@ -62,7 +64,8 @@ class Dense(nn.Module):
         self.linear.init(generator)
         return self
 
-    def forward(self, x):
+    def forward(self, x, training: bool = False, rngs=None):
+        del training, rngs
         return self._act(self.linear(x))
 
 
@@ -81,22 +84,30 @@ class LayerNorm(nn.Module):
         self.beta.copy_(initializers.zeros(generator, self.beta.shape))
         return self
 
-    def forward(self, x):
+    def forward(self, x, training: bool = False, rngs=None):
+        del training, rngs
         return ops.layer_norm(x, self.gamma, self.beta, self.epsilon)
 
 
 class Dropout(nn.Module):
-    """Inverted dropout (JAX :113-132). Rate 0, or ``training=False``, is the
-    identity; a rate above 0 in training needs the in-kernel dropout (TPU
-    kernel K7), which is not ported yet, and raises."""
+    """Inverted dropout (JAX :113-130). Rate 0, or ``training=False``, is the
+    identity; in training the stream ``rngs[rng_name]`` (a CPU generator or
+    an integer seed) with ``salt`` folded in seeds ``ops.dropout``."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, rng_name: str = "dropout"):
         super().__init__()
-        self.rate = rate
+        self.rate, self.rng_name = rate, rng_name
 
-    def forward(self, x, training: bool = False):
+    def init(self, generator: torch.Generator):
+        del generator        # no parameters
+        return self
+
+    def forward(self, x, training: bool = False, rngs=None, salt: int = 0):
         if not training or self.rate == 0.0:
             return x
-        raise NotImplementedError(
-            "dropout with rate > 0 in training needs kernel K7, not ported "
-            "yet (ROADMAP.md Queue 2)")
+        if rngs is None or self.rng_name not in rngs:
+            raise ValueError(
+                f"Dropout needs rngs={{'{self.rng_name}': generator or seed}}"
+                " in training")
+        seed = rng.fold_seed(rng.seed_of(rngs[self.rng_name]), salt)
+        return ops.dropout(x, seed, self.rate, training=True)

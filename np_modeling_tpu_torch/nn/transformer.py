@@ -3,9 +3,10 @@
 Counterpart of np_modeling_tpu/nn/transformer.py ``TransformerEncoderBlock``
 (pre-norm form): ``norm1``, ``self_attention``, ``norm2`` and the ``mlp``
 FFN ``dense2(dense1(y))`` (``dense1`` carries the activation). ``forward``
-is the dense path, in JAX's order of dropout, norm, sublayer and residual
-(JAX :243-278); the serving engine's ``_block_step`` composes the same
-modules around paged attention.
+is the dense path, in JAX's order of dropout (salt 1 before ``norm1``, salt
+2 before ``norm2``), norm, sublayer and residual (JAX :243-278); the
+serving engine's ``_block_step`` composes the same modules around paged
+attention.
 """
 
 from __future__ import annotations
@@ -49,9 +50,10 @@ class TransformerEncoderBlock(nn.Module):
     def _ffn(self, y):
         return self.dense2(self.dense1(y))
 
-    def forward(self, x, training: bool = False):
-        skip = x
-        y = self.self_attention(self.norm1(self.drop(x, training))) + skip
+    def forward(self, x, training: bool = False, rngs=None):
+        skip = x            # the residual skips the dropout
+        y = self.self_attention(self.norm1(self.drop(x, training, rngs,
+                                                     salt=1))) + skip
         skip = y
-        y = self._ffn(self.norm2(self.drop(y, training)))
+        y = self._ffn(self.norm2(self.drop(y, training, rngs, salt=2)))
         return y + skip

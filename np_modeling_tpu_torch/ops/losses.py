@@ -1,7 +1,11 @@
-"""Cross-entropy losses with hand-written backwards (training path).
+"""Losses with hand-written backwards (training path).
 
 Counterpart of np_modeling_tpu/ops/losses.py:
 
+- ``mse``, ``cross_entropy_probs`` and ``softmax_cross_entropy`` (JAX
+  :27-100): the losses the ``Trainer`` resolves by name, each with JAX's
+  backward (``cross_entropy_probs`` keeps the reference framework's
+  ``-t / p`` gradient and its unnormalised sum).
 - ``softmax_cross_entropy_with_integer_labels`` (JAX :102-160): per-example
   CE from logits, one-hot free; statistics fp32. Labels outside [0, vocab)
   give ce = lse and no correct-class gradient term.
@@ -20,6 +24,70 @@ import math
 import torch
 
 from np_modeling_tpu_torch.ops.linear import mm
+
+
+class _Mse(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, y, targets):
+        ctx.save_for_backward(y, targets)
+        return (y - targets).square().sum() / y.numel()
+
+    @staticmethod
+    def backward(ctx, g):
+        y, targets = ctx.saved_tensors
+        d = (2.0 / y.numel()) * (y - targets) * g
+        return d, -d
+
+
+def mse(y: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``sum((y - t)^2) / y.size``."""
+    return _Mse.apply(y, targets)
+
+
+class _CrossEntropyProbs(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, probs, targets):
+        ctx.save_for_backward(probs, targets)
+        return -(targets * torch.log(probs)).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        probs, targets = ctx.saved_tensors
+        return -targets / probs * g, -torch.log(probs) * g
+
+
+def cross_entropy_probs(probs: torch.Tensor,
+                        targets: torch.Tensor) -> torch.Tensor:
+    """``-sum(t * log(p))`` on probabilities (an unnormalised sum)."""
+    return _CrossEntropyProbs.apply(probs, targets)
+
+
+class _SoftmaxCrossEntropy(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        m = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp(logits - m)
+        sum_e = e.sum(dim=-1, keepdim=True)
+        log_z = torch.log(sum_e) + m
+        ctx.save_for_backward(e / sum_e, labels, logits)
+        return log_z.squeeze(-1) - (labels * logits).sum(dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        probs, labels, logits = ctx.saved_tensors
+        g = g[..., None]
+        return (probs - labels) * g, -logits * g
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Per-example CE from logits and label distributions: ``logsumexp -
+    sum(labels * logits)``, shape ``logits.shape[:-1]``; the backward is
+    ``softmax(logits) - labels``."""
+    return _SoftmaxCrossEntropy.apply(logits, labels)
 
 
 class _SxeIntegerLabels(torch.autograd.Function):

@@ -1,6 +1,6 @@
 """Optimizers as gradient transformations over named parameters.
 
-Counterpart of np_modeling_tpu/training/optimizers.py (:23-113): an
+Counterpart of np_modeling_tpu/training/optimizers.py (:23-128, :346-376): an
 ``Optimizer`` is ``(init, update)`` with ``update(grads, state, params) ->
 (updates, state)``; here the pytrees are ``dict[str, Tensor]`` keyed by
 parameter name (``dict(model.named_parameters())`` and the matching
@@ -96,5 +96,60 @@ def adam(learning_rate, beta1: float = 0.9, beta2: float = 0.999,
 
         updates = {k: u(mu[k], nu[k]) for k in grads}
         return updates, AdamState(count, mu, nu)
+
+    return Optimizer(init, update)
+
+
+def adamw(learning_rate, beta1: float = 0.9, beta2: float = 0.999,
+          epsilon: float = 1e-8, weight_decay: float = 0.01) -> Optimizer:
+    """Adam with decoupled weight decay (JAX :116-128): the update is
+    ``adam_update - lr * weight_decay * p`` with the pre-update ``p`` and
+    the lr at the count before the increment, for every parameter (biases
+    and norms included, as in JAX)."""
+    base = adam(learning_rate, beta1, beta2, epsilon)
+
+    def update(grads, state, params):
+        lr = _lr_at(learning_rate, state.count)
+        updates, state2 = base.update(grads, state, params)
+        return ({k: u - lr * weight_decay * params[k]
+                 for k, u in updates.items()}, state2)
+
+    return Optimizer(base.init, update)
+
+
+def clip_by_global_norm(max_norm: float) -> Optimizer:
+    """Scales every gradient by ``min(1, max_norm / max(norm, 1e-12))``,
+    ``norm = sqrt(sum over tensors of sum(g^2))`` in fp32 (JAX :346-360);
+    the scale stays a device tensor."""
+
+    def init(params):
+        del params
+        return ()
+
+    def update(grads, state, params=None):
+        del params
+        norm = torch.stack([g.float().square().sum()
+                            for g in grads.values()]).sum().sqrt()
+        # A true division (``scalar / tensor`` would multiply by a reciprocal).
+        scale = torch.clamp(torch.full_like(norm, max_norm)
+                            / torch.clamp(norm, min=1e-12), max=1.0)
+        return {k: g * scale for k, g in grads.items()}, state
+
+    return Optimizer(init, update)
+
+
+def chain(*transforms: Optimizer) -> Optimizer:
+    """Compose transforms left to right, each one's output feeding the next
+    (JAX :363-376)."""
+
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(grads, state, params=None):
+        new_state = []
+        for t, s in zip(transforms, state):
+            grads, s2 = t.update(grads, s, params)
+            new_state.append(s2)
+        return grads, tuple(new_state)
 
     return Optimizer(init, update)

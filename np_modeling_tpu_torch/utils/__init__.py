@@ -1,7 +1,9 @@
 """Utilities of the PyTorch port."""
 
-from np_modeling_tpu_torch.utils.convert import (params_from_numpy,
+from np_modeling_tpu_torch.utils.convert import (load_params,
+                                                 params_from_numpy,
                                                  params_to_numpy,
                                                  tree_to_numpy)
 
-__all__ = ["params_from_numpy", "params_to_numpy", "tree_to_numpy"]
+__all__ = ["load_params", "params_from_numpy", "params_to_numpy",
+           "tree_to_numpy"]

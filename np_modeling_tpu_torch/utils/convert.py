@@ -1,11 +1,11 @@
 """JAX parameter pytree <-> the port's modules.
 
-``params_from_numpy`` takes the JAX GPT's parameter tree as nested dicts of
-arrays (numpy, or anything ``np.asarray`` reads) with the JAX keys
-(``layer_{i}/self_attention/wq``, ``layer_{i}/dense1/linear/w``,
+``load_params(module, tree)`` copies a JAX parameter tree, nested dicts of
+arrays (numpy, or anything ``np.asarray`` reads), into any port module whose
+parameter names are the tree's paths with ``.`` for ``/``; a missing, extra
+or mis-shaped leaf raises. ``params_from_numpy`` does so for the JAX GPT's
+tree (``layer_{i}/self_attention/wq``, ``layer_{i}/dense1/linear/w``,
 ``embedding/table``, ...) and returns a port ``GPT`` holding those weights.
-The port's parameter names are the JAX paths with ``.`` for ``/``, so the
-mapping is by name; a missing, extra or mis-shaped leaf raises.
 ``params_to_numpy`` and ``tree_to_numpy`` are the way back: the port's
 parameters, or any ``{name: tensor}`` dict such as their gradients, as the
 JAX-shaped nested dict of fp32 numpy arrays, for a leaf-by-leaf comparison.
@@ -31,10 +31,9 @@ def _flatten(tree, prefix=""):
 
 
 @torch.no_grad()
-def params_from_numpy(tree: dict, config: GPTConfig, device=None) -> GPT:
-    gpt = GPT(config, device=device)
+def load_params(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
     leaves = _flatten(tree)
-    params = dict(gpt.named_parameters())
+    params = dict(module.named_parameters())
     if set(leaves) != set(params):
         raise KeyError(
             f"parameter trees differ: only in JAX {sorted(set(leaves) - set(params))},"
@@ -45,7 +44,11 @@ def params_from_numpy(tree: dict, config: GPTConfig, device=None) -> GPT:
             raise ValueError(f"{name}: JAX shape {arr.shape}, port shape "
                              f"{tuple(p.shape)}")
         p.copy_(torch.tensor(arr))
-    return gpt
+    return module
+
+
+def params_from_numpy(tree: dict, config: GPTConfig, device=None) -> GPT:
+    return load_params(GPT(config, device=device), tree)
 
 
 def tree_to_numpy(named: dict) -> dict:

@@ -7,16 +7,20 @@ have no CPU mode. This file imports no JAX, so the card can run it alone:
 
 (``--noconftest``: tests/conftest.py configures JAX, which that machine
 does not have). Tolerances: fp32 1e-4, bf16 2e-2, each times max(1, max
-|plain|) for flash attention; the whole-GPT criteria are the ones
-chip_smoke.py holds at full width, explained there.
+|plain|) for flash attention; LayerNorm fp32 1e-5 times max(1, max |plain|)
+and bf16 one bf16 ulp (or that fp32 bound near 0); dropout bit for bit;
+the whole-GPT criteria are the ones chip_smoke.py holds at full width,
+explained there.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
 import torch
 
 from np_modeling_tpu_torch import models, ops
-from np_modeling_tpu_torch.ops import dispatch
+from np_modeling_tpu_torch.ops import dispatch, fused
 
 pytestmark = pytest.mark.cuda
 
@@ -183,3 +187,119 @@ def test_cuda_gpt_step_bf16_no_worse_than_plain():
     for n in ref:
         if not n.endswith("bk"):
             assert _rel(gk[n], ref[n]) <= max(2e-2, 1.25 * _rel(gp[n], ref[n])), n
+
+
+# ---- LayerNorm (K8) and dropout (K7) ----------------------------------------------
+
+def _ln_case(rows, d, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(rows, d, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device="cuda")
+    beta = 0.1 * torch.randn(d, generator=g, device="cuda")
+    dz = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+    return x, gamma, beta, dz
+
+
+def _ln_run(x, gamma, beta, dz, plain):
+    leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    with dispatch.force_plain() if plain else contextlib.nullcontext():
+        out = ops.layer_norm(*leaves, 1e-5)
+        out.backward(dz)
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+def _bf16_ulp(t):
+    a = t.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("rows,d", [(7, 64), (33, 768), (5, 1000), (9, 1001),
+                                    (300, 1024), (4, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_layer_norm_kernels_vs_plain(rows, d, dtype):
+    case = _ln_case(rows, d, dtype)
+    got = _ln_run(*case, plain=False)
+    want = _ln_run(*case, plain=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        diff = (a.float() - b.float()).abs()
+        bound = 1e-5 * max(1.0, b.float().abs().max().item())
+        if a.dtype == torch.bfloat16:
+            assert bool((diff <= torch.clamp(torch.maximum(
+                _bf16_ulp(a), _bf16_ulp(b)), min=bound)).all())
+        else:
+            assert diff.max().item() <= bound
+
+
+def test_cuda_layer_norm_counts_launches_and_refuses_wide_rows():
+    x, gamma, beta, dz = _ln_case(16, 256, torch.bfloat16)
+    x.requires_grad_()
+    before = (ops.layer_norm.launches_fwd, ops.layer_norm.launches_bwd)
+    ops.layer_norm(x, gamma, beta).backward(dz)
+    assert (ops.layer_norm.launches_fwd,
+            ops.layer_norm.launches_bwd) == (before[0] + 1, before[1] + 1)
+    wide = torch.zeros(2, 8193, device="cuda")
+    with pytest.raises(ValueError):
+        ops.layer_norm(wide, torch.ones(8193, device="cuda"),
+                       torch.zeros(8193, device="cuda"))
+
+
+@pytest.mark.parametrize("shape,strided", [((8, 64, 96), False),
+                                           ((8, 64, 96), True),
+                                           ((3, 1001), False), ((7,), False)])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dropout_kernel_vs_plain_twin(shape, strided, rate, dtype):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(*shape, generator=g, device="cuda").to(dtype)
+    if strided:
+        x = x.transpose(0, -1)
+    seed = 0x5DEECE66D
+    leaf = x.clone().requires_grad_()
+    before = ops.dropout.launches
+    got = ops.dropout(leaf, seed, rate)
+    got.backward(torch.ones_like(got))
+    assert ops.dropout.launches == before + 2
+    with dispatch.force_plain():
+        want = ops.dropout(x, seed, rate)
+    mask = fused.philox_keep_mask(seed, x.shape, rate, x.device)
+    kernel_mask = fused.dropout_cuda(torch.ones_like(x), seed, rate) != 0
+    torch.cuda.synchronize()
+    assert torch.equal(kernel_mask, mask)
+    assert torch.equal(got.detach(), want)
+    assert torch.equal(leaf.grad != 0, mask)
+
+
+def test_cuda_dropout_identity_launches_nothing():
+    x = torch.randn(64, device="cuda")
+    before = ops.dropout.launches
+    assert ops.dropout(x, 1, 0.0) is x
+    assert ops.dropout(x, 1, 0.5, training=False) is x
+    assert ops.dropout.launches == before
+
+
+def test_cuda_gpt_dropout_step_fp32_kernels_vs_plain():
+    """fp32 with dropout 0.1: one integer seed gives both paths the same
+    masks, so loss and gradients agree as without dropout."""
+    cfg = models.GPTConfig(vocab_size=256, d_model=256, num_heads=4,
+                           num_layers=2, hidden_units=512, max_len=256,
+                           activation="gelu", drop_rate=0.1)
+    gpt = models.GPT(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, 256, (2, 256), device="cuda")
+    results = []
+    for plain in (False, True):
+        gpt.zero_grad(set_to_none=True)
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            loss = gpt.loss(tokens, training=True, rngs={"dropout": 42})
+            loss.backward()
+        results.append((loss.item(), {n: p.grad.clone()
+                                      for n, p in gpt.named_parameters()}))
+    (lk, gk), (lp, gp) = results
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for n in gp:
+        if n.endswith("bk"):
+            assert gk[n].norm() <= 1e-4 * gp[n[:-2] + "wk"].norm(), n
+        else:
+            assert _rel(gk[n], gp[n]) <= 1e-4, n

@@ -199,8 +199,12 @@ def test_params_to_numpy_round_trip():
 
 
 def test_dropout_identity_and_unported_rate():
+    """Rate 0 and eval are the identity; a rate above 0 in training without
+    rngs["dropout"] raises JAX's ValueError (JAX nn/linear.py:126-128)."""
     x = torch.randn(3, 4)
     assert tnn.Dropout(0.5)(x) is x
     assert tnn.Dropout(0.0)(x, training=True) is x
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tnn.Dropout(0.1)(x, training=True)
+    with pytest.raises(ValueError):
+        tnn.Dropout(0.1)(x, training=True, rngs={"other": 0})

@@ -1,15 +1,20 @@
-"""Drives the PyTorch port's serving path, its bench training step and its
-training entry point once on one CUDA card.
+"""Drives the PyTorch port's serving path, its quantized serving path, its
+bench training step and its training entry point once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each printed on its own lines; any failure exits non-zero:
   (a) device: the card's name and power limit, as nvidia-smi reports them;
-  (b) build: every kernel of the three paths, from the sources in this
+  (b) build: every kernel of the four paths, from the sources in this
       checkout (one nvcc for each source, all started together);
   (c) each kernel vs its plain PyTorch version on the card, at the paths'
       shapes. Paged attention: max abs err <= 1e-4 with fp32 pages,
-      <= 2e-2 with bf16 pages. Flash attention (o, lse, dq, dk, dv):
+      <= 2e-2 with bf16 pages; with int8 pages (per-token fp32 scales)
+      <= 1e-4 with fp32 q, <= 2e-2 with bf16 q. The int8-weight matmul K4
+      (bf16 and fp32 x, bf16 and fp32 out, with and without bias, at the
+      FFN's decode and prefill shapes and ragged ones): fp32 out max abs
+      err <= 1e-4 times max(1, max |plain|), bf16 out within one bf16 ulp
+      (or that bound near 0). Flash attention (o, lse, dq, dk, dv):
       max abs err <= 1e-4 (fp32) or 2e-2 (bf16) times max(1, max |plain|).
       LayerNorm K8 (out, dx, dgamma, dbeta): fp32 max abs err <= 1e-5 times
       max(1, max |plain|); a bf16 output within one bf16 ulp (or that fp32
@@ -26,6 +31,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
       that fp32 greedy tokens equal those of the plain version (near-ties
       printed);
   (e) serving timings with CUDA events (median of >= 20 runs after warm-up);
+  (j) quantized serving: (d)'s GPT-2 small with its FFN weights quantized
+      to int8 (quantize_params_int8 -> params_from_numpy) and int8 KV pages
+      (quantize_kv=True), bf16 compute, on (d)'s traffic; checks tokens,
+      pages, that every FFN product launched K4 (24 a forward), every
+      attention call the int8-page kernel (12 a forward) and every
+      LayerNorm K8 (25 a forward), and that fp32 greedy tokens equal those
+      of the plain version (near-ties printed);
+  (k) quantized serving timings: K4 at the decode and prefill shapes
+      beside dequantize + torch.mm and torch.mm with bf16 weights,
+      int8-page decode beside bf16-page decode, and the quantized engine's
+      prefill and decode beside (e)'s bf16 engine (a report, not a check);
   (f) training: the bench GPT (bench.py: 4 layers, d 1024, 8 heads, FFN
       4096, vocab 8192, batch 4 x 4096 tokens, bf16 compute, fused loss) at
       full width. Step 0 through the kernels against the same step with the
@@ -63,7 +79,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
       report, not a check: if the profiler sees no device time, it says so
       and the run goes on.
 Each path runs with the launch counts set to 0 just before it and read just
-after. Timings run each side twice, in the order plain, kernel, kernel,
+after. Library yardsticks (one PyTorch call computing a kernel's function,
+which the port never calls) are timed beside K1/K2 (scaled_dot_product_
+attention), K7 (F.dropout) and K8 (F.layer_norm); no single call computes
+K3 or K4. Timings run each side twice, in the order plain, kernel, kernel,
 plain. Every kernel is timed with CUDA events two ways: a call's wall time,
 the host's share included (the JSON line's "ms"), and device time, calls
 queued back to back behind a sleep kernel so the host's gaps drop out
@@ -90,6 +109,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 PAGED_SOURCE = "np_modeling_tpu_torch/csrc/paged_attention.cu"
 FLASH_SOURCE = "np_modeling_tpu_torch/csrc/flash_attention.cu"
 FUSED_SOURCE = "np_modeling_tpu_torch/csrc/fused.cu"
+INT8_SOURCE = "np_modeling_tpu_torch/csrc/int8_matmul.cu"
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 LN_F32_TOL = 1e-5
 # The bench GPT's training shape (bench.py:39): batch, sequence, layers.
@@ -101,6 +121,26 @@ GPT2_B, GPT2_S, GPT2_STEPS = 8, 1024, 20
 # Phase (p): profiled steps, after warm-up steps.
 PROFILE_STEPS, PROFILE_WARMUP = 3, 8
 LN_EPS = 1e-5
+# The quantized serving path: FFN-only int8 weights (bench.py's match).
+FFN_MATCH = r".*(dense1/linear/w|dense2/w)$"
+# GPT-2 small's FFN products [m, k] x [k, n] on the serving path: a decode
+# step (8 slots) and a prefill chunk call of 7 sequences x 256 tokens.
+K4_SHAPES = ((8, 768, 3072), (8, 3072, 768), (1792, 768, 3072),
+             (1792, 3072, 768))
+# One H100 SXM (NVIDIA's data sheet): device-memory bytes/s, dense bf16
+# tensor-core operations/s. A bound is the larger of bytes / the first and
+# operations / the second.
+PEAK_BYTES_S, PEAK_BF16_S = 3.35e12, 989e12
+
+
+def _bound(nbytes, flops):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _import_port():
@@ -179,8 +219,9 @@ def phase_device():
 def phase_build():
     from np_modeling_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    libs = cuda_build.build("paged_attention", "flash_attention", "fused")
-    print(f"(b) build: all three libraries in {time.perf_counter() - t0:.2f} s")
+    libs = cuda_build.build("paged_attention", "flash_attention", "fused",
+                            "int8_matmul")
+    print(f"(b) build: all four libraries in {time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
         print(f"(b) {name}: nvcc {lib.build_seconds:.2f} s -> {lib.path.name}")
         for ln in lib.log.splitlines():
@@ -207,12 +248,24 @@ def _pa_inputs(b, sq, hq, hkv, d, psize, lengths, dtype, rng, extra_pages=2):
             torch.tensor(perm, dtype=torch.int32, device=dev))
 
 
-def phase_paged_vs_plain():
-    """Paged kernel vs plain on the card; returns (max err fp32, bf16)."""
+def _int8_pages(k, v):
+    """fp32 pages -> int8 pages and the kwargs with their per-token scales
+    (ops.quantize_int8, as the int8 KV cache stores them)."""
+    from np_modeling_tpu_torch import ops
+    kq, vq = ops.quantize_int8(k), ops.quantize_int8(v)
+    return kq.values, vq.values, {"k_scales": kq.scales,
+                                  "v_scales": vq.scales}
+
+
+def phase_paged_vs_plain(int8=False):
+    """Paged kernel vs plain on the card, with fp32/bf16 pages or (``int8``)
+    int8 pages and fp32 q or bf16 q; returns (max err fp32, bf16) by q's
+    dtype with int8 pages, by the pages' dtype otherwise."""
     import torch
     from np_modeling_tpu_torch import ops
     from np_modeling_tpu_torch.ops import dispatch
     rng = np.random.default_rng(SEED)
+    what = "paged int8 pages" if int8 else "paged"
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
     for hq, hkv, d in ((12, 12, 64), (8, 2, 128)):
@@ -229,21 +282,26 @@ def phase_paged_vs_plain():
                     lengths.append(0)
                 for dtype in (torch.float32, torch.bfloat16):
                     q, k, v, lens, table = _pa_inputs(
-                        len(lengths), sq, hq, hkv, d, psize, lengths, dtype, rng)
-                    got = ops.paged_attention(q, k, v, lens, table)
+                        len(lengths), sq, hq, hkv, d, psize, lengths,
+                        torch.float32 if int8 else dtype, rng)
+                    kw = {}
+                    if int8:
+                        q = q.to(dtype)
+                        k, v, kw = _int8_pages(k, v)
+                    got = ops.paged_attention(q, k, v, lens, table, **kw)
                     with dispatch.force_plain():
-                        want = ops.paged_attention(q, k, v, lens, table)
+                        want = ops.paged_attention(q, k, v, lens, table, **kw)
                     # Past ceil(length/psize) the kernel must read nothing:
                     # poisoned tail entries may not change its output.
                     poisoned = table.clone()
                     for i, ln in enumerate(lengths):
                         poisoned[i, -(-ln // psize):] = 2 ** 30
-                    again = ops.paged_attention(q, k, v, lens, poisoned)
+                    again = ops.paged_attention(q, k, v, lens, poisoned, **kw)
                     torch.cuda.synchronize()
                     live = lens > 0
                     err = (got[live].float() - want[live].float()).abs().max().item()
                     tol = _tol(dtype)
-                    tag = (f"hq{hq}/hkv{hkv}/d{d} sq={sq} ps={psize} "
+                    tag = (f"{what} hq{hq}/hkv{hkv}/d{d} sq={sq} ps={psize} "
                            f"{str(dtype)[6:]} lengths={lengths}")
                     if not err <= tol:
                         raise AssertionError(f"(c) {tag}: max abs err {err} > {tol}")
@@ -255,7 +313,7 @@ def phase_paged_vs_plain():
                     errs[dtype] = max(errs[dtype], err)
                     n += 1
                     print(f"(c) {tag}: max abs err {err:.3e}")
-    print(f"(c) paged: {n} cases pass: max abs err fp32 {errs[torch.float32]:.3e} "
+    print(f"(c) {what}: {n} cases pass: max abs err fp32 {errs[torch.float32]:.3e} "
           f"(tol {F32_TOL}), bf16 {errs[torch.bfloat16]:.3e} (tol {BF16_TOL})")
     return errs[torch.float32], errs[torch.bfloat16]
 
@@ -341,12 +399,12 @@ def _ln_fwd_bwd(x, gamma, beta, dz, plain):
     return [out.detach()] + [t.grad for t in leaves]
 
 
-def _ln_err(got, want):
-    """Max abs err and whether it passes: fp32 <= 1e-5 x max(1, max |plain|);
+def _bf16_or_f32_err(got, want, tol=LN_F32_TOL):
+    """Max abs err and whether it passes: fp32 <= tol x max(1, max |plain|);
     bf16 within one bf16 ulp of either value, or that fp32 bound."""
     import torch
     diff = (got.float() - want.float()).abs()
-    f32_bound = LN_F32_TOL * max(1.0, want.float().abs().max().item())
+    f32_bound = tol * max(1.0, want.float().abs().max().item())
     if got.dtype == torch.bfloat16:
         bound = torch.maximum(torch.maximum(_bf16_ulp(want), _bf16_ulp(got)),
                               torch.full_like(diff, f32_bound))
@@ -386,7 +444,7 @@ def phase_fused_vs_plain():
         torch.cuda.synchronize()
         line, slot = [], int(dtype == torch.bfloat16)
         for name, a, b in zip(("out", "dx", "dgamma", "dbeta"), got, want):
-            err, ok = _ln_err(a, b)
+            err, ok = _bf16_or_f32_err(a, b)
             if not ok:
                 raise AssertionError(f"(c) layer_norm [{rows}, {d}] "
                                      f"{str(dtype)[6:]}: {name} max abs err "
@@ -444,6 +502,65 @@ def phase_fused_vs_plain():
     return errs
 
 
+def _k4_inputs(m, k, n, rng):
+    """x [m, k] fp32, an int8 weight [k, n] quantized per column from
+    GPT-2-scale values (std 0.02), its scales and an fp32 bias, on the
+    card."""
+    import torch
+    from np_modeling_tpu_torch import ops
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            dtype=torch.float32, device="cuda")
+
+    q = ops.quantize_params_int8({"dense2": {"w": rand(k, n, scale=0.02)}}
+                                 )["dense2"]["w"]
+    return rand(m, k), q["int8"], q["scale"], rand(n, scale=0.1)
+
+
+def phase_int8_matmul_vs_plain():
+    """K4 vs its plain version at the serving path's shapes and ragged ones:
+    bf16 and fp32 x, bf16 and fp32 out, with and without bias. fp32 out:
+    max abs err <= 1e-4 x max(1, max |plain|); bf16 out: within one bf16
+    ulp of either value (or that fp32 bound). Returns (max err fp32 out,
+    bf16 out)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    f32, f16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(SEED + 9)
+    errs = {f32: 0.0, f16: 0.0}
+    shapes = K4_SHAPES + ((5, 96, 200), (1, 64, 640), (33, 384, 128),
+                          (7, 100, 30), (300, 770, 1000))
+    n = 0
+    for m, k, nn in shapes:
+        x, wq, scale, bias = _k4_inputs(m, k, nn, rng)
+        for x_dtype, out_dtype in ((f16, f16), (f16, f32), (f32, f32),
+                                   (f32, f16)):
+            for b in (None, bias):
+                xin = x.to(x_dtype)
+                got = ops.int8_matmul(xin, wq, scale, b, out_dtype=out_dtype)
+                with dispatch.force_plain():
+                    want = ops.int8_matmul(xin, wq, scale, b,
+                                           out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                err, ok = _bf16_or_f32_err(got, want, F32_TOL)
+                tag = (f"int8_matmul [{m}, {k}] x [{k}, {nn}] x "
+                       f"{str(x_dtype)[6:]} out {str(out_dtype)[6:]}"
+                       f"{' bias' if b is not None else ''}")
+                if not (ok and got.dtype == out_dtype
+                        and got.shape == (m, nn)):
+                    raise AssertionError(f"(c) {tag}: max abs err {err} out "
+                                         "of bounds, or wrong dtype/shape")
+                errs[out_dtype] = max(errs[out_dtype], err)
+                n += 1
+                print(f"(c) {tag}: max abs err {err:.3e}")
+    print(f"(c) int8_matmul: {n} cases pass: max abs err fp32 out "
+          f"{errs[f32]:.3e} (tol {F32_TOL} x max(1, max |plain|)), bf16 out "
+          f"{errs[f16]:.3e} (one bf16 ulp)")
+    return errs[f32], errs[f16]
+
+
 def _check_dropout_case(tag, x, seed, rate):
     import torch
     from np_modeling_tpu_torch import ops
@@ -482,10 +599,10 @@ def gpt2_config(dtype, drop_rate=0.0):
                      dtype=dtype)
 
 
-def make_engine(gpt, kv_dtype):
+def make_engine(gpt, kv_dtype, quantize_kv=False):
     from np_modeling_tpu_torch.serving import GenerationEngine
     return GenerationEngine(gpt, total_pages=640, page_size=16, max_seqs=8,
-                            kv_dtype=kv_dtype)
+                            kv_dtype=kv_dtype, quantize_kv=quantize_kv)
 
 
 def traffic_prompts(vocab):
@@ -541,18 +658,22 @@ def run_traffic(eng, prompts):
     return streams, where, calls, chunk_calls
 
 
-def phase_engine():
+def gpt2_small():
+    """GPT-2 small at bf16 compute with seeded random weights, on the card."""
+    import torch
+    from np_modeling_tpu_torch.models import GPT
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return GPT(gpt2_config(torch.bfloat16), device="cuda").init(gen)
+
+
+def phase_engine(gpt, prompts):
     import torch
     from np_modeling_tpu_torch import ops
     from np_modeling_tpu_torch.models import GPT
-    from np_modeling_tpu_torch.ops import dispatch
-    cfg = gpt2_config(torch.bfloat16)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    gpt = GPT(cfg, device="cuda").init(gen)
+    cfg = gpt.config
     n_params = sum(p.numel() for p in gpt.parameters())
     print(f"(d) GPT-2 small: {cfg.num_layers} layers, d {cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {n_params} params, bf16 compute, bf16 pages")
-    prompts = traffic_prompts(cfg.vocab_size)
     print(f"(d) prompt lengths {[len(p) for p in prompts]}")
 
     eng = make_engine(gpt, torch.bfloat16)
@@ -585,10 +706,19 @@ def phase_engine():
     # Exactness: fp32 compute and pages, kernel vs plain, same weights.
     gpt32 = GPT(gpt2_config(None), device="cuda")
     gpt32.load_state_dict(gpt.state_dict())
-    k_streams, _, _, _ = run_traffic(make_engine(gpt32, torch.float32), prompts)
+    _greedy_vs_plain("(d)", lambda: make_engine(gpt32, torch.float32), prompts)
+    return launches
+
+
+def _greedy_vs_plain(tag, make, prompts):
+    """The traffic through an engine from ``make()`` on the kernels and on
+    the plain versions: greedy tokens must agree, except where the plain
+    path's top-2 logits lie within NEAR_TIE (printed; the streams part
+    there)."""
+    from np_modeling_tpu_torch.ops import dispatch
+    k_streams, _, _, _ = run_traffic(make(), prompts)
     with dispatch.force_plain():
-        p_streams, where, calls, _ = run_traffic(
-            make_engine(gpt32, torch.float32), prompts)
+        p_streams, where, calls, _ = run_traffic(make(), prompts)
     margin = {(sid, i): float(calls[c][row]) for sid, i, c, row in where}
     ties, compared = [], 0
     for sid in sorted(p_streams):
@@ -598,16 +728,73 @@ def phase_engine():
                 m = margin[(sid, i)]
                 if not m < NEAR_TIE:
                     raise AssertionError(
-                        f"(d) fp32 seq {sid} token {i}: kernel {a} != plain {b}, "
-                        f"plain top-2 margin {m}")
+                        f"{tag} fp32 seq {sid} token {i}: kernel {a} != plain "
+                        f"{b}, plain top-2 margin {m}")
                 ties.append((sid, i, a, b, m))
                 break                       # the continuations now differ
     for sid, i, a, b, m in ties:
-        print(f"(d) near-tie: seq {sid} token {i}: kernel {a}, plain {b}, "
+        print(f"{tag} near-tie: seq {sid} token {i}: kernel {a}, plain {b}, "
               f"plain top-2 margin {m:.3e}")
-    print(f"(d) fp32 kernel vs plain: {compared} greedy tokens compared, "
+    print(f"{tag} fp32 kernel vs plain: {compared} greedy tokens compared, "
           f"{len(ties)} near-tie divergences, all else identical")
-    return gpt, prompts, launches
+
+
+def _quantized_gpt(tree, dtype):
+    from np_modeling_tpu_torch.utils import params_from_numpy
+    return params_from_numpy(tree, gpt2_config(dtype), device="cuda")
+
+
+def phase_quantized_engine(gpt, prompts):
+    """(j) The quantized serving path: (d)'s GPT-2 small with its FFN
+    weights quantized to int8 (quantize_params_int8 -> params_from_numpy)
+    served with int8 KV pages (quantize_kv=True) on (d)'s traffic, bf16
+    compute. Checks tokens, pages, and that every FFN product launched K4
+    (24 a forward), every attention call the int8-page kernel (12 a
+    forward) and every LayerNorm K8 (25 a forward); then fp32 compute, the
+    kernels' greedy tokens against the plain engine's. Returns the bf16
+    quantized GPT, the tree and the launch counts."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.utils import params_to_numpy
+    tree = ops.quantize_params_int8(params_to_numpy(gpt), match=FFN_MATCH)
+    qgpt = _quantized_gpt(tree, torch.bfloat16)
+    n_int8 = sum(b.numel() for n, b in qgpt.named_buffers()
+                 if n.endswith(".int8"))
+    print(f"(j) GPT-2 small, FFN weights int8 ({n_int8} int8 values, "
+          f"per-column fp32 scales), int8 KV pages with per-token scales, "
+          f"bf16 compute")
+    eng = make_engine(qgpt, None, quantize_kv=True)
+    free0 = eng.free_pages
+    ops.int8_matmul.launches = 0
+    ops.paged_attention.launches = ops.paged_attention.launches_int8 = 0
+    ops.layer_norm.launches_fwd = 0
+    streams, _, calls, chunk_calls = run_traffic(eng, prompts)
+    counts = {"int8_matmul": ops.int8_matmul.launches,
+              "paged_attention": ops.paged_attention.launches,
+              "paged_attention_int8": ops.paged_attention.launches_int8,
+              "layer_norm_fwd": ops.layer_norm.launches_fwd}
+    for sid in eng.live:
+        eng.finish(sid)
+    L, forwards = qgpt.config.num_layers, len(calls)
+    want = {"int8_matmul": 2 * L * forwards, "paged_attention": L * forwards,
+            "paged_attention_int8": L * forwards,
+            "layer_norm_fwd": (2 * L + 1) * forwards}
+    toks = np.concatenate([np.asarray(s) for s in streams.values()])
+    print(f"(j) {len(toks)} tokens, {chunk_calls} prefill chunk calls, "
+          f"{forwards - chunk_calls} decode steps; launches {counts} "
+          f"(expected {want}); free pages {eng.free_pages}/{free0}")
+    if not ((toks >= 0) & (toks < qgpt.config.vocab_size)).all():
+        raise AssertionError("(j) token out of range")
+    if eng.free_pages != free0:
+        raise AssertionError("(j) pages not restored after finish")
+    if counts != want:
+        raise AssertionError(f"(j) launches {counts}, expected {want}")
+    del eng
+    qgpt32 = _quantized_gpt(tree, None)
+    _greedy_vs_plain("(j)", lambda: make_engine(qgpt32, None,
+                                               quantize_kv=True), prompts)
+    del qgpt32
+    return qgpt, counts
 
 
 def _plain(fn):
@@ -648,6 +835,7 @@ def phase_timings(gpt, prompts, device_line):
     both(name, lambda: ops.paged_attention(q, k, v, lens, table))
     _device_both(res, "e", name,
                  lambda: ops.paged_attention(q, k, v, lens, table), device_line)
+    res["bound " + name] = _paged_bound(q, k, lens, table)
     # A 256-token prefill chunk of 7 sequences at bases 0..512.
     lengths = [256 * (1 + i % 3) for i in range(7)]
     q, k, v, lens, table = _pa_inputs(7, 256, 12, 12, 64, 16, lengths,
@@ -655,7 +843,26 @@ def phase_timings(gpt, prompts, device_line):
     both("paged_attention chunk b7 sq256 bf16",
          lambda: ops.paged_attention(q, k, v, lens, table))
 
-    eng = make_engine(gpt, torch.bfloat16)
+    _engine_timings(res, "e", make_engine(gpt, torch.bfloat16), prompts,
+                    device_line)
+    return res
+
+
+def _paged_bound(q, k_pages, lens, table, scales=()):
+    """Bound of a paged call: q and out, the K/V rows of every position
+    below a sequence's length (and their scales), lengths and the table;
+    4 x positions x q heads x head_dim operations."""
+    hkv, d = k_pages.shape[0], k_pages.shape[-1]
+    tokens = int(lens.sum()) * hkv
+    nbytes = (2 * _nbytes(q, lens, table) + 2 * tokens * d
+              * k_pages.element_size() + 4 * tokens * len(scales))
+    return _bound(nbytes, 4 * int(lens.sum()) * q.shape[-2] * d)
+
+
+def _engine_timings(res, tag, eng, prompts, device_line):
+    """Engine prefill ms (7 prompts, from empty) and decode tokens/s (8
+    sequences, step_many(4)), kernel and plain, into ``res``. Returns
+    (prefill name, decode name)."""
     batch = {i: prompts[i] for i in range(7)}
     n_tok = sum(len(p) for p in batch.values())
 
@@ -664,19 +871,96 @@ def phase_timings(gpt, prompts, device_line):
         for sid in eng.live:
             eng.finish(sid)
 
-    both(f"engine prefill 7 prompts {n_tok} tokens", prefill, runs=20)
+    prefill_name = f"engine prefill 7 prompts {n_tok} tokens"
+    _both(res, tag, prefill_name, prefill, device_line, runs=20)
     # Decode from prompts cut to 512 tokens: 4 x 23 timed calls of 4 steps
     # keep every sequence inside max_len.
     eng.add_requests({i: prompts[i][:512] for i in range(8)})
     steps = 4
-    name = f"engine decode step_many({steps}) 8 seqs ctx<=512+"
-    both(name, lambda: eng.step_many(steps), runs=20)
-    ms = res[name]
-    print(f"(e) engine decode: kernel {8 * steps / ms[0] * 1e3:.1f} tokens/s, "
-          f"plain {8 * steps / ms[1] * 1e3:.1f} tokens/s [{device_line}]")
-    pf = res[f"engine prefill 7 prompts {n_tok} tokens"]
-    print(f"(e) engine prefill: kernel {pf[0]:.3f} ms, plain {pf[1]:.3f} ms "
-          f"for {n_tok} tokens [{device_line}]")
+    decode_name = f"engine decode step_many({steps}) 8 seqs ctx<=512+"
+    _both(res, tag, decode_name, lambda: eng.step_many(steps), device_line,
+          runs=20)
+    for sid in eng.live:
+        eng.finish(sid)
+    ms = res[decode_name]
+    res[decode_name + " tokens/s"] = tuple(8 * steps / t * 1e3 for t in ms)
+    print(f"({tag}) engine decode: kernel {8 * steps / ms[0] * 1e3:.1f} "
+          f"tokens/s, plain {8 * steps / ms[1] * 1e3:.1f} tokens/s "
+          f"[{device_line}]")
+    pf = res[prefill_name]
+    print(f"({tag}) engine prefill: kernel {pf[0]:.3f} ms, plain {pf[1]:.3f} "
+          f"ms for {n_tok} tokens [{device_line}]")
+    return prefill_name, decode_name
+
+
+def phase_quant_timings(qgpt, prompts, serving, device_line):
+    """(k) K4 at the decode and prefill shapes beside the plain version and
+    two library yardsticks (the dequantize-then-torch.mm path, three calls;
+    torch.mm with the weight already bf16, the bf16-weight path), int8-page
+    decode beside bf16-page decode on the same values, and the quantized
+    engine's prefill and decode beside (e)'s bf16 engine. A report, not a
+    check. Returns {name: (kernel, plain[, kernel device, plain device])}
+    plus bounds and yardsticks."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    res = {}
+    rng = np.random.default_rng(SEED + 11)
+    for m, k, n in K4_SHAPES:
+        x, wq, scale, bias = _k4_inputs(m, k, n, rng)
+        x = x.to(torch.bfloat16)
+        w16 = (wq.float() * scale).to(torch.bfloat16)
+        name = f"int8_matmul [{m}, {k}] x [{k}, {n}] bf16 bias"
+        fn = (lambda x=x, wq=wq, scale=scale, bias=bias:
+              ops.int8_matmul(x, wq, scale, bias))
+        _both(res, "k", name, fn, device_line)
+        _device_both(res, "k", name, fn, device_line)
+        out = fn()
+        res["bound " + name] = _bound(_nbytes(x, wq, scale, bias, out),
+                                      2 * m * k * n)
+        pair = (lambda x=x, wq=wq, scale=scale:
+                torch.mm(x, (wq * scale).to(torch.bfloat16)))
+        def bf16w(x=x, w16=w16):
+            return torch.mm(x, w16)
+
+        res["dequant+mm " + name] = (_cuda_ms(pair), _device_ms(pair))
+        res["bf16 mm " + name] = (_cuda_ms(bf16w), _device_ms(bf16w))
+        print(f"(k) {name}: bound {res['bound ' + name][0]:.5f} ms "
+              f"({res['bound ' + name][1]}); yardsticks, wall / device ms: "
+              f"dequantize + torch.mm (three calls, no bias) "
+              f"{res['dequant+mm ' + name][0]:.4f} / "
+              f"{res['dequant+mm ' + name][1]:.4f}, torch.mm with a bf16 "
+              f"weight {res['bf16 mm ' + name][0]:.4f} / "
+              f"{res['bf16 mm ' + name][1]:.4f} [{device_line}]")
+        del x, wq, scale, bias, w16, out
+    lengths = rng.integers(512, 801, 8).tolist()
+    q, k, v, lens, table = _pa_inputs(8, 1, 12, 12, 64, 16, lengths,
+                                      torch.float32, rng, extra_pages=64)
+    q = q.to(torch.bfloat16)
+    k8, v8, kw = _int8_pages(k, v)
+    k16, v16 = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    for name, kk, vv, kwargs in (
+            ("paged_attention decode b8 ctx512-800 bf16 q, int8 pages", k8,
+             v8, kw),
+            ("paged_attention decode b8 ctx512-800 bf16 q, bf16 pages", k16,
+             v16, {})):
+        fn = (lambda kk=kk, vv=vv, kwargs=kwargs:
+              ops.paged_attention(q, kk, vv, lens, table, **kwargs))
+        _both(res, "k", name, fn, device_line)
+        _device_both(res, "k", name, fn, device_line)
+        res["bound " + name] = _paged_bound(q, kk, lens, table,
+                                            tuple(kwargs.values()))
+        print(f"(k) {name}: bound {res['bound ' + name][0]:.5f} ms "
+              f"({res['bound ' + name][1]}) [{device_line}]")
+    del q, k, v, k8, v8, k16, v16, kw
+    prefill_name, decode_name = _engine_timings(
+        res, "k", make_engine(qgpt, None, quantize_kv=True), prompts,
+        device_line)
+    q_tps = res[decode_name + " tokens/s"][0]
+    b_tps = serving[decode_name + " tokens/s"][0]
+    print(f"(k) int8 FFN weights + int8 pages vs (e)'s bf16 engine, kernels: "
+          f"decode {q_tps:.1f} vs {b_tps:.1f} tokens/s (ratio "
+          f"{q_tps / b_tps:.3f}), prefill {res[prefill_name][0]:.3f} vs "
+          f"{serving[prefill_name][0]:.3f} ms [{device_line}]")
     return res
 
 
@@ -858,8 +1142,18 @@ def _train_step(gpt, opt, params, state, tokens):
     return loss, state
 
 
+def _library(tag, what, fn, device_line):
+    """Wall and device ms of one PyTorch call that computes a kernel's
+    function (its library yardstick; the port never calls it)."""
+    t = (_cuda_ms(fn), _device_ms(fn))
+    print(f"({tag}) library {what}: {t[0]:.4f} ms, device time {t[1]:.4f} ms "
+          f"[{device_line}]")
+    return t
+
+
 def phase_train_timings(gpt, opt, params, state, tokens, device_line):
     import torch
+    import torch.nn.functional as F
     from np_modeling_tpu_torch import ops
     from np_modeling_tpu_torch.ops import dispatch
     res = {}
@@ -874,6 +1168,28 @@ def phase_train_timings(gpt, opt, params, state, tokens, device_line):
     name = f"flash forward {shape}"
     _both(res, "g", name, fwd, device_line, runs=20)
     _device_both(res, "g", name, fwd, device_line)
+    b, h, s_len, d = q.shape
+    pairs = b * h * d * s_len * (s_len + 1) // 2     # causal (q, k) pairs x d
+    res["bound " + name] = _bound(_nbytes(q, k, v, q), 4 * pairs)
+
+    def sdpa():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    res["library " + name] = _library(
+        "g", "F.scaled_dot_product_attention(is_causal=True) forward", sdpa,
+        device_line)
+    lib_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*lib_leaves, is_causal=True)
+    res["library " + f"flash backward {shape}"] = _library(
+        "g", "F.scaled_dot_product_attention backward (autograd)",
+        lambda: torch.autograd.grad(o_lib, lib_leaves, do, retain_graph=True),
+        device_line)
+    del lib_leaves, o_lib
+    # dq, dk, dv out; q, k, v, o, do and the fp32 lse in.
+    lse = torch.empty((b, h, s_len), dtype=torch.float32, device=q.device)
+    res["bound " + f"flash backward {shape}"] = _bound(
+        _nbytes(q, k, v, q, q, lse, q, k, v), 10 * pairs)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     o_kernel = ops.flash_attention(*leaves, causal=True)
     with dispatch.force_plain():
@@ -1117,6 +1433,7 @@ def phase_entry_timings(gpt, corpus, device_line):
     whole train step. ``res[name]`` = (kernel, plain[, kernel device, plain
     device]) ms."""
     import torch
+    import torch.nn.functional as F
     from np_modeling_tpu_torch import ops
     from np_modeling_tpu_torch.ops import fused
     res = {}
@@ -1147,6 +1464,30 @@ def phase_entry_timings(gpt, corpus, device_line):
                              bwd_plain)):
             _both(res, "i", name, k, device_line, plain_fn=pl)
             _device_both(res, "i", name, k, device_line, plain_fn=pl)
+        name = f"layer_norm forward [{rows}, {d}] bf16"
+        bwd_name = name.replace("forward", "backward")
+        res["bound " + name] = _bound(_nbytes(x, x, gamma, beta), 0)
+        res["bound " + bwd_name] = _bound(
+            _nbytes(x, dz, gamma, x, gamma, beta), 0)
+        print(f"(i) bounds: {name} {res['bound ' + name][0]:.5f} ms, "
+              f"{bwd_name} {res['bound ' + bwd_name][0]:.5f} ms (bytes)")
+        # The library call takes the affine parameters in x's dtype.
+        lx, lg, lb = (t.clone().requires_grad_()
+                      for t in (x, gamma.to(x.dtype), beta.to(x.dtype)))
+
+        def lib_fwd(lx=lx, lg=lg, lb=lb, d=d):
+            with torch.no_grad():
+                return F.layer_norm(lx, (d,), lg, lb, LN_EPS)
+
+        res["library " + name] = _library(
+            "i", f"F.layer_norm forward [{rows}, {d}] bf16", lib_fwd,
+            device_line)
+        ly = F.layer_norm(lx, (d,), lg, lb, LN_EPS)
+        res["library " + bwd_name] = _library(
+            "i", f"F.layer_norm backward (autograd) [{rows}, {d}] bf16",
+            lambda ly=ly, lx=lx, lg=lg, lb=lb, dz=dz: torch.autograd.grad(
+                ly, (lx, lg, lb), dz, retain_graph=True), device_line)
+        del lx, lg, lb, ly
     x = rand(GPT2_B, GPT2_S, 768)
     seed = 12345
 
@@ -1157,6 +1498,14 @@ def phase_entry_timings(gpt, corpus, device_line):
     name = f"dropout [{GPT2_B}, {GPT2_S}, 768] bf16 rate 0.1"
     _both(res, "i", name, drop, device_line)
     _device_both(res, "i", name, drop, device_line)
+    res["bound " + name] = _bound(_nbytes(x, x), 0)
+
+    def lib_drop():
+        with torch.no_grad():
+            return F.dropout(x, 0.1, training=True)
+
+    res["library " + name] = _library("i", f"F.dropout {name[8:]}", lib_drop,
+                                      device_line)
     mask = fused.philox_keep_mask(seed, x.shape, 0.1, x.device)
     given = _cuda_ms(lambda: ops.dropout_with_mask(x, mask, 0.1))
     given_dev = _device_ms(lambda: ops.dropout_with_mask(x, mask, 0.1))
@@ -1176,9 +1525,10 @@ def phase_entry_timings(gpt, corpus, device_line):
     return res
 
 
-def main(phases="abcdefghip"):
-    """Runs the phases named in ``phases`` (a, b and c always); the JSON
-    summary and the ok line come only from a run of every phase a to i."""
+def main(phases="abcdefghijkp"):
+    """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
+    runs the quantized serving path alone); the JSON summary and the ok
+    line come only from a run of every phase a to k."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1191,15 +1541,29 @@ def main(phases="abcdefghip"):
     device_line = phase_device()
     phase_build()
     paged_err = phase_paged_vs_plain()
+    paged8_err = phase_paged_vs_plain(int8=True)
+    k4_err = phase_int8_matmul_vs_plain()
     flash_err = phase_flash_vs_plain()
     fused_err = phase_fused_vs_plain()
-    serving = training_res = entry_res = None
-    if "d" in phases:
-        t0 = time.perf_counter()
-        gpt, prompts, paged_launches = phase_engine()
-        print(f"(d) serving phase {time.perf_counter() - t0:.1f} s")
-        if "e" in phases:
-            serving = phase_timings(gpt, prompts, device_line)
+    serving = training_res = entry_res = quant_res = None
+    if "d" in phases or "j" in phases:
+        gpt = gpt2_small()
+        prompts = traffic_prompts(gpt.config.vocab_size)
+        if "d" in phases:
+            t0 = time.perf_counter()
+            paged_launches = phase_engine(gpt, prompts)
+            print(f"(d) serving phase {time.perf_counter() - t0:.1f} s")
+            if "e" in phases:
+                serving = phase_timings(gpt, prompts, device_line)
+        if "j" in phases:
+            t0 = time.perf_counter()
+            qgpt, quant_launches = phase_quantized_engine(gpt, prompts)
+            print(f"(j) quantized serving phase "
+                  f"{time.perf_counter() - t0:.1f} s")
+            if "k" in phases and serving is not None:
+                quant_res = phase_quant_timings(qgpt, prompts, serving,
+                                                device_line)
+            del qgpt
         del gpt
         torch.cuda.empty_cache()
     if "f" in phases:
@@ -1222,40 +1586,57 @@ def main(phases="abcdefghip"):
         del gpt
         torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
-    if serving is None or training_res is None or entry_res is None:
+    if None in (serving, training_res, entry_res, quant_res):
         return 0
     shape = "b4 h8 s4096 d128 causal bf16"
-    decode = serving["paged_attention decode b8 ctx512-800 bf16"]
-    fwd = training_res[f"flash forward {shape}"]
-    bwd = training_res[f"flash backward {shape}"]
-    ln_fwd = entry_res["layer_norm forward [16384, 1024] bf16"]
-    ln_bwd = entry_res["layer_norm backward [16384, 1024] bf16"]
-    drop = entry_res[f"dropout [{GPT2_B}, {GPT2_S}, 768] bf16 rate 0.1"]
+    k4 = "int8_matmul [8, 768] x [768, 3072] bf16 bias"
     f32, f16 = torch.float32, torch.bfloat16
-    # name, source, replaces, launches, (max err fp32, bf16), times
+    # name, source, replaces, launches, (max err fp32, bf16), results, key
     rows = [
         ("paged_attention", PAGED_SOURCE,
          "np_modeling_tpu/ops/paged_attention.py:221", paged_launches,
-         paged_err, decode),
+         paged_err, serving, "paged_attention decode b8 ctx512-800 bf16"),
+        ("paged_attention_int8", PAGED_SOURCE,
+         "np_modeling_tpu/ops/paged_attention.py:221",
+         quant_launches["paged_attention_int8"], paged8_err, quant_res,
+         "paged_attention decode b8 ctx512-800 bf16 q, int8 pages"),
+        ("int8_matmul", INT8_SOURCE, "np_modeling_tpu/ops/quantization.py:242",
+         quant_launches["int8_matmul"], k4_err, quant_res, k4),
         ("flash_attention_fwd", FLASH_SOURCE,
          "np_modeling_tpu/ops/attention.py:756", flash_launches[0],
-         (flash_err[f32][0], flash_err[f16][0]), fwd),
+         (flash_err[f32][0], flash_err[f16][0]), training_res,
+         f"flash forward {shape}"),
         ("flash_attention_bwd", FLASH_SOURCE,
          "np_modeling_tpu/ops/attention.py:1100", flash_launches[1],
-         (flash_err[f32][1], flash_err[f16][1]), bwd)] + [
-        (name, FUSED_SOURCE, where, entry_launches[name], fused_err[name], ms)
-        for name, where, ms in (
-            ("dropout", "np_modeling_tpu/ops/fused.py:310", drop),
-            ("layer_norm_fwd", "np_modeling_tpu/ops/fused.py:48", ln_fwd),
-            ("layer_norm_bwd", "np_modeling_tpu/ops/fused.py:58", ln_bwd))]
+         (flash_err[f32][1], flash_err[f16][1]), training_res,
+         f"flash backward {shape}")] + [
+        (name, FUSED_SOURCE, where, entry_launches[name], fused_err[name],
+         entry_res, key)
+        for name, where, key in (
+            ("dropout", "np_modeling_tpu/ops/fused.py:310",
+             f"dropout [{GPT2_B}, {GPT2_S}, 768] bf16 rate 0.1"),
+            ("layer_norm_fwd", "np_modeling_tpu/ops/fused.py:48",
+             "layer_norm forward [16384, 1024] bf16"),
+            ("layer_norm_bwd", "np_modeling_tpu/ops/fused.py:58",
+             "layer_norm backward [16384, 1024] bf16"))]
     # "ms": a call's wall time (CUDA events, host included), every entry;
-    # "device_ms": calls back to back behind a sleep kernel (device only).
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": where,
-         "launches": launches, "max_abs_err": err[0], "max_abs_err_bf16": err[1],
-         "ms": ms[0], "plain_ms": ms[1], "device_ms": ms[2],
-         "plain_device_ms": ms[3]}
-        for name, source, where, launches, err, ms in rows]}))
+    # "device_ms": calls back to back behind a sleep kernel (device only);
+    # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its
+    # operations over 989 TFLOP/s; "library_ms" / "library_device_ms": one
+    # PyTorch call computing the same function (null where none does; K4's
+    # dequantize + torch.mm yardstick, three calls, is printed in (k)).
+    kernels = []
+    for name, source, where, launches, err, res, key in rows:
+        ms, (bound_ms, bound_by) = res[key], res["bound " + key]
+        lib = res.get("library " + key, (None, None))
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": where,
+            "launches": launches, "max_abs_err": err[0],
+            "max_abs_err_bf16": err[1], "shape": key, "ms": ms[0],
+            "plain_ms": ms[1], "device_ms": ms[2], "plain_device_ms": ms[3],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib[0],
+            "library_device_ms": lib[1]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,6 +11,10 @@
 // cached positions pos <= own. Scores are fp32, scaled in-kernel, masked with the
 // JAX package's finite mask value, and reduced by an online softmax (m, l, acc in
 // fp32). p is rounded to the page dtype before p.v, as the TPU kernel does.
+// int8 pages (the int8 KV cache) come with fp32 per-token scales [hkv, P, ps, 1]:
+// each staged key and value row is dequantized in fp32 as int8 * scale[token], as
+// the TPU kernel does (:272-278), and p then stays fp32 (JAX's p.astype(v.dtype)
+// with v dequantized to fp32). int8 pages halve the bytes of bf16 pages.
 // A sequence with length 0 stores 0 (the l == 0 guard of the TPU kernel).
 //
 // What bounds it. At decode each (sequence, kv head) reads 2*ctx*d*bytes of K/V
@@ -48,6 +52,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -55,14 +60,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-// Load E consecutive elements of type T (one 4-, 8- or 16-byte vector) as floats.
+// The type p is rounded to before p.v: the page type, fp32 for int8 pages.
+template <typename T> struct PType { using type = T; };
+template <> struct PType<int8_t> { using type = float; };
+
+// Load E consecutive elements of type T (one 2-, 4-, 8- or 16-byte vector) as floats.
 template <typename T, int E>
 __device__ __forceinline__ void load_vec(const T* src, float* dst) {
   constexpr int kBytes = E * static_cast<int>(sizeof(T));
-  static_assert(kBytes == 4 || kBytes == 8 || kBytes == 16, "vector width");
+  static_assert(kBytes == 2 || kBytes == 4 || kBytes == 8 || kBytes == 16,
+                "vector width");
   using V = typename std::conditional<
       kBytes == 16, uint4,
-      typename std::conditional<kBytes == 8, uint2, uint32_t>::type>::type;
+      typename std::conditional<
+          kBytes == 8, uint2,
+          typename std::conditional<kBytes == 4, uint32_t, uint16_t>::type>::type>::type;
   V v = *reinterpret_cast<const V*>(src);
   const T* e = reinterpret_cast<const T*>(&v);
 #pragma unroll
@@ -95,11 +107,13 @@ struct WarpSmem {
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
-                       const TKV* __restrict__ v_pages, const int* __restrict__ lengths,
+                       const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
+                       const float* __restrict__ v_scales, const int* __restrict__ lengths,
                        const int* __restrict__ table, TQ* __restrict__ out, int sq,
                        int hq, int hkv, int total_pages, int ps_shift, int pages_per_seq,
                        float scale) {
   constexpr int E = D / 32;  // elements of a row per lane
+  constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
   using S = WarpSmem<D>;
   extern __shared__ float smem[];
 
@@ -152,10 +166,16 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages
     // Lane kk resolves key kb+kk's page; the warp then stages row by row.
     const int my_pos = kb + lane;
     long long my_base = -1;
+    float my_ks = 1.f, my_vs = 1.f;  // the key's scales (int8 pages)
     if (my_pos < kv_end) {
       const int page = row_table[my_pos >> ps_shift];
-      my_base = ((static_cast<long long>(h) * total_pages + page) * page_size +
-                 (my_pos & (page_size - 1))) * D;
+      const long long token = (static_cast<long long>(h) * total_pages + page) * page_size +
+                              (my_pos & (page_size - 1));
+      my_base = token * D;
+      if constexpr (kInt8) {
+        my_ks = k_scales[token];
+        my_vs = v_scales[token];
+      }
     }
     __syncwarp();
 #pragma unroll 4
@@ -165,6 +185,15 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages
       if (base >= 0) {
         load_vec<TKV, E>(k_pages + base + lane * E, kv);
         load_vec<TKV, E>(v_pages + base + lane * E, vv);
+        if constexpr (kInt8) {
+          const float ks = __shfl_sync(kFull, my_ks, kk);
+          const float vs = __shfl_sync(kFull, my_vs, kk);
+#pragma unroll
+          for (int c = 0; c < E; ++c) {
+            kv[c] *= ks;
+            vv[c] *= vs;
+          }
+        }
       } else {
 #pragma unroll
         for (int c = 0; c < E; ++c) kv[c] = vv[c] = 0.f;
@@ -201,7 +230,7 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages
         m[i] = m_next;
 #pragma unroll
         for (int c = 0; c < E; ++c) acc[i][c] *= alpha;
-        pst[i * kKeys + lane] = to_f(from_f<TKV>(p));
+        pst[i * kKeys + lane] = to_f(from_f<typename PType<TKV>::type>(p));
       }
     }
     __syncwarp();
@@ -274,9 +303,10 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages
 }
 
 template <typename TQ, typename TKV, int D>
-int launch(const void* q, const void* k_pages, const void* v_pages, const int* lengths,
-           const int* table, void* out, int b, int sq, int hq, int hkv, int total_pages,
-           int ps_shift, int pages_per_seq, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k_pages, const void* v_pages, const float* k_scales,
+           const float* v_scales, const int* lengths, const int* table, void* out, int b,
+           int sq, int hq, int hkv, int total_pages, int ps_shift, int pages_per_seq,
+           float scale, cudaStream_t stream) {
   const size_t smem = kWarps * WarpSmem<D>::kFloats * sizeof(float);
   auto kernel = paged_attention_kernel<TQ, TKV, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -286,50 +316,68 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const int* l
   dim3 grid((rows + kTileRows - 1) / kTileRows, hkv, b);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
-      static_cast<const TKV*>(v_pages), lengths, table, static_cast<TQ*>(out), sq, hq, hkv,
-      total_pages, ps_shift, pages_per_seq, scale);
+      static_cast<const TKV*>(v_pages), k_scales, v_scales, lengths, table,
+      static_cast<TQ*>(out), sq, hq, hkv, total_pages, ps_shift, pages_per_seq, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TQ, typename TKV>
 int launch_d(int d, const void* q, const void* k_pages, const void* v_pages,
-             const int* lengths, const int* table, void* out, int b, int sq, int hq, int hkv,
-             int total_pages, int ps_shift, int pages_per_seq, float scale,
-             cudaStream_t stream) {
+             const float* k_scales, const float* v_scales, const int* lengths,
+             const int* table, void* out, int b, int sq, int hq, int hkv, int total_pages,
+             int ps_shift, int pages_per_seq, float scale, cudaStream_t stream) {
   if (d == 64)
-    return launch<TQ, TKV, 64>(q, k_pages, v_pages, lengths, table, out, b, sq, hq, hkv,
-                               total_pages, ps_shift, pages_per_seq, scale, stream);
+    return launch<TQ, TKV, 64>(q, k_pages, v_pages, k_scales, v_scales, lengths, table, out,
+                               b, sq, hq, hkv, total_pages, ps_shift, pages_per_seq, scale,
+                               stream);
   if (d == 128)
-    return launch<TQ, TKV, 128>(q, k_pages, v_pages, lengths, table, out, b, sq, hq, hkv,
-                                total_pages, ps_shift, pages_per_seq, scale, stream);
+    return launch<TQ, TKV, 128>(q, k_pages, v_pages, k_scales, v_scales, lengths, table,
+                                out, b, sq, hq, hkv, total_pages, ps_shift, pages_per_seq,
+                                scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename TQ>
+int launch_kv(int kv_dtype, int d, const void* q, const void* k_pages, const void* v_pages,
+              const float* k_scales, const float* v_scales, const int* lengths,
+              const int* table, void* out, int b, int sq, int hq, int hkv, int total_pages,
+              int ps_shift, int pages_per_seq, float scale, cudaStream_t stream) {
+  if (kv_dtype == 0)
+    return launch_d<TQ, float>(d, q, k_pages, v_pages, nullptr, nullptr, lengths, table,
+                               out, b, sq, hq, hkv, total_pages, ps_shift, pages_per_seq,
+                               scale, stream);
+  if (kv_dtype == 1)
+    return launch_d<TQ, __nv_bfloat16>(d, q, k_pages, v_pages, nullptr, nullptr, lengths,
+                                       table, out, b, sq, hq, hkv, total_pages, ps_shift,
+                                       pages_per_seq, scale, stream);
+  if (kv_dtype == 2 && k_scales != nullptr && v_scales != nullptr)
+    return launch_d<TQ, int8_t>(d, q, k_pages, v_pages, k_scales, v_scales, lengths, table,
+                                out, b, sq, hq, hkv, total_pages, ps_shift, pages_per_seq,
+                                scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() of the
-// launch (0 on success); the caller has validated shapes, dtypes and layout.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pages only, with fp32 scales
+// [hkv, P, ps, 1]; null scales otherwise). Returns cudaGetLastError() of the launch
+// (0 on success); the caller has validated shapes, dtypes and layout.
 extern "C" int np_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                                  const void* k_scales, const void* v_scales,
                                   const int* lengths, const int* table, void* out,
                                   int q_dtype, int kv_dtype, int b, int sq, int hq,
                                   int hkv, int d, int total_pages, int ps_shift,
                                   int pages_per_seq, float scale, void* stream) {
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch_d<float, float>(d, q, k_pages, v_pages, lengths, table, out, b, sq, hq,
-                                  hkv, total_pages, ps_shift, pages_per_seq, scale, s);
-  if (q_dtype == 0 && kv_dtype == 1)
-    return launch_d<float, __nv_bfloat16>(d, q, k_pages, v_pages, lengths, table, out, b,
-                                          sq, hq, hkv, total_pages, ps_shift,
-                                          pages_per_seq, scale, s);
-  if (q_dtype == 1 && kv_dtype == 0)
-    return launch_d<__nv_bfloat16, float>(d, q, k_pages, v_pages, lengths, table, out, b,
-                                          sq, hq, hkv, total_pages, ps_shift,
-                                          pages_per_seq, scale, s);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch_d<__nv_bfloat16, __nv_bfloat16>(d, q, k_pages, v_pages, lengths, table,
-                                                  out, b, sq, hq, hkv, total_pages,
-                                                  ps_shift, pages_per_seq, scale, s);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  if (q_dtype == 0)
+    return launch_kv<float>(kv_dtype, d, q, k_pages, v_pages, ks, vs, lengths, table, out, b,
+                            sq, hq, hkv, total_pages, ps_shift, pages_per_seq, scale, s);
+  if (q_dtype == 1)
+    return launch_kv<__nv_bfloat16>(kv_dtype, d, q, k_pages, v_pages, ks, vs, lengths, table,
+                                    out, b, sq, hq, hkv, total_pages, ps_shift,
+                                    pages_per_seq, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

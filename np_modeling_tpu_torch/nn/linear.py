@@ -6,6 +6,13 @@ Linear ``w`` [in, out] and ``b`` [out]; Dense wraps a Linear named
 construction and filled by ``init(generator)`` (or loaded, see
 ``utils.convert``). ``forward`` takes JAX's ``training`` and ``rngs``, which
 only Dropout reads, so any of them can sit in a ``Sequential``.
+
+A Linear can hold a weight-only int8 weight (JAX :42-48, the leaf
+``{"int8", "scale"}`` of ``ops.quantize_params_int8``): ``load_int8_``
+puts an ``Int8Weight`` at ``w``, whose buffers ``int8`` [in, out] and
+``scale`` [1, out] sit under the JAX paths (``...linear.w.int8``), and
+``forward`` then runs ``ops.int8_matmul``. That op has no backward, so such a
+Linear serves inference only.
 """
 
 from __future__ import annotations
@@ -23,6 +30,16 @@ from np_modeling_tpu_torch.nn.module import maybe_cast
 def _param(shape, device):
     return nn.Parameter(torch.empty(shape, dtype=torch.float32,
                                     device=device))
+
+
+class Int8Weight(nn.Module):
+    """A weight-only int8 weight: ``int8`` [in, out] and per-output-column
+    fp32 ``scale`` [1, out], as buffers (nothing here trains)."""
+
+    def __init__(self, values: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("int8", values)
+        self.register_buffer("scale", scale)
 
 
 class Linear(nn.Module):
@@ -43,8 +60,37 @@ class Linear(nn.Module):
             self.b.copy_(initializers.zeros(generator, self.b.shape))
         return self
 
+    @torch.no_grad()
+    def load_int8_(self, values, scale):
+        """Replace the weight by int8 ``values`` [in, out] and fp32
+        ``scale`` [1, out] (numpy arrays or tensors), on the weight's
+        device."""
+        shape, device = tuple(self.w.shape), self.w.device
+        values = torch.as_tensor(values).to(device)
+        scale = torch.as_tensor(scale).to(device, torch.float32)
+        if values.dtype != torch.int8 or tuple(values.shape) != shape \
+                or tuple(scale.shape) != (1, shape[1]):
+            raise ValueError(f"int8 weight {values.dtype} "
+                             f"{tuple(values.shape)}, scale "
+                             f"{tuple(scale.shape)}: want int8 {shape} and "
+                             f"[1, {shape[1]}]")
+        del self.w
+        self.w = Int8Weight(values.contiguous(), scale.contiguous())
+        return self
+
     def forward(self, x, training: bool = False, rngs=None):
         del training, rngs
+        if isinstance(self.w, Int8Weight):
+            if torch.is_grad_enabled() and (
+                    x.requires_grad or (self.b is not None
+                                        and self.b.requires_grad)):
+                raise RuntimeError(
+                    "a Linear with an int8 weight serves inference only "
+                    "(ops.int8_matmul has no backward): call it under "
+                    "torch.no_grad()")
+            return ops.int8_matmul(maybe_cast(x, self.dtype), self.w.int8,
+                                   self.w.scale, self.b,
+                                   out_dtype=self.dtype or x.dtype)
         return ops.linear(maybe_cast(x, self.dtype),
                           maybe_cast(self.w, self.dtype),
                           maybe_cast(self.b, self.dtype))

@@ -17,11 +17,18 @@ from np_modeling_tpu_torch.ops.normalization import (dropout,
                                                      make_dropout_mask)
 from np_modeling_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_reference)
+from np_modeling_tpu_torch.ops.quantization import (
+    WEIGHT_QUANT_TARGETS, QuantizedTensor, dequantize_int8, dequantize_params,
+    int8_matmul, int8_matmul_reference, quantize_int8, quantize_params_int4,
+    quantize_params_int8)
 
-__all__ = ["attention_reference", "cross_entropy_probs", "dispatch",
-           "dropout", "dropout_with_mask", "embedding_lookup",
+__all__ = ["QuantizedTensor", "WEIGHT_QUANT_TARGETS", "attention_reference",
+           "cross_entropy_probs", "dequantize_int8", "dequantize_params",
+           "dispatch", "dropout", "dropout_with_mask", "embedding_lookup",
            "flash_attention", "fused", "fused_lm_head_loss", "gelu",
-           "get_activation", "layer_norm", "linear", "make_dropout_mask",
-           "mse", "paged_attention", "paged_attention_reference", "relu",
+           "get_activation", "int8_matmul", "int8_matmul_reference",
+           "layer_norm", "linear", "make_dropout_mask", "mse",
+           "paged_attention", "paged_attention_reference", "quantize_int8",
+           "quantize_params_int4", "quantize_params_int8", "relu",
            "softmax_cross_entropy",
            "softmax_cross_entropy_with_integer_labels"]

@@ -14,7 +14,9 @@ Shapes (the JAX layout):
                query token t sits at position lengths - sq + t and attends
                to positions <= its own)
   page_indices [batch, pages_per_seq] int32
-  k/v_scales   [num_kv_heads, total_pages, page_size, 1] fp32 (int8 pages)
+  k/v_scales   [num_kv_heads, total_pages, page_size, 1] fp32 per-token
+               scales, given with int8 pages and only with them: each page
+               row is dequantized as int8 * scale in fp32
 Returns [batch, num_q_heads, head_dim] or [batch, sq, num_q_heads, head_dim]
 in q's dtype.
 
@@ -36,6 +38,7 @@ from np_modeling_tpu_torch.ops import dispatch
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {**_DTYPE_CODES, torch.int8: 2}
 
 
 def _normalize_bias(bias, b, hq, sq):
@@ -100,33 +103,44 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
                     k_scales=None, v_scales=None, window=None, bias=None,
                     softcap=None, sinks=None):
     """Paged-KV attention: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors. The kernel takes the GPT-2 subset: fp32 or bf16
-    q and pages, head_dim 64 or 128, any GQA group, any sq >= 1, page sizes
-    8..128 (powers of two). It raises on int8 pages, bias, softcap, sinks
-    and window."""
+    version on CPU tensors. Int8 pages come with their scales, and scales
+    only with int8 pages. The kernel takes the GPT-2 subset: fp32 or bf16
+    q, fp32, bf16 or int8 pages, head_dim 64 or 128, any GQA group, any
+    sq >= 1, page sizes 8..128 (powers of two). It raises on bias,
+    softcap, sinks and window."""
+    int8_pages = k_pages.dtype == torch.int8 or v_pages.dtype == torch.int8
+    scaled = k_scales is not None or v_scales is not None
+    if int8_pages != scaled or (scaled and (k_scales is None
+                                            or v_scales is None)):
+        raise ValueError("int8 pages need both k_scales and v_scales, and "
+                         "scales need int8 pages")
     if not dispatch.use_kernel(q):
-        if k_scales is not None:
+        if scaled:
             k_pages = k_pages.float() * k_scales
             v_pages = v_pages.float() * v_scales
         return paged_attention_reference(q, k_pages, v_pages, lengths,
                                          page_indices, scale, window, bias,
                                          softcap, sinks)
-    unported = {"k_scales": k_scales, "v_scales": v_scales, "window": window,
-                "bias": bias, "softcap": softcap, "sinks": sinks}
+    unported = {"window": window, "bias": bias, "softcap": softcap,
+                "sinks": sinks}
     unported = [k for k, v in unported.items() if v is not None]
     if unported:
         raise NotImplementedError(
             f"the CUDA paged-attention kernel does not take {unported} yet "
             "(ROADMAP.md Queue 2, K3)")
-    return _launch(q, k_pages, v_pages, lengths, page_indices, scale)
+    return _launch(q, k_pages, v_pages, k_scales, v_scales, lengths,
+                   page_indices, scale)
 
 
 # Kernel launches since import (or since a caller reset it to 0): a run
-# shows with it that its attention went through the kernel.
+# shows with it that its attention went through the kernel. launches counts
+# every launch, launches_int8 those over int8 pages.
 paged_attention.launches = 0
+paged_attention.launches_int8 = 0
 
 
-def _launch(q, k_pages, v_pages, lengths, page_indices, scale):
+def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
+            scale):
     q4 = q[:, None] if q.dim() == 3 else q
     if q4.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} / pages {tuple(k_pages.shape)}:"
@@ -142,16 +156,23 @@ def _launch(q, k_pages, v_pages, lengths, page_indices, scale):
         raise ValueError(f"{hq} q heads do not group over {hkv} kv heads")
     if psize < 8 or psize > 128 or psize & (psize - 1):
         raise ValueError(f"page_size {psize}: want a power of two in 8..128")
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype not in _DTYPE_CODES:
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype not in _KV_CODES:
         raise ValueError(f"dtypes q {q.dtype} / pages {k_pages.dtype}: want "
-                         "float32 or bfloat16")
+                         "float32 or bfloat16 q, float32, bfloat16 or int8 "
+                         "pages")
+    scales = () if k_scales is None else (k_scales, v_scales)
+    for s in scales:
+        if s.dtype != torch.float32 or s.shape != (hkv, total_pages, psize,
+                                                   1):
+            raise ValueError(f"scales {s.dtype} {tuple(s.shape)}: want fp32 "
+                             f"[{hkv}, {total_pages}, {psize}, 1]")
     if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
         raise ValueError("lengths and page_indices must be int32")
     if lengths.shape != (b,) or page_indices.dim() != 2 \
             or page_indices.shape[0] != b:
         raise ValueError(f"lengths {tuple(lengths.shape)} / page_indices "
                          f"{tuple(page_indices.shape)} do not match batch {b}")
-    tensors = (q, k_pages, v_pages, lengths, page_indices)
+    tensors = (q, k_pages, v_pages, lengths, page_indices, *scales)
     if any(t.device != q.device for t in tensors):
         raise ValueError("all inputs must lie on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
@@ -162,19 +183,23 @@ def _launch(q, k_pages, v_pages, lengths, page_indices, scale):
     from np_modeling_tpu_torch.ops import cuda_build
     fn = cuda_build.load("paged_attention").lib.np_paged_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty_like(q)
     scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
+    scale_ptrs = [s.data_ptr() for s in scales] or [None, None]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
-                _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], b, sq, hq,
+                *scale_ptrs, lengths.data_ptr(), page_indices.data_ptr(),
+                out.data_ptr(),
+                _DTYPE_CODES[q.dtype], _KV_CODES[k_pages.dtype], b, sq, hq,
                 hkv, d, total_pages, psize.bit_length() - 1,
                 page_indices.shape[1], scale, stream)
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
                            f"error {rc}")
     paged_attention.launches += 1
+    if scales:
+        paged_attention.launches_int8 += 1
     return out

@@ -14,6 +14,12 @@ Differences from the JAX engine: ``gpt`` owns its weights, so there is no
 ``step_many(n)`` is a Python loop of device steps that reads the tokens
 back once, after the loop. The engine's options that are not ported yet
 raise NotImplementedError.
+
+Quantized serving: ``quantize_kv=True`` stores int8 pages with fp32
+per-token scales (``ops.quantize_int8`` at each append) that paged
+attention dequantizes; a GPT whose FFN weights were loaded as int8
+(``utils.params_from_numpy`` of an ``ops.quantize_params_int8`` tree) runs
+its FFN through ``ops.int8_matmul`` with no change here.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from np_modeling_tpu_torch import ops
+from np_modeling_tpu_torch.ops.quantization import quantize_int8
 from np_modeling_tpu_torch.serving.kv_cache import OutOfPagesError
 
 _LATER = "is not ported yet (ROADMAP.md Queue 1, serving)"
@@ -38,9 +45,9 @@ class GenerationEngine:
     max_seqs: int = 16
     kv_dtype: object = None      # page dtype; None = fp32
     prefill_chunk_size: Optional[int] = 256
+    quantize_kv: bool = False    # int8 pages + fp32 per-token scales
     # The JAX engine's options below are not ported yet: any value but the
     # default raises NotImplementedError.
-    quantize_kv: bool = False
     temperature: float = 0.0
     sampling: Optional[object] = None
     per_request_sampling: bool = False
@@ -59,7 +66,6 @@ class GenerationEngine:
                  "draft_gpt": self.draft_gpt is not None,
                  "lora_adapters": self.lora_adapters is not None,
                  "mesh": self.mesh is not None,
-                 "quantize_kv": self.quantize_kv,
                  "prefill_chunk_size=None (dense prefill needs GPT.apply)":
                      self.prefill_chunk_size is None}
         later = [k for k, v in later.items() if v]
@@ -84,9 +90,10 @@ class GenerationEngine:
         c = gpt.config
         _, hkv, dk = self._dims
         shape = (hkv, total_pages, self.page_size, dk)
-        store = self.kv_dtype or torch.float32
+        store = (torch.int8 if self.quantize_kv
+                 else self.kv_dtype or torch.float32)
         dev = self.device
-        return {
+        state = {
             "k_pages": [torch.zeros(shape, dtype=store, device=dev)
                         for _ in range(c.num_layers)],
             "v_pages": [torch.zeros(shape, dtype=store, device=dev)
@@ -100,6 +107,13 @@ class GenerationEngine:
             "active": torch.zeros((self.max_seqs,), dtype=torch.bool,
                                   device=dev),
         }
+        if self.quantize_kv:
+            sshape = shape[:-1] + (1,)
+            for key in ("k_scales", "v_scales"):
+                state[key] = [torch.zeros(sshape, dtype=torch.float32,
+                                          device=dev)
+                              for _ in range(c.num_layers)]
+        return state
 
     # ---- request lifecycle ----------------------------------------------
 
@@ -358,9 +372,15 @@ class GenerationEngine:
 
     def _append(self, state, li, pages, offs, k_new, v_new):
         """Write [hkv, N, dk] new K/V into layer li's pages at (pages[n],
-        offs[n]), in place (index_put_). Duplicate targets occur only on the
-        trash page."""
-        for key, new in (("k_pages", k_new), ("v_pages", v_new)):
+        offs[n]), in place (index_put_); with ``quantize_kv`` the int8
+        values into the pages and their scales at the same (pages, offs).
+        Duplicate targets occur only on the trash page."""
+        writes = [("k_pages", k_new), ("v_pages", v_new)]
+        if self.quantize_kv:
+            kq, vq = quantize_int8(k_new), quantize_int8(v_new)
+            writes = [("k_pages", kq.values), ("v_pages", vq.values),
+                      ("k_scales", kq.scales), ("v_scales", vq.scales)]
+        for key, new in writes:
             buf = state[key][li]
             buf[:, pages, offs] = new.to(buf.dtype)
         return state
@@ -395,9 +415,13 @@ class GenerationEngine:
         state = self._append(state, li, pages, slot_off, k_flat, v_flat)
 
         att_len = torch.where(active, lengths + t, 0).to(torch.int32)
+        kwargs = {}
+        if self.quantize_kv:
+            kwargs = {"k_scales": state["k_scales"][li],
+                      "v_scales": state["v_scales"][li]}
         o = ops.paged_attention(q.transpose(1, 2),          # [S, t, hq, dk]
                                 state["k_pages"][li], state["v_pages"][li],
-                                att_len, state["table"])
+                                att_len, state["table"], **kwargs)
         hq, dk, d_out = attn.wo.shape
         o = o.to(x.dtype).reshape(S, t, hq * dk)
         bo = attn.bo.to(x.dtype) if attn.bo is not None else None

@@ -3,7 +3,10 @@
 Counterpart of np_modeling_tpu/serving/kv_cache.py. Pages are
 [num_kv_heads, total_pages, page_size, head_dim] tensors; each sequence owns
 an ordered list of page indices (its page table). Appends write the pages
-in place. Pairs with ops.paged_attention.
+in place. Pairs with ops.paged_attention. ``quantize=True`` stores int8
+pages with fp32 per-token scales [num_kv_heads, total_pages, page_size, 1]
+(``ops.quantize_int8`` on each appended token), half the bytes of bf16
+pages; ``attention_kwargs()`` hands the scales to ops.paged_attention.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from np_modeling_tpu_torch.ops.quantization import quantize_int8
 
 
 class OutOfPagesError(RuntimeError):
@@ -24,14 +29,23 @@ class PagedKVCache:
     total_pages: int
     page_size: int
     max_seqs: int
-    dtype: torch.dtype = torch.float32   # fp32 or bf16; int8 pages later
+    dtype: torch.dtype = torch.float32   # fp32 or bf16 (unquantized pages)
     device: object = None
+    quantize: bool = False
 
     def __post_init__(self):
         shape = (self.num_kv_heads, self.total_pages, self.page_size,
                  self.head_dim)
-        self.k_pages = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        self.v_pages = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        store = torch.int8 if self.quantize else self.dtype
+        self.k_pages = torch.zeros(shape, dtype=store, device=self.device)
+        self.v_pages = torch.zeros(shape, dtype=store, device=self.device)
+        self.k_scales = self.v_scales = None
+        if self.quantize:
+            sshape = shape[:-1] + (1,)
+            self.k_scales = torch.zeros(sshape, dtype=torch.float32,
+                                        device=self.device)
+            self.v_scales = torch.zeros(sshape, dtype=torch.float32,
+                                        device=self.device)
         self._free = list(range(self.total_pages - 1, -1, -1))
         self._tables: dict[int, list[int]] = {}
         self._lengths: dict[int, int] = {}
@@ -73,16 +87,27 @@ class PagedKVCache:
         self._page_for_append(seq_id, n_new)
         pos = self._lengths[seq_id]
         table = self._tables[seq_id]
+        writes = [(self.k_pages, k_new), (self.v_pages, v_new)]
+        if self.quantize:
+            kq, vq = quantize_int8(k_new), quantize_int8(v_new)
+            writes = [(self.k_pages, kq.values), (self.v_pages, vq.values),
+                      (self.k_scales, kq.scales), (self.v_scales, vq.scales)]
         start = 0
         while start < n_new:        # one copy per run within a page
             tok = pos + start
             page = table[tok // self.page_size]
             slot = tok % self.page_size
             run = min(n_new - start, self.page_size - slot)
-            self.k_pages[:, page, slot:slot + run] = k_new[:, start:start + run]
-            self.v_pages[:, page, slot:slot + run] = v_new[:, start:start + run]
+            for buf, new in writes:
+                buf[:, page, slot:slot + run] = new[:, start:start + run]
             start += run
         self._lengths[seq_id] = pos + n_new
+
+    def attention_kwargs(self):
+        """Extra kwargs for ops.paged_attention (scales when quantized)."""
+        if self.quantize:
+            return {"k_scales": self.k_scales, "v_scales": self.v_scales}
+        return {}
 
     def batch_views(self, seq_ids):
         """(lengths [B], page_indices [B, max_pages]) int32 on the device."""

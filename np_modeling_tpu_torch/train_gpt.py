@@ -1,7 +1,10 @@
 """Train a GPT-style causal LM on a seeded random corpus: the training entry
 point of the JAX package (examples/train_gpt.py) in the PyTorch port.
 
-    python -m np_modeling_tpu_torch.train_gpt --device cuda --bf16
+    python -m np_modeling_tpu_torch.train_gpt --bf16
+
+It runs on the card; ``--device cpu`` asks for the CPU (the plain
+versions of the kernels).
 
 The recipe is the example's: dropout 0.1, ``GPT.loss(training=True)``,
 ``chain(clip_by_global_norm(1.0), adamw(warmup_cosine(3e-4, 10, steps)))``
@@ -61,7 +64,7 @@ def train(gpt: models.GPT, corpus: np.ndarray, steps: int, batch: int,
     return torch.stack(losses), state
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
@@ -71,10 +74,13 @@ def main(argv=None):
     ap.add_argument("--heads", type=int, default=8)
     ap.add_argument("--vocab", type=int, default=1024)
     ap.add_argument("--bf16", action="store_true")
-    ap.add_argument("--device",
-                    default="cuda" if torch.cuda.is_available() else "cpu")
-    args = ap.parse_args(argv)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu (the plain versions)")
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
     cfg = models.GPTConfig(
         vocab_size=args.vocab, d_model=args.d_model, num_heads=args.heads,
         num_layers=args.layers, hidden_units=4 * args.d_model,

@@ -303,3 +303,97 @@ def test_cuda_gpt_dropout_step_fp32_kernels_vs_plain():
             assert gk[n].norm() <= 1e-4 * gp[n[:-2] + "wk"].norm(), n
         else:
             assert _rel(gk[n], gp[n]) <= 1e-4, n
+
+
+# ---- int8-weight matmul (K4) and int8 pages (K3/K6) --------------------------------
+
+def _int8_mm_case(m, k, n, x_dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(k, n, generator=g, device="cuda")
+    q = ops.quantize_params_int8({"dense2": {"w": w}})["dense2"]["w"]
+    x = torch.randn(m, k, generator=g, device="cuda").to(x_dtype)
+    bias = torch.randn(n, generator=g, device="cuda")
+    return x, q["int8"], q["scale"], bias
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 768, 3072), (8, 3072, 768),
+                                   (300, 768, 3072), (5, 96, 200),
+                                   (1, 64, 640), (33, 384, 128), (7, 100, 30)])
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_cuda_int8_matmul_vs_plain(m, k, n, x_dtype, out_dtype, bias):
+    """fp32 out within 1e-4 x max(1, max |plain|); bf16 out within one bf16
+    ulp of either value (or that fp32 bound near 0)."""
+    x, wq, scale, b = _int8_mm_case(m, k, n, x_dtype)
+    b = b if bias else None
+    before = ops.int8_matmul.launches
+    got = ops.int8_matmul(x, wq, scale, b, out_dtype=out_dtype)
+    assert ops.int8_matmul.launches == before + 1
+    with dispatch.force_plain():
+        want = ops.int8_matmul(x, wq, scale, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == out_dtype
+    diff = (got.float() - want.float()).abs()
+    bound = 1e-4 * max(1.0, want.float().abs().max().item())
+    if out_dtype == torch.bfloat16:
+        assert bool((diff <= torch.clamp(torch.maximum(
+            _bf16_ulp(got), _bf16_ulp(want)), min=bound)).all())
+    else:
+        assert diff.max().item() <= bound
+
+
+@pytest.mark.parametrize("sq,hq,hkv,d,psize", [
+    (None, 12, 12, 64, 16), (5, 12, 12, 64, 64), (256, 12, 12, 64, 16),
+    (None, 8, 2, 128, 64), (5, 8, 2, 128, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_pages_vs_plain(sq, hq, hkv, d, psize, dtype):
+    rows = sq or 1
+    pps = max(8, -(-(rows + 64) // psize))
+    q, k, v, lengths, table = _paged_case(4, sq, hq, hkv, d, psize, pps,
+                                          4 * pps + 2)
+    lengths[:2] = [rows, psize * -(-rows // psize)]
+    q, k, v, lengths, table = (torch.tensor(a).cuda()
+                               for a in (q, k, v, lengths, table))
+    kq, vq = ops.quantize_int8(k), ops.quantize_int8(v)
+    args = (q.to(dtype), kq.values, vq.values, lengths, table)
+    scales = dict(k_scales=kq.scales, v_scales=vq.scales)
+    before = ops.paged_attention.launches_int8
+    got = ops.paged_attention(*args, **scales)
+    assert ops.paged_attention.launches_int8 == before + 1
+    with dispatch.force_plain():
+        want = ops.paged_attention(*args, **scales)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype)
+
+
+def test_cuda_quantized_engine_vs_plain_engine():
+    """fp32 compute, int8 FFN weights and int8 pages: the kernels' greedy
+    tokens equal the plain engine's."""
+    from np_modeling_tpu_torch.serving import GenerationEngine
+    from np_modeling_tpu_torch.utils import params_from_numpy, params_to_numpy
+    cfg = models.GPTConfig(vocab_size=256, d_model=128, num_heads=2,
+                           num_layers=2, hidden_units=512, max_len=256,
+                           activation="gelu", ln_eps=1e-5)
+    gpt = models.GPT(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    tree = ops.quantize_params_int8(params_to_numpy(gpt),
+                                    match=r".*(dense1/linear/w|dense2/w)$")
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, 256, n) for i, n in enumerate((40, 90, 7))}
+    streams = []
+    for plain in (False, True):
+        eng = GenerationEngine(params_from_numpy(tree, cfg, device="cuda"),
+                               total_pages=64, page_size=16, max_seqs=4,
+                               prefill_chunk_size=64, quantize_kv=True)
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            before = (ops.int8_matmul.launches,
+                      ops.paged_attention.launches_int8)
+            first = eng.add_requests(prompts)
+            streams.append((first, eng.step_many(8), eng.step()))
+            launched = (ops.int8_matmul.launches - before[0],
+                        ops.paged_attention.launches_int8 - before[1])
+        # 2 chunk calls + 9 decode steps, 2 layers: 4 and 2 launches each.
+        assert launched == ((0, 0) if plain else (44, 22))
+    assert streams[0] == streams[1]

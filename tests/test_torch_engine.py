@@ -89,7 +89,7 @@ def test_out_of_pages_is_all_or_nothing():
 
 @pytest.mark.parametrize("option", [
     dict(temperature=0.7), dict(enable_prefix_cache=True),
-    dict(quantize_kv=True), dict(prefill_chunk_size=None),
+    dict(draft_gpt=object()), dict(prefill_chunk_size=None),
     dict(constraints={}), dict(lora_adapters={})])
 def test_unported_engine_options_raise(option):
     gpt = tmodels.GPT(tmodels.GPTConfig(**CFG))
@@ -109,9 +109,95 @@ def test_unported_config_features_raise(feature):
 
 
 def test_import_leaves_no_jax():
-    code = ("import sys, np_modeling_tpu_torch; "
+    code = ("import sys, np_modeling_tpu_torch, chip_smoke; "
             "assert not [m for m in sys.modules if m in ('jax', "
             "'np_modeling_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'np_modeling_tpu.'))], sorted(sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=pathlib.Path(__file__).resolve().parents[1])
+
+
+# ---- quantized serving: int8 FFN weights, int8 KV pages ------------------------
+
+QCFG = dict(vocab_size=128, d_model=64, num_heads=4, num_layers=2,
+            hidden_units=256, max_len=64, activation="gelu", ln_eps=1e-5)
+FFN = r".*(dense1/linear/w|dense2/w)$"
+
+
+def _quantized_pair(dtype):
+    """JAX and port engines with quantize_kv=True over one int8-FFN tree."""
+    from np_modeling_tpu.ops import quantize_params_int8
+    jgpt = jmodels.GPT(jmodels.GPTConfig(**QCFG, dtype=getattr(jnp, dtype)))
+    params = jgpt.init(jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32))
+    tree = jax.tree_util.tree_map(
+        np.asarray, quantize_params_int8(params, match=FFN))
+    tgpt = params_from_numpy(
+        tree, tmodels.GPTConfig(**QCFG, dtype=getattr(torch, dtype)),
+        device="cpu")
+    return (JaxEngine(jgpt, jax.tree_util.tree_map(jnp.asarray, tree),
+                      quantize_kv=True, **ENGINE),
+            GenerationEngine(tgpt, quantize_kv=True, **ENGINE), tree)
+
+
+def _traffic(eng, prompts, late, jax_side):
+    wrap = (lambda a: jnp.asarray(a)) if jax_side else (lambda a: a)
+    out = [eng.add_requests({k: wrap(v) for k, v in prompts.items()}),
+           eng.step(), eng.step_many(3), eng.add_request(3, wrap(late)),
+           eng.step()]
+    eng.finish(1)
+    out += [eng.step_many(2), eng.live, eng.free_pages]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantized_engine_matches_jax_engine(dtype):
+    rng = np.random.default_rng(4)
+    prompts = {sid: rng.integers(0, 128, n).astype(np.int32)
+               for sid, n in ((0, 11), (1, 19), (2, 5))}
+    late = rng.integers(0, 128, 13).astype(np.int32)
+    jeng, teng, _ = _quantized_pair(dtype)
+    assert teng._state["k_pages"][0].dtype == torch.int8
+    assert _traffic(teng, prompts, late, False) == _traffic(
+        jeng, prompts, late, True)
+    _, t_tok, t_logits = teng._device_step(teng._state, return_logits=True)
+    _, j_tok, j_logits = jeng._device_step(
+        jeng._state, jeng._serve_params, jax.random.PRNGKey(0),
+        return_logits=True)
+    np.testing.assert_array_equal(t_tok.numpy(), np.asarray(j_tok))
+    if dtype == "float32":      # bf16: the two round K at other places
+        for key in ("k_scales", "v_scales"):
+            np.testing.assert_allclose(teng._state[key][1].numpy(),
+                                       np.asarray(jeng._state[key][1]),
+                                       rtol=1e-5, atol=1e-7)
+        active = np.asarray(jeng._state["active"])
+        np.testing.assert_allclose(t_logits.numpy()[active],
+                                   np.asarray(j_logits)[active], rtol=1e-5,
+                                   atol=1e-4)
+
+
+def test_int8_ffn_engine_equals_dequantized_weights():
+    """The port's counterpart of tests/test_int8_matmul.py's decode test:
+    int8 FFN weights through ops.int8_matmul give the greedy tokens of the
+    same engine with dequantize_params-restored (bf16-valued) weights."""
+    from np_modeling_tpu_torch.ops import dequantize_params
+    _, teng, tree = _quantized_pair("float32")
+    deq = jax.tree_util.tree_map(
+        lambda t: np.asarray(t.float()) if isinstance(t, torch.Tensor) else t,
+        dequantize_params(tree))
+    deng = GenerationEngine(
+        params_from_numpy(deq, tmodels.GPTConfig(**QCFG), device="cpu"),
+        quantize_kv=True, **ENGINE)
+    rng = np.random.default_rng(5)
+    prompts = {sid: rng.integers(0, 128, n).astype(np.int32)
+               for sid, n in ((0, 9), (1, 17))}
+    assert teng.add_requests(prompts) == deng.add_requests(prompts)
+    assert teng.step_many(6) == deng.step_many(6)
+
+
+def test_quantized_attention_leaf_raises():
+    from np_modeling_tpu_torch.ops import quantize_params_int8
+    from np_modeling_tpu_torch.utils import params_to_numpy
+    gpt = tmodels.GPT(tmodels.GPTConfig(**QCFG)).init(torch.Generator())
+    tree = quantize_params_int8(params_to_numpy(gpt))   # wq/wk/wv/wo too
+    with pytest.raises(NotImplementedError, match="F4"):
+        params_from_numpy(tree, tmodels.GPTConfig(**QCFG))

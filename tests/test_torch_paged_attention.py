@@ -138,3 +138,99 @@ def test_paged_kv_cache_appends_and_views():
     torch.testing.assert_close(pages, k, rtol=0, atol=0)
     cache.free(0)
     assert cache.free_pages == 8
+
+
+# ---- int8 pages (the int8 KV cache) --------------------------------------------
+
+def _int8_case(case, q_dtype):
+    """Pages quantized per token by JAX's quantize_int8; the same int8 pages
+    and fp32 scales go to both packages."""
+    from np_modeling_tpu.ops.quantization import quantize_int8
+    q, k, v, lengths, table = _case(**case)
+    kq, vq = quantize_int8(jnp.asarray(k)), quantize_int8(jnp.asarray(v))
+    jax_args = (jnp.asarray(q).astype(q_dtype), kq.values, vq.values,
+                jnp.asarray(lengths), jnp.asarray(table))
+    scales = dict(k_scales=kq.scales, v_scales=vq.scales)
+    torch_args = (torch.tensor(q).to(getattr(torch, q_dtype)),
+                  *_torch(kq.values, vq.values, lengths, table))
+    torch_scales = {n: torch.tensor(np.asarray(s)) for n, s in scales.items()}
+    return jax_args, scales, torch_args, torch_scales
+
+
+def _bf16_close(got, want):
+    """One bf16 ulp of either value, or the fp32 tolerance near 0."""
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(
+        np.abs(np.stack([got, want])), 2.0 ** -126))) - 7).max(axis=0)
+    assert (np.abs(got - want) <= np.maximum(
+        ulp, TOL["rtol"] * np.abs(want) + TOL["atol"])).all()
+
+
+INT8_CASES = [dict(hq=8, hkv=2),                       # decode, GQA
+              dict(sq=1, hq=4, hkv=4),
+              dict(sq=5, hq=8, hkv=2),                 # chunk, GQA
+              dict(sq=8, hq=4, hkv=1, pages_per_seq=6)]
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pallas", [False, True])
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_plain_int8_pages_vs_jax(case, pallas, q_dtype):
+    jax_args, scales, torch_args, torch_scales = _int8_case(case, q_dtype)
+    if pallas:
+        with jdispatch.force_pallas(True, interpret=True):
+            want = jops.paged_attention(*jax_args, pages_per_block=2,
+                                        **scales)
+    else:
+        want = jops.paged_attention(*jax_args, **scales)
+    got = ops.paged_attention(*torch_args, **torch_scales)
+    assert got.dtype == torch_args[0].dtype and got.shape == want.shape
+    if q_dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    else:
+        _bf16_close(got, want)
+
+
+def test_int8_pages_and_scales_come_together():
+    _, _, (q, k8, v8, lengths, table), sc = _int8_case(dict(), "float32")
+    with pytest.raises(ValueError, match="int8 pages"):
+        ops.paged_attention(q, k8, v8, lengths, table)
+    with pytest.raises(ValueError, match="int8 pages"):
+        ops.paged_attention(q, k8.float(), v8.float(), lengths, table, **sc)
+    with pytest.raises(ValueError, match="int8 pages"):
+        ops.paged_attention(q, k8, v8, lengths, table,
+                            k_scales=sc["k_scales"])
+
+
+def test_quantized_paged_kv_cache_equals_jax():
+    from np_modeling_tpu.serving import PagedKVCache as JaxCache
+    rng = np.random.default_rng(3)
+    kw = dict(num_kv_heads=2, head_dim=8, total_pages=8, page_size=4,
+              max_seqs=2, quantize=True)
+    jcache, tcache = JaxCache(**kw), PagedKVCache(**kw)
+    for seq in (0, 1):
+        jcache.allocate(seq)
+        tcache.allocate(seq)
+    k = rng.standard_normal((2, 9, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 9, 8)).astype(np.float32)
+    v[:, 2] = 0.0                               # an all-zero token
+    for seq, lo, hi in ((0, 0, 3), (1, 3, 5), (0, 5, 9)):
+        jcache.append(seq, jnp.asarray(k[:, lo:hi]), jnp.asarray(v[:, lo:hi]))
+        tcache.append(seq, torch.tensor(k[:, lo:hi]), torch.tensor(v[:, lo:hi]))
+    assert tcache.k_pages.dtype == torch.int8
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+        np.testing.assert_array_equal(getattr(tcache, name).numpy(),
+                                      np.asarray(getattr(jcache, name)))
+    lengths, table = tcache.batch_views([0, 1])
+    jl, jt = jcache.batch_views([0, 1])
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(table.numpy(), np.asarray(jt))
+    q = rng.standard_normal((2, 4, 8)).astype(np.float32)
+    want = jops.paged_attention(jnp.asarray(q), jcache.k_pages,
+                                jcache.v_pages, jl, jt,
+                                **jcache.attention_kwargs())
+    got = ops.paged_attention(torch.tensor(q), tcache.k_pages,
+                              tcache.v_pages, lengths, table,
+                              **tcache.attention_kwargs())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert PagedKVCache(**{**kw, "quantize": False}).attention_kwargs() == {}

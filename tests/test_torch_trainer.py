@@ -337,3 +337,8 @@ def test_train_gpt_main_runs():
                              "4", "--vocab", "64", "--device", "cpu"])
     assert losses.shape == (2,) and bool(torch.isfinite(losses).all())
     assert ops.dropout.launches == 0 or torch.cuda.is_available()
+
+
+def test_train_gpt_runs_on_the_card_unless_asked_for_the_cpu():
+    assert train_gpt.parse_args([]).device == "cuda"
+    assert train_gpt.parse_args(["--device", "cpu"]).device == "cpu"

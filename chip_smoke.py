@@ -1,11 +1,12 @@
 """Drives the PyTorch port's serving path, its quantized serving path, its
-bench training step and its training entry point once on one CUDA card.
+bench training step, its training entry point and that entry point with
+every product forced through the matmul kernel once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each printed on its own lines; any failure exits non-zero:
   (a) device: the card's name and power limit, as nvidia-smi reports them;
-  (b) build: every kernel of the four paths, from the sources in this
+  (b) build: every kernel of the five paths, from the sources in this
       checkout (one nvcc for each source, all started together);
   (c) each kernel vs its plain PyTorch version on the card, at the paths'
       shapes. Paged attention: max abs err <= 1e-4 with fp32 pages,
@@ -23,7 +24,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
       twin's bit for bit and so do the values, the keep share lies within
       5 sigma of the binomial, the backward drops what the forward dropped,
       another seed or salt draws another mask, rate 0 and eval launch
-      nothing;
+      nothing. The matmul K11 inside dispatch.force_kernels(), against
+      matmul_reference: the GPT-2 step's 9 products (forward with bias,
+      the trans_a weight gradient, the trans_b input gradient) in bf16
+      (bf16 and fp32 out) and fp32, ragged shapes with every trans pair,
+      mixed operands; K4's criteria; float16 raises. Softmax-CE K9,
+      forward and backward, at the step's logits [8192, 50257] fp32/bf16
+      and ragged shapes with labels outside [0, v): ce within 1e-5 x
+      max(1, max |plain|), dlogits within 1e-4 x |plain| + 1e-6 x max
+      |plain| (bf16: one ulp). Stochastic int8 K10 at [8192, 768],
+      [1792, 12, 64] and ragged shapes, fp32/bf16: values and scales equal
+      the plain twin's bit for bit, each value floor or floor + 1 of x /
+      scale; unbiased over 256 seeds; another seed draws other bits;
   (d) serving: GPT-2 small (124M) at full width and depth with seeded random
       weights serves 8 requests through add_requests / step_many /
       add_request / step / finish; checks tokens, page accounting, that
@@ -73,6 +85,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
   (i) entry-point timings: LayerNorm forward and backward at [8192, 768]
       and [16384, 1024] and dropout at [8, 1024, 768] (bf16), and the
       whole GPT-2 small train step;
+  (l) the forced training path: (h)'s GPT-2 small run under
+      dispatch.force_kernels(), so every Linear's forward, dx and dw runs
+      K11. Step 0 forced against the default step (cuBLAS products) with
+      the same dropout seed, by (h)'s criteria; then FORCED_STEPS steps of
+      train_gpt.train: the loss is finite and falls, K11 launches 216
+      times a step. On the trained model's logits K9 (forward, backward)
+      against softmax_cross_entropy_with_integer_labels; K10 on its final
+      hidden states against its plain twin;
+  (m) K11 at the step's 9 product shapes (kernel, plain, cuBLAS) and their
+      sum over a step's 216 products, K11 at 8192^3 bf16 beside torch.mm,
+      K9 forward and backward beside F.cross_entropy, K10 (no library
+      call), and the forced step beside the default step;
   (p) where the entry point's step spends the card's time: torch.profiler
       over 3 steps, device time by kernel and by kind, device ops a step
       and the card's idle share (PERF.md, "Where the time goes"); a
@@ -81,8 +105,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
 Each path runs with the launch counts set to 0 just before it and read just
 after. Library yardsticks (one PyTorch call computing a kernel's function,
 which the port never calls) are timed beside K1/K2 (scaled_dot_product_
-attention), K7 (F.dropout) and K8 (F.layer_norm); no single call computes
-K3 or K4. Timings run each side twice, in the order plain, kernel, kernel,
+attention), K7 (F.dropout), K8 (F.layer_norm), K9 (F.cross_entropy) and
+K11 (torch.addmm / torch.mm); no single call computes K3, K4 or K10. Timings run each side twice, in the order plain, kernel, kernel,
 plain. Every kernel is timed with CUDA events two ways: a call's wall time,
 the host's share included (the JSON line's "ms"), and device time, calls
 queued back to back behind a sleep kernel so the host's gaps drop out
@@ -110,6 +134,8 @@ PAGED_SOURCE = "np_modeling_tpu_torch/csrc/paged_attention.cu"
 FLASH_SOURCE = "np_modeling_tpu_torch/csrc/flash_attention.cu"
 FUSED_SOURCE = "np_modeling_tpu_torch/csrc/fused.cu"
 INT8_SOURCE = "np_modeling_tpu_torch/csrc/int8_matmul.cu"
+MATMUL_SOURCE = "np_modeling_tpu_torch/csrc/matmul.cu"
+QUANT_SOURCE = "np_modeling_tpu_torch/csrc/quantize.cu"
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 LN_F32_TOL = 1e-5
 # The bench GPT's training shape (bench.py:39): batch, sequence, layers.
@@ -127,6 +153,22 @@ FFN_MATCH = r".*(dense1/linear/w|dense2/w)$"
 # step (8 slots) and a prefill chunk call of 7 sequences x 256 tokens.
 K4_SHAPES = ((8, 768, 3072), (8, 3072, 768), (1792, 768, 3072),
              (1792, 3072, 768))
+# The GPT-2 small train step's products (m = 8 x 1024 tokens) [m, k] x [k,
+# n] with (trans_a, trans_b, bias): each Linear's forward (with bias), its
+# weight gradient x^T dy (trans_a) and its input gradient dy w^T (trans_b),
+# for the attention projections (768 -> 768) and the FFN (768 -> 3072 ->
+# 768). A layer runs the first row 4 times and the others once a pass.
+STEP_PRODUCTS = (
+    (8192, 768, 768, False, False, True), (8192, 768, 3072, False, False, True),
+    (8192, 3072, 768, False, False, True), (768, 8192, 768, True, False, False),
+    (768, 8192, 3072, True, False, False), (3072, 8192, 768, True, False, False),
+    (8192, 768, 768, False, True, False), (8192, 3072, 768, False, True, False),
+    (8192, 768, 3072, False, True, False))
+# Uses of each STEP_PRODUCTS row in one layer's pass (q, k, v, o share 768 ->
+# 768).
+STEP_USES = (4, 1, 1, 4, 1, 1, 4, 1, 1)
+# Phase (l): forced steps of the recipe.
+FORCED_STEPS = 10
 # One H100 SXM (NVIDIA's data sheet): device-memory bytes/s, dense bf16
 # tensor-core operations/s. A bound is the larger of bytes / the first and
 # operations / the second.
@@ -220,8 +262,8 @@ def phase_build():
     from np_modeling_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
     libs = cuda_build.build("paged_attention", "flash_attention", "fused",
-                            "int8_matmul")
-    print(f"(b) build: all four libraries in {time.perf_counter() - t0:.2f} s")
+                            "int8_matmul", "matmul", "quantize")
+    print(f"(b) build: all six libraries in {time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
         print(f"(b) {name}: nvcc {lib.build_seconds:.2f} s -> {lib.path.name}")
         for ln in lib.log.splitlines():
@@ -559,6 +601,254 @@ def phase_int8_matmul_vs_plain():
           f"{errs[f32]:.3e} (tol {F32_TOL} x max(1, max |plain|)), bf16 out "
           f"{errs[f16]:.3e} (one bf16 ulp)")
     return errs[f32], errs[f16]
+
+
+def _mm_operands(m, k, n, trans_a, trans_b, rng, scale=1.0):
+    """a, b in their stored layouts for op(a) [m, k] @ op(b) [k, n], fp32
+    on the card, and an fp32 bias [n]."""
+    import torch
+
+    def rand(*shape):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            dtype=torch.float32, device="cuda")
+
+    a = rand(*((k, m) if trans_a else (m, k)))
+    b = rand(*((n, k) if trans_b else (k, n)))
+    return a, b, rand(n)
+
+
+def _check_k11(tag, a, b, bias, trans_a, trans_b, out_dtype):
+    """K11 under force_kernels() against matmul_reference: one launch, the
+    dtype and shape, fp32 out within 1e-4 x max(1, max |plain|), bf16 out
+    within one bf16 ulp (or that bound). Returns the max abs err."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    before = ops.matmul.launches
+    with dispatch.force_kernels():
+        got = ops.matmul(a, b, bias, trans_a=trans_a, trans_b=trans_b,
+                         out_dtype=out_dtype)
+    want = ops.matmul_reference(a, b, bias, trans_a=trans_a, trans_b=trans_b,
+                                out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    err, ok = _bf16_or_f32_err(got, want, F32_TOL)
+    if not (ok and got.dtype == want.dtype and got.shape == want.shape
+            and ops.matmul.launches == before + 1):
+        raise AssertionError(f"(c) {tag}: max abs err {err} out of bounds, "
+                             f"or wrong dtype/shape/launch count")
+    return err
+
+
+def phase_matmul_vs_plain():
+    """K11 vs its plain version inside force_kernels(): the 9 products of
+    the GPT-2 small step, in bf16 (bf16 and fp32 out) and fp32, then ragged
+    shapes with every trans pair, bias or not. Returns (max err fp32 out,
+    bf16 out)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    f32, f16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(SEED + 13)
+    errs, n = {f32: 0.0, f16: 0.0}, 0
+    for m, k, nn, ta, tb, with_bias in STEP_PRODUCTS:
+        a, b, bias = _mm_operands(m, k, nn, ta, tb, rng)
+        bias = bias if with_bias else None
+        for op_dtype, out_dtype in ((f16, f16), (f16, f32), (f32, f32)):
+            tag = (f"matmul step [{m}, {k}] x [{k}, {nn}] trans_a={ta} "
+                   f"trans_b={tb}{' bias' if with_bias else ''} "
+                   f"{str(op_dtype)[6:]} out {str(out_dtype)[6:]}")
+            err = _check_k11(tag, a.to(op_dtype), b.to(op_dtype), bias, ta,
+                             tb, out_dtype)
+            errs[out_dtype] = max(errs[out_dtype], err)
+            n += 1
+            print(f"(c) {tag}: max abs err {err:.3e}")
+        del a, b, bias
+    for m, k, nn in ((100, 70, 50), (1, 64, 640), (33, 384, 128),
+                     (129, 257, 255), (8, 1024, 8), (5, 7, 3), (3, 0, 5)):
+        for ta in (False, True):
+            for tb in (False, True):
+                a, b, bias = _mm_operands(m, k, nn, ta, tb, rng)
+                for op_dtype, out_dtype in ((f16, f16), (f16, f32),
+                                            (f32, f32), (f32, f16)):
+                    for bb in (None, bias):
+                        tag = (f"matmul [{m}, {k}] x [{k}, {nn}] trans_a={ta}"
+                               f" trans_b={tb}{' bias' if bb is not None else ''}"
+                               f" {str(op_dtype)[6:]} out {str(out_dtype)[6:]}")
+                        err = _check_k11(tag, a.to(op_dtype), b.to(op_dtype),
+                                         bb, ta, tb, out_dtype)
+                        errs[out_dtype] = max(errs[out_dtype], err)
+                        n += 1
+    # Mixed operands are promoted (to fp32), as JAX's dot_general does.
+    a, b, bias = _mm_operands(37, 96, 80, False, True, rng)
+    err = _check_k11("matmul mixed bf16 x fp32", a.to(f16), b, bias, False,
+                     True, f32)
+    errs[f32] = max(errs[f32], err)
+    n += 1
+    try:
+        with dispatch.force_kernels():
+            ops.matmul(a.half(), b.t().half())
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("(c) matmul: force_kernels() took float16")
+    print(f"(c) matmul: {n} cases pass: max abs err fp32 out "
+          f"{errs[f32]:.3e} (tol {F32_TOL} x max(1, max |plain|)), bf16 out "
+          f"{errs[f16]:.3e} (one bf16 ulp); float16 raises")
+    return errs[f32], errs[f16]
+
+
+def _sxe_run(logits, labels, g, plain):
+    """ce, lse-free dlogits through ops.softmax_cross_entropy_fused."""
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    leaf = logits.clone().requires_grad_()
+    with dispatch.force_plain() if plain else contextlib.nullcontext():
+        ce = ops.softmax_cross_entropy_fused(leaf, labels)
+        ce.backward(g)
+    return ce.detach(), leaf.grad
+
+
+def _dlogits_err(got, want):
+    """Max abs err of dlogits and whether it passes: fp32 within 1e-4 x
+    |plain| + 1e-6 x max |plain| (the probabilities are ~1/v, so a bound
+    on the largest value alone would let any of them through); bf16 within
+    one bf16 ulp of either value, or that bound."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    wf = want.float()
+    bound = 1e-4 * wf.abs() + 1e-6 * wf.abs().max()
+    if got.dtype == torch.bfloat16:
+        bound = torch.maximum(bound, torch.maximum(_bf16_ulp(got),
+                                                   _bf16_ulp(want)))
+    return diff.max().item(), bool((diff <= bound).all())
+
+
+def phase_sxe_vs_plain():
+    """K9 forward and backward vs the plain version: the GPT-2 step's logits
+    shape [8192, 50257] in fp32 and bf16 (scale 3, so the rows' softmax is
+    far from uniform), and ragged cases with labels outside [0, v). ce
+    within 1e-5 x max(1, max |plain|); dlogits by ``_dlogits_err``.
+    Returns (max err fp32, bf16) over ce and dlogits."""
+    import torch
+    rng = np.random.default_rng(SEED + 14)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = [((GPT2_B * GPT2_S,), 50257), ((37,), 1001), ((2, 7), 300),
+             ((3,), 1)]
+    n = 0
+    for lead, v in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            logits = (torch.tensor(rng.standard_normal((*lead, v)) * 3,
+                                   dtype=torch.float32, device="cuda")
+                      .to(dtype))
+            labels = torch.tensor(rng.integers(0, v, lead), device="cuda")
+            flat = labels.view(-1)
+            if flat.numel() > 3:
+                flat[1], flat[2] = v, -1          # outside [0, v)
+            g = torch.tensor(rng.standard_normal(lead), dtype=torch.float32,
+                             device="cuda")
+            ce_k, dl_k = _sxe_run(logits, labels, g, plain=False)
+            ce_p, dl_p = _sxe_run(logits, labels, g, plain=True)
+            torch.cuda.synchronize()
+            tag = f"softmax_cross_entropy_fused {(*lead, v)} {str(dtype)[6:]}"
+            ce_err = (ce_k - ce_p).abs().max().item()
+            ce_ok = ce_err <= LN_F32_TOL * max(1.0, ce_p.abs().max().item())
+            dl_err, dl_ok = _dlogits_err(dl_k, dl_p)
+            if not (ce_ok and dl_ok and dl_k.dtype == dtype
+                    and ce_k.dtype == torch.float32 and ce_k.shape == lead):
+                raise AssertionError(f"(c) {tag}: ce err {ce_err}, dlogits "
+                                     f"err {dl_err} out of bounds")
+            errs[dtype] = max(errs[dtype], ce_err, dl_err)
+            n += 1
+            print(f"(c) {tag}: max abs err ce {ce_err:.3e}, dlogits "
+                  f"{dl_err:.3e}")
+            del logits, labels, g, ce_k, dl_k, ce_p, dl_p
+    torch.cuda.empty_cache()
+    print(f"(c) softmax_cross_entropy_fused: {n} cases pass (labels outside "
+          f"[0, v) included): max abs err fp32 {errs[torch.float32]:.3e}, "
+          f"bf16 {errs[torch.bfloat16]:.3e}")
+    return errs[torch.float32], errs[torch.bfloat16]
+
+
+def _check_k10(tag, x, seed):
+    """K10 vs its plain twin: values and scales bit for bit, every value
+    floor or floor + 1 of x / scale (clipped)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    before = ops.quantize_int8_stochastic.launches
+    got = ops.quantize_int8_stochastic(x, seed)
+    with dispatch.force_plain():
+        want = ops.quantize_int8_stochastic(x, seed)
+    torch.cuda.synchronize()
+    if ops.quantize_int8_stochastic.launches != before + 1:
+        raise AssertionError(f"(c) {tag}: K10 not launched once")
+    if not (torch.equal(got.values, want.values)
+            and torch.equal(got.scales, want.scales)):
+        raise AssertionError(
+            f"(c) {tag}: differs from the plain twin in "
+            f"{(got.values != want.values).sum().item()} values, "
+            f"{(got.scales != want.scales).sum().item()} scales")
+    s = x.float() / got.scales
+    fl = torch.floor(s).clamp(-127, 127)
+    q = got.values.float()
+    if not bool(((q == fl) | (q == (fl + 1).clamp(-127, 127))).all()):
+        raise AssertionError(f"(c) {tag}: a value is neither floor nor "
+                             "floor + 1 of x / scale")
+    return got
+
+
+def phase_quantize_vs_plain():
+    """K10 vs its plain twin (values and scales bit for bit) at [8192, 768]
+    and [1792, 12, 64] in fp32 and bf16 and at ragged shapes with a zero
+    row; unbiasedness over 256 seeds; another seed draws other bits."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    rng = np.random.default_rng(SEED + 15)
+    n = 0
+    for shape in ((GPT2_B * GPT2_S, 768), (1792, 12, 64), (5, 1001), (3, 1),
+                  (4, 33)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                             device="cuda").to(dtype)
+            if shape[0] == 4:
+                x[1] = 0.0
+            seed = int(rng.integers(0, 2 ** 63))
+            _check_k10(f"quantize_int8_stochastic {shape} {str(dtype)[6:]}",
+                       x, seed)
+            n += 1
+    # Unbiasedness: per element, the mean over 256 seeds of (dequantized -
+    # x) / scale has expectation 0 and variance f (1 - f) / 256, f = frac(x /
+    # scale); held within 5 sigma plus one draw's worth (1/256), as the mean
+    # of 256 Bernoulli draws of a small f is far from normal.
+    x = torch.tensor(rng.standard_normal((256, 768)), dtype=torch.float32,
+                     device="cuda")
+    total = torch.zeros_like(x)
+    for seed in range(256):
+        qt = ops.quantize_int8_stochastic(x, seed)
+        total += (qt.values.float() * qt.scales - x) / qt.scales
+    mean = total / 256
+    s = x / qt.scales
+    f = s - torch.floor(s)
+    sigma = (f * (1 - f) / 256).sqrt()
+    worst = ((mean.abs() - 1 / 256) / sigma.clamp(min=1e-12)).max().item()
+    if not bool((mean.abs() <= 5 * sigma + 1 / 256).all()):
+        raise AssertionError(f"(c) quantize_int8_stochastic: biased, worst "
+                             f"excess {worst:.2f} sigma")
+    print(f"(c) quantize_int8_stochastic: mean error over 256 seeds within 5 "
+          f"sigma + 1/256 at every element of [256, 768] (overall mean "
+          f"{mean.mean().item():.2e} steps)")
+    a = ops.quantize_int8_stochastic(x, 1).values
+    b = ops.quantize_int8_stochastic(x, 2).values
+    share = (a != b).float().mean().item()
+    expect = (2 * f * (1 - f)).mean().item()
+    if not abs(share - expect) < 0.02:
+        raise AssertionError(f"(c) quantize_int8_stochastic: seeds 1 and 2 "
+                             f"differ in {share:.4f} of the values, expected "
+                             f"{expect:.4f}")
+    print(f"(c) quantize_int8_stochastic: {n} cases equal the plain twin bit "
+          f"for bit, every value floor or floor + 1; seeds 1 and 2 differ in "
+          f"{share:.4f} of the values (expected {expect:.4f})")
+    return 0.0, 0.0
 
 
 def _check_dropout_case(tag, x, seed, rate):
@@ -1237,13 +1527,16 @@ def zipf_corpus(vocab, rows, seq, seed=SEED):
     return rng.choice(vocab, size=(rows, seq), p=p / p.sum())
 
 
-def _step0(gpt, tokens, seed, plain):
+def _step0(gpt, tokens, seed, plain, forced=False):
     """Step 0 of the recipe without the update: loss, and the gradients
-    after clip_by_global_norm(1.0), with dropout seeded by ``seed``."""
+    after clip_by_global_norm(1.0), with dropout seeded by ``seed``; under
+    force_plain() with ``plain``, under force_kernels() with ``forced``."""
     from np_modeling_tpu_torch import training
     from np_modeling_tpu_torch.ops import dispatch
     gpt.zero_grad(set_to_none=True)
-    with dispatch.force_plain() if plain else contextlib.nullcontext():
+    scope = (dispatch.force_plain() if plain else dispatch.force_kernels()
+             if forced else contextlib.nullcontext())
+    with scope:
         loss = gpt.loss(tokens, training=True, rngs={"dropout": seed})
         loss.backward()
         grads, _ = training.clip_by_global_norm(1.0).update(
@@ -1253,7 +1546,13 @@ def _step0(gpt, tokens, seed, plain):
 
 def _launch_counts():
     from np_modeling_tpu_torch import ops
-    return {"dropout": ops.dropout.launches,
+    return {"matmul": ops.matmul.launches,
+            "softmax_cross_entropy_fwd":
+                ops.softmax_cross_entropy_fused.launches_fwd,
+            "softmax_cross_entropy_bwd":
+                ops.softmax_cross_entropy_fused.launches_bwd,
+            "quantize_int8_stochastic": ops.quantize_int8_stochastic.launches,
+            "dropout": ops.dropout.launches,
             "layer_norm_fwd": ops.layer_norm.launches_fwd,
             "layer_norm_bwd": ops.layer_norm.launches_bwd,
             "flash_attention_fwd": ops.flash_attention.launches_fwd,
@@ -1262,6 +1561,9 @@ def _launch_counts():
 
 def _zero_launch_counts():
     from np_modeling_tpu_torch import ops
+    ops.matmul.launches = ops.quantize_int8_stochastic.launches = 0
+    ops.softmax_cross_entropy_fused.launches_fwd = 0
+    ops.softmax_cross_entropy_fused.launches_bwd = 0
     ops.dropout.launches = 0
     ops.layer_norm.launches_fwd = ops.layer_norm.launches_bwd = 0
     ops.flash_attention.launches_fwd = ops.flash_attention.launches_bwd = 0
@@ -1319,7 +1621,9 @@ def phase_train_entry():
     print(f"(h) {GPT2_STEPS} steps of the recipe in {seconds:.1f} s; losses "
           f"{[round(x, 4) for x in losses]}; kernel launches {launches}")
     sites, layers = 2 * cfg.num_layers + 1, cfg.num_layers
-    want = {"dropout": 2 * sites * GPT2_STEPS,
+    want = {"matmul": 0, "softmax_cross_entropy_fwd": 0,
+            "softmax_cross_entropy_bwd": 0, "quantize_int8_stochastic": 0,
+            "dropout": 2 * sites * GPT2_STEPS,
             "layer_norm_fwd": sites * GPT2_STEPS,
             "layer_norm_bwd": sites * GPT2_STEPS,
             "flash_attention_fwd": layers * GPT2_STEPS,
@@ -1333,6 +1637,279 @@ def phase_train_entry():
     if launches != want:
         raise AssertionError(f"(h) kernel launches {launches}, expected {want}")
     return gpt, corpus, launches
+
+
+def phase_forced_training():
+    """(l) The forced training path: (h)'s GPT-2 small run with every
+    product of ops.linear through K11 (dispatch.force_kernels(), the
+    counterpart of JAX's force_pallas(True)). Step 0 forced against the
+    default step (cuBLAS products) with the same dropout seed, by (h)'s
+    criteria; then FORCED_STEPS steps of train_gpt.train under
+    force_kernels(): the loss stays finite and falls, and each step
+    launches K11 216 times (12 layers x 6 Linears x forward, dx, dw). On
+    the trained model's logits K9 (forward and backward) is held against
+    softmax_cross_entropy_with_integer_labels, and K10 quantizes its final
+    hidden states; neither changes K11's count. Returns the model, the
+    corpus and the launch counts."""
+    import torch
+    from np_modeling_tpu_torch import ops, train_gpt
+    from np_modeling_tpu_torch.models import GPT
+    from np_modeling_tpu_torch.ops import dispatch
+    cfg = gpt2_config(torch.bfloat16, drop_rate=0.1)
+    gpt = GPT(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    corpus = zipf_corpus(cfg.vocab_size, 64 * GPT2_B, GPT2_S)
+    tokens = torch.tensor(corpus[:GPT2_B], device="cuda")
+    print(f"(l) GPT-2 small as in (h), every Linear's forward, dx and dw "
+          f"through K11 under dispatch.force_kernels()")
+    seed = SEED + 7
+    twin = GPT(gpt2_config(None, drop_rate=0.1), device="cuda")
+    twin.load_state_dict(gpt.state_dict())
+    ops.matmul.launches = 0
+    lk, gk = _step0(twin, tokens, seed, plain=False, forced=True)
+    fp32_launches = ops.matmul.launches
+    lp, ref = _step0(twin, tokens, seed, plain=False)
+    del twin
+    loss_err = abs(lk - lp) / abs(lp)
+    errs = {n: _rel(gk[n], ref[n]) for n in ref if not _is_key_bias(n)}
+    worst = max(errs, key=errs.get)
+    print(f"(l) fp32 step 0 (forward, backward, clip), forced vs default, "
+          f"same dropout seed: loss {lk:.7f} vs {lp:.7f} (relative err "
+          f"{loss_err:.2e}, tol 1e-05); worst gradient relative L2 err "
+          f"{errs[worst]:.2e} ({worst}, tol 1e-04); K11 launches "
+          f"{fp32_launches}")
+    if not (math.isfinite(lk) and loss_err <= 1e-5 and errs[worst] <= 1e-4
+            and fp32_launches == 216):
+        raise AssertionError("(l) fp32 step 0: forced differs from default")
+    _check_key_bias("(l) fp32", gk, gk, 1e-4)
+    del gk
+    lk, gk = _step0(gpt, tokens, seed, plain=False, forced=True)
+    lp, gp = _step0(gpt, tokens, seed, plain=False)
+    _hold_bf16("(l) forced vs default,", lk, lp, gk, gp, ref)
+    del gk, gp, ref
+    torch.cuda.empty_cache()
+
+    _zero_launch_counts()
+    after_first = []
+
+    def log(line):
+        after_first.append(ops.matmul.launches)
+        print(f"(l) {line}")
+
+    t0 = time.perf_counter()
+    with dispatch.force_kernels():
+        losses, _ = train_gpt.train(gpt, corpus, FORCED_STEPS, GPT2_B,
+                                    "cuda", log=log)
+    losses = losses.tolist()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    print(f"(l) {FORCED_STEPS} forced steps in {seconds:.1f} s; losses "
+          f"{[round(x, 4) for x in losses]}; K11 launches after step 0 "
+          f"{after_first[0]}; kernel launches {launches}")
+    sites, layers = 2 * cfg.num_layers + 1, cfg.num_layers
+    want = {"matmul": 216 * FORCED_STEPS, "softmax_cross_entropy_fwd": 0,
+            "softmax_cross_entropy_bwd": 0, "quantize_int8_stochastic": 0,
+            "dropout": 2 * sites * FORCED_STEPS,
+            "layer_norm_fwd": sites * FORCED_STEPS,
+            "layer_norm_bwd": sites * FORCED_STEPS,
+            "flash_attention_fwd": layers * FORCED_STEPS,
+            "flash_attention_bwd": layers * FORCED_STEPS}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(l) loss not finite: {losses}")
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"(l) loss at step {FORCED_STEPS - 1} "
+                             f"({losses[-1]}) not below step 1's "
+                             f"({losses[1]})")
+    if launches != want or after_first[0] != 216:
+        raise AssertionError(f"(l) kernel launches {launches}, expected "
+                             f"{want} (216 K11 a step)")
+
+    # K9 on the trained model's logits, bf16 [8192, 50257], against the
+    # op GPT.loss uses; K10 on its final hidden states.
+    targets = torch.roll(tokens, -1, dims=-1)
+    with torch.no_grad():
+        logits = gpt.apply(tokens, logits_dtype=torch.bfloat16)
+        hidden = gpt.apply(tokens, return_hidden=True)
+    g = torch.full(targets.shape, 1.0 / targets.numel(), device="cuda")
+    k11_before = ops.matmul.launches
+    results = []
+    for fn in (ops.softmax_cross_entropy_fused,
+               ops.softmax_cross_entropy_with_integer_labels):
+        leaf = logits.clone().requires_grad_()
+        ce = fn(leaf, targets)
+        ce.backward(g)
+        results.append((ce.detach(), leaf.grad))
+        del leaf, ce
+    (ce_k, dl_k), (ce_r, dl_r) = results
+    torch.cuda.synchronize()
+    ce_err = (ce_k - ce_r).abs().max().item()
+    dl_err, dl_ok = _dlogits_err(dl_k, dl_r)
+    print(f"(l) K9 on the step's logits {tuple(logits.shape)} bf16 vs "
+          f"softmax_cross_entropy_with_integer_labels: ce max abs err "
+          f"{ce_err:.3e}, dlogits {dl_err:.3e}")
+    if not (ce_err <= LN_F32_TOL * max(1.0, ce_r.abs().max().item())
+            and dl_ok):
+        raise AssertionError("(l) K9 differs from the integer-label CE")
+    del logits, results, ce_k, dl_k, ce_r, dl_r
+    qt = _check_k10(f"(l) K10 on the step's hidden states "
+                    f"{tuple(hidden.shape)} bf16", hidden, SEED + 16)
+    deq_err = ((qt.values.float() * qt.scales - hidden.float()).abs()
+               / qt.scales).max().item()
+    print(f"(l) K10 on the step's final hidden states {tuple(hidden.shape)}"
+          f" bf16: equal to the plain twin; max |dequantized - x| "
+          f"{deq_err:.4f} steps (< 1)")
+    if not deq_err < 1.0 + 1e-5:
+        raise AssertionError("(l) K10: error of a step or more")
+    if ops.matmul.launches != k11_before:
+        raise AssertionError("(l) K9/K10 changed K11's launch count")
+    counts = _launch_counts()
+    print(f"(l) kernel launches of the whole phase after the counts were set "
+          f"to 0: {counts}")
+    del hidden, qt
+    torch.cuda.empty_cache()
+    return gpt, corpus, counts
+
+
+def phase_forced_timings(gpt, corpus, device_line):
+    """(m) K11 at the step's product shapes (kernel, plain, cuBLAS), and
+    the sum over one step's 216 products; the 8192^3 bf16 diagnostic
+    beside torch.mm; K9 forward and backward at [8192, 50257] bf16 beside
+    F.cross_entropy; K10 at [8192, 768] fp32 (no library call computes
+    it); the forced GPT-2 step beside the default step."""
+    import torch
+    import torch.nn.functional as F
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    res = {}
+    rng = np.random.default_rng(SEED + 17)
+    f16 = torch.bfloat16
+
+    def forced(fn):
+        def run():
+            with dispatch.force_kernels():
+                return fn()
+        return run
+
+    step_k = step_lib = 0.0
+    for (m, k, n, ta, tb, with_bias), uses in zip(STEP_PRODUCTS, STEP_USES):
+        a, b, bias = _mm_operands(m, k, n, ta, tb, rng)
+        a, b = a.to(f16), b.to(f16)
+        bias = bias if with_bias else None
+        name = (f"matmul [{m}, {k}] x [{k}, {n}] trans_a={ta} trans_b={tb}"
+                f"{' bias' if with_bias else ''} bf16")
+
+        def k11(a=a, b=b, bias=bias, ta=ta, tb=tb):
+            return ops.matmul(a, b, bias, trans_a=ta, trans_b=tb)
+
+        def plain(a=a, b=b, bias=bias, ta=ta, tb=tb):
+            return ops.matmul_reference(a, b, bias, trans_a=ta, trans_b=tb)
+
+        _both(res, "m", name, forced(k11), device_line, plain_fn=plain)
+        _device_both(res, "m", name, forced(k11), device_line,
+                     plain_fn=plain)
+        res["bound " + name] = _bound(_nbytes(a, b) + 2 * m * n
+                                      + (4 * n if with_bias else 0),
+                                      2 * m * k * n)
+        # The library call: the default path's cuBLAS product (addmm with a
+        # bf16 bias where there is one).
+        a_op, b_op = (a.t() if ta else a), (b.t() if tb else b)
+        if with_bias:
+            b16 = bias.to(f16)
+            lib = (lambda a_op=a_op, b_op=b_op, b16=b16:
+                   torch.addmm(b16, a_op, b_op))
+            what = "torch.addmm"
+        else:
+            lib = lambda a_op=a_op, b_op=b_op: torch.mm(a_op, b_op)  # noqa
+            what = "torch.mm"
+        res["library " + name] = _library("m", f"{what} {name}", lib,
+                                          device_line)
+        step_k += 12 * uses * res[name][2]
+        step_lib += 12 * uses * res["library " + name][1]
+        del a, b, bias, a_op, b_op
+    flops = 12 * sum(2 * m * k * n * u for (m, k, n, *_), u
+                     in zip(STEP_PRODUCTS, STEP_USES))
+    res["k11 step"] = (step_k, step_lib, flops / PEAK_BF16_S * 1e3)
+    print(f"(m) one GPT-2 step's 216 products ({flops:.3e} FLOP): K11 "
+          f"{step_k:.3f} ms, cuBLAS {step_lib:.3f} ms of device time, bound "
+          f"{res['k11 step'][2]:.3f} ms [{device_line}]")
+
+    a = torch.randn(8192, 8192, device="cuda").to(f16)
+    b = torch.randn(8192, 8192, device="cuda").to(f16)
+    name = "matmul [8192, 8192] x [8192, 8192] bf16"
+    k11_ms = _device_ms(forced(lambda: ops.matmul(a, b)), runs=10)
+    mm_ms = _device_ms(lambda: torch.mm(a, b), runs=10)
+    res["diag"] = (k11_ms, mm_ms, _bound(_nbytes(a, b, a), 2 * 8192 ** 3)[0])
+    print(f"(m) {name}: K11 {k11_ms:.3f} ms ({2 * 8192 ** 3 / k11_ms / 1e9:.1f}"
+          f" TFLOP/s), torch.mm {mm_ms:.3f} ms "
+          f"({2 * 8192 ** 3 / mm_ms / 1e9:.1f} TFLOP/s), bound "
+          f"{res['diag'][2]:.3f} ms [{device_line}]")
+    del a, b
+    torch.cuda.empty_cache()
+
+    n_rows, v = GPT2_B * GPT2_S, 50257
+    logits = (torch.randn(n_rows, v, device="cuda") * 3).to(f16)
+    labels = torch.randint(0, v, (n_rows,), device="cuda")
+    g = torch.full((n_rows,), 1.0 / n_rows, device="cuda")
+    fwd_name = f"softmax_cross_entropy_fused forward [{n_rows}, {v}] bf16"
+    bwd_name = fwd_name.replace("forward", "backward")
+
+    def fwd():
+        with torch.no_grad():
+            return ops.softmax_cross_entropy_fused(logits, labels)
+
+    _both(res, "m", fwd_name, fwd, device_line)
+    _device_both(res, "m", fwd_name, fwd, device_line)
+    ce = fwd()
+    res["bound " + fwd_name] = _bound(_nbytes(logits, labels, ce, ce), 0)
+    leaf = logits.clone().requires_grad_()
+    out_k = ops.softmax_cross_entropy_fused(leaf, labels)
+    with dispatch.force_plain():
+        out_p = ops.softmax_cross_entropy_fused(leaf, labels)
+
+    def bwd(o):
+        return lambda: torch.autograd.grad(o, leaf, g, retain_graph=True)
+
+    _both(res, "m", bwd_name, bwd(out_k), device_line, plain_fn=bwd(out_p))
+    _device_both(res, "m", bwd_name, bwd(out_k), device_line,
+                 plain_fn=bwd(out_p))
+    res["bound " + bwd_name] = _bound(
+        _nbytes(logits, labels, ce, ce, logits), 0)
+    del out_k, out_p
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.cross_entropy(logits, labels, reduction="none")
+
+    res["library " + fwd_name] = _library(
+        "m", "F.cross_entropy(reduction='none') forward", lib_fwd,
+        device_line)
+    lib_out = F.cross_entropy(leaf, labels, reduction="none")
+    res["library " + bwd_name] = _library(
+        "m", "F.cross_entropy backward (autograd)",
+        lambda: torch.autograd.grad(lib_out, leaf, g.to(lib_out.dtype),
+                                    retain_graph=True), device_line)
+    del logits, leaf, lib_out, ce
+    torch.cuda.empty_cache()
+
+    x = torch.randn(GPT2_B * GPT2_S, 768, device="cuda")
+    name = f"quantize_int8_stochastic [{GPT2_B * GPT2_S}, 768] fp32"
+    quant = (lambda: ops.quantize_int8_stochastic(x, 12345))  # noqa: E731
+    _both(res, "m", name, quant, device_line)
+    _device_both(res, "m", name, quant, device_line)
+    qt = quant()
+    res["bound " + name] = _bound(_nbytes(x, qt.values, qt.scales), 0)
+    del x, qt
+
+    step = _entry_step(gpt, corpus)
+    name = (f"train step (forward, backward, clip, adamw) b{GPT2_B} "
+            f"s{GPT2_S} GPT-2 small dropout 0.1 bf16, K11 forced")
+    # "kernel" is the forced step, "plain" the default step (cuBLAS).
+    _both(res, "m", name, forced(step), device_line, runs=10, warmup=2,
+          plain_fn=step)
+    ms = res[name]
+    print(f"(m) GPT-2 small step: forced (K11) {ms[0]:.3f} ms, default "
+          f"(cuBLAS) {ms[1]:.3f} ms [{device_line}]")
+    return res
 
 
 def _device_both(res, tag, name, fn, device_line, plain_fn=None):
@@ -1525,10 +2102,10 @@ def phase_entry_timings(gpt, corpus, device_line):
     return res
 
 
-def main(phases="abcdefghijkp"):
+def main(phases="abcdefghijklmp"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
     runs the quantized serving path alone); the JSON summary and the ok
-    line come only from a run of every phase a to k."""
+    line come only from a run of every phase a to m."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1545,7 +2122,10 @@ def main(phases="abcdefghijkp"):
     k4_err = phase_int8_matmul_vs_plain()
     flash_err = phase_flash_vs_plain()
     fused_err = phase_fused_vs_plain()
-    serving = training_res = entry_res = quant_res = None
+    k11_err = phase_matmul_vs_plain()
+    sxe_err = phase_sxe_vs_plain()
+    k10_err = phase_quantize_vs_plain()
+    serving = training_res = entry_res = quant_res = forced_res = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
         prompts = traffic_prompts(gpt.config.vocab_size)
@@ -1585,8 +2165,16 @@ def main(phases="abcdefghijkp"):
             phase_profile(gpt, corpus, device_line)
         del gpt
         torch.cuda.empty_cache()
+    if "l" in phases:
+        t0 = time.perf_counter()
+        gpt, corpus, forced_launches = phase_forced_training()
+        print(f"(l) forced training phase {time.perf_counter() - t0:.1f} s")
+        if "m" in phases:
+            forced_res = phase_forced_timings(gpt, corpus, device_line)
+        del gpt
+        torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
-    if None in (serving, training_res, entry_res, quant_res):
+    if None in (serving, training_res, entry_res, quant_res, forced_res):
         return 0
     shape = "b4 h8 s4096 d128 causal bf16"
     k4 = "int8_matmul [8, 768] x [768, 3072] bf16 bias"
@@ -1618,13 +2206,32 @@ def main(phases="abcdefghijkp"):
             ("layer_norm_fwd", "np_modeling_tpu/ops/fused.py:48",
              "layer_norm forward [16384, 1024] bf16"),
             ("layer_norm_bwd", "np_modeling_tpu/ops/fused.py:58",
-             "layer_norm backward [16384, 1024] bf16"))]
+             "layer_norm backward [16384, 1024] bf16"))] + [
+        ("matmul", MATMUL_SOURCE, "np_modeling_tpu/ops/matmul.py:27",
+         forced_launches["matmul"], k11_err, forced_res,
+         "matmul [8192, 768] x [768, 3072] trans_a=False trans_b=False bias "
+         "bf16"),
+        ("softmax_cross_entropy_fwd", FUSED_SOURCE,
+         "np_modeling_tpu/ops/fused.py:153",
+         forced_launches["softmax_cross_entropy_fwd"], sxe_err, forced_res,
+         f"softmax_cross_entropy_fused forward [{GPT2_B * GPT2_S}, 50257] "
+         "bf16"),
+        ("softmax_cross_entropy_bwd", FUSED_SOURCE,
+         "np_modeling_tpu/ops/fused.py:189",
+         forced_launches["softmax_cross_entropy_bwd"], sxe_err, forced_res,
+         f"softmax_cross_entropy_fused backward [{GPT2_B * GPT2_S}, 50257] "
+         "bf16"),
+        ("quantize_int8_stochastic", QUANT_SOURCE,
+         "np_modeling_tpu/ops/quantization.py:47",
+         forced_launches["quantize_int8_stochastic"], k10_err, forced_res,
+         f"quantize_int8_stochastic [{GPT2_B * GPT2_S}, 768] fp32")]
     # "ms": a call's wall time (CUDA events, host included), every entry;
     # "device_ms": calls back to back behind a sleep kernel (device only);
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its
     # operations over 989 TFLOP/s; "library_ms" / "library_device_ms": one
     # PyTorch call computing the same function (null where none does; K4's
-    # dequantize + torch.mm yardstick, three calls, is printed in (k)).
+    # dequantize + torch.mm yardstick, three calls, is printed in (k); none
+    # computes K10's stochastic rounding).
     kernels = []
     for name, source, where, launches, err, res, key in rows:
         ms, (bound_ms, bound_by) = res[key], res["bound " + key]

@@ -1,10 +1,15 @@
-// LayerNorm forward and backward (K8) and dropout with an in-kernel generator
-// (K7), for Hopper (sm_90a).
+// LayerNorm forward and backward (K8), dropout with an in-kernel generator (K7) and
+// softmax cross-entropy with integer labels, forward and backward (K9), for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernels of np_modeling_tpu/ops/fused.py:
 //   LayerNorm forward   _ln_fwd_kernel  (:48, launched by layer_norm_fwd_pallas, call :90)
 //   LayerNorm backward  _ln_bwd_kernel  (:58, launched by layer_norm_bwd_pallas, call :120)
 //   dropout             _dropout_kernel (:310, call :329, via dropout_prng :346)
+//   softmax-CE forward  _sxe_fwd_kernel (:153, call :234, via softmax_cross_entropy_fused)
+//   softmax-CE backward _sxe_bwd_kernel (:189, call :284)
+//
+// K9 is at the end of this file, with its own note.
 //
 // What they compute. LayerNorm over the last axis of x [n, d] (fp32 or bf16),
 // gamma and beta fp32 [d]: the fp32 mean, then the fp32 variance of x - mean
@@ -40,6 +45,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -307,24 +314,6 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// Philox4x32-10 (Salmon et al., SC'11) with counter (c0, c1, 0, 0) and key (k0, k1).
-__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1, uint32_t k0,
-                                               uint32_t k1) {
-  uint32_t c2 = 0, c3 = 0;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
-    c0 = hi1 ^ c1 ^ k0;
-    c2 = hi0 ^ c3 ^ k1;
-    c1 = lo1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
-
 // Each thread takes one 16-byte vector (4 fp32 or 8 bf16 elements) a step.
 template <typename T>
 __global__ void dropout(const T* __restrict__ x, T* __restrict__ out, long long n, uint32_t k0,
@@ -355,6 +344,131 @@ __global__ void dropout(const T* __restrict__ x, T* __restrict__ out, long long 
         out[i0 + e] = from_f<T>(bits[e] < threshold ? to_f(x[i0 + e]) / keep : 0.f);
     }
   }
+}
+
+
+// ---- K9: softmax cross-entropy with integer labels ---------------------------------
+//
+// Forward: for each row of logits [n, v] (fp32 or bf16) and its int64 label, lse =
+// log(sum(exp(logits))) in fp32 and ce = lse - logit[label], where a label outside
+// [0, v) picks up nothing (ce = lse), as the TPU kernel's `hit = (col == label) &
+// valid` never hits. Backward: dlogits = (exp(logit - lse) - onehot) * g, rounded once
+// to the logits' dtype; only lse (fp32 [n]) is kept between the two.
+//
+// What bounds it: bytes. At the GPT-2 step's logits, [8192, 50257] bf16, the forward
+// reads 823 MB (0.25 ms at 3.35 TB/s) and the backward reads and writes 1.65 GB
+// (0.49 ms); one exp an element is far below the card's rate. So each element is read
+// once: one block walks one row (the TPU kernel's sequential vocab grid becomes the
+// block's loop), each thread keeps an online (max, sum of exp) over 16-byte vectors
+// (one exp an element plus one a vector whose max rises), and the block merges the
+// threads' pairs by shuffles and one shared-memory step. The row's label logit is one
+// extra scalar load. A row of 50257 is not 16-byte aligned: the first elements up to
+// the row's first 16-byte boundary and the last ragged ones go as scalars.
+
+constexpr int kSxeThreads = 256;
+
+// Row layout for vectors: the elements before the first 16-byte boundary (head), the
+// whole vectors after it, and the elements after the last whole vector (from `tail`).
+template <typename T>
+__device__ __forceinline__ void row_split(const T* row, int v, int& head, int& n_vec,
+                                          int& tail) {
+  constexpr int E = 16 / sizeof(T);
+  head = static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) / sizeof(T));
+  if (head > v) head = v;
+  n_vec = (v - head) / E;
+  tail = head + n_vec * E;
+}
+
+// (m, l) <- the pair of (m, l) and (m2, l2): the larger max, sums rescaled to it.
+__device__ __forceinline__ void lse_merge(float& m, float& l, float m2, float l2) {
+  const float mx = fmaxf(m, m2);
+  l = l * expf(m - mx) + l2 * expf(m2 - mx);
+  m = mx;
+}
+
+__device__ __forceinline__ void lse_add(float& m, float& l, float x) {
+  if (x > m) {
+    l = l * expf(m - x) + 1.f;
+    m = x;
+  } else {
+    l += expf(x - m);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSxeThreads)
+    sxe_fwd(const T* __restrict__ logits, const long long* __restrict__ labels,
+            float* __restrict__ ce, float* __restrict__ lse, int v) {
+  constexpr int E = 16 / sizeof(T);
+  __shared__ float red[2 * (kSxeThreads / 32)];
+  const long long row = blockIdx.x;
+  const T* x = logits + row * v;
+  int head, n_vec, tail;
+  row_split(x, v, head, n_vec, tail);
+  // -1e30 as the TPU kernel's running max starts: -inf logits then add exp(-inf) = 0.
+  float m = -1e30f, l = 0.f;
+  for (int c = threadIdx.x; c < head; c += kSxeThreads) lse_add(m, l, to_f(x[c]));
+  for (int i = threadIdx.x; i < n_vec; i += kSxeThreads) {
+    float xv[E];
+    load_vec<T, E>(x + head + i * E, xv);
+    float cm = xv[0];
+#pragma unroll
+    for (int e = 1; e < E; ++e) cm = fmaxf(cm, xv[e]);
+    if (cm > m) {
+      l *= expf(m - cm);
+      m = cm;
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) l += expf(xv[e] - m);
+  }
+  for (int c = tail + threadIdx.x; c < v; c += kSxeThreads) lse_add(m, l, to_f(x[c]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+    const float l2 = __shfl_xor_sync(0xffffffffu, l, off);
+    lse_merge(m, l, m2, l2);
+  }
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) {
+    red[2 * warp] = m;
+    red[2 * warp + 1] = l;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < kSxeThreads / 32; ++w) lse_merge(m, l, red[2 * w], red[2 * w + 1]);
+  const float s = m + logf(l);
+  const long long label = labels[row];
+  const float hit = (label >= 0 && label < v) ? to_f(x[label]) : 0.f;
+  lse[row] = s;
+  ce[row] = s - hit;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSxeThreads)
+    sxe_bwd(const T* __restrict__ logits, const long long* __restrict__ labels,
+            const float* __restrict__ lse, const float* __restrict__ g, T* __restrict__ dlogits,
+            int v) {
+  constexpr int E = 16 / sizeof(T);
+  const long long row = blockIdx.x;
+  const T* x = logits + row * v;
+  T* out = dlogits + row * v;
+  const float s = lse[row], gr = g[row];
+  const long long label = labels[row];
+  int head, n_vec, tail;
+  row_split(x, v, head, n_vec, tail);  // out's rows have x's alignment (checked)
+  for (int c = threadIdx.x; c < head; c += kSxeThreads)
+    out[c] = from_f<T>((expf(to_f(x[c]) - s) - (c == label ? 1.f : 0.f)) * gr);
+  for (int i = threadIdx.x; i < n_vec; i += kSxeThreads) {
+    const int c0 = head + i * E;
+    float xv[E];
+    load_vec<T, E>(x + c0, xv);
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      xv[e] = (expf(xv[e] - s) - (c0 + e == label ? 1.f : 0.f)) * gr;
+    store_vec<T, E>(out + c0, xv);
+  }
+  for (int c = tail + threadIdx.x; c < v; c += kSxeThreads)
+    out[c] = from_f<T>((expf(to_f(x[c]) - s) - (c == label ? 1.f : 0.f)) * gr);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -452,6 +566,48 @@ extern "C" int np_dropout(const void* x, void* out, int dtype, long long n,
     dropout<bf16><<<(unsigned)grid, block, 0, s>>>(static_cast<const bf16*>(x),
                                                    static_cast<bf16*>(out), n, k0, k1,
                                                    threshold, keep);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9 forward: logits [n, v] contiguous (dtype 0 float32, 1 bfloat16), labels int64
+// [n]; writes ce and lse, fp32 [n]. One block a row.
+extern "C" int np_sxe_fwd(const void* logits, const long long* labels, float* ce, float* lse,
+                          int dtype, long long n, int v, void* stream) {
+  if (n < 0 || v < 1 || n > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    sxe_fwd<float><<<(unsigned)n, kSxeThreads, 0, s>>>(static_cast<const float*>(logits),
+                                                         labels, ce, lse, v);
+  else if (dtype == 1)
+    sxe_fwd<bf16><<<(unsigned)n, kSxeThreads, 0, s>>>(static_cast<const bf16*>(logits),
+                                                        labels, ce, lse, v);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9 backward: dlogits [n, v] in the logits' dtype from logits, labels, lse and the
+// fp32 row cotangents g [n]. dlogits must sit at the same offset from a 16-byte
+// boundary as logits (the rows are split alike).
+extern "C" int np_sxe_bwd(const void* logits, const long long* labels, const float* lse,
+                          const float* g, void* dlogits, int dtype, long long n, int v,
+                          void* stream) {
+  if (n < 0 || v < 1 || n > 2147483647LL ||
+      ((reinterpret_cast<uintptr_t>(logits) ^ reinterpret_cast<uintptr_t>(dlogits)) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    sxe_bwd<float><<<(unsigned)n, kSxeThreads, 0, s>>>(static_cast<const float*>(logits),
+                                                         labels, lse, g,
+                                                         static_cast<float*>(dlogits), v);
+  else if (dtype == 1)
+    sxe_bwd<bf16><<<(unsigned)n, kSxeThreads, 0, s>>>(static_cast<const bf16*>(logits),
+                                                        labels, lse, g,
+                                                        static_cast<bf16*>(dlogits), v);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

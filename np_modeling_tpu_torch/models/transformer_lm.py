@@ -104,13 +104,16 @@ def check_ported(config: GPTConfig) -> None:
 
 
 class GPT(nn.Module):
-    """The model's modules and parameters, on ``device``. Parameters are
-    allocated uninitialised: call ``init(generator)`` or load weights
+    """The model's modules and parameters, on ``device``: the card
+    (``cuda``) unless the caller names another, as JAX places arrays on its
+    default backend; without a card that raises, as torch does. Parameters
+    are allocated uninitialised: call ``init(generator)`` or load weights
     (``utils.convert.params_from_numpy``)."""
 
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         check_ported(config)
+        device = torch.device("cuda") if device is None else device
         c = self.config = config
         self.embedding = Embedding(c.vocab_size, c.d_model, device)
         self.pos_embedding = Embedding(c.max_len, c.d_model, device)

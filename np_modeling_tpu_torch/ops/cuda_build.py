@@ -4,8 +4,9 @@ with a plain C interface -> ctypes).
 Each library is built at its first use from the sources in this package's
 ``csrc/`` into ``build/np_modeling_tpu_torch/`` at the checkout's root (the
 directory ``.gitignore`` lists), under a name keyed by a hash of the
-sources and flags, so a changed source or flag builds anew and an unchanged
-one is loaded as it is. A failed build or load raises; nothing falls back.
+source, the shared headers (``csrc/*.cuh``) and the flags, so a changed
+source, header or flag builds anew and an unchanged one is loaded as it
+is. A failed build or load raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ def _nvcc() -> str:
 
 def _target(name: str):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     path = BUILD_DIR / f"lib{name}_{digest}.so"
     return src, path, path.with_suffix(".log")

@@ -6,6 +6,14 @@ kernel cannot take them); an op whose inputs lie on the CPU runs the plain
 PyTorch version. ``force_plain()`` runs the plain version on CUDA tensors
 too, in a scope — ``chip_smoke.py`` and the card-only tests use it to hold a
 kernel against its plain version on the same inputs.
+
+``force_kernels()`` is the counterpart of the JAX package's
+``force_pallas(True)``: in its scope, an op whose default on the card is a
+library call (as XLA is JAX's default there) takes its kernel on CUDA
+tensors. Today that op is ``ops.matmul`` (K11); every other op launches its
+kernel on the card anyway. CPU tensors still run the plain versions, and
+``force_plain()`` inside ``force_kernels()`` wins, as ``force_pallas(False)``
+would.
 """
 
 from __future__ import annotations
@@ -31,6 +39,41 @@ def force_plain():
         yield
     finally:
         _state.force_plain = prev
+
+
+def kernels_forced() -> bool:
+    return bool(getattr(_state, "force_kernels", False))
+
+
+@contextlib.contextmanager
+def force_kernels():
+    """Take the kernel where the default on the card is a library call, in
+    this scope (CUDA tensors only; ``force_plain()`` still wins)."""
+    prev = kernels_forced()
+    _state.force_kernels = True
+    try:
+        yield
+    finally:
+        _state.force_kernels = prev
+
+
+def scopes() -> tuple:
+    """The scopes in force on this thread: (kernels forced, plain forced)."""
+    return kernels_forced(), plain_forced()
+
+
+@contextlib.contextmanager
+def within(saved: tuple):
+    """Re-enter ``scopes()`` as saved. Autograd runs the backward of CUDA
+    tensors on a thread of its own, which does not see the scopes of the
+    thread that ran the forward: a Function whose backward dispatches saves
+    them in its forward and runs its backward within them."""
+    prev = scopes()
+    _state.force_kernels, _state.force_plain = saved
+    try:
+        yield
+    finally:
+        _state.force_kernels, _state.force_plain = prev
 
 
 def use_kernel(x: torch.Tensor) -> bool:

@@ -1,12 +1,13 @@
-"""LayerNorm (K8) and in-kernel-generator dropout (K7): the wrappers of the
-hand-written CUDA kernels of ``csrc/fused.cu`` and their plain PyTorch
-versions.
+"""LayerNorm (K8), in-kernel-generator dropout (K7) and fused softmax
+cross-entropy (K9): the wrappers of the hand-written CUDA kernels of
+``csrc/fused.cu`` and their plain PyTorch versions.
 
-Counterpart of np_modeling_tpu/ops/fused.py (LayerNorm :48-145, dropout
-:310-370). ``ops.layer_norm`` and ``ops.dropout`` (ops/normalization.py)
-choose between kernel and plain version by ``ops.dispatch``; the launch
-counts are theirs (``layer_norm.launches_fwd`` / ``.launches_bwd``,
-``dropout.launches``).
+Counterpart of np_modeling_tpu/ops/fused.py (LayerNorm :48-145, softmax-CE
+:153-302, dropout :310-370). ``ops.layer_norm`` and ``ops.dropout``
+(ops/normalization.py) choose between kernel and plain version by
+``ops.dispatch``; the launch counts are theirs (``layer_norm.launches_fwd``
+/ ``.launches_bwd``, ``dropout.launches``). ``softmax_cross_entropy_fused``
+is defined here, with its counts (``.launches_fwd`` / ``.launches_bwd``).
 
 Random bits. The TPU kernel draws its mask from the TPU's generator, whose
 bits exist nowhere else. Here a mask bit is a pure function of a 64-bit
@@ -24,6 +25,8 @@ import ctypes
 import functools
 
 import torch
+
+from np_modeling_tpu_torch.ops import dispatch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,9 +64,10 @@ def keep_threshold(rate: float) -> int:
     return int((1.0 - rate) * (2 ** 32 - 1))
 
 
-def philox_keep_mask(seed: int, shape, rate: float, device=None):
-    """The keep-mask (True = keep) that the dropout kernel draws for a
-    tensor of ``shape`` under ``seed``, computed in torch on ``device``."""
+def philox_bits(seed: int, shape, device=None) -> torch.Tensor:
+    """The uint32 words (as int64) that the port's kernels draw for a tensor
+    of ``shape`` under ``seed``: element i takes word ``i % 4`` of the draw
+    at counter ``i // 4``, computed in torch on ``device``."""
     n = 1
     for s in shape:
         n *= int(s)
@@ -71,8 +75,13 @@ def philox_keep_mask(seed: int, shape, rate: float, device=None):
     zero = torch.zeros_like(groups)
     words = philox4x32_10(groups & _MASK32, groups >> 32, zero, zero,
                           (seed & _MASK32, (seed >> 32) & _MASK32))
-    bits = torch.stack(words, dim=-1).reshape(-1)[:n]
-    return (bits < keep_threshold(rate)).reshape(shape)
+    return torch.stack(words, dim=-1).reshape(-1)[:n].reshape(shape)
+
+
+def philox_keep_mask(seed: int, shape, rate: float, device=None):
+    """The keep-mask (True = keep) that the dropout kernel draws for a
+    tensor of ``shape`` under ``seed``, computed in torch on ``device``."""
+    return philox_bits(seed, shape, device) < keep_threshold(rate)
 
 
 @functools.lru_cache(maxsize=64)
@@ -91,7 +100,7 @@ def dropout_scale(x: torch.Tensor, rate: float) -> torch.Tensor:
     return (x.float() / keep).to(x.dtype)
 
 
-# ---- the CUDA kernels (K7, K8) -------------------------------------------
+# ---- the CUDA kernels (K7, K8, K9) ---------------------------------------
 
 _LN_PER_THREAD, _LN_MAX_THREADS = 16, 512
 LN_MAX_D = _LN_PER_THREAD * _LN_MAX_THREADS
@@ -119,6 +128,10 @@ _ARGTYPES = {
     "np_dropout": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_uint64, ctypes.c_uint32,
                    ctypes.c_float],
+    "np_sxe_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_int],
+    "np_sxe_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_int],
 }
 
 
@@ -278,3 +291,116 @@ def dropout_prng(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     calls it on the card; elsewhere its plain path is the explicit mask
     ``philox_keep_mask``, which holds the same bits."""
     return _DropoutPRNG.apply(x, seed, rate)
+
+
+# ---- fused softmax cross-entropy (K9) --------------------------------------
+
+def sxe_rows(logits, labels):
+    """logits as contiguous rows [n, v] and labels as int64 [n]; raises on
+    shapes that do not pair."""
+    if labels.shape != logits.shape[:-1]:
+        raise ValueError(f"labels {tuple(labels.shape)} for logits "
+                         f"{tuple(logits.shape)}: want logits.shape[:-1]")
+    v = logits.shape[-1]
+    return logits.reshape(-1, v).contiguous(), \
+        labels.reshape(-1).to(torch.int64).contiguous()
+
+
+def sxe_fwd_plain(l2, lab):
+    """(ce, lse), fp32 [n]: logsumexp minus the label's logit, nothing
+    picked up for a label outside [0, v) (JAX's ``hit`` never fires)."""
+    lf = l2.float()
+    v = lf.shape[-1]
+    lse = torch.logsumexp(lf, dim=-1)
+    valid = (lab >= 0) & (lab < v)
+    hit = lf.gather(-1, lab.clamp(0, v - 1)[:, None])[:, 0]
+    return lse - torch.where(valid, hit, 0.0), lse
+
+
+def sxe_bwd_plain(l2, lab, lse, g):
+    """``(softmax - onehot) * g`` in the logits' dtype, one rounding."""
+    lf = l2.float()
+    p = torch.exp(lf - lse[:, None])
+    cols = torch.arange(lf.shape[-1], device=lf.device)
+    onehot = (cols == lab[:, None]).float()
+    return ((p - onehot) * g.float()[:, None]).to(l2.dtype)
+
+
+def _check_sxe(l2, lab):
+    if l2.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the softmax-CE kernels take float32 or bfloat16 "
+                         f"logits, not {l2.dtype}")
+    if lab.device != l2.device:
+        raise ValueError(f"labels on {lab.device}, logits on {l2.device}")
+
+
+def sxe_fwd_cuda(l2, lab):
+    """K9 forward on CUDA rows: (ce, lse), fp32 [n]."""
+    _check_sxe(l2, lab)
+    n, v = l2.shape
+    ce = torch.empty(n, dtype=torch.float32, device=l2.device)
+    lse = torch.empty_like(ce)
+    if n:
+        _call("np_sxe_fwd", l2.data_ptr(), lab.data_ptr(), ce.data_ptr(),
+              lse.data_ptr(), _DTYPE_CODES[l2.dtype], n, v, device=l2.device)
+        softmax_cross_entropy_fused.launches_fwd += 1
+    return ce, lse
+
+
+def sxe_bwd_cuda(l2, lab, lse, g):
+    """K9 backward on CUDA rows: dlogits [n, v] in the logits' dtype."""
+    _check_sxe(l2, lab)
+    n, v = l2.shape
+    if l2.data_ptr() % 16:
+        l2 = l2.clone()          # rows split alike in logits and dlogits
+    out = torch.empty_like(l2)
+    if n:
+        g, lse = g.to(torch.float32).contiguous(), lse.contiguous()
+        _call("np_sxe_bwd", l2.data_ptr(), lab.data_ptr(),
+              lse.data_ptr(), g.data_ptr(), out.data_ptr(),
+              _DTYPE_CODES[l2.dtype], n, v, device=l2.device)
+        softmax_cross_entropy_fused.launches_bwd += 1
+    return out
+
+
+class _SxeFused(torch.autograd.Function):
+    """Saves the logits, the labels and lse (fp32 [n]) only; the backward
+    recomputes the probabilities."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        l2, lab = sxe_rows(logits, labels)
+        ctx.kernel = dispatch.use_kernel(l2)
+        ce, lse = (sxe_fwd_cuda if ctx.kernel else sxe_fwd_plain)(l2, lab)
+        ctx.save_for_backward(l2, lab, lse)
+        ctx.shape = logits.shape
+        return ce.reshape(labels.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        l2, lab, lse = ctx.saved_tensors
+        g2 = g.reshape(-1)
+        dl = (sxe_bwd_cuda if ctx.kernel else sxe_bwd_plain)(l2, lab, lse, g2)
+        return dl.reshape(ctx.shape), None
+
+
+def softmax_cross_entropy_fused(logits: torch.Tensor,
+                                labels: torch.Tensor) -> torch.Tensor:
+    """Per-example CE from logits [..., v] (fp32 or bf16) and integer labels
+    [...]: fp32 with the labels' shape (JAX :211). A label outside [0, v)
+    picks up no logit (ce = lse) and no onehot. K9 on CUDA tensors, the
+    plain version on CPU tensors or under ``dispatch.force_plain()``; the
+    backward is ``(softmax - onehot) * g`` in the logits' dtype."""
+    return _SxeFused.apply(logits, labels)
+
+
+def softmax_cross_entropy_fused_reference(logits: torch.Tensor,
+                                          labels: torch.Tensor):
+    """K9's plain forward: per-example ce, fp32, with the labels' shape."""
+    l2, lab = sxe_rows(logits, labels)
+    return sxe_fwd_plain(l2, lab)[0].reshape(labels.shape)
+
+
+# Kernel launches since import (or since a caller reset them to 0).
+softmax_cross_entropy_fused.launches_fwd = 0
+softmax_cross_entropy_fused.launches_bwd = 0

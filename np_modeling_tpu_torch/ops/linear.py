@@ -1,12 +1,15 @@
 """Affine op ``y = x @ w (+ b)`` over the last axis, with a hand-written
 backward.
 
-Counterpart of np_modeling_tpu/ops/linear.py with ops/matmul.py's default
-path: one fp32 accumulation of the product, the bias added in fp32, one
-rounding to x's dtype. The backward (JAX :31-47): ``db = sum(dy)`` and
-``dw = x^T dy`` in w's dtype, ``dx = dy w^T`` in x's dtype. These products
-run outside any Pallas kernel in JAX, so here they are library matrix
-products (cuBLAS on the card, with TF32 left to the caller's setting).
+Counterpart of np_modeling_tpu/ops/linear.py: the forward and both
+gradient products go through ``ops.matmul`` exactly as JAX calls its
+``matmul`` (JAX :24-44), the transposes as ``trans_a``/``trans_b`` flags on
+the stored tensors. By default those products are library products (cuBLAS
+on the card; one fp32 accumulation, the bias added in fp32, one rounding to
+x's dtype); under ``dispatch.force_kernels()`` on the card they launch K11,
+the backward's two within the scopes the forward ran in.
+The backward: ``db = sum(dy)`` and ``dw = x^T dy`` in w's dtype, ``dx = dy
+w^T`` in x's dtype.
 """
 
 from __future__ import annotations
@@ -15,18 +18,8 @@ from typing import Optional
 
 import torch
 
-
-def mm(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-    """2-D ``a @ b`` accumulated in fp32 and rounded once to ``out_dtype``.
-
-    On CUDA a bf16 product with an fp32 result is ``aten::mm.dtype``; the
-    CPU build has no such kernel, and there the product of the fp32 copies
-    is exact for bf16 operands."""
-    if a.device.type == "cuda":
-        if a.dtype == out_dtype:
-            return torch.mm(a, b)
-        return torch.mm(a, b, out_dtype=out_dtype)
-    return torch.mm(a.float(), b.float()).to(out_dtype)
+from np_modeling_tpu_torch.ops import dispatch
+from np_modeling_tpu_torch.ops.matmul import matmul
 
 
 class _Linear(torch.autograd.Function):
@@ -34,22 +27,23 @@ class _Linear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b):
         x2 = x.reshape(-1, x.shape[-1])
-        y = mm(x2, w.to(x.dtype), torch.float32)
-        if b is not None:
-            y = y + b.float()
+        y = matmul(x2, w, b, out_dtype=x.dtype)
         ctx.save_for_backward(x, w)
         ctx.has_b = b is not None
-        return y.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
+        ctx.scopes = dispatch.scopes()
+        return y.reshape(*x.shape[:-1], w.shape[-1])
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         x2 = x.reshape(-1, x.shape[-1])
-        dy2 = dy.reshape(-1, dy.shape[-1]).to(x.dtype)
+        dy2 = dy.reshape(-1, dy.shape[-1])
         db = dy2.float().sum(dim=0).to(w.dtype) if ctx.has_b else None
-        dw = mm(x2.t(), dy2, w.dtype) if ctx.needs_input_grad[1] else None
-        dx = mm(dy2, w.to(x.dtype).t(), x.dtype).reshape(x.shape) \
-            if ctx.needs_input_grad[0] else None
+        with dispatch.within(ctx.scopes):       # the forward's scopes
+            dw = matmul(x2, dy2, trans_a=True, out_dtype=w.dtype) \
+                if ctx.needs_input_grad[1] else None
+            dx = matmul(dy2, w, trans_b=True, out_dtype=x.dtype) \
+                .reshape(x.shape) if ctx.needs_input_grad[0] else None
         return dx, dw, db
 
 

@@ -23,7 +23,8 @@ import math
 
 import torch
 
-from np_modeling_tpu_torch.ops.linear import mm
+from np_modeling_tpu_torch.ops import fused
+from np_modeling_tpu_torch.ops.matmul import mm
 
 
 class _Mse(torch.autograd.Function):
@@ -91,26 +92,22 @@ def softmax_cross_entropy(logits: torch.Tensor,
 
 
 class _SxeIntegerLabels(torch.autograd.Function):
+    """The plain math of K9's plain version (``ops.fused``), which is the
+    same function; JAX runs this op outside any kernel."""
 
     @staticmethod
     def forward(ctx, logits, labels):
-        lf = logits.float()
-        v = lf.shape[-1]
-        lse = torch.logsumexp(lf, dim=-1)
-        valid = (labels >= 0) & (labels < v)
-        correct = lf.gather(-1, labels.clamp(0, v - 1).long()[..., None])[..., 0]
-        ctx.save_for_backward(logits, labels, lse)
-        return lse - torch.where(valid, correct, 0.0)
+        l2, lab = fused.sxe_rows(logits, labels)
+        ce, lse = fused.sxe_fwd_plain(l2, lab)
+        ctx.save_for_backward(l2, lab, lse)
+        ctx.shape = logits.shape
+        return ce.reshape(labels.shape)
 
     @staticmethod
     def backward(ctx, g):
-        logits, labels, lse = ctx.saved_tensors
-        v = logits.shape[-1]
-        p = torch.exp(logits.float() - lse[..., None])
-        lab = labels.long()[..., None]
-        classes = torch.arange(v, device=logits.device)
-        onehot = ((classes == lab) & (lab >= 0) & (lab < v)).float()
-        return ((p - onehot) * g[..., None].float()).to(logits.dtype), None
+        l2, lab, lse = ctx.saved_tensors
+        dl = fused.sxe_bwd_plain(l2, lab, lse, g.reshape(-1))
+        return dl.reshape(ctx.shape), None
 
 
 def softmax_cross_entropy_with_integer_labels(logits: torch.Tensor,

@@ -13,13 +13,17 @@ tensors or numpy arrays; a leaf's path joins its keys with ``/``.
 (the JAX package's off-TPU path) on CPU tensors or under
 ``dispatch.force_plain()``. It has no backward, as in JAX.
 
-The stochastic-rounding quantizer (JAX ``quantize_int8_stochastic``, TPU
-kernel ``_sq_kernel``) is not ported yet (ROADMAP.md Queue 2, K10).
+``quantize_int8_stochastic`` is the per-row absmax quantizer with
+stochastic rounding: the hand-written kernel K10 (``csrc/quantize.cu``) on
+CUDA tensors, its plain twin on CPU tensors. Both draw the same Philox bits
+(``ops.fused.philox_bits``), so they agree bit for bit; see its docstring
+for how this differs from JAX off the TPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import numbers
 import re
 from typing import NamedTuple
 
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 from np_modeling_tpu_torch.ops import dispatch
-from np_modeling_tpu_torch.ops.linear import mm
+from np_modeling_tpu_torch.ops.fused import philox_bits
+from np_modeling_tpu_torch.ops.matmul import mm
 
 
 class QuantizedTensor(NamedTuple):
@@ -45,6 +50,107 @@ def quantize_int8(x: torch.Tensor) -> QuantizedTensor:
 
 def dequantize_int8(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     return (qt.values.float() * qt.scales).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Stochastic-rounding quantization (K10)
+# ---------------------------------------------------------------------------
+
+_X_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MASK64 = (1 << 64) - 1
+
+
+def stochastic_round_int8(x: torch.Tensor, u: torch.Tensor) -> QuantizedTensor:
+    """Absmax int8 over the last axis with stochastic rounding given the
+    uniforms ``u`` in [0, 1) (x's shape), in the TPU kernel's fp32
+    arithmetic (JAX :50-62): ``scale = 1 if absmax == 0 else absmax / 127``,
+    ``s = x / scale``, ``q = floor(s) + (u < s - floor(s))`` clipped to
+    +-127. The divisors are device tensors: a Python-scalar divisor is a
+    product with its reciprocal on CUDA, not a division."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    d127 = torch.full((), 127.0, dtype=torch.float32, device=x.device)
+    scales = torch.where(absmax == 0, 1.0, absmax / d127)
+    scaled = xf / scales
+    fl = torch.floor(scaled)
+    rounded = fl + (u < scaled - fl).float()
+    return QuantizedTensor(rounded.clamp(-127, 127).to(torch.int8), scales)
+
+
+def philox_uniforms(seed: int, shape, device=None) -> torch.Tensor:
+    """The uniforms K10 draws for a tensor of ``shape`` under ``seed``: the
+    top 24 bits of element i's Philox word over 2**24 (exact in fp32)."""
+    bits = philox_bits(seed, shape, device)
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _seed_int(seed) -> int:
+    """A 64-bit seed from a host integer or a 1-element CPU tensor (JAX's
+    ``seed`` array); a device tensor is refused, as reading it would sync."""
+    if isinstance(seed, torch.Tensor):
+        if seed.device.type != "cpu" or seed.numel() != 1:
+            raise ValueError(f"seed: a host integer or a 1-element CPU tensor, "
+                             f"not {tuple(seed.shape)} on {seed.device}")
+        return int(seed.reshape(-1)[0]) & _MASK64
+    if isinstance(seed, bool) or not isinstance(seed, numbers.Integral) \
+            or not 0 <= seed <= _MASK64:
+        raise TypeError(f"seed: a 64-bit host integer or a 1-element CPU "
+                        f"tensor, not {seed!r}")
+    return int(seed)
+
+
+def quantize_int8_stochastic(x: torch.Tensor, seed) -> QuantizedTensor:
+    """Absmax int8 over the last axis with stochastic (unbiased) rounding.
+
+    ``seed``: a 64-bit host integer or a 1-element CPU tensor. Values int8
+    with x's shape, scales fp32 with the last axis 1. The uniform of element
+    i (its flat index) is the top 24 bits of Philox4x32-10's word ``i % 4``
+    at counter ``i // 4`` keyed by the seed, over 2**24: the TPU kernel's
+    generator bits cannot be reproduced, so the port defines its own. K10
+    on CUDA tensors; on CPU tensors (or under ``dispatch.force_plain()``)
+    the plain twin, which draws the same bits in torch integer arithmetic.
+    Off the TPU, JAX rounds to nearest instead (only because its generator
+    has no CPU emulation); the port keeps the stochastic rounding on every
+    device."""
+    seed = _seed_int(seed)
+    if not dispatch.use_kernel(x):
+        return stochastic_round_int8(x, philox_uniforms(seed, x.shape,
+                                                        x.device))
+    return _quantize_stochastic_cuda(x, seed)
+
+
+# Kernel launches since import (or since a caller reset it to 0).
+quantize_int8_stochastic.launches = 0
+
+
+def _quantize_stochastic_cuda(x, seed):
+    if x.dtype not in _X_CODES:
+        raise ValueError(f"K10 takes float32 or bfloat16, not {x.dtype}")
+    if x.dim() == 0 or x.shape[-1] == 0:
+        raise ValueError(f"K10 takes rows of at least one element, not "
+                         f"{tuple(x.shape)}")
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d).contiguous()
+    n = x2.shape[0]
+    values = torch.empty(x2.shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    if n:
+        from np_modeling_tpu_torch.ops import cuda_build
+        fn = cuda_build.load("quantize").lib.np_quantize_int8_stochastic
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint64,
+            ctypes.c_void_p]
+        with torch.cuda.device(x.device):
+            rc = fn(x2.data_ptr(), values.data_ptr(), scales.data_ptr(),
+                    _X_CODES[x.dtype], n, d, seed,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"K10 quantize kernel launch failed: CUDA "
+                               f"error {rc}")
+        quantize_int8_stochastic.launches += 1
+    return QuantizedTensor(values.reshape(x.shape),
+                           scales.reshape(*x.shape[:-1], 1))
 
 
 # Matmul weights of the transformer stack (attention projections, FFN, the
@@ -155,8 +261,6 @@ def dequantize_params(qparams, dtype=torch.bfloat16):
 # ---------------------------------------------------------------------------
 # Int8-weight matmul (K4)
 # ---------------------------------------------------------------------------
-
-_X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def int8_matmul_reference(x, w_int8, scale, bias=None, *, out_dtype=None):

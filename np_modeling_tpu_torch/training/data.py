@@ -52,9 +52,10 @@ def _put(batch, device):
 def prefetch_to_device(iterator: Iterable, size: int = 2,
                        device=None) -> Iterator:
     """Yield the iterator's batches (numpy arrays, or tuples and lists of
-    them) as tensors on ``device`` (default: the CPU), with ``size`` of them
-    sent ahead."""
-    device = torch.device(device if device is not None else "cpu")
+    them) as tensors on ``device`` (default: the card, ``cuda``, as JAX puts
+    them on its default backend; without a card the first batch raises),
+    with ``size`` of them sent ahead."""
+    device = torch.device(device if device is not None else "cuda")
     queue = collections.deque()
     it = iter(iterator)
     try:

@@ -78,6 +78,8 @@ def load_params(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
 
 
 def params_from_numpy(tree: dict, config: GPTConfig, device=None) -> GPT:
+    """A ``GPT`` on ``device`` (default: the card, as ``GPT``) holding the
+    JAX tree's weights."""
     return load_params(GPT(config, device=device), tree)
 
 

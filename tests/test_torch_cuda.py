@@ -9,8 +9,10 @@ have no CPU mode. This file imports no JAX, so the card can run it alone:
 does not have). Tolerances: fp32 1e-4, bf16 2e-2, each times max(1, max
 |plain|) for flash attention; LayerNorm fp32 1e-5 times max(1, max |plain|)
 and bf16 one bf16 ulp (or that fp32 bound near 0); dropout bit for bit;
-the whole-GPT criteria are the ones chip_smoke.py holds at full width,
-explained there.
+K11 (matmul) as K4: fp32 out 1e-4 times max(1, max |plain|), bf16 out one
+bf16 ulp; K9 ce 1e-5 times max(1, max |plain|), dlogits 1e-4 relative plus
+1e-6 times the largest (bf16: one ulp); K10 bit for bit; the whole-GPT
+criteria are the ones chip_smoke.py holds at full width, explained there.
 """
 
 import contextlib
@@ -397,3 +399,134 @@ def test_cuda_quantized_engine_vs_plain_engine():
         # 2 chunk calls + 9 decode steps, 2 layers: 4 and 2 launches each.
         assert launched == ((0, 0) if plain else (44, 22))
     assert streams[0] == streams[1]
+
+
+# ---- matmul (K11), softmax-CE (K9), stochastic int8 (K10) -----------------------
+
+def _within(got, want, f32_tol):
+    diff = (got.float() - want.float()).abs()
+    bound = f32_tol * max(1.0, want.float().abs().max().item())
+    if got.dtype == torch.bfloat16:
+        return bool((diff <= torch.clamp(torch.maximum(
+            _bf16_ulp(got), _bf16_ulp(want)), min=bound)).all())
+    return diff.max().item() <= bound
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 768, 384), (100, 70, 50),
+                                   (1, 64, 640), (129, 257, 255), (5, 0, 3)])
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (True, False),
+                                             (False, True), (True, True)])
+@pytest.mark.parametrize("op_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_cuda_matmul_kernel_vs_plain(m, k, n, trans_a, trans_b, op_dtype,
+                                     out_dtype, bias):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(*((k, m) if trans_a else (m, k)), generator=g,
+                    device="cuda").to(op_dtype)
+    b = torch.randn(*((n, k) if trans_b else (k, n)), generator=g,
+                    device="cuda").to(op_dtype)
+    c = torch.randn(n, generator=g, device="cuda") if bias else None
+    kw = dict(trans_a=trans_a, trans_b=trans_b, out_dtype=out_dtype)
+    before = ops.matmul.launches
+    with dispatch.force_kernels():
+        got = ops.matmul(a, b, c, **kw)
+    assert ops.matmul.launches == before + 1
+    want = ops.matmul_reference(a, b, c, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == out_dtype and got.shape == (m, n)
+    assert _within(got, want, 1e-4)
+
+
+def test_cuda_matmul_default_is_the_library_and_float16_raises():
+    a = torch.randn(64, 32, device="cuda")
+    before = ops.matmul.launches
+    ops.matmul(a, a.t().contiguous())
+    with dispatch.force_kernels(), dispatch.force_plain():
+        ops.matmul(a, a, trans_b=True)
+    assert ops.matmul.launches == before
+    with pytest.raises(ValueError), dispatch.force_kernels():
+        ops.matmul(a.half(), a.half(), trans_b=True)
+
+
+@pytest.mark.parametrize("shape", [(64, 50257), (37, 1001), (2, 7, 300),
+                                   (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_softmax_cross_entropy_kernels_vs_plain(shape, dtype):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    logits = (3 * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+    labels = torch.randint(0, shape[-1], shape[:-1], generator=g,
+                           device="cuda")
+    labels.view(-1)[0] = shape[-1]                  # outside [0, v)
+    cot = torch.randn(*shape[:-1], generator=g, device="cuda")
+    results = []
+    for plain in (False, True):
+        leaf = logits.clone().requires_grad_()
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            before = (ops.softmax_cross_entropy_fused.launches_fwd,
+                      ops.softmax_cross_entropy_fused.launches_bwd)
+            ce = ops.softmax_cross_entropy_fused(leaf, labels)
+            ce.backward(cot)
+            launched = (ops.softmax_cross_entropy_fused.launches_fwd
+                        - before[0],
+                        ops.softmax_cross_entropy_fused.launches_bwd
+                        - before[1])
+        assert launched == ((0, 0) if plain else (1, 1))
+        results.append((ce.detach(), leaf.grad))
+    torch.cuda.synchronize()
+    (ce_k, dl_k), (ce_p, dl_p) = results
+    assert ce_k.dtype == torch.float32 and dl_k.dtype == dtype
+    assert (ce_k - ce_p).abs().max().item() <= 1e-5 * max(
+        1.0, ce_p.abs().max().item())
+    diff = (dl_k.float() - dl_p.float()).abs()
+    bound = 1e-4 * dl_p.float().abs() + 1e-6 * dl_p.float().abs().max()
+    if dtype == torch.bfloat16:
+        bound = torch.maximum(bound, torch.maximum(_bf16_ulp(dl_k),
+                                                   _bf16_ulp(dl_p)))
+    assert bool((diff <= bound).all())
+
+
+@pytest.mark.parametrize("shape", [(300, 768), (64, 12, 64), (5, 1001),
+                                   (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quantize_stochastic_kernel_equals_plain_twin(shape, dtype):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(*shape, generator=g, device="cuda").to(dtype)
+    x.view(-1, shape[-1])[0] = 0.0                   # a zero row
+    before = ops.quantize_int8_stochastic.launches
+    got = ops.quantize_int8_stochastic(x, 0x0123456789ABCDEF)
+    assert ops.quantize_int8_stochastic.launches == before + 1
+    with dispatch.force_plain():
+        want = ops.quantize_int8_stochastic(x, 0x0123456789ABCDEF)
+    torch.cuda.synchronize()
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(got.scales, want.scales)
+    assert got.scales.shape == (*shape[:-1], 1)
+
+
+def test_cuda_gpt_step_forced_vs_default():
+    """fp32, gelu: every Linear through K11 (12 a pass for 2 layers, 36 a
+    step) against the default library products: loss to 1e-5, each
+    gradient to 1e-4 relative L2 (the key bias by its size)."""
+    gpt = _gpt(None, "gelu")
+    tokens = torch.randint(0, 256, (2, 256), device="cuda")
+    results = []
+    for forced in (True, False):
+        gpt.zero_grad(set_to_none=True)
+        before = ops.matmul.launches
+        with dispatch.force_kernels() if forced else contextlib.nullcontext():
+            loss = gpt.loss(tokens)
+            fwd = ops.matmul.launches - before
+            loss.backward()
+        assert (fwd, ops.matmul.launches - before) == (
+            (12, 36) if forced else (0, 0))
+        results.append((loss.item(), {n: p.grad.clone()
+                                      for n, p in gpt.named_parameters()}))
+    (lk, gk), (lp, gp) = results
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for n in gp:
+        if n.endswith("bk"):
+            assert gk[n].norm() <= 1e-4 * gp[n[:-2] + "wk"].norm(), n
+        else:
+            assert _rel(gk[n], gp[n]) <= 1e-4, n

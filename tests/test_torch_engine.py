@@ -75,7 +75,8 @@ def test_engine_matches_jax_engine():
 
 
 def test_out_of_pages_is_all_or_nothing():
-    gpt = tmodels.GPT(tmodels.GPTConfig(**CFG)).init(torch.Generator())
+    gpt = tmodels.GPT(tmodels.GPTConfig(**CFG), device="cpu").init(
+        torch.Generator())
     teng = GenerationEngine(gpt, **{**ENGINE, "total_pages": 24})
     free0 = teng.free_pages                     # 23: room for 92 tokens
     with pytest.raises(OutOfPagesError):
@@ -92,7 +93,7 @@ def test_out_of_pages_is_all_or_nothing():
     dict(draft_gpt=object()), dict(prefill_chunk_size=None),
     dict(constraints={}), dict(lora_adapters={})])
 def test_unported_engine_options_raise(option):
-    gpt = tmodels.GPT(tmodels.GPTConfig(**CFG))
+    gpt = tmodels.GPT(tmodels.GPTConfig(**CFG), device="cpu")
     with pytest.raises(NotImplementedError):
         GenerationEngine(gpt, **{**ENGINE, **option})
 
@@ -105,7 +106,32 @@ def test_unported_engine_options_raise(option):
     dict(sandwich_norm=True), dict(scan_layers=True)])
 def test_unported_config_features_raise(feature):
     with pytest.raises(NotImplementedError):
-        tmodels.GPT(tmodels.GPTConfig(**{**CFG, **feature}))
+        tmodels.GPT(tmodels.GPTConfig(**{**CFG, **feature}), device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["GPT", "params_from_numpy",
+                                   "prefetch_to_device"])
+def test_entry_points_default_to_the_card(entry):
+    """With ``device=None`` the port's entry points place their tensors on
+    the card, as JAX places arrays on its default backend. Without a card
+    that fails loudly, as torch's own CUDA allocation does (AssertionError
+    on a CPU-only build, RuntimeError where no card is usable); nothing
+    falls back to the CPU."""
+    from np_modeling_tpu_torch.training import data
+    from np_modeling_tpu_torch.utils import params_to_numpy
+    cfg = tmodels.GPTConfig(**CFG)
+    tree = params_to_numpy(tmodels.GPT(cfg, device="cpu").init(
+        torch.Generator()))
+    make = {"GPT": lambda: next(tmodels.GPT(cfg).parameters()),
+            "params_from_numpy": lambda: next(
+                params_from_numpy(tree, cfg).parameters()),
+            "prefetch_to_device": lambda: next(data.prefetch_to_device(
+                iter([np.zeros(3, np.int64)])))}[entry]
+    if torch.cuda.is_available():
+        assert make().is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()
 
 
 def test_import_leaves_no_jax():
@@ -197,7 +223,8 @@ def test_int8_ffn_engine_equals_dequantized_weights():
 def test_quantized_attention_leaf_raises():
     from np_modeling_tpu_torch.ops import quantize_params_int8
     from np_modeling_tpu_torch.utils import params_to_numpy
-    gpt = tmodels.GPT(tmodels.GPTConfig(**QCFG)).init(torch.Generator())
+    gpt = tmodels.GPT(tmodels.GPTConfig(**QCFG), device="cpu").init(
+        torch.Generator())
     tree = quantize_params_int8(params_to_numpy(gpt))   # wq/wk/wv/wo too
     with pytest.raises(NotImplementedError, match="F4"):
-        params_from_numpy(tree, tmodels.GPTConfig(**QCFG))
+        params_from_numpy(tree, tmodels.GPTConfig(**QCFG), device="cpu")

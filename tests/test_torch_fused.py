@@ -1,5 +1,6 @@
-"""The port's LayerNorm (K8) and dropout (K7) against the JAX package, and the
-plain twin of K7's generator against its own contract.
+"""The port's LayerNorm (K8), dropout (K7) and fused softmax cross-entropy
+(K9) against the JAX package, and the plain twin of K7's generator against
+its own contract.
 
 LayerNorm: seeded numpy inputs go through the port's plain version and JAX's
 ``ops.layer_norm``, both on its jnp path and on its Pallas kernel K8 in
@@ -10,7 +11,11 @@ stub in interpret mode (tests/test_fused_kernels.py:73-78), so K7's twin is
 held by its properties instead: Philox4x32-10 answer vectors (Random123),
 the keep share, values exactly ``x / keep`` or 0, the backward's mask equal
 to the forward's, decorrelated seeds, salts and layers, and identity at
-rate 0 and in eval.
+rate 0 and in eval. Softmax-CE: the port's plain version (the CPU path of
+``ops.softmax_cross_entropy_fused``) against JAX's kernel K9 in interpret
+mode, ce at rtol/atol 1e-5 and dlogits at rtol 1e-5 / atol 1e-6 (as
+tests/test_fused_kernels.py holds JAX's own), bf16 dlogits within one bf16
+ulp (the two lse differ in their last fp32 bits, which can move a rounding).
 """
 
 import jax
@@ -241,3 +246,86 @@ def test_dropout_identity_at_rate_0_and_in_eval():
         ops.dropout(x, None, 0.5)
     ops.dropout(x, 1, 0.5)                      # the CPU launches nothing
     assert ops.dropout.launches == before
+
+
+# ---- fused softmax cross-entropy (K9) -----------------------------------------
+
+def _sxe_case(shape, dtype, out_of_range):
+    logits = (_randn(*shape) * 3).astype(dtype)
+    labels = rng.integers(0, shape[-1], shape[:-1])
+    if out_of_range:
+        flat = labels.reshape(-1)
+        flat[0], flat[-1] = shape[-1], -1
+    g = _randn(*shape[:-1])
+    return logits, labels, g
+
+
+@pytest.mark.parametrize("out_of_range", [False, True],
+                         ids=["in_range", "out_of_range"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("shape", [(32, 128), (10, 1000), (64, 4096),
+                                   (2, 7, 300)])
+def test_softmax_cross_entropy_fused_vs_jax_kernel(shape, dtype,
+                                                    out_of_range):
+    logits, labels, g = _sxe_case(shape, dtype, out_of_range)
+
+    def jloss(lg):
+        return jnp.sum(jops.softmax_cross_entropy_fused(
+            lg, jnp.asarray(labels)) * jnp.asarray(g))
+
+    with jdispatch.force_pallas(True, interpret=True):
+        want = jops.softmax_cross_entropy_fused(jnp.asarray(logits),
+                                                jnp.asarray(labels))
+        jgrad = jax.grad(jloss)(jnp.asarray(logits))
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    leaf = torch.tensor(np.asarray(logits, np.float32)).to(tdtype)
+    leaf.requires_grad_()
+    before = (ops.softmax_cross_entropy_fused.launches_fwd,
+              ops.softmax_cross_entropy_fused.launches_bwd)
+    got = ops.softmax_cross_entropy_fused(leaf, torch.tensor(labels))
+    got.backward(torch.tensor(g))
+    assert got.dtype == torch.float32 and got.shape == shape[:-1]
+    assert leaf.grad.dtype == tdtype
+    assert (ops.softmax_cross_entropy_fused.launches_fwd,
+            ops.softmax_cross_entropy_fused.launches_bwd) == before
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        ops.softmax_cross_entropy_fused_reference(
+            leaf.detach(), torch.tensor(labels)).numpy(), np.asarray(want),
+        rtol=1e-5, atol=1e-5)
+    dl = leaf.grad.float().numpy()
+    jg = np.asarray(jgrad, np.float32)
+    if dtype == jnp.float32:
+        np.testing.assert_allclose(dl, jg, rtol=1e-5, atol=1e-6)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(jg), 2.0 ** -126)))
+                      - 7)
+        assert (np.abs(dl - jg) <= np.maximum(ulp, 1e-6)).all()
+
+
+def test_softmax_cross_entropy_fused_out_of_range_label_is_lse():
+    """A label outside [0, v) picks up no logit and no onehot: ce = lse and
+    the gradient is the softmax alone (``gather`` would raise instead)."""
+    logits = torch.tensor(_randn(3, 17)).requires_grad_()
+    labels = torch.tensor([17, -1, 4])
+    ce = ops.softmax_cross_entropy_fused(logits, labels)
+    ce.sum().backward()
+    lse = torch.logsumexp(logits.detach(), dim=-1)
+    p = torch.softmax(logits.detach(), dim=-1)
+    torch.testing.assert_close(ce[:2], lse[:2])
+    torch.testing.assert_close(logits.grad[:2], p[:2])
+    assert ce[2] == lse[2] - logits[2, 4]
+
+
+def test_softmax_cross_entropy_fused_matches_the_integer_label_loss():
+    logits = torch.tensor(_randn(4, 9, 50)).requires_grad_()
+    labels = torch.tensor(rng.integers(0, 50, (4, 9)))
+    a = ops.softmax_cross_entropy_fused(logits, labels)
+    (ga,) = torch.autograd.grad(a.mean(), logits)
+    b = ops.softmax_cross_entropy_with_integer_labels(logits, labels)
+    (gb,) = torch.autograd.grad(b.mean(), logits)
+    torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(ga, gb, rtol=1e-6, atol=1e-8)
+    with pytest.raises(ValueError):
+        ops.softmax_cross_entropy_fused(logits, labels[:, :3])

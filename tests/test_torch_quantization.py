@@ -12,7 +12,15 @@ before it adds the bias). Two summation orders of k fp32 terms differ by
 ~eps * sqrt(k) times the terms, so atol 2e-5 holds at k 64 and is scaled by
 sqrt(k / 64) (at most 3.2x, k 640); a bf16 value near 0 that comes out of a
 cancelling sum is held to that fp32 tolerance where it exceeds its ulp. The
-CUDA kernel runs only on the card (tests/test_torch_cuda.py).
+CUDA kernels run only on the card (tests/test_torch_cuda.py).
+
+``quantize_int8_stochastic`` (K10's plain twin on the CPU): its scales equal
+JAX's bit for bit; ``stochastic_round_int8`` equals a numpy transcription of
+the TPU kernel's arithmetic (np_modeling_tpu/ops/quantization.py:50-62) for
+given uniforms, bit for bit; its Philox words are checked against a Random123
+answer vector; its rounding is unbiased over seeds. JAX off the TPU rounds to
+nearest (its generator has no CPU emulation), so the values are held to be
+floor or floor + 1 of JAX's ``x / scale``, not equal to its values.
 """
 
 import re
@@ -281,9 +289,10 @@ def test_linear_with_int8_weight_raises_under_autograd():
 def test_int8_tree_loads_and_comes_back_unchanged():
     cfg = models.GPTConfig(vocab_size=64, d_model=32, num_heads=4,
                            num_layers=2, hidden_units=64, max_len=16)
-    gpt = models.GPT(cfg).init(torch.Generator().manual_seed(0))
+    gpt = models.GPT(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     tree = ops.quantize_params_int8(params_to_numpy(gpt), match=FFN)
-    back = dict(_leaves(params_to_numpy(params_from_numpy(tree, cfg))))
+    back = dict(_leaves(params_to_numpy(params_from_numpy(tree, cfg,
+                                                          device="cpu"))))
     want = dict(_leaves(tree))
     assert set(back) == set(want)
     for p, v in want.items():
@@ -300,8 +309,111 @@ def test_int8_tree_loads_and_comes_back_unchanged():
 def test_int8_attention_weights_raise(match):
     cfg = models.GPTConfig(vocab_size=64, d_model=32, num_heads=4,
                            num_layers=1, hidden_units=64, max_len=16)
-    gpt = models.GPT(cfg).init(torch.Generator().manual_seed(0))
+    gpt = models.GPT(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     kw = {} if match is None else {"match": match}
     tree = ops.quantize_params_int8(params_to_numpy(gpt), **kw)
     with pytest.raises(NotImplementedError, match="F4"):
-        params_from_numpy(tree, cfg)
+        params_from_numpy(tree, cfg, device="cpu")
+
+
+# ---- stochastic rounding (K10's plain twin) --------------------------------------
+
+def _sq_numpy(x, u):
+    """np_modeling_tpu/ops/quantization.py:50-62 in numpy (fp32 throughout)."""
+    x = np.asarray(x, np.float32)
+    absmax = np.max(np.abs(x), axis=-1, keepdims=True)
+    scale = np.where(absmax == 0, np.float32(1.0),
+                     absmax / np.float32(127.0)).astype(np.float32)
+    scaled = x / scale
+    fl = np.floor(scaled)
+    rounded = fl + (u < (scaled - fl)).astype(np.float32)
+    return np.clip(rounded, -127, 127).astype(np.int8), scale
+
+
+@pytest.mark.parametrize("shape", [(6, 40), (2, 3, 40), (4, 8)])
+def test_stochastic_round_int8_is_the_tpu_kernels_arithmetic(shape):
+    r = np.random.default_rng(11)
+    x = _rows_with_ties(r, n=int(np.prod(shape[:-1])), d=shape[-1])
+    x = x.reshape(shape)
+    u = r.random(shape).astype(np.float32)
+    u.reshape(-1)[:4] = [0.0, 0.5, 0.999999, 0.25]
+    want_v, want_s = _sq_numpy(x, u)
+    got = ops.stochastic_round_int8(torch.tensor(x), torch.tensor(u))
+    assert got.values.dtype == torch.int8 and got.scales.dtype == torch.float32
+    np.testing.assert_array_equal(got.values.numpy(), want_v)
+    np.testing.assert_array_equal(got.scales.numpy(), want_s)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_int8_stochastic_scales_bit_for_bit_with_jax(dtype):
+    x = _rows_with_ties(np.random.default_rng(12), n=8, d=64).reshape(2, 4, 64)
+    jx = jnp.asarray(x).astype(dtype)
+    want = jq.quantize_int8_stochastic(jx, jnp.asarray([1], jnp.int32))
+    got = ops.quantize_int8_stochastic(
+        torch.tensor(x).to(getattr(torch, dtype)), 1)
+    np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))
+    np.testing.assert_array_equal(
+        got.scales.numpy(), np.asarray(jq.quantize_int8(jx).scales))
+    # JAX rounds to nearest here; the port's values are floor or floor + 1.
+    s = _f32(jx) / np.asarray(want.scales)
+    fl = np.clip(np.floor(s), -127, 127)
+    v = got.values.numpy().astype(np.float32)
+    assert ((v == fl) | (v == np.clip(fl + 1, -127, 127))).all()
+    assert (np.abs(v - np.asarray(want.values, np.float32)) <= 1).all()
+
+
+def test_quantize_int8_stochastic_draws_philox_uniforms():
+    """Element i's uniform is the top 24 bits of Philox4x32-10's word i % 4
+    at counter i // 4 keyed by the seed, over 2**24. Seed 0, counter 0 is
+    Random123's all-zeros answer vector."""
+    words = (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)
+    u = ops.quantization.philox_uniforms(0, (2, 5))
+    assert u.dtype == torch.float32
+    assert [float(v) for v in u.reshape(-1)[:4]] == [
+        (w >> 8) / 2 ** 24 for w in words]
+    x = torch.tensor(_randn_np(2, 5))
+    want = ops.stochastic_round_int8(x, u)
+    got = ops.quantize_int8_stochastic(x, 0)
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(got.scales, want.scales)
+    # A 1-element CPU tensor is the same seed (JAX passes an int32 array).
+    again = ops.quantize_int8_stochastic(x, torch.tensor([0], dtype=torch.int32))
+    assert torch.equal(again.values, got.values)
+
+
+def _randn_np(*shape, seed=13):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("seed", [-1, 2 ** 64, 1.5, True])
+def test_quantize_int8_stochastic_refuses_bad_seeds(seed):
+    with pytest.raises(TypeError):
+        ops.quantize_int8_stochastic(torch.ones(2, 4), seed)
+
+
+def test_quantize_int8_stochastic_is_unbiased_over_seeds():
+    """The mean over 256 seeds of (dequantized - x) / scale has expectation
+    0 and variance f (1 - f) / 256 (f = frac(x / scale)); its mean over all
+    elements lies within 5 sigma."""
+    x = torch.tensor(_randn_np(16, 64))
+    total = torch.zeros_like(x)
+    for seed in range(256):
+        qt = ops.quantize_int8_stochastic(x, seed)
+        total += (qt.values.float() * qt.scales - x) / qt.scales
+    s = x / qt.scales
+    f = s - torch.floor(s)
+    sigma = ((f * (1 - f)).sum() / 256).sqrt() / x.numel()
+    assert abs(float(total.mean() / 256)) <= 5 * float(sigma)
+    assert ((total / 256).abs() <= 1).all()
+
+
+def test_quantize_int8_stochastic_zero_rows_and_other_seeds():
+    x = torch.tensor(_randn_np(6, 96))
+    x[2] = 0.0
+    a = ops.quantize_int8_stochastic(x, 5)
+    b = ops.quantize_int8_stochastic(x, 6)
+    assert a.scales[2].item() == 1.0 and bool((a.values[2] == 0).all())
+    share = (a.values != b.values).float().mean().item()
+    assert 0.15 < share < 0.5            # expected ~2 E[f (1 - f)] = 1/3
+    assert ops.quantize_int8_stochastic.launches == 0

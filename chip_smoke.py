@@ -1,12 +1,13 @@
 """Drives the PyTorch port's serving path, its quantized serving path, its
-bench training step, its training entry point and that entry point with
-every product forced through the matmul kernel once on one CUDA card.
+bench training step, its training entry point, that entry point with every
+product forced through the matmul kernel, and packed-document training
+once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each printed on its own lines; any failure exits non-zero:
   (a) device: the card's name and power limit, as nvidia-smi reports them;
-  (b) build: every kernel of the five paths, from the sources in this
+  (b) build: every kernel of the six paths, from the sources in this
       checkout (one nvcc for each source, all started together);
   (c) each kernel vs its plain PyTorch version on the card, at the paths'
       shapes. Paged attention: max abs err <= 1e-4 with fp32 pages,
@@ -16,7 +17,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
       FFN's decode and prefill shapes and ragged ones): fp32 out max abs
       err <= 1e-4 times max(1, max |plain|), bf16 out within one bf16 ulp
       (or that bound near 0). Flash attention (o, lse, dq, dk, dv):
-      max abs err <= 1e-4 (fp32) or 2e-2 (bf16) times max(1, max |plain|).
+      max abs err <= 1e-4 (fp32) or 2e-2 (bf16) times max(1, max |plain|),
+      for K1/K2, for K1 with segment ids (packed documents) and K2 or the
+      split backward K5 behind it, causal and full, and for K5 without
+      them, at the bench shape (b4 h8 s4096 d128), the GPT-2 shape (b8 h12
+      s1024 d64) and ragged, GQA and sq != skv shapes; K5's dq, dk and dv
+      equal across two runs bit for bit; the dual forward K12, causal and
+      full, ragged (1023) included, gives o and lse equal to K1's bit for
+      bit.
       LayerNorm K8 (out, dx, dgamma, dbeta): fp32 max abs err <= 1e-5 times
       max(1, max |plain|); a bf16 output within one bf16 ulp (or that fp32
       bound, where a value is so near 0 that fp32 rounding before the last
@@ -97,6 +105,27 @@ Phases, each printed on its own lines; any failure exits non-zero:
       sum over a step's 216 products, K11 at 8192^3 bf16 beside torch.mm,
       K9 forward and backward beside F.cross_entropy, K10 (no library
       call), and the forced step beside the default step;
+  (n) packed-document training: (h)'s GPT-2 small run on documents of
+      seeded Zipf tokens (lengths geometric, mean 256, clipped to [8,
+      1024]) packed in order into rows of 1024, the last document of a row
+      cut at its end; segment ids number a row's documents and positions
+      restart at 0 in each; data.epochs -> a dict a batch ->
+      prefetch_to_device -> make_train_step over GPT.loss(tokens,
+      segment_ids=, positions=). Isolation (eval, fp32, kernels): each
+      document's logits in its packed row equal its own alone to 1e-4 x
+      max(1, max |logit|). Step 0 with K1 + K2 and with K1 + K5
+      (FUSED_BWD=False) against the plain step, same dropout seed, by (h)'s
+      criteria. (h)'s unpacked step 0 with FWD_DUAL_KV=True: loss equal to
+      the K1 step's bit for bit, 12 K12 launches, no K1. Then 20 steps with
+      FUSED_BWD=False: the loss is finite and lower at step 19 than at step
+      1, and each step launches K1 12 times, K5 12 times and K2 never;
+  (o) K5 (and, by torch.profiler, its dq and dk/dv kernels) beside K2 and
+      F.scaled_dot_product_attention's autograd backward, at the bench
+      shape and the packed GPT-2 shape; K12 beside K1 and SDPA forward at
+      the bench shape; K1/K2 with segment ids beside without (SDPA with the
+      documents' boolean mask as yardstick); the packed step (K2, K5)
+      beside (h)'s unpacked step. K2 against K5, kernel and step, runs
+      AB_ROUNDS rounds of K2, K5, K5, K2 and reports medians and ranges;
   (p) where the entry point's step spends the card's time: torch.profiler
       over 3 steps, device time by kernel and by kind, device ops a step
       and the card's idle share (PERF.md, "Where the time goes"); a
@@ -104,10 +133,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
       and the run goes on.
 Each path runs with the launch counts set to 0 just before it and read just
 after. Library yardsticks (one PyTorch call computing a kernel's function,
-which the port never calls) are timed beside K1/K2 (scaled_dot_product_
-attention), K7 (F.dropout), K8 (F.layer_norm), K9 (F.cross_entropy) and
+which the port never calls) are timed beside K1/K2/K5/K12 (scaled_dot_
+product_attention), K7 (F.dropout), K8 (F.layer_norm), K9 (F.cross_entropy) and
 K11 (torch.addmm / torch.mm); no single call computes K3, K4 or K10. Timings run each side twice, in the order plain, kernel, kernel,
-plain. Every kernel is timed with CUDA events two ways: a call's wall time,
+plain. K5's bound is the gradients' work, K2's 5 products a pair, not
+the 7 of its schedule. Every kernel is timed with CUDA events two ways: a call's wall time,
 the host's share included (the JSON line's "ms"), and device time, calls
 queued back to back behind a sleep kernel so the host's gaps drop out
 ("device_ms"). The line before the last holds the kernels' JSON summary;
@@ -169,6 +199,10 @@ STEP_PRODUCTS = (
 STEP_USES = (4, 1, 1, 4, 1, 1, 4, 1, 1)
 # Phase (l): forced steps of the recipe.
 FORCED_STEPS = 10
+# Phase (n): packed documents, lengths geometric with this mean, clipped to
+# [DOC_MIN, GPT2_S]; the GPT-2 attention shape (b, hq, hkv, sq, skv, d).
+DOC_MEAN, DOC_MIN = 256, 8
+GPT2_LAYER = (GPT2_B, 12, 12, GPT2_S, GPT2_S, 64)
 # One H100 SXM (NVIDIA's data sheet): device-memory bytes/s, dense bf16
 # tensor-core operations/s. A bound is the larger of bytes / the first and
 # operations / the second.
@@ -369,15 +403,160 @@ def _flash_inputs(shape, dtype, rng):
                       (b, hq, sq, d))]
 
 
-def _flash_fwd_bwd(q, k, v, do, causal, plain):
+def _flash_fwd_bwd(q, k, v, do, causal, plain, **kw):
     """o, dq, dk, dv through ops.flash_attention (kernels or plain)."""
     from np_modeling_tpu_torch import ops
     from np_modeling_tpu_torch.ops import dispatch
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     with dispatch.force_plain() if plain else contextlib.nullcontext():
-        o = ops.flash_attention(*leaves, causal=causal)
+        o = ops.flash_attention(*leaves, causal=causal, **kw)
         o.backward(do)
     return [o.detach()] + [x.grad for x in leaves]
+
+
+@contextlib.contextmanager
+def _schedule(fused_bwd=True, dual=False):
+    """The flash schedule flags (JAX's FUSED_BWD, FWD_DUAL_KV) in a scope."""
+    from np_modeling_tpu_torch.ops import attention
+    saved = attention.FUSED_BWD, attention.FWD_DUAL_KV
+    attention.FUSED_BWD, attention.FWD_DUAL_KV = fused_bwd, dual
+    try:
+        yield
+    finally:
+        attention.FUSED_BWD, attention.FWD_DUAL_KV = saved
+
+
+def pack_rows(rng, rows, seq):
+    """Documents packed in order into ``rows`` rows of ``seq``: lengths
+    geometric with mean DOC_MEAN, clipped to [DOC_MIN, seq]; a row's last
+    document is cut at its end. Returns segment ids (a row's documents
+    numbered from 0) and positions (0 at each document's start), int32."""
+    seg = np.empty((rows, seq), np.int32)
+    pos = np.empty((rows, seq), np.int32)
+    for r in range(rows):
+        start = doc = 0
+        while start < seq:
+            n = int(np.clip(rng.geometric(1.0 / DOC_MEAN), DOC_MIN, seq))
+            n = min(n, seq - start)
+            seg[r, start:start + n] = doc
+            pos[r, start:start + n] = np.arange(n)
+            start, doc = start + n, doc + 1
+    return seg, pos
+
+
+def _doc_pairs(seg, causal=True):
+    """(q, k) pairs that attend within a document, summed over rows."""
+    lens = np.concatenate([np.unique(r, return_counts=True)[1] for r in seg])
+    return int((lens * (lens + 1) // 2).sum() if causal else (lens ** 2).sum())
+
+
+def _hold(tag, names, got, want, dtype, errs):
+    """Each of ``got`` within _tol(dtype) x max(1, max |want|) of ``want``;
+    returns the printed line and keeps the worst error in ``errs``."""
+    line = []
+    for name, x, y in zip(names, got, want):
+        err = (x.float() - y.float()).abs().max().item()
+        bound = _tol(dtype) * max(1.0, y.float().abs().max().item())
+        if not err <= bound:
+            raise AssertionError(f"(c) {tag}: {name} max abs err {err} > "
+                                 f"{bound}")
+        errs[dtype] = max(errs[dtype], err)
+        line.append(f"{name} {err:.2e}/{bound:.1e}")
+    return ", ".join(line)
+
+
+def phase_flash_schedules_vs_plain():
+    """K1/K2 with segment ids, the split backward K5 and the dual forward
+    K12 against the plain version on the card: o, lse, dq, dk, dv within
+    the flash tolerances; K5's dq, dk, dv equal across two runs bit for
+    bit; K12's o and lse equal K1's bit for bit. Segment ids are packed
+    documents (pack_rows); q's ids are kv's first sq, so every q row has a
+    key of its own document. Returns the max abs errors {"segments",
+    "split", "dual"} -> (fp32, bf16)."""
+    import torch
+    from np_modeling_tpu_torch.ops import attention
+    rng = np.random.default_rng(SEED + 21)
+    f32, f16 = torch.float32, torch.bfloat16
+    errs = {key: {f32: 0.0, f16: 0.0} for key in ("segments", "split",
+                                                  "dual")}
+    ragged, sq_ne = (2, 8, 2, 1000, 1000, 64), (1, 4, 4, 300, 700, 128)
+    # (shape, causal, dtype, segment ids, split backward)
+    cases = [(shape, causal, dtype, True, split)
+             for shape, dtype in ((GPT2_LAYER, f16), (LAYER_SHAPE, f16),
+                                  (ragged, f32), (ragged, f16))
+             for causal in (True, False) for split in (False, True)]
+    cases += [(sq_ne, causal, f32, True, True) for causal in (True, False)]
+    cases += [(shape, causal, dtype, False, True)
+              for shape, dtype in ((GPT2_LAYER, f16), (LAYER_SHAPE, f16),
+                                   (ragged, f32), (ragged, f16))
+              for causal in (True, False)]
+    n_bits = 0
+    for shape, causal, dtype, segments, split in cases:
+        q, k, v, do = _flash_inputs(shape, dtype, rng)
+        kw = {}
+        q_seg = kv_seg = None
+        if segments:
+            kv_seg = torch.tensor(pack_rows(rng, shape[0], shape[4])[0],
+                                  device="cuda")
+            q_seg = kv_seg[:, :shape[3]]
+            kw = {"segment_ids": (q_seg, kv_seg)}
+        scale = 1.0 / math.sqrt(shape[-1])
+        with _schedule(fused_bwd=not split):
+            got = _flash_fwd_bwd(q, k, v, do, causal, False, **kw)
+            again = (_flash_fwd_bwd(q, k, v, do, causal, False, **kw)
+                     if split else None)
+        want = _flash_fwd_bwd(q, k, v, do, causal, True, **kw)
+        got.insert(1, attention._flash_fwd_cuda(q, k, v, causal, scale, True,
+                                                q_seg, kv_seg)[1])
+        want.insert(1, attention._attn_fwd_plain(
+            q, k, v, attention._merge_seg_into_mask(None, q_seg, kv_seg),
+            None, causal, None, scale)[1])
+        torch.cuda.synchronize()
+        tag = (f"flash {'K1+K5' if split else 'K1+K2'}"
+               f"{' segments' if segments else ''} {shape} causal={causal} "
+               f"{str(dtype)[6:]}")
+        # K1 without segment ids is held by phase_flash_vs_plain already.
+        line = _hold(tag, ("o", "lse"), got[:2], want[:2], dtype,
+                     errs["segments"] if segments else {f32: 0.0, f16: 0.0})
+        line += ", " + _hold(tag, ("dq", "dk", "dv"), got[2:], want[2:], dtype,
+                             errs["split" if split else "segments"])
+        if split:
+            if not all(torch.equal(x, y) for x, y in zip(got[2:], again[1:])):
+                raise AssertionError(f"(c) {tag}: K5's dq/dk/dv differ "
+                                     "between two runs")
+            n_bits += 1
+        print(f"(c) {tag}: max abs err / bound: {line}"
+              f"{'; dq, dk, dv bit-equal across two runs' if split else ''}")
+        del q, k, v, do, got, want, again
+    dual_cases = [(shape, causal, dtype)
+                  for shape, dtype in ((LAYER_SHAPE, f16), (GPT2_LAYER, f16),
+                                       (ragged, f32))
+                  for causal in (True, False)]
+    dual_cases += [((1, 12, 12, GPT2_S - 1, GPT2_S - 1, 64), True, f16),
+                   ((1, 4, 4, 700, 700, 128), True, f32)]
+    for shape, causal, dtype in dual_cases:
+        q, k, v, _ = _flash_inputs(shape, dtype, rng)
+        scale = 1.0 / math.sqrt(shape[-1])
+        single = attention._flash_fwd_cuda(q, k, v, causal, scale, True)
+        dual = attention._flash_fwd_cuda(q, k, v, causal, scale, True,
+                                         dual=True)
+        want = attention._attn_fwd_plain(q, k, v, None, None, causal, None,
+                                         scale)
+        torch.cuda.synchronize()
+        tag = f"flash K12 {shape} causal={causal} {str(dtype)[6:]}"
+        if not (torch.equal(single[0], dual[0])
+                and torch.equal(single[1], dual[1])):
+            raise AssertionError(f"(c) {tag}: o/lse differ from K1's")
+        line = _hold(tag, ("o", "lse"), dual, want, dtype, errs["dual"])
+        print(f"(c) {tag}: o and lse equal K1's bit for bit; vs plain "
+              f"{line}")
+        del q, k, v, single, dual, want
+    torch.cuda.empty_cache()
+    out = {key: (e[f32], e[f16]) for key, e in errs.items()}
+    print(f"(c) flash schedules: {len(cases)} K1/K2/K5 cases and "
+          f"{len(dual_cases)} K12 cases pass, K5 repeatable in {n_bits}; max "
+          f"abs err (fp32, bf16): {out}")
+    return out
 
 
 def phase_flash_vs_plain():
@@ -1527,17 +1706,19 @@ def zipf_corpus(vocab, rows, seq, seed=SEED):
     return rng.choice(vocab, size=(rows, seq), p=p / p.sum())
 
 
-def _step0(gpt, tokens, seed, plain, forced=False):
+def _step0(gpt, tokens, seed, plain, forced=False, **loss_kw):
     """Step 0 of the recipe without the update: loss, and the gradients
     after clip_by_global_norm(1.0), with dropout seeded by ``seed``; under
-    force_plain() with ``plain``, under force_kernels() with ``forced``."""
+    force_plain() with ``plain``, under force_kernels() with ``forced``;
+    ``loss_kw`` (segment ids, positions) go to GPT.loss."""
     from np_modeling_tpu_torch import training
     from np_modeling_tpu_torch.ops import dispatch
     gpt.zero_grad(set_to_none=True)
     scope = (dispatch.force_plain() if plain else dispatch.force_kernels()
              if forced else contextlib.nullcontext())
     with scope:
-        loss = gpt.loss(tokens, training=True, rngs={"dropout": seed})
+        loss = gpt.loss(tokens, training=True, rngs={"dropout": seed},
+                        **loss_kw)
         loss.backward()
         grads, _ = training.clip_by_global_norm(1.0).update(
             {n: p.grad for n, p in gpt.named_parameters()}, ())
@@ -1556,7 +1737,10 @@ def _launch_counts():
             "layer_norm_fwd": ops.layer_norm.launches_fwd,
             "layer_norm_bwd": ops.layer_norm.launches_bwd,
             "flash_attention_fwd": ops.flash_attention.launches_fwd,
-            "flash_attention_bwd": ops.flash_attention.launches_bwd}
+            "flash_attention_bwd": ops.flash_attention.launches_bwd,
+            "flash_attention_fwd_dual": ops.flash_attention.launches_fwd_dual,
+            "flash_attention_bwd_split":
+                ops.flash_attention.launches_bwd_split}
 
 
 def _zero_launch_counts():
@@ -1567,6 +1751,8 @@ def _zero_launch_counts():
     ops.dropout.launches = 0
     ops.layer_norm.launches_fwd = ops.layer_norm.launches_bwd = 0
     ops.flash_attention.launches_fwd = ops.flash_attention.launches_bwd = 0
+    ops.flash_attention.launches_fwd_dual = 0
+    ops.flash_attention.launches_bwd_split = 0
 
 
 def phase_train_entry():
@@ -1627,7 +1813,8 @@ def phase_train_entry():
             "layer_norm_fwd": sites * GPT2_STEPS,
             "layer_norm_bwd": sites * GPT2_STEPS,
             "flash_attention_fwd": layers * GPT2_STEPS,
-            "flash_attention_bwd": layers * GPT2_STEPS}
+            "flash_attention_bwd": layers * GPT2_STEPS,
+            "flash_attention_fwd_dual": 0, "flash_attention_bwd_split": 0}
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"(h) loss not finite: {losses}")
     if not losses[-1] < losses[1]:
@@ -1713,7 +1900,8 @@ def phase_forced_training():
             "layer_norm_fwd": sites * FORCED_STEPS,
             "layer_norm_bwd": sites * FORCED_STEPS,
             "flash_attention_fwd": layers * FORCED_STEPS,
-            "flash_attention_bwd": layers * FORCED_STEPS}
+            "flash_attention_bwd": layers * FORCED_STEPS,
+            "flash_attention_fwd_dual": 0, "flash_attention_bwd_split": 0}
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"(l) loss not finite: {losses}")
     if not losses[-1] < losses[1]:
@@ -2102,10 +2290,422 @@ def phase_entry_timings(gpt, corpus, device_line):
     return res
 
 
-def main(phases="abcdefghijklmp"):
+def packed_corpus(vocab, rows, seed=SEED):
+    """(n)'s corpus: seeded Zipf tokens [rows, GPT2_S] with documents packed
+    by pack_rows; returns tokens, segment ids and positions."""
+    tokens = zipf_corpus(vocab, rows, GPT2_S, seed)
+    seg, pos = pack_rows(np.random.default_rng(seed + 22), rows, GPT2_S)
+    return tokens, seg, pos
+
+
+def _packed_batches(packed):
+    """data.epochs over the packed arrays, a dict a batch, through
+    prefetch_to_device onto the card."""
+    from np_modeling_tpu_torch.training import data
+    batches = ({"tokens": t, "segment_ids": s, "positions": p}
+               for t, s, p in data.epochs(list(packed), GPT2_B,
+                                          num_epochs=100))
+    return data.prefetch_to_device(batches, device="cuda")
+
+
+def _packed_loss(gpt):
+    """GPT.loss on a packed batch dict, as make_train_step's apply_fn."""
+    def loss(batch, training=False, rngs=None):
+        return gpt.loss(batch["tokens"], training=training, rngs=rngs,
+                        segment_ids=batch["segment_ids"],
+                        positions=batch["positions"])
+    return loss
+
+
+def _check_isolation(twin, batch):
+    """Eval, fp32, the kernels: each document's logits inside its packed
+    row equal those of the document run alone at positions 0..len-1, to
+    1e-4 x max(1, max |logit|). Returns (documents, worst err / bound)."""
+    import torch
+    seg = batch["segment_ids"].cpu().numpy()
+    worst, n_docs = 0.0, 0
+    with torch.no_grad():
+        packed = twin.apply(batch["tokens"], segment_ids=batch["segment_ids"],
+                            positions=batch["positions"])
+        for r in range(seg.shape[0]):
+            for doc in np.unique(seg[r]):
+                cols = torch.tensor(np.flatnonzero(seg[r] == doc),
+                                    device="cuda")
+                alone = twin.apply(batch["tokens"][r:r + 1, cols])[0]
+                want = packed[r, cols]
+                err = (alone - want).abs().max().item()
+                bound = F32_TOL * max(1.0, want.abs().max().item())
+                if not err <= bound:
+                    raise AssertionError(
+                        f"(n) isolation: row {r} document {doc} "
+                        f"({len(cols)} tokens) max abs err {err} > {bound}")
+                worst, n_docs = max(worst, err / bound), n_docs + 1
+    return n_docs, worst
+
+
+def phase_packed_training():
+    """(n) Packed-document training of GPT-2 small: isolation, step 0 with
+    K1 + K2 and with K1 + K5 against the plain step, the dual forward's
+    step 0 against K1's, then GPT2_STEPS split-backward steps of the
+    recipe (the main path). Returns the model, the packed corpus and the
+    launch counts {"segments", "split", "dual"}."""
+    import torch
+    from np_modeling_tpu_torch import train_gpt, training
+    from np_modeling_tpu_torch.models import GPT
+    cfg = gpt2_config(torch.bfloat16, drop_rate=0.1)
+    gpt = GPT(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    packed = packed_corpus(cfg.vocab_size, 64 * GPT2_B)
+    n_docs = sum(len(np.unique(r)) for r in packed[1])
+    lens = np.concatenate([np.unique(r, return_counts=True)[1]
+                           for r in packed[1]])
+    print(f"(n) packed GPT-2 small as in (h): {n_docs} documents of seeded "
+          f"Zipf tokens in {len(packed[0])} rows of {GPT2_S} (lengths "
+          f"geometric, mean {DOC_MEAN}, clipped to [{DOC_MIN}, {GPT2_S}]; "
+          f"packed mean {lens.mean():.1f}, max {lens.max()}); batches "
+          f"data.epochs -> dict -> prefetch_to_device")
+    it = _packed_batches(packed)
+    first = next(it)
+    kw = {"segment_ids": first["segment_ids"], "positions": first["positions"]}
+    tokens = first["tokens"]
+
+    twin = GPT(gpt2_config(None, drop_rate=0.1), device="cuda")
+    twin.load_state_dict(gpt.state_dict())
+    docs, worst = _check_isolation(twin, first)
+    print(f"(n) isolation (eval, fp32, kernels): {docs} documents of the "
+          f"first batch, each equal to itself alone at positions 0..len-1; "
+          f"worst max abs err {worst:.3f} of its bound (1e-4 x max(1, max "
+          f"|logit|))")
+    seed = SEED + 7
+    lp, ref = _step0(twin, tokens, seed, plain=True, **kw)
+    lp16, gp16 = _step0(gpt, tokens, seed, plain=True, **kw)
+    for fused_bwd, name in ((True, "K1 + K2"), (False, "K1 + K5")):
+        with _schedule(fused_bwd=fused_bwd):
+            lk, gk = _step0(twin, tokens, seed, plain=False, **kw)
+            loss_err = abs(lk - lp) / abs(lp)
+            errs = {n: _rel(gk[n], ref[n]) for n in ref if not _is_key_bias(n)}
+            worst = max(errs, key=errs.get)
+            print(f"(n) fp32 packed step 0, {name} vs plain, same dropout "
+                  f"seed: loss {lk:.7f} vs {lp:.7f} (relative err "
+                  f"{loss_err:.2e}, tol 1e-05); worst gradient relative L2 "
+                  f"err {errs[worst]:.2e} ({worst}, tol 1e-04)")
+            if not (math.isfinite(lk) and loss_err <= 1e-5
+                    and errs[worst] <= 1e-4):
+                raise AssertionError(f"(n) fp32 step 0 {name}: kernels differ "
+                                     "from plain")
+            _check_key_bias(f"(n) fp32 {name}", gk, gk, 1e-4)
+            del gk
+            lk, gk = _step0(gpt, tokens, seed, plain=False, **kw)
+            _hold_bf16(f"(n) packed {name},", lk, lp16, gk, gp16, ref)
+            del gk
+    del twin, ref, gp16
+    torch.cuda.empty_cache()
+
+    # The dual-kv forward: (h)'s unpacked step 0 on the same rows.
+    _zero_launch_counts()
+    with _schedule(dual=True):
+        l_dual, _ = _step0(gpt, tokens, seed, plain=False)
+    dual_counts = _launch_counts()
+    l_single, _ = _step0(gpt, tokens, seed, plain=False)
+    print(f"(n) unpacked step 0, K12 vs K1 forward, same dropout seed: loss "
+          f"{l_dual!r} vs {l_single!r}; launches K12 "
+          f"{dual_counts['flash_attention_fwd_dual']}, K1 "
+          f"{dual_counts['flash_attention_fwd']} (expected "
+          f"{cfg.num_layers}, 0)")
+    if (l_dual != l_single or dual_counts["flash_attention_fwd_dual"]
+            != cfg.num_layers or dual_counts["flash_attention_fwd"] != 0):
+        raise AssertionError("(n) K12 step differs from K1's, or K12 did "
+                             "not carry its forward")
+    torch.cuda.empty_cache()
+
+    opt = train_gpt.recipe(GPT2_STEPS)
+    params = dict(gpt.named_parameters())
+    state = opt.init(params)
+    step = training.make_train_step(_packed_loss(gpt), lambda loss, _: loss,
+                                    opt)
+    g = torch.Generator().manual_seed(1)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    with _schedule(fused_bwd=False):
+        for _ in range(GPT2_STEPS):
+            params, state, loss = step(params, state, next(it), None, g)
+            losses.append(loss)
+    losses = torch.stack(losses).tolist()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    print(f"(n) {GPT2_STEPS} packed steps of the recipe, FUSED_BWD=False, in "
+          f"{seconds:.1f} s; losses {[round(x, 4) for x in losses]}; kernel "
+          f"launches {launches}")
+    sites, layers = 2 * cfg.num_layers + 1, cfg.num_layers
+    want = {"matmul": 0, "softmax_cross_entropy_fwd": 0,
+            "softmax_cross_entropy_bwd": 0, "quantize_int8_stochastic": 0,
+            "dropout": 2 * sites * GPT2_STEPS,
+            "layer_norm_fwd": sites * GPT2_STEPS,
+            "layer_norm_bwd": sites * GPT2_STEPS,
+            "flash_attention_fwd": layers * GPT2_STEPS,
+            "flash_attention_bwd": 0, "flash_attention_fwd_dual": 0,
+            "flash_attention_bwd_split": layers * GPT2_STEPS}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(n) loss not finite: {losses}")
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"(n) loss at step {GPT2_STEPS - 1} "
+                             f"({losses[-1]}) not below step 1's "
+                             f"({losses[1]})")
+    if launches != want:
+        raise AssertionError(f"(n) kernel launches {launches}, expected "
+                             f"{want}")
+    counts = {"segments": launches["flash_attention_fwd"],
+              "split": launches["flash_attention_bwd_split"],
+              "dual": dual_counts["flash_attention_fwd_dual"]}
+    return gpt, packed, counts
+
+
+def _kernel_split_ms(fn, patterns, calls=5):
+    """Device ms a call of ``fn`` spends in the kernels whose names hold
+    each of ``patterns`` (torch.profiler), or None where it sees none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(patterns)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        for pat in patterns:
+            if pat in e.key:
+                out[pat] = (out[pat] or 0.0) + us / 1e3 / calls
+    return out
+
+
+AB_ROUNDS = 5
+
+
+def _alternate(fn_a, fn_b, timer, rounds=AB_ROUNDS):
+    """``rounds`` rounds of a, b, b, a through ``timer``: (a's times, b's)."""
+    a, b = [], []
+    for _ in range(rounds):
+        t = [timer(f) for f in (fn_a, fn_b, fn_b, fn_a)]
+        a += [t[0], t[3]]
+        b += [t[1], t[2]]
+    return a, b
+
+
+def _ab_line(ab, name_a, name_b, fmt=".4f"):
+    """Medians and ranges of an _alternate result, and b's ratio to a."""
+    med = [statistics.median(x) for x in ab]
+    return (f"{name_b} median {med[1]:{fmt}} ms (range {min(ab[1]):{fmt}}.."
+            f"{max(ab[1]):{fmt}}) against {name_a} median {med[0]:{fmt}} ms "
+            f"(range {min(ab[0]):{fmt}}..{max(ab[0]):{fmt}}), "
+            f"{med[1] / med[0]:.3f}x, {len(ab[0])} readings each in rounds "
+            f"of {name_a}, {name_b}, {name_b}, {name_a}")
+
+
+def _bwd_timings(res, tag, shape, q, k, v, do, device_line, pairs, **kw):
+    """K5's backward (and its dq and dk/dv kernels) beside K2 and the
+    plain backward on the same inputs; returns K5's name in ``res``. Its
+    bound is the function's work, K2's: 10 operations a (q, k) pair and
+    feature of the ``pairs`` the inputs need (K5's two extra products a
+    pair are its schedule's price, not work the gradients need)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_k2 = ops.flash_attention(*leaves, causal=True, **kw)
+    with _schedule(fused_bwd=False):
+        o_k5 = ops.flash_attention(*leaves, causal=True, **kw)
+    with dispatch.force_plain():
+        o_plain = ops.flash_attention(*leaves, causal=True, **kw)
+
+    def bwd(o):
+        return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+    name = f"flash backward split {shape}"
+    _both(res, tag, name, bwd(o_k5), device_line, runs=20,
+          plain_fn=bwd(o_plain))
+    _device_both(res, tag, name, bwd(o_k5), device_line,
+                 plain_fn=bwd(o_plain))
+    ab = _alternate(bwd(o_k2), bwd(o_k5), _device_ms)
+    res["K2 " + name] = statistics.median(ab[0])
+    parts = _kernel_split_ms(bwd(o_k5), ("flash_bwd_dq", "flash_bwd_bf16"))
+    res["parts " + name] = parts
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+    seg = kw.get("segment_ids")
+    res["bound " + name] = _bound(
+        _nbytes(q, k, v, q, q, lse, q, k, v, *(() if seg is None else
+                                               (seg, seg))), 10 * pairs)
+    print(f"({tag}) {name}: device time {_ab_line(ab, 'K2', 'K5')}; "
+          f"K5's kernels (torch.profiler, a call): dq "
+          f"{parts['flash_bwd_dq'] or 'not measured'} ms, dk/dv "
+          f"{parts['flash_bwd_bf16'] or 'not measured'} ms; bound "
+          f"{res['bound ' + name][0]:.5f} ms ({res['bound ' + name][1]}) "
+          f"[{device_line}]")
+    return name
+
+
+def phase_packed_timings(gpt, corpus, packed, device_line):
+    """(o) K5 beside K2 and F.scaled_dot_product_attention's autograd
+    backward at the bench shape and the packed GPT-2 shape; K12 beside K1
+    and SDPA forward at the bench shape; K1/K2 with segment ids beside
+    without at the GPT-2 shape, SDPA with the documents' boolean mask as
+    yardstick; the packed step (K2 and K5) beside (h)'s unpacked step.
+    Bounds count the work these inputs need: causal pairs, and with
+    segment ids the pairs inside a document."""
+    import torch
+    import torch.nn.functional as F
+    from np_modeling_tpu_torch import ops, training, train_gpt
+    res = {}
+    rng = np.random.default_rng(SEED + 23)
+    f16 = torch.bfloat16
+
+    # The bench shape, no segment ids: K5 and K12.
+    q, k, v, do = _flash_inputs(LAYER_SHAPE, f16, rng)
+    shape = "b4 h8 s4096 d128 causal bf16"
+    b, h, s_len, d = q.shape
+    pairs = b * h * d * s_len * (s_len + 1) // 2
+    name = _bwd_timings(res, "o", shape, q, k, v, do, device_line, pairs)
+    lib_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*lib_leaves, is_causal=True)
+    res["library " + name] = _library(
+        "o", "F.scaled_dot_product_attention backward (autograd)",
+        lambda: torch.autograd.grad(o_lib, lib_leaves, do, retain_graph=True),
+        device_line)
+    del lib_leaves, o_lib
+
+    def fwd():
+        with torch.no_grad():
+            return ops.flash_attention(q, k, v, causal=True)
+
+    def fwd_dual():
+        with _schedule(dual=True):
+            return fwd()
+
+    name = f"flash forward dual {shape}"
+    _both(res, "o", name, fwd_dual, device_line, runs=20)
+    _device_both(res, "o", name, fwd_dual, device_line)
+    k1 = [_device_ms(f) for f in (fwd, fwd_dual, fwd_dual, fwd)]
+    res["K1 " + name] = min(k1[0], k1[3])
+    print(f"(o) {name}: device time K12 {k1[1]:.4f} / {k1[2]:.4f} ms against "
+          f"K1 {k1[0]:.4f} / {k1[3]:.4f} ms (order K1, K12, K12, K1) "
+          f"[{device_line}]")
+    res["bound " + name] = _bound(_nbytes(q, k, v, q), 4 * pairs)
+
+    def sdpa():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    res["library " + name] = _library(
+        "o", "F.scaled_dot_product_attention(is_causal=True) forward", sdpa,
+        device_line)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # The packed GPT-2 shape: K1/K2 with segment ids beside without, and K5.
+    q, k, v, do = _flash_inputs(GPT2_LAYER, f16, rng)
+    seg_np = packed[1][:GPT2_B]
+    seg = torch.tensor(seg_np, device="cuda")
+    shape = "b8 h12 s1024 d64 causal bf16"
+    b, h, s_len, d = q.shape
+    doc_pairs = h * d * _doc_pairs(seg_np)
+
+    def fwd_seg():
+        with torch.no_grad():
+            return ops.flash_attention(q, k, v, segment_ids=seg, causal=True)
+
+    def fwd_none():
+        with torch.no_grad():
+            return ops.flash_attention(q, k, v, causal=True)
+
+    name = f"flash forward segments {shape}"
+    _both(res, "o", name, fwd_seg, device_line, runs=20)
+    _device_both(res, "o", name, fwd_seg, device_line)
+    res["bound " + name] = _bound(_nbytes(q, k, v, q, seg, seg), 4 * doc_pairs)
+    keep = seg[:, None, :, None] == seg[:, None, None, :]
+    keep &= torch.ones(s_len, s_len, dtype=torch.bool, device="cuda").tril()
+
+    def sdpa_seg():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+
+    res["library " + name] = _library(
+        "o", "F.scaled_dot_product_attention(attn_mask=documents & causal) "
+        "forward", sdpa_seg, device_line)
+    t = [_device_ms(f) for f in (fwd_none, fwd_seg, fwd_seg, fwd_none)]
+    res["K1 no segments " + name] = min(t[0], t[3])
+    print(f"(o) {name}: device time with segment ids {t[1]:.4f} / {t[2]:.4f} "
+          f"ms, without {t[0]:.4f} / {t[3]:.4f} ms; bound "
+          f"{res['bound ' + name][0]:.5f} ms ({_doc_pairs(seg_np)} "
+          f"in-document causal pairs of {b * s_len * (s_len + 1) // 2}) "
+          f"[{device_line}]")
+    bwd_name = _bwd_timings(res, "o", "segments " + shape, q, k, v, do,
+                            device_line, doc_pairs, segment_ids=seg)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_seg = ops.flash_attention(*leaves, segment_ids=seg, causal=True)
+    o_none = ops.flash_attention(*leaves, causal=True)
+    t = [_device_ms(lambda o=o: torch.autograd.grad(o, leaves, do,
+                                                   retain_graph=True))
+         for o in (o_none, o_seg, o_seg, o_none)]
+    res["K2 segments " + shape] = (min(t[1], t[2]), min(t[0], t[3]))
+    lib_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*lib_leaves, attn_mask=keep)
+    res["library " + bwd_name] = _library(
+        "o", "F.scaled_dot_product_attention(attn_mask) backward (autograd)",
+        lambda: torch.autograd.grad(o_lib, lib_leaves, do, retain_graph=True),
+        device_line)
+    print(f"(o) K2 backward {shape}: device time with segment ids "
+          f"{t[1]:.4f} / {t[2]:.4f} ms, without {t[0]:.4f} / {t[3]:.4f} ms "
+          f"[{device_line}]")
+    del q, k, v, do, leaves, o_seg, o_none, lib_leaves, o_lib, keep
+    torch.cuda.empty_cache()
+
+    # Whole steps: (h)'s unpacked step, the packed step with K2, with K5.
+    unpacked = _entry_step(gpt, corpus)
+    opt = train_gpt.recipe(GPT2_STEPS)
+    params = dict(gpt.named_parameters())
+    box = [opt.init(params)]
+    step = training.make_train_step(_packed_loss(gpt), lambda loss, _: loss,
+                                    opt)
+    batch = next(_packed_batches(packed))
+    g = torch.Generator().manual_seed(SEED)
+
+    def packed_step():
+        _, box[0], _ = step(params, box[0], batch, None, g)
+
+    def split_step():
+        with _schedule(fused_bwd=False):
+            packed_step()
+
+    t = [_cuda_ms(f, runs=10, warmup=2)
+         for f in (unpacked, packed_step, packed_step, unpacked)]
+    ab = _alternate(packed_step, split_step,
+                    lambda f: _cuda_ms(f, runs=5, warmup=1))
+    res["steps"] = (min(t[0], t[3]), min(t[1], t[2]),
+                    statistics.median(ab[1]))
+    n_tok = GPT2_B * GPT2_S
+    what = (f"(o) GPT-2 small train step (forward, backward, clip, adamw) "
+            f"b{GPT2_B} s{GPT2_S} dropout 0.1 bf16")
+    print(f"{what}, medians of 10 (order unpacked, packed, packed, "
+          f"unpacked): unpacked {t[0]:.3f} / {t[3]:.3f} ms, packed K1+K2 "
+          f"{t[1]:.3f} / {t[2]:.3f} ms ({n_tok / res['steps'][1] * 1e3:.0f} "
+          f"tokens/s packed) [{device_line}]")
+    print(f"{what}, packed, each reading a median of 5: "
+          f"{_ab_line(ab, 'K1+K2', 'K1+K5', '.3f')} [{device_line}]")
+    return res
+
+
+def main(phases="abcdefghijklmnop"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
     runs the quantized serving path alone); the JSON summary and the ok
-    line come only from a run of every phase a to m."""
+    line come only from a run of every phase a to o."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2121,11 +2721,13 @@ def main(phases="abcdefghijklmp"):
     paged8_err = phase_paged_vs_plain(int8=True)
     k4_err = phase_int8_matmul_vs_plain()
     flash_err = phase_flash_vs_plain()
+    sched_err = phase_flash_schedules_vs_plain()
     fused_err = phase_fused_vs_plain()
     k11_err = phase_matmul_vs_plain()
     sxe_err = phase_sxe_vs_plain()
     k10_err = phase_quantize_vs_plain()
     serving = training_res = entry_res = quant_res = forced_res = None
+    packed_res = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
         prompts = traffic_prompts(gpt.config.vocab_size)
@@ -2173,9 +2775,20 @@ def main(phases="abcdefghijklmp"):
             forced_res = phase_forced_timings(gpt, corpus, device_line)
         del gpt
         torch.cuda.empty_cache()
+    if "n" in phases:
+        t0 = time.perf_counter()
+        gpt, packed, packed_launches = phase_packed_training()
+        print(f"(n) packed training phase {time.perf_counter() - t0:.1f} s")
+        if "o" in phases:
+            packed_res = phase_packed_timings(gpt, packed[0], packed,
+                                              device_line)
+        del gpt
+        torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
-    if None in (serving, training_res, entry_res, quant_res, forced_res):
+    if None in (serving, training_res, entry_res, quant_res, forced_res,
+                packed_res):
         return 0
+    packed_shape = "b8 h12 s1024 d64 causal bf16"
     shape = "b4 h8 s4096 d128 causal bf16"
     k4 = "int8_matmul [8, 768] x [768, 3072] bf16 bias"
     f32, f16 = torch.float32, torch.bfloat16
@@ -2224,7 +2837,17 @@ def main(phases="abcdefghijklmp"):
         ("quantize_int8_stochastic", QUANT_SOURCE,
          "np_modeling_tpu/ops/quantization.py:47",
          forced_launches["quantize_int8_stochastic"], k10_err, forced_res,
-         f"quantize_int8_stochastic [{GPT2_B * GPT2_S}, 768] fp32")]
+         f"quantize_int8_stochastic [{GPT2_B * GPT2_S}, 768] fp32"),
+        ("flash_attention_bwd_split", FLASH_SOURCE,
+         "np_modeling_tpu/ops/attention.py:983", packed_launches["split"],
+         sched_err["split"], packed_res, f"flash backward split {shape}"),
+        ("flash_attention_fwd_dual", FLASH_SOURCE,
+         "np_modeling_tpu/ops/attention.py:693", packed_launches["dual"],
+         sched_err["dual"], packed_res, f"flash forward dual {shape}"),
+        ("flash_attention_segments", FLASH_SOURCE,
+         "np_modeling_tpu/ops/attention.py:756", packed_launches["segments"],
+         sched_err["segments"], packed_res,
+         f"flash forward segments {packed_shape}")]
     # "ms": a call's wall time (CUDA events, host included), every entry;
     # "device_ms": calls back to back behind a sleep kernel (device only);
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its

@@ -141,26 +141,32 @@ class GPT(nn.Module):
         return self
 
     def apply(self, tokens, training=False, rngs=None, return_hidden=False,
-              logits_dtype=None):
+              logits_dtype=None, segment_ids=None, positions=None):
         """Dense forward (JAX :221-333): token embedding plus learned
         positions, cast to the compute dtype, dropout (salt 1000), the
         blocks (layer ``i`` with ``split_rngs(rngs, i)``), the final norm.
-        In training, ``rngs={"dropout": g}`` with ``g`` a CPU generator (one
-        seed drawn from it a call) or an integer seed. Returns the
-        final-norm hidden states with ``return_hidden=True``, else the
-        tied-head logits, fp32 unless ``logits_dtype`` says otherwise."""
+        ``segment_ids`` [b, s]: packed documents, masked from each other
+        inside the flash kernels; ``positions`` ([s] or [b, s]) index the
+        position table in place of ``arange(s)``, so that positions can
+        restart at each document. In training, ``rngs={"dropout": g}`` with
+        ``g`` a CPU generator (one seed drawn from it a call) or an integer
+        seed. Returns the final-norm hidden states with
+        ``return_hidden=True``, else the tied-head logits, fp32 unless
+        ``logits_dtype`` says otherwise."""
         c = self.config
-        if tokens.shape[-1] > c.max_len:
-            raise ValueError(f"{tokens.shape[-1]} tokens: the position table "
-                             f"holds max_len {c.max_len}")
+        if positions is None:
+            if tokens.shape[-1] > c.max_len:
+                raise ValueError(f"{tokens.shape[-1]} tokens: the position "
+                                 f"table holds max_len {c.max_len}")
+            positions = torch.arange(tokens.shape[-1], device=tokens.device)
         x = self.embedding(tokens)
-        x = x + self.pos_embedding(torch.arange(tokens.shape[-1],
-                                                device=tokens.device))
+        x = x + self.pos_embedding(positions)
         rngs = resolve_rngs(rngs) if training else None
         x = self.drop(maybe_cast(x, c.dtype), training, rngs, salt=1000)
         for i in range(c.num_layers):
             x = self._block_for(i)(x, training=training,
-                                   rngs=split_rngs(rngs, i))
+                                   rngs=split_rngs(rngs, i),
+                                   segment_ids=segment_ids)
         x = self.final_norm(x)
         if return_hidden:
             return x
@@ -171,19 +177,40 @@ class GPT(nn.Module):
         logits = torch.matmul(x.float(), table.float().t())
         return logits.to(logits_dtype or torch.float32)
 
-    def loss(self, tokens, training=False, rngs=None):
-        """Mean next-token CE (JAX :381-448) at full length: the targets are
-        the tokens rolled by one, and ``valid`` masks the last position
-        (whose rolled target is the first token). ``rngs`` as in
+    def loss(self, tokens, training=False, rngs=None, segment_ids=None,
+             positions=None):
+        """Mean next-token CE (JAX :381-448). Up to ``max_len`` tokens the
+        model runs at full length: the targets are the tokens rolled by
+        one, and ``valid`` masks the last position (whose rolled target is
+        the first token). Longer, it runs on ``tokens[..., :-1]`` against
+        ``tokens[..., 1:]``, ``segment_ids`` and ``positions`` cut with
+        them. With ``segment_ids``, a position whose next token lies in
+        another document is not a target either. ``rngs`` as in
         ``apply``."""
         c = self.config
-        targets = torch.roll(tokens, -1, dims=-1)
-        valid = torch.ones_like(tokens, dtype=torch.float32)
-        valid[..., -1] = 0.0
-        out = self.apply(tokens, training=training, rngs=rngs,
-                         return_hidden=c.fused_loss, logits_dtype=c.dtype)
+        valid = None
+        if tokens.shape[-1] <= c.max_len:
+            inputs, seg, pos = tokens, segment_ids, positions
+            targets = torch.roll(tokens, -1, dims=-1)
+            valid = torch.ones_like(tokens, dtype=torch.float32)
+            valid[..., -1] = 0.0
+        else:
+            inputs, targets = tokens[..., :-1], tokens[..., 1:]
+            seg = segment_ids[..., :-1] if segment_ids is not None else None
+            pos = positions[..., :-1] if positions is not None else None
+        if segment_ids is not None:
+            same = (segment_ids[..., 1:] == segment_ids[..., :-1]).float()
+            if valid is None:
+                valid = same
+            else:
+                valid[..., :-1] *= same
+        out = self.apply(inputs, training=training, rngs=rngs,
+                         return_hidden=c.fused_loss, logits_dtype=c.dtype,
+                         segment_ids=seg, positions=pos)
         if c.fused_loss:
             return ops.fused_lm_head_loss(out, self.embedding.table, targets,
                                           valid=valid)
         ce = ops.softmax_cross_entropy_with_integer_labels(out, targets)
+        if valid is None:
+            return ce.mean()
         return (ce * valid).sum() / valid.sum().clamp(min=1.0)

@@ -69,13 +69,15 @@ class MultiHeadAttention(nn.Module):
                        b.reshape(h * dk) if b is not None else None)
         return y.reshape(*x.shape[:-1], h, dk).transpose(-3, -2)
 
-    def forward(self, x):
+    def forward(self, x, segment_ids=None):
         """Dense self-attention over [b, s, d]: projections, flash attention
-        (causal if the module is), output projection."""
+        (causal if the module is; with ``segment_ids`` [b, s] a position
+        attends only within its segment), output projection."""
         q = self._project(x, self.wq, self.bq)
         k = self._project(x, self.wk, self.bk)
         v = self._project(x, self.wv, self.bv)
-        o = ops.flash_attention(q, k, v, causal=self.causal)
+        o = ops.flash_attention(q, k, v, segment_ids=segment_ids,
+                                causal=self.causal)
         wo, bo = maybe_cast(self.wo, self.dtype), maybe_cast(self.bo,
                                                              self.dtype)
         hq, dk, d_out = wo.shape

@@ -50,10 +50,14 @@ class TransformerEncoderBlock(nn.Module):
     def _ffn(self, y):
         return self.dense2(self.dense1(y))
 
-    def forward(self, x, training: bool = False, rngs=None):
+    def forward(self, x, training: bool = False, rngs=None,
+                segment_ids=None):
+        """``segment_ids`` [b, s]: packed documents, each attending only
+        within itself (JAX :255-257)."""
         skip = x            # the residual skips the dropout
         y = self.self_attention(self.norm1(self.drop(x, training, rngs,
-                                                     salt=1))) + skip
+                                                     salt=1)),
+                                segment_ids=segment_ids) + skip
         skip = y
         y = self._ffn(self.norm2(self.drop(y, training, rngs, salt=2)))
         return y + skip

@@ -2,23 +2,25 @@
 
 Counterpart of np_modeling_tpu/ops/attention.py. ``flash_attention`` is a
 ``torch.autograd.Function``. On CUDA tensors it launches the hand-written
-Hopper kernels of ``csrc/flash_attention.cu``: K1 (forward) and K2 (fused
-backward). On CPU tensors, or under ``dispatch.force_plain()``, it runs the
-plain version, the port of ``_attn_fwd_jnp``/``_attn_bwd_jnp``, which carries
-every option. The choice is made once in the forward and kept for the
-backward.
+Hopper kernels of ``csrc/flash_attention.cu``: the forward K1 (or its
+dual-kv schedule K12 under ``FWD_DUAL_KV``) and the fused backward K2 (or
+the split backward K5 when ``FUSED_BWD`` is False). On CPU tensors, or under
+``dispatch.force_plain()``, it runs the plain version, the port of
+``_attn_fwd_jnp``/``_attn_bwd_jnp``, which carries every option whatever
+the flags say. The choice of kernels is made once in the forward and kept
+for the backward.
 
 Layouts (the JAX package's): q [b, hq, sq, d]; k/v [b, hkv, skv, d];
 hq % hkv == 0. Softmax statistics and lse ([b, hq, sq]) are fp32; o is in
 q's dtype. Masked scores take the finite ``DEFAULT_MASK_VALUE``, never -inf.
 The causal mask is top-left (``col <= row`` in absolute indices), as in JAX.
 
-The kernels take causal and non-causal attention, GQA, any sq/skv >= 1,
-head_dim 64 or 128, and fp32 (FMA path) or bf16 (tensor cores). On a CUDA
-tensor, mask, bias, segment_ids, window and softcap raise
-NotImplementedError (ROADMAP.md Queue 2, K1/K2). Sinks run, as in JAX, as a
-plain rescale around the kernels. ``block_q``/``block_kv`` are accepted for
-the JAX signature; the kernels' tiles are their own (64 x 64).
+The kernels take causal and non-causal attention, GQA, segment ids, any
+sq/skv >= 1, head_dim 64 or 128, and fp32 (FMA path) or bf16 (tensor
+cores). On a CUDA tensor, mask, bias, window and softcap raise
+NotImplementedError (ROADMAP.md Queue 2). Sinks run, as in JAX, as a plain
+rescale around the kernels. ``block_q``/``block_kv`` are accepted for the
+JAX signature; the kernels' tiles are their own (64 x 64).
 """
 
 from __future__ import annotations
@@ -34,6 +36,18 @@ from np_modeling_tpu_torch.ops import dispatch
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_TILE = 64   # the kernels' q and kv tile rows
+
+# JAX's schedule flags (np_modeling_tpu/ops/attention.py:100, :1185), read
+# by each call's forward and kept for its backward. FWD_DUAL_KV: the forward
+# runs K12, two kv tiles a loop step, where JAX's conditions hold (no mask,
+# bias, segment ids or softcap, an even number of kv tiles); its o and lse
+# equal K1's bit for bit. FUSED_BWD False: the backward runs K5, a dq
+# kernel that owns its rows and a dk/dv kernel, in place of K2, whose dq
+# is summed with atomics in an order that changes from run to run; K5's is
+# the same on every run.
+FWD_DUAL_KV = False
+FUSED_BWD = True
 
 
 def _repeat_kv(x, g):
@@ -141,7 +155,7 @@ def _attn_bwd_plain(q, k, v, o, lse, do, mask, bias, causal, window, scale,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
-# ---- the CUDA kernels (K1, K2) ------------------------------------------------
+# ---- the CUDA kernels (K1, K12, K2, K5) -------------------------------------
 
 def _kernel_layout(x):
     """``x`` as the kernels read it: last dim contiguous, 16-byte aligned rows
@@ -155,7 +169,7 @@ def _kernel_layout(x):
     return x
 
 
-def _check_kernel_inputs(q, k, v):
+def _check_kernel_inputs(q, k, v, q_seg, kv_seg):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: want [b,hq,sq,d], [b,hkv,skv,d]")
@@ -173,60 +187,92 @@ def _check_kernel_inputs(q, k, v):
                          "want all float32 or all bfloat16")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one CUDA device")
+    if q_seg is not None:
+        for name, seg, n in (("q", q_seg, sq), ("kv", kv_seg, k.shape[2])):
+            if tuple(seg.shape) != (b, n) or seg.device != q.device:
+                raise ValueError(f"{name} segment ids {tuple(seg.shape)}: "
+                                 f"want [{b}, {n}] on {q.device}")
 
 
-def _launch(name, pointers, tensors, *dims):
-    """Calls ``name`` in the library: data pointers (None for null), the 12
-    (b, h, s) strides of ``tensors`` (q, k, v[, do]), 8 ints, the scale and
-    the current stream; raises if the launch returned a CUDA error."""
+def _seg_int32(seg):
+    return None if seg is None else seg.to(torch.int32)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(name, tensors, strided, segs, *dims):
+    """Calls ``name`` in the library: the data pointers of ``tensors`` (None
+    for null), 16 strides ((b, h, s) of ``strided``, q, k, v[, do], then
+    (b, s) of the segment ids ``segs``, zeros without them), 9 ints, the
+    scale and the current stream; raises if a launch returned a CUDA
+    error."""
     from np_modeling_tpu_torch.ops import cuda_build
     fn = getattr(cuda_build.load("flash_attention").lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * (len(pointers) + 1)
-                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
-    strides = [s for t in tensors for s in t.stride()[:3]]
-    strides = (ctypes.c_longlong * 12)(*strides, *[0] * (12 - len(strides)))
-    q = tensors[0]
+    fn.argtypes = ([ctypes.c_void_p] * (len(tensors) + 1)
+                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    strides = [s for t in strided for s in t.stride()[:3]]
+    strides += [0] * (12 - len(strides))
+    strides += ([s for t in segs for s in t.stride()] if segs[0] is not None
+                else [0] * 4)
+    q = strided[0]
     with torch.cuda.device(q.device):
-        rc = fn(*pointers, strides, *dims,
+        rc = fn(*[_ptr(t) for t in tensors],
+                (ctypes.c_longlong * 16)(*strides), *dims,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash-attention kernel {name} failed to launch: "
                            f"CUDA error {rc}")
 
 
-def _flash_fwd_cuda(q, k, v, causal, scale, need_lse):
-    _check_kernel_inputs(q, k, v)
+def _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg=None,
+                    kv_seg=None, dual=False):
+    """K1 (or K12 with ``dual``): o [b, hq, sq, d] (a view) and lse."""
+    _check_kernel_inputs(q, k, v, q_seg, kv_seg)
     q, k, v = (_kernel_layout(x) for x in (q, k, v))
+    q_seg, kv_seg = _seg_int32(q_seg), _seg_int32(kv_seg)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    _launch("np_flash_attention_fwd",
-            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr() if need_lse else None], (q, k, v),
-            _DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d, int(causal), scale)
-    flash_attention.launches_fwd += 1
+    _launch("np_flash_attention_fwd", (q, k, v, o, lse, q_seg, kv_seg),
+            (q, k, v), (q_seg, kv_seg), _DTYPE_CODES[q.dtype], b, hq, hkv, sq,
+            skv, d, int(causal), int(dual), scale)
+    if dual:
+        flash_attention.launches_fwd_dual += 1
+    else:
+        flash_attention.launches_fwd += 1
     return o.transpose(1, 2), lse
 
 
-def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
-    _check_kernel_inputs(q, k, v)
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, q_seg=None,
+                    kv_seg=None, split=False):
+    """K2 (or K5 with ``split``): dq, dk, dv in the JAX layouts."""
+    _check_kernel_inputs(q, k, v, q_seg, kv_seg)
     q, k, v, do = (_kernel_layout(x) for x in (q, k, v, do.to(q.dtype)))
+    q_seg, kv_seg = _seg_int32(q_seg), _seg_int32(kv_seg)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     # di = rowsum(do * o) outside the kernel, as JAX does (:1214).
     di = (do.float() * o.float()).sum(dim=-1).contiguous()
     lse = lse.contiguous()
-    dq = torch.zeros((b, sq, hq, d), dtype=torch.float32, device=q.device)
+    # K2 adds dq into a zeroed fp32 buffer; K5's dq kernel writes it once.
+    dq = (torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device) if split
+          else torch.zeros((b, sq, hq, d), dtype=torch.float32,
+                           device=q.device))
     dk = torch.empty((b, skv, hq, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _launch("np_flash_attention_bwd",
-            [x.data_ptr() for x in (q, k, v, do, lse, di, dq, dk, dv)],
-            (q, k, v, do),
-            _DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d, int(causal), scale)
-    flash_attention.launches_bwd += 1
+            (q, k, v, do, lse, di, q_seg, kv_seg, dq, dk, dv), (q, k, v, do),
+            (q_seg, kv_seg), _DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d,
+            int(causal), int(split), scale)
+    if split:
+        flash_attention.launches_bwd_split += 1
+    else:
+        flash_attention.launches_bwd += 1
     g = hq // hkv
     if g > 1:   # [b, skv, hq, d] -> [b, skv, hkv, d], summed in fp32
         dk = dk.view(b, skv, hkv, g, d).float().sum(dim=3).to(k.dtype)
@@ -241,16 +287,22 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, sinks, mask, q_seg, kv_seg, causal,
                 window, scale, softcap):
         kernel = dispatch.use_kernel(q)
+        split = not FUSED_BWD
         if kernel:
-            unported = {"mask": mask, "bias": bias, "segment_ids": q_seg,
-                        "window": window, "softcap": softcap}
+            unported = {"mask": mask, "bias": bias, "window": window,
+                        "softcap": softcap}
             unported = [n for n, x in unported.items() if x is not None]
             if unported:
                 raise NotImplementedError(
                     f"the CUDA flash-attention kernels do not take {unported}"
-                    " yet (ROADMAP.md Queue 2, K1/K2)")
+                    " yet (ROADMAP.md Queue 2)")
             need_lse = sinks is not None or any(ctx.needs_input_grad[:5])
-            o, lse = _flash_fwd_cuda(q, k, v, causal, scale, need_lse)
+            # JAX's conditions for K12 (:856-858) at the kernel's tile width;
+            # mask, bias and softcap have raised above.
+            dual = (FWD_DUAL_KV and q_seg is None
+                    and -(-k.shape[2] // _TILE) % 2 == 0)
+            o, lse = _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg,
+                                     kv_seg, dual)
         else:
             o, lse = _attn_fwd_plain(
                 q, k, v, _merge_seg_into_mask(mask, q_seg, kv_seg), bias,
@@ -264,16 +316,17 @@ class _FlashAttention(torch.autograd.Function):
             lse = lse_tot
         ctx.save_for_backward(q, k, v, o, lse, bias, sinks, mask, q_seg,
                               kv_seg)
-        ctx.opts = (kernel, causal, window, scale, softcap)
+        ctx.opts = (kernel, split, causal, window, scale, softcap)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, bias, sinks, mask, q_seg, kv_seg = ctx.saved_tensors
-        kernel, causal, window, scale, softcap = ctx.opts
+        kernel, split, causal, window, scale, softcap = ctx.opts
         dbias = dsinks = None
         if kernel:
-            dq, dk, dv = _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+            dq, dk, dv = _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
+                                         q_seg, kv_seg, split)
         else:
             dq, dk, dv, dbias = _attn_bwd_plain(
                 q, k, v, o, lse, do, _merge_seg_into_mask(mask, q_seg, kv_seg),
@@ -326,6 +379,10 @@ def flash_attention(q, k, v, mask=None, bias=None, segment_ids=None, *,
 
 
 # Kernel launches since import (or since a caller reset them to 0): a run
-# shows with them that its attention went through K1 and K2.
+# shows with them that its attention went through K1 (launches_fwd), K12
+# (launches_fwd_dual), K2 (launches_bwd) or K5 (launches_bwd_split, one a
+# pair of its kernels).
 flash_attention.launches_fwd = 0
+flash_attention.launches_fwd_dual = 0
 flash_attention.launches_bwd = 0
+flash_attention.launches_bwd_split = 0

@@ -41,6 +41,13 @@ def epochs(arrays: Sequence[np.ndarray], batch_size: int, num_epochs: int,
 
 
 def _put(batch, device):
+    """``batch`` with each array sent to ``device``, through dicts (same
+    keys), namedtuples (same type), tuples and lists, as
+    ``jax.tree_util.tree_map`` maps ``device_put`` over a pytree."""
+    if isinstance(batch, dict):
+        return type(batch)((k, _put(a, device)) for k, a in batch.items())
+    if isinstance(batch, tuple) and hasattr(batch, "_fields"):
+        return type(batch)(*(_put(a, device) for a in batch))
     if isinstance(batch, (tuple, list)):
         return type(batch)(_put(a, device) for a in batch)
     host = torch.from_numpy(np.ascontiguousarray(batch))
@@ -51,10 +58,10 @@ def _put(batch, device):
 
 def prefetch_to_device(iterator: Iterable, size: int = 2,
                        device=None) -> Iterator:
-    """Yield the iterator's batches (numpy arrays, or tuples and lists of
-    them) as tensors on ``device`` (default: the card, ``cuda``, as JAX puts
-    them on its default backend; without a card the first batch raises),
-    with ``size`` of them sent ahead."""
+    """Yield the iterator's batches (numpy arrays, or dicts, namedtuples,
+    tuples and lists of them, nested) as tensors on ``device`` (default:
+    the card, ``cuda``, as JAX puts them on its default backend; without a
+    card the first batch raises), with ``size`` of them sent ahead."""
     device = torch.device(device if device is not None else "cuda")
     queue = collections.deque()
     it = iter(iterator)

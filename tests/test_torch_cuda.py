@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import _schedule
 from np_modeling_tpu_torch import models, ops
 from np_modeling_tpu_torch.ops import dispatch, fused
 
@@ -118,18 +119,109 @@ def test_cuda_flash_kernels_count_launches():
                                                   before[1] + 1)
 
 
-@pytest.mark.parametrize("option", ["window", "softcap", "segment_ids",
-                                    "mask", "bias"])
+@pytest.mark.parametrize("option", ["window", "softcap", "mask", "bias"])
 def test_cuda_flash_unported_options_raise(option):
     q, k, v, _ = _flash_inputs(1, 2, 2, 64, 64, 64, torch.float32)
     kw = {"window": dict(window=4, causal=True), "softcap": dict(softcap=5.0),
-          "segment_ids": dict(segment_ids=torch.zeros(
-              1, 64, dtype=torch.int32, device="cuda")),
           "mask": dict(mask=torch.ones(1, 1, 64, 64, dtype=torch.bool,
                                        device="cuda")),
           "bias": dict(bias=torch.zeros(1, 2, 64, 64, device="cuda"))}[option]
     with pytest.raises(NotImplementedError):
         ops.flash_attention(q, k, v, **kw)
+
+
+# ---- segment ids in K1/K2, the split backward K5, the dual forward K12 ----
+
+def _packed_segments(b, s, seed=0):
+    """Sorted document ids, documents 1..299 keys long, as packing makes
+    them."""
+    rng = np.random.default_rng(seed)
+    ids = np.stack([np.repeat(np.arange(s), rng.integers(1, 300, s))[:s]
+                    for _ in range(b)])
+    return torch.tensor(ids, dtype=torch.int32, device="cuda")
+
+
+def _fwd_bwd(q, k, v, do, plain=False, **kw):
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    with dispatch.force_plain() if plain else contextlib.nullcontext():
+        o = ops.flash_attention(*leaves, **kw)
+        o.backward(do)
+    return [o.detach()] + [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 4, 200, 200, 64),
+                                   (2, 8, 2, 384, 384, 128),
+                                   (1, 4, 2, 128, 640, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("fused_bwd", [True, False], ids=["k2", "k5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_segments_vs_plain(shape, causal, fused_bwd, dtype):
+    """K1 with segment ids and K2 or K5 behind it; q's ids are kv's first
+    sq, so every q row has a key of its own document."""
+    q, k, v, do = _flash_inputs(*shape, dtype)
+    kv_seg = _packed_segments(shape[0], shape[4])
+    kw = dict(segment_ids=(kv_seg[:, :shape[3]], kv_seg), causal=causal)
+    with _schedule(fused_bwd=fused_bwd):
+        before = (ops.flash_attention.launches_bwd,
+                  ops.flash_attention.launches_bwd_split)
+        got = _fwd_bwd(q, k, v, do, **kw)
+        after = (ops.flash_attention.launches_bwd,
+                 ops.flash_attention.launches_bwd_split)
+        want = _fwd_bwd(q, k, v, do, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert (after[0] - before[0], after[1] - before[1]) == (
+        (1, 0) if fused_bwd else (0, 1))
+    for x, y in zip(got, want):
+        bound = _tol(dtype) * max(1.0, y.float().abs().max().item())
+        assert (x.float() - y.float()).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 2, 200, 200, 64),
+                                   (1, 4, 4, 256, 256, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_split_backward_vs_plain_and_repeatable(shape, causal,
+                                                           dtype):
+    """K5 against the plain version, bit-equal to itself across two runs,
+    and against K2 at fp32 rtol 2e-5 / atol 5e-5 (JAX's bound)."""
+    q, k, v, do = _flash_inputs(*shape, dtype)
+    with _schedule(fused_bwd=False):
+        first = _fwd_bwd(q, k, v, do, causal=causal)
+        again = _fwd_bwd(q, k, v, do, causal=causal)
+    fused = _fwd_bwd(q, k, v, do, causal=causal)
+    want = _fwd_bwd(q, k, v, do, plain=True, causal=causal)
+    torch.cuda.synchronize()
+    for x, y, z, w in zip(first, again, fused, want):
+        assert torch.equal(x, y)
+        bound = _tol(dtype) * max(1.0, w.float().abs().max().item())
+        assert (x.float() - w.float()).abs().max().item() <= bound
+        if dtype == torch.float32:
+            torch.testing.assert_close(x, z, rtol=2e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 2, 256, 256, 64),
+                                   (1, 4, 4, 1023, 1023, 64),
+                                   (1, 2, 2, 100, 200, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_dual_forward_equals_k1(shape, causal, dtype):
+    """K12 (an even number of kv tiles, the ragged 1023 included) gives K1's
+    o and lse bit for bit; with an odd number the flag launches K1."""
+    from np_modeling_tpu_torch.ops import attention
+    q, k, v, _ = _flash_inputs(*shape, dtype)
+    scale = shape[-1] ** -0.5
+    single = attention._flash_fwd_cuda(q, k, v, causal, scale, True)
+    dual = attention._flash_fwd_cuda(q, k, v, causal, scale, True, dual=True)
+    torch.cuda.synchronize()
+    assert torch.equal(single[0], dual[0]) and torch.equal(single[1], dual[1])
+    before = (ops.flash_attention.launches_fwd,
+              ops.flash_attention.launches_fwd_dual)
+    with _schedule(dual=True), torch.no_grad():
+        ops.flash_attention(q, k, v, causal=causal)
+        one_tile = k[:, :, :64]
+        ops.flash_attention(q, one_tile, one_tile, causal=causal)
+    assert (ops.flash_attention.launches_fwd - before[0],
+            ops.flash_attention.launches_fwd_dual - before[1]) == (1, 1)
 
 
 # ---- one GPT train step -----------------------------------------------------------

@@ -1,14 +1,19 @@
 """The port's flash attention against the JAX package's.
 
 The plain version (what runs on CPU tensors) is held against JAX
-``flash_attention`` on its jnp path and against the Pallas kernels K1/K2 in
+``flash_attention`` on its jnp path and against the Pallas kernels in
 interpret mode (``force_pallas(True, interpret=True)``, 128 x 128 blocks, as
 tests/test_attention.py runs them), forward and backward, with every
-option. Inputs are seeded numpy arrays fed to both. fp32 at rtol 1e-5 /
-atol 2e-5, gradients at atol 5e-5 (the JAX package's own kernel tests).
+option: K1/K2, K1/K2 with segment ids, the split backward K5 (JAX's
+``FUSED_BWD`` False) and the dual-kv forward K12 (``FWD_DUAL_KV`` True),
+each with the port's flag set likewise. Inputs are seeded numpy arrays
+fed to both. fp32 at rtol 1e-5 / atol 2e-5, gradients at atol 5e-5 (the
+JAX package's own kernel tests).
 The CUDA kernels themselves are held against the plain version on the card
 by tests/test_torch_cuda.py and chip_smoke.py.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import _schedule
 from np_modeling_tpu import ops as jops
 from np_modeling_tpu.ops import dispatch as jdispatch
 from np_modeling_tpu_torch import ops
@@ -135,6 +141,91 @@ def test_plain_vs_jax_pallas_kernels_interpret(shape, kw):
     q, k, v, do = _inputs(*shape)
     want = _jax(q, k, v, do, pallas=True, block_q=128, block_kv=128, **kw)
     _check(_port(q, k, v, do, **kw), want)
+
+
+def _jnp_kw(kw):
+    return {k_: (tuple(jnp.asarray(x) for x in val) if isinstance(val, tuple)
+                 else val) for k_, val in kw.items()}
+
+
+@contextlib.contextmanager
+def _flags(monkeypatch, fused_bwd=True, dual=False):
+    """Both packages' schedule flags, set alike in a scope."""
+    import np_modeling_tpu.ops.attention as jattention
+    monkeypatch.setattr(jattention, "FUSED_BWD", fused_bwd)
+    monkeypatch.setattr(jattention, "FWD_DUAL_KV", dual)
+    with _schedule(fused_bwd, dual):
+        yield
+
+
+@pytest.mark.parametrize("fused_bwd", [True, False], ids=["k2", "k5"])
+@pytest.mark.parametrize("shape,causal", [
+    ((1, 2, 2, 256, 256, 64), True),
+    ((1, 2, 2, 256, 256, 64), False),
+    ((1, 4, 2, 200, 200, 64), True),
+    ((1, 2, 1, 128, 256, 64), False),
+], ids=["causal", "full", "gqa_ragged", "gqa_sq_ne_skv_full"])
+def test_plain_vs_jax_pallas_segments_interpret(shape, causal, fused_bwd,
+                                                monkeypatch):
+    """K1 with segment ids and the backward that ``FUSED_BWD`` picks (K2 or
+    K5), in interpret mode, against the port's plain version. Three
+    documents a row, so some rows' first kv tiles are all another
+    document's; every q row keeps its own key (q ids are kv's first sq)."""
+    b, hq, hkv, sq, skv, d = shape
+    q, k, v, do = _inputs(*shape)
+    kv_seg = _segments(b, skv)
+    kw = dict(segment_ids=(kv_seg[:, :sq], kv_seg), causal=causal)
+    with _flags(monkeypatch, fused_bwd=fused_bwd):
+        want = _jax(q, k, v, do, pallas=True, block_q=128, block_kv=128,
+                    **_jnp_kw(kw))
+        _check(_port(q, k, v, do, **kw), want)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_plain_vs_jax_pallas_split_backward_interpret(causal, monkeypatch):
+    """K5 alone (JAX's ``FUSED_BWD`` False), GQA, without segment ids."""
+    q, k, v, do = _inputs(1, 4, 2, 256, 256, 64)
+    with _flags(monkeypatch, fused_bwd=False):
+        want = _jax(q, k, v, do, pallas=True, block_q=128, block_kv=128,
+                    causal=causal)
+        _check(_port(q, k, v, do, causal=causal), want)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_plain_vs_jax_pallas_dual_forward_interpret(causal, monkeypatch):
+    """K12 (JAX's ``FWD_DUAL_KV`` True: two kv blocks of 128 at s 256),
+    GQA, and the K2 backward behind it."""
+    q, k, v, do = _inputs(1, 4, 2, 256, 256, 64)
+    with _flags(monkeypatch, dual=True):
+        want = _jax(q, k, v, do, pallas=True, block_q=128, block_kv=128,
+                    causal=causal)
+        _check(_port(q, k, v, do, causal=causal), want)
+
+
+def test_schedule_flags_have_jax_defaults_and_change_nothing_on_cpu():
+    import np_modeling_tpu.ops.attention as jattention
+    assert (ops.attention.FUSED_BWD, ops.attention.FWD_DUAL_KV) == (
+        jattention.FUSED_BWD, jattention.FWD_DUAL_KV) == (True, False)
+    q, k, v, do = _inputs(1, 2, 2, 128, 128, 64)
+    seg = _segments(1, 128)
+    before = (ops.flash_attention.launches_fwd,
+              ops.flash_attention.launches_fwd_dual,
+              ops.flash_attention.launches_bwd,
+              ops.flash_attention.launches_bwd_split)
+    results = []
+    for fused_bwd, dual in ((True, False), (False, True)):
+        with _schedule(fused_bwd, dual):
+            results.append(_port(q, k, v, do, causal=True))
+            results.append(_port(q, k, v, do, segment_ids=seg,
+                                 causal=False))
+    for got, want in zip(results[2:], results[:2]):
+        np.testing.assert_array_equal(got[0], want[0])
+        for g, w in zip(got[1], want[1]):
+            np.testing.assert_array_equal(g, w)
+    assert (ops.flash_attention.launches_fwd,
+            ops.flash_attention.launches_fwd_dual,
+            ops.flash_attention.launches_bwd,
+            ops.flash_attention.launches_bwd_split) == before
 
 
 def test_attention_reference_vs_jax():

@@ -1,7 +1,7 @@
 """Drives the PyTorch port's serving path, its quantized serving path, its
 bench training step, its training entry point, that entry point with every
-product forced through the matmul kernel, and packed-document training
-once on one CUDA card.
+product forced through the matmul kernel, packed-document training and
+Gemma-2 serving once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -24,7 +24,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
       s1024 d64) and ragged, GQA and sq != skv shapes; K5's dq, dk and dv
       equal across two runs bit for bit; the dual forward K12, causal and
       full, ragged (1023) included, gives o and lse equal to K1's bit for
-      bit.
+      bit. Paged attention at Gemma-2's head_dim 256 (GQA g=2) with fp32,
+      bf16 and int8 pages, decode and chunks of 1, 5 and 64 tokens, a
+      window inside a page, across pages and past every row, softcap 50,
+      and both: the tolerances above, and no table entry outside the band
+      of positions a row sees is read.
       LayerNorm K8 (out, dx, dgamma, dbeta): fp32 max abs err <= 1e-5 times
       max(1, max |plain|); a bf16 output within one bf16 ulp (or that fp32
       bound, where a value is so near 0 that fp32 rounding before the last
@@ -65,12 +69,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
   (f) training: the bench GPT (bench.py: 4 layers, d 1024, 8 heads, FFN
       4096, vocab 8192, batch 4 x 4096 tokens, bf16 compute, fused loss) at
       full width. Step 0 through the kernels against the same step with the
-      plain attention, on the same weights: in fp32 with gelu in place of
-      relu (loss within 1e-5 relative, each gradient's relative L2 error
-      <= 1e-4; relu's kink makes fp32 gradients of two correct versions
-      differ by ~1e-3); in bf16 (loss within 5e-3 relative, each gradient
-      no further from the fp32 step's than 1.25x the plain bf16 step's own
-      distance, or 2e-2). Then 3 steps of adam(1e-3) on one seeded batch
+      plain attention, on the same weights, with gelu in place of relu
+      (relu's kink makes fp32 gradients of two correct versions differ by
+      ~1e-3, and the bf16 criterion flip from process to process): in fp32
+      (loss within 1e-5 relative, each gradient's relative L2 error <=
+      1e-4); in bf16 (loss within 5e-3 relative, each gradient no further
+      from the fp32 step's than 1.25x the plain bf16 step's own distance,
+      or 2e-2). Then 3 steps of adam(1e-3) on one seeded batch
       through the kernels: the loss is finite and falls, K1/K2 each
       launch once a layer a step and K8 once a LayerNorm a step each way;
   (g) training timings with CUDA events: flash forward, backward and
@@ -130,7 +135,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
       over 3 steps, device time by kernel and by kind, device ops a step
       and the card's idle share (PERF.md, "Where the time goes"); a
       report, not a check: if the profiler sees no device time, it says so
-      and the run goes on.
+      and the run goes on;
+  (q) Gemma-2 2B serving (google/gemma-2-2b's config: 26 layers, d 2304,
+      8 heads over 4 kv heads of 256, geglu FFN 9216, vocab 256000, RoPE,
+      RMSNorm, sandwich norms, a window of 4096 on even layers, softcaps 50
+      and 30) at full width and depth with seeded random weights, bf16
+      compute and pages, 8 slots, page 16, chunk 256: 6 prompts of
+      128..1024 tokens and one of 4,600 in one batched prefill, then 32
+      decode steps. K3 launches 26 times a forward (13 with the window) and
+      no other kernel does; bf16 last-position logits within 1.25 x the
+      plain bf16 engine's distance from the fp32 engine's plus 1e-2 x
+      max(1, max |logit|); fp32 greedy tokens equal the plain engine's
+      (near-ties printed); each first token is the argmax of GPT.apply's
+      last logits under force_plain(), within 1e-3 x max(1, max |logit|);
+  (r) Gemma-2 timings: the engine's prefill ms and decode tokens/s, the
+      decode profiled by kind (as (p)), K3 at that decode on the engine's
+      pages for a local and a global layer beside its bound, and K3 on 8
+      sequences of 512..4096 tokens (a report, not a check).
 Each path runs with the launch counts set to 0 just before it and read just
 after. Library yardsticks (one PyTorch call computing a kernel's function,
 which the port never calls) are timed beside K1/K2/K5/K12 (scaled_dot_
@@ -203,6 +224,18 @@ FORCED_STEPS = 10
 # [DOC_MIN, GPT2_S]; the GPT-2 attention shape (b, hq, hkv, sq, skv, d).
 DOC_MEAN, DOC_MIN = 256, 8
 GPT2_LAYER = (GPT2_B, 12, 12, GPT2_S, GPT2_S, 64)
+# Phase (q): Gemma-2 2B serving (google/gemma-2-2b's config.json as
+# np_modeling_tpu/utils/hf_compat.py:1363-1408 maps it): local layers' window,
+# score scale query_pre_attn_scalar ** -0.5; the engine's slots, page size,
+# prefill chunk and pages; 6 prompts of 128..1024 tokens and one of
+# GEMMA_LONG, past the window; decode steps after them.
+GEMMA_WINDOW, GEMMA_SCALE = 4096, 256.0 ** -0.5
+GEMMA_SLOTS, GEMMA_PAGE, GEMMA_CHUNK, GEMMA_PAGES = 8, 16, 256, 1024
+GEMMA_LONG, GEMMA_DECODE = 4600, 32
+# (q): the bf16 engine's last-position logits against the fp32 engine's: at
+# most 1.25 x the plain bf16 engine's distance plus this share of max(1,
+# max |fp32 logit|).
+GEMMA_BF16_SLACK = 1e-2
 # One H100 SXM (NVIDIA's data sheet): device-memory bytes/s, dense bf16
 # tensor-core operations/s. A bound is the larger of bytes / the first and
 # operations / the second.
@@ -391,6 +424,75 @@ def phase_paged_vs_plain(int8=False):
                     print(f"(c) {tag}: max abs err {err:.3e}")
     print(f"(c) {what}: {n} cases pass: max abs err fp32 {errs[torch.float32]:.3e} "
           f"(tol {F32_TOL}), bf16 {errs[torch.bfloat16]:.3e} (tol {BF16_TOL})")
+    return errs[torch.float32], errs[torch.bfloat16]
+
+
+def phase_paged_options_vs_plain():
+    """K3's Gemma-2 options vs the plain version: head_dim 256, GQA g=2, in
+    fp32, bf16 and int8 pages (int8 with fp32 q and with bf16 q), decode and
+    chunked append (sq 1, 5 and 64), with a window below a page (7), across
+    pages (37) and past every row (GEMMA_WINDOW), softcap 50, and both; the
+    tolerances of the cases above. Table entries past the length and below
+    the band of the first row are poisoned: the kernel must read neither.
+    Returns (max err fp32, bf16) by q's dtype."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    rng = np.random.default_rng(SEED + 3)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n, psize = 0, GEMMA_PAGE
+    options = (dict(window=7), dict(window=37), dict(window=GEMMA_WINDOW),
+               dict(softcap=50.0), dict(softcap=50.0, window=37),
+               dict(softcap=50.0, window=7, scale=GEMMA_SCALE))
+    for sq in (None, 1, 5, 64):
+        rows = sq or 1
+        lengths = [rows, psize * -(-rows // psize), rows + 45,
+                   int(rng.integers(rows + 300, rows + 900))]
+        if rows == 1:
+            lengths.append(0)
+        for pages in ("float32", "bfloat16", "int8 fp32 q", "int8 bf16 q"):
+            dtype = torch.bfloat16 if "bfloat16" in pages or "bf16" in pages \
+                else torch.float32
+            int8 = pages.startswith("int8")
+            q, k, v, lens, table = _pa_inputs(
+                len(lengths), sq, 8, 4, 256, psize, lengths,
+                torch.float32 if int8 else dtype, rng)
+            kw = {}
+            if int8:
+                q = q.to(dtype)
+                k, v, kw = _int8_pages(k, v)
+            for opts in options:
+                got = ops.paged_attention(q, k, v, lens, table, **kw, **opts)
+                with dispatch.force_plain():
+                    want = ops.paged_attention(q, k, v, lens, table, **kw,
+                                               **opts)
+                poisoned = table.clone()
+                window = opts.get("window", 1 << 30)
+                for i, ln in enumerate(lengths):
+                    poisoned[i, -(-ln // psize):] = 2 ** 30
+                    poisoned[i, :max(0, ln - rows - window + 1) // psize] = \
+                        2 ** 30
+                again = ops.paged_attention(q, k, v, lens, poisoned, **kw,
+                                            **opts)
+                torch.cuda.synchronize()
+                live = lens > 0
+                err = (got[live].float() - want[live].float()).abs().max().item()
+                tol = _tol(dtype)
+                tag = (f"paged d256 hq8/hkv4 sq={sq} ps={psize} {pages} pages "
+                       f"{opts} lengths={lengths}")
+                if not err <= tol:
+                    raise AssertionError(f"(c) {tag}: max abs err {err} > {tol}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"(c) {tag}: output depends on table "
+                                         "entries outside the band")
+                if not bool((got[~live] == 0).all()):
+                    raise AssertionError(f"(c) {tag}: length-0 row not 0")
+                errs[dtype] = max(errs[dtype], err)
+                n += 1
+                print(f"(c) {tag}: max abs err {err:.3e}")
+    print(f"(c) paged d256 window/softcap: {n} cases pass: max abs err fp32 "
+          f"{errs[torch.float32]:.3e} (tol {F32_TOL}), bf16 "
+          f"{errs[torch.bfloat16]:.3e} (tol {BF16_TOL})")
     return errs[torch.float32], errs[torch.bfloat16]
 
 
@@ -1181,31 +1283,35 @@ def phase_engine(gpt, prompts):
 
 def _greedy_vs_plain(tag, make, prompts):
     """The traffic through an engine from ``make()`` on the kernels and on
-    the plain versions: greedy tokens must agree, except where the plain
-    path's top-2 logits lie within NEAR_TIE (printed; the streams part
-    there)."""
+    the plain versions: greedy tokens must agree (``_same_greedy``)."""
     from np_modeling_tpu_torch.ops import dispatch
     k_streams, _, _, _ = run_traffic(make(), prompts)
     with dispatch.force_plain():
         p_streams, where, calls, _ = run_traffic(make(), prompts)
     margin = {(sid, i): float(calls[c][row]) for sid, i, c, row in where}
+    _same_greedy(f"{tag} fp32 kernel vs plain:", k_streams, p_streams, margin)
+
+
+def _same_greedy(tag, k_streams, p_streams, p_margins):
+    """Kernel and plain greedy streams agree, except where the plain path's
+    top-2 logits lie within NEAR_TIE (printed; the streams part there)."""
     ties, compared = [], 0
     for sid in sorted(p_streams):
         for i, (a, b) in enumerate(zip(k_streams[sid], p_streams[sid])):
             compared += 1
             if a != b:
-                m = margin[(sid, i)]
+                m = p_margins[(sid, i)]
                 if not m < NEAR_TIE:
                     raise AssertionError(
-                        f"{tag} fp32 seq {sid} token {i}: kernel {a} != plain "
-                        f"{b}, plain top-2 margin {m}")
+                        f"{tag} seq {sid} token {i}: kernel {a} != plain {b}, "
+                        f"plain top-2 margin {m}")
                 ties.append((sid, i, a, b, m))
-                break                       # the continuations now differ
+                break
     for sid, i, a, b, m in ties:
         print(f"{tag} near-tie: seq {sid} token {i}: kernel {a}, plain {b}, "
               f"plain top-2 margin {m:.3e}")
-    print(f"{tag} fp32 kernel vs plain: {compared} greedy tokens compared, "
-          f"{len(ties)} near-tie divergences, all else identical")
+    print(f"{tag} {compared} greedy tokens compared, {len(ties)} near-tie "
+          f"divergences, all else identical")
 
 
 def _quantized_gpt(tree, dtype):
@@ -1317,15 +1423,17 @@ def phase_timings(gpt, prompts, device_line):
     return res
 
 
-def _paged_bound(q, k_pages, lens, table, scales=()):
+def _paged_bound(q, k_pages, lens, table, scales=(), window=None):
     """Bound of a paged call: q and out, the K/V rows of every position
-    below a sequence's length (and their scales), lengths and the table;
-    4 x positions x q heads x head_dim operations."""
+    below a sequence's length (with a window, of the window's last
+    positions only) and their scales, lengths and the table; 4 x positions
+    x q heads x head_dim operations."""
     hkv, d = k_pages.shape[0], k_pages.shape[-1]
-    tokens = int(lens.sum()) * hkv
+    seen = int((lens if window is None else lens.clamp(max=window)).sum())
+    tokens = seen * hkv
     nbytes = (2 * _nbytes(q, lens, table) + 2 * tokens * d
               * k_pages.element_size() + 4 * tokens * len(scales))
-    return _bound(nbytes, 4 * int(lens.sum()) * q.shape[-2] * d)
+    return _bound(nbytes, 4 * seen * q.shape[-2] * d)
 
 
 def _engine_timings(res, tag, eng, prompts, device_line):
@@ -1518,13 +1626,14 @@ def phase_training():
     Findings): with relu, a last-bit difference in any pre-activation near
     0 flips its gradient mask, so two correct fp32 implementations differ
     by ~1e-3 in the gradients behind a relu; and a bf16 step's gradients
-    are themselves only ~5e-2 from the fp32 step's. So (1) in fp32 the
-    bench GPT with gelu in place of relu (smooth, every other width the
-    same) must match the plain step to 1e-5 (loss) and 1e-4 (each
-    gradient's relative L2); (2) in bf16 the bench GPT's loss must match
-    the plain step's to 5e-3, and each gradient must be no further from the
+    are themselves only ~5e-2 from the fp32 step's. So the comparisons run
+    on the bench GPT with gelu in place of relu (smooth, every other width
+    the same): (1) in fp32 it must match the plain step to 1e-5 (loss) and
+    1e-4 (each gradient's relative L2); (2) in bf16 its loss must match the
+    plain step's to 5e-3, and each gradient must be no further from the
     fp32 plain step's (same weights) than 1.25 times the plain bf16 step's
-    own distance, or 2e-2."""
+    own distance, or 2e-2 (with relu that ratio changed from process to
+    process)."""
     import torch
     from np_modeling_tpu_torch import training
     from np_modeling_tpu_torch.models import GPT
@@ -1540,10 +1649,11 @@ def phase_training():
           f"{cfg.vocab_size}, {n_params} params; batch {TRAIN_B} x "
           f"{TRAIN_S} tokens, bf16 compute, fused loss, adam(1e-3)")
 
-    # (1) fp32, gelu twin: kernels vs plain.
+    # (1) fp32, gelu twin: kernels vs plain; its plain gradients are the
+    # reference of (2).
     twin = GPT(bench_gpt_config(None, "gelu"), device="cuda")
     twin.load_state_dict(gpt.state_dict())
-    lk, lp, loss_err, worst, name, gk, _ = _compare_fp32(twin, tokens)
+    lk, lp, loss_err, worst, name, gk, ref = _compare_fp32(twin, tokens)
     print(f"(f) fp32 gelu step 0, kernels vs plain: loss {lk:.7f} vs "
           f"{lp:.7f} (relative err {loss_err:.2e}, tol 1e-05); worst "
           f"gradient relative L2 err {worst:.2e} ({name}, tol 1e-04)")
@@ -1551,10 +1661,10 @@ def phase_training():
         raise AssertionError("(f) fp32 gelu step: kernels differ from plain")
     _check_key_bias("(f) fp32 gelu", gk, gk, 1e-4)
 
-    # The fp32 relu step: the reference of (2), and the relu-kink spread.
+    # The fp32 relu step: the relu-kink spread, reported.
     twin = GPT(bench_gpt_config(None), device="cuda")
     twin.load_state_dict(gpt.state_dict())
-    lk, lp, loss_err, worst, name, _, ref = _compare_fp32(twin, tokens)
+    lk, lp, loss_err, worst, name, _, _ = _compare_fp32(twin, tokens)
     print(f"(f) fp32 relu step 0, kernels vs plain: loss {lk:.7f} vs "
           f"{lp:.7f} (relative err {loss_err:.2e}); worst gradient relative "
           f"L2 err {worst:.2e} ({name}): relu-mask flips, not held")
@@ -1563,11 +1673,14 @@ def phase_training():
     del twin
     torch.cuda.empty_cache()
 
-    # (2) bf16, the bench GPT itself.
-    lk, gk = _loss_and_grads(gpt, tokens, plain=False)
-    lp, gp = _loss_and_grads(gpt, tokens, plain=True)
+    # (2) bf16, the bench GPT's gelu twin: with relu the criterion flipped
+    # from process to process (relu masks).
+    twin = GPT(bench_gpt_config(torch.bfloat16, "gelu"), device="cuda")
+    twin.load_state_dict(gpt.state_dict())
+    lk, gk = _loss_and_grads(twin, tokens, plain=False)
+    lp, gp = _loss_and_grads(twin, tokens, plain=True)
     _hold_bf16("(f)", lk, lp, gk, gp, ref)
-    del gk, gp, ref
+    del gk, gp, ref, twin
     torch.cuda.empty_cache()
 
     opt = training.adam(1e-3)
@@ -2133,6 +2246,8 @@ def _entry_step(gpt, corpus):
 
 def _kind(kernel):
     """The section of PERF.md's step breakdown that a device op falls in."""
+    if "paged_attention_kernel" in kernel:
+        return "K3 paged attention"
     if "sgemm" in kernel or "gemm_f32f32" in kernel:
         return "fp32 GEMMs (the tied LM head, on CUDA cores)"
     if "flash_" in kernel:
@@ -2146,17 +2261,16 @@ def _kind(kernel):
     return "other elementwise and reductions"
 
 
-def phase_profile(gpt, corpus, device_line):
-    """Where the entry point's step spends the card's time: the step's wall
-    time without a profiler (median of 10 after PROFILE_WARMUP), then
-    torch.profiler over PROFILE_STEPS steps: device ms a step by kernel and
-    by kind, and the device ops a step. The device's idle share of the
-    unprofiled step is 1 - busy / wall."""
+def _profile(tag, what, step, device_line, warmup=PROFILE_WARMUP):
+    """Where ``step()`` spends the card's time: its wall time without a
+    profiler (median of 10 after ``warmup``), then torch.profiler over
+    PROFILE_STEPS calls: device ms a call by kernel and by kind, and the
+    device ops a call. The device's idle share of the unprofiled call is
+    1 - busy / wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    step = _entry_step(gpt, corpus)
-    wall = _cuda_ms(step, runs=10, warmup=PROFILE_WARMUP)
+    wall = _cuda_ms(step, runs=10, warmup=warmup)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_STEPS):
@@ -2172,24 +2286,29 @@ def phase_profile(gpt, corpus, device_line):
         per_kernel[e.key] = (us / 1e3 / PROFILE_STEPS, e.count / PROFILE_STEPS)
     busy = sum(ms for ms, _ in per_kernel.values())
     if not busy > 0:
-        print(f"(p) torch.profiler saw no device time; no breakdown "
+        print(f"({tag}) torch.profiler saw no device time; no breakdown "
               f"[{device_line}]")
         return
     ops_per_step = sum(n for _, n in per_kernel.values())
-    print(f"(p) entry-point step: {wall:.3f} ms without the profiler (median "
-          f"of 10 after {PROFILE_WARMUP}); device busy "
-          f"{busy:.3f} ms a step, idle share {1 - busy / wall:.3f}; "
-          f"{ops_per_step:.0f} device ops a step [{device_line}]")
+    print(f"({tag}) {what}: {wall:.3f} ms without the profiler (median of 10 "
+          f"after {warmup}); device busy {busy:.3f} ms a call, idle share "
+          f"{1 - busy / wall:.3f}; {ops_per_step:.0f} device ops a call "
+          f"[{device_line}]")
     kinds = {}
     for key, (ms, n) in per_kernel.items():
         kind = kinds.setdefault(_kind(key), [0.0, 0.0])
         kind[0] += ms
         kind[1] += n
     for kind, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
-        print(f"(p) {ms:9.3f} ms/step {100 * ms / busy:5.1f}% x {n:6.0f}  "
+        print(f"({tag}) {ms:9.3f} ms/call {100 * ms / busy:5.1f}% x {n:6.0f}  "
               f"{kind}")
     for key, (ms, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0]):
-        print(f"(p) {ms:9.3f} ms/step x {n:6.1f}  {key[:110]}")
+        print(f"({tag}) {ms:9.3f} ms/call x {n:6.1f}  {key[:110]}")
+
+
+def phase_profile(gpt, corpus, device_line):
+    """The entry point's step, profiled (``_profile``)."""
+    _profile("p", "entry-point step", _entry_step(gpt, corpus), device_line)
 
 
 def phase_entry_timings(gpt, corpus, device_line):
@@ -2702,10 +2821,285 @@ def phase_packed_timings(gpt, corpus, packed, device_line):
     return res
 
 
-def main(phases="abcdefghijklmnop"):
+def gemma2_config(dtype):
+    """google/gemma-2-2b (its config.json, as np_modeling_tpu/utils/
+    hf_compat.py's import_gemma2 and llama_config map it): 26 layers, d 2304,
+    8 heads over 4 kv heads of 256, a tanh-gelu-gated FFN of 9216, vocab
+    256000, RoPE, zero-centred RMSNorm, sandwich norms, the embedding
+    scale, a window of 4096 on even layers, caps 50 and 30, scale 256**-0.5."""
+    from np_modeling_tpu_torch.models import GPTConfig
+    return GPTConfig(vocab_size=256000, d_model=2304, num_layers=26,
+                     num_heads=8, num_kv_heads=4, head_dim=256,
+                     hidden_units=9216, max_len=8192, positional="rope",
+                     rope_base=10000.0, norm="rms", ln_eps=1e-6,
+                     rms_offset=True, ffn="geglu", use_bias=False,
+                     embed_scale=True, sandwich_norm=True,
+                     attention_window=GEMMA_WINDOW, window_pattern=2,
+                     attn_logit_softcap=50.0, final_logit_softcap=30.0,
+                     query_pre_attn_scalar=256.0, dtype=dtype)
+
+
+def gemma2_prompts(vocab):
+    """{seq: tokens}: 6 prompts of 128..1024 seeded tokens and one of
+    GEMMA_LONG, whose local layers' windows cut."""
+    rng = np.random.default_rng(SEED + 20)
+    lens = [int(n) for n in rng.integers(128, 1025, 6)] + [GEMMA_LONG]
+    return {i: rng.integers(0, vocab, n).astype(np.int64)
+            for i, n in enumerate(lens)}
+
+
+def make_gemma_engine(gpt, kv_dtype):
+    from np_modeling_tpu_torch.serving import GenerationEngine
+    return GenerationEngine(gpt, total_pages=GEMMA_PAGES, page_size=GEMMA_PAGE,
+                            max_seqs=GEMMA_SLOTS, kv_dtype=kv_dtype,
+                            prefill_chunk_size=GEMMA_CHUNK)
+
+
+def gemma2_traffic(eng, prompts, steps=GEMMA_DECODE):
+    """Every prompt prefilled by one add_requests call, then ``steps`` decode
+    steps (step_many), then finish. Returns the streams {seq: tokens}, each
+    token's top-2 logit margin {(seq, i): m}, the prefill's last-position
+    logits [prompts, vocab] (rows by seq id) and the prefill chunk calls."""
+    import torch
+    calls = []
+    inner = eng._lm_head
+
+    def recording(x):
+        lg = inner(x)
+        calls.append(lg[:, 0])
+        return lg
+
+    eng._lm_head = recording
+    try:
+        first = eng.add_requests(prompts)
+        chunk_calls = len(calls)
+        slots = dict(eng._slots)
+        rest = eng.step_many(steps) if steps else {sid: [] for sid in first}
+    finally:
+        eng._lm_head = inner
+    sids = sorted(prompts)
+    final = [(len(prompts[sid]) - 1) // eng.prefill_chunk_size for sid in sids]
+    last = torch.stack([calls[c][row] for row, c in enumerate(final)])
+    top = last.topk(2, dim=-1).values
+    margins = {(sid, 0): float(top[row, 0] - top[row, 1])
+               for row, sid in enumerate(sids)}
+    if steps:
+        top = torch.stack(calls[chunk_calls:]).topk(2, dim=-1).values.cpu()
+        for sid in sids:
+            for i in range(steps):
+                m = top[i, slots[sid]]
+                margins[(sid, i + 1)] = float(m[0] - m[1])
+    streams = {sid: [first[sid]] + rest[sid] for sid in sids}
+    for sid in sids:
+        eng.finish(sid)
+    return streams, margins, last, chunk_calls
+
+
+def _paged_counts():
+    from np_modeling_tpu_torch import ops
+    return {"paged_attention": ops.paged_attention.launches,
+            "paged_attention_window": ops.paged_attention.launches_window,
+            "paged_attention_int8": ops.paged_attention.launches_int8,
+            "int8_matmul": ops.int8_matmul.launches, **_launch_counts()}
+
+
+def _zero_paged_counts():
+    from np_modeling_tpu_torch import ops
+    _zero_launch_counts()
+    ops.paged_attention.launches = ops.paged_attention.launches_int8 = 0
+    ops.paged_attention.launches_window = ops.int8_matmul.launches = 0
+
+
+def phase_gemma2():
+    """(q) Gemma-2 2B serving at full width and depth, weights from SEED:
+    the 7 prompts through one batched chunked prefill, then GEMMA_DECODE
+    decode steps, bf16 compute and bf16 pages (the main path). Checks that
+    K3 launched once a layer a forward (26), with the window on the 13 local
+    layers, and no other kernel; that the bf16 engine's last-position
+    logits lie within 1.25 x the plain bf16 engine's distance from the fp32
+    engine's, plus GEMMA_BF16_SLACK x max(1, max |fp32 logit|); that fp32
+    greedy tokens equal the plain engine's (near-ties printed); that each
+    fp32 first token is the argmax of GPT.apply's last logits under
+    force_plain(), whose logits the engine's match to 1e-3 x max(1, max
+    |logit|). Returns the bf16 GPT, the prompts and the launch counts."""
+    import torch
+    from np_modeling_tpu_torch.models import GPT
+    from np_modeling_tpu_torch.ops import dispatch
+    cfg = gemma2_config(torch.bfloat16)
+    gpt = GPT(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = gemma2_prompts(cfg.vocab_size)
+    n_params = sum(p.numel() for p in gpt.parameters())
+    print(f"(q) Gemma-2 2B: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv heads of "
+          f"{cfg.head_dim}, FFN {cfg.hidden_units}, vocab {cfg.vocab_size}, "
+          f"{n_params} params (fp32 master weights), bf16 compute, bf16 "
+          f"pages; {GEMMA_SLOTS} slots, page {GEMMA_PAGE}, chunk "
+          f"{GEMMA_CHUNK}; prompt lengths {[len(p) for p in prompts.values()]}"
+          f", then {GEMMA_DECODE} decode steps")
+
+    eng = make_gemma_engine(gpt, torch.bfloat16)
+    free0 = eng.free_pages
+    _zero_paged_counts()
+    t0 = time.perf_counter()
+    streams, _, last16, chunk_calls = gemma2_traffic(eng, prompts)
+    seconds = time.perf_counter() - t0
+    counts = _paged_counts()
+    forwards, layers = chunk_calls + GEMMA_DECODE, cfg.num_layers
+    want = dict.fromkeys(counts, 0)
+    want["paged_attention"] = layers * forwards
+    want["paged_attention_window"] = (layers + 1) // 2 * forwards
+    toks = np.concatenate([np.asarray(t) for t in streams.values()])
+    print(f"(q) bf16 run in {seconds:.1f} s: {len(toks)} tokens, "
+          f"{chunk_calls} prefill chunk calls, {GEMMA_DECODE} decode steps; "
+          f"launches {counts}; free pages {eng.free_pages}/{free0}")
+    if counts != want:
+        raise AssertionError(f"(q) launches {counts}, expected {want}")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("(q) token out of range")
+    if eng.free_pages != free0:
+        raise AssertionError("(q) pages not restored after finish")
+    del eng
+    with dispatch.force_plain():
+        _, _, last16p, _ = gemma2_traffic(make_gemma_engine(gpt, torch.bfloat16),
+                                          prompts, steps=0)
+
+    gpt32 = GPT(gemma2_config(None), device="cuda")
+    gpt32.load_state_dict(gpt.state_dict())
+    k_streams, _, last32, _ = gemma2_traffic(
+        make_gemma_engine(gpt32, torch.float32), prompts)
+    with dispatch.force_plain():
+        p_streams, p_margins, _, _ = gemma2_traffic(
+            make_gemma_engine(gpt32, torch.float32), prompts)
+    _same_greedy("(q) fp32 kernel vs plain engine:", k_streams, p_streams,
+                 p_margins)
+
+    scale = max(1.0, last32.abs().max().item())
+    err_k = (last16 - last32).abs().max().item()
+    err_p = (last16p - last32).abs().max().item()
+    bound = 1.25 * err_p + GEMMA_BF16_SLACK * scale
+    print(f"(q) bf16 last-position logits vs the fp32 engine's: kernels "
+          f"{err_k:.4e}, plain {err_p:.4e} (bound {bound:.4e}: 1.25 x plain + "
+          f"{GEMMA_BF16_SLACK} x {scale:.3f})")
+    if not err_k <= bound:
+        raise AssertionError(f"(q) bf16 logits {err_k} from fp32 > {bound}")
+    del last16, last16p
+    torch.cuda.empty_cache()
+
+    worst = 0.0
+    with dispatch.force_plain(), torch.no_grad():
+        for row, sid in enumerate(sorted(prompts)):
+            ids = torch.tensor(prompts[sid], device="cuda")[None]
+            ref = gpt32.apply(ids)[0, -1]
+            top = ref.topk(2).values
+            diff = (last32[row] - ref).abs().max().item()
+            worst = max(worst, diff / max(1.0, ref.abs().max().item()))
+            if int(ref.argmax()) != k_streams[sid][0] and \
+                    not float(top[0] - top[1]) < NEAR_TIE:
+                raise AssertionError(
+                    f"(q) seq {sid}: first token {k_streams[sid][0]} != "
+                    f"GPT.apply argmax {int(ref.argmax())}")
+            del ref
+            torch.cuda.empty_cache()
+    print(f"(q) fp32 first tokens equal GPT.apply's last-logit argmax under "
+          f"force_plain() for all {len(prompts)} prompts; engine logits vs "
+          f"GPT.apply: max abs err {worst:.3e} x max(1, max |logit|) (tol "
+          f"1e-3)")
+    if not worst <= 1e-3:
+        raise AssertionError(f"(q) engine logits {worst} from GPT.apply's")
+    del gpt32, last32
+    torch.cuda.empty_cache()
+    return gpt, prompts, counts
+
+
+def phase_gemma2_timings(gpt, prompts, device_line):
+    """(r) The bf16 Gemma-2 engine's prefill (the 7 prompts from empty) in
+    ms and its decode (the 7 sequences, step_many(4)) in tokens/s, each
+    side twice, in the order plain, kernel, kernel, plain; the decode
+    step_many(4) profiled (``_profile``); K3 at that decode on the engine's
+    own pages for a local layer (0, window GEMMA_WINDOW) and a global layer
+    (1), device time beside the bound (K/V bytes of the positions a layer
+    reads, the local layer's cut to its window), also in the order plain,
+    kernel, kernel, plain; and K3's device time on 8 sequences of one
+    length, 512 to 4096, to show what its time follows. A report, not a
+    check."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    res = {}
+    eng = make_gemma_engine(gpt, torch.bfloat16)
+    n_tok = sum(len(p) for p in prompts.values())
+
+    def prefill():
+        eng.add_requests(prompts)
+        for sid in eng.live:
+            eng.finish(sid)
+
+    prefill_name = f"gemma2 engine prefill {len(prompts)} prompts {n_tok} tokens"
+    _both(res, "r", prefill_name, prefill, device_line, runs=3, warmup=1)
+    eng.add_requests(prompts)
+    steps = 4
+    decode_name = f"gemma2 engine decode step_many({steps}) {len(prompts)} seqs"
+    _both(res, "r", decode_name, lambda: eng.step_many(steps), device_line,
+          runs=5, warmup=1)
+    ms = res[decode_name]
+    res[decode_name + " tokens/s"] = tuple(len(prompts) * steps / t * 1e3
+                                           for t in ms)
+    print(f"(r) Gemma-2 engine: prefill kernel {res[prefill_name][0]:.2f} ms, "
+          f"plain {res[prefill_name][1]:.2f} ms for {n_tok} tokens; decode "
+          f"kernel {res[decode_name + ' tokens/s'][0]:.1f} tokens/s, plain "
+          f"{res[decode_name + ' tokens/s'][1]:.1f} tokens/s [{device_line}]")
+    _profile("r", decode_name, lambda: eng.step_many(steps), device_line,
+             warmup=2)
+
+    st = eng._state
+    lens = torch.where(st["active"], st["lengths"] + 1, 0).to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    hq, d = gpt.config.num_heads, gpt.config.head_dim
+    q = torch.randn(GEMMA_SLOTS, hq, d, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    keys = {}
+    for li, kind, window in ((0, "local", GEMMA_WINDOW), (1, "global", None)):
+        kp, vp = st["k_pages"][li], st["v_pages"][li]
+        key = (f"paged_attention decode gemma2 {kind} layer b{GEMMA_SLOTS} "
+               f"d{d} ctx {lens.tolist()} bf16")
+
+        def fn(kp=kp, vp=vp, window=window):
+            return ops.paged_attention(q, kp, vp, lens, st["table"],
+                                       scale=GEMMA_SCALE, window=window,
+                                       softcap=50.0)
+
+        _both(res, "r", key, fn, device_line)
+        _device_both(res, "r", key, fn, device_line)
+        res["bound " + key] = _paged_bound(q, kp, lens, st["table"],
+                                           window=window)
+        print(f"(r) {key}: bound {res['bound ' + key][0]:.5f} ms "
+              f"({res['bound ' + key][1]}) [{device_line}]")
+        keys[kind] = key
+    for sid in eng.live:
+        eng.finish(sid)
+    del eng
+    rng = np.random.default_rng(SEED + 22)
+    for ctx, window in ((512, None), (1024, None), (2048, None), (4096, None),
+                        (4096, 1024)):
+        q, k, v, lens, table = _pa_inputs(GEMMA_SLOTS, None, hq, 4, d,
+                                          GEMMA_PAGE, [ctx] * GEMMA_SLOTS,
+                                          torch.bfloat16, rng)
+        ms = _device_ms(lambda: ops.paged_attention(
+            q, k, v, lens, table, scale=GEMMA_SCALE, window=window,
+            softcap=50.0))
+        bound = _paged_bound(q, k, lens, table, window=window)[0]
+        print(f"(r) K3 decode b{GEMMA_SLOTS} hq{hq}/hkv4 d{d} bf16, every "
+              f"sequence {ctx} tokens, window {window}: device {ms:.4f} ms, "
+              f"bound {bound:.5f} ms [{device_line}]")
+        del q, k, v
+    return res, keys
+
+
+def main(phases="abcdefghijklmnopqr"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
-    runs the quantized serving path alone); the JSON summary and the ok
-    line come only from a run of every phase a to o."""
+    runs the quantized serving path alone, ``"abcqr"`` Gemma-2 serving);
+    the JSON summary and the ok line come only from a run of every phase a
+    to r."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2719,6 +3113,7 @@ def main(phases="abcdefghijklmnop"):
     phase_build()
     paged_err = phase_paged_vs_plain()
     paged8_err = phase_paged_vs_plain(int8=True)
+    paged256_err = phase_paged_options_vs_plain()
     k4_err = phase_int8_matmul_vs_plain()
     flash_err = phase_flash_vs_plain()
     sched_err = phase_flash_schedules_vs_plain()
@@ -2727,7 +3122,7 @@ def main(phases="abcdefghijklmnop"):
     sxe_err = phase_sxe_vs_plain()
     k10_err = phase_quantize_vs_plain()
     serving = training_res = entry_res = quant_res = forced_res = None
-    packed_res = None
+    packed_res = gemma_res = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
         prompts = traffic_prompts(gpt.config.vocab_size)
@@ -2784,9 +3179,18 @@ def main(phases="abcdefghijklmnop"):
                                               device_line)
         del gpt
         torch.cuda.empty_cache()
+    if "q" in phases:
+        t0 = time.perf_counter()
+        gpt, prompts, gemma_launches = phase_gemma2()
+        print(f"(q) Gemma-2 serving phase {time.perf_counter() - t0:.1f} s")
+        if "r" in phases:
+            gemma_res, gemma_keys = phase_gemma2_timings(gpt, prompts,
+                                                         device_line)
+        del gpt
+        torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
     if None in (serving, training_res, entry_res, quant_res, forced_res,
-                packed_res):
+                packed_res, gemma_res):
         return 0
     packed_shape = "b8 h12 s1024 d64 causal bf16"
     shape = "b4 h8 s4096 d128 causal bf16"
@@ -2847,7 +3251,16 @@ def main(phases="abcdefghijklmnop"):
         ("flash_attention_segments", FLASH_SOURCE,
          "np_modeling_tpu/ops/attention.py:756", packed_launches["segments"],
          sched_err["segments"], packed_res,
-         f"flash forward segments {packed_shape}")]
+         f"flash forward segments {packed_shape}"),
+        ("paged_attention_d256_local", PAGED_SOURCE,
+         "np_modeling_tpu/ops/paged_attention.py:221",
+         gemma_launches["paged_attention_window"], paged256_err, gemma_res,
+         gemma_keys["local"]),
+        ("paged_attention_d256_global", PAGED_SOURCE,
+         "np_modeling_tpu/ops/paged_attention.py:221",
+         gemma_launches["paged_attention"]
+         - gemma_launches["paged_attention_window"], paged256_err, gemma_res,
+         gemma_keys["global"])]
     # "ms": a call's wall time (CUDA events, host included), every entry;
     # "device_ms": calls back to back behind a sleep kernel (device only);
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its

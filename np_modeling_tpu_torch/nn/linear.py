@@ -1,8 +1,8 @@
-"""Linear, Dense, LayerNorm and Dropout modules.
+"""Linear, Dense, LayerNorm, RMSNorm and Dropout modules.
 
 Counterpart of np_modeling_tpu/nn/linear.py, with the same parameter names:
 Linear ``w`` [in, out] and ``b`` [out]; Dense wraps a Linear named
-``linear``; LayerNorm ``gamma``/``beta``. Parameters are allocated at
+``linear``; LayerNorm ``gamma``/``beta``; RMSNorm ``gamma``. Parameters are allocated at
 construction and filled by ``init(generator)`` (or loaded, see
 ``utils.convert``). ``forward`` takes JAX's ``training`` and ``rngs``, which
 only Dropout reads, so any of them can sit in a ``Sequential``.
@@ -133,6 +133,28 @@ class LayerNorm(nn.Module):
     def forward(self, x, training: bool = False, rngs=None):
         del training, rngs
         return ops.layer_norm(x, self.gamma, self.beta, self.epsilon)
+
+
+class RMSNorm(nn.Module):
+    """Last-axis RMSNorm (JAX :159-171). ``offset`` (Gemma): the gain is
+    ``gamma + 1`` and ``gamma`` starts at 0."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6,
+                 offset: bool = False, device=None):
+        super().__init__()
+        self.epsilon, self.offset = epsilon, offset
+        self.gamma = _param((features,), device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator):
+        init = initializers.zeros if self.offset else initializers.ones
+        self.gamma.copy_(init(generator, self.gamma.shape))
+        return self
+
+    def forward(self, x, training: bool = False, rngs=None):
+        del training, rngs
+        g = self.gamma + 1.0 if self.offset else self.gamma
+        return ops.rms_norm(x, g, self.epsilon)
 
 
 class Dropout(nn.Module):

@@ -1,4 +1,4 @@
-"""LayerNorm and dropout, each with a hand-written backward.
+"""LayerNorm, RMSNorm and dropout, each with a hand-written backward.
 
 Counterpart of np_modeling_tpu/ops/normalization.py.
 
@@ -10,6 +10,13 @@ gamma); the backward recomputes the statistics and uses the fused
 two-reduction form
     dx = rstd * (dyhat - mean(dyhat) - yhat * mean(dyhat * yhat)),
 returning dgamma/dbeta in gamma's dtype (JAX :63-83).
+
+``rms_norm``: no mean subtraction, no offset (JAX :89-119), computed as the
+JAX op computes it: statistics in x's dtype, so a bf16 x times an fp32
+gamma gives an fp32 output. The residual is (yhat, rstd, gamma) and
+    dx = rstd * (dyhat - yhat * mean(dyhat * yhat)).
+JAX runs it in jnp, outside any Pallas kernel, and so does the port, on
+every device.
 
 ``dropout``: inverted dropout from a seed (JAX :122-171). On a CUDA tensor
 it is kernel K7 (``ops.fused.dropout_prng``: the mask is drawn in the
@@ -54,6 +61,33 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-3) -> torch.Tensor:
     """Last-axis LayerNorm (default eps 1e-3, the reference framework's)."""
     return _LayerNorm.apply(x, gamma, beta, eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        rstd = torch.rsqrt(torch.mean(torch.square(x), dim=-1, keepdim=True)
+                           + eps)
+        yhat = x * rstd
+        ctx.save_for_backward(yhat, rstd, gamma)
+        ctx.x_dtype = x.dtype
+        return gamma * yhat
+
+    @staticmethod
+    def backward(ctx, dz):
+        yhat, rstd, gamma = ctx.saved_tensors
+        dgamma = (dz * yhat).reshape(-1, dz.shape[-1]).sum(dim=0)
+        dyhat = dz * gamma
+        m2 = torch.mean(dyhat * yhat, dim=-1, keepdim=True)
+        dx = rstd * (dyhat - yhat * m2)
+        return dx.to(ctx.x_dtype), dgamma.to(gamma.dtype), None
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """Last-axis RMSNorm ``gamma * x / sqrt(mean(x^2) + eps)``."""
+    return _RMSNorm.apply(x, gamma, eps)
 
 
 def make_dropout_mask(seed: int, shape, rate: float, device=None):

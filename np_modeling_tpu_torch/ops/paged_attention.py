@@ -104,16 +104,20 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
                     softcap=None, sinks=None):
     """Paged-KV attention: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors. Int8 pages come with their scales, and scales
-    only with int8 pages. The kernel takes the GPT-2 subset: fp32 or bf16
-    q, fp32, bf16 or int8 pages, head_dim 64 or 128, any GQA group, any
-    sq >= 1, page sizes 8..128 (powers of two). It raises on bias,
-    softcap, sinks and window."""
+    only with int8 pages. ``window`` (a positive width) and ``softcap`` (a
+    positive cap) run in both. The kernel takes fp32 or bf16 q, fp32, bf16
+    or int8 pages, head_dim 64, 128 or 256, any GQA group, any sq >= 1,
+    page sizes 8..128 (powers of two); it raises on bias and sinks."""
     int8_pages = k_pages.dtype == torch.int8 or v_pages.dtype == torch.int8
     scaled = k_scales is not None or v_scales is not None
     if int8_pages != scaled or (scaled and (k_scales is None
                                             or v_scales is None)):
         raise ValueError("int8 pages need both k_scales and v_scales, and "
                          "scales need int8 pages")
+    if window is not None and not (int(window) == window and window >= 1):
+        raise ValueError(f"window {window}: want a positive integer width")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap {softcap}: want a positive cap")
     if not dispatch.use_kernel(q):
         if scaled:
             k_pages = k_pages.float() * k_scales
@@ -121,26 +125,27 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
         return paged_attention_reference(q, k_pages, v_pages, lengths,
                                          page_indices, scale, window, bias,
                                          softcap, sinks)
-    unported = {"window": window, "bias": bias, "softcap": softcap,
-                "sinks": sinks}
+    unported = {"bias": bias, "sinks": sinks}
     unported = [k for k, v in unported.items() if v is not None]
     if unported:
         raise NotImplementedError(
             f"the CUDA paged-attention kernel does not take {unported} yet "
             "(ROADMAP.md Queue 2, K3)")
     return _launch(q, k_pages, v_pages, k_scales, v_scales, lengths,
-                   page_indices, scale)
+                   page_indices, scale, window, softcap)
 
 
 # Kernel launches since import (or since a caller reset it to 0): a run
 # shows with it that its attention went through the kernel. launches counts
-# every launch, launches_int8 those over int8 pages.
+# every launch, launches_int8 those over int8 pages, launches_window those
+# with a sliding window.
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
+paged_attention.launches_window = 0
 
 
 def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
-            scale):
+            scale, window, softcap):
     q4 = q[:, None] if q.dim() == 3 else q
     if q4.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} / pages {tuple(k_pages.shape)}:"
@@ -149,9 +154,9 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
     hkv, total_pages, psize, dk = k_pages.shape
     if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype:
         raise ValueError("k_pages and v_pages differ in shape or dtype")
-    if dk != d or d not in (64, 128):
-        raise ValueError(f"head_dim {d} (pages {dk}): the kernel takes 64 or "
-                         "128")
+    if dk != d or d not in (64, 128, 256):
+        raise ValueError(f"head_dim {d} (pages {dk}): the kernel takes 64, "
+                         "128 or 256")
     if hq % hkv:
         raise ValueError(f"{hq} q heads do not group over {hkv} kv heads")
     if psize < 8 or psize > 128 or psize & (psize - 1):
@@ -184,7 +189,8 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
     fn = cuda_build.load("paged_attention").lib.np_paged_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
     out = torch.empty_like(q)
     scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
     scale_ptrs = [s.data_ptr() for s in scales] or [None, None]
@@ -195,11 +201,15 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
                 out.data_ptr(),
                 _DTYPE_CODES[q.dtype], _KV_CODES[k_pages.dtype], b, sq, hq,
                 hkv, d, total_pages, psize.bit_length() - 1,
-                page_indices.shape[1], scale, stream)
+                page_indices.shape[1], scale,
+                0 if window is None else int(window),
+                0.0 if softcap is None else float(softcap), stream)
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
                            f"error {rc}")
     paged_attention.launches += 1
     if scales:
         paged_attention.launches_int8 += 1
+    if window is not None:
+        paged_attention.launches_window += 1
     return out

@@ -340,9 +340,13 @@ class GenerationEngine:
         t = tokens.shape[1]
         lengths = state["lengths"]
         x = gpt.embedding(tokens)
-        pos = (lengths[:, None].long()
-               + torch.arange(t, device=tokens.device)).clamp(0, c.max_len - 1)
-        x = x + gpt.pos_embedding(pos)
+        if c.embed_scale:
+            x = x * torch.tensor(c.d_model ** 0.5, dtype=x.dtype)
+        if c.positional == "learned":
+            pos = (lengths[:, None].long()
+                   + torch.arange(t, device=tokens.device)).clamp(
+                       0, c.max_len - 1)
+            x = x + gpt.pos_embedding(pos)
         if c.dtype is not None:
             x = x.to(c.dtype)
         for li in range(c.num_layers):
@@ -354,9 +358,14 @@ class GenerationEngine:
 
     def _lm_head(self, x):
         """Tied LM head, fp32 logits: the product of x and the table cast to
-        x's dtype, accumulated in fp32 (JAX: preferred_element_type)."""
+        x's dtype, accumulated in fp32 (JAX: preferred_element_type), then
+        the final softcap."""
         table = self.gpt.embedding.table
-        return torch.matmul(x.float(), table.to(x.dtype).float().T)
+        logits = torch.matmul(x.float(), table.to(x.dtype).float().T)
+        cap = self.gpt.config.final_logit_softcap
+        if cap is not None:
+            logits = cap * torch.tanh(logits / cap)
+        return logits
 
     @torch.no_grad()
     def _device_step(self, state, return_logits=False):
@@ -387,7 +396,7 @@ class GenerationEngine:
 
     def _block_step(self, bp, x, li, state):
         """One pre-norm block on the [S, t, d] slice: page append, paged
-        attention, MLP. Mirrors the JAX engine's ``_block_step``."""
+        attention, FFN. Mirrors the JAX engine's ``_block_step``."""
         attn = bp.self_attention
         active, lengths = state["active"], state["lengths"]
         S, t = x.shape[:2]
@@ -397,11 +406,12 @@ class GenerationEngine:
         q = attn._project(y, attn.wq, attn.bq)            # [S, hq, t, dk]
         k = attn._project(y, attn.wk, attn.bk)
         v = attn._project(y, attn.wv, attn.bv)
+        tok_pos = lengths[:, None].long() + torch.arange(t, device=x.device)
+        q, k = attn._rope(q, tok_pos), attn._rope(k, tok_pos)
 
         # Slot n's token i writes (page_of(lengths[n] + i), (lengths[n] + i)
         # % ps); inactive slots, and positions past the page table (which
         # JAX's out-of-bounds scatter drops), write the trash page.
-        tok_pos = lengths[:, None].long() + torch.arange(t, device=x.device)
         page_pos = tok_pos // self.page_size
         slot_off = (tok_pos % self.page_size).reshape(-1)
         in_table = page_pos < self.max_pages
@@ -419,15 +429,23 @@ class GenerationEngine:
         if self.quantize_kv:
             kwargs = {"k_scales": state["k_scales"][li],
                       "v_scales": state["v_scales"][li]}
-        o = ops.paged_attention(q.transpose(1, 2),          # [S, t, hq, dk]
+        # [S, t, hq, dk]; a copy only where RoPE left q in [S, hq, t, dk]
+        o = ops.paged_attention(q.transpose(1, 2).contiguous(),
                                 state["k_pages"][li], state["v_pages"][li],
-                                att_len, state["table"], **kwargs)
+                                att_len, state["table"],
+                                scale=attn.attn_scale,
+                                window=attn.window,
+                                softcap=attn.attn_softcap, **kwargs)
         hq, dk, d_out = attn.wo.shape
         o = o.to(x.dtype).reshape(S, t, hq * dk)
         bo = attn.bo.to(x.dtype) if attn.bo is not None else None
         y = ops.linear(o, attn.wo.reshape(hq * dk, d_out).to(x.dtype), bo)
+        if bp.sandwich_norm:
+            y = bp.post_norm1(y)
         y = y + skip
 
         skip = y
         z = bp._ffn(bp.norm2(y)).to(x.dtype)
+        if bp.sandwich_norm:
+            z = bp.post_norm2(z)
         return z + skip, state

@@ -74,6 +74,89 @@ def test_cuda_kernel_vs_plain(sq, hq, hkv, d, psize, dtype):
     assert (got.float() - want.float()).abs().max().item() <= _tol(dtype)
 
 
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("opts", [
+    dict(window=5), dict(window=37), dict(window=4096), dict(softcap=50.0),
+    dict(softcap=2.0, window=37), dict(softcap=2.0, window=5, scale=0.0625)],
+    ids=["window_in_page", "window_across", "window_past", "softcap",
+         "both", "both_scaled"])
+@pytest.mark.parametrize("sq,hq,hkv,d,psize", [
+    (None, 8, 4, 256, 16), (5, 8, 4, 256, 16), (64, 8, 4, 256, 16),
+    (None, 12, 12, 64, 16), (5, 8, 2, 128, 64)])
+def test_cuda_kernel_window_softcap_vs_plain(sq, hq, hkv, d, psize, opts,
+                                             pages):
+    """K3's window and softcap (Gemma-2: head_dim 256, GQA g=2) against the
+    plain version, with fp32, bf16 and int8 pages: windows inside a page,
+    across pages and past every row. Table entries below the band of the
+    first row and past the length are poisoned: the kernel reads neither."""
+    rows = sq or 1
+    pps = max(8, -(-(rows + 64) // psize))
+    q, k, v, lengths, table = _paged_case(4, sq, hq, hkv, d, psize, pps,
+                                          4 * pps + 2)
+    lengths[:2] = [rows, psize * -(-rows // psize)]
+    q, k, v, lengths, table = (torch.tensor(a).cuda()
+                               for a in (q, k, v, lengths, table))
+    kw = dict(opts)
+    dtype = torch.bfloat16 if pages == "bfloat16" else torch.float32
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    if pages == "int8":
+        kq, vq = ops.quantize_int8(k), ops.quantize_int8(v)
+        k, v = kq.values, vq.values
+        kw.update(k_scales=kq.scales, v_scales=vq.scales)
+    got = ops.paged_attention(q, k, v, lengths, table, **kw)
+    with dispatch.force_plain():
+        want = ops.paged_attention(q, k, v, lengths, table, **kw)
+    poisoned = table.clone()
+    window = opts.get("window", 1 << 30)
+    for i, ln in enumerate(lengths.tolist()):
+        poisoned[i, -(-ln // psize):] = 2 ** 30
+        poisoned[i, :max(0, ln - rows - window + 1) // psize] = 2 ** 30
+    again = ops.paged_attention(q, k, v, lengths, poisoned, **kw)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("option", ["bias", "sinks"])
+def test_cuda_paged_unported_options_raise(option):
+    q, k, v, lengths, table = (torch.tensor(a).cuda() for a in _paged_case(
+        2, None, 4, 2, 64, 16, 4, 10))
+    kw = {"bias": dict(bias=torch.zeros(2, 4, 64, device="cuda")),
+          "sinks": dict(sinks=torch.zeros(4, device="cuda"))}[option]
+    with pytest.raises(NotImplementedError, match=option):
+        ops.paged_attention(q, k, v, lengths, table, **kw)
+
+
+def test_cuda_gemma2_engine_vs_plain_engine():
+    """A small Gemma-2-shaped GPT (head_dim 256, window 8 on even layers,
+    both softcaps), fp32: the kernel engine's greedy tokens equal the plain
+    engine's, K3 launching once a layer a forward."""
+    from np_modeling_tpu_torch.serving import GenerationEngine
+    cfg = models.GPTConfig(
+        vocab_size=256, d_model=128, num_layers=4, num_heads=4,
+        num_kv_heads=2, head_dim=256, hidden_units=256, max_len=256,
+        positional="rope", norm="rms", ln_eps=1e-6, rms_offset=True,
+        ffn="geglu", use_bias=False, embed_scale=True, sandwich_norm=True,
+        attention_window=8, window_pattern=2, attn_logit_softcap=2.0,
+        final_logit_softcap=3.0, query_pre_attn_scalar=64.0)
+    gpt = models.GPT(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, 256, n) for i, n in enumerate((40, 90, 7))}
+    streams = []
+    for plain in (False, True):
+        eng = GenerationEngine(gpt, total_pages=64, page_size=16, max_seqs=4,
+                               prefill_chunk_size=64)
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            before = ops.paged_attention.launches
+            first = eng.add_requests(prompts)
+            streams.append((first, eng.step_many(8), eng.step()))
+            launched = ops.paged_attention.launches - before
+        # 2 chunk calls + 9 decode steps, 4 layers.
+        assert launched == (0 if plain else 44)
+    assert streams[0] == streams[1]
+
+
 # ---- flash attention (K1/K2) ----------------------------------------------------
 
 def _flash_inputs(b, hq, hkv, sq, skv, d, dtype, seed=0):
@@ -267,13 +350,17 @@ def test_cuda_gpt_step_fp32_kernels_vs_plain():
 
 
 def test_cuda_gpt_step_bf16_no_worse_than_plain():
-    """bf16: loss to 5e-3; against the fp32 step's gradients (same weights)
-    each kernel-path gradient is no further than 1.25x the plain bf16
-    step's, or 2e-2."""
-    gpt = _gpt(torch.bfloat16, "relu")
-    ref_gpt = _gpt(None, "relu")
+    """bf16, gelu as in the fp32 test (relu's kink turns last-bit
+    differences into gradient-mask flips, and the ratio below then changed
+    from process to process): loss to 5e-3; against the fp32 step's
+    gradients (same weights) each kernel-path gradient is no further than
+    1.25x the plain bf16 step's, or 2e-2. Seeded tokens."""
+    gpt = _gpt(torch.bfloat16, "gelu")
+    ref_gpt = _gpt(None, "gelu")
     ref_gpt.load_state_dict(gpt.state_dict())
-    tokens = torch.randint(0, 256, (2, 256), device="cuda")
+    tokens = torch.randint(0, 256, (2, 256), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
     _, ref = _grads(ref_gpt, tokens, plain=True)
     lk, gk = _grads(gpt, tokens, plain=False)
     lp, gp = _grads(gpt, tokens, plain=True)

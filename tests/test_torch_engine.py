@@ -99,14 +99,34 @@ def test_unported_engine_options_raise(option):
 
 
 @pytest.mark.parametrize("feature", [
-    dict(positional="rope"), dict(norm="rms"), dict(ffn="swiglu"),
-    dict(moe_experts=4), dict(attention_window=8),
-    dict(attn_logit_softcap=30.0), dict(attn_sinks=True),
-    dict(qk_norm=True), dict(parallel_residual=True),
-    dict(sandwich_norm=True), dict(scan_layers=True)])
+    dict(moe_experts=4), dict(attn_sinks=True), dict(qk_norm=True),
+    dict(parallel_residual=True), dict(scan_layers=True),
+    dict(rope_scaling=("linear", 2.0))])
 def test_unported_config_features_raise(feature):
     with pytest.raises(NotImplementedError):
         tmodels.GPT(tmodels.GPTConfig(**{**CFG, **feature}), device="cpu")
+
+
+@pytest.mark.parametrize("feature", [
+    dict(positional="rope"), dict(norm="rms"), dict(ffn="swiglu"),
+    dict(attention_window=8), dict(attn_logit_softcap=30.0),
+    dict(sandwich_norm=True)])
+def test_ported_config_features_match_jax(feature):
+    """Each feature Gemma-2 brought, alone on the GPT-2-shaped CFG: the
+    port builds it and its GPT.apply logits equal JAX's on the same weights
+    (fp32, rtol 1e-5 / atol 2e-5) over 24 tokens, past the window of 8."""
+    cfg = {**CFG, **feature}
+    jgpt = jmodels.GPT(jmodels.GPTConfig(**cfg))
+    params = jax.jit(lambda k: jgpt.init(k, jnp.zeros((1, 8), jnp.int32)))(
+        jax.random.PRNGKey(1))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    tgpt = params_from_numpy(tree, tmodels.GPTConfig(**cfg), device="cpu")
+    toks = np.random.default_rng(1).integers(0, 64, (2, 24))
+    want = jax.jit(jgpt.apply)(params, jnp.asarray(toks))
+    with torch.no_grad():
+        got = tgpt.apply(torch.tensor(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=2e-5)
 
 
 @pytest.mark.parametrize("entry", ["GPT", "params_from_numpy",

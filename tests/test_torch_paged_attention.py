@@ -101,6 +101,12 @@ def test_plain_int8_dequant_vs_jax():
     (dict(sq=4, hq=8, hkv=2), dict()),
     (dict(sq=3, hq=4, hkv=4), dict(window=5)),
     (dict(), dict(softcap=5.0)),
+    # Gemma-2's head_dim 256 (GQA g=2) with its window and softcap: decode
+    # and a chunk, a window inside a page, across pages and past every row.
+    (dict(d=256, hq=4, hkv=2), dict(window=5, softcap=2.0)),
+    (dict(d=256, sq=4, hq=4, hkv=2), dict(window=11, softcap=50.0)),
+    (dict(d=256, sq=5, hq=4, hkv=2), dict(window=40, softcap=2.0)),
+    (dict(d=256, sq=1, hq=4, hkv=2), dict(softcap=2.0, scale=0.125)),
 ])
 def test_plain_vs_jax_pallas_kernel_interpret(case, opts):
     q, k, v, lengths, table = _case(**case)

@@ -15,12 +15,15 @@ hq % hkv == 0. Softmax statistics and lse ([b, hq, sq]) are fp32; o is in
 q's dtype. Masked scores take the finite ``DEFAULT_MASK_VALUE``, never -inf.
 The causal mask is top-left (``col <= row`` in absolute indices), as in JAX.
 
-The kernels take causal and non-causal attention, GQA, segment ids, any
-sq/skv >= 1, head_dim 64 or 128, and fp32 (FMA path) or bf16 (tensor
-cores). On a CUDA tensor, mask, bias, window and softcap raise
-NotImplementedError (ROADMAP.md Queue 2). Sinks run, as in JAX, as a plain
-rescale around the kernels. ``block_q``/``block_kv`` are accepted for the
-JAX signature; the kernels' tiles are their own (64 x 64).
+The kernels take causal and non-causal attention, GQA, segment ids, a
+sliding window, a logit softcap (each a template option of the kernels, so
+a call without it runs code without it), any sq/skv >= 1, head_dim 64, 128
+or 256, and fp32 (FMA path) or bf16 (tensor cores). On a CUDA tensor, mask
+and bias raise NotImplementedError (ROADMAP.md Queue 2), and so does any
+other head_dim (ValueError). Sinks run, as in JAX, as a plain rescale
+around the kernels. ``block_q``/``block_kv`` are accepted for the JAX
+signature; the kernels' tiles are their own (64 x 64; 32 x 32 for fp32 at
+head_dim 256).
 """
 
 from __future__ import annotations
@@ -41,11 +44,11 @@ _TILE = 64   # the kernels' q and kv tile rows
 # JAX's schedule flags (np_modeling_tpu/ops/attention.py:100, :1185), read
 # by each call's forward and kept for its backward. FWD_DUAL_KV: the forward
 # runs K12, two kv tiles a loop step, where JAX's conditions hold (no mask,
-# bias, segment ids or softcap, an even number of kv tiles); its o and lse
-# equal K1's bit for bit. FUSED_BWD False: the backward runs K5, a dq
-# kernel that owns its rows and a dk/dv kernel, in place of K2, whose dq
-# is summed with atomics in an order that changes from run to run; K5's is
-# the same on every run.
+# bias, segment ids or softcap, an even number of kv tiles; a window runs);
+# its o and lse equal K1's bit for bit. FUSED_BWD False: the backward runs
+# K5, a dq kernel that owns its rows and a dk/dv kernel, in place of K2,
+# whose dq is summed with atomics in an order that changes from run to run;
+# K5's is the same on every run.
 FWD_DUAL_KV = False
 FUSED_BWD = True
 
@@ -177,8 +180,8 @@ def _check_kernel_inputs(q, k, v, q_seg, kv_seg):
     if k.shape[0] != b or k.shape[3] != d or hq % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "match (batch, head_dim, or head groups)")
-    if d not in (64, 128):
-        raise ValueError(f"head_dim {d}: the kernels take 64 or 128")
+    if d not in (64, 128, 256):
+        raise ValueError(f"head_dim {d}: the kernels take 64, 128 or 256")
     if sq == 0 or k.shape[2] == 0:
         raise ValueError("flash attention needs sq >= 1 and skv >= 1")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
@@ -202,17 +205,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name, tensors, strided, segs, *dims):
+def _launch(name, tensors, strided, segs, dims, scale, window, softcap):
     """Calls ``name`` in the library: the data pointers of ``tensors`` (None
     for null), 16 strides ((b, h, s) of ``strided``, q, k, v[, do], then
-    (b, s) of the segment ids ``segs``, zeros without them), 9 ints, the
-    scale and the current stream; raises if a launch returned a CUDA
-    error."""
+    (b, s) of the segment ids ``segs``, zeros without them), the 9 ints
+    ``dims``, the window (0 for none; one past any row is cut to 2**30, where
+    it cuts nothing either way), the scale, the softcap (0 for none) and the
+    current stream; raises if a launch returned a CUDA error."""
     from np_modeling_tpu_torch.ops import cuda_build
     fn = getattr(cuda_build.load("flash_attention").lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * (len(tensors) + 1)
-                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p])
     strides = [s for t in strided for s in t.stride()[:3]]
     strides += [0] * (12 - len(strides))
     strides += ([s for t in segs for s in t.stride()] if segs[0] is not None
@@ -221,6 +226,8 @@ def _launch(name, tensors, strided, segs, *dims):
     with torch.cuda.device(q.device):
         rc = fn(*[_ptr(t) for t in tensors],
                 (ctypes.c_longlong * 16)(*strides), *dims,
+                0 if window is None else min(int(window), 1 << 30), scale,
+                0.0 if softcap is None else softcap,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash-attention kernel {name} failed to launch: "
@@ -228,7 +235,7 @@ def _launch(name, tensors, strided, segs, *dims):
 
 
 def _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg=None,
-                    kv_seg=None, dual=False):
+                    kv_seg=None, dual=False, window=None, softcap=None):
     """K1 (or K12 with ``dual``): o [b, hq, sq, d] (a view) and lse."""
     _check_kernel_inputs(q, k, v, q_seg, kv_seg)
     q, k, v = (_kernel_layout(x) for x in (q, k, v))
@@ -239,17 +246,20 @@ def _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg=None,
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if need_lse else None)
     _launch("np_flash_attention_fwd", (q, k, v, o, lse, q_seg, kv_seg),
-            (q, k, v), (q_seg, kv_seg), _DTYPE_CODES[q.dtype], b, hq, hkv, sq,
-            skv, d, int(causal), int(dual), scale)
+            (q, k, v), (q_seg, kv_seg), (_DTYPE_CODES[q.dtype], b, hq, hkv, sq,
+                                         skv, d, int(causal), int(dual)),
+            scale, window, softcap)
     if dual:
         flash_attention.launches_fwd_dual += 1
     else:
         flash_attention.launches_fwd += 1
+    if window is not None:
+        flash_attention.launches_fwd_window += 1
     return o.transpose(1, 2), lse
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, q_seg=None,
-                    kv_seg=None, split=False):
+                    kv_seg=None, split=False, window=None, softcap=None):
     """K2 (or K5 with ``split``): dq, dk, dv in the JAX layouts."""
     _check_kernel_inputs(q, k, v, q_seg, kv_seg)
     q, k, v, do = (_kernel_layout(x) for x in (q, k, v, do.to(q.dtype)))
@@ -267,12 +277,14 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, q_seg=None,
     dv = torch.empty_like(dk)
     _launch("np_flash_attention_bwd",
             (q, k, v, do, lse, di, q_seg, kv_seg, dq, dk, dv), (q, k, v, do),
-            (q_seg, kv_seg), _DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d,
-            int(causal), int(split), scale)
+            (q_seg, kv_seg), (_DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d,
+                              int(causal), int(split)), scale, window, softcap)
     if split:
         flash_attention.launches_bwd_split += 1
     else:
         flash_attention.launches_bwd += 1
+    if window is not None:
+        flash_attention.launches_bwd_window += 1
     g = hq // hkv
     if g > 1:   # [b, skv, hq, d] -> [b, skv, hkv, d], summed in fp32
         dk = dk.view(b, skv, hkv, g, d).float().sum(dim=3).to(k.dtype)
@@ -289,20 +301,19 @@ class _FlashAttention(torch.autograd.Function):
         kernel = dispatch.use_kernel(q)
         split = not FUSED_BWD
         if kernel:
-            unported = {"mask": mask, "bias": bias, "window": window,
-                        "softcap": softcap}
-            unported = [n for n, x in unported.items() if x is not None]
+            unported = [n for n, x in (("mask", mask), ("bias", bias))
+                        if x is not None]
             if unported:
                 raise NotImplementedError(
                     f"the CUDA flash-attention kernels do not take {unported}"
                     " yet (ROADMAP.md Queue 2)")
             need_lse = sinks is not None or any(ctx.needs_input_grad[:5])
             # JAX's conditions for K12 (:856-858) at the kernel's tile width;
-            # mask, bias and softcap have raised above.
-            dual = (FWD_DUAL_KV and q_seg is None
+            # mask and bias have raised above.
+            dual = (FWD_DUAL_KV and q_seg is None and softcap is None
                     and -(-k.shape[2] // _TILE) % 2 == 0)
             o, lse = _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg,
-                                     kv_seg, dual)
+                                     kv_seg, dual, window, softcap)
         else:
             o, lse = _attn_fwd_plain(
                 q, k, v, _merge_seg_into_mask(mask, q_seg, kv_seg), bias,
@@ -326,7 +337,7 @@ class _FlashAttention(torch.autograd.Function):
         dbias = dsinks = None
         if kernel:
             dq, dk, dv = _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
-                                         q_seg, kv_seg, split)
+                                         q_seg, kv_seg, split, window, softcap)
         else:
             dq, dk, dv, dbias = _attn_bwd_plain(
                 q, k, v, o, lse, do, _merge_seg_into_mask(mask, q_seg, kv_seg),
@@ -381,8 +392,11 @@ def flash_attention(q, k, v, mask=None, bias=None, segment_ids=None, *,
 # Kernel launches since import (or since a caller reset them to 0): a run
 # shows with them that its attention went through K1 (launches_fwd), K12
 # (launches_fwd_dual), K2 (launches_bwd) or K5 (launches_bwd_split, one a
-# pair of its kernels).
+# pair of its kernels); of those, the ones with a window count again in
+# launches_fwd_window (K1, K12) and launches_bwd_window (K2, K5).
 flash_attention.launches_fwd = 0
 flash_attention.launches_fwd_dual = 0
 flash_attention.launches_bwd = 0
 flash_attention.launches_bwd_split = 0
+flash_attention.launches_fwd_window = 0
+flash_attention.launches_bwd_window = 0

@@ -23,8 +23,11 @@ BUILD_DIR = CSRC.parent.parent / "build" / "np_modeling_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Per library: the paged kernel's 72 instantiations (q and page dtypes, head
-# dims, window and softcap) are optimized in parallel, one thread a CPU.
-EXTRA_FLAGS = {"paged_attention": ("-split-compile=0",)}
+# dims, window and softcap) and the flash kernels' 204 (dtypes, head dims,
+# segment ids, window and softcap) are optimized in parallel, one thread a
+# CPU.
+EXTRA_FLAGS = {"paged_attention": ("-split-compile=0",),
+               "flash_attention": ("-split-compile=0",)}
 
 
 def _flags(name: str) -> tuple:

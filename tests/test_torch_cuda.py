@@ -202,15 +202,111 @@ def test_cuda_flash_kernels_count_launches():
                                                   before[1] + 1)
 
 
-@pytest.mark.parametrize("option", ["window", "softcap", "mask", "bias"])
+@pytest.mark.parametrize("option", ["mask", "bias"])
 def test_cuda_flash_unported_options_raise(option):
     q, k, v, _ = _flash_inputs(1, 2, 2, 64, 64, 64, torch.float32)
-    kw = {"window": dict(window=4, causal=True), "softcap": dict(softcap=5.0),
-          "mask": dict(mask=torch.ones(1, 1, 64, 64, dtype=torch.bool,
+    kw = {"mask": dict(mask=torch.ones(1, 1, 64, 64, dtype=torch.bool,
                                        device="cuda")),
           "bias": dict(bias=torch.zeros(1, 2, 64, 64, device="cuda"))}[option]
     with pytest.raises(NotImplementedError):
         ops.flash_attention(q, k, v, **kw)
+
+
+def test_cuda_flash_other_head_dims_raise():
+    q, k, v, _ = _flash_inputs(1, 2, 2, 64, 64, 96, torch.float32)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        ops.flash_attention(q, k, v, causal=True)
+
+
+# ---- window, softcap and head_dim 256 (Gemma-2) in K1/K2/K5/K12 ------------
+
+@pytest.mark.parametrize("opts", [
+    dict(window=7), dict(window=64), dict(window=100), dict(window=4096),
+    dict(softcap=50.0), dict(softcap=2.0), dict(window=100, softcap=2.0)],
+    ids=["window7", "window64", "window100", "window_past", "softcap50",
+         "softcap2", "both"])
+@pytest.mark.parametrize("shape", [(1, 8, 4, 320, 320, 256),
+                                   (2, 4, 2, 200, 200, 64),
+                                   (1, 4, 4, 128, 300, 128)])
+@pytest.mark.parametrize("fused_bwd", [True, False], ids=["k2", "k5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_window_softcap_vs_plain(shape, opts, fused_bwd, dtype):
+    """K1 with Gemma-2's options (causal) and K2 or K5 behind it against the
+    plain version, at head_dim 256 (GQA 8/4) and at 64 and 128: windows
+    inside a tile, at its edge, across tiles and past every row, softcaps
+    that bite and that do not, and both; K5 bit-equal across two runs."""
+    q, k, v, do = _flash_inputs(*shape, dtype)
+    kw = dict(causal=True, **opts)
+    with _schedule(fused_bwd=fused_bwd):
+        before = (ops.flash_attention.launches_fwd,
+                  ops.flash_attention.launches_bwd,
+                  ops.flash_attention.launches_bwd_split)
+        got = _fwd_bwd(q, k, v, do, **kw)
+        after = (ops.flash_attention.launches_fwd,
+                 ops.flash_attention.launches_bwd,
+                 ops.flash_attention.launches_bwd_split)
+        again = _fwd_bwd(q, k, v, do, **kw)
+    want = _fwd_bwd(q, k, v, do, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        (1, 1, 0) if fused_bwd else (1, 0, 1))
+    for x, y, z in zip(got, want, again):
+        bound = _tol(dtype) * max(1.0, y.float().abs().max().item())
+        assert (x.float() - y.float()).abs().max().item() <= bound
+        if not fused_bwd:
+            assert torch.equal(x, z)
+
+
+@pytest.mark.parametrize("window", [7, 100, 1000])
+@pytest.mark.parametrize("shape", [(1, 8, 4, 640, 640, 256),
+                                   (2, 4, 2, 1000, 1000, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_dual_forward_with_window_equals_k1(shape, window, dtype):
+    """K12 with a window gives K1's o and lse bit for bit; with a softcap
+    the flag launches K1."""
+    from np_modeling_tpu_torch.ops import attention
+    q, k, v, _ = _flash_inputs(*shape, dtype)
+    scale = shape[-1] ** -0.5
+    single = attention._flash_fwd_cuda(q, k, v, True, scale, True,
+                                       window=window)
+    dual = attention._flash_fwd_cuda(q, k, v, True, scale, True, dual=True,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(single[0], dual[0]) and torch.equal(single[1], dual[1])
+    before = (ops.flash_attention.launches_fwd,
+              ops.flash_attention.launches_fwd_dual)
+    with _schedule(dual=True), torch.no_grad():
+        ops.flash_attention(q, k, v, causal=True, window=window)
+        ops.flash_attention(q, k, v, causal=True, window=window, softcap=5.0)
+    assert (ops.flash_attention.launches_fwd - before[0],
+            ops.flash_attention.launches_fwd_dual - before[1]) == (1, 1)
+
+
+def test_cuda_gemma2_gpt_loss_fp32_kernels_vs_plain():
+    """A small Gemma-2-shaped GPT (head_dim 256, GQA 4/2, window 40 on even
+    layers, both softcaps), fp32: GPT.loss and every gradient through K1/K2
+    against the plain path on 2 x 160 tokens (the windows cut): loss to
+    1e-5, each gradient to 1e-4 relative L2."""
+    cfg = models.GPTConfig(
+        vocab_size=256, d_model=128, num_layers=2, num_heads=4,
+        num_kv_heads=2, head_dim=256, hidden_units=256, max_len=256,
+        positional="rope", norm="rms", ln_eps=1e-6, rms_offset=True,
+        ffn="geglu", use_bias=False, embed_scale=True, sandwich_norm=True,
+        attention_window=40, window_pattern=2, attn_logit_softcap=2.0,
+        final_logit_softcap=3.0, query_pre_attn_scalar=64.0)
+    gpt = models.GPT(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, 256, (2, 160), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    before = ops.flash_attention.launches_fwd, ops.flash_attention.launches_bwd
+    lk, gk = _grads(gpt, tokens, plain=False)
+    assert (ops.flash_attention.launches_fwd - before[0],
+            ops.flash_attention.launches_bwd - before[1]) == (2, 2)
+    lp, gp = _grads(gpt, tokens, plain=True)
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for n in gp:
+        assert _rel(gk[n], gp[n]) <= 1e-4, n
 
 
 # ---- segment ids in K1/K2, the split backward K5, the dual forward K12 ----

@@ -6,7 +6,8 @@ interpret mode (``force_pallas(True, interpret=True)``, 128 x 128 blocks, as
 tests/test_attention.py runs them), forward and backward, with every
 option: K1/K2, K1/K2 with segment ids, the split backward K5 (JAX's
 ``FUSED_BWD`` False) and the dual-kv forward K12 (``FWD_DUAL_KV`` True),
-each with the port's flag set likewise. Inputs are seeded numpy arrays
+each with the port's flag set likewise, and Gemma-2's window and softcap at
+head_dim 256 under each. Inputs are seeded numpy arrays
 fed to both. fp32 at rtol 1e-5 / atol 2e-5, gradients at atol 5e-5 (the
 JAX package's own kernel tests).
 The CUDA kernels themselves are held against the plain version on the card
@@ -200,6 +201,30 @@ def test_plain_vs_jax_pallas_dual_forward_interpret(causal, monkeypatch):
         want = _jax(q, k, v, do, pallas=True, block_q=128, block_kv=128,
                     causal=causal)
         _check(_port(q, k, v, do, causal=causal), want)
+
+
+# Gemma-2's options at its head_dim (256), GQA: under each schedule (K12
+# takes the window but not the softcap, JAX's condition :856-858).
+GEMMA_OPTS = {"window": dict(window=100), "softcap": dict(softcap=5.0),
+              "both": dict(window=100, softcap=5.0)}
+
+
+@pytest.mark.parametrize("opts,schedule", [
+    ("window", "k2"), ("window", "k5"), ("window", "k12"), ("softcap", "k2"),
+    ("softcap", "k5"), ("both", "k2"), ("both", "k5")])
+def test_plain_vs_jax_pallas_window_softcap_d256_interpret(opts, schedule,
+                                                           monkeypatch):
+    """K1 (or K12) and K2 (or K5) in interpret mode at head_dim 256, b1 hq2
+    hkv1 s256, with a window of 100 (it cuts inside and across the 128-row
+    blocks), a softcap of 5.0 that bites, and both, against the port's
+    plain version."""
+    q, k, v, do = _inputs(1, 2, 1, 256, 256, 256)
+    kw = dict(causal=True, **GEMMA_OPTS[opts])
+    with _flags(monkeypatch, fused_bwd=schedule != "k5",
+                dual=schedule == "k12"):
+        want = _jax(q, k, v, do, pallas=True, block_q=128, block_kv=128,
+                    **kw)
+        _check(_port(q, k, v, do, **kw), want)
 
 
 def test_schedule_flags_have_jax_defaults_and_change_nothing_on_cpu():

@@ -5,7 +5,8 @@ pairs, a gelu-gated FFN, sandwich norms, the embedding scale, sliding
 windows that alternate by layer, the attention and final logit softcaps
 and ``query_pre_attn_scalar``. Each op (forward and hand-written backward),
 one block (local and global), ``GPT.apply``/``GPT.loss`` with every
-gradient and the serving engine's greedy tokens and logits go through both
+gradient, three steps of the training entry point's recipe and the serving
+engine's greedy tokens and logits go through both
 packages on the same numpy inputs and weights (``params_from_numpy``), on a
 small Gemma-2-shaped config: vocab 256, d 64, 4 layers, 4 heads over 2 kv
 heads of 32, FFN 128, window 8 on even layers, caps 2.0 and 3.0 (they bite
@@ -28,10 +29,13 @@ import torch
 from np_modeling_tpu import models as jmodels
 from np_modeling_tpu import nn as jnn
 from np_modeling_tpu import ops as jops
+from np_modeling_tpu import training as jtraining
 from np_modeling_tpu.serving import GenerationEngine as JaxEngine
+from np_modeling_tpu.training import data as jdata
+from np_modeling_tpu.training import schedules as jschedules
 from np_modeling_tpu_torch import models as tmodels
 from np_modeling_tpu_torch import nn as tnn
-from np_modeling_tpu_torch import ops
+from np_modeling_tpu_torch import ops, train_gpt
 from np_modeling_tpu_torch.serving import GenerationEngine
 from np_modeling_tpu_torch.utils import (params_from_numpy, params_to_numpy,
                                          tree_to_numpy)
@@ -240,6 +244,37 @@ def test_gpt_apply_and_loss_vs_jax(caps):
     jax.tree_util.tree_map(
         lambda g, w: np.testing.assert_allclose(g, np.asarray(w), **TOL),
         grads, jax.tree_util.tree_map(np.asarray, jgrads))
+
+
+def test_train_gpt_recipe_three_steps_vs_jax():
+    """The training slice as a whole: three steps of the entry point's
+    recipe (``train_gpt.train``: data.epochs batches of 2 x 40 tokens,
+    windows of 8 cutting, make_train_step over GPT.loss(training=True),
+    chain(clip_by_global_norm(1.0), adamw(warmup_cosine(3e-4, 10, 3))))
+    against JAX's make_train_step over its GPT.loss with the same chain, on
+    the same weights and corpus: each step's loss and every parameter after
+    the third, fp32."""
+    jgpt, tree, tgpt = _pair(CFG)
+    corpus = rng.integers(0, 256, (8, SEQ))
+    steps = 3
+    losses, _ = train_gpt.train(tgpt, corpus, steps, batch=2, device="cpu",
+                                log=None)
+    jopt = jtraining.chain(jtraining.clip_by_global_norm(1.0),
+                           jtraining.adamw(jschedules.warmup_cosine(
+                               3e-4, warmup_steps=10, total_steps=steps)))
+    jstep = jtraining.make_train_step(jgpt.loss, lambda loss, _: loss, jopt,
+                                      donate=False)
+    params = _jtree(tree)
+    jstate, jl = jopt.init(params), []
+    for (batch,), _ in zip(jdata.epochs([corpus], 2, num_epochs=100),
+                           range(steps)):
+        params, jstate, loss = jstep(params, jstate, jnp.asarray(batch), None,
+                                     jax.random.PRNGKey(1))
+        jl.append(float(loss))
+    np.testing.assert_allclose(losses.numpy(), jl, **TOL)
+    jax.tree_util.tree_map(
+        lambda g, w: np.testing.assert_allclose(g, np.asarray(w), **TOL),
+        params_to_numpy(tgpt), params)
 
 
 def test_gpt_apply_bf16_vs_jax():

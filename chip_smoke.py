@@ -46,7 +46,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
       matmul_reference: the GPT-2 step's 9 products (forward with bias,
       the trans_a weight gradient, the trans_b input gradient) in bf16
       (bf16 and fp32 out) and fp32, ragged shapes with every trans pair,
-      mixed operands; K4's criteria; float16 raises. Softmax-CE K9,
+      mixed operands; K4's criteria; bf16 through the TMA variant, the
+      ragged one (matmul.launches_ragged counts it) and split-k (the same
+      bits on a second run), each schedule at least once; float16 raises. Softmax-CE K9,
       forward and backward, at the step's logits [8192, 50257] fp32/bf16
       and ragged shapes with labels outside [0, v): ce within 1e-5 x
       max(1, max |plain|), dlogits within 1e-4 x |plain| + 1e-6 x max
@@ -85,7 +87,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
       through the kernels: the loss is finite and falls, K1/K2 each
       launch once a layer a step and K8 once a LayerNorm a step each way;
   (g) training timings with CUDA events: flash forward, backward and
-      forward+backward at the bench layer shape, and the whole train step;
+      forward+backward at the bench layer shape (K2 and SDPA's autograd
+      backward also in AB_ROUNDS rounds of SDPA, K2, K2, SDPA), and the
+      whole train step;
   (h) the training entry point (np_modeling_tpu_torch/train_gpt.py): GPT-2
       small (124M) at full width and depth with dropout 0.1, bf16 compute,
       batch 8 x 1024 tokens, the recipe chain(clip_by_global_norm(1.0),
@@ -112,8 +116,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
       times a step. On the trained model's logits K9 (forward, backward)
       against softmax_cross_entropy_with_integer_labels; K10 on its final
       hidden states against its plain twin;
-  (m) K11 at the step's 9 product shapes (kernel, plain, cuBLAS) and their
-      sum over a step's 216 products, K11 at 8192^3 bf16 beside torch.mm,
+  (m) K11 at the step's 9 product shapes (kernel, plain, cuBLAS; K11 and
+      cuBLAS also in rounds of cuBLAS, K11, K11, cuBLAS) and their sum
+      over a step's 216 products, K11 at 8192^3 bf16 in turns with
+      torch.mm,
       K9 forward and backward beside F.cross_entropy, K10 (no library
       call), and the forced step beside the default step;
   (n) packed-document training: (h)'s GPT-2 small run on documents of
@@ -147,7 +153,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
       RMSNorm, sandwich norms, a window of 4096 on even layers, softcaps 50
       and 30) at full width and depth with seeded random weights, bf16
       compute and pages, 8 slots, page 16, chunk 256: 6 prompts of
-      128..1024 tokens and one of 4,600 in one batched prefill, then 32
+      128..1024 tokens and one of 4,600 in one batched prefill, then 16
       decode steps. K3 launches 26 times a forward (13 with the window) and
       no other kernel does; bf16 last-position logits within 1.25 x the
       plain bf16 engine's distance from the fp32 engine's plus 1e-2 x
@@ -157,7 +163,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
   (r) Gemma-2 timings: the engine's prefill ms and decode tokens/s, the
       decode profiled by kind (as (p)), K3 at that decode on the engine's
       pages for a local and a global layer beside its bound, and K3 on 8
-      sequences of 512..4096 tokens (a report, not a check);
+      sequences of 1024 and 4096 tokens (a report, not a check);
   (s) Gemma-2 2B training at full width, depth cut to 12 layers (6 local,
       6 global) for memory, bf16 compute: step 0 through K1 + K2 and
       through K1 + K5 against the plain step, in fp32 at 2 layers on 5,120
@@ -168,8 +174,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
   (t) Gemma-2 training timings: K1, K2 and K5 at b1 hq8 hkv4 s8192 d256
       softcap 50 for a local layer (window 4096) and a global one beside
       their bounds (in-band pairs), the plain version and compiled
-      flex_attention with the same softcap and band (the library call),
-      K12 beside K1 without the cap, SDPA without cap or window beside as
+      flex_attention with the same softcap and band (the library call;
+      its backward and K2 also in rounds of flex, K2, K2, flex), K12
+      beside K1 without the cap and compiled flex_attention without a
+      score_mod (its library call), SDPA without cap or window beside as
       another function, and the 12-layer step in ms and tokens/s,
       profiled by kind (a report, not a check).
 Each path runs with the launch counts set to 0 just before it and read just
@@ -254,7 +262,7 @@ GPT2_LAYER = (GPT2_B, 12, 12, GPT2_S, GPT2_S, 64)
 # GEMMA_LONG, past the window; decode steps after them.
 GEMMA_WINDOW, GEMMA_SCALE = 4096, 256.0 ** -0.5
 GEMMA_SLOTS, GEMMA_PAGE, GEMMA_CHUNK, GEMMA_PAGES = 8, 16, 256, 1024
-GEMMA_LONG, GEMMA_DECODE = 4600, 32
+GEMMA_LONG, GEMMA_DECODE = 4600, 16
 # Phase (s): Gemma-2 2B training at full width, its depth cut to
 # GEMMA_TRAIN_LAYERS (6 local, 6 global: 26 layers do not fit the card with
 # the port's optimizer state), batch 1 x GEMMA_TRAIN_S tokens (Gemma-2's
@@ -1072,39 +1080,71 @@ def _mm_operands(m, k, n, trans_a, trans_b, rng, scale=1.0):
     return a, b, rand(n)
 
 
-def _check_k11(tag, a, b, bias, trans_a, trans_b, out_dtype):
-    """K11 under force_kernels() against matmul_reference: one launch, the
-    dtype and shape, fp32 out within 1e-4 x max(1, max |plain|), bf16 out
-    within one bf16 ulp (or that bound). Returns the max abs err."""
+def _k11_plan(a, b, trans_a, trans_b):
+    """K11's schedule for these operands, as ops/matmul.py's _launch takes
+    it: (variant, splits) for bf16, ("fma", 1) for fp32."""
+    import importlib
+    import torch
+    if torch.promote_types(a.dtype, b.dtype) != torch.bfloat16:
+        return "fma", 1
+    m = a.shape[1] if trans_a else a.shape[0]
+    k = a.shape[0] if trans_a else a.shape[1]
+    n = b.shape[0] if trans_b else b.shape[1]
+    return importlib.import_module("np_modeling_tpu_torch.ops.matmul").plan(
+        m, k, n, trans_a, trans_b,
+        a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+
+
+def _check_k11(tag, a, b, bias, trans_a, trans_b, out_dtype, tally=None):
+    """K11 under force_kernels() against matmul_reference: one launch (and
+    one of the ragged variant where plan() takes it), the dtype and shape,
+    fp32 out within 1e-4 x max(1, max |plain|), bf16 out within one bf16
+    ulp (or that bound); split-k the same bits on a second run. Counts the
+    case's schedule in ``tally``. Returns the max abs err."""
     import torch
     from np_modeling_tpu_torch import ops
     from np_modeling_tpu_torch.ops import dispatch
-    before = ops.matmul.launches
+    variant, splits = _k11_plan(a, b, trans_a, trans_b)
+    before = (ops.matmul.launches, ops.matmul.launches_ragged)
     with dispatch.force_kernels():
         got = ops.matmul(a, b, bias, trans_a=trans_a, trans_b=trans_b,
                          out_dtype=out_dtype)
+    counted = (ops.matmul.launches - before[0],
+               ops.matmul.launches_ragged - before[1])
     want = ops.matmul_reference(a, b, bias, trans_a=trans_a, trans_b=trans_b,
                                 out_dtype=out_dtype)
     torch.cuda.synchronize()
     err, ok = _bf16_or_f32_err(got, want, F32_TOL)
     if not (ok and got.dtype == want.dtype and got.shape == want.shape
-            and ops.matmul.launches == before + 1):
+            and counted == (1, int(variant == "ragged"))):
         raise AssertionError(f"(c) {tag}: max abs err {err} out of bounds, "
-                             f"or wrong dtype/shape/launch count")
+                             f"or wrong dtype/shape/launch counts {counted} "
+                             f"({variant})")
+    if splits > 1:
+        with dispatch.force_kernels():
+            again = ops.matmul(a, b, bias, trans_a=trans_a, trans_b=trans_b,
+                               out_dtype=out_dtype)
+        if not torch.equal(got, again):
+            raise AssertionError(f"(c) {tag}: split-k differs between runs")
+    if tally is not None:
+        key = variant + (f" split {splits}" if splits > 1 else "")
+        tally[key] = tally.get(key, 0) + 1
     return err
 
 
 def phase_matmul_vs_plain():
     """K11 vs its plain version inside force_kernels(): the 9 products of
     the GPT-2 small step, in bf16 (bf16 and fp32 out) and fp32, then ragged
-    shapes with every trans pair, bias or not. Returns (max err fp32 out,
-    bf16 out)."""
+    shapes with every trans pair, bias or not; bf16 runs the TMA variant,
+    the ragged one (rows not whole 16-byte vectors, k = 0) and split-k
+    (the step's [768, 768] weight gradients; [9, 4099] x [4099, 7]), each
+    counted. Returns (max err fp32 out, bf16 out)."""
     import torch
     from np_modeling_tpu_torch import ops
     from np_modeling_tpu_torch.ops import dispatch
     f32, f16 = torch.float32, torch.bfloat16
     rng = np.random.default_rng(SEED + 13)
-    errs, n = {f32: 0.0, f16: 0.0}, 0
+    errs, n, tally = {f32: 0.0, f16: 0.0}, 0, {}
     for m, k, nn, ta, tb, with_bias in STEP_PRODUCTS:
         a, b, bias = _mm_operands(m, k, nn, ta, tb, rng)
         bias = bias if with_bias else None
@@ -1113,13 +1153,16 @@ def phase_matmul_vs_plain():
                    f"trans_b={tb}{' bias' if with_bias else ''} "
                    f"{str(op_dtype)[6:]} out {str(out_dtype)[6:]}")
             err = _check_k11(tag, a.to(op_dtype), b.to(op_dtype), bias, ta,
-                             tb, out_dtype)
+                             tb, out_dtype, tally)
+            tag += " [%s, %d split(s)]" % _k11_plan(a.to(op_dtype),
+                                                    b.to(op_dtype), ta, tb)
             errs[out_dtype] = max(errs[out_dtype], err)
             n += 1
             print(f"(c) {tag}: max abs err {err:.3e}")
         del a, b, bias
     for m, k, nn in ((100, 70, 50), (1, 64, 640), (33, 384, 128),
-                     (129, 257, 255), (8, 1024, 8), (5, 7, 3), (3, 0, 5)):
+                     (129, 257, 255), (8, 1024, 8), (5, 7, 3), (3, 0, 5),
+                     (9, 4099, 7), (136, 16384, 200)):
         for ta in (False, True):
             for tb in (False, True):
                 a, b, bias = _mm_operands(m, k, nn, ta, tb, rng)
@@ -1130,7 +1173,7 @@ def phase_matmul_vs_plain():
                                f" trans_b={tb}{' bias' if bb is not None else ''}"
                                f" {str(op_dtype)[6:]} out {str(out_dtype)[6:]}")
                         err = _check_k11(tag, a.to(op_dtype), b.to(op_dtype),
-                                         bb, ta, tb, out_dtype)
+                                         bb, ta, tb, out_dtype, tally)
                         errs[out_dtype] = max(errs[out_dtype], err)
                         n += 1
     # Mixed operands are promoted (to fp32), as JAX's dot_general does.
@@ -1146,6 +1189,11 @@ def phase_matmul_vs_plain():
         pass
     else:
         raise AssertionError("(c) matmul: force_kernels() took float16")
+    if not all(key in tally for key in ("tma", "ragged", "tma split 3",
+                                        "ragged split 4")):
+        raise AssertionError(f"(c) matmul: a K11 schedule went untested: "
+                             f"{tally}")
+    print(f"(c) matmul: cases by schedule {tally}")
     print(f"(c) matmul: {n} cases pass: max abs err fp32 out "
           f"{errs[f32]:.3e} (tol {F32_TOL} x max(1, max |plain|)), bf16 out "
           f"{errs[f16]:.3e} (one bf16 ulp); float16 raises")
@@ -1953,11 +2001,12 @@ def phase_train_timings(gpt, opt, params, state, tokens, device_line):
         device_line)
     lib_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     o_lib = F.scaled_dot_product_attention(*lib_leaves, is_causal=True)
+    def sdpa_bwd():
+        return torch.autograd.grad(o_lib, lib_leaves, do, retain_graph=True)
+
     res["library " + f"flash backward {shape}"] = _library(
-        "g", "F.scaled_dot_product_attention backward (autograd)",
-        lambda: torch.autograd.grad(o_lib, lib_leaves, do, retain_graph=True),
+        "g", "F.scaled_dot_product_attention backward (autograd)", sdpa_bwd,
         device_line)
-    del lib_leaves, o_lib
     # dq, dk, dv out; q, k, v, o, do and the fp32 lse in.
     lse = torch.empty((b, h, s_len), dtype=torch.float32, device=q.device)
     res["bound " + f"flash backward {shape}"] = _bound(
@@ -1975,7 +2024,11 @@ def phase_train_timings(gpt, opt, params, state, tokens, device_line):
           plain_fn=bwd(o_plain))
     _device_both(res, "g", name, bwd(o_kernel), device_line,
                  plain_fn=bwd(o_plain))
-    del o_kernel, o_plain
+    ab = _alternate(sdpa_bwd, bwd(o_kernel), _device_ms)
+    res["ab " + name] = [statistics.median(x) for x in ab]
+    print(f"(g) {name}: device time {_ab_line(ab, 'SDPA backward', 'K2')}; "
+          f"bound {res['bound ' + name][0]:.4f} ms [{device_line}]")
+    del o_kernel, o_plain, lib_leaves, o_lib
 
     def fwd_bwd():
         o = ops.flash_attention(*leaves, causal=True)
@@ -1987,8 +2040,8 @@ def phase_train_timings(gpt, opt, params, state, tokens, device_line):
           f"template variant without them): device "
           f"{res['flash forward ' + shape][2]:.4f} / "
           f"{res['flash backward ' + shape][2]:.4f} ms; PERF.md's table "
-          f"before these options (same shape and card type): 1.3375 / "
-          f"4.2943 ms [{device_line}]")
+          f"before the wgmma backward (same shape and card type): 1.3307 / "
+          f"4.3636 ms [{device_line}]")
     del leaves, q, k, v, do
     torch.cuda.empty_cache()
 
@@ -2037,6 +2090,7 @@ def _step0(gpt, tokens, seed, plain, forced=False, **loss_kw):
 def _launch_counts():
     from np_modeling_tpu_torch import ops
     return {"matmul": ops.matmul.launches,
+            "matmul_ragged": ops.matmul.launches_ragged,
             "softmax_cross_entropy_fwd":
                 ops.softmax_cross_entropy_fused.launches_fwd,
             "softmax_cross_entropy_bwd":
@@ -2059,6 +2113,7 @@ def _launch_counts():
 def _zero_launch_counts():
     from np_modeling_tpu_torch import ops
     ops.matmul.launches = ops.quantize_int8_stochastic.launches = 0
+    ops.matmul.launches_ragged = 0
     ops.softmax_cross_entropy_fused.launches_fwd = 0
     ops.softmax_cross_entropy_fused.launches_bwd = 0
     ops.dropout.launches = 0
@@ -2113,7 +2168,8 @@ def phase_train_entry():
     print(f"(h) {GPT2_STEPS} steps of the recipe in {seconds:.1f} s; losses "
           f"{[round(x, 4) for x in losses]}; kernel launches {launches}")
     sites, layers = 2 * cfg.num_layers + 1, cfg.num_layers
-    want = {"matmul": 0, "softmax_cross_entropy_fwd": 0,
+    want = {"matmul": 0, "matmul_ragged": 0,
+            "softmax_cross_entropy_fwd": 0,
             "softmax_cross_entropy_bwd": 0, "quantize_int8_stochastic": 0,
             "dropout": 2 * sites * GPT2_STEPS,
             "layer_norm_fwd": sites * GPT2_STEPS,
@@ -2194,7 +2250,8 @@ def phase_forced_training():
           f"{[round(x, 4) for x in losses]}; K11 launches after step 0 "
           f"{after_first[0]}; kernel launches {launches}")
     sites, layers = 2 * cfg.num_layers + 1, cfg.num_layers
-    want = {"matmul": 216 * FORCED_STEPS, "softmax_cross_entropy_fwd": 0,
+    want = {"matmul": 216 * FORCED_STEPS, "matmul_ragged": 0,
+            "softmax_cross_entropy_fwd": 0,
             "softmax_cross_entropy_bwd": 0, "quantize_int8_stochastic": 0,
             "dropout": 2 * sites * FORCED_STEPS,
             "layer_norm_fwd": sites * FORCED_STEPS,
@@ -2280,6 +2337,7 @@ def phase_forced_timings(gpt, corpus, device_line):
         return run
 
     step_k = step_lib = 0.0
+    step_ab = [0.0, 0.0]      # library, K11: the in-turn medians' sums
     for (m, k, n, ta, tb, with_bias), uses in zip(STEP_PRODUCTS, STEP_USES):
         a, b, bias = _mm_operands(m, k, n, ta, tb, rng)
         a, b = a.to(f16), b.to(f16)
@@ -2312,22 +2370,34 @@ def phase_forced_timings(gpt, corpus, device_line):
             what = "torch.mm"
         res["library " + name] = _library("m", f"{what} {name}", lib,
                                           device_line)
+        ab = _alternate(lib, forced(k11), _device_ms)
+        res["ab " + name] = [statistics.median(x) for x in ab]
+        print(f"(m) {name} [K11 %s, %d split(s)]: device time "
+              % _k11_plan(a, b, ta, tb)
+              + _ab_line(ab, what, "K11") + f" [{device_line}]")
         step_k += 12 * uses * res[name][2]
         step_lib += 12 * uses * res["library " + name][1]
+        step_ab = [x + 12 * uses * y for x, y in zip(step_ab,
+                                                      res["ab " + name])]
         del a, b, bias, a_op, b_op
     flops = 12 * sum(2 * m * k * n * u for (m, k, n, *_), u
                      in zip(STEP_PRODUCTS, STEP_USES))
     res["k11 step"] = (step_k, step_lib, flops / PEAK_BF16_S * 1e3)
     print(f"(m) one GPT-2 step's 216 products ({flops:.3e} FLOP): K11 "
           f"{step_k:.3f} ms, cuBLAS {step_lib:.3f} ms of device time, bound "
-          f"{res['k11 step'][2]:.3f} ms [{device_line}]")
+          f"{res['k11 step'][2]:.3f} ms; from the in-turn medians: K11 "
+          f"{step_ab[1]:.3f} ms, the library {step_ab[0]:.3f} ms, "
+          f"{step_ab[1] / step_ab[0]:.3f}x [{device_line}]")
+    res["k11 step ab"] = step_ab
 
     a = torch.randn(8192, 8192, device="cuda").to(f16)
     b = torch.randn(8192, 8192, device="cuda").to(f16)
     name = "matmul [8192, 8192] x [8192, 8192] bf16"
-    k11_ms = _device_ms(forced(lambda: ops.matmul(a, b)), runs=10)
-    mm_ms = _device_ms(lambda: torch.mm(a, b), runs=10)
+    ab = _alternate(lambda: torch.mm(a, b), forced(lambda: ops.matmul(a, b)),
+                    lambda f: _device_ms(f, runs=10), rounds=3)
+    k11_ms, mm_ms = (statistics.median(x) for x in (ab[1], ab[0]))
     res["diag"] = (k11_ms, mm_ms, _bound(_nbytes(a, b, a), 2 * 8192 ** 3)[0])
+    print(f"(m) {name}: device time {_ab_line(ab, 'torch.mm', 'K11')}")
     print(f"(m) {name}: K11 {k11_ms:.3f} ms ({2 * 8192 ** 3 / k11_ms / 1e9:.1f}"
           f" TFLOP/s), torch.mm {mm_ms:.3f} ms "
           f"({2 * 8192 ** 3 / mm_ms / 1e9:.1f} TFLOP/s), bound "
@@ -2737,7 +2807,8 @@ def phase_packed_training():
           f"{seconds:.1f} s; losses {[round(x, 4) for x in losses]}; kernel "
           f"launches {launches}")
     sites, layers = 2 * cfg.num_layers + 1, cfg.num_layers
-    want = {"matmul": 0, "softmax_cross_entropy_fwd": 0,
+    want = {"matmul": 0, "matmul_ragged": 0,
+            "softmax_cross_entropy_fwd": 0,
             "softmax_cross_entropy_bwd": 0, "quantize_int8_stochastic": 0,
             "dropout": 2 * sites * GPT2_STEPS,
             "layer_norm_fwd": sites * GPT2_STEPS,
@@ -3202,7 +3273,7 @@ def phase_gemma2_timings(gpt, prompts, device_line):
     (1), device time beside the bound (K/V bytes of the positions a layer
     reads, the local layer's cut to its window), also in the order plain,
     kernel, kernel, plain; and K3's device time on 8 sequences of one
-    length, 512 to 4096, to show what its time follows. A report, not a
+    length, 1024 and 4096, to show what its time follows. A report, not a
     check."""
     import torch
     from np_modeling_tpu_torch import ops
@@ -3260,8 +3331,7 @@ def phase_gemma2_timings(gpt, prompts, device_line):
         eng.finish(sid)
     del eng
     rng = np.random.default_rng(SEED + 22)
-    for ctx, window in ((512, None), (1024, None), (2048, None), (4096, None),
-                        (4096, 1024)):
+    for ctx, window in ((1024, None), (4096, None), (4096, 1024)):
         q, k, v, lens, table = _pa_inputs(GEMMA_SLOTS, None, hq, 4, d,
                                           GEMMA_PAGE, [ctx] * GEMMA_SLOTS,
                                           torch.bfloat16, rng)
@@ -3380,10 +3450,11 @@ def phase_gemma2_training():
 
 def flex_gemma2(window, softcap=GEMMA_CAP, scale=GEMMA_SCALE):
     """``attention(q, k, v)`` through torch's flex_attention, compiled as it
-    is used: Gemma-2's logit softcap as a score_mod on the scaled scores and
-    the causal band ``row - window < col <= row`` (causal alone for None)
-    as a block mask, GQA by ``enable_gqa``. The library yardstick of K1/K2
-    with window and softcap; the port never calls it."""
+    is used: Gemma-2's logit softcap as a score_mod on the scaled scores
+    (none for softcap None) and the causal band ``row - window < col <=
+    row`` (causal alone for None) as a block mask, GQA by ``enable_gqa``.
+    The library yardstick of K1/K2 with window and softcap, and of K12
+    without the softcap; the port never calls it."""
     import torch
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -3406,18 +3477,19 @@ def flex_gemma2(window, softcap=GEMMA_CAP, scale=GEMMA_SCALE):
         if (sq, skv) not in masks:
             masks[sq, skv] = create_block_mask(mask_mod, None, None, sq, skv,
                                                device=q.device)
-        return flex(q, k, v, score_mod=score_mod, block_mask=masks[sq, skv],
-                    scale=scale, enable_gqa=True)
+        return flex(q, k, v, score_mod=None if softcap is None else score_mod,
+                    block_mask=masks[sq, skv], scale=scale, enable_gqa=True)
 
     return attention
 
 
 def _flex_library(res, name, bwd_name, q, k, v, do, o_kernel, window,
-                  device_line):
+                  device_line, kernel_bwd):
     """compiled flex_attention forward and autograd backward as ``name``'s
     and ``bwd_name``'s library yardsticks, with its compile seconds and its
-    output's distance from the kernel's; prints the error and leaves the
-    yardstick null if it does not run at this shape."""
+    output's distance from the kernel's; then its backward and
+    ``kernel_bwd`` (K2's on the same inputs) in turns. Prints the error and
+    leaves the yardstick null if it does not run at this shape."""
     import torch
     attention = flex_gemma2(window)
     try:
@@ -3434,10 +3506,16 @@ def _flex_library(res, name, bwd_name, q, k, v, do, o_kernel, window,
             f"{'' if window is None else ' window'} block mask, enable_gqa) "
             f"forward, inputs requiring grad (one compiled graph) {name}",
             lambda: attention(*leaves), device_line)
+        def lib_bwd():
+            return torch.autograd.grad(o_lib, leaves, do, retain_graph=True)
+
         res["library " + bwd_name] = _library(
             "t", f"compiled flex_attention backward (autograd) {bwd_name}",
-            lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True),
-            device_line)
+            lib_bwd, device_line)
+        ab = _alternate(lib_bwd, kernel_bwd, _device_ms)
+        res["ab " + bwd_name] = [statistics.median(x) for x in ab]
+        print(f"(t) {bwd_name}: device time "
+              f"{_ab_line(ab, 'flex backward', 'K2')} [{device_line}]")
     except Exception as e:              # a report: the yardstick stays null
         print(f"(t) flex_attention does not run at {name}: "
               f"{type(e).__name__}: {str(e)[:400]}")
@@ -3471,6 +3549,28 @@ def _dual_timings(res, kind, q, k, v, window, device_line):
           f"K1 {t[0]:.4f} / {t[3]:.4f} ms (order K1, K12, K12, K1); bound "
           f"{res['bound ' + name][0]:.4f} ms ({res['bound ' + name][1]}) "
           f"[{device_line}]")
+    # The library call: compiled flex_attention without a score_mod, the
+    # same band as its block mask, GQA.
+    attention = flex_gemma2(window, softcap=None)
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            err = (attention(q, k, v).float() - fwd().float()).abs().max()
+        print(f"(t) flex_attention {name}: compiled forward in "
+              f"{time.perf_counter() - t0:.1f} s; max |flex - K1| "
+              f"{err.item():.3e}")
+
+        def lib():
+            with torch.no_grad():
+                return attention(q, k, v)
+
+        res["library " + name] = _library(
+            "t", f"compiled flex_attention (no score_mod, causal"
+            f"{'' if window is None else ' window'} block mask, enable_gqa) "
+            f"forward {name}", lib, device_line)
+    except Exception as e:              # a report: the yardstick stays null
+        print(f"(t) flex_attention does not run at {name}: "
+              f"{type(e).__name__}: {str(e)[:400]}")
 
 
 def phase_gemma2_train_timings(gpt, corpus, device_line):
@@ -3522,11 +3622,9 @@ def phase_gemma2_train_timings(gpt, corpus, device_line):
                      plain_fn=bwd(o_plain))
         res["bound " + bwd_name] = _bound(_nbytes(q, k, v, q, q, lse, q, k, v),
                                           10 * pairs)
-        o_kernel = o_kernel.detach()
-        del leaves, o_plain
-        _flex_library(res, name, bwd_name, q, k, v, do, o_kernel, window,
-                      device_line)
-        del o_kernel
+        _flex_library(res, name, bwd_name, q, k, v, do, o_kernel.detach(),
+                      window, device_line, bwd(o_kernel))
+        del leaves, o_plain, o_kernel
         split = _bwd_timings(res, "t", f"gemma2 {kind} {shape}", q, k, v, do,
                              device_line, pairs, window=window,
                              softcap=GEMMA_CAP, scale=GEMMA_SCALE)

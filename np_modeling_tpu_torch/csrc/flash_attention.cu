@@ -29,14 +29,15 @@
 // The backwards recompute p = exp(s - lse) and take di = rowsum(do . o) from the
 // caller, with ds = p * (dp - di) * scale, times 1 - t^2 with a softcap (t the
 // tanh of the capped score, recomputed from the raw product, :1130-1149). K2
-// (one kernel, kv-major) accumulates dv += p^T do and dk += ds^T q per kv tile
-// in fp32 registers and adds dq += ds k with fp32 atomics into a zeroed fp32
-// buffer (the summation order of dq therefore varies from run to run, by
+// (one kernel, kv-major) accumulates dv += p^T do and dk += ds^T q in fp32
+// registers over every q head of its kv head's GQA group, writes dk and dv once
+// per kv head, rounded once, and adds dq += ds k with fp32 atomics into a zeroed
+// fp32 buffer (the summation order of dq therefore varies from run to run, by
 // rounding only): five products a tile pair. K5 is two kernels: the dq kernel
 // (q-major) owns a q tile, loops over its kv tiles and writes dq once, in q's
 // dtype, with no atomics; the dk/dv kernel is K2 without its dq. Seven products
-// a tile pair, and a dq that is the same on every run. dk and dv come out per q
-// head; the caller sums GQA groups.
+// a tile pair, and a dq that is the same on every run. The fp32 backwards write
+// dk and dv per q head; the caller sums their GQA groups.
 //
 // K12 stages two kv tiles a loop step and issues both q.k^T products before the
 // softmax work of either; it then runs K1's update (the same function) on the
@@ -55,7 +56,7 @@
 // s4096 d128 on an H100 without any segment ids. The window bounds every tile
 // loop to its band: a q tile's kv loop runs from the tile of key q0 - W + 1 to
 // the diagonal (_should_run :554-561, _clamp_kv :575-591); a kv tile's q loop
-// from the diagonal to the tile of row kv0 + 63 + W - 1 (_clamp_q :594-605).
+// from the diagonal to the tile of row kv0 + rows - 1 + W - 1 (_clamp_q :594-605).
 // Tiles outside the band are never loaded. The cap uses tanhf (the fp32 path is
 // held to 1e-4 relative; tanh.approx.f32 would not keep that).
 //
@@ -66,25 +67,16 @@
 // tensor-core throughput bounds them all, and the design keeps the s and p tiles
 // out of device memory entirely (registers and shared memory only).
 //
-// bf16 layout. Every product runs on the tensor cores with mma.sync m16n8k16
-// (fp32 accumulate): a block of 4 warps owns a 64-row tile (q rows in the
-// forwards and the dq kernel, kv rows in the dk/dv kernels), each warp 16 rows,
-// and loops over the other side's 64-row tiles inside the block. The s
-// accumulator fragments are re-packed in registers as the A operand of p.v,
-// ds^T q and (K5) ds.k (no shared-memory round trip); in K2 only ds goes
-// through shared memory, for dq, whose rows span all 4 warps. Shared memory
-// holds [64][d + 8] bf16 tiles (the pad puts a fragment's 8 rows in distinct
-// banks): 3 for K1 (101 KB at d 256), 5 for K12 (169 KB), 4 and the ds tile for
-// K2/K5 (145 KB). Registers a lane: a warp's 16 rows x d of fp32 accumulator
-// are d / 2 registers, 128 at d 256, beside the 32 of a 16 x 64 score tile: K1
-// and K5's dq kernel keep them in one warp. The dk/dv kernels hold dk and dv,
-// which at d 256 would be 256 registers a lane, more than a thread has. There
-// the block has 8 warps: warps w and w + 4 own the same 16 kv rows, and each
-// keeps dk, dv and K2's dq for one half of the head dims (FlashAttention-2 at
-// d 256 splits the same way). Both warps compute their rows' s and dp over
-// the whole head dim, so K2 at d 256 does 7 products a tile pair instead of 5
-// (sharing them through shared memory is later work). ptxas: 242..255
-// registers at d 256 bf16, Gemma-2's variants without spills.
+// bf16 layout. K1, K12 and K5's dq kernel run on mma.sync m16n8k16 (fp32
+// accumulate): a block of 4 warps owns a 64-row q tile, each warp 16 rows, and
+// loops over the 64-row kv tiles inside the block. The s accumulator fragments
+// are re-packed in registers as the A operand of p.v and ds.k (no shared-memory
+// round trip). Shared memory holds [64][d + 8] bf16 tiles (the pad puts a
+// fragment's 8 rows in distinct banks): 3 for K1 (101 KB at d 256), 5 for K12
+// (169 KB), 4 for K5's dq kernel. Registers a lane: a warp's 16 rows x d of
+// fp32 accumulator are d / 2 registers, 128 at d 256, beside the 32 of a
+// 16 x 64 score tile. The dk/dv kernels (K2, K5's second) run on warpgroup
+// products (wgmma) fed by a cp.async ring: see flash_bwd_bf16 below.
 //
 // fp32 layout (a plain FMA path; exact comparisons need it). 128 threads; a
 // thread owns one row of the tile and the columns and head dims j with
@@ -93,14 +85,15 @@
 // would need 263 KB of shared memory in the backward, and dk + dv would be 256
 // registers a thread at P = 2. Shared-memory rows are padded to an odd pitch so
 // that the rows a warp reads at once fall in distinct banks. Loads are
-// synchronous 16-byte vectors; cp.async/TMA pipelining, wgmma and warp
-// specialisation are later work.
+// synchronous 16-byte vectors.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -131,7 +124,7 @@ struct Params {
   float* lse;        // [b, hq, sq]; null: not stored
   const float* di;   // [b, hq, sq]
   void* dq;          // [b, sq, hq, d]: K2 fp32, zeroed by the caller; K5 q's dtype
-  void* dk;          // [b, skv, hq, d], k's dtype (per q head)
+  void* dk;          // k's dtype: bf16 [b, skv, hkv, d]; fp32 [b, skv, hq, d] (per q head)
   void* dv;
   const int* q_seg;  // [b, sq] int32 segment ids, or null (no segments)
   const int* kv_seg; // [b, skv]
@@ -319,20 +312,13 @@ __device__ __forceinline__ void zero8(float (&x)[8][4]) {
 template <int D>
 struct Bf16Smem {
   static constexpr int kLd = D + 8;         // pitch of a [64][D] tile
-  static constexpr int kLdS = kTile + 8;    // pitch of the [64][64] ds tile
   static constexpr int kTileElems = kTile * kLd;
-  // Head-dim halves of the dk/dv kernels' warps (8 warps at d 256).
-  static constexpr int kSlices = D > 128 ? 2 : 1;
-  static constexpr int kBwdThreads = kThreads * kSlices;
   // Segment ids of the q tile, then of the staged kv tile, end each layout.
   static constexpr size_t kSegBytes = 2 * kTile * sizeof(int);
   // q, then k and v of each of `halves` kv tiles; segment ids.
   static constexpr size_t fwd_bytes(int halves) {
     return (1 + 2 * halves) * kTileElems * sizeof(bf16) + kSegBytes;
   }
-  // k, v, q, do, the ds tile, lse and di of the q tile; segment ids.
-  static constexpr size_t kBwdBytes =
-      (4 * kTileElems + kTile * kLdS) * sizeof(bf16) + 2 * kTile * sizeof(float) + kSegBytes;
   // q, do, k, v; segment ids.
   static constexpr size_t kDqBytes = 4 * kTileElems * sizeof(bf16) + kSegBytes;
 };
@@ -473,133 +459,430 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
   }
 }
 
-// ---- K2 (kDq) and K5's dk/dv kernel (!kDq), bf16 ----------------------------
-// Grid (kv tiles, b * hq). Warp w owns kv rows 16 (w % 4) .. + 15 of the tile
-// and (at d 256, 8 warps) the head dims [DS (w / 4), DS (w / 4 + 1)) of their
-// dk and dv and of K2's dq rows 16 (w % 4) ...
-template <int D, bool kDq, int kOpt>
-__global__ void __launch_bounds__(Bf16Smem<D>::kBwdThreads) flash_bwd_bf16(const Params p) {
-  using S = Bf16Smem<D>;
-  constexpr int LD = S::kLd, LDS = S::kLdS, KD = D / 16, NT = S::kBwdThreads;
-  constexpr int DS = D / S::kSlices, NDS = DS / 8;  // a warp's slice of the head dims
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + S::kTileElems;
-  bf16* qs = vs + S::kTileElems;
-  bf16* dos = qs + S::kTileElems;
-  bf16* dss = dos + S::kTileElems;  // ds of the tile pair, [q][kv], pitch LDS (K2)
-  float* lse_s = reinterpret_cast<float*>(dss + kTile * LDS);
-  float* di_s = lse_s + kTile;
-  int* seg = reinterpret_cast<int*>(di_s + kTile);
+// ---- K2 (kDq) and K5's dk/dv kernel (!kDq), bf16: warpgroup products -----------
+// Grid (b * hkv, kv blocks of BwdSmem<D>::kKv rows): the blocks of the first kv rows,
+// which see the most q tiles under causal masking, start first. 256 threads, two
+// warpgroups.
+// The block owns its kv rows' dk and dv for the whole GQA group: it loops over the
+// group's hq / hkv q heads and, for each, over the q tiles of the rows' band, keeping
+// dk and dv in fp32 registers throughout, and writes [b, skv, hkv, d] once. q, do,
+// lse, di (and the q tile's segment ids) stream through a 2-stage cp.async ring: the
+// next tile's copies are in flight while the tensor cores work on this one. k, v, q
+// and do lie in shared memory in the 128-byte swizzle (wgmma.cuh), so one copy of
+// each serves as a K-major operand (s^T = k q^T, dp^T = v do^T) and as an MN-major one
+// (dv += p^T do, dk += ds^T q, dq += ds k).
+// d 64 / 128: kKv = 128, warpgroup w owns kv rows 64 w..: s^T and dp^T (m64n64) for its
+//   rows, committed as two groups; their accumulators, rounded to bf16, are directly
+//   the register A operand of dv += p^T do and dk += ds^T q (m64nD). p^T is formed
+//   while dp^T is still in flight, and dv runs while ds^T is formed. K2: ds^T of all
+//   128 rows goes to shared memory, then warpgroup w computes dq[:, w D/2 ..] = ds k
+//   over the 128 keys (A by ldmatrix.trans).
+// d 256: kKv = 64, both warpgroups own the same 64 rows and split the head dims: dk,
+//   dv (and dq) of dims 128 w... s^T (warpgroup 0) and dp^T (warpgroup 1) are computed
+//   once each and meet in shared memory: warpgroup 1 hands dp^T over in fp32,
+//   warpgroup 0 forms p^T and ds^T and hands them back in bf16. Five products a tile
+//   pair, as at d 64 / 128.
+// dq (K2) is added into the fp32 buffer with 8-byte vector atomics (float2 atomicAdd,
+// compute capability 9.x): its summation order varies from run to run, by rounding.
+template <int D>
+struct BwdSmem {
+  static constexpr int kKv = D > 128 ? 64 : 128;     // kv rows of a block
+  static constexpr int kKvBytes = kKv * D * 2;       // k (or v), bf16
+  static constexpr int kQBytes = kTile * D * 2;      // a q (or do) tile
+  // A stage: q, do, then lse, di and the q tile's segment ids (64 each).
+  static constexpr int kStageBytes = (2 * kQBytes + 3 * kTile * 4 + 1023) / 1024 * 1024;
+  // Stages of the q/do ring (a third measured no faster at the bench shape).
+  static constexpr int kStages = 2;
+  static constexpr int kXPitch = kTile + 8;          // bf16 pitch of ds^T / p^T rows
+  // Exchange: ds^T [kKv][kXPitch] bf16 (d 64/128), or at d 256 dp^T [64][kXPitch]
+  // fp32, then p^T and ds^T [64][kXPitch] bf16 in the same bytes.
+  static constexpr int kXBytes = 128 * kXPitch * 2;
+  static constexpr int kBytes =
+      2 * kKvBytes + kStages * kStageBytes + kXBytes + kKv * 4 + 1024;
+};
 
-  const int kv0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y, bb = bh / p.hq, hh = bh % p.hq;
-  const int hk = hh / (p.hq / p.hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int rw = (warp % kWarps) * 16, dh = (warp / kWarps) * DS;
+// The q tiles [x, y) of kTile rows whose rows see keys [kv0, kv0 + KV): with causal
+// from the diagonal, and with a window up to the tile of row kv0 + KV - 1 + W - 1.
+template <int KV, int kOpt>
+__device__ __forceinline__ int2 q_band(const Params& p, int kv0) {
+  const int n = (p.sq + kTile - 1) / kTile;
+  if (!p.causal) return make_int2(0, n);
+  const int end = (kOpt & kOptWin) != 0 ? min(n, (kv0 + KV + p.window - 2) / kTile + 1) : n;
+  return make_int2(kv0 / kTile, end);
+}
 
-  const bf16* q = static_cast<const bf16*>(p.q) + bb * p.st_q.b + hh * p.st_q.h;
-  const bf16* k = static_cast<const bf16*>(p.k) + bb * p.st_k.b + hk * p.st_k.h;
-  const bf16* v = static_cast<const bf16*>(p.v) + bb * p.st_v.b + hk * p.st_v.h;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + bb * p.st_do.b + hh * p.st_do.h;
-  const int* q_seg = p.q_seg + bb * p.seg_q_b;
-  const long long row_stats = (static_cast<long long>(bb) * p.hq + hh) * p.sq;
+// Rows [0, ROWS) of a [rows][D] bf16 tile into SW128 column blocks of ROWS rows
+// (16-byte cp.async; rows past n_valid as zeros), by the block's 256 threads.
+template <int D, int ROWS>
+__device__ __forceinline__ void cp_tile(uint8_t* dst, const bf16* src, long long stride,
+                                        int n_valid) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += 256) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool live = r < n_valid;
+    wg::cp_async16(wg::smem_u32(dst + (c / 64) * (ROWS * 128) + wg::sw128_offset(r, c % 64)),
+                   live ? static_cast<const void*>(src + r * stride + c) : src,
+                   live ? 16 : 0);
+  }
+}
 
-  load_rows<bf16, D, LD, kTile, NT>(ks, k + kv0 * p.st_k.s, p.st_k.s, p.skv - kv0);
-  load_rows<bf16, D, LD, kTile, NT>(vs, v + kv0 * p.st_v.s, p.st_v.s, p.skv - kv0);
-  if (kOpt & kOptSeg)
-    load_seg<kTile, NT>(seg + kTile, p.kv_seg + bb * p.seg_kv_b, p.seg_kv_s, kv0, p.skv);
-  const int* seg_kv = seg + kTile;
+// The register A operands of 4 k steps (64 columns) from a [64 rows] x 64 accumulator
+// of m64n64 (rounded to bf16).
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg::pack_a(a[kk], &x[8 * kk], &x[8 * kk + 4]);
+}
 
-  float dk[NDS][4], dv[NDS][4];
+// The same from a [64 rows][kXPitch] bf16 array in shared memory, row r0 = this warp's.
+__device__ __forceinline__ void smem_to_a(uint32_t (&a)[4][4], const bf16* x, int r0, int g,
+                                          int t) {
+  constexpr int P = kTile + 8;
 #pragma unroll
-  for (int n = 0; n < NDS; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  for (int kk = 0; kk < 4; ++kk) {
+    const bf16* b = x + (r0 + g) * P + 16 * kk + 2 * t;
+    a[kk][0] = ld32(b);
+    a[kk][1] = ld32(b + 8 * P);
+    a[kk][2] = ld32(b + 8);
+    a[kk][3] = ld32(b + 8 * P + 8);
+  }
+}
 
-  const int2 band = q_tiles<kTile, kOpt>(p, kv0);
-  for (int qt = band.x; qt < band.y; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous tile pair's q/do/ds reads are done
-    load_rows<bf16, D, LD, kTile, NT>(qs, q + q0 * p.st_q.s, p.st_q.s, p.sq - q0);
-    load_rows<bf16, D, LD, kTile, NT>(dos, dout + q0 * p.st_do.s, p.st_do.s, p.sq - q0);
-    for (int i = threadIdx.x; i < kTile; i += NT) {
-      const bool live = q0 + i < p.sq;
-      lse_s[i] = live ? p.lse[row_stats + q0 + i] : 0.f;
-      di_s[i] = live ? p.di[row_stats + q0 + i] : 0.f;
-    }
-    if (kOpt & kOptSeg) load_seg<kTile, NT>(seg, q_seg, p.seg_q_s, q0, p.sq);
-    __syncthreads();
+// The A fragment of a 16 x 16 tile from its transpose in shared memory: 8 x 8
+// blocks (rows 16 bytes, 16-byte aligned), thread l addressing row l % 8 of block
+// l / 8; blocks 0..3 become a[0..3].
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&a)[4], const bf16* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(wg::smem_u32(row))
+               : "memory");
+}
 
-    // s^T = k . q^T and dp^T = v . do^T over the whole head dim: rows = this
-    // warp's kv rows, cols = the q rows.
-    float s[8][4], ds[8][4];
-    zero8(s);
-    mma_rowsT<KD>(s, ks, rw, qs, LD, g, t);
-    zero8(ds);
-    mma_rowsT<KD>(ds, vs, rw, dos, LD, g, t);
-    // p^T = exp(s^T - lse); ds^T = p^T * (dp^T - di) (* 1 - t^2) * scale
+template <int R>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[R][4]) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = rw + g + (e >> 1) * 8, ql = 8 * n + 2 * t + (e & 1);
-        float cap_grad;
-        const float x = score<kOpt>(p, s[n][e], q0 + ql, kv0 + kl, seg, ql, seg_kv, kl,
-                                    cap_grad);
-        const float pe = expf(x - lse_s[ql]);
-        float d = pe * (ds[n][e] - di_s[ql]);
-        if constexpr ((kOpt & kOptCap) != 0) d *= cap_grad;
-        d *= p.scale;
-        s[n][e] = pe;
-        ds[n][e] = d;
-        if (kDq && dh == 0) dss[ql * LDS + kl] = __float2bfloat16_rn(d);
-      }
-    }
-    // dv += p^T (rounded to bf16) . do, dk += ds^T (rounded to bf16) . q, over
-    // this warp's head dims.
-    mma_frag_rows<NDS>(dv, s, dos + dh, LD, g, t);
-    mma_frag_rows<NDS>(dk, ds, qs + dh, LD, g, t);
-    if (!kDq) continue;
-    __syncthreads();  // ds of all 4 row blocks is in shared memory
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
 
-    // dq[rows rw ..][this warp's dims] += ds . k over the tile's 64 keys,
-    // added atomically.
-    float dq[NDS][4];
+// acc (m64 x N) += A (4 k steps of 16 rows) . X[16 kk.., cols], X a stage tile (q or
+// do) read MN-major from column block `cb` on: 8 KB blocks of 64 rows.
+template <int R>
+__device__ __forceinline__ void rs_stage(float (&acc)[R], const uint32_t (&a)[4][4],
+                                         uint32_t x, int cb) {
 #pragma unroll
-    for (int n = 0; n < NDS; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int kk = 0; kk < 4; ++kk)
+    wg::wgmma_rs<1>(acc, a[kk], wg::desc(x + cb * 8192 + kk * 2048, 8192, 1024), 1);
+}
+
+// dq[q rows, d0 .. d0 + N) += ds . k over the block's KV keys (ds^T from the exchange,
+// k read MN-major), added into the fp32 buffer with 8-byte vector atomics (float2
+// atomicAdd, compute capability 9.x; a bulk reduction through shared memory and
+// 16-byte atomics measured no faster at the bench shape). rw: this warp's first q
+// row.
+template <int D, int N, int KV>
+__device__ __forceinline__ void dq_pass(const Params& p, const bf16* dst_x, uint32_t ks, int d0,
+                                        float* dq_rows, int q0, int rw, int g, int t) {
+  constexpr int P = kTile + 8;
+  float acc[N / 2];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      load_a(a, dss, LDS, rw, 16 * kk, g, t);
-      mma_rows<NDS>(dq, a, ks + dh, LD, 16 * kk, g, t);
-    }
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  uint32_t a[KV / 16][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + rw + g + 8 * i;
-      if (row >= p.sq) continue;
-      float* dst = static_cast<float*>(p.dq) +
-                   ((static_cast<long long>(bb) * p.sq + row) * p.hq + hh) * D + dh + 2 * t;
+  for (int kk = 0; kk < KV / 16; ++kk) {  // ds = (ds^T)^T: 8 x 8 blocks transposed
+    const int lane = threadIdx.x % 32, mi = lane / 8;
+    ldsm_x4_t(a[kk], dst_x + (16 * kk + (mi >> 1) * 8 + lane % 8) * P + rw + (mi & 1) * 8);
+  }
+  wg::fence();
 #pragma unroll
-      for (int n = 0; n < NDS; ++n) {
-        atomicAdd(dst + 8 * n, dq[n][2 * i]);
-        atomicAdd(dst + 8 * n + 1, dq[n][2 * i + 1]);
-      }
+  for (int kk = 0; kk < KV / 16; ++kk)
+    wg::wgmma_rs<1>(acc, a[kk],
+                    wg::desc(ks + (d0 / 64) * (KV * 128) + (d0 % 64) * 2 + kk * 2048, KV * 128,
+                             1024),
+                    1);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_acc(acc);
+  fence_a(a);
+  const long long row_stride = static_cast<long long>(p.hq) * D;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + rw + g + 8 * h;
+      if (row < p.sq)
+        atomicAdd(reinterpret_cast<float2*>(dq_rows + (rw + g + 8 * h) * row_stride + d0 +
+                                            8 * j + 2 * t),
+                  make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
     }
   }
+}
 
+template <int D, bool kDq, int kOpt>
+__global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
+  using S = BwdSmem<D>;
+  constexpr int KV = S::kKv, KD = D / 16, XP = S::kXPitch;
+  constexpr bool kSplitD = D > 128;
+  constexpr int DW = kSplitD ? D / 2 : D;  // head dims of a warpgroup's dk and dv
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = smem;
+  uint8_t* vs = ks + S::kKvBytes;
+  uint8_t* stages = vs + S::kKvBytes;
+  uint8_t* xch = stages + S::kStages * S::kStageBytes;
+  int* seg_kv = reinterpret_cast<int*>(xch + S::kXBytes);
+
+  const int kv0 = blockIdx.y * KV;
+  const int bb = blockIdx.x / p.hkv, hk = blockIdx.x % p.hkv, group = p.hq / p.hkv;
+  const int w = threadIdx.x / 128, tw = threadIdx.x % 128;
+  const int wi = tw / 32, lane = tw % 32, g = lane / 4, t = lane % 4;
+  const int rw = wi * 16;                     // this warp's rows in its warpgroup's 64
+  const int kr = (kSplitD ? 0 : 64 * w) + rw;  // ... as kv rows of the block
+  const int d0 = kSplitD ? DW * w : 0;        // this warpgroup's dk/dv head dims
+
+  const bf16* k = static_cast<const bf16*>(p.k) + bb * p.st_k.b + hk * p.st_k.h;
+  const bf16* v = static_cast<const bf16*>(p.v) + bb * p.st_v.b + hk * p.st_v.h;
+  const int* q_seg = p.q_seg + bb * p.seg_q_b;
+  const int2 band = q_band<KV, kOpt>(p, kv0);
+  const int n_q = max(0, band.y - band.x), steps = group * n_q;
+
+  // Tile `it` (q head hk * group + it / n_q, q tile band.x + it % n_q) into stage
+  // it % kStages, one cp.async group (an empty one past the last tile, so that
+  // every iteration commits one).
+  auto issue = [&](int it) {
+    const int hh = hk * group + it / n_q, q0 = (band.x + it % n_q) * kTile;
+    if (it >= steps) {
+      wg::cp_async_commit();
+      return;
+    }
+    uint8_t* st = stages + (it % S::kStages) * S::kStageBytes;
+    const bf16* q = static_cast<const bf16*>(p.q) + bb * p.st_q.b + hh * p.st_q.h;
+    const bf16* dout = static_cast<const bf16*>(p.dout) + bb * p.st_do.b + hh * p.st_do.h;
+    cp_tile<D, kTile>(st, q + q0 * p.st_q.s, p.st_q.s, p.sq - q0);
+    cp_tile<D, kTile>(st + S::kQBytes, dout + q0 * p.st_do.s, p.st_do.s, p.sq - q0);
+    float* stats = reinterpret_cast<float*>(st + 2 * S::kQBytes);
+    const long long row_stats = (static_cast<long long>(bb) * p.hq + hh) * p.sq + q0;
+    const int i = threadIdx.x;
+    const bool live = q0 + (i % kTile) < p.sq;
+    if (i < kTile)
+      wg::cp_async4(wg::smem_u32(stats + i), p.lse + (live ? row_stats + i : 0), live ? 4 : 0);
+    else if (i < 2 * kTile)
+      wg::cp_async4(wg::smem_u32(stats + i), p.di + (live ? row_stats + i - kTile : 0),
+                    live ? 4 : 0);
+    else if ((kOpt & kOptSeg) != 0 && i < 3 * kTile)
+      wg::cp_async4(wg::smem_u32(stats + i),
+                    q_seg + (live ? static_cast<long long>(q0 + i - 2 * kTile) * p.seg_q_s : 0),
+                    live ? 4 : 0);
+    wg::cp_async_commit();
+  };
+
+  cp_tile<D, KV>(ks, k + kv0 * p.st_k.s, p.st_k.s, p.skv - kv0);
+  cp_tile<D, KV>(vs, v + kv0 * p.st_v.s, p.st_v.s, p.skv - kv0);
+  if (kOpt & kOptSeg)
+    load_seg<KV, 256>(seg_kv, p.kv_seg + bb * p.seg_kv_b, p.seg_kv_s, kv0, p.skv);
+  for (int it = 0; it < S::kStages - 1; ++it) issue(it);
+
+  float dk[DW / 2], dv[DW / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = kv0 + rw + g + 8 * i;
+  for (int i = 0; i < DW / 2; ++i) dk[i] = dv[i] = 0.f;
+  const uint32_t k_s = wg::smem_u32(ks), v_s = wg::smem_u32(vs);
+  // Byte offsets of k step kd (16 of the head dims) in k or v (warpgroup w's 64
+  // rows at d 64 / 128) and in a q or do stage.
+  auto kv_off = [](int kd, int wgi) {
+    return static_cast<uint32_t>((kd / 4) * (KV * 128) + (kSplitD ? 0 : wgi * 8192) +
+                                 (kd % 4) * 32);
+  };
+  auto q_off = [](int kd) { return static_cast<uint32_t>((kd / 4) * 8192 + (kd % 4) * 32); };
+
+  for (int it = 0; it < steps; ++it) {
+    const int hh = hk * group + it / n_q, q0 = (band.x + it % n_q) * kTile;
+    wg::cp_async_wait<S::kStages - 2>();
+    wg::fence_proxy();
+    __syncthreads();  // tile it has landed; every read of tile it - 1 is done
+    issue(it + S::kStages - 1);
+    uint8_t* st = stages + (it % S::kStages) * S::kStageBytes;
+    const uint32_t q_s = wg::smem_u32(st), do_s = q_s + S::kQBytes;
+    const float* lse_s = reinterpret_cast<const float*>(st + 2 * S::kQBytes);
+    const float* di_s = lse_s + kTile;
+    const int* seg_q = reinterpret_cast<const int*>(di_s + kTile);
+
+    bf16* xb = reinterpret_cast<bf16*>(xch);
+    bf16* pt_x = xb;                                  // d 256: p^T [64][XP]
+    bf16* dst_x = kSplitD ? xb + kTile * XP : xb;     // ds^T [KV][XP]
+    float s[32], dp[32];
+    uint32_t ap[4][4], ads[4][4];  // p^T and ds^T as the register A of dv and dk
+    if constexpr (!kSplitD) {
+      // s^T = k q^T and dp^T = v do^T (m64n64, K = d) for this warpgroup's rows, in
+      // two groups: p^T is formed while dp^T is still in flight, and dv += p^T do
+      // runs while ds^T is formed.
+      wg::fence();
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+        wg::wgmma_ss<0, 0>(s, wg::desc(k_s + kv_off(kd, w), 16, 1024),
+                           wg::desc(q_s + q_off(kd), 16, 1024), kd > 0);
+      wg::commit();
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+        wg::wgmma_ss<0, 0>(dp, wg::desc(v_s + kv_off(kd, w), 16, 1024),
+                           wg::desc(do_s + q_off(kd), 16, 1024), kd > 0);
+      wg::commit();
+      wg::wait<1>();
+      wg::fence_acc(s);
+      // p^T = exp(s^T - lse) into ap (bf16); s keeps p^T (* 1 - t^2) for ds^T.
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        float pe[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kl = kr + g + 8 * ((i >> 1) & 1), ql = 8 * (i >> 2) + 2 * t + e;
+          float cap_grad;
+          const float x =
+              score<kOpt>(p, s[i + e], q0 + ql, kv0 + kl, seg_q, ql, seg_kv, kl, cap_grad);
+          pe[e] = expf(x - lse_s[ql]);
+          s[i + e] = (kOpt & kOptCap) != 0 ? pe[e] * cap_grad : pe[e];
+        }
+        ap[i / 8][(i % 8) / 2] = wg::pack_bf16(pe[0], pe[1]);
+      }
+      wg::fence();
+      rs_stage(dv, ap, do_s, 0);
+      wg::commit();
+      wg::wait<1>();  // dp^T has landed (dv may still be in flight)
+      wg::fence_acc(dp);
+      // ds^T = p^T (dp^T - di) (* 1 - t^2) * scale
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int ql = 8 * (i >> 2) + 2 * t + (i & 1);
+        dp[i] = s[i] * (dp[i] - di_s[ql]) * p.scale;
+      }
+      acc_to_a(ads, dp);
+      wg::fence();
+      rs_stage(dk, ads, q_s, 0);
+      wg::commit();
+      if constexpr (kDq) {  // ds^T of the block's rows for dq, while dk runs
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<uint32_t*>(dst_x + (kr + g + 8 * h) * XP + 8 * j + 2 * t) =
+                wg::pack_bf16(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
+        wg::fence_proxy();
+        __syncthreads();
+      }
+    } else {
+      // d 256: s^T by warpgroup 0, dp^T by warpgroup 1, once each (16 k steps).
+      wg::fence();
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        if (w == 0)
+          wg::wgmma_ss<0, 0>(s, wg::desc(k_s + kv_off(kd, 0), 16, 1024),
+                             wg::desc(q_s + q_off(kd), 16, 1024), kd > 0);
+        else
+          wg::wgmma_ss<0, 0>(dp, wg::desc(v_s + kv_off(kd, 0), 16, 1024),
+                             wg::desc(do_s + q_off(kd), 16, 1024), kd > 0);
+      }
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_acc(s);
+      wg::fence_acc(dp);
+      // Warpgroup 1 hands dp^T over in fp32; warpgroup 0 forms p^T and ds^T and
+      // hands them back in bf16, in the same bytes.
+      float* dp_x = reinterpret_cast<float*>(xch);    // dp^T [64][XP] fp32
+      if (w == 1) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(dp_x + (rw + g + 8 * h) * XP + 8 * j + 2 * t) =
+                make_float2(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
+      }
+      __syncthreads();
+      if (w == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 x = *reinterpret_cast<const float2*>(dp_x + (rw + g + 8 * h) * XP +
+                                                              8 * j + 2 * t);
+            dp[4 * j + 2 * h] = x.x;
+            dp[4 * j + 2 * h + 1] = x.y;
+          }
+        wg::bar_sync(1, 128);  // warpgroup 0 has read dp^T: its bytes take p^T, ds^T
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const int kl = rw + g + 8 * (e >> 1), ql = 8 * j + 2 * t + (e & 1);
+            float cap_grad;
+            const float x =
+                score<kOpt>(p, s[i], q0 + ql, kv0 + kl, seg_q, ql, seg_kv, kl, cap_grad);
+            const float pe = expf(x - lse_s[ql]);
+            float d = pe * (dp[i] - di_s[ql]);
+            if constexpr ((kOpt & kOptCap) != 0) d *= cap_grad;
+            s[i] = pe;
+            dp[i] = d * p.scale;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int kl = rw + g + 8 * h, c = 8 * j + 2 * t;
+            *reinterpret_cast<uint32_t*>(dst_x + kl * XP + c) =
+                wg::pack_bf16(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
+            *reinterpret_cast<uint32_t*>(pt_x + kl * XP + c) =
+                wg::pack_bf16(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
+          }
+        acc_to_a(ap, s);
+        acc_to_a(ads, dp);
+      }
+      wg::fence_proxy();
+      __syncthreads();  // p^T and ds^T of every row are in shared memory
+      if (w == 1) {
+        smem_to_a(ap, pt_x, rw, g, t);
+        smem_to_a(ads, dst_x, rw, g, t);
+      }
+      // dv += p^T do, dk += ds^T q over this warpgroup's half of the head dims.
+      wg::fence();
+      rs_stage(dv, ap, do_s, d0 / 64);
+      rs_stage(dk, ads, q_s, d0 / 64);
+      wg::commit();
+    }
+    wg::wait<0>();
+    wg::fence_acc(dv);
+    wg::fence_acc(dk);
+    fence_a(ap);
+    fence_a(ads);
+
+    if constexpr (kDq) {
+      // dq rows q0.. of head hh, this warpgroup's half of the head dims, over the
+      // block's keys.
+      float* dq_rows = static_cast<float*>(p.dq) +
+                       ((static_cast<long long>(bb) * p.sq + q0) * p.hq + hh) * D;
+      constexpr int NQ = D / 2 > 64 ? 64 : D / 2;  // dims a pass
+#pragma unroll
+      for (int pass = 0; pass < D / 2 / NQ; ++pass)
+        dq_pass<D, NQ, KV>(p, dst_x, k_s, w * (D / 2) + pass * NQ, dq_rows, q0, rw, g, t);
+    }
+  }
+  wg::cp_async_wait<0>();
+
+  // dk, dv of this warpgroup's rows and head dims, rounded once, [b, skv, hkv, d].
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = kv0 + kr + g + 8 * h;
     if (row >= p.skv) continue;
     const long long off =
-        ((static_cast<long long>(bb) * p.skv + row) * p.hq + hh) * D + dh + 2 * t;
+        ((static_cast<long long>(bb) * p.skv + row) * p.hkv + hk) * D + d0 + 2 * t;
     bf16* dkd = static_cast<bf16*>(p.dk) + off;
     bf16* dvd = static_cast<bf16*>(p.dv) + off;
 #pragma unroll
-    for (int n = 0; n < NDS; ++n) {
-      *reinterpret_cast<uint32_t*>(dkd + 8 * n) = pack_bf16(dk[n][2 * i], dk[n][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dvd + 8 * n) = pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+    for (int j = 0; j < DW / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dkd + 8 * j) =
+          wg::pack_bf16(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dvd + 8 * j) =
+          wg::pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
     }
   }
 }
@@ -1151,14 +1434,13 @@ int launch_bwd(const Params& p, int dtype, int split, cudaStream_t s) {
   return with_opt(opts_of(p), [&](auto o) {
     constexpr int kOpt = decltype(o)::value;
     if (dtype == 1) {
-      const dim3 grid_q = tiles(p.sq, kTile, bh), grid_kv = tiles(p.skv, kTile, bh);
+      using W = BwdSmem<D>;
+      const dim3 grid_q = tiles(p.sq, kTile, bh);
+      const dim3 grid_kv(p.b * p.hkv, (p.skv + W::kKv - 1) / W::kKv);
       if (!split)
-        return launch(flash_bwd_bf16<D, true, kOpt>, grid_kv, B::kBwdThreads, B::kBwdBytes, s,
-                      p);
+        return launch(flash_bwd_bf16<D, true, kOpt>, grid_kv, 256, W::kBytes, s, p);
       int rc = launch(flash_bwd_dq_bf16<D, kOpt>, grid_q, kThreads, B::kDqBytes, s, p);
-      if (rc == 0)
-        rc = launch(flash_bwd_bf16<D, false, kOpt>, grid_kv, B::kBwdThreads, B::kBwdBytes, s,
-                    p);
+      if (rc == 0) rc = launch(flash_bwd_bf16<D, false, kOpt>, grid_kv, 256, W::kBytes, s, p);
       return rc;
     }
     const dim3 grid_q = tiles(p.sq, F::kRows, bh), grid_kv = tiles(p.skv, F::kRows, bh);
@@ -1178,7 +1460,8 @@ int launch_bwd(const Params& p, int dtype, int split, cudaStream_t s) {
 // q_seg/kv_seg: int32 segment ids, both null for none. window: 0 for none, else
 // W >= 1 (causal only). softcap: 0 for none, else the cap > 0. Outputs and
 // scratch are allocated by the caller: o [b, sq, hq, d] in q's dtype; lse
-// [b, hq, sq] fp32 or null; dk/dv [b, skv, hq, d] in k's dtype; dq [b, sq, hq,
+// [b, hq, sq] fp32 or null; dk/dv in k's dtype, [b, skv, hkv, d] for bf16 (the
+// GQA groups summed in the kernel), [b, skv, hq, d] for fp32; dq [b, sq, hq,
 // d], fp32 and zeroed for K2 (split 0), in q's dtype for K5 (split 1). dual 1
 // runs K12, without segment ids or softcap (the caller checks that the kv
 // tiles are even in number). Both return the first nonzero cudaGetLastError()

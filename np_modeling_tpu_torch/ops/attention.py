@@ -273,7 +273,10 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, q_seg=None,
     dq = (torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device) if split
           else torch.zeros((b, sq, hq, d), dtype=torch.float32,
                            device=q.device))
-    dk = torch.empty((b, skv, hq, d), dtype=k.dtype, device=q.device)
+    # bf16: K2/K5 sum each GQA group's q heads in the kernel (in fp32, one
+    # rounding); the fp32 kernels write dk and dv per q head.
+    hkv_out = hkv if q.dtype == torch.bfloat16 else hq
+    dk = torch.empty((b, skv, hkv_out, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _launch("np_flash_attention_bwd",
             (q, k, v, do, lse, di, q_seg, kv_seg, dq, dk, dv), (q, k, v, do),
@@ -285,10 +288,10 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, q_seg=None,
         flash_attention.launches_bwd += 1
     if window is not None:
         flash_attention.launches_bwd_window += 1
-    g = hq // hkv
-    if g > 1:   # [b, skv, hq, d] -> [b, skv, hkv, d], summed in fp32
-        dk = dk.view(b, skv, hkv, g, d).float().sum(dim=3).to(k.dtype)
-        dv = dv.view(b, skv, hkv, g, d).float().sum(dim=3).to(v.dtype)
+    g = hkv_out // hkv
+    if g > 1:   # fp32: [b, skv, hq, d] -> [b, skv, hkv, d]
+        dk = dk.view(b, skv, hkv, g, d).sum(dim=3)
+        dv = dv.view(b, skv, hkv, g, d).sum(dim=3)
     return dq.to(q.dtype).transpose(1, 2), dk.transpose(1, 2), \
         dv.transpose(1, 2)
 

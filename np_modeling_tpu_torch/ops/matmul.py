@@ -106,13 +106,41 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
 matmul.launches = 0
 
 
+# Of those, the launches of K11's ragged variant (bf16 operands whose stored
+# rows are not whole 16-byte vectors, or k = 0).
+matmul.launches_ragged = 0
+
+# K11's bf16 tile (rows x columns of the output a block owns) and k slice;
+# the card's SMs, which split-k fills.
+TILE, SLICE, SMS = 128, 64, 132
+# Split-k takes at least this many k slices a split.
+MIN_SPLIT_SLICES = 16
+
+
+def plan(m, k, n, trans_a, trans_b, aligned=True):
+    """K11's schedule for bf16 operands: (variant, splits).
+
+    variant "tma" where TMA can read both operands (each stored row a whole
+    number of 16-byte vectors: k for a k-contiguous operand, m or n
+    otherwise; ``aligned``: both base pointers 16-byte aligned; k > 0),
+    else "ragged". splits > 1 where the [TILE, TILE] output tiles cannot
+    fill the card's SMS SMs and k holds MIN_SPLIT_SLICES slices a split:
+    as many splits as fit one wave of blocks."""
+    rows_a = m if trans_a else k
+    rows_b = k if trans_b else n
+    tma = aligned and k > 0 and rows_a % 8 == 0 and rows_b % 8 == 0
+    tiles = -(-m // TILE) * -(-n // TILE)
+    splits = max(1, min(SMS // tiles, k // (SLICE * MIN_SPLIT_SLICES)))
+    return ("tma" if tma else "ragged"), splits
+
+
 @functools.lru_cache(maxsize=None)
 def _function():
     """The library's C function ``np_matmul``, typed (built at first use)."""
     from np_modeling_tpu_torch.ops import cuda_build
     fn = cuda_build.load("matmul").lib.np_matmul
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     return fn
 
@@ -132,14 +160,24 @@ def _launch(a, b, bias, trans_a, trans_b, out_dtype, m, k, n):
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
+    variant, splits = "tma", 1
+    if ct == torch.bfloat16:
+        variant, splits = plan(m, k, n, trans_a, trans_b,
+                               a.data_ptr() % 16 == 0
+                               and b.data_ptr() % 16 == 0)
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+          if splits > 1 else None)
     with torch.cuda.device(a.device):
         rc = _function()(a.data_ptr(), b.data_ptr(),
                          bias.data_ptr() if bias is not None else None,
-                         out.data_ptr(), _DTYPE_CODES[ct],
+                         out.data_ptr(), ws.data_ptr() if ws is not None
+                         else None, _DTYPE_CODES[ct],
                          _DTYPE_CODES[out_dtype], m, n, k, int(trans_a),
-                         int(trans_b),
+                         int(trans_b), int(variant == "ragged"), splits,
                          torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K11 matmul kernel launch failed: CUDA error {rc}")
     matmul.launches += 1
+    if ct == torch.bfloat16 and variant == "ragged":
+        matmul.launches_ragged += 1
     return out

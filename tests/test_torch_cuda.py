@@ -355,6 +355,64 @@ def test_cuda_flash_segments_vs_plain(shape, causal, fused_bwd, dtype):
         assert (x.float() - y.float()).abs().max().item() <= bound
 
 
+# (causal, options) of the K2/K5 cases: every option each way it is taken
+# (a window needs causal).
+_BWD_OPTIONS = [(False, "none"), (True, "none"), (False, "segments"),
+                (True, "segments"), (True, "window"), (False, "softcap"),
+                (True, "softcap")]
+
+
+@pytest.mark.parametrize("causal,option", _BWD_OPTIONS,
+                         ids=[f"{'causal' if c else 'full'}-{o}"
+                              for c, o in _BWD_OPTIONS])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("split", [False, True], ids=["k2", "k5"])
+def test_cuda_flash_bwd_bf16_vs_plain_backward(d, group, causal, option,
+                                               split):
+    """K2 (and K5) in bf16 against ``_attn_bwd_plain`` on the same o and lse:
+    dk and dv come out per kv head, each GQA group's q heads summed inside
+    the kernel in fp32; ragged sq != skv and tiles cut by the window and the
+    documents; K5 the same bits on every run."""
+    from np_modeling_tpu_torch.ops import attention
+    # Every q row keeps a key (causal rows past skv + window, or a document
+    # absent from kv, would make a row that no key sees, whose gradients
+    # follow the tiles a kernel visits).
+    hkv = 2
+    sq, skv = (300, 190) if not causal and option != "segments" else (260, 300)
+    q, k, v, do = _flash_inputs(2, hkv * group, hkv, sq, skv, d,
+                                torch.bfloat16, seed=d + group)
+    seg = None
+    kw = {}
+    if option == "segments":
+        kv_seg = _packed_segments(2, max(sq, skv))
+        seg = (kv_seg[:, :sq], kv_seg[:, :skv])
+    elif option == "window":
+        kw["window"] = 37
+    elif option == "softcap":
+        kw["softcap"] = 2.0
+    scale = d ** -0.5
+    o, lse = attention._flash_fwd_cuda(q, k, v, causal, scale, True,
+                                       *(seg or (None, None)), **kw)
+    o = o.contiguous()
+    got = attention._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
+                                    *(seg or (None, None)), split=split, **kw)
+    again = attention._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
+                                      *(seg or (None, None)), split=split,
+                                      **kw)
+    mask = attention._merge_seg_into_mask(None, *(seg or (None, None)))
+    want = attention._attn_bwd_plain(q, k, v, o, lse, do, mask, None, causal,
+                                     kw.get("window"), scale,
+                                     kw.get("softcap"))[:3]
+    torch.cuda.synchronize()
+    assert [tuple(x.shape) for x in got] == [tuple(x.shape) for x in want]
+    for x, y in zip(got, want):
+        bound = 2e-2 * max(1.0, y.float().abs().max().item())
+        assert (x.float() - y.float()).abs().max().item() <= bound
+    if split:
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
 @pytest.mark.parametrize("shape", [(2, 8, 2, 200, 200, 64),
                                    (1, 4, 4, 256, 256, 128)])
 @pytest.mark.parametrize("causal", [False, True])
@@ -712,6 +770,46 @@ def test_cuda_matmul_kernel_vs_plain(m, k, n, trans_a, trans_b, op_dtype,
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == out_dtype and got.shape == (m, n)
     assert _within(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("m,k,n,trans_a,trans_b,variant,splits", [
+    (256, 768, 384, False, False, "tma", 1),
+    (256, 768, 384, True, True, "tma", 1),
+    (768, 8192, 768, True, False, "tma", 3),
+    (136, 16384, 200, False, True, "tma", 16),
+    (100, 70, 50, False, False, "ragged", 1),
+    (129, 257, 255, True, False, "ragged", 1),
+    (9, 4099, 7, True, True, "ragged", 4)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias", [False, True])
+def test_cuda_matmul_variants_and_split_k(m, k, n, trans_a, trans_b, variant,
+                                          splits, out_dtype, bias):
+    """K11's TMA and ragged variants and split-k against the plain version:
+    plan() picks the variant and the splits; matmul.launches counts every
+    launch and launches_ragged the ragged variant's; split-k gives the same
+    bits on every run (a fixed order of the splits' sums)."""
+    import importlib
+    mm = importlib.import_module("np_modeling_tpu_torch.ops.matmul")
+    assert mm.plan(m, k, n, trans_a, trans_b) == (variant, splits)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    a = torch.randn(*((k, m) if trans_a else (m, k)), generator=g,
+                    device="cuda").bfloat16()
+    b = torch.randn(*((n, k) if trans_b else (k, n)), generator=g,
+                    device="cuda").bfloat16()
+    c = torch.randn(n, generator=g, device="cuda") if bias else None
+    kw = dict(trans_a=trans_a, trans_b=trans_b, out_dtype=out_dtype)
+    before = (ops.matmul.launches, ops.matmul.launches_ragged)
+    with dispatch.force_kernels():
+        got = ops.matmul(a, b, c, **kw)
+        again = ops.matmul(a, b, c, **kw)
+    assert (ops.matmul.launches - before[0],
+            ops.matmul.launches_ragged - before[1]) == (
+        2, 2 if variant == "ragged" else 0)
+    want = ops.matmul_reference(a, b, c, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert _within(got, want, 1e-4)
+    assert torch.equal(got, again)
 
 
 def test_cuda_matmul_default_is_the_library_and_float16_raises():

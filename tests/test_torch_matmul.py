@@ -12,6 +12,7 @@ rtol 1e-5 / atol 2e-5 (BASELINE.md:16). The CUDA kernel runs only on the card
 """
 
 import contextlib
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -136,6 +137,50 @@ def test_matmul_block_sizes_change_nothing_and_cpu_launches_nothing():
         got = ops.matmul(a, b, block_m=8, block_n=1024, block_k=16)
     assert torch.equal(got, ops.matmul(a, b))
     assert ops.matmul.launches == before
+
+
+# ---- K11's schedule (plain Python, taken before a launch) -------------------
+
+_mm = importlib.import_module("np_modeling_tpu_torch.ops.matmul")
+
+
+@pytest.mark.parametrize("m,k,n,trans_a,trans_b,want", [
+    # Every stored row a whole number of 16-byte vectors: TMA, any layout.
+    (8192, 768, 3072, False, False, "tma"),
+    (768, 8192, 768, True, False, "tma"),
+    (8192, 3072, 768, False, True, "tma"),
+    (256, 768, 384, True, True, "tma"),
+    # A stored row of the wrong length: a's is k, or m with trans_a; b's is
+    # n, or k with trans_b.
+    (256, 70, 384, False, False, "ragged"),
+    (100, 768, 384, True, False, "ragged"),
+    (100, 768, 384, False, False, "tma"),
+    (256, 768, 50, False, False, "ragged"),
+    (256, 768, 50, False, True, "tma"),
+    (256, 70, 384, True, True, "ragged"),
+    (129, 257, 255, False, False, "ragged"),
+    (5, 0, 3, False, False, "ragged")])
+def test_plan_takes_tma_only_where_every_row_is_whole_vectors(
+        m, k, n, trans_a, trans_b, want):
+    assert _mm.plan(m, k, n, trans_a, trans_b)[0] == want
+    assert _mm.plan(m, k, n, trans_a, trans_b,
+                    aligned=False)[0] == "ragged"
+
+
+@pytest.mark.parametrize("m,k,n,splits", [
+    (768, 8192, 768, 3),      # the step's 36-tile weight gradients: one wave
+    (768, 8192, 3072, 1),     # 144 tiles fill the card
+    (8192, 768, 3072, 1),
+    (768, 512, 768, 1),       # too short to split
+    (768, 2048, 768, 2),      # MIN_SPLIT_SLICES slices a split at most
+    (8, 1 << 20, 8, 132),     # one tile: as many splits as SMs
+    (128, 64 * 16 * 7, 128, 7)])
+def test_plan_splits_k_only_where_the_tiles_leave_sms_idle(m, k, n, splits):
+    got = _mm.plan(m, k, n, True, False)[1]
+    assert got == splits
+    tiles = -(-m // _mm.TILE) * -(-n // _mm.TILE)
+    assert tiles * got <= max(tiles, _mm.SMS)
+    assert got == 1 or k // got >= _mm.SLICE * _mm.MIN_SPLIT_SLICES
 
 
 # ---- force_kernels() --------------------------------------------------------

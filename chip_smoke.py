@@ -8,7 +8,10 @@ Gemma-2 serving and Gemma-2 training once on one CUDA card.
 Phases, each printed on its own lines; any failure exits non-zero:
   (a) device: the card's name and power limit, as nvidia-smi reports them;
   (b) build: every kernel of the six paths, from the sources in this
-      checkout (one nvcc for each source, all started together);
+      checkout (one nvcc for each source, all started together); each
+      bf16 flash forward instantiation (K1, K12) with its registers and
+      stack (cuobjdump -res-usage) and its HGMMA count (cuobjdump -sass):
+      one without HGMMA (a forward not on wgmma) fails the run;
   (c) each kernel vs its plain PyTorch version on the card, at the paths'
       shapes. Paged attention: max abs err <= 1e-4 with fp32 pages,
       <= 2e-2 with bf16 pages; with int8 pages (per-token fp32 scales)
@@ -87,9 +90,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
       through the kernels: the loss is finite and falls, K1/K2 each
       launch once a layer a step and K8 once a LayerNorm a step each way;
   (g) training timings with CUDA events: flash forward, backward and
-      forward+backward at the bench layer shape (K2 and SDPA's autograd
-      backward also in AB_ROUNDS rounds of SDPA, K2, K2, SDPA), and the
-      whole train step;
+      forward+backward at the bench layer shape (K1 and SDPA's forward, K2
+      and SDPA's autograd backward, also in AB_ROUNDS rounds of SDPA, K,
+      K, SDPA), and the whole train step;
   (h) the training entry point (np_modeling_tpu_torch/train_gpt.py): GPT-2
       small (124M) at full width and depth with dropout 0.1, bf16 compute,
       batch 8 x 1024 tokens, the recipe chain(clip_by_global_norm(1.0),
@@ -141,8 +144,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
       shape and the packed GPT-2 shape; K12 beside K1 and SDPA forward at
       the bench shape; K1/K2 with segment ids beside without (SDPA with the
       documents' boolean mask as yardstick); the packed step (K2, K5)
-      beside (h)'s unpacked step. K2 against K5, kernel and step, runs
-      AB_ROUNDS rounds of K2, K5, K5, K2 and reports medians and ranges;
+      beside (h)'s unpacked step. K2 against K5, kernel and step, K12
+      against K1 and against SDPA, and K1 with segment ids against SDPA
+      with the mask run AB_ROUNDS rounds of a, b, b, a and report medians
+      and ranges;
   (p) where the entry point's step spends the card's time: torch.profiler
       over 3 steps, device time by kernel and by kind, device ops a step
       and the card's idle share (PERF.md, "Where the time goes"); a
@@ -175,9 +180,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
       softcap 50 for a local layer (window 4096) and a global one beside
       their bounds (in-band pairs), the plain version and compiled
       flex_attention with the same softcap and band (the library call;
-      its backward and K2 also in rounds of flex, K2, K2, flex), K12
-      beside K1 without the cap and compiled flex_attention without a
-      score_mod (its library call), SDPA without cap or window beside as
+      its forward and K1, its backward and K2 also in rounds of flex, K,
+      K, flex), K12 beside K1 without the cap and compiled flex_attention
+      without a score_mod (its library call; K12 against K1 and against
+      it in rounds), SDPA without cap or window beside as
       another function, and the 12-layer step in ms and tokens/s,
       profiled by kind (a report, not a check).
 Each path runs with the launch counts set to 0 just before it and read just
@@ -382,6 +388,62 @@ def phase_build():
         for ln in lib.log.splitlines():
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
                 print(f"    ptxas: {ln.strip()}")
+    check_forward_sass(libs["flash_attention"].path,
+                       libs["flash_attention"].log)
+
+
+def _fwd_variant(mangled):
+    """(d, halves, options) of a bf16 forward entry's mangled name, or None."""
+    import re
+    hit = re.search(r"flash_fwd_bf16ILi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    return None if hit is None else tuple(int(x) for x in hit.groups())
+
+
+def check_forward_sass(lib_path, log):
+    """Each bf16 forward instantiation (K1, K12) of the built flash library:
+    its registers and local memory (spills) from cuobjdump -res-usage, HGMMA
+    (wgmma) in its SASS, and whether ptxas serialized its wgmma (C7514 in the
+    build's ``log``, a loss of speed, reported); fails where an instantiation
+    has no HGMMA, so that a forward built on mma.sync cannot pass."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
+    usage = subprocess.run([tool, "-res-usage", str(lib_path)],
+                           capture_output=True, text=True, check=True,
+                           timeout=300).stdout
+    regs, names = {}, []
+    lines = usage.splitlines()
+    for i, ln in enumerate(lines):
+        key = _fwd_variant(ln) if "Function" in ln else None
+        if key is not None and i + 1 < len(lines):
+            names.append(re.search(r"(_Z\w+)", ln).group(1))
+            regs[key] = " ".join(f for f in lines[i + 1].split()
+                                 if f.startswith(("REG:", "STACK:", "LOCAL:",
+                                                  "SHARED:")))
+    # The SASS of the forward functions alone (the whole library's takes
+    # tens of seconds to print).
+    sass = subprocess.run([tool, "-sass", "-fun", ",".join(names),
+                           str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout if names else ""
+    hgmma = {}
+    for part in sass.split("Function : ")[1:]:
+        key = _fwd_variant(part.split("\n", 1)[0])
+        if key is not None:
+            hgmma[key] = part.count("HGMMA")
+    serialized = {_fwd_variant(ln) for ln in log.splitlines() if "C7514" in ln}
+    want = {(d, 1, o) for d in (64, 128, 256) for o in range(8)}
+    want |= {(d, 2, o) for d in (64, 128, 256) for o in (0, 2)}
+    for key in sorted(want):
+        d, halves, opt = key
+        print(f"(b) forward {'K12' if halves == 2 else 'K1'} d{d} options "
+              f"{opt} (seg 1, window 2, softcap 4): {regs.get(key, 'no usage')}"
+              f", {hgmma.get(key, 0)} HGMMA in its SASS"
+              f"{', wgmma serialized by ptxas (C7514)' if key in serialized else ''}")
+    missing = sorted(k for k in want if not hgmma.get(k))
+    if missing:
+        raise AssertionError(f"(b) bf16 forward instantiations without HGMMA "
+                             f"(wgmma) in their SASS: {missing}")
+    print(f"(b) all {len(want)} bf16 forward instantiations run on wgmma")
 
 
 def _pa_inputs(b, sq, hq, hkv, d, psize, lengths, dtype, rng, extra_pages=2):
@@ -1999,6 +2061,10 @@ def phase_train_timings(gpt, opt, params, state, tokens, device_line):
     res["library " + name] = _library(
         "g", "F.scaled_dot_product_attention(is_causal=True) forward", sdpa,
         device_line)
+    ab = _alternate(sdpa, fwd, _device_ms)
+    res["ab " + name] = [statistics.median(x) for x in ab]
+    print(f"(g) {name}: device time {_ab_line(ab, 'SDPA forward', 'K1')}; "
+          f"bound {res['bound ' + name][0]:.4f} ms [{device_line}]")
     lib_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     o_lib = F.scaled_dot_product_attention(*lib_leaves, is_causal=True)
     def sdpa_bwd():
@@ -2040,8 +2106,8 @@ def phase_train_timings(gpt, opt, params, state, tokens, device_line):
           f"template variant without them): device "
           f"{res['flash forward ' + shape][2]:.4f} / "
           f"{res['flash backward ' + shape][2]:.4f} ms; PERF.md's table "
-          f"before the wgmma backward (same shape and card type): 1.3307 / "
-          f"4.3636 ms [{device_line}]")
+          f"before the wgmma kernels (same shape and card type): 1.3307 / "
+          f"4.3636 ms (the mma.sync K1 read 1.3375 there) [{device_line}]")
     del leaves, q, k, v, do
     torch.cuda.empty_cache()
 
@@ -2963,10 +3029,9 @@ def phase_packed_timings(gpt, corpus, packed, device_line):
     name = f"flash forward dual {shape}"
     _both(res, "o", name, fwd_dual, device_line, runs=20)
     _device_both(res, "o", name, fwd_dual, device_line)
-    k1 = [_device_ms(f) for f in (fwd, fwd_dual, fwd_dual, fwd)]
-    res["K1 " + name] = min(k1[0], k1[3])
-    print(f"(o) {name}: device time K12 {k1[1]:.4f} / {k1[2]:.4f} ms against "
-          f"K1 {k1[0]:.4f} / {k1[3]:.4f} ms (order K1, K12, K12, K1) "
+    ab = _alternate(fwd, fwd_dual, _device_ms)
+    res["K1 " + name] = statistics.median(ab[0])
+    print(f"(o) {name}: device time {_ab_line(ab, 'K1', 'K12')} "
           f"[{device_line}]")
     res["bound " + name] = _bound(_nbytes(q, k, v, q), 4 * pairs)
 
@@ -2977,6 +3042,10 @@ def phase_packed_timings(gpt, corpus, packed, device_line):
     res["library " + name] = _library(
         "o", "F.scaled_dot_product_attention(is_causal=True) forward", sdpa,
         device_line)
+    ab = _alternate(sdpa, fwd_dual, _device_ms)
+    res["ab " + name] = [statistics.median(x) for x in ab]
+    print(f"(o) {name}: device time {_ab_line(ab, 'SDPA forward', 'K12')} "
+          f"[{device_line}]")
     del q, k, v, do
     torch.cuda.empty_cache()
 
@@ -3010,6 +3079,11 @@ def phase_packed_timings(gpt, corpus, packed, device_line):
     res["library " + name] = _library(
         "o", "F.scaled_dot_product_attention(attn_mask=documents & causal) "
         "forward", sdpa_seg, device_line)
+    ab = _alternate(sdpa_seg, fwd_seg, _device_ms)
+    res["ab " + name] = [statistics.median(x) for x in ab]
+    print(f"(o) {name}: device time "
+          f"{_ab_line(ab, 'SDPA forward with the mask', 'K1')} "
+          f"[{device_line}]")
     t = [_device_ms(f) for f in (fwd_none, fwd_seg, fwd_seg, fwd_none)]
     res["K1 no segments " + name] = min(t[0], t[3])
     print(f"(o) {name}: device time with segment ids {t[1]:.4f} / {t[2]:.4f} "
@@ -3484,12 +3558,13 @@ def flex_gemma2(window, softcap=GEMMA_CAP, scale=GEMMA_SCALE):
 
 
 def _flex_library(res, name, bwd_name, q, k, v, do, o_kernel, window,
-                  device_line, kernel_bwd):
+                  device_line, kernel_fwd, kernel_bwd):
     """compiled flex_attention forward and autograd backward as ``name``'s
     and ``bwd_name``'s library yardsticks, with its compile seconds and its
-    output's distance from the kernel's; then its backward and
-    ``kernel_bwd`` (K2's on the same inputs) in turns. Prints the error and
-    leaves the yardstick null if it does not run at this shape."""
+    output's distance from the kernel's; then its forward and ``kernel_fwd``
+    (K1's), and its backward and ``kernel_bwd`` (K2's on the same inputs),
+    in turns. Prints the error and leaves the yardstick null if it does not
+    run at this shape."""
     import torch
     attention = flex_gemma2(window)
     try:
@@ -3506,6 +3581,10 @@ def _flex_library(res, name, bwd_name, q, k, v, do, o_kernel, window,
             f"{'' if window is None else ' window'} block mask, enable_gqa) "
             f"forward, inputs requiring grad (one compiled graph) {name}",
             lambda: attention(*leaves), device_line)
+        ab = _alternate(lambda: attention(*leaves), kernel_fwd, _device_ms)
+        res["ab " + name] = [statistics.median(x) for x in ab]
+        print(f"(t) {name}: device time "
+              f"{_ab_line(ab, 'flex forward', 'K1')} [{device_line}]")
         def lib_bwd():
             return torch.autograd.grad(o_lib, leaves, do, retain_graph=True)
 
@@ -3541,12 +3620,11 @@ def _dual_timings(res, kind, q, k, v, window, device_line):
 
     name = (f"flash forward dual gemma2 {kind} b{b} hq{hq} hkv{k.shape[1]} "
             f"s{s_len} d{d} bf16 (no softcap)")
-    t = [_device_ms(f) for f in (fwd, fwd_dual, fwd_dual, fwd)]
-    res[name] = (min(t[1], t[2]), min(t[0], t[3]))
+    ab = _alternate(fwd, fwd_dual, _device_ms)
+    res[name] = tuple(statistics.median(x) for x in reversed(ab))
     res["bound " + name] = _bound(_nbytes(q, k, v, q),
                                   4 * b * hq * d * _band_pairs(s_len, window))
-    print(f"(t) {name}: device time K12 {t[1]:.4f} / {t[2]:.4f} ms against "
-          f"K1 {t[0]:.4f} / {t[3]:.4f} ms (order K1, K12, K12, K1); bound "
+    print(f"(t) {name}: device time {_ab_line(ab, 'K1', 'K12')}; bound "
           f"{res['bound ' + name][0]:.4f} ms ({res['bound ' + name][1]}) "
           f"[{device_line}]")
     # The library call: compiled flex_attention without a score_mod, the
@@ -3568,6 +3646,10 @@ def _dual_timings(res, kind, q, k, v, window, device_line):
             "t", f"compiled flex_attention (no score_mod, causal"
             f"{'' if window is None else ' window'} block mask, enable_gqa) "
             f"forward {name}", lib, device_line)
+        ab = _alternate(lib, fwd_dual, _device_ms)
+        res["ab " + name] = [statistics.median(x) for x in ab]
+        print(f"(t) {name}: device time "
+              f"{_ab_line(ab, 'flex forward', 'K12')} [{device_line}]")
     except Exception as e:              # a report: the yardstick stays null
         print(f"(t) flex_attention does not run at {name}: "
               f"{type(e).__name__}: {str(e)[:400]}")
@@ -3623,7 +3705,7 @@ def phase_gemma2_train_timings(gpt, corpus, device_line):
         res["bound " + bwd_name] = _bound(_nbytes(q, k, v, q, q, lse, q, k, v),
                                           10 * pairs)
         _flex_library(res, name, bwd_name, q, k, v, do, o_kernel.detach(),
-                      window, device_line, bwd(o_kernel))
+                      window, device_line, fwd, bwd(o_kernel))
         del leaves, o_plain, o_kernel
         split = _bwd_timings(res, "t", f"gemma2 {kind} {shape}", q, k, v, do,
                              device_line, pairs, window=window,
@@ -3879,6 +3961,9 @@ def main(phases="abcdefghijklmnopqrst"):
             "plain_ms": ms[1], "device_ms": ms[2], "plain_device_ms": ms[3],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib[0],
             "library_device_ms": lib[1]})
+        if "ab " + key in res:  # device ms in AB rounds with the library call
+            kernels[-1]["library_device_ms_in_turns"], \
+                kernels[-1]["device_ms_in_turns"] = res["ab " + key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

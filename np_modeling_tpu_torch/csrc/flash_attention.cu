@@ -24,7 +24,10 @@
 // alpha = exp(mask - m) is exactly 0 and wipes them, as on the TPU. A row with
 // no key at all (non-causal, a q segment absent from kv_seg; or, with sq > skv,
 // a window that ends below key 0) keeps them: its o is the mean of v over every
-// visited key column and its lse the mask value plus their log count.
+// visited key column (a column past skv reads v as zeros) and its lse the mask
+// value plus their log count, so it depends on the tile width: the bf16 forward
+// visits kv tiles of 128 keys (64 at d 256) for q tiles of 128 rows, the fp32
+// forward tiles of 64 (32 at d 256).
 //
 // The backwards recompute p = exp(s - lse) and take di = rowsum(do . o) from the
 // caller, with ds = p * (dp - di) * scale, times 1 - t^2 with a softcap (t the
@@ -39,12 +42,13 @@
 // a tile pair, and a dq that is the same on every run. The fp32 backwards write
 // dk and dv per q head; the caller sums their GQA groups.
 //
-// K12 stages two kv tiles a loop step and issues both q.k^T products before the
+// K12 takes two kv tiles a loop step and issues both q.k^T products before the
 // softmax work of either; it then runs K1's update (the same function) on the
-// first half and then the second, so o and lse equal K1's bit for bit: with
-// causal, a half above the diagonal is all masked and, m being real by then,
-// adds p = 0 with alpha = 1; with a window its pairs start at the even tile at
-// or below the band, a tile that every row of the q tile masks, wiped as above.
+// first tile and then the second, so o and lse equal K1's bit for bit: with
+// causal, a tile above the diagonal (or past skv) is all masked and, m being
+// real by then, adds p = 0 with alpha = 1; with a window its pairs start at the
+// even tile at or below the band, a tile that every row of the q tile masks,
+// wiped as above.
 // It takes the window but no segment ids or softcap (JAX's condition :856-858;
 // the wrapper launches K1 otherwise).
 //
@@ -67,16 +71,15 @@
 // tensor-core throughput bounds them all, and the design keeps the s and p tiles
 // out of device memory entirely (registers and shared memory only).
 //
-// bf16 layout. K1, K12 and K5's dq kernel run on mma.sync m16n8k16 (fp32
-// accumulate): a block of 4 warps owns a 64-row q tile, each warp 16 rows, and
-// loops over the 64-row kv tiles inside the block. The s accumulator fragments
-// are re-packed in registers as the A operand of p.v and ds.k (no shared-memory
-// round trip). Shared memory holds [64][d + 8] bf16 tiles (the pad puts a
-// fragment's 8 rows in distinct banks): 3 for K1 (101 KB at d 256), 5 for K12
-// (169 KB), 4 for K5's dq kernel. Registers a lane: a warp's 16 rows x d of
-// fp32 accumulator are d / 2 registers, 128 at d 256, beside the 32 of a
-// 16 x 64 score tile. The dk/dv kernels (K2, K5's second) run on warpgroup
-// products (wgmma) fed by a cp.async ring: see flash_bwd_bf16 below.
+// bf16 layout. K1 and K12 run on warpgroup products (wgmma) fed by TMA through
+// a ring of k and v slots (see flash_fwd_bf16 below): a block of three
+// warpgroups owns a 128-row q tile, two consume (64 rows each), one produces. The
+// dk/dv kernels (K2, K5's second) run on wgmma fed by a cp.async ring (see
+// flash_bwd_bf16). K5's dq kernel still runs on mma.sync m16n8k16 (fp32
+// accumulate): a block of 4 warps owns a 64-row q tile, each warp 16 rows, loops
+// over the 64-row kv tiles and keeps [64][d + 8] bf16 tiles (q, do, k, v) in
+// shared memory; the s accumulator fragments are re-packed in registers as the A
+// operand of ds.k.
 //
 // fp32 layout (a plain FMA path; exact comparisons need it). 128 threads; a
 // thread owns one row of the tile and the columns and head dims j with
@@ -87,6 +90,7 @@
 // that the rows a warp reads at once fall in distinct banks. Loads are
 // synchronous 16-byte vectors.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -166,15 +170,14 @@ __device__ __forceinline__ float score(const Params& p, float raw, int row, int 
   return out ? kMaskValue : x;
 }
 
-// The kv tiles [x, y) of T rows that q rows [q0, q0 + T) see: all of them, or
-// with causal up to the diagonal, and with a window from the tile of key
-// q0 - W + 1.
-template <int T, int kOpt>
+// The kv tiles [x, y) of KV rows that q rows [q0, q0 + QT) see: all of them, or with
+// causal up to the diagonal, and with a window from the tile of key q0 - W + 1.
+template <int QT, int KV, int kOpt>
 __device__ __forceinline__ int2 kv_tiles(const Params& p, int q0) {
-  const int n = (p.skv + T - 1) / T;
+  const int n = (p.skv + KV - 1) / KV;
   if (!p.causal) return make_int2(0, n);
-  const int first = (kOpt & kOptWin) != 0 ? max(0, q0 - p.window + 1) / T : 0;
-  return make_int2(first, min(n, (q0 + T - 1) / T + 1));
+  const int first = (kOpt & kOptWin) != 0 ? max(0, q0 - p.window + 1) / KV : 0;
+  return make_int2(first, min(n, (q0 + QT - 1) / KV + 1));
 }
 
 // The q tiles [x, y) of T rows whose rows see keys [kv0, kv0 + T): with causal
@@ -313,151 +316,11 @@ template <int D>
 struct Bf16Smem {
   static constexpr int kLd = D + 8;         // pitch of a [64][D] tile
   static constexpr int kTileElems = kTile * kLd;
-  // Segment ids of the q tile, then of the staged kv tile, end each layout.
+  // Segment ids of the q tile, then of the staged kv tile, end the layout.
   static constexpr size_t kSegBytes = 2 * kTile * sizeof(int);
-  // q, then k and v of each of `halves` kv tiles; segment ids.
-  static constexpr size_t fwd_bytes(int halves) {
-    return (1 + 2 * halves) * kTileElems * sizeof(bf16) + kSegBytes;
-  }
   // q, do, k, v; segment ids.
   static constexpr size_t kDqBytes = 4 * kTileElems * sizeof(bf16) + kSegBytes;
 };
-
-// K1's work on one kv tile at kv0 for this warp's 16 q rows (bf16): s = q.k^T
-// in, scaled, capped and masked; the online-softmax update of m, l and acc;
-// then acc += p (rounded to bf16) . v. K12 runs it on its two halves in turn.
-template <int ND, int kOpt>
-__device__ __forceinline__ void fwd_update_bf16(const Params& p, float (&s)[8][4],
-                                                float (&m)[2], float (&l)[2],
-                                                float (&acc)[ND][4], const bf16* vs, int ld,
-                                                const int* seg_q, const int* seg_kv, int q0,
-                                                int kv0, int rw, int g, int t) {
-  float cap_grad;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int rl = rw + g + (e >> 1) * 8, cl = 8 * n + 2 * t + (e & 1);
-      s[n][e] = score<kOpt>(p, s[n][e], q0 + rl, kv0 + cl, seg_q, rl, seg_kv, cl, cap_grad);
-    }
-  }
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-  float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
-    alpha[i] = expf(m[i] - mx[i]);
-    m[i] = mx[i];
-  }
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float pe = expf(s[n][e] - m[e >> 1]);
-      s[n][e] = pe;
-      rs[e >> 1] += pe;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    rs[i] += __shfl_xor_sync(kFull, rs[i], 1);
-    rs[i] += __shfl_xor_sync(kFull, rs[i], 2);
-    l[i] = alpha[i] * l[i] + rs[i];
-  }
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    acc[n][0] *= alpha[0];
-    acc[n][1] *= alpha[0];
-    acc[n][2] *= alpha[1];
-    acc[n][3] *= alpha[1];
-  }
-  mma_frag_rows<ND>(acc, s, vs, ld, g, t);
-}
-
-// ---- K1 (kHalves 1) and K12 (kHalves 2), bf16 --------------------------------
-// Grid (q tiles, b * hq); warp w owns q rows 16w .. 16w+15 of the tile.
-template <int D, int kHalves, int kOpt>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
-  static_assert(kHalves == 1 || (kOpt & (kOptSeg | kOptCap)) == 0,
-                "K12 takes no segment ids or softcap");
-  using S = Bf16Smem<D>;
-  constexpr int LD = S::kLd, KD = D / 16, ND = D / 8, E = S::kTileElems;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + E;              // kHalves tiles
-  bf16* vs = ks + kHalves * E;    // kHalves tiles
-  int* seg = reinterpret_cast<int*>(vs + kHalves * E);
-
-  const int n_q = (p.sq + kTile - 1) / kTile;
-  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * kTile;  // long rows first
-  const int bh = blockIdx.y, bb = bh / p.hq, hh = bh % p.hq;
-  const int hk = hh / (p.hq / p.hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int rw = warp * 16;  // this warp's first row in the tile
-
-  const bf16* q = static_cast<const bf16*>(p.q) + bb * p.st_q.b + hh * p.st_q.h;
-  const bf16* k = static_cast<const bf16*>(p.k) + bb * p.st_k.b + hk * p.st_k.h;
-  const bf16* v = static_cast<const bf16*>(p.v) + bb * p.st_v.b + hk * p.st_v.h;
-  const int* kv_seg = p.kv_seg + bb * p.seg_kv_b;
-
-  load_rows<bf16, D, LD, kTile, kThreads>(qs, q + q0 * p.st_q.s, p.st_q.s, p.sq - q0);
-  if (kOpt & kOptSeg)
-    load_seg<kTile, kThreads>(seg, p.q_seg + bb * p.seg_q_b, p.seg_q_s, q0, p.sq);
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
-
-  const int n_kv = (p.skv + kTile - 1) / kTile;
-  int2 band = kv_tiles<kTile, kOpt>(p, q0);
-  if (kHalves == 2) band = make_int2(band.x & ~1, min(n_kv, (band.y + 1) & ~1));
-  for (int kt = band.x; kt < band.y; kt += kHalves) {
-    __syncthreads();  // the previous step's k/v reads are done
-#pragma unroll
-    for (int h = 0; h < kHalves; ++h) {
-      const int kv0 = (kt + h) * kTile;
-      load_rows<bf16, D, LD, kTile, kThreads>(ks + h * E, k + kv0 * p.st_k.s, p.st_k.s,
-                                              p.skv - kv0);
-      load_rows<bf16, D, LD, kTile, kThreads>(vs + h * E, v + kv0 * p.st_v.s, p.st_v.s,
-                                              p.skv - kv0);
-      if (kOpt & kOptSeg) load_seg<kTile, kThreads>(seg + kTile, kv_seg, p.seg_kv_s, kv0, p.skv);
-    }
-    __syncthreads();
-
-    float s[kHalves][8][4];
-#pragma unroll
-    for (int h = 0; h < kHalves; ++h) {
-      zero8(s[h]);
-      mma_rowsT<KD>(s[h], qs, rw, ks + h * E, LD, g, t);
-    }
-#pragma unroll
-    for (int h = 0; h < kHalves; ++h)
-      fwd_update_bf16<ND, kOpt>(p, s[h], m, l, acc, vs + h * E, LD, seg, seg + kTile, q0,
-                                (kt + h) * kTile, rw, g, t);
-  }
-
-  bf16* o = static_cast<bf16*>(p.o);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + rw + g + 8 * i;
-    if (row >= p.sq) continue;
-    const float l_inv = l[i] == 0.f ? 1.f : 1.f / l[i];
-    bf16* dst = o + ((static_cast<long long>(bb) * p.sq + row) * p.hq + hh) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-          pack_bf16(acc[n][2 * i] * l_inv, acc[n][2 * i + 1] * l_inv);
-    if (p.lse != nullptr && t == 0)
-      p.lse[(static_cast<long long>(bb) * p.hq + hh) * p.sq + row] =
-          m[i] + logf(l[i] == 0.f ? 1.f : l[i]);
-  }
-}
 
 // ---- K2 (kDq) and K5's dk/dv kernel (!kDq), bf16: warpgroup products -----------
 // Grid (b * hkv, kv blocks of BwdSmem<D>::kKv rows): the blocks of the first kv rows,
@@ -887,6 +750,395 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
   }
 }
 
+// ---- K1 (kHalves 1) and K12 (kHalves 2), bf16: warpgroup products -------------
+// Grid (q tiles of 128 rows, b * hq), the tiles of the last rows (the most keys under
+// causal masking) first. 384 threads: warpgroups 0 and 1 consume, each owning 64 q
+// rows of the tile; two threads of warpgroup 2 produce, one for q and k, one for v.
+// They load the q tile once and stream the band's kv tiles of FwdSmem<D>::kKv rows
+// by TMA through a ring of two k slots and two v slots, each with its own full/empty
+// mbarrier, so a k slot is refilled as soon as both warpgroups' q.k^T products have
+// read it and a v slot once their p.v products have, neither waiting for the other
+// (one thread for both held K12's next k tiles behind this pair's p.v): the next
+// tiles' copies are in flight while the tensor cores work on this one. Every tile sits in shared memory in the 128-byte
+// swizzle (wgmma.cuh): q and k are the K-major operands of s = q.k^T (wgmma_ss,
+// m64 x kKv), v the MN-major operand of o += p.v (wgmma_rs: p is s's accumulator,
+// rounded to bf16 in registers by pack_a).
+// K1 issues a tile's q.k^T, runs its softmax when it lands, and issues its p.v,
+// which runs on while the next tile's q.k^T is issued; the two warpgroups fill each
+// other's softmax gaps on the tensor cores. K12 takes its pairs of tiles with both
+// q.k^T products issued before either softmax, and the second tile's softmax runs
+// while the first tile's p.v is in flight; it applies K1's update to the same tiles in
+// the same order, so its o and lse are K1's bit for bit.
+// The mask is evaluated only on the tiles a warpgroup's 64 rows need it on: those
+// crossing the diagonal, at the window's lower edge, past skv, or every tile with
+// segment ids. On the others (interior tiles) the row max is taken on the raw
+// products and p = 2^(raw * scale log2(e) - m log2(e)), one FFMA and one ex2 an
+// element; m stays in the score domain and the log2(e) factor is applied only to a
+// difference or to a real m, because the mask value times log2(e) is -inf.
+template <int D>
+struct FwdSmem {
+  static constexpr int kQ = 128;                  // q rows of a block
+  static constexpr int kKv = D > 128 ? 64 : 128;  // kv rows of a tile
+  static constexpr int kQBytes = kQ * D * 2;      // D / 64 column blocks of [128][64]
+  static constexpr int kKvBytes = kKv * D * 2;    // a k (or v) slot
+  // q, two k slots, two v slots, the mbarriers (q; k full, empty; v full, empty).
+  static constexpr int kBarOff = kQBytes + 4 * kKvBytes;
+  static constexpr int kBytes = kBarOff + 128 + 1024;  // + the 1024-byte alignment
+};
+
+// Rows of o parts: o is NO accumulators of ON floats (m64 x 2 ON each).
+template <int D>
+struct FwdAcc {
+  static constexpr int kNO = D > 128 ? 2 : 1;
+  static constexpr int kON = D > 128 ? 64 : D / 2;
+};
+
+// One tile's softmax for this thread's two rows (row0, row0 + 8): s (a m64 x N
+// accumulator of raw products, N = 2 * R) becomes p, rounded to bf16 into the register
+// A operands pa; m and l are updated and alpha (the factor of o) returned. `edge`:
+// the tile needs the mask (uniform across the warpgroup). kv_ids (kOptSeg): the
+// segment ids of this thread's columns col0 + 8 j + e, at 2 j + e (see kv_ids_of).
+
+template <int R, int kOpt>
+__device__ __forceinline__ void fwd_softmax(const Params& p, float (&s)[R],
+                                            uint32_t (&pa)[R / 8][4], float (&m)[2],
+                                            float (&l)[2], float (&alpha)[2], bool edge,
+                                            int row0, int col0, const int (&q_ids)[2],
+                                            const int (&kv_ids)[R / 2]) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  float mx[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f};
+  if (edge || (kOpt & kOptCap) != 0 || !(p.scale > 0.f)) {
+    // Scores in the score domain: scaled, capped, masked.
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = row0 + 8 * ((i >> 1) & 1), col = col0 + 8 * (i >> 2) + (i & 1);
+      float x = s[i] * p.scale;
+      if constexpr ((kOpt & kOptCap) != 0) x = p.softcap * tanhf(x * p.inv_softcap);
+      if (edge) {
+        bool out = col >= p.skv || (p.causal && col > row);
+        if constexpr ((kOpt & kOptWin) != 0) out = out || col <= row - p.window;
+        if constexpr ((kOpt & kOptSeg) != 0)
+          out = out || q_ids[(i >> 1) & 1] != kv_ids[2 * (i >> 2) + (i & 1)];
+        x = out ? kMaskValue : x;
+      }
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+      alpha[h] = wg::exp2_approx((m[h] - mx[h]) * kLog2e);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      s[i] = wg::exp2_approx((s[i] - m[(i >> 1) & 1]) * kLog2e);
+      rs[(i >> 1) & 1] += s[i];
+    }
+  } else {
+    // Interior: every score is real, so the new m is real.
+    const float lowest = __int_as_float(0xff800000u);  // -inf
+    float raw[2] = {lowest, lowest};
+#pragma unroll
+    for (int i = 0; i < R; ++i) raw[(i >> 1) & 1] = fmaxf(raw[(i >> 1) & 1], s[i]);
+    const float c = p.scale * kLog2e;
+    float mb[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      raw[h] = fmaxf(raw[h], __shfl_xor_sync(kFull, raw[h], 1));
+      raw[h] = fmaxf(raw[h], __shfl_xor_sync(kFull, raw[h], 2));
+      mx[h] = fmaxf(m[h], raw[h] * p.scale);
+      alpha[h] = wg::exp2_approx((m[h] - mx[h]) * kLog2e);
+      m[h] = mx[h];
+      mb[h] = mx[h] * kLog2e;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      s[i] = wg::exp2_approx(fmaf(s[i], c, -mb[(i >> 1) & 1]));
+      rs[(i >> 1) & 1] += s[i];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rs[h] += __shfl_xor_sync(kFull, rs[h], 1);
+    rs[h] += __shfl_xor_sync(kFull, rs[h], 2);
+    l[h] = alpha[h] * l[h] + rs[h];
+  }
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk) wg::pack_a(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
+}
+
+// The segment ids of this thread's columns of tile kv0 (col0 = kv0 + 2 t), loaded
+// while the tile's q.k^T runs: R / 2 loads, issued before the wait.
+template <int R, int kOpt>
+__device__ __forceinline__ void kv_ids_of(int (&kv_ids)[R / 2], const Params& p,
+                                          const int* kv_seg, int col0) {
+  if constexpr ((kOpt & kOptSeg) != 0) {
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) {
+      const int col = col0 + 8 * (i >> 1) + (i & 1);
+      kv_ids[i] = col < p.skv ? __ldg(kv_seg + col * p.seg_kv_s) : 0;
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void scale_o(float (&o)[FwdAcc<D>::kNO][FwdAcc<D>::kON],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int c = 0; c < FwdAcc<D>::kNO; ++c)
+#pragma unroll
+    for (int i = 0; i < FwdAcc<D>::kON; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+}
+
+template <int D>
+__device__ __forceinline__ void fence_o(float (&o)[FwdAcc<D>::kNO][FwdAcc<D>::kON]) {
+#pragma unroll
+  for (int c = 0; c < FwdAcc<D>::kNO; ++c) wg::fence_acc(o[c]);
+}
+
+// s = q.k^T for this warpgroup's 64 rows: q_s its rows' start in the q tile, k_s a k
+// slot (D / 16 k steps, both operands K-major).
+template <int D, int R>
+__device__ __forceinline__ void fwd_qk(float (&s)[R], uint32_t q_s, uint32_t k_s) {
+  constexpr int KV = FwdSmem<D>::kKv;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+    wg::wgmma_ss<0, 0>(s, wg::desc(q_s + (kd / 4) * (128 * 128) + (kd % 4) * 32, 16, 1024),
+                       wg::desc(k_s + (kd / 4) * (KV * 128) + (kd % 4) * 32, 16, 1024),
+                       kd > 0);
+}
+
+// o += p.v over the tile's KV keys: v_s a v slot, read MN-major.
+template <int D>
+__device__ __forceinline__ void fwd_pv(float (&o)[FwdAcc<D>::kNO][FwdAcc<D>::kON],
+                                       const uint32_t (&pa)[FwdSmem<D>::kKv / 16][4],
+                                       uint32_t v_s) {
+  constexpr int KV = FwdSmem<D>::kKv, NW = 2 * FwdAcc<D>::kON;  // head dims a part
+#pragma unroll
+  for (int kk = 0; kk < KV / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < FwdAcc<D>::kNO; ++c)
+      wg::wgmma_rs<1>(o[c], pa[kk],
+                      wg::desc(v_s + (c * NW / 64) * (KV * 128) + kk * 2048, KV * 128, 1024), 1);
+}
+
+template <int D, int kHalves, int kOpt>
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv, const Params p) {
+  static_assert(kHalves == 1 || (kOpt & (kOptSeg | kOptCap)) == 0,
+                "K12 takes no segment ids or softcap");
+  using S = FwdSmem<D>;
+  using A = FwdAcc<D>;
+  constexpr int KV = S::kKv, R = KV / 2, QT = S::kQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;
+  uint8_t* ks = qs + S::kQBytes;      // two slots
+  uint8_t* vs = ks + 2 * S::kKvBytes;  // two slots
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = q_full + 3;
+  uint64_t* v_full = q_full + 5;
+  uint64_t* v_empty = q_full + 7;
+
+  const int n_q = (p.sq + QT - 1) / QT;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * QT;  // long rows first
+  const int bh = blockIdx.y, bb = bh / p.hq, hh = bh % p.hq;
+  const int hk = hh / (p.hq / p.hkv);
+  int2 band = kv_tiles<QT, KV, kOpt>(p, q0);
+  if (kHalves == 2) band.x &= ~1;  // pairs from the even tile at or below the band
+  int n = max(0, band.y - band.x);
+  // A pair's second tile past the band is all masked: a no-op on every row with a key.
+  // (Taking the last pair's first tile alone instead made ptxas serialize K12's
+  // products, C7514, and K12 1.2x slower at d 256.)
+  if (kHalves == 2) n = (n + 1) & ~1;
+
+  if (threadIdx.x == 0) {
+    wg::mbar_init(q_full, 1);
+    for (int i = 0; i < 2; ++i) {
+      wg::mbar_init(&k_full[i], 1);
+      wg::mbar_init(&k_empty[i], 2);
+      wg::mbar_init(&v_full[i], 1);
+      wg::mbar_init(&v_empty[i], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int w = threadIdx.x / 128;
+  if (w == 2) {  // the producers: lane 0 of warp 8 loads q and k, of warp 9 v
+    wg::setmaxnreg_dec<24>();
+    const bool is_k = threadIdx.x == 256;
+    if (!is_k && threadIdx.x != 288) return;
+    uint8_t* slots = is_k ? ks : vs;
+    const void* map = is_k ? static_cast<const void*>(&mk) : static_cast<const void*>(&mv);
+    uint64_t* full = is_k ? k_full : v_full;
+    uint64_t* empty = is_k ? k_empty : v_empty;
+    if (is_k) {
+      wg::mbar_expect_tx(q_full, S::kQBytes);
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb)
+        wg::tma_load_4d(qs + cb * QT * 128, &mq, q_full, cb * 64, q0, hh, bb);
+    }
+    for (int i = 0; i < n; ++i) {
+      const int slot = i & 1, kv0 = (band.x + i) * KV;
+      // The slot's previous round is read by both warpgroups.
+      if (i >= 2) wg::mbar_wait(&empty[slot], ((i >> 1) - 1) & 1);
+      wg::mbar_expect_tx(&full[slot], S::kKvBytes);
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb)
+        wg::tma_load_4d(slots + slot * S::kKvBytes + cb * KV * 128, map, &full[slot], cb * 64,
+                        kv0, hk, bb);
+    }
+    return;
+  }
+
+  wg::setmaxnreg_inc<240>();
+  const int tw = threadIdx.x % 128, wi = tw / 32, lane = tw % 32, g = lane / 4, t = lane % 4;
+  const bool leader = tw == 0;
+  const int r0 = q0 + 64 * w;             // this warpgroup's first row
+  const int row0 = r0 + 16 * wi + g;      // this thread's rows: row0, row0 + 8
+  int q_ids[2] = {0, 0};
+  const int* kv_seg = nullptr;
+  if constexpr ((kOpt & kOptSeg) != 0) {
+    const int* q_seg = p.q_seg + bb * p.seg_q_b;
+    for (int h = 0; h < 2; ++h)
+      q_ids[h] = row0 + 8 * h < p.sq ? __ldg(q_seg + (row0 + 8 * h) * p.seg_q_s) : 0;
+    kv_seg = p.kv_seg + bb * p.seg_kv_b;
+  }
+  // Does tile kv0 need the mask for any of this warpgroup's rows?
+  auto edge_of = [&](int kv0) {
+    if constexpr ((kOpt & kOptSeg) != 0) return true;
+    bool e = kv0 + KV > p.skv || (p.causal && kv0 + KV - 1 > r0);
+    if constexpr ((kOpt & kOptWin) != 0) e = e || kv0 <= r0 + 63 - p.window;
+    return e;
+  };
+
+  float o[A::kNO][A::kON];
+#pragma unroll
+  for (int c = 0; c < A::kNO; ++c)
+#pragma unroll
+    for (int i = 0; i < A::kON; ++i) o[c][i] = 0.f;
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+  uint32_t pa[KV / 16][4];
+  const uint32_t q_s = wg::smem_u32(qs) + w * 8192;  // this warpgroup's rows
+  const uint32_t k_s = wg::smem_u32(ks), v_s = wg::smem_u32(vs);
+  wg::mbar_wait(q_full, 0);
+
+  if constexpr (kHalves == 1) {
+    for (int i = 0; i < n; ++i) {
+      const int slot = i & 1, kv0 = (band.x + i) * KV;
+      const uint32_t parity = (i >> 1) & 1;
+      float s[R];
+      wg::mbar_wait(&k_full[slot], parity);
+      wg::fence();
+      fwd_qk<D>(s, q_s, k_s + slot * S::kKvBytes);
+      wg::commit();
+      int kv_ids[R / 2];
+      kv_ids_of<R, kOpt>(kv_ids, p, kv_seg, kv0 + 2 * t);
+      wg::wait<0>();  // s has landed, and the previous tile's p.v is done
+      wg::fence_acc(s);
+      fence_o<D>(o);
+      fence_a(pa);
+      if (leader) {
+        wg::mbar_arrive(&k_empty[slot]);
+        if (i > 0) wg::mbar_arrive(&v_empty[slot ^ 1]);
+      }
+      float alpha[2];
+      fwd_softmax<R, kOpt>(p, s, pa, m, l, alpha, edge_of(kv0), row0, kv0 + 2 * t, q_ids,
+                           kv_ids);
+      scale_o<D>(o, alpha);
+      wg::mbar_wait(&v_full[slot], parity);
+      wg::fence();
+      fwd_pv<D>(o, pa, v_s + slot * S::kKvBytes);
+      wg::commit();
+    }
+  } else {
+    uint32_t pb[KV / 16][4];
+    int kv_ids[R / 2];  // K12 takes no segment ids
+    for (int i = 0; i < n; i += 2) {  // tile i in slot 0, tile i + 1 in slot 1
+      const int kv0 = (band.x + i) * KV;
+      const uint32_t parity = (i >> 1) & 1;
+      float sa[R], sb[R], alpha[2];
+      wg::mbar_wait(&k_full[0], parity);
+      wg::fence();
+      fwd_qk<D>(sa, q_s, k_s);
+      wg::commit();
+      wg::mbar_wait(&k_full[1], parity);
+      fwd_qk<D>(sb, q_s, k_s + S::kKvBytes);
+      wg::commit();
+      wg::wait<1>();  // sa has landed (sb may be in flight)
+      wg::fence_acc(sa);
+      if (leader) wg::mbar_arrive(&k_empty[0]);
+      fwd_softmax<R, kOpt>(p, sa, pa, m, l, alpha, edge_of(kv0), row0, kv0 + 2 * t, q_ids,
+                           kv_ids);
+      scale_o<D>(o, alpha);
+      wg::mbar_wait(&v_full[0], parity);
+      wg::fence();
+      fwd_pv<D>(o, pa, v_s);
+      wg::commit();
+      wg::wait<1>();  // sb has landed (the first tile's p.v may be in flight)
+      wg::fence_acc(sb);
+      if (leader) wg::mbar_arrive(&k_empty[1]);
+      fwd_softmax<R, kOpt>(p, sb, pb, m, l, alpha, edge_of(kv0 + KV), row0, kv0 + KV + 2 * t,
+                           q_ids, kv_ids);
+      wg::wait<0>();  // the first tile's p.v is done
+      fence_o<D>(o);
+      fence_a(pa);
+      if (leader) wg::mbar_arrive(&v_empty[0]);
+      scale_o<D>(o, alpha);
+      wg::mbar_wait(&v_full[1], parity);
+      wg::fence();
+      fwd_pv<D>(o, pb, v_s + S::kKvBytes);
+      wg::commit();
+      wg::wait<0>();
+      fence_o<D>(o);
+      fence_a(pb);
+      if (leader) wg::mbar_arrive(&v_empty[1]);
+    }
+  }
+  wg::wait<0>();
+  fence_o<D>(o);
+  fence_a(pa);
+
+  // Epilogue: o / l rounded once into this warpgroup's rows of the q tile (its last
+  // reads of them are done), then 16-byte rows into [b, sq, hq, d]; lse = m + log(l).
+  float l_inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l_inv[h] = l[h] == 0.f ? 1.f : 1.f / l[h];
+  uint8_t* stage = qs + w * 8192;
+  constexpr int NW = 2 * A::kON;
+#pragma unroll
+  for (int c = 0; c < A::kNO; ++c)
+#pragma unroll
+    for (int i = 0; i < A::kON; i += 2) {
+      const int r = 16 * wi + g + 8 * ((i >> 1) & 1), col = c * NW + 8 * (i >> 2) + 2 * t;
+      *reinterpret_cast<uint32_t*>(stage + (col / 64) * (QT * 128) + wg::sw128_offset(r, col % 64)) =
+          wg::pack_bf16(o[c][i] * l_inv[(i >> 1) & 1], o[c][i + 1] * l_inv[(i >> 1) & 1]);
+    }
+  if (p.lse != nullptr && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row0 + 8 * h < p.sq)
+        p.lse[(static_cast<long long>(bb) * p.hq + hh) * p.sq + row0 + 8 * h] =
+            m[h] + logf(l[h] == 0.f ? 1.f : l[h]);
+  }
+  wg::bar_sync(1 + w, 128);
+  bf16* out = static_cast<bf16*>(p.o);
+  for (int idx = tw; idx < 64 * (D / 8); idx += 128) {
+    const int r = idx / (D / 8), col = (idx % (D / 8)) * 8, row = r0 + r;
+    if (row < p.sq)
+      *reinterpret_cast<uint4*>(out + ((static_cast<long long>(bb) * p.sq + row) * p.hq + hh) * D +
+                                col) =
+          *reinterpret_cast<const uint4*>(stage + (col / 64) * (QT * 128) +
+                                          wg::sw128_offset(r, col % 64));
+  }
+}
+
 // ---- K5's dq kernel, bf16 ----------------------------------------------------
 // Grid (q tiles, b * hq); warp w owns q rows 16w .. 16w+15 of the tile and
 // their dq, accumulated over the tile's kv band and written once.
@@ -931,7 +1183,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(const Params p) {
 #pragma unroll
   for (int n = 0; n < ND; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
-  const int2 band = kv_tiles<kTile, kOpt>(p, q0);
+  const int2 band = kv_tiles<kTile, kTile, kOpt>(p, q0);
   for (int kt = band.x; kt < band.y; ++kt) {
     const int kv0 = kt * kTile;
     __syncthreads();  // the previous tile's k/v reads are done
@@ -1107,7 +1359,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
   float m = kMaskValue, l = 0.f;
 
   const int n_kv = (p.skv + T - 1) / T;
-  int2 band = kv_tiles<T, kOpt>(p, q0);
+  int2 band = kv_tiles<T, T, kOpt>(p, q0);
   if (kHalves == 2) band = make_int2(band.x & ~1, min(n_kv, (band.y + 1) & ~1));
   for (int kt = band.x; kt < band.y; kt += kHalves) {
     __syncthreads();
@@ -1299,7 +1551,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(const Params p) {
 #pragma unroll
   for (int i = 0; i < HD; ++i) acc[i] = 0.f;
 
-  const int2 band = kv_tiles<T, kOpt>(p, q0);
+  const int2 band = kv_tiles<T, T, kOpt>(p, q0);
   for (int kt = band.x; kt < band.y; ++kt) {
     const int kv0 = kt * T;
     __syncthreads();
@@ -1399,18 +1651,82 @@ int opts_of(const Params& p) {
 
 dim3 tiles(int n, int rows, int bh) { return dim3((n + rows - 1) / rows, bh); }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                         cudaEnableDefault, &status) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (status != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The map of a bf16 [b, h, s, d] view with element strides st (d contiguous), read in
+// boxes of [rows][64] (one 64-wide column block of `rows` positions of one head),
+// 128-byte swizzled; positions past s read as zeros. The stride of a dimension of size
+// 1 is never used and is given as one that TMA accepts.
+bool make_map(CUtensorMap* map, const void* ptr, const Strides& st, int b, int h, int s, int d,
+              int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const long long given[3] = {st.s, st.h, st.b};
+  cuuint64_t strides[3];
+  cuuint64_t span = static_cast<cuuint64_t>(d) * 2;  // bytes of the dimensions below
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = dims[i + 1] == 1 ? span : static_cast<cuuint64_t>(given[i]) * 2;
+    span = strides[i] * dims[i + 1] > span ? strides[i] * dims[i + 1] : span;
+  }
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// K1 or K12 in bf16: the tensor maps of q, k and v, then the launch.
+template <int D, int kHalves, int kOpt>
+int launch_fwd_bf16(const Params& p, cudaStream_t s) {
+  using S = FwdSmem<D>;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, p.q, p.st_q, p.b, p.hq, p.sq, D, S::kQ) ||
+      !make_map(&mk, p.k, p.st_k, p.b, p.hkv, p.skv, D, S::kKv) ||
+      !make_map(&mv, p.v, p.st_v, p.b, p.hkv, p.skv, D, S::kKv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_fwd_bf16<D, kHalves, kOpt>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<tiles(p.sq, S::kQ, p.b * p.hq), 384, S::kBytes, s>>>(mq, mk, mv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_fwd(const Params& p, int dtype, int dual, cudaStream_t s) {
   const int opt = opts_of(p), bh = p.b * p.hq;
-  using B = Bf16Smem<D>;
   using F = F32Smem<D>;
   if (dual) {  // K12: the window only
     if (opt & ~kOptWin) return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == 1)
-      return opt ? launch(flash_fwd_bf16<D, 2, kOptWin>, tiles(p.sq, kTile, bh), kThreads,
-                          B::fwd_bytes(2), s, p)
-                 : launch(flash_fwd_bf16<D, 2, 0>, tiles(p.sq, kTile, bh), kThreads,
-                          B::fwd_bytes(2), s, p);
+      return opt ? launch_fwd_bf16<D, 2, kOptWin>(p, s) : launch_fwd_bf16<D, 2, 0>(p, s);
     return opt ? launch(flash_fwd_f32<D, 2, kOptWin>, tiles(p.sq, F::kRows, bh), kThreads,
                         F::fwd_bytes(2), s, p)
                : launch(flash_fwd_f32<D, 2, 0>, tiles(p.sq, F::kRows, bh), kThreads,
@@ -1418,9 +1734,7 @@ int launch_fwd(const Params& p, int dtype, int dual, cudaStream_t s) {
   }
   return with_opt(opt, [&](auto o) {
     constexpr int kOpt = decltype(o)::value;
-    if (dtype == 1)
-      return launch(flash_fwd_bf16<D, 1, kOpt>, tiles(p.sq, kTile, bh), kThreads,
-                    B::fwd_bytes(1), s, p);
+    if (dtype == 1) return launch_fwd_bf16<D, 1, kOpt>(p, s);
     return launch(flash_fwd_f32<D, 1, kOpt>, tiles(p.sq, F::kRows, bh), kThreads,
                   F::fwd_bytes(1), s, p);
   });

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the matmul kernel K11 (matmul.cu) and
-// the flash backward K2/K5 (flash_attention.cu): warpgroup matrix multiplies
-// (wgmma) with operands in shared memory or A in registers, their shared-memory
-// descriptors for the 128-byte swizzle, and the copy primitives around them (cp.async,
-// mbarriers, TMA).
+// the flash kernels (flash_attention.cu: the forward K1/K12 and the backward K2/K5):
+// warpgroup matrix multiplies (wgmma) with operands in shared memory or A in
+// registers, their shared-memory descriptors for the 128-byte swizzle, the copy
+// primitives around them (cp.async, mbarriers, TMA loads of rank 2 and 4) and the
+// warpgroup register hand-over (setmaxnreg).
 //
 // Shared-memory layout ("SW128 tile"): a [rows][64] bf16 block, 128 bytes a row, the
 // 16-byte chunk c of row r stored at chunk c ^ (r % 8), the block 1024-byte aligned.
@@ -134,6 +135,36 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// 4-D TMA load of one box into shared memory, completing on `bar`; coordinates
+// innermost first.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// A warpgroup gives up registers (dec) or takes them (inc): every thread a thread's
+// ceiling of N registers. All 128 threads of the warpgroup execute it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// 2^x on the special-function unit (ex2.approx, flush to zero: 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- wgmma.mma_async m64nNk16, bf16 operands, fp32 accumulators -----------------

@@ -22,8 +22,9 @@ or 256, and fp32 (FMA path) or bf16 (tensor cores). On a CUDA tensor, mask
 and bias raise NotImplementedError (ROADMAP.md Queue 2), and so does any
 other head_dim (ValueError). Sinks run, as in JAX, as a plain rescale
 around the kernels. ``block_q``/``block_kv`` are accepted for the JAX
-signature; the kernels' tiles are their own (64 x 64; 32 x 32 for fp32 at
-head_dim 256).
+signature; the kernels' tiles are their own (the bf16 forward: 128 q rows
+by 128 keys, 64 keys at head_dim 256; the bf16 backward 64-row q tiles; fp32
+64 x 64, 32 x 32 at head_dim 256).
 """
 
 from __future__ import annotations
@@ -39,7 +40,13 @@ from np_modeling_tpu_torch.ops import dispatch
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 64   # the kernels' q and kv tile rows
+
+
+def _fwd_kv_tile(dtype, d):
+    """Keys a kv tile of the forward kernel that runs (K1 and K12 alike)."""
+    if dtype == torch.bfloat16:
+        return 64 if d > 128 else 128
+    return 32 if d > 128 else 64
 
 # JAX's schedule flags (np_modeling_tpu/ops/attention.py:100, :1185), read
 # by each call's forward and kept for its backward. FWD_DUAL_KV: the forward
@@ -161,10 +168,12 @@ def _attn_bwd_plain(q, k, v, o, lse, do, mask, bias, causal, window, scale,
 # ---- the CUDA kernels (K1, K12, K2, K5) -------------------------------------
 
 def _kernel_layout(x):
-    """``x`` as the kernels read it: last dim contiguous, 16-byte aligned rows
-    (a copy only where the view does not allow that)."""
+    """``x`` as the kernels read it: last dim contiguous, 16-byte aligned
+    rows, no broadcast (zero-stride) dimension, as the forward's TMA tensor
+    maps need (a copy only where the view does not allow that)."""
     vec = 16 // x.element_size()
-    if x.stride(-1) != 1 or any(s % vec for s in x.stride()[:3]) \
+    if x.stride(-1) != 1 or any(s % vec or (s == 0 and n > 1) for s, n in
+                                zip(x.stride()[:3], x.shape[:3])) \
             or x.data_ptr() % 16:
         x = x.contiguous()
     if x.data_ptr() % 16:
@@ -311,10 +320,12 @@ class _FlashAttention(torch.autograd.Function):
                     f"the CUDA flash-attention kernels do not take {unported}"
                     " yet (ROADMAP.md Queue 2)")
             need_lse = sinks is not None or any(ctx.needs_input_grad[:5])
-            # JAX's conditions for K12 (:856-858) at the kernel's tile width;
+            # JAX's conditions for K12 (:856-858), an even number of kv
+            # tiles counted at the width of the forward kernel that runs;
             # mask and bias have raised above.
+            tile = _fwd_kv_tile(q.dtype, q.shape[-1])
             dual = (FWD_DUAL_KV and q_seg is None and softcap is None
-                    and -(-k.shape[2] // _TILE) % 2 == 0)
+                    and -(-k.shape[2] // tile) % 2 == 0)
             o, lse = _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg,
                                      kv_seg, dual, window, softcap)
         else:

@@ -413,6 +413,68 @@ def test_cuda_flash_bwd_bf16_vs_plain_backward(d, group, causal, option,
         assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+# (causal, option) of the bf16 forward cases; window widths are in kv tiles of
+# the forward (128 keys, 64 at head_dim 256): 7 keys, a tile's edge -1, 0, +1,
+# and one past every key.
+_FWD_OPTIONS = [(False, "none"), (True, "none"), (True, "window7"),
+                (True, "window_edge-1"), (True, "window_edge"),
+                (True, "window_edge+1"), (True, "window_past"),
+                (False, "softcap"), (True, "softcap"), (True, "window+softcap"),
+                (False, "segments"), (True, "segments")]
+
+
+@pytest.mark.parametrize("causal,option", _FWD_OPTIONS,
+                         ids=[f"{'causal' if c else 'full'}-{o}"
+                              for c, o in _FWD_OPTIONS])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_flash_fwd_bf16_vs_plain(d, group, causal, option):
+    """K1 in bf16 (wgmma, the TMA k/v ring, the mask on edge tiles only)
+    against ``_attn_fwd_plain``: o and lse within 2e-2 x max(1, max |plain|),
+    at sq and skv that are multiples of neither tile and differ; K12 on the
+    same inputs, wherever it takes them (no segment ids or softcap), gives
+    K1's o and lse bit for bit."""
+    from np_modeling_tpu_torch.ops import attention
+    # Every q row keeps a key: causal rows stay below skv, and q's segment
+    # ids are kv's first sq (a row with no key takes the mean of v over the
+    # columns its tiles visit, which depends on the tile width).
+    hkv = 2
+    sq, skv = (260, 300) if causal or option == "segments" else (300, 190)
+    q, k, v, _ = _flash_inputs(2, hkv * group, hkv, sq, skv, d,
+                               torch.bfloat16, seed=3 * d + group)
+    tile = attention._fwd_kv_tile(torch.bfloat16, d)
+    seg = None
+    kw = {}
+    if option == "segments":
+        kv_seg = _packed_segments(2, skv)
+        seg = (kv_seg[:, :sq], kv_seg)
+    if option.startswith("window"):
+        kw["window"] = {"window7": 7, "window_edge-1": tile - 1,
+                        "window_edge": tile, "window_edge+1": tile + 1,
+                        "window_past": skv + 1}.get(option, 100)
+    if option.endswith("softcap"):
+        kw["softcap"] = 2.0
+    scale = d ** -0.5
+    before = ops.flash_attention.launches_fwd
+    o, lse = attention._flash_fwd_cuda(q, k, v, causal, scale, True,
+                                       *(seg or (None, None)), **kw)
+    assert ops.flash_attention.launches_fwd == before + 1
+    mask = attention._merge_seg_into_mask(None, *(seg or (None, None)))
+    want = attention._attn_fwd_plain(q, k, v, mask, None, causal,
+                                     kw.get("window"), scale,
+                                     kw.get("softcap"))
+    if seg is None and "softcap" not in kw:
+        dual = attention._flash_fwd_cuda(q, k, v, causal, scale, True,
+                                         dual=True, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip((o, lse), want):
+        assert x.shape == y.shape
+        bound = 2e-2 * max(1.0, y.float().abs().max().item())
+        assert (x.float() - y.float()).abs().max().item() <= bound
+    if seg is None and "softcap" not in kw:
+        assert torch.equal(o, dual[0]) and torch.equal(lse, dual[1])
+
+
 @pytest.mark.parametrize("shape", [(2, 8, 2, 200, 200, 64),
                                    (1, 4, 4, 256, 256, 128)])
 @pytest.mark.parametrize("causal", [False, True])

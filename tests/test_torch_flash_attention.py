@@ -253,6 +253,30 @@ def test_schedule_flags_have_jax_defaults_and_change_nothing_on_cpu():
             ops.flash_attention.launches_bwd_split) == before
 
 
+@pytest.mark.parametrize("dtype,d,keys", [
+    (torch.bfloat16, 64, 128), (torch.bfloat16, 128, 128),
+    (torch.bfloat16, 256, 64), (torch.float32, 64, 64),
+    (torch.float32, 128, 64), (torch.float32, 256, 32)])
+def test_dual_condition_counts_the_forward_kernels_kv_tiles(dtype, d, keys):
+    """K12 runs where the forward kernel that would run has an even number
+    of kv tiles: its own width (the bf16 wgmma forward's 128 keys, 64 at
+    head_dim 256; the fp32 forward's 64, 32 at 256)."""
+    assert ops.attention._fwd_kv_tile(dtype, d) == keys
+
+
+def test_kernel_layout_copies_broadcast_views_only():
+    """The kernels' layout: a view with 16-byte rows stays as it is (no
+    copy); a broadcast (zero-stride) head or batch dimension, which the
+    forward's TMA tensor maps cannot describe, is made contiguous."""
+    x = torch.zeros(2, 8, 16, 64).transpose(1, 2)
+    assert ops.attention._kernel_layout(x).data_ptr() == x.data_ptr()
+    y = torch.randn(2, 1, 16, 64).expand(2, 4, 16, 64)
+    z = ops.attention._kernel_layout(y)
+    assert z.is_contiguous() and torch.equal(z, y)
+    one = torch.randn(1, 1, 16, 64).expand(1, 1, 16, 64)
+    assert ops.attention._kernel_layout(one).data_ptr() == one.data_ptr()
+
+
 def test_attention_reference_vs_jax():
     q, k, v, _ = _inputs(2, 4, 2, 12, 12, 8)
     mask = rng.random((2, 1, 12, 12)) > 0.3

@@ -9,9 +9,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
   (a) device: the card's name and power limit, as nvidia-smi reports them;
   (b) build: every kernel of the six paths, from the sources in this
       checkout (one nvcc for each source, all started together); each
-      bf16 flash forward instantiation (K1, K12) with its registers and
-      stack (cuobjdump -res-usage) and its HGMMA count (cuobjdump -sass):
-      one without HGMMA (a forward not on wgmma) fails the run;
+      bf16 flash forward instantiation (K1, K12) and each of K5's bf16 dq
+      kernel with its registers and stack (cuobjdump -res-usage) and its
+      HGMMA count (cuobjdump -sass): one without HGMMA (not on wgmma)
+      fails the run;
   (c) each kernel vs its plain PyTorch version on the card, at the paths'
       shapes. Paged attention: max abs err <= 1e-4 with fp32 pages,
       <= 2e-2 with bf16 pages; with int8 pages (per-token fp32 scales)
@@ -37,7 +38,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
       s8192) and at 64 and 128 (GQA, sq != skv), fp32 and bf16, segment ids
       with a window: the flash tolerances, K5 bit-equal run to run, K12
       with a window bit-equal to K1; and K1 at b1 s8192 d256 with a window
-      of 1024 under half the device time of the call without one.
+      of 1024 under half the device time of the call without one. Rows
+      that no key sees (non-causal, a q segment absent from kv_seg; skv
+      ragged at every kv tile width, fp32 and bf16, d 64/128/256): o, lse
+      of K1 and dq, dk, dv of K2 and K5 against the plain path within the
+      flash tolerances, their o the mean of v over all keys, K12 bit-equal
+      to K1 on the same skv.
       LayerNorm K8 (out, dx, dgamma, dbeta): fp32 max abs err <= 1e-5 times
       max(1, max |plain|); a bf16 output within one bf16 ulp (or that fp32
       bound, where a value is so near 0 that fp32 rounding before the last
@@ -393,18 +399,25 @@ def phase_build():
 
 
 def _fwd_variant(mangled):
-    """(d, halves, options) of a bf16 forward entry's mangled name, or None."""
+    """(d, halves, options) of a bf16 forward entry's mangled name, (d, 0,
+    options) of K5's bf16 dq kernel's, or None."""
     import re
     hit = re.search(r"flash_fwd_bf16ILi(\d+)ELi(\d+)ELi(\d+)E", mangled)
-    return None if hit is None else tuple(int(x) for x in hit.groups())
+    if hit is not None:
+        return tuple(int(x) for x in hit.groups())
+    hit = re.search(r"flash_bwd_dq_bf16ILi(\d+)ELi(\d+)E", mangled)
+    return None if hit is None else (int(hit.group(1)), 0,
+                                     int(hit.group(2)))
 
 
 def check_forward_sass(lib_path, log):
-    """Each bf16 forward instantiation (K1, K12) of the built flash library:
+    """Each bf16 forward instantiation (K1, K12) and each of K5's bf16 dq
+    kernel in the built flash library:
     its registers and local memory (spills) from cuobjdump -res-usage, HGMMA
     (wgmma) in its SASS, and whether ptxas serialized its wgmma (C7514 in the
     build's ``log``, a loss of speed, reported); fails where an instantiation
-    has no HGMMA, so that a forward built on mma.sync cannot pass."""
+    has no HGMMA, so that a forward or dq kernel built on mma.sync cannot
+    pass."""
     import re
     from torch.utils.cpp_extension import CUDA_HOME
     tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
@@ -431,19 +444,22 @@ def check_forward_sass(lib_path, log):
         if key is not None:
             hgmma[key] = part.count("HGMMA")
     serialized = {_fwd_variant(ln) for ln in log.splitlines() if "C7514" in ln}
-    want = {(d, 1, o) for d in (64, 128, 256) for o in range(8)}
+    want = {(d, h, o) for d in (64, 128, 256) for o in range(8)
+            for h in (0, 1)}
     want |= {(d, 2, o) for d in (64, 128, 256) for o in (0, 2)}
     for key in sorted(want):
         d, halves, opt = key
-        print(f"(b) forward {'K12' if halves == 2 else 'K1'} d{d} options "
+        kind = {0: "K5 dq", 1: "forward K1", 2: "forward K12"}[halves]
+        print(f"(b) {kind} d{d} options "
               f"{opt} (seg 1, window 2, softcap 4): {regs.get(key, 'no usage')}"
               f", {hgmma.get(key, 0)} HGMMA in its SASS"
               f"{', wgmma serialized by ptxas (C7514)' if key in serialized else ''}")
     missing = sorted(k for k in want if not hgmma.get(k))
     if missing:
-        raise AssertionError(f"(b) bf16 forward instantiations without HGMMA "
-                             f"(wgmma) in their SASS: {missing}")
-    print(f"(b) all {len(want)} bf16 forward instantiations run on wgmma")
+        raise AssertionError(f"(b) bf16 forward or K5 dq instantiations "
+                             f"without HGMMA (wgmma) in their SASS: {missing}")
+    print(f"(b) all {len(want)} bf16 forward (K1, K12) and K5 dq "
+          f"instantiations run on wgmma")
 
 
 def _pa_inputs(b, sq, hq, hkv, d, psize, lengths, dtype, rng, extra_pages=2):
@@ -673,6 +689,25 @@ def _hold(tag, names, got, want, dtype, errs):
         errs[dtype] = max(errs[dtype], err)
         line.append(f"{name} {err:.2e}/{bound:.1e}")
     return ", ".join(line)
+
+
+def _hold_no_key_lse(tag, lse, want, none, dtype, errs):
+    """lse on rows that see a key within _tol(dtype) x max(1, max |want|)
+    over those rows; on the rows ``none`` [b, sq] that see no key, equal
+    to the plain lse (mask + log(skv) rounds to the mask value in fp32)."""
+    import torch
+    none = none[:, None, :].expand(lse.shape)
+    keyed = want[~none].float()
+    err = (lse[~none].float() - keyed).abs().max().item()
+    bound = _tol(dtype) * max(1.0, keyed.abs().max().item())
+    if not err <= bound:
+        raise AssertionError(f"(c) {tag}: lse max abs err {err} > {bound} on "
+                             "rows with keys")
+    if not torch.equal(lse[none], want[none]):
+        raise AssertionError(f"(c) {tag}: lse on rows without a key differs "
+                             "from the plain lse")
+    errs[dtype] = max(errs[dtype], err)
+    return f"lse {err:.2e}/{bound:.1e} (rows without a key: equal)"
 
 
 def phase_flash_schedules_vs_plain():
@@ -946,6 +981,77 @@ def phase_flash_vs_plain():
           f"bf16 fwd {errs[torch.bfloat16][0]:.3e} bwd "
           f"{errs[torch.bfloat16][1]:.3e}")
     return errs
+
+
+def phase_flash_no_key_vs_plain():
+    """P6: rows that no key sees (non-causal, a q segment absent from kv_seg)
+    through K1 and K2 / K5 against the plain path on the card, fp32 and bf16
+    at every forward kv tile width (skv ragged, so the last tile holds
+    columns past skv): o, dq, dk, dv within the flash tolerances, lse within
+    them on rows with keys and equal to the plain lse on rows without, the
+    rows' o the mean of v (shifted to a mean of ~2) over all skv keys; K12
+    without segment ids bit-equal to K1 on the same ragged skv where its tile
+    count is even."""
+    import torch
+    from np_modeling_tpu_torch.ops import attention
+    rng = np.random.default_rng(SEED + 31)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128, 256):
+            tile = attention._fwd_kv_tile(dtype, d)
+            skv, sq = 3 * tile + tile // 2 + 3, 300
+            shape = (2, 8, 4, sq, skv, d)
+            q, k, v, do = _flash_inputs(shape, dtype, rng)
+            # v's mean of ~2 makes a mean over the visited columns instead
+            # of the skv keys (the fault) ~0.24 off, 6x the bound.
+            v = v + 2
+            kv_seg = torch.tensor(pack_rows(rng, 2, skv)[0], device="cuda")
+            q_seg = torch.tensor(pack_rows(rng, 2, sq)[0], device="cuda")
+            q_seg[:, ::3] = 1 << 20                 # absent from kv_seg
+            scale = d ** -0.5
+            o, lse = attention._flash_fwd_cuda(q, k, v, False, scale, True,
+                                               q_seg, kv_seg)
+            mask = attention._merge_seg_into_mask(None, q_seg, kv_seg)
+            want = attention._attn_fwd_plain(q, k, v, mask, None, False, None,
+                                             scale)
+            o = o.contiguous()
+            tag = f"flash no-key rows {shape} full {str(dtype)[6:]}"
+            line = _hold(tag, ("o",), (o,), want, dtype, errs)
+            # Rows without a key: the absent segment, and rows of a document
+            # that the kv packing does not hold.
+            keyless = ~(q_seg[:, :, None] == kv_seg[:, None, :]).any(-1)
+            line += ", " + _hold_no_key_lse(tag, lse, want[1], keyless,
+                                            dtype, errs)
+            none = keyless[:, None, :, None].expand(o.shape)
+            mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(
+                2, 1).expand(o.shape)
+            err = (o.float() - mean)[none].abs().max().item()
+            if not err <= _tol(dtype) * max(1.0, mean.abs().max().item()):
+                raise AssertionError(f"(c) {tag}: rows without a key are "
+                                     f"{err} from the mean of v")
+            grads = attention._attn_bwd_plain(q, k, v, o, lse, do, mask, None,
+                                              False, None, scale)[:3]
+            for split in (False, True):
+                got = attention._flash_bwd_cuda(q, k, v, o, lse, do, False,
+                                                scale, q_seg, kv_seg,
+                                                split=split)
+                line += f"; {'K5' if split else 'K2'} " + _hold(
+                    tag, ("dq", "dk", "dv"), got, grads, dtype, errs)
+            if -(-skv // tile) % 2 == 0:
+                single = attention._flash_fwd_cuda(q, k, v, False, scale, True)
+                dual = attention._flash_fwd_cuda(q, k, v, False, scale, True,
+                                                 dual=True)
+                if not (torch.equal(single[0], dual[0])
+                        and torch.equal(single[1], dual[1])):
+                    raise AssertionError(f"(c) {tag}: K12 differs from K1")
+                line += "; K12 bit-equal to K1"
+            torch.cuda.synchronize()
+            n += 1
+            print(f"(c) {tag}: max abs err / bound: {line}; no-key rows' o "
+                  f"{err:.2e} from the mean of v")
+    print(f"(c) flash no-key rows: {n} cases pass; max abs err fp32 "
+          f"{errs[torch.float32]:.3e}, bf16 {errs[torch.bfloat16]:.3e}")
 
 
 def _bf16_ulp(t):
@@ -2571,7 +2677,7 @@ def _entry_step(gpt, corpus, batch=GPT2_B, steps=GPT2_STEPS):
 
 def _kind(kernel):
     """The section of PERF.md's step breakdown that a device op falls in."""
-    if "paged_attention_kernel" in kernel:
+    if "paged_attention_kernel" in kernel or "paged_attention_merge" in kernel:
         return "K3 paged attention"
     if "sgemm" in kernel or "gemm_f32f32" in kernel:
         return "fp32 GEMMs (the tied LM head, on CUDA cores)"
@@ -3234,6 +3340,7 @@ def _zero_paged_counts():
     _zero_launch_counts()
     ops.paged_attention.launches = ops.paged_attention.launches_int8 = 0
     ops.paged_attention.launches_window = ops.int8_matmul.launches = 0
+    ops.paged_attention.launches_split = 0
 
 
 def phase_gemma2():
@@ -3276,9 +3383,12 @@ def phase_gemma2():
     want["paged_attention"] = layers * forwards
     want["paged_attention_window"] = (layers + 1) // 2 * forwards
     toks = np.concatenate([np.asarray(t) for t in streams.values()])
+    from np_modeling_tpu_torch import ops
     print(f"(q) bf16 run in {seconds:.1f} s: {len(toks)} tokens, "
           f"{chunk_calls} prefill chunk calls, {GEMMA_DECODE} decode steps; "
-          f"launches {counts}; free pages {eng.free_pages}/{free0}")
+          f"launches {counts}, of K3 split across blocks "
+          f"{ops.paged_attention.launches_split}; free pages "
+          f"{eng.free_pages}/{free0}")
     if counts != want:
         raise AssertionError(f"(q) launches {counts}, expected {want}")
     if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -3770,6 +3880,7 @@ def main(phases="abcdefghijklmnopqrst"):
     k4_err = phase_int8_matmul_vs_plain()
     flash_err = phase_flash_vs_plain()
     sched_err = phase_flash_schedules_vs_plain()
+    phase_flash_no_key_vs_plain()
     opt_err = phase_flash_options_vs_plain()
     fused_err = phase_fused_vs_plain()
     k11_err = phase_matmul_vs_plain()
@@ -3961,6 +4072,10 @@ def main(phases="abcdefghijklmnopqrst"):
             "plain_ms": ms[1], "device_ms": ms[2], "plain_device_ms": ms[3],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib[0],
             "library_device_ms": lib[1]})
+        if "parts " + key in res:  # K5: its dq and dk/dv kernels (profiler)
+            parts = res["parts " + key]
+            kernels[-1]["dq_device_ms"] = parts["flash_bwd_dq"]
+            kernels[-1]["dkdv_device_ms"] = parts["flash_bwd_bf16"]
         if "ab " + key in res:  # device ms in AB rounds with the library call
             kernels[-1]["library_device_ms_in_turns"], \
                 kernels[-1]["device_ms_in_turns"] = res["ab " + key]

@@ -21,13 +21,19 @@
 // l == 0 guards of the TPU kernel's _store are kept. m starts at the finite mask
 // value, so a row's kv tiles that are all masked (another document's, or below
 // its window) add p = exp(0) = 1 each until its first real key, whose
-// alpha = exp(mask - m) is exactly 0 and wipes them, as on the TPU. A row with
-// no key at all (non-causal, a q segment absent from kv_seg; or, with sq > skv,
-// a window that ends below key 0) keeps them: its o is the mean of v over every
-// visited key column (a column past skv reads v as zeros) and its lse the mask
-// value plus their log count, so it depends on the tile width: the bf16 forward
-// visits kv tiles of 128 keys (64 at d 256) for q tiles of 128 rows, the fp32
-// forward tiles of 64 (32 at d 256).
+// alpha = exp(mask - m) is exactly 0 and wipes them, as on the TPU. A key column
+// past skv adds p = 0 (a test on edge tiles only; the last kv tile is one when
+// skv is not a multiple of the tile), so a row that no key sees (non-causal, a q
+// segment absent from kv_seg) averages over the real keys it visits: with every
+// kv tile visited, o is the mean of v over all skv keys and lse = mask +
+// log(skv), what the plain path and the JAX package's jnp path give, at every
+// tile width. The backwards recompute p from that lse and follow. One divergence
+// stays (ROADMAP Queue 3): with a window and sq > skv, a causal row r >= skv +
+// W - 1 sees no key, and band skipping does not visit every kv tile for it. A q
+// tile all of whose rows are such visits none: the l == 0 guard stores o = 0 and
+// lse = the mask value (and the backwards give such rows dq = 0), where the
+// plain path gives the mean of v; a q tile that holds such rows beside rows
+// with keys gives them the mean over the real keys of the tiles it visits.
 //
 // The backwards recompute p = exp(s - lse) and take di = rowsum(do . o) from the
 // caller, with ds = p * (dp - di) * scale, times 1 - t^2 with a softcap (t the
@@ -75,11 +81,13 @@
 // a ring of k and v slots (see flash_fwd_bf16 below): a block of three
 // warpgroups owns a 128-row q tile, two consume (64 rows each), one produces. The
 // dk/dv kernels (K2, K5's second) run on wgmma fed by a cp.async ring (see
-// flash_bwd_bf16). K5's dq kernel still runs on mma.sync m16n8k16 (fp32
-// accumulate): a block of 4 warps owns a 64-row q tile, each warp 16 rows, loops
-// over the 64-row kv tiles and keeps [64][d + 8] bf16 tiles (q, do, k, v) in
-// shared memory; the s accumulator fragments are re-packed in registers as the A
-// operand of ds.k.
+// flash_bwd_bf16). K5's dq kernel has K1's shape (see flash_bwd_dq_bf16): three
+// warpgroups own a 128-row q tile, q and do stay in shared memory, and k and v
+// tiles stream by TMA through a ring; s, dp and dq += ds.k run on wgmma. Its
+// work is three products of 2 d a (q, k) pair, 3/5 of K2's, and like K2 it is
+// bound by the tensor cores, so the design keeps them fed: both score products
+// in flight at once, the next tile's copies under this one's products, and the
+// mask work only on edge tiles.
 //
 // fp32 layout (a plain FMA path; exact comparisons need it). 128 threads; a
 // thread owns one row of the tile and the columns and head dims j with
@@ -211,116 +219,11 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride
   }
 }
 
-// ---- bf16 tensor-core helpers ----------------------------------------------
-//
-// mma.m16n8k16 fragments (g = lane / 4, t = lane % 4):
-//   A 16x16 row-major: a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
-//                      a3 = (g+8, 2t+8..)
-//   B 16x8 (k x n):    b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g)
-//   C 16x8 fp32:       c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
+// ---- bf16 helpers -------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
-
-// Two bf16 of one column from consecutive rows, packed low/high.
-__device__ __forceinline__ uint32_t ld_col2(const bf16* p, int ld) {
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
-  return lo | (hi << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows r0.., cols c0.. of a row-major bf16 tile with pitch ld.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld, int r0,
-                                       int c0, int g, int t) {
-  a[0] = ld32(s + (r0 + g) * ld + c0 + 2 * t);
-  a[1] = ld32(s + (r0 + g + 8) * ld + c0 + 2 * t);
-  a[2] = ld32(s + (r0 + g) * ld + c0 + 2 * t + 8);
-  a[3] = ld32(s + (r0 + g + 8) * ld + c0 + 2 * t + 8);
-}
-
-// A fragment (k = 16 columns kk*16..) from two n-tiles of C accumulators.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4],
-                                       const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// acc[n] += A(16 x 16) . X[k0 .. k0+16, :] for every 8-wide n-tile of a
-// row-major [k][n] bf16 tile X with pitch ld (B read down columns).
-template <int N8>
-__device__ __forceinline__ void mma_rows(float (&acc)[N8][4], const uint32_t (&a)[4],
-                                         const bf16* x, int ld, int k0, int g, int t) {
-  const bf16* base = x + (k0 + 2 * t) * ld + g;
-#pragma unroll
-  for (int n = 0; n < N8; ++n) {
-    const uint32_t b0 = ld_col2(base + 8 * n, ld);
-    const uint32_t b1 = ld_col2(base + 8 * ld + 8 * n, ld);
-    mma(acc[n], a, b0, b1);
-  }
-}
-
-// acc[n] += P(16 x 64) . X[0 .. 64, :], P given as the C fragments p[8][4] of
-// a 16 x 64 tile (rounded to bf16 here), X a row-major [64][N8 * 8] tile.
-template <int N8>
-__device__ __forceinline__ void mma_frag_rows(float (&acc)[N8][4], const float (&p)[8][4],
-                                              const bf16* x, int ld, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    pack_a(a, p[2 * kk], p[2 * kk + 1]);
-    mma_rows<N8>(acc, a, x, ld, 16 * kk, g, t);
-  }
-}
-
-// acc[n] += X[rx .. rx+16, :] . Y[8n .. 8n+8, :]^T over the head dim (KD steps
-// of 16), for two row-major [rows][D] bf16 tiles with pitch ld: A read along
-// X's rows, B along Y's rows.
-template <int KD>
-__device__ __forceinline__ void mma_rowsT(float (&acc)[8][4], const bf16* x, int rx,
-                                          const bf16* y, int ld, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    uint32_t a[4];
-    load_a(a, x, ld, rx, 16 * kk, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const bf16* row = y + (8 * n + g) * ld + 16 * kk + 2 * t;
-      mma(acc[n], a, ld32(row), ld32(row + 8));
-    }
-  }
-}
-
-__device__ __forceinline__ void zero8(float (&x)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
-}
-
-template <int D>
-struct Bf16Smem {
-  static constexpr int kLd = D + 8;         // pitch of a [64][D] tile
-  static constexpr int kTileElems = kTile * kLd;
-  // Segment ids of the q tile, then of the staged kv tile, end the layout.
-  static constexpr size_t kSegBytes = 2 * kTile * sizeof(int);
-  // q, do, k, v; segment ids.
-  static constexpr size_t kDqBytes = 4 * kTileElems * sizeof(bf16) + kSegBytes;
-};
 
 // ---- K2 (kDq) and K5's dk/dv kernel (!kDq), bf16: warpgroup products -----------
 // Grid (b * hkv, kv blocks of BwdSmem<D>::kKv rows): the blocks of the first kv rows,
@@ -815,11 +718,14 @@ __device__ __forceinline__ void fwd_softmax(const Params& p, float (&s)[R],
       float x = s[i] * p.scale;
       if constexpr ((kOpt & kOptCap) != 0) x = p.softcap * tanhf(x * p.inv_softcap);
       if (edge) {
-        bool out = col >= p.skv || (p.causal && col > row);
+        // A key column past skv takes -inf: it leaves the max alone (m starts at
+        // the finite mask value and never falls) and adds p = 2^-inf = 0.
+        const bool pad = col >= p.skv;
+        bool out = p.causal && col > row;
         if constexpr ((kOpt & kOptWin) != 0) out = out || col <= row - p.window;
         if constexpr ((kOpt & kOptSeg) != 0)
           out = out || q_ids[(i >> 1) & 1] != kv_ids[2 * (i >> 2) + (i & 1)];
-        x = out ? kMaskValue : x;
+        x = pad ? __int_as_float(0xff800000u) : out ? kMaskValue : x;
       }
       s[i] = x;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
@@ -898,11 +804,11 @@ __device__ __forceinline__ void fence_o(float (&o)[FwdAcc<D>::kNO][FwdAcc<D>::kO
   for (int c = 0; c < FwdAcc<D>::kNO; ++c) wg::fence_acc(o[c]);
 }
 
-// s = q.k^T for this warpgroup's 64 rows: q_s its rows' start in the q tile, k_s a k
-// slot (D / 16 k steps, both operands K-major).
+// s = q.k^T for this warpgroup's 64 rows: q_s its rows' start in a 128-row q (or do)
+// tile, k_s a k (or v) slot of 2 R rows (D / 16 k steps, both operands K-major).
 template <int D, int R>
 __device__ __forceinline__ void fwd_qk(float (&s)[R], uint32_t q_s, uint32_t k_s) {
-  constexpr int KV = FwdSmem<D>::kKv;
+  constexpr int KV = 2 * R;
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd)
     wg::wgmma_ss<0, 0>(s, wg::desc(q_s + (kd / 4) * (128 * 128) + (kd % 4) * 32, 16, 1024),
@@ -910,12 +816,12 @@ __device__ __forceinline__ void fwd_qk(float (&s)[R], uint32_t q_s, uint32_t k_s
                        kd > 0);
 }
 
-// o += p.v over the tile's KV keys: v_s a v slot, read MN-major.
-template <int D>
+// o += p.v over the tile's KV keys: v_s a v slot, read MN-major (also K5's dq += ds.k
+// with k's slot).
+template <int D, int KV = FwdSmem<D>::kKv>
 __device__ __forceinline__ void fwd_pv(float (&o)[FwdAcc<D>::kNO][FwdAcc<D>::kON],
-                                       const uint32_t (&pa)[FwdSmem<D>::kKv / 16][4],
-                                       uint32_t v_s) {
-  constexpr int KV = FwdSmem<D>::kKv, NW = 2 * FwdAcc<D>::kON;  // head dims a part
+                                       const uint32_t (&pa)[KV / 16][4], uint32_t v_s) {
+  constexpr int NW = 2 * FwdAcc<D>::kON;  // head dims a part
 #pragma unroll
   for (int kk = 0; kk < KV / 16; ++kk)
 #pragma unroll
@@ -1139,92 +1045,236 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-// ---- K5's dq kernel, bf16 ----------------------------------------------------
-// Grid (q tiles, b * hq); warp w owns q rows 16w .. 16w+15 of the tile and
-// their dq, accumulated over the tile's kv band and written once.
-template <int D, int kOpt>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(const Params p) {
-  using S = Bf16Smem<D>;
-  constexpr int LD = S::kLd, KD = D / 16, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + S::kTileElems;
-  bf16* ks = dos + S::kTileElems;
-  bf16* vs = ks + S::kTileElems;
-  int* seg = reinterpret_cast<int*>(vs + S::kTileElems);
+// ---- K5's dq kernel, bf16: warpgroup products ----------------------------------
+// Grid (q tiles of 128 rows, b * hq), the tiles of the last rows (the most keys under
+// causal masking) first. 384 threads, K1's shape: warpgroups 0 and 1 consume, each
+// owning 64 q rows and their dq; two threads of warpgroup 2 produce, one for q, do
+// and k, one for v. q and do are loaded once by TMA and stay in shared memory; the
+// band's kv tiles of DqSmem<D>::kKv keys stream through a ring of two k slots and two
+// v slots with full/empty mbarriers, so the next tile's copies are in flight while the
+// tensor cores work on this one. Per kv tile a warpgroup issues s = q.k^T and dp =
+// do.v^T (wgmma, both operands K-major in shared memory, both in flight before either
+// is waited on), forms p = exp(s - lse) once s lands (the mask only on edge tiles, as
+// in K1), ds = p (dp - di) scale (* 1 - t^2 with the cap) once dp lands, and issues
+// dq += ds.k with ds re-packed in registers as the A operand and k read MN-major from
+// the same slot (K1's p.v with k in v's place). dq stays in fp32 registers and is
+// written once, rounded to q's dtype, through the q tile's rows: no atomics, so the
+// same bits on every run. Kv tiles of 64 keys at d 64 / 128 (s, dp 32 registers a
+// thread, dq 64 at d 128) and 32 at d 256 (s, dp 16 each beside dq's 128).
+template <int D>
+struct DqSmem {
+  static constexpr int kQ = 128;                  // q rows of a block
+  static constexpr int kKv = D > 128 ? 32 : 64;   // kv rows of a tile
+  static constexpr int kQBytes = kQ * D * 2;      // a q (or do) tile
+  static constexpr int kKvBytes = kKv * D * 2;    // a k (or v) slot
+  // q, do, two k slots, two v slots, the mbarriers (q; k full, empty; v full, empty).
+  static constexpr int kBarOff = 2 * kQBytes + 4 * kKvBytes;
+  static constexpr int kBytes = kBarOff + 128 + 1024;  // + the 1024-byte alignment
+};
 
-  const int n_q = (p.sq + kTile - 1) / kTile;
-  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * kTile;  // long rows first
+// p = exp(s - lse) of this thread's two rows (row0, row0 + 8) over one kv tile, in
+// place, times the cap's derivative 1 - t^2 with kOptCap; the mask on edge tiles only.
+// lse2: lse * log2(e), used on interior tiles only (there lse is real).
+template <int R, int kOpt>
+__device__ __forceinline__ void dq_probs(const Params& p, float (&s)[R], bool edge, int row0,
+                                         int col0, const float (&lse)[2],
+                                         const float (&lse2)[2], const int (&q_ids)[2],
+                                         const int (&kv_ids)[R / 2]) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  if (edge || (kOpt & kOptCap) != 0) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int h = (i >> 1) & 1, row = row0 + 8 * h, col = col0 + 8 * (i >> 2) + (i & 1);
+      float x = s[i] * p.scale, cap_grad = 1.f;
+      if constexpr ((kOpt & kOptCap) != 0) {
+        const float t = tanhf(x * p.inv_softcap);
+        cap_grad = 1.f - t * t;
+        x = p.softcap * t;
+      }
+      if (edge) {
+        bool out = row >= p.sq || col >= p.skv || (p.causal && col > row);
+        if constexpr ((kOpt & kOptWin) != 0) out = out || col <= row - p.window;
+        if constexpr ((kOpt & kOptSeg) != 0)
+          out = out || q_ids[h] != kv_ids[2 * (i >> 2) + (i & 1)];
+        x = out ? kMaskValue : x;
+      }
+      s[i] = wg::exp2_approx((x - lse[h]) * kLog2e) * cap_grad;
+    }
+  } else {
+    const float c = p.scale * kLog2e;
+#pragma unroll
+    for (int i = 0; i < R; ++i) s[i] = wg::exp2_approx(fmaf(s[i], c, -lse2[(i >> 1) & 1]));
+  }
+}
+
+template <int D, int kOpt>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
+                      const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                      const Params p) {
+  using S = DqSmem<D>;
+  using A = FwdAcc<D>;
+  constexpr int KV = S::kKv, R = KV / 2, QT = S::kQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;
+  uint8_t* dos = qs + S::kQBytes;
+  uint8_t* ks = dos + S::kQBytes;      // two slots
+  uint8_t* vs = ks + 2 * S::kKvBytes;  // two slots
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = q_full + 3;
+  uint64_t* v_full = q_full + 5;
+  uint64_t* v_empty = q_full + 7;
+
+  const int n_q = (p.sq + QT - 1) / QT;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * QT;  // long rows first
   const int bh = blockIdx.y, bb = bh / p.hq, hh = bh % p.hq;
   const int hk = hh / (p.hq / p.hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int rw = warp * 16;
+  const int2 band = kv_tiles<QT, KV, kOpt>(p, q0);
+  const int n = max(0, band.y - band.x);
 
-  const bf16* q = static_cast<const bf16*>(p.q) + bb * p.st_q.b + hh * p.st_q.h;
-  const bf16* k = static_cast<const bf16*>(p.k) + bb * p.st_k.b + hk * p.st_k.h;
-  const bf16* v = static_cast<const bf16*>(p.v) + bb * p.st_v.b + hk * p.st_v.h;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + bb * p.st_do.b + hh * p.st_do.h;
-  const int* kv_seg = p.kv_seg + bb * p.seg_kv_b;
-  const long long row_stats = (static_cast<long long>(bb) * p.hq + hh) * p.sq;
-
-  load_rows<bf16, D, LD, kTile, kThreads>(qs, q + q0 * p.st_q.s, p.st_q.s, p.sq - q0);
-  load_rows<bf16, D, LD, kTile, kThreads>(dos, dout + q0 * p.st_do.s, p.st_do.s, p.sq - q0);
-  if (kOpt & kOptSeg)
-    load_seg<kTile, kThreads>(seg, p.q_seg + bb * p.seg_q_b, p.seg_q_s, q0, p.sq);
-  float lse[2], di[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + rw + g + 8 * i;
-    lse[i] = row < p.sq ? p.lse[row_stats + row] : 0.f;
-    di[i] = row < p.sq ? p.di[row_stats + row] : 0.f;
+  if (threadIdx.x == 0) {
+    wg::mbar_init(q_full, 1);
+    for (int i = 0; i < 2; ++i) {
+      wg::mbar_init(&k_full[i], 1);
+      wg::mbar_init(&k_empty[i], 2);
+      wg::mbar_init(&v_full[i], 1);
+      wg::mbar_init(&v_empty[i], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float dq[ND][4];
+  const int w = threadIdx.x / 128;
+  if (w == 2) {  // the producers: lane 0 of warp 8 loads q, do and k, of warp 9 v
+    wg::setmaxnreg_dec<24>();
+    const bool is_k = threadIdx.x == 256;
+    if (!is_k && threadIdx.x != 288) return;
+    uint8_t* slots = is_k ? ks : vs;
+    const void* map = is_k ? static_cast<const void*>(&mk) : static_cast<const void*>(&mv);
+    uint64_t* full = is_k ? k_full : v_full;
+    uint64_t* empty = is_k ? k_empty : v_empty;
+    if (is_k) {
+      wg::mbar_expect_tx(q_full, 2 * S::kQBytes);
 #pragma unroll
-  for (int n = 0; n < ND; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  const int2 band = kv_tiles<kTile, kTile, kOpt>(p, q0);
-  for (int kt = band.x; kt < band.y; ++kt) {
-    const int kv0 = kt * kTile;
-    __syncthreads();  // the previous tile's k/v reads are done
-    load_rows<bf16, D, LD, kTile, kThreads>(ks, k + kv0 * p.st_k.s, p.st_k.s, p.skv - kv0);
-    load_rows<bf16, D, LD, kTile, kThreads>(vs, v + kv0 * p.st_v.s, p.st_v.s, p.skv - kv0);
-    if (kOpt & kOptSeg) load_seg<kTile, kThreads>(seg + kTile, kv_seg, p.seg_kv_s, kv0, p.skv);
-    __syncthreads();
-
-    // s = q . k^T and dp = do . v^T over this warp's q rows and the tile's keys.
-    float s[8][4], ds[8][4];
-    zero8(s);
-    mma_rowsT<KD>(s, qs, rw, ks, LD, g, t);
-    zero8(ds);
-    mma_rowsT<KD>(ds, dos, rw, vs, LD, g, t);
-    // ds = exp(s - lse) * (dp - di) (* 1 - t^2) * scale
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = rw + g + (e >> 1) * 8, cl = 8 * n + 2 * t + (e & 1);
-        float cap_grad;
-        const float x = score<kOpt>(p, s[n][e], q0 + rl, kv0 + cl, seg, rl, seg + kTile, cl,
-                                    cap_grad);
-        float d = expf(x - lse[e >> 1]) * (ds[n][e] - di[e >> 1]);
-        if constexpr ((kOpt & kOptCap) != 0) d *= cap_grad;
-        ds[n][e] = d * p.scale;
+      for (int cb = 0; cb < D / 64; ++cb) {
+        wg::tma_load_4d(qs + cb * QT * 128, &mq, q_full, cb * 64, q0, hh, bb);
+        wg::tma_load_4d(dos + cb * QT * 128, &mdo, q_full, cb * 64, q0, hh, bb);
       }
     }
-    // dq += ds (rounded to bf16) . k
-    mma_frag_rows<ND>(dq, ds, ks, LD, g, t);
+    for (int i = 0; i < n; ++i) {
+      const int slot = i & 1, kv0 = (band.x + i) * KV;
+      // The slot's previous round is read by both warpgroups.
+      if (i >= 2) wg::mbar_wait(&empty[slot], ((i >> 1) - 1) & 1);
+      wg::mbar_expect_tx(&full[slot], S::kKvBytes);
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb)
+        wg::tma_load_4d(slots + slot * S::kKvBytes + cb * KV * 128, map, &full[slot], cb * 64,
+                        kv0, hk, bb);
+    }
+    return;
   }
 
+  wg::setmaxnreg_inc<240>();
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int tw = threadIdx.x % 128, wi = tw / 32, lane = tw % 32, g = lane / 4, t = lane % 4;
+  const bool leader = tw == 0;
+  const int r0 = q0 + 64 * w;             // this warpgroup's first row
+  const int row0 = r0 + 16 * wi + g;      // this thread's rows: row0, row0 + 8
+  const long long row_stats = (static_cast<long long>(bb) * p.hq + hh) * p.sq;
+  float lse[2], lse2[2], di[2];
+  int q_ids[2] = {0, 0};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    lse[h] = row < p.sq ? p.lse[row_stats + row] : 0.f;
+    di[h] = row < p.sq ? p.di[row_stats + row] : 0.f;
+    lse2[h] = lse[h] * kLog2e;
+  }
+  const int* kv_seg = nullptr;
+  if constexpr ((kOpt & kOptSeg) != 0) {
+    const int* q_seg = p.q_seg + bb * p.seg_q_b;
+    for (int h = 0; h < 2; ++h)
+      q_ids[h] = row0 + 8 * h < p.sq ? __ldg(q_seg + (row0 + 8 * h) * p.seg_q_s) : 0;
+    kv_seg = p.kv_seg + bb * p.seg_kv_b;
+  }
+  // Does tile kv0 need the mask for any of this warpgroup's rows? (Rows past sq read
+  // q and do as zeros, lse and di as 0: their ds = p (0 - 0) is 0 unmasked too.)
+  auto edge_of = [&](int kv0) {
+    if constexpr ((kOpt & kOptSeg) != 0) return true;
+    bool e = kv0 + KV > p.skv || (p.causal && kv0 + KV - 1 > r0);
+    if constexpr ((kOpt & kOptWin) != 0) e = e || kv0 <= r0 + 63 - p.window;
+    return e;
+  };
+
+  float dq[A::kNO][A::kON];
+#pragma unroll
+  for (int c = 0; c < A::kNO; ++c)
+#pragma unroll
+    for (int i = 0; i < A::kON; ++i) dq[c][i] = 0.f;
+  uint32_t pa[KV / 16][4];
+  const uint32_t q_s = wg::smem_u32(qs) + w * 8192, do_s = wg::smem_u32(dos) + w * 8192;
+  const uint32_t k_s = wg::smem_u32(ks), v_s = wg::smem_u32(vs);
+  wg::mbar_wait(q_full, 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int slot = i & 1, kv0 = (band.x + i) * KV;
+    const uint32_t parity = (i >> 1) & 1;
+    float s[R], dp[R];
+    wg::mbar_wait(&k_full[slot], parity);
+    wg::fence();
+    fwd_qk<D>(s, q_s, k_s + slot * S::kKvBytes);
+    wg::commit();
+    wg::mbar_wait(&v_full[slot], parity);
+    fwd_qk<D>(dp, do_s, v_s + slot * S::kKvBytes);
+    wg::commit();
+    int kv_ids[R / 2];
+    kv_ids_of<R, kOpt>(kv_ids, p, kv_seg, kv0 + 2 * t);
+    wg::wait<1>();  // s has landed, and the previous tile's dq product is done
+    wg::fence_acc(s);
+    fence_o<D>(dq);
+    fence_a(pa);
+    if (leader && i > 0) wg::mbar_arrive(&k_empty[slot ^ 1]);
+    dq_probs<R, kOpt>(p, s, edge_of(kv0), row0, kv0 + 2 * t, lse, lse2, q_ids, kv_ids);
+    wg::wait<0>();  // dp has landed
+    wg::fence_acc(dp);
+    if (leader) wg::mbar_arrive(&v_empty[slot]);
+#pragma unroll
+    for (int j = 0; j < R; ++j) dp[j] = s[j] * (dp[j] - di[(j >> 1) & 1]) * p.scale;
+#pragma unroll
+    for (int kk = 0; kk < KV / 16; ++kk) wg::pack_a(pa[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+    wg::fence();
+    fwd_pv<D, KV>(dq, pa, k_s + slot * S::kKvBytes);
+    wg::commit();
+  }
+  wg::wait<0>();
+  fence_o<D>(dq);
+  fence_a(pa);
+
+  // Epilogue: dq rounded once into this warpgroup's rows of the q tile (its last reads
+  // of them are done), then 16-byte rows into [b, sq, hq, d].
+  uint8_t* stage = qs + w * 8192;
+  constexpr int NW = 2 * A::kON;
+#pragma unroll
+  for (int c = 0; c < A::kNO; ++c)
+#pragma unroll
+    for (int i = 0; i < A::kON; i += 2) {
+      const int r = 16 * wi + g + 8 * ((i >> 1) & 1), col = c * NW + 8 * (i >> 2) + 2 * t;
+      *reinterpret_cast<uint32_t*>(stage + (col / 64) * (QT * 128) +
+                                   wg::sw128_offset(r, col % 64)) =
+          wg::pack_bf16(dq[c][i], dq[c][i + 1]);
+    }
+  wg::bar_sync(1 + w, 128);
   bf16* out = static_cast<bf16*>(p.dq);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + rw + g + 8 * i;
-    if (row >= p.sq) continue;
-    bf16* dst = out + ((static_cast<long long>(bb) * p.sq + row) * p.hq + hh) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(dst + 8 * n) = pack_bf16(dq[n][2 * i], dq[n][2 * i + 1]);
+  for (int idx = tw; idx < 64 * (D / 8); idx += 128) {
+    const int r = idx / (D / 8), col = (idx % (D / 8)) * 8, row = r0 + r;
+    if (row < p.sq)
+      *reinterpret_cast<uint4*>(out + ((static_cast<long long>(bb) * p.sq + row) * p.hq + hh) * D +
+                                col) =
+          *reinterpret_cast<const uint4*>(stage + (col / 64) * (QT * 128) +
+                                          wg::sw128_offset(r, col % 64));
   }
 }
 
@@ -1292,7 +1342,8 @@ __device__ __forceinline__ void fwd_update_f32(const Params& p, float (&s)[F32Sm
   __syncwarp();  // the row's previous p reads (the other half of K12) are done
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
-    const float pe = expf(s[j] - m);
+    // A key column past skv adds p = 0; a masked real key keeps exp(mask - m).
+    const float pe = kv0 + P * j + h < p.skv ? expf(s[j] - m) : 0.f;
     ps[r * LP + P * j + h] = pe;
     rs += pe;
   }
@@ -1719,6 +1770,24 @@ int launch_fwd_bf16(const Params& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5's dq kernel in bf16: the tensor maps of q, do, k and v, then the launch.
+template <int D, int kOpt>
+int launch_dq_bf16(const Params& p, cudaStream_t s) {
+  using S = DqSmem<D>;
+  CUtensorMap mq, mdo, mk, mv;
+  if (!make_map(&mq, p.q, p.st_q, p.b, p.hq, p.sq, D, S::kQ) ||
+      !make_map(&mdo, p.dout, p.st_do, p.b, p.hq, p.sq, D, S::kQ) ||
+      !make_map(&mk, p.k, p.st_k, p.b, p.hkv, p.skv, D, S::kKv) ||
+      !make_map(&mv, p.v, p.st_v, p.b, p.hkv, p.skv, D, S::kKv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_bwd_dq_bf16<D, kOpt>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<tiles(p.sq, S::kQ, p.b * p.hq), 384, S::kBytes, s>>>(mq, mdo, mk, mv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_fwd(const Params& p, int dtype, int dual, cudaStream_t s) {
   const int opt = opts_of(p), bh = p.b * p.hq;
@@ -1743,17 +1812,15 @@ int launch_fwd(const Params& p, int dtype, int dual, cudaStream_t s) {
 template <int D>
 int launch_bwd(const Params& p, int dtype, int split, cudaStream_t s) {
   const int bh = p.b * p.hq;
-  using B = Bf16Smem<D>;
   using F = F32Smem<D>;
   return with_opt(opts_of(p), [&](auto o) {
     constexpr int kOpt = decltype(o)::value;
     if (dtype == 1) {
       using W = BwdSmem<D>;
-      const dim3 grid_q = tiles(p.sq, kTile, bh);
       const dim3 grid_kv(p.b * p.hkv, (p.skv + W::kKv - 1) / W::kKv);
       if (!split)
         return launch(flash_bwd_bf16<D, true, kOpt>, grid_kv, 256, W::kBytes, s, p);
-      int rc = launch(flash_bwd_dq_bf16<D, kOpt>, grid_q, kThreads, B::kDqBytes, s, p);
+      int rc = launch_dq_bf16<D, kOpt>(p, s);
       if (rc == 0) rc = launch(flash_bwd_bf16<D, false, kOpt>, grid_kv, 256, W::kBytes, s, p);
       return rc;
     }

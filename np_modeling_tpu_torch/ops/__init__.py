@@ -21,7 +21,8 @@ from np_modeling_tpu_torch.ops.normalization import (dropout,
                                                      make_dropout_mask,
                                                      rms_norm)
 from np_modeling_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_reference)
+    paged_attention, paged_attention_reference,
+    paged_attention_split_reference)
 from np_modeling_tpu_torch.ops.rope import apply_rope
 from np_modeling_tpu_torch.ops.quantization import (
     WEIGHT_QUANT_TARGETS, QuantizedTensor, dequantize_int8, dequantize_params,
@@ -37,7 +38,8 @@ __all__ = ["QuantizedTensor", "WEIGHT_QUANT_TARGETS", "apply_rope",
            "get_activation", "int8_matmul", "int8_matmul_reference",
            "layer_norm", "linear", "make_dropout_mask", "matmul",
            "matmul_reference", "mse", "paged_attention",
-           "paged_attention_reference", "quantize_int8",
+           "paged_attention_reference", "paged_attention_split_reference",
+           "quantize_int8",
            "quantize_int8_stochastic", "quantize_params_int4",
            "quantize_params_int8", "relu", "rms_norm", "silu",
            "softmax_cross_entropy",

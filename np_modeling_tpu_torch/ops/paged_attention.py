@@ -99,6 +99,57 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices,
     return o[:, 0] if squeeze else o
 
 
+def paged_attention_split_reference(q, k_pages, v_pages, lengths,
+                                    page_indices, splits, split_keys,
+                                    scale=None, window=None, softcap=None):
+    """Plain PyTorch version of the kernel's split-KV schedule: key range
+    [i * split_keys, (i + 1) * split_keys) of each sequence gives a partial
+    (m, l, acc) over the positions a row sees in it (l = 0 where it sees
+    none: a range past the length or below the window), and the partials
+    merge as m = max m_i, o = sum e^(m_i - m) acc_i / sum e^(m_i - m) l_i.
+    Equals ``paged_attention_reference`` wherever a row sees a position."""
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    b, sq, hq, d = q.shape
+    hkv, _, psize, _ = k_pages.shape
+    g = hq // hkv
+    max_len = page_indices.shape[1] * psize
+    idx = page_indices.long()
+    k_seq = k_pages[:, idx].movedim(1, 0).reshape(b, hkv, max_len, d).float()
+    v_seq = v_pages[:, idx].movedim(1, 0).reshape(b, hkv, max_len, d).float()
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, hkv, g, d).movedim(1, 2).float()   # [b,hkv,sq,g,d]
+    s = torch.einsum("bhtgd,bhkd->bhtgk", qg, k_seq) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(max_len, device=q.device)
+    own = (lengths.long()[:, None, None, None, None] - sq
+           + torch.arange(sq, device=q.device)[None, None, :, None, None])
+    keep = pos <= own
+    if window is not None:
+        keep = keep & (pos > own - window)
+    m_all, l_all, acc_all = [], [], []
+    for i in range(splits):
+        lo, hi = i * split_keys, min((i + 1) * split_keys, max_len)
+        seen = keep[..., lo:hi]
+        x = torch.where(seen, s[..., lo:hi], -math.inf)
+        m = x.amax(dim=-1).clamp(min=DEFAULT_MASK_VALUE)
+        p = torch.where(seen, torch.exp(x - m[..., None]), 0.0)
+        m_all.append(m)
+        l_all.append(p.sum(dim=-1))
+        acc_all.append(torch.einsum("bhtgk,bhkd->bhtgd", p, v_seq[:, :, lo:hi]))
+    m, l, acc = torch.stack(m_all), torch.stack(l_all), torch.stack(acc_all)
+    live = l > 0
+    mx = torch.where(live, m, DEFAULT_MASK_VALUE).amax(dim=0)
+    w = torch.where(live, torch.exp(m - mx), 0.0)
+    lsum = (w * l).sum(dim=0)
+    o = (w[..., None] * acc).sum(dim=0) / torch.where(lsum > 0, lsum,
+                                                       1.0)[..., None]
+    o = o.movedim(2, 1).reshape(b, sq, hq, d).to(q.dtype)
+    return o[:, 0] if squeeze else o
+
+
 def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
                     k_scales=None, v_scales=None, window=None, bias=None,
                     softcap=None, sinks=None):
@@ -137,11 +188,44 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
 
 # Kernel launches since import (or since a caller reset it to 0): a run
 # shows with it that its attention went through the kernel. launches counts
-# every launch, launches_int8 those over int8 pages, launches_window those
-# with a sliding window.
+# every call (its split pass and, with more than one split, its merge are one
+# launch), launches_int8 those over int8 pages, launches_window those with a
+# sliding window, launches_split those whose grid had more than one split.
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
 paged_attention.launches_window = 0
+paged_attention.launches_split = 0
+
+# The split plan (flash-decoding). The kernel's row tiles: up to 2 rows (a
+# decode's g rows), else 64 (32 at head_dim 256). A grid of fewer than
+# FULL_GRID_PER_SM blocks a streaming multiprocessor is split along the keys,
+# each range at least MIN_SPLIT_KEYS keys and a multiple of 32 and of the
+# page size, into at most MAX_BLOCKS_PER_SM blocks an SM (a cap on the
+# partials' scratch at very wide tables; no measured shape reaches it).
+# exp_torch_k3_splits.py times the kernel at 64..512 keys a range (H100
+# 80GB HBM3, 700 W): 256 was chosen for Gemma-2's global decode layer and for
+# 8 x 4096 tokens (512 was faster there, but 2.77x slower than 256 at 8 x
+# 1024); GPT-2's decode is ~3% slower with 256 than with 128.
+FULL_GRID_PER_SM, MAX_BLOCKS_PER_SM, MIN_SPLIT_KEYS = 2, 16, 256
+
+
+def split_plan(batch, num_kv_heads, rows, head_dim, pages_per_seq,
+               page_size, sms):
+    """(splits, keys a split) of a call from its shapes alone: ``rows`` q
+    rows a kv head (sq x the GQA group), the table's width pages_per_seq x
+    page_size, on a card of ``sms`` streaming multiprocessors. Never reads
+    lengths (they lie on the card)."""
+    tile = 2 if rows <= 2 else (32 if head_dim > 128 else 64)
+    width = pages_per_seq * page_size
+    blocks = -(-rows // tile) * num_kv_heads * batch
+    splits = min(width // MIN_SPLIT_KEYS,
+                 -(-MAX_BLOCKS_PER_SM * sms // blocks))
+    if blocks >= FULL_GRID_PER_SM * sms or splits <= 1:
+        return 1, max(width, 1)
+    align = max(32, page_size)
+    keys = -(-width // splits)
+    keys = -(-keys // align) * align
+    return -(-width // keys), keys
 
 
 def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
@@ -188,10 +272,19 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
     from np_modeling_tpu_torch.ops import cuda_build
     fn = cuda_build.load("paged_attention").lib.np_paged_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
     out = torch.empty_like(q)
+    rows, pps = sq * (hq // hkv), page_indices.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits, split_keys = split_plan(b, hkv, rows, d, pps, psize, sms)
+    part_acc = part_ml = None
+    if splits > 1:   # the partials (m, l, acc) of each split, fp32
+        part_acc = torch.empty((b, hkv, splits, rows, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b, hkv, splits, rows, 2), dtype=torch.float32,
+                              device=q.device)
     scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
     scale_ptrs = [s.data_ptr() for s in scales] or [None, None]
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -199,15 +292,18 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 *scale_ptrs, lengths.data_ptr(), page_indices.data_ptr(),
                 out.data_ptr(),
+                None if part_acc is None else part_acc.data_ptr(),
+                None if part_ml is None else part_ml.data_ptr(),
                 _DTYPE_CODES[q.dtype], _KV_CODES[k_pages.dtype], b, sq, hq,
-                hkv, d, total_pages, psize.bit_length() - 1,
-                page_indices.shape[1], scale,
-                0 if window is None else int(window),
+                hkv, d, total_pages, psize.bit_length() - 1, pps, splits,
+                split_keys, scale, 0 if window is None else int(window),
                 0.0 if softcap is None else float(softcap), stream)
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
                            f"error {rc}")
     paged_attention.launches += 1
+    if splits > 1:
+        paged_attention.launches_split += 1
     if scales:
         paged_attention.launches_int8 += 1
     if window is not None:

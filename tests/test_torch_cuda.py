@@ -117,6 +117,62 @@ def test_cuda_kernel_window_softcap_vs_plain(sq, hq, hkv, d, psize, opts,
     assert torch.equal(got, again)
 
 
+# (splits, keys a split) forced on the kernel: one split, several, and more
+# splits than the sequences have pages; None keeps the wrapper's own plan.
+_SPLITS = [None, (1, None), (6, 96), (16, 32)]
+
+
+@pytest.mark.parametrize("split", _SPLITS,
+                         ids=["plan", "one", "several", "past_pages"])
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("opts", [{}, dict(window=40), dict(softcap=5.0)],
+                         ids=["plain", "window", "softcap"])
+@pytest.mark.parametrize("sq,hq,hkv,d", [
+    (None, 8, 4, 256), (None, 12, 12, 64), (1, 8, 2, 128), (7, 8, 4, 256),
+    (40, 4, 2, 64)])
+def test_cuda_paged_split_kv_vs_plain(sq, hq, hkv, d, opts, pages, split,
+                                      monkeypatch):
+    """K3's split-KV grid against the plain version: forced split counts (one,
+    several, more than the pages), lengths 0, 1, one page and one page plus
+    one beside long ones, a window that empties whole splits, fp32, bf16 and
+    int8 pages at d 64/128/256 with GQA, decode and chunk rows (sq > 1); the
+    tolerances of the cases above; launches_split counts the split calls."""
+    import importlib
+    pa = importlib.import_module("np_modeling_tpu_torch.ops.paged_attention")
+    psize, pps = 16, 32
+    rows = sq or 1
+    q, k, v, lengths, table = _paged_case(6, sq, hq, hkv, d, psize, pps,
+                                          6 * pps + 2, seed=d + hq)
+    lengths[:] = [0 if rows == 1 else rows, rows, psize, psize + 1, 300,
+                  pps * psize]
+    lengths = np.maximum(lengths, rows if rows > 1 else 0)
+    plan = pa.split_plan
+    if split is not None:
+        monkeypatch.setattr(pa, "split_plan", lambda *a: (
+            split[0], split[1] or pps * psize))
+    q, k, v, lengths, table = (torch.tensor(a).cuda()
+                               for a in (q, k, v, lengths, table))
+    kw = dict(opts)
+    dtype = torch.bfloat16 if pages == "bfloat16" else torch.float32
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    if pages == "int8":
+        kq, vq = ops.quantize_int8(k), ops.quantize_int8(v)
+        k, v = kq.values, vq.values
+        kw.update(k_scales=kq.scales, v_scales=vq.scales)
+    before = ops.paged_attention.launches_split
+    got = ops.paged_attention(q, k, v, lengths, table, **kw)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = (split or plan(6, hkv, rows * hq // hkv, d, pps, psize, sms))[0]
+    assert ops.paged_attention.launches_split - before == int(splits > 1)
+    with dispatch.force_plain():
+        want = ops.paged_attention(q, k, v, lengths, table, **kw)
+    torch.cuda.synchronize()
+    live = lengths > 0
+    assert (got[live].float() - want[live].float()).abs().max().item() \
+        <= _tol(dtype)
+    assert bool((got[~live] == 0).all())
+
+
 @pytest.mark.parametrize("option", ["bias", "sinks"])
 def test_cuda_paged_unported_options_raise(option):
     q, k, v, lengths, table = (torch.tensor(a).cuda() for a in _paged_case(
@@ -473,6 +529,86 @@ def test_cuda_flash_fwd_bf16_vs_plain(d, group, causal, option):
         assert (x.float() - y.float()).abs().max().item() <= bound
     if seg is None and "softcap" not in kw:
         assert torch.equal(o, dual[0]) and torch.equal(lse, dual[1])
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_no_key_rows_vs_plain(dtype, d):
+    """P6: non-causal rows that no key sees (a q segment absent from kv_seg)
+    take the mean of v over all skv keys and lse = mask + log(skv), as the
+    plain path does, at every tile width (skv not a multiple of the forward's
+    kv tile, so its last tile holds columns past skv): o of K1, its lse on
+    rows with keys, equal to the plain lse on rows without, and dq, dk, dv
+    of K2 and K5 on those o and lse, against the plain path; K12 bit-equal to
+    K1 without segment ids on the same ragged skv. v has a mean of ~2, so a
+    mean over the visited columns instead of the keys (skv of them over
+    whole tiles) is ~0.24 off, 6x the bf16 bound."""
+    from np_modeling_tpu_torch.ops import attention
+    hkv, group, sq = 2, 2, 200
+    tile = attention._fwd_kv_tile(dtype, d)
+    skv = 3 * tile + tile // 2 + 3
+    q, k, v, do = _flash_inputs(2, hkv * group, hkv, sq, skv, d, dtype,
+                                seed=d)
+    v = v + 2
+    kv_seg = _packed_segments(2, skv)
+    q_seg = _packed_segments(2, sq)
+    q_seg[:, ::3] = 1 << 20                     # absent from kv_seg
+    scale = d ** -0.5
+    o, lse = attention._flash_fwd_cuda(q, k, v, False, scale, True, q_seg,
+                                       kv_seg)
+    mask = attention._merge_seg_into_mask(None, q_seg, kv_seg)
+    want = attention._attn_fwd_plain(q, k, v, mask, None, False, None, scale)
+    bound = _tol(dtype) * max(1.0, want[0].float().abs().max().item())
+    assert (o.float() - want[0].float()).abs().max().item() <= bound
+    # Rows without a key: the absent segment, and rows of a document that
+    # the kv packing does not hold.
+    keyless = ~(q_seg[:, :, None] == kv_seg[:, None, :]).any(-1)
+    rows = keyless[:, None, :].expand(lse.shape)
+    keyed = want[1][~rows]
+    bound = _tol(dtype) * max(1.0, keyed.abs().max().item())
+    assert (lse[~rows] - keyed).abs().max().item() <= bound
+    assert torch.equal(lse[rows], want[1][rows])
+    none = keyless[:, None, :, None].expand(o.shape)
+    mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(group, 1)
+    assert (o.float() - mean.expand(o.shape))[none].abs().max().item() \
+        <= _tol(dtype) * max(1.0, mean.abs().max().item())
+    o = o.contiguous()
+    grads = attention._attn_bwd_plain(q, k, v, o, lse, do, mask, None, False,
+                                      None, scale)[:3]
+    for split in (False, True):
+        got = attention._flash_bwd_cuda(q, k, v, o, lse, do, False, scale,
+                                        q_seg, kv_seg, split=split)
+        for x, y in zip(got, grads):
+            bound = _tol(dtype) * max(1.0, y.float().abs().max().item())
+            assert (x.float() - y.float()).abs().max().item() <= bound
+    single = attention._flash_fwd_cuda(q, k, v, False, scale, True)
+    if -(-skv // tile) % 2 == 0:
+        dual = attention._flash_fwd_cuda(q, k, v, False, scale, True,
+                                         dual=True)
+        assert torch.equal(single[0], dual[0])
+        assert torch.equal(single[1], dual[1])
+    plain = attention._attn_fwd_plain(q, k, v, None, None, False, None,
+                                      scale)
+    torch.cuda.synchronize()
+    for x, y in zip(single, plain):
+        bound = _tol(dtype) * max(1.0, y.float().abs().max().item())
+        assert (x.float() - y.float()).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_window_rows_past_every_key(dtype):
+    """The documented divergence (ROADMAP Queue 3, beside F6): with a window
+    and sq > skv, causal rows r >= skv + W - 1 see no key; a q tile made of
+    such rows visits no kv tile (band skipping), so K1 stores o = 0 and lse =
+    the mask value there (the plain path gives the mean of v)."""
+    from np_modeling_tpu_torch.ops import attention
+    sq, skv, window = 512, 64, 8
+    q, k, v, _ = _flash_inputs(1, 2, 2, sq, skv, 64, dtype, seed=5)
+    o, lse = attention._flash_fwd_cuda(q, k, v, True, 0.125, True,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert bool((o[:, :, 256:] == 0).all())
+    assert bool((lse[:, :, 256:] == attention.DEFAULT_MASK_VALUE).all())
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 2, 200, 200, 64),

@@ -309,3 +309,30 @@ def test_bad_arguments_raise():
         ops.flash_attention(q, k, v, window=4)       # window needs causal
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v, sinks=torch.zeros(3))
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("group", [1, 2])
+def test_plain_no_key_rows_vs_jax_jnp_path(group, d):
+    """Rows that no key sees (non-causal, a q segment absent from kv): the
+    plain version gives what JAX's jnp path gives, o the mean of v over all
+    keys and gradients from p recomputed from that lse, fp32 within 1e-6 x
+    max(1, max |JAX|) (gradients reach ~20 here, summed in another order). The
+    flash kernels are held to the same rows on the card
+    (tests/test_torch_cuda.py -k no_key)."""
+    b, hkv, sq, skv = 2, 2, 40, 70
+    q, k, v, do = _inputs(b, hkv * group, hkv, sq, skv, d)
+    kv_seg = np.sort(rng.integers(0, 3, (b, skv)), axis=1).astype(np.int32)
+    q_seg = np.sort(rng.integers(0, 5, (b, sq)), axis=1).astype(np.int32)
+    q_seg[:, ::4] = 7                           # absent from kv_seg
+    got = _port(q, k, v, do, segment_ids=(q_seg, kv_seg))
+    want = _jax(q, k, v, do, segment_ids=(jnp.asarray(q_seg),
+                                          jnp.asarray(kv_seg)))
+    none = np.broadcast_to((q_seg == 7)[:, None, :, None], got[0].shape)
+    np.testing.assert_allclose(
+        got[0][none].reshape(b, -1, d),
+        np.broadcast_to(v.mean(axis=2, keepdims=True).repeat(group, axis=1),
+                        got[0].shape)[none].reshape(b, -1, d), atol=1e-6)
+    for g, w in zip([got[0], *got[1]], [want[0], *want[1]]):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-6 * max(1.0, np.abs(w).max()))

@@ -9,6 +9,8 @@ design. The CUDA kernel itself runs only on the card
 (tests/test_torch_cuda.py).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -240,3 +242,68 @@ def test_quantized_paged_kv_cache_equals_jax():
                               **tcache.attention_kwargs())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert PagedKVCache(**{**kw, "quantize": False}).attention_kwargs() == {}
+
+
+SPLIT_CASES = [
+    (dict(), {}),                                           # GQA g=2
+    (dict(hq=8, hkv=2, psize=16, pages_per_seq=6), dict(window=20)),
+    (dict(sq=5, hq=8, hkv=2), dict(softcap=5.0)),
+    (dict(sq=1, hq=4, hkv=4, pages_per_seq=8), dict(window=9, softcap=2.0)),
+    (dict(hq=4, hkv=1, pages_per_seq=8), dict(scale=0.3)),
+]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("split_keys", [8, 16, 24, 1000])
+@pytest.mark.parametrize("case,opts", SPLIT_CASES)
+def test_split_and_merge_vs_reference_and_jax(case, opts, split_keys, int8):
+    """K3's split-KV math in plain PyTorch (partials over key ranges, some
+    empty: past a length or below the window, merged by their m and l)
+    equals the port's and JAX's paged_attention_reference on the same numpy
+    inputs, fp32 rtol 1e-5 / atol 2e-5; int8 pages dequantized as the kernel
+    dequantizes them."""
+    q, k, v, lengths, table = _case(**case)
+    if int8:
+        kq = ops.quantize_int8(torch.tensor(k))
+        vq = ops.quantize_int8(torch.tensor(v))
+        k = (kq.values.float() * kq.scales).numpy()
+        v = (vq.values.float() * vq.scales).numpy()
+    width = table.shape[1] * k.shape[2]
+    splits = -(-width // split_keys)
+    got = ops.paged_attention_split_reference(
+        *_torch(q, k, v, lengths, table), splits, split_keys, **opts)
+    want = ops.paged_attention_reference(*_torch(q, k, v, lengths, table),
+                                         **opts)
+    jwant = jops.paged_attention_reference(
+        *(jnp.asarray(a) for a in (q, k, v, lengths, table)), **opts)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), **TOL)
+
+
+@pytest.mark.parametrize("b,hkv,rows,d,pps,psize,want_splits", [
+    (8, 4, 2, 256, 512, 16, 32),     # Gemma-2 decode: 8 x 4 pairs
+    (8, 12, 1, 64, 64, 16, 4),       # GPT-2 decode
+    (7, 12, 256, 64, 48, 16, 1),     # GPT-2 prefill chunk: grid full already
+    (7, 4, 512, 256, 64, 16, 1),     # Gemma-2 prefill chunk
+    (8, 4, 2, 256, 16, 16, 1),       # a table of 256 keys
+    (2, 2, 10, 128, 9, 64, 2),       # page 64: ranges of whole pages
+])
+def test_split_plan_from_table_width(b, hkv, rows, d, pps, psize,
+                                     want_splits):
+    """The wrapper's split plan depends on shapes alone (the table's width,
+    never lengths, which lie on the card): ranges are whole multiples of 32
+    keys and of the page, cover the width, and leave no range empty of the
+    width; a small grid grows to at least two blocks an SM where the width
+    allows. 132 SMs: an H100 SXM's."""
+    pa = importlib.import_module("np_modeling_tpu_torch.ops.paged_attention")
+    splits, keys = pa.split_plan(b, hkv, rows, d, pps, psize, 132)
+    width = pps * psize
+    assert splits == want_splits
+    assert splits * keys >= width > (splits - 1) * keys
+    if splits > 1:
+        assert keys % 32 == 0 and keys % psize == 0
+        assert keys >= pa.MIN_SPLIT_KEYS
+        tile = 2 if rows <= 2 else (32 if d > 128 else 64)
+        blocks = -(-rows // tile) * hkv * b * splits
+        assert blocks >= pa.FULL_GRID_PER_SM * 132 \
+            or keys * (splits - 1) < width

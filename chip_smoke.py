@@ -18,9 +18,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
       <= 2e-2 with bf16 pages; with int8 pages (per-token fp32 scales)
       <= 1e-4 with fp32 q, <= 2e-2 with bf16 q. The int8-weight matmul K4
       (bf16 and fp32 x, bf16 and fp32 out, with and without bias, at the
-      FFN's decode and prefill shapes and ragged ones): fp32 out max abs
-      err <= 1e-4 times max(1, max |plain|), bf16 out within one bf16 ulp
-      (or that bound near 0). Flash attention (o, lse, dq, dk, dv):
+      FFN's decode and prefill shapes and ragged ones, and each of its
+      schedules forced through its plan: skinny at m 1..64 with its own
+      and forced tiles and cluster splits, wide at m 65..1792 and with
+      split-k, simple; the same bits on a second call, the launch counted
+      under its schedule): fp32 out max abs err <= 1e-4 times max(1, max
+      |plain|), bf16 out within one bf16 ulp (or that bound near 0). Flash attention (o, lse, dq, dk, dv):
       max abs err <= 1e-4 (fp32) or 2e-2 (bf16) times max(1, max |plain|),
       for K1/K2, for K1 with segment ids (packed documents) and K2 or the
       split backward K5 behind it, causal and full, and for K5 without
@@ -47,7 +50,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
       LayerNorm K8 (out, dx, dgamma, dbeta): fp32 max abs err <= 1e-5 times
       max(1, max |plain|); a bf16 output within one bf16 ulp (or that fp32
       bound, where a value is so near 0 that fp32 rounding before the last
-      cast exceeds its ulp). Dropout K7: the kernel's mask equals the plain
+      cast exceeds its ulp); its backward alone at d 64..8192 and 1..16384
+      rows, dx, dgamma and dbeta the same bits on a second call. Dropout K7: the kernel's mask equals the plain
       twin's bit for bit and so do the values, the keep share lies within
       5 sigma of the binomial, the backward drops what the forward dropped,
       another seed or salt draws another mask, rate 0 and eval launch
@@ -75,12 +79,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
   (j) quantized serving: (d)'s GPT-2 small with its FFN weights quantized
       to int8 (quantize_params_int8 -> params_from_numpy) and int8 KV pages
       (quantize_kv=True), bf16 compute, on (d)'s traffic; checks tokens,
-      pages, that every FFN product launched K4 (24 a forward), every
+      pages, that every FFN product launched K4 (24 a forward; its decode
+      steps on K4's skinny schedule, its prefill chunks on wide), every
       attention call the int8-page kernel (12 a forward) and every
       LayerNorm K8 (25 a forward), and that fp32 greedy tokens equal those
       of the plain version (near-ties printed);
   (k) quantized serving timings: K4 at the decode and prefill shapes
-      beside dequantize + torch.mm and torch.mm with bf16 weights,
+      beside dequantize + torch.mm and torch.mm with bf16 weights (also in
+      rounds of torch.mm, K4, K4, torch.mm),
       int8-page decode beside bf16-page decode, and the quantized engine's
       prefill and decode beside (e)'s bf16 engine (a report, not a check);
   (f) training: the bench GPT (bench.py: 4 layers, d 1024, 8 heads, FFN
@@ -115,8 +121,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
       frequencies (p ~ 1/rank), as text has: uniform tokens leave a model
       nothing to learn, so their loss cannot show that training works;
   (i) entry-point timings: LayerNorm forward and backward at [8192, 768]
-      and [16384, 1024] and dropout at [8, 1024, 768] (bf16), and the
-      whole GPT-2 small train step;
+      and [16384, 1024] (the backward also in rounds of F.layer_norm's
+      autograd backward, K8, K8, F.layer_norm) and dropout at [8, 1024,
+      768] (bf16), and the whole GPT-2 small train step;
   (l) the forced training path: (h)'s GPT-2 small run under
       dispatch.force_kernels(), so every Linear's forward, dx and dw runs
       K11. Step 0 forced against the default step (cuBLAS products) with
@@ -1139,6 +1146,38 @@ def phase_fused_vs_plain():
           f"max abs err fp32 fwd {errs['layer_norm_fwd'][0]:.3e} bwd "
           f"{errs['layer_norm_bwd'][0]:.3e}, bf16 fwd "
           f"{errs['layer_norm_fwd'][1]:.3e} bwd {errs['layer_norm_bwd'][1]:.3e}")
+    n_bwd = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 768, 1000, 1001, 1024, 1025, 8192):
+            for rows in (1, 7, 33, 16384):
+                x = torch.tensor(rng.standard_normal((rows, d)) * 2.0 + 0.5,
+                                 dtype=torch.float32, device="cuda").to(dtype)
+                gamma = torch.tensor(rng.standard_normal(d) * 0.1 + 1.0,
+                                     dtype=torch.float32, device="cuda")
+                dz = torch.tensor(rng.standard_normal((rows, d)),
+                                  dtype=torch.float32, device="cuda").to(dtype)
+                got = fused.layer_norm_bwd_cuda(x, gamma, dz, LN_EPS)
+                again = fused.layer_norm_bwd_cuda(x, gamma, dz, LN_EPS)
+                want = fused.layer_norm_bwd_plain(x, gamma, dz, LN_EPS)
+                torch.cuda.synchronize()
+                slot = int(dtype == torch.bfloat16)
+                for name, a, b, c in zip(("dx", "dgamma", "dbeta"), got, want,
+                                         again):
+                    err, ok = _bf16_or_f32_err(a, b)
+                    if not (ok and torch.equal(a, c)):
+                        raise AssertionError(
+                            f"(c) layer_norm backward [{rows}, {d}] "
+                            f"{str(dtype)[6:]}: {name} max abs err {err}, "
+                            f"equal run to run {torch.equal(a, c)}")
+                    errs["layer_norm_bwd"][slot] = max(
+                        errs["layer_norm_bwd"][slot], err)
+                n_bwd += 1
+                del x, dz, got, again, want
+    print(f"(c) layer_norm backward: {n_bwd} cases pass (d 64..8192 across "
+          f"the warp kernel's 1024, rows 1, 7, 33, 16384), dx, dgamma and "
+          f"dbeta bit-equal run to run; max abs err fp32 "
+          f"{errs['layer_norm_bwd'][0]:.3e}, bf16 "
+          f"{errs['layer_norm_bwd'][1]:.3e}")
 
     n_drop = 0
     for shape in ((8, 1024, 768), (3, 1001), (5, 33, 17), (7,), (1,)):
@@ -1231,6 +1270,95 @@ def phase_int8_matmul_vs_plain():
     print(f"(c) int8_matmul: {n} cases pass: max abs err fp32 out "
           f"{errs[f32]:.3e} (tol {F32_TOL} x max(1, max |plain|)), bf16 out "
           f"{errs[f16]:.3e} (one bf16 ulp)")
+    return errs[f32], errs[f16]
+
+
+# (k, n) of (c)'s forced-schedule K4 cases: GPT-2 small's FFN products and
+# ragged ones (k not a multiple of 8 or 64, n not of 16 or of a tile).
+K4_FORCED_KN = ((768, 3072), (3072, 768), (100, 30), (4104, 144))
+
+
+def _k4_forced_plans(k, n):
+    """(schedule, m, plan) of (c)'s forced K4 cases at (k, n): skinny at
+    every m it takes, by its own plan and at 32-column tiles and 16 splits
+    asked for; wide where TMA reads x and the weight (k % 8 == 0, n % 16
+    == 0), also with 3 splits; simple."""
+    from np_modeling_tpu_torch.ops import quantization as quant
+    from np_modeling_tpu_torch.ops.fused import sm_count
+    sms = sm_count("cuda")
+    out = []
+    for m in (1, 8, 9, 63, 64):
+        own = quant.plan(m, n, k, sms)
+        out.append(("skinny", m, own))
+        rows, splits = quant.skinny_split(k, 16)
+        if rows <= quant.SKINNY_MAX_ROWS:
+            out.append(("skinny", m, quant.Plan("skinny", 32, splits, splits)))
+    if k % 8 == 0 and n % 16 == 0:
+        out += [("wide", m, quant.plan(m, n, k, sms)) for m in (65, 300, 1792)]
+        out.append(("wide", 65, quant.Plan("wide", 128, 3, 1)))
+    out += [("simple", m, quant.Plan("simple", 64, 1, 1)) for m in (1, 65)]
+    return out
+
+
+def phase_int8_schedules_vs_plain():
+    """K4's three schedules forced through the wrapper's plan (skinny at m
+    1..64 and forced tiles and splits, wide at m 65..1792 and with split-k,
+    simple) against the plain version, bf16 x, bf16 and fp32 out, with
+    bias, by (c)'s K4 criteria; the same bits on a second call; each
+    launch counted under its schedule and its (schedule, k, n). Returns
+    (max err fp32 out, bf16 out)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    from np_modeling_tpu_torch.ops import quantization as quant
+    f32, f16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(SEED + 13)
+    errs = {f32: 0.0, f16: 0.0}
+    n_cases, counted = 0, {"skinny": 0, "wide": 0, "simple": 0}
+    cached = quant._cached_plan
+    try:
+        for k, n in K4_FORCED_KN:
+            for schedule, m, p in _k4_forced_plans(k, n):
+                x, wq, scale, bias = _k4_inputs(m, k, n, rng)
+                x = x.to(f16)
+                quant._cached_plan = lambda *a, p=p: p
+                for out_dtype in (f16, f32):
+                    name = f"launches_{schedule}"
+                    by_shape = ops.int8_matmul.launches_by_shape
+                    before = (getattr(ops.int8_matmul, name),
+                              by_shape.get((schedule, k, n), 0))
+                    got = ops.int8_matmul(x, wq, scale, bias,
+                                          out_dtype=out_dtype)
+                    again = ops.int8_matmul(x, wq, scale, bias,
+                                            out_dtype=out_dtype)
+                    ran = getattr(ops.int8_matmul, name) - before[0]
+                    at_shape = by_shape[schedule, k, n] - before[1]
+                    if at_shape != ran:
+                        raise AssertionError(
+                            f"(c) int8_matmul {schedule} [{m}, {k}] x [{k}, "
+                            f"{n}]: {ran} launches, {at_shape} counted at "
+                            f"the shape")
+                    with dispatch.force_plain():
+                        want = ops.int8_matmul(x, wq, scale, bias,
+                                               out_dtype=out_dtype)
+                    torch.cuda.synchronize()
+                    err, ok = _bf16_or_f32_err(got, want, F32_TOL)
+                    tag = (f"int8_matmul {schedule} {tuple(p)} [{m}, {k}] x "
+                           f"[{k}, {n}] out {str(out_dtype)[6:]}")
+                    if not (ok and ran == 2 and torch.equal(got, again)
+                            and got.shape == (m, n)):
+                        raise AssertionError(
+                            f"(c) {tag}: max abs err {err}, {ran} launches "
+                            f"counted as {schedule}, run-to-run equal "
+                            f"{torch.equal(got, again)}")
+                    errs[out_dtype] = max(errs[out_dtype], err)
+                    counted[schedule] += ran
+                    n_cases += 1
+    finally:
+        quant._cached_plan = cached
+    print(f"(c) int8_matmul schedules: {n_cases} forced cases pass, each "
+          f"bit-equal on a second call; launches by schedule {counted}; max "
+          f"abs err fp32 out {errs[f32]:.3e}, bf16 out {errs[f16]:.3e}")
     return errs[f32], errs[f16]
 
 
@@ -1714,8 +1842,9 @@ def phase_quantized_engine(gpt, prompts):
     weights quantized to int8 (quantize_params_int8 -> params_from_numpy)
     served with int8 KV pages (quantize_kv=True) on (d)'s traffic, bf16
     compute. Checks tokens, pages, and that every FFN product launched K4
-    (24 a forward), every attention call the int8-page kernel (12 a
-    forward) and every LayerNorm K8 (25 a forward); then fp32 compute, the
+    (24 a forward: skinny at decode, wide at prefill), every attention call
+    the int8-page kernel (12 a forward) and every LayerNorm K8 (25 a
+    forward); then fp32 compute, the
     kernels' greedy tokens against the plain engine's. Returns the bf16
     quantized GPT, the tree and the launch counts."""
     import torch
@@ -1730,20 +1859,39 @@ def phase_quantized_engine(gpt, prompts):
           f"bf16 compute")
     eng = make_engine(qgpt, None, quantize_kv=True)
     free0 = eng.free_pages
-    ops.int8_matmul.launches = 0
+    ops.int8_matmul.launches = ops.int8_matmul.launches_skinny = 0
+    ops.int8_matmul.launches_wide = ops.int8_matmul.launches_simple = 0
+    ops.int8_matmul.launches_by_shape = {}
     ops.paged_attention.launches = ops.paged_attention.launches_int8 = 0
     ops.layer_norm.launches_fwd = 0
     streams, _, calls, chunk_calls = run_traffic(eng, prompts)
     counts = {"int8_matmul": ops.int8_matmul.launches,
+              "int8_matmul_skinny": ops.int8_matmul.launches_skinny,
+              "int8_matmul_wide": ops.int8_matmul.launches_wide,
+              "int8_matmul_simple": ops.int8_matmul.launches_simple,
               "paged_attention": ops.paged_attention.launches,
               "paged_attention_int8": ops.paged_attention.launches_int8,
               "layer_norm_fwd": ops.layer_norm.launches_fwd}
+    # K4's launches at each of GPT-2's FFN products, by schedule.
+    counts.update({f"int8_matmul_{s} {k}x{n}": ops.int8_matmul
+                   .launches_by_shape.get((s, k, n), 0)
+                   for s in ("skinny", "wide")
+                   for k, n in ((768, 3072), (3072, 768))})
     for sid in eng.live:
         eng.finish(sid)
     L, forwards = qgpt.config.num_layers, len(calls)
-    want = {"int8_matmul": 2 * L * forwards, "paged_attention": L * forwards,
+    # A decode step's FFN products have 8 rows (skinny), a prefill chunk
+    # call's B x 256 (wide).
+    want = {"int8_matmul": 2 * L * forwards,
+            "int8_matmul_skinny": 2 * L * (forwards - chunk_calls),
+            "int8_matmul_wide": 2 * L * chunk_calls, "int8_matmul_simple": 0,
+            "paged_attention": L * forwards,
             "paged_attention_int8": L * forwards,
             "layer_norm_fwd": (2 * L + 1) * forwards}
+    # Each forward runs each FFN product once a layer.
+    want.update({f"int8_matmul_{s} {k}x{n}": L * (
+        chunk_calls if s == "wide" else forwards - chunk_calls)
+        for s in ("skinny", "wide") for k, n in ((768, 3072), (3072, 768))})
     toks = np.concatenate([np.asarray(s) for s in streams.values()])
     print(f"(j) {len(toks)} tokens, {chunk_calls} prefill chunk calls, "
           f"{forwards - chunk_calls} decode steps; launches {counts} "
@@ -1863,13 +2011,16 @@ def _engine_timings(res, tag, eng, prompts, device_line):
 def phase_quant_timings(qgpt, prompts, serving, device_line):
     """(k) K4 at the decode and prefill shapes beside the plain version and
     two library yardsticks (the dequantize-then-torch.mm path, three calls;
-    torch.mm with the weight already bf16, the bf16-weight path), int8-page
+    torch.mm with the weight already bf16, the bf16-weight path, also in
+    AB_ROUNDS rounds of torch.mm, K4, K4, torch.mm), int8-page
     decode beside bf16-page decode on the same values, and the quantized
     engine's prefill and decode beside (e)'s bf16 engine. A report, not a
     check. Returns {name: (kernel, plain[, kernel device, plain device])}
     plus bounds and yardsticks."""
     import torch
     from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import quantization as quant
+    from np_modeling_tpu_torch.ops.fused import sm_count
     res = {}
     rng = np.random.default_rng(SEED + 11)
     for m, k, n in K4_SHAPES:
@@ -1891,6 +2042,14 @@ def phase_quant_timings(qgpt, prompts, serving, device_line):
 
         res["dequant+mm " + name] = (_cuda_ms(pair), _device_ms(pair))
         res["bf16 mm " + name] = (_cuda_ms(bf16w), _device_ms(bf16w))
+        ab = _alternate(bf16w, fn, _device_ms)
+        res["ab_mm " + name] = tuple(statistics.median(t) for t in ab)
+        sched = quant.plan(m, n, k, sm_count(x.device),
+                           aligned=x.data_ptr() % 16 == 0)
+        print(f"(k) {name} ({sched.schedule}, {sched.n_tile}-column tiles, "
+              f"{sched.splits} k splits): "
+              f"{_ab_line(ab, 'torch.mm (bf16 weight)', 'K4', '.5f')} "
+              f"[{device_line}]")
         print(f"(k) {name}: bound {res['bound ' + name][0]:.5f} ms "
               f"({res['bound ' + name][1]}); yardsticks, wall / device ms: "
               f"dequantize + torch.mm (three calls, no bias) "
@@ -2799,10 +2958,20 @@ def phase_entry_timings(gpt, corpus, device_line):
             "i", f"F.layer_norm forward [{rows}, {d}] bf16", lib_fwd,
             device_line)
         ly = F.layer_norm(lx, (d,), lg, lb, LN_EPS)
+
+        def lib_bwd(ly=ly, lx=lx, lg=lg, lb=lb, dz=dz):
+            return torch.autograd.grad(ly, (lx, lg, lb), dz, retain_graph=True)
+
         res["library " + bwd_name] = _library(
             "i", f"F.layer_norm backward (autograd) [{rows}, {d}] bf16",
-            lambda ly=ly, lx=lx, lg=lg, lb=lb, dz=dz: torch.autograd.grad(
-                ly, (lx, lg, lb), dz, retain_graph=True), device_line)
+            lib_bwd, device_line)
+        ab = _alternate(lib_bwd, bwd, _device_ms)
+        res["ab " + bwd_name] = tuple(statistics.median(t) for t in ab)
+        bound = res["bound " + bwd_name][0]
+        print(f"(i) {bwd_name}: "
+              f"{_ab_line(ab, 'F.layer_norm autograd backward', 'K8', '.5f')}"
+              f"; {bound / res['ab ' + bwd_name][1]:.1%} of its bound "
+              f"[{device_line}]")
         del lx, lg, lb, ly
     x = rand(GPT2_B, GPT2_S, 768)
     seed = 12345
@@ -3878,6 +4047,7 @@ def main(phases="abcdefghijklmnopqrst"):
     paged8_err = phase_paged_vs_plain(int8=True)
     paged256_err = phase_paged_options_vs_plain()
     k4_err = phase_int8_matmul_vs_plain()
+    k4_err = tuple(map(max, k4_err, phase_int8_schedules_vs_plain()))
     flash_err = phase_flash_vs_plain()
     sched_err = phase_flash_schedules_vs_plain()
     phase_flash_no_key_vs_plain()
@@ -3977,7 +4147,11 @@ def main(phases="abcdefghijklmnopqrst"):
         return 0
     packed_shape = "b8 h12 s1024 d64 causal bf16"
     shape = "b4 h8 s4096 d128 causal bf16"
-    k4 = "int8_matmul [8, 768] x [768, 3072] bf16 bias"
+    # (j) runs K4's decode shapes on skinny and its prefill shapes on wide.
+    k4_at_shape = {
+        f"int8_matmul [{m}, {k}] x [{k}, {n}] bf16 bias": quant_launches[
+            f"int8_matmul_{'skinny' if m == 8 else 'wide'} {k}x{n}"]
+        for m, k, n in K4_SHAPES}
     f32, f16 = torch.float32, torch.bfloat16
     # name, source, replaces, launches, (max err fp32, bf16), results, key
     rows = [
@@ -3987,9 +4161,17 @@ def main(phases="abcdefghijklmnopqrst"):
         ("paged_attention_int8", PAGED_SOURCE,
          "np_modeling_tpu/ops/paged_attention.py:221",
          quant_launches["paged_attention_int8"], paged8_err, quant_res,
-         "paged_attention decode b8 ctx512-800 bf16 q, int8 pages"),
-        ("int8_matmul", INT8_SOURCE, "np_modeling_tpu/ops/quantization.py:242",
-         quant_launches["int8_matmul"], k4_err, quant_res, k4),
+         "paged_attention decode b8 ctx512-800 bf16 q, int8 pages")] + [
+        # K4 at each of its four shapes in (k); `launches` is every K4
+        # launch of (j), `launches_at_shape` those at the row's (schedule,
+        # k, n), both counted by the wrapper.
+        (name, INT8_SOURCE, "np_modeling_tpu/ops/quantization.py:242",
+         quant_launches["int8_matmul"], k4_err, quant_res,
+         f"int8_matmul [{m}, {k}] x [{k}, {n}] bf16 bias")
+        for name, (m, k, n) in zip(
+            ("int8_matmul", "int8_matmul_decode_k3072",
+             "int8_matmul_prefill_k768", "int8_matmul_prefill_k3072"),
+            K4_SHAPES)] + [
         ("flash_attention_fwd", FLASH_SOURCE,
          "np_modeling_tpu/ops/attention.py:756", flash_launches[0],
          (flash_err[f32][0], flash_err[f16][0]), training_res,
@@ -4007,6 +4189,11 @@ def main(phases="abcdefghijklmnopqrst"):
              "layer_norm forward [16384, 1024] bf16"),
             ("layer_norm_bwd", "np_modeling_tpu/ops/fused.py:58",
              "layer_norm backward [16384, 1024] bf16"))] + [
+        # GPT-2 small's own LayerNorms (d 768) in (h): every K8 backward
+        # launch of the entry point.
+        ("layer_norm_bwd_d768", FUSED_SOURCE, "np_modeling_tpu/ops/fused.py:58",
+         entry_launches["layer_norm_bwd"], fused_err["layer_norm_bwd"],
+         entry_res, f"layer_norm backward [{GPT2_B * GPT2_S}, 768] bf16"),
         ("matmul", MATMUL_SOURCE, "np_modeling_tpu/ops/matmul.py:27",
          forced_launches["matmul"], k11_err, forced_res,
          "matmul [8192, 768] x [768, 3072] trans_a=False trans_b=False bias "
@@ -4059,8 +4246,10 @@ def main(phases="abcdefghijklmnopqrst"):
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its
     # operations over 989 TFLOP/s; "library_ms" / "library_device_ms": one
     # PyTorch call computing the same function (null where none does; K4's
-    # dequantize + torch.mm yardstick, three calls, is printed in (k); none
-    # computes K10's stochastic rounding).
+    # dequantize + torch.mm yardstick, three calls, is printed in (k), and
+    # torch.mm on the weight already bf16 stands beside it in turns as
+    # "bf16_mm_device_ms_in_turns"; none computes K10's stochastic
+    # rounding). K4's rows carry its launches by schedule.
     kernels = []
     for name, source, where, launches, err, res, key in rows:
         ms, (bound_ms, bound_by) = res[key], res["bound " + key]
@@ -4079,6 +4268,12 @@ def main(phases="abcdefghijklmnopqrst"):
         if "ab " + key in res:  # device ms in AB rounds with the library call
             kernels[-1]["library_device_ms_in_turns"], \
                 kernels[-1]["device_ms_in_turns"] = res["ab " + key]
+        if "ab_mm " + key in res:  # K4: in AB rounds with torch.mm, bf16 weight
+            kernels[-1]["bf16_mm_device_ms_in_turns"], \
+                kernels[-1]["device_ms_in_turns"] = res["ab_mm " + key]
+            kernels[-1].update({f"launches_{s}": quant_launches[
+                f"int8_matmul_{s}"] for s in ("skinny", "wide", "simple")})
+            kernels[-1]["launches_at_shape"] = k4_at_shape[key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

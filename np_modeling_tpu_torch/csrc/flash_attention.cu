@@ -1702,39 +1702,13 @@ int opts_of(const Params& p) {
 
 dim3 tiles(int n, int rows, int bh) { return dim3((n + rows - 1) / rows, bh); }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                         cudaEnableDefault, &status) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    if (status != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // The map of a bf16 [b, h, s, d] view with element strides st (d contiguous), read in
 // boxes of [rows][64] (one 64-wide column block of `rows` positions of one head),
 // 128-byte swizzled; positions past s read as zeros. The stride of a dimension of size
 // 1 is never used and is given as one that TMA accepts.
 bool make_map(CUtensorMap* map, const void* ptr, const Strides& st, int b, int h, int s, int d,
               int rows) {
-  EncodeTiled fn = encode_tiled();
+  wg::EncodeTiled fn = wg::encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};

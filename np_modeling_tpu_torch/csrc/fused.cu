@@ -18,9 +18,9 @@
 // The backward recomputes the statistics from (x, gamma), forms dyhat = dz *
 // gamma and writes dx = rstd * (dyhat - mean(dyhat) - yhat * mean(dyhat *
 // yhat)) in dz's dtype, and per-block fp32 partials of dgamma = sum(dz * yhat)
-// and dbeta = sum(dz) [n_blocks, d], which the caller sums (as JAX sums its
-// per-tile partials, fused.py:143-144): partials, not atomics, so the result
-// is the same from run to run. Dropout keeps element i when the uint32 that
+// and dbeta = sum(dz) [n_blocks, d], which a second kernel sums in block order
+// (as JAX sums its per-tile partials, fused.py:143-144): partials, not atomics,
+// so the result is the same from run to run. Dropout keeps element i when the uint32 that
 // Philox4x32-10 gives it is below the threshold (1 - rate) * (2^32 - 1) and
 // writes x / keep rounded once to x's dtype there, 0 elsewhere. Its bits are a
 // pure function of (seed, i): the key is the 64-bit seed, the counter i / 4
@@ -34,19 +34,33 @@
 // bytes bound them (LayerNorm forward at [16384, 1024] bf16 moves 64 MB, about
 // 20 us at 3.35 TB/s; dropout on [8, 1024, 768] bf16 25 MB, about 8 us; ten
 // Philox rounds cost about as much integer work as that). The designs read
-// each element once and write it once: a row lives in registers (at most 16
-// elements a thread, a power-of-two team of 32..512 threads a row, 16-byte
-// vector loads where the row allows), its sums are warp shuffles plus one
-// shared-memory step when a row spans several warps, and the backward keeps
-// its dgamma/dbeta partials in registers across the rows a block walks, so
-// they cost one [n_blocks, d] write, not a read-modify-write per row. Dropout
-// reads and writes 16 bytes a thread and draws its bits in registers.
+// each element once and write it once. The forward: a row lives in registers
+// (at most 16 elements a thread, a power-of-two team of 32..512 threads a row,
+// 16-byte vector loads where the row allows), its sums are warp shuffles plus
+// one shared-memory step when a row spans several warps. Dropout reads and
+// writes 16 bytes a thread and draws its bits in registers.
+//
+// The backward, d <= 1024 (every LayerNorm of the main paths: d 768 and 1024),
+// layer_norm_bwd_warp: one warp owns a row, at up to 32 elements a lane, so
+// every row sum (mean, variance, m1 and m2) is shuffles only and the row loop
+// has no block barrier. The grid is persistent (ln_bwd_plan: at most two
+// blocks of 8 warps an SM); each warp walks rows at a stride and, where rows
+// are whole 16-byte vectors, copies the next row's x and dz into its own
+// half of a shared-memory double buffer (cp.async) before it reduces the
+// current one, so a warp keeps two rows in flight. Its dgamma/dbeta sums stay
+// in registers across all its rows; at the end the block's warps are summed
+// through shared memory in warp order into one [d] partial a block, and
+// ln_bwd_reduce sums the blocks' partials in block order: the same bits on
+// every run. d > 1024 keeps the row team of the forward (layer_norm_bwd, a
+// power-of-two team of 64..512 threads a row, its dgamma/dbeta partials in
+// registers across the rows a block walks), into the same partials.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "wgmma.cuh"  // cp.async
 
 namespace {
 
@@ -314,6 +328,190 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// ---- the backward for d <= 1024: a warp a row -------------------------------------
+
+constexpr int kBwdWarps = 8;    // warps a block; each owns one row at a time
+constexpr int kWarpElems = 32;  // row elements a lane holds at most: d <= 1024
+
+// Sums over the warp's lanes; every lane gets the same bits.
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// The warp kernel's shared memory before gamma: the rows' double buffers, 4 d
+// elements a warp (16-byte rows only), or the block's [kBwdWarps][d] fp32 partial
+// sums, whichever is larger (the sums reuse the buffers after the row loop).
+template <typename T, int V>
+__host__ __device__ constexpr size_t bwd_front_bytes(int d) {
+  const size_t buf = V * sizeof(T) == 16 ? static_cast<size_t>(kBwdWarps) * 4 * d * sizeof(T) : 0;
+  const size_t red = static_cast<size_t>(kBwdWarps) * d * sizeof(float);
+  return buf > red ? buf : red;
+}
+
+// Lane `lane` holds columns (c * 32 + lane) * V .. + V for c < kWarpElems / V. With
+// 16-byte vectors (V * sizeof(T) == 16: x, dz and dx 16-byte aligned, d a multiple
+// of V) each warp double-buffers its rows in shared memory: slot s of warp w holds
+// x at smem + (4 w + 2 s) d and dz d elements after it, each lane copying (cp.async)
+// and reading back its own chunks only, so no barrier orders them: the warp copies
+// its next row while it reduces this one (two rows in flight a warp). Otherwise the
+// rows are read from device memory as they are needed. gamma is staged once a block,
+// after the buffers. The loop has no block barrier: a warp whose rows run out leaves it.
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdWarps * 32, sizeof(T) == 2 ? 2 : 1)
+    layer_norm_bwd_warp(const T* __restrict__ x, const float* __restrict__ gamma,
+                        const T* __restrict__ dz, T* __restrict__ dx, float* __restrict__ part,
+                        long long n, int d, float eps) {
+  constexpr int kChunks = kWarpElems / V;
+  constexpr bool kAsync = V * sizeof(T) == 16;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  T* buf = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(warp) * 4 * d;
+  float* gs = reinterpret_cast<float*>(smem_raw + bwd_front_bytes<T, V>(d));
+  float dg[kWarpElems], db[kWarpElems];
+#pragma unroll
+  for (int k = 0; k < kWarpElems; ++k) dg[k] = db[k] = 0.f;
+
+  const long long stride = static_cast<long long>(gridDim.x) * kBwdWarps;
+  long long row = static_cast<long long>(blockIdx.x) * kBwdWarps + warp;
+  auto issue = [&](long long r, int slot) {  // row r's x and dz into `slot`
+    T* bx = buf + 2 * slot * d;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = (c * 32 + lane) * V;
+      if (col < d) {
+        wg::cp_async16(wg::smem_u32(bx + col), x + r * d + col, 16);
+        wg::cp_async16(wg::smem_u32(bx + d + col), dz + r * d + col, 16);
+      }
+    }
+  };
+  if (kAsync && row < n) issue(row, 0);
+  wg::cp_async_commit();
+  for (int i = threadIdx.x; i < d; i += blockDim.x) gs[i] = gamma[i];
+  __syncthreads();
+  for (int slot = 0; row < n; row += stride, slot ^= 1) {
+    if (kAsync) {
+      if (row + stride < n) issue(row + stride, slot ^ 1);
+      wg::cp_async_commit();
+      wg::cp_async_wait<1>();  // this row's copies have landed
+    }
+    const T* xr = kAsync ? buf + 2 * slot * d : x + row * d;
+    const T* zr = kAsync ? xr + d : dz + row * d;
+    float v[kWarpElems];
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = (c * 32 + lane) * V;
+      if (col < d) {
+        load_vec<T, V>(xr + col, v + c * V);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[c * V + i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) s += v[c * V + i];
+    }
+    const float mean = warp_sum(s) / d;
+    float q = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if ((c * 32 + lane) * V < d) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float t = v[c * V + i] - mean;
+          q += t * t;
+        }
+      }
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(q) / d + eps);
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = (c * 32 + lane) * V;
+      if (col < d) {
+        float g[V], gm[V];
+        load_vec<T, V>(zr + col, g);
+        load_f32<V>(gs + col, gm);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const int k = c * V + i;
+          const float yhat = (v[k] - mean) * rstd;
+          v[k] = yhat;
+          dg[k] += g[i] * yhat;
+          db[k] += g[i];
+          const float dy = g[i] * gm[i];
+          m1 += dy;
+          m2 += dy * yhat;
+        }
+      }
+    }
+    m1 = warp_sum(m1) / d;
+    m2 = warp_sum(m2) / d;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = (c * 32 + lane) * V;
+      if (col < d) {
+        float g[V], gm[V], o[V];
+        load_vec<T, V>(zr + col, g);  // dyhat again: dz * gamma
+        load_f32<V>(gs + col, gm);
+#pragma unroll
+        for (int i = 0; i < V; ++i) o[i] = rstd * (g[i] * gm[i] - m1 - v[c * V + i] * m2);
+        store_vec<T, V>(dx + row * d + col, o);
+      }
+    }
+  }
+  wg::cp_async_wait<0>();
+
+  // The block's partials, its warps summed in warp order: dgamma into part[0][block],
+  // dbeta into part[1][block] ([2][gridDim.x][d]).
+  float* red = reinterpret_cast<float*>(smem_raw);  // [kBwdWarps][d]
+  for (int which = 0; which < 2; ++which) {
+    __syncthreads();  // the double buffer, or the last pass's sums, are free
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = (c * 32 + lane) * V;
+      if (col < d) {
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          red[warp * d + col + i] = which == 0 ? dg[c * V + i] : db[c * V + i];
+      }
+    }
+    __syncthreads();
+    float* dst = part + (static_cast<size_t>(which) * gridDim.x + blockIdx.x) * d;
+    for (int col = threadIdx.x; col < d; col += blockDim.x) {
+      float t = 0.f;
+      for (int w = 0; w < kBwdWarps; ++w) t += red[w * d + col];
+      dst[col] = t;
+    }
+  }
+}
+
+// sums[j][col] = the sum of part[j][b][col] over the blocks b, in a fixed order: warp
+// w of a block of 32 sums b = w, w + 32, .. in that order for 32 consecutive (j, col),
+// and the warps' sums are added in warp order.
+constexpr int kReduceWarps = 32;
+
+__global__ void __launch_bounds__(kReduceWarps * 32)
+    ln_bwd_reduce(const float* __restrict__ part, float* __restrict__ sums, int blocks, int d) {
+  __shared__ float red[kReduceWarps][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i = blockIdx.x * 32 + lane;  // j * d + col
+  float t = 0.f;
+  if (i < 2 * d) {
+    const float* p = part + static_cast<size_t>(i / d) * blocks * d + i % d;
+    for (int b = warp; b < blocks; b += kReduceWarps) t += p[static_cast<size_t>(b) * d];
+  }
+  red[warp][lane] = t;
+  __syncthreads();
+  if (warp == 0 && i < 2 * d) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kReduceWarps; ++w) s += red[w][lane];
+    sums[i] = s;
+  }
+}
+
 // Each thread takes one 16-byte vector (4 fp32 or 8 bf16 elements) a step.
 template <typename T>
 __global__ void dropout(const T* __restrict__ x, T* __restrict__ out, long long n, uint32_t k0,
@@ -491,16 +689,33 @@ int launch_fwd(const void* x, const float* gamma, const float* beta, void* out, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward into part [2][n_blocks][d] (dgamma's partials, then dbeta's), then
+// their fixed-order sum into sums [2][d]. t_row 32: a warp a row (d <= 1024), else
+// the row team.
 template <typename T, int V>
-int launch_bwd(const void* x, const float* gamma, const void* dz, void* dx, float* dg_part,
-               float* db_part, long long n, int d, int t_row, int n_blocks, float eps,
+int launch_bwd(const void* x, const float* gamma, const void* dz, void* dx, float* part,
+               float* sums, long long n, int d, int t_row, int n_blocks, float eps,
                cudaStream_t stream) {
-  const int block = block_of(t_row);
-  const int rpb = block / t_row;
-  const size_t smem = sizeof(float) * (kRedFloats + (rpb > 1 ? 2 * rpb * d : 0));
-  layer_norm_bwd<T, V><<<n_blocks, block, smem, stream>>>(
-      static_cast<const T*>(x), gamma, static_cast<const T*>(dz), static_cast<T*>(dx),
-      dg_part, db_part, n, d, t_row, eps);
+  const T* xt = static_cast<const T*>(x);
+  const T* dzt = static_cast<const T*>(dz);
+  T* dxt = static_cast<T*>(dx);
+  if (t_row == 32) {
+    const size_t smem = bwd_front_bytes<T, V>(d) + static_cast<size_t>(d) * sizeof(float);
+    auto kernel = layer_norm_bwd_warp<T, V>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<n_blocks, kBwdWarps * 32, smem, stream>>>(xt, gamma, dzt, dxt, part, n, d, eps);
+  } else {
+    const int block = block_of(t_row);
+    const int rpb = block / t_row;
+    const size_t smem = sizeof(float) * (kRedFloats + (rpb > 1 ? 2 * rpb * d : 0));
+    layer_norm_bwd<T, V><<<n_blocks, block, smem, stream>>>(
+        xt, gamma, dzt, dxt, part, part + static_cast<size_t>(n_blocks) * d, n, d, t_row, eps);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ln_bwd_reduce<<<(2 * d + 31) / 32, kReduceWarps * 32, 0, stream>>>(part, sums, n_blocks, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -524,23 +739,27 @@ extern "C" int np_layer_norm_fwd(const void* x, const float* gamma, const float*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dz and dx in x's dtype; dg_part and db_part fp32 [n_blocks, d], every entry
-// written (n_blocks <= the number of row groups, so each block has a row).
+// dz and dx in x's dtype. t_row 32: a warp a row (d <= 1024, layer_norm_bwd_warp);
+// otherwise the row team (d <= 16 t_row). part: fp32 [2][n_blocks][d], scratch that
+// every block writes (n_blocks <= the number of rows, or of row groups of a team);
+// sums: fp32 [2][d], dgamma then dbeta.
 extern "C" int np_layer_norm_bwd(const void* x, const float* gamma, const void* dz, void* dx,
-                                 float* dg_part, float* db_part, int dtype, long long n, int d,
+                                 float* part, float* sums, int dtype, long long n, int d,
                                  int t_row, int n_blocks, float eps, void* stream) {
-  if (bad_team(n, d, t_row) || n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bad =
+      t_row == 32 ? n < 0 || d < 1 || d > 32 * kWarpElems : bad_team(n, d, t_row);
+  if (bad || n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = aligned16(x) && aligned16(dz) && aligned16(dx) && aligned16(gamma);
   if (dtype == 0 && vec && d % 4 == 0)
-    return launch_bwd<float, 4>(x, gamma, dz, dx, dg_part, db_part, n, d, t_row, n_blocks, eps, s);
+    return launch_bwd<float, 4>(x, gamma, dz, dx, part, sums, n, d, t_row, n_blocks, eps, s);
   if (dtype == 0)
-    return launch_bwd<float, 1>(x, gamma, dz, dx, dg_part, db_part, n, d, t_row, n_blocks, eps, s);
+    return launch_bwd<float, 1>(x, gamma, dz, dx, part, sums, n, d, t_row, n_blocks, eps, s);
   if (dtype == 1 && vec && d % 8 == 0)
-    return launch_bwd<bf16, 8>(x, gamma, dz, dx, dg_part, db_part, n, d, t_row, n_blocks, eps, s);
+    return launch_bwd<bf16, 8>(x, gamma, dz, dx, part, sums, n, d, t_row, n_blocks, eps, s);
   if (dtype == 1)
-    return launch_bwd<bf16, 1>(x, gamma, dz, dx, dg_part, db_part, n, d, t_row, n_blocks, eps, s);
+    return launch_bwd<bf16, 1>(x, gamma, dz, dx, part, sums, n, d, t_row, n_blocks, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

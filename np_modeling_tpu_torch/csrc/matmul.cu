@@ -65,7 +65,6 @@ constexpr int kSlice = 64;                            // k depth of a bf16 stage
 constexpr int kOperandBytes = 128 * kSlice * 2;       // one operand's slice, 16 KB
 constexpr int kStageBytes = 2 * kOperandBytes;
 constexpr int kStages = 4;                            // mm_tma's ring
-constexpr int kGroupRows = 8;                         // tile rows of a raster group
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -73,22 +72,7 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// ---- bf16: the wgmma core, the epilogue -------------------------------------------
-
-// Epilogue staging: a warpgroup's [64, 128] tile of TO, rows padded by 16 bytes.
-template <typename TO>
-constexpr int kOutPitch = kBN + 16 / static_cast<int>(sizeof(TO));
-template <typename TO>
-constexpr int kOutBytes = 64 * kOutPitch<TO> * static_cast<int>(sizeof(TO));
-
-// The output tile (tm, tn) of block `id` under the grouped raster.
-__device__ __forceinline__ void tile_of(int id, int tiles_m, int tiles_n, int& tm, int& tn) {
-  const int group = kGroupRows * tiles_n;
-  const int first = (id / group) * kGroupRows;
-  const int rows = min(tiles_m - first, kGroupRows);
-  tm = first + (id % group) % rows;
-  tn = (id % group) / rows;
-}
+// ---- bf16: the wgmma core (its tile raster and epilogue are in wgmma.cuh) -----------
 
 // One k slice's products for warpgroup w: acc += op(a)[64 w.., slice] @ op(b)[slice, :].
 // KA / KB: the operand is k-contiguous in memory (K-major). Stage layout: a K-major
@@ -107,50 +91,6 @@ __device__ __forceinline__ void slice_products(float (&acc)[64], uint32_t sa, ui
   }
 }
 
-// Adds the bias, rounds once to TO and writes warpgroup w's 64 rows of the tile at
-// (m0, n0): staged in `stage` (this warpgroup's own), then 16-byte vectors where
-// the row allows them.
-template <typename TO>
-__device__ __forceinline__ void epilogue(const float (&acc)[64], TO* stage, const float* bias,
-                                         TO* out, int m, int n, int m0, int n0, int w) {
-  constexpr int P = kOutPitch<TO>, V = 16 / static_cast<int>(sizeof(TO));
-  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, g = lane / 4, q = lane % 4;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {        // 8-column groups
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {       // rows g and g + 8
-      const int r = warp * 16 + g + 8 * h, c = 8 * j + 2 * q;
-      float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
-      if (bias != nullptr) {
-        x0 += n0 + c < n ? bias[n0 + c] : 0.f;
-        x1 += n0 + c + 1 < n ? bias[n0 + c + 1] : 0.f;
-      }
-      stage[r * P + c] = from_f<TO>(x0);
-      stage[r * P + c + 1] = from_f<TO>(x1);
-    }
-  }
-  wg::bar_sync(1 + w, 128);
-  const bool vec = n % V == 0;
-  constexpr int kVecsRow = kBN / V;
-  for (int i = t; i < 64 * kVecsRow; i += 128) {
-    const int r = i / kVecsRow, c = (i % kVecsRow) * V;
-    const int row = m0 + w * 64 + r, col = n0 + c;
-    if (row >= m || col >= n) continue;
-    TO* dst = out + static_cast<size_t>(row) * n + col;
-    const TO* src = stage + r * P + c;
-    if (vec) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int e = 0; e < V && col + e < n; ++e) dst[e] = src[e];
-    }
-  }
-  wg::bar_sync(1 + w, 128);  // the staging is free for the next tile
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
 // The TMA variant, persistent: one block an SM walks the work items (output tile,
 // split of k) id = blockIdx.x, + gridDim.x, ..; split id / tiles, tile id % tiles.
 // 384 threads: warpgroups 0 and 1 consume, warpgroup 2 produces. The ring runs on
@@ -164,9 +104,10 @@ mm_tma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorM
        const float* __restrict__ bias, TO* __restrict__ out, int m, int n, int k, int k_chunk,
        int tiles_m, int tiles_n, int splits) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
+  uint8_t* smem = wg::align1024(smem_raw);
   TO* stage_out = reinterpret_cast<TO*>(smem + kStages * kStageBytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes + 2 * kOutBytes<TO>);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes + 2 * wg::kOutBytes<TO>);
   uint64_t* empty = full + kStages;
   const int tiles = tiles_m * tiles_n, items = tiles * splits;
 
@@ -185,7 +126,7 @@ mm_tma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorM
     if (threadIdx.x != 256) return;
     for (int id = blockIdx.x; id < items; id += gridDim.x) {
       int tm, tn;
-      tile_of(id % tiles, tiles_m, tiles_n, tm, tn);
+      wg::tile_of(id % tiles, tiles_m, tiles_n, tm, tn);
       const int m0 = tm * kBM, n0 = tn * kBN, k_begin = (id / tiles) * k_chunk;
       const int steps = max(0, (min(k, k_begin + k_chunk) - k_begin + kSlice - 1) / kSlice);
       for (int it = 0; it < steps; ++it, ++gi) {
@@ -215,7 +156,7 @@ mm_tma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorM
   const bool leader = threadIdx.x % 128 == 0;
   for (int id = blockIdx.x; id < items; id += gridDim.x) {
     int tm, tn;
-    tile_of(id % tiles, tiles_m, tiles_n, tm, tn);
+    wg::tile_of(id % tiles, tiles_m, tiles_n, tm, tn);
     const int m0 = tm * kBM, n0 = tn * kBN, k_begin = (id / tiles) * k_chunk;
     const int steps = max(0, (min(k, k_begin + k_chunk) - k_begin + kSlice - 1) / kSlice);
     float acc[64];
@@ -235,8 +176,8 @@ mm_tma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorM
     wg::fence_acc(acc);
     if (steps > 0 && leader) wg::mbar_arrive(&empty[(gi - 1) % kStages]);
     // A split writes its fp32 sum, without bias, to its slice of the workspace.
-    epilogue<TO>(acc, stage_out + w * (kOutBytes<TO> / static_cast<int>(sizeof(TO))), bias,
-                 out + static_cast<size_t>(id / tiles) * m * n, m, n, m0, n0, w);
+    wg::epilogue<TO>(acc, stage_out + w * (wg::kOutBytes<TO> / static_cast<int>(sizeof(TO))),
+                     bias, out + static_cast<size_t>(id / tiles) * m * n, m, n, m0, n0, w);
   }
 }
 
@@ -292,11 +233,11 @@ __global__ void __launch_bounds__(256, 1)
 mm_ragged(const bf16* __restrict__ a, const bf16* __restrict__ b, const float* __restrict__ bias,
           TO* __restrict__ out, int m, int n, int k, int k_chunk, int tiles_m, int tiles_n) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
+  uint8_t* smem = wg::align1024(smem_raw);
   TO* stage_out = reinterpret_cast<TO*>(smem + 2 * kStageBytes);
 
   int tm, tn;
-  tile_of(blockIdx.x, tiles_m, tiles_n, tm, tn);
+  wg::tile_of(blockIdx.x, tiles_m, tiles_n, tm, tn);
   const int m0 = tm * kBM, n0 = tn * kBN;
   const int k_begin = blockIdx.y * k_chunk, k_end = min(k, k_begin + k_chunk);
   const int steps = max(0, (k_end - k_begin + kSlice - 1) / kSlice);
@@ -337,22 +278,8 @@ mm_ragged(const bf16* __restrict__ a, const bf16* __restrict__ b, const float* _
     __syncthreads();
   }
   wg::fence_acc(acc);
-  epilogue<TO>(acc, stage_out + w * (kOutBytes<TO> / static_cast<int>(sizeof(TO))), bias, out,
-               m, n, m0, n0, w);
-}
-
-// out[i] = round(sum over splits s = 0, 1, .. of ws[s][i] + bias[col]), in that order.
-template <typename TO>
-__global__ void splitk_reduce(const float* __restrict__ ws, int splits,
-                              const float* __restrict__ bias, TO* __restrict__ out, int m, int n) {
-  const size_t total = static_cast<size_t>(m) * n;
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float x = 0.f;
-    for (int s = 0; s < splits; ++s) x += ws[s * total + i];
-    if (bias != nullptr) x += bias[i % n];
-    out[i] = from_f<TO>(x);
-  }
+  wg::epilogue<TO>(acc, stage_out + w * (wg::kOutBytes<TO> / static_cast<int>(sizeof(TO))), bias,
+                   out, m, n, m0, n0, w);
 }
 
 // ---- fp32: the FMA path ------------------------------------------------------------
@@ -503,56 +430,6 @@ int launch_f32(const void* a, const void* b, const float* bias, void* out, int m
 
 // ---- bf16 launches -------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &status) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    if (status != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a bf16 matrix [rows][cols] (row-major) read in boxes of [box_rows][64],
-// 128-byte swizzled, zeros past its edges.
-bool make_map(CUtensorMap* map, const void* p, int rows, int cols, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The current device's SMs (mm_tma's persistent grid), or 0 if they cannot be read.
-int sm_count() {
-  int dev = 0, count = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return count;
-}
-
 template <typename TO, bool KA, bool KB>
 int launch_bf16(const void* a, const void* b, const float* bias, void* out, float* ws, int m,
                 int n, int k, int variant, int splits, cudaStream_t s) {
@@ -567,11 +444,11 @@ int launch_bf16(const void* a, const void* b, const float* bias, void* out, floa
     if (k <= 0 || !aligned16(a) || !aligned16(b) || (KA ? k : m) % 8 || (KB ? k : n) % 8)
       return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap ma, mb;
-    if (!(KA ? make_map(&ma, a, m, k, 128) : make_map(&ma, a, k, m, 64)) ||
-        !(KB ? make_map(&mb, b, n, k, 128) : make_map(&mb, b, k, n, 64)))
+    if (!(KA ? wg::make_map(&ma, a, m, k, 128) : wg::make_map(&ma, a, k, m, 64)) ||
+        !(KB ? wg::make_map(&mb, b, n, k, 128) : wg::make_map(&mb, b, k, n, 64)))
       return static_cast<int>(cudaErrorInvalidValue);
-    const int smem = kStages * kStageBytes + 2 * kOutBytes<float> + 2 * kStages * 8 + 1024;
-    const int blocks = std::min(tiles_m * tiles_n * splits, sm_count());
+    const int smem = kStages * kStageBytes + 2 * wg::kOutBytes<float> + 2 * kStages * 8 + 1024;
+    const int blocks = std::min(tiles_m * tiles_n * splits, wg::sm_count());
     if (blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
     if (split) {
       auto kernel = mm_tma<float, KA, KB>;
@@ -587,7 +464,7 @@ int launch_bf16(const void* a, const void* b, const float* bias, void* out, floa
                                        tiles_m, tiles_n, 1);
     }
   } else {
-    const int smem = 2 * kStageBytes + 2 * kOutBytes<float> + 1024;
+    const int smem = 2 * kStageBytes + 2 * wg::kOutBytes<float> + 1024;
     const bf16* pa = static_cast<const bf16*>(a);
     const bf16* pb = static_cast<const bf16*>(b);
     if (split) {
@@ -607,7 +484,7 @@ int launch_bf16(const void* a, const void* b, const float* bias, void* out, floa
   if (err != cudaSuccess || !split) return static_cast<int>(err);
   const long long total = static_cast<long long>(m) * n;
   const int blocks = static_cast<int>(std::min(4096LL, (total + 255) / 256));
-  splitk_reduce<TO><<<blocks, 256, 0, s>>>(ws, splits, bias, static_cast<TO*>(out), m, n);
+  wg::splitk_reduce<TO><<<blocks, 256, 0, s>>>(ws, splits, bias, static_cast<TO*>(out), m, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the matmul kernel K11 (matmul.cu) and
-// the flash kernels (flash_attention.cu: the forward K1/K12 and the backward K2/K5):
-// warpgroup matrix multiplies (wgmma) with operands in shared memory or A in
-// registers, their shared-memory descriptors for the 128-byte swizzle, the copy
-// primitives around them (cp.async, mbarriers, TMA loads of rank 2 and 4) and the
-// warpgroup register hand-over (setmaxnreg).
+// Hopper (sm_90a) building blocks shared by the matmul kernel K11 (matmul.cu), the
+// int8-weight matmul K4 (int8_matmul.cu) and the flash kernels (flash_attention.cu:
+// the forward K1/K12 and the backward K2/K5): warpgroup matrix multiplies (wgmma) with
+// operands in shared memory or A in registers, their shared-memory descriptors for the
+// 128-byte swizzle, the copy primitives around them (cp.async, mbarriers, TMA loads of
+// rank 2 and 4, the driver's tensor-map encoder), the warpgroup register hand-over
+// (setmaxnreg), and the [128, 128] output tile that K11 and K4's wide schedule share
+// (its raster, epilogue and split-k reduce).
 //
 // Shared-memory layout ("SW128 tile"): a [rows][64] bf16 block, 128 bytes a row, the
 // 16-byte chunk c of row r stored at chunk c ^ (r % 8), the block 1024-byte aligned.
@@ -19,7 +21,9 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace wg {
@@ -281,5 +285,141 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// ---- the [128, 128] output tile of two consumer warpgroups (K11, K4's wide) --------
+
+constexpr int kTile = 128;      // output tile rows and columns
+constexpr int kGroupRows = 8;   // tile rows of a raster group
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// The output tile (tm, tn) of work item `id` under the grouped raster: the tiles that
+// run at once share their operands in L2.
+__device__ __forceinline__ void tile_of(int id, int tiles_m, int tiles_n, int& tm, int& tn) {
+  const int group = kGroupRows * tiles_n;
+  const int first = (id / group) * kGroupRows;
+  const int rows = min(tiles_m - first, kGroupRows);
+  tm = first + (id % group) % rows;
+  tn = (id % group) / rows;
+}
+
+template <typename T> __device__ __forceinline__ T round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 round_to<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Epilogue staging: a warpgroup's [64, 128] tile of TO, rows padded by 16 bytes.
+template <typename TO>
+constexpr int kOutPitch = kTile + 16 / static_cast<int>(sizeof(TO));
+template <typename TO>
+constexpr int kOutBytes = 64 * kOutPitch<TO> * static_cast<int>(sizeof(TO));
+
+// Adds the bias, rounds once to TO and writes warpgroup w's 64 rows of the tile at
+// (m0, n0) from its wgmma m64n128 accumulator: staged in `stage` (this warpgroup's
+// own), then 16-byte vectors where the row allows them.
+template <typename TO>
+__device__ __forceinline__ void epilogue(const float (&acc)[64], TO* stage, const float* bias,
+                                         TO* out, int m, int n, int m0, int n0, int w) {
+  constexpr int P = kOutPitch<TO>, V = 16 / static_cast<int>(sizeof(TO));
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {        // 8-column groups
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {       // rows g and g + 8
+      const int r = warp * 16 + g + 8 * h, c = 8 * j + 2 * q;
+      float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
+      if (bias != nullptr) {
+        x0 += n0 + c < n ? bias[n0 + c] : 0.f;
+        x1 += n0 + c + 1 < n ? bias[n0 + c + 1] : 0.f;
+      }
+      stage[r * P + c] = round_to<TO>(x0);
+      stage[r * P + c + 1] = round_to<TO>(x1);
+    }
+  }
+  bar_sync(1 + w, 128);
+  const bool vec = n % V == 0;
+  constexpr int kVecsRow = kTile / V;
+  for (int i = t; i < 64 * kVecsRow; i += 128) {
+    const int r = i / kVecsRow, c = (i % kVecsRow) * V;
+    const int row = m0 + w * 64 + r, col = n0 + c;
+    if (row >= m || col >= n) continue;
+    TO* dst = out + static_cast<size_t>(row) * n + col;
+    const TO* src = stage + r * P + c;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < V && col + e < n; ++e) dst[e] = src[e];
+    }
+  }
+  bar_sync(1 + w, 128);  // the staging is free for the next tile
+}
+
+// out[i] = round(sum over splits s = 0, 1, .. of ws[s][i] + bias[col]), in that order.
+template <typename TO>
+__global__ void splitk_reduce(const float* __restrict__ ws, int splits,
+                              const float* __restrict__ bias, TO* __restrict__ out, int m, int n) {
+  const size_t total = static_cast<size_t>(m) * n;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float x = 0.f;
+    for (int s = 0; s < splits; ++s) x += ws[s * total + i];
+    if (bias != nullptr) x += bias[i % n];
+    out[i] = round_to<TO>(x);
+  }
+}
+
+// ---- host: tensor maps and the card ---------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no -lcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &status) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (status != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a bf16 matrix [rows][cols] (row-major) read in boxes of [box_rows][64],
+// 128-byte swizzled, zeros past its edges.
+inline bool make_map(CUtensorMap* map, const void* p, int rows, int cols, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The current device's SMs (a persistent grid), or 0 if they cannot be read.
+inline int sm_count() {
+  int dev = 0, count = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return count;
+}
 
 }  // namespace wg

@@ -118,6 +118,40 @@ def ln_threads(d: int) -> int:
     return t
 
 
+# The backward's warp kernel: a warp a row up to this width, 8 warps a
+# block, at most this many blocks an SM for 2-byte rows (1 for fp32, whose
+# double buffer is twice as large).
+LN_BWD_WARP_D, LN_BWD_WARPS, LN_BWD_BLOCKS_PER_SM = 1024, 8, 2
+
+
+def ln_bwd_plan(n: int, d: int, sms: int, itemsize: int = 2):
+    """K8 backward's (threads a row, blocks) for ``n`` rows of ``d``, from
+    shapes alone. d <= LN_BWD_WARP_D: a warp a row (32), and a persistent
+    grid of at most LN_BWD_BLOCKS_PER_SM blocks an SM (one for fp32) of
+    LN_BWD_WARPS warps, never more blocks than it has rows for. Wider rows:
+    the forward's row team (``ln_threads``) and 4 blocks an SM of rows that
+    share a block of 128 threads, as before."""
+    if d <= LN_BWD_WARP_D:
+        ln_threads(d)                     # raises on d < 1
+        per_sm = LN_BWD_BLOCKS_PER_SM if itemsize <= 2 else 1
+        return 32, max(1, min(-(-n // LN_BWD_WARPS), per_sm * sms))
+    t_row = ln_threads(d)
+    rows_per_block = max(128 // t_row, 1)
+    return t_row, max(1, min(-(-n // rows_per_block), 4 * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device, read once per device."""
+    device = torch.device(device)
+    return _sms(device.index if device.index is not None
+                else torch.cuda.current_device())
+
+
 _ARGTYPES = {
     "np_layer_norm_fwd": [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -197,8 +231,9 @@ def layer_norm_fwd_cuda(x, gamma, beta, eps):
 
 def layer_norm_bwd_cuda(x, gamma, dz, eps):
     """K8 backward on CUDA tensors: dx in dz's dtype (= x's), dgamma and
-    dbeta in gamma's dtype from per-block fp32 partials summed here."""
-    t_row = _check_ln(x, gamma)
+    dbeta in gamma's dtype, summed on the card from per-block fp32
+    partials in a fixed order (``ln_bwd_plan`` sets the grid)."""
+    _check_ln(x, gamma)
     if dz.dtype != x.dtype or dz.shape != x.shape:
         raise ValueError(f"dz {dz.dtype} {tuple(dz.shape)} for x {x.dtype} "
                          f"{tuple(x.shape)}: the kernel takes them alike")
@@ -209,18 +244,15 @@ def layer_norm_bwd_cuda(x, gamma, dz, eps):
     if n == 0:
         zeros = torch.zeros(d, dtype=gamma.dtype, device=x.device)
         return dx.view(x.shape), zeros, zeros.clone()
-    rows_per_block = max(128 // t_row, 1)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_blocks = min(-(-n // rows_per_block), 4 * sms)
-    dg_part = torch.empty((n_blocks, d), dtype=torch.float32, device=x.device)
-    db_part = torch.empty_like(dg_part)
+    t_row, blocks = ln_bwd_plan(n, d, sm_count(x.device), x.element_size())
+    part = torch.empty((2, blocks, d), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, d), dtype=torch.float32, device=x.device)
     g = gamma.float().contiguous()
     _call("np_layer_norm_bwd", x2.data_ptr(), g.data_ptr(), dz2.data_ptr(),
-          dx.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(),
-          _DTYPE_CODES[x.dtype], n, d, t_row, n_blocks, eps, device=x.device)
+          dx.data_ptr(), part.data_ptr(), sums.data_ptr(),
+          _DTYPE_CODES[x.dtype], n, d, t_row, blocks, eps, device=x.device)
     _counters().layer_norm.launches_bwd += 1
-    return (dx.view(x.shape), dg_part.sum(dim=0).to(gamma.dtype),
-            db_part.sum(dim=0).to(gamma.dtype))
+    return dx.view(x.shape), sums[0].to(gamma.dtype), sums[1].to(gamma.dtype)
 
 
 def dropout_cuda(x, seed, rate):

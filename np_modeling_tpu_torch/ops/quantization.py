@@ -11,7 +11,9 @@ tensors or numpy arrays; a leaf's path joins its keys with ``/``.
 ``int8_matmul`` launches the hand-written Hopper kernel in
 ``csrc/int8_matmul.cu`` on CUDA tensors and runs ``int8_matmul_reference``
 (the JAX package's off-TPU path) on CPU tensors or under
-``dispatch.force_plain()``. It has no backward, as in JAX.
+``dispatch.force_plain()``. It has no backward, as in JAX. ``plan`` picks
+the kernel's schedule from shapes alone: ``skinny`` (decode: k split
+across a thread-block cluster), ``wide`` (prefill: wgmma) or ``simple``.
 
 ``quantize_int8_stochastic`` is the per-row absmax quantizer with
 stochastic rounding: the hand-written kernel K10 (``csrc/quantize.cu``) on
@@ -23,6 +25,7 @@ for how this differs from JAX off the TPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 import numbers
 import re
 from typing import NamedTuple
@@ -31,8 +34,8 @@ import numpy as np
 import torch
 
 from np_modeling_tpu_torch.ops import dispatch
-from np_modeling_tpu_torch.ops.fused import philox_bits
-from np_modeling_tpu_torch.ops.matmul import mm
+from np_modeling_tpu_torch.ops.fused import philox_bits, sm_count
+from np_modeling_tpu_torch.ops.matmul import mm, round_up
 
 
 class QuantizedTensor(NamedTuple):
@@ -290,8 +293,106 @@ def int8_matmul(x, w_int8, scale, bias=None, *, out_dtype=None):
     return _launch(x, w_int8, scale, bias, out_dtype or x.dtype)
 
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset them to 0): all of
+# them, again by schedule, and again by (schedule, k, n).
 int8_matmul.launches = 0
+int8_matmul.launches_skinny = 0
+int8_matmul.launches_wide = 0
+int8_matmul.launches_simple = 0
+int8_matmul.launches_by_shape = {}
+
+
+class Plan(NamedTuple):
+    schedule: str   # "skinny", "wide" or "simple"
+    n_tile: int     # skinny: columns a block (32, 64 or 128); wide: 128
+    splits: int     # k ranges: skinny's blocks of one cluster, wide's split-k
+    cluster: int    # blocks a thread-block cluster (skinny: = splits)
+
+
+# skinny: rows of x it takes, its column tiles (tried widest first), its k
+# splits (fewest first for each tile; above 8 the cluster is of the
+# non-portable size), the k rows a split is rounded to and holds at most
+# (shared memory), and the waves of the card's SMs its grid aims for. On
+# the H100 (132 SMs) exp_torch_k4_k8.py's sweep is fastest at 128 x 12
+# (288 blocks) for [8, 768] x [768, 3072] and at 64 x 16 (192 blocks) for
+# [8, 3072] x [3072, 768]: the rule picks both for any SKINNY_WAVES in
+# (1.09, 1.45]; larger grids (384 blocks and more) were slower at both.
+SKINNY_M, SKINNY_TILES, SKINNY_SPLITS = 64, (128, 64, 32), (1, 2, 4, 8, 16)
+SKINNY_ROWS, SKINNY_MAX_ROWS, SKINNY_WAVES = 64, 512, 1.4
+# wide: K11's tile and slice, split-k as K11 plans it.
+WIDE_TILE, WIDE_SLICE, WIDE_MIN_SPLIT_SLICES = 128, 64, 16
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def skinny_split(k: int, splits: int):
+    """(k rows a split, splits) when ``skinny`` is asked for ``splits``
+    ranges of k: each a whole number of SKINNY_ROWS rows, none empty (so
+    there may be fewer than asked for)."""
+    rows = round_up(_cdiv(k, splits), SKINNY_ROWS)
+    return rows, _cdiv(k, rows)
+
+
+def plan(m: int, n: int, k: int, sms: int, aligned: bool = True,
+         x_bf16: bool = True) -> Plan:
+    """K4's schedule for x [m, k] @ w [k, n] on a card of ``sms`` SMs
+    (``fused.sm_count``), from shapes alone.
+
+    ``skinny`` for bf16 x with 1 <= m <= SKINNY_M and k > 0: the first
+    (n tile, splits) in order of wider tiles, then fewer splits, whose
+    grid of n tiles x splits blocks covers SKINNY_WAVES waves of ``sms``
+    SMs, each split a whole number of SKINNY_ROWS-row blocks of k (at most
+    SKINNY_MAX_ROWS); where none does, the one with the most blocks.
+    (exp_torch_k4_k8.py times every tile and split on the card.)
+    ``wide`` for bf16 x with m > SKINNY_M where TMA can read x and the
+    weight (k > 0 a multiple of 8, n of 16; x and w 16-byte aligned:
+    ``aligned``), split-k only where its [128, 128] tiles cannot fill the
+    card (K11's rule). ``simple`` for fp32 x and every other shape."""
+    if not x_bf16 or m < 1 or n < 1 or k < 1:
+        return Plan("simple", 64, 1, 1)
+    if m <= SKINNY_M:
+        best = None
+        for tile in SKINNY_TILES:
+            for req in SKINNY_SPLITS:
+                rows, splits = skinny_split(k, req)
+                if rows > SKINNY_MAX_ROWS:
+                    continue
+                blocks = _cdiv(n, tile) * splits
+                if blocks >= SKINNY_WAVES * sms:
+                    return Plan("skinny", tile, splits, splits)
+                if best is None or blocks > best[0]:
+                    best = (blocks, Plan("skinny", tile, splits, splits))
+        return best[1] if best is not None else Plan("simple", 64, 1, 1)
+    if aligned and k % 8 == 0 and n % 16 == 0:
+        tiles = _cdiv(m, WIDE_TILE) * _cdiv(n, WIDE_TILE)
+        splits = max(1, min(sms // tiles,
+                            k // (WIDE_SLICE * WIDE_MIN_SPLIT_SLICES)))
+        return Plan("wide", WIDE_TILE, splits, 1)
+    return Plan("simple", 64, 1, 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def _cached_plan(m, n, k, x_bf16, aligned, index):
+    """``plan`` once per shape, layout and device."""
+    return plan(m, n, k, sm_count(torch.device("cuda", index)), aligned,
+                x_bf16)
+
+
+_SCHEDULES = {"simple": 0, "skinny": 1, "wide": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _function():
+    """The library's C function ``np_int8_matmul``, typed (built at first
+    use)."""
+    from np_modeling_tpu_torch.ops import cuda_build
+    fn = cuda_build.load("int8_matmul").lib.np_int8_matmul
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    return fn
 
 
 def _launch(x, w_int8, scale, bias, out_dtype):
@@ -319,19 +420,27 @@ def _launch(x, w_int8, scale, bias, out_dtype):
     bias = bias.reshape(n).float().contiguous() if bias is not None else None
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-
-    from np_modeling_tpu_torch.ops import cuda_build
-    fn = cuda_build.load("int8_matmul").lib.np_int8_matmul
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if m == 0 or n == 0:
+        return out.reshape(*lead, n)
+    index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    aligned = x2.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    p = _cached_plan(m, n, k, x.dtype == torch.bfloat16, aligned, index)
+    ws = (torch.empty((p.splits, m, n), dtype=torch.float32, device=x.device)
+          if p.schedule == "wide" and p.splits > 1 else None)
     with torch.cuda.device(x.device):
-        rc = fn(x2.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                bias.data_ptr() if bias is not None else None,
-                out.data_ptr(), _X_CODES[x.dtype], _X_CODES[out_dtype], m, n,
-                k, stream)
+        rc = _function()(
+            x2.data_ptr(), w.data_ptr(), scale.data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, _X_CODES[x.dtype],
+            _X_CODES[out_dtype], m, n, k, _SCHEDULES[p.schedule], p.n_tile,
+            p.splits, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"int8-matmul kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"int8-matmul kernel ({p.schedule}) launch failed: "
+                           f"CUDA error {rc}")
     int8_matmul.launches += 1
+    setattr(int8_matmul, f"launches_{p.schedule}",
+            getattr(int8_matmul, f"launches_{p.schedule}") + 1)
+    by_shape = int8_matmul.launches_by_shape
+    by_shape[p.schedule, k, n] = by_shape.get((p.schedule, k, n), 0) + 1
     return out.reshape(*lead, n)

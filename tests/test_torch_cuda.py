@@ -16,6 +16,7 @@ criteria are the ones chip_smoke.py holds at full width, explained there.
 """
 
 import contextlib
+import importlib
 
 import numpy as np
 import pytest
@@ -765,6 +766,31 @@ def test_cuda_layer_norm_kernels_vs_plain(rows, d, dtype):
             assert diff.max().item() <= bound
 
 
+@pytest.mark.parametrize("d", [64, 768, 1000, 1001, 1024, 1025, 8192])
+@pytest.mark.parametrize("rows", [1, 7, 33, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_layer_norm_backward_vs_plain_and_repeatable(rows, d, dtype):
+    """K8's backward (a warp a row to d 1024, the row team past it; 1 and 7
+    rows leave warps of the one block without a row) against the plain
+    backward within test_cuda_layer_norm_kernels_vs_plain's bounds; dx,
+    dgamma and dbeta equal bit for bit on a second run."""
+    x, gamma, _, dz = _ln_case(rows, d, dtype, seed=rows + d)
+    got = fused.layer_norm_bwd_cuda(x, gamma, dz, 1e-5)
+    again = fused.layer_norm_bwd_cuda(x, gamma, dz, 1e-5)
+    want = fused.layer_norm_bwd_plain(x, gamma, dz, 1e-5)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, c)
+        diff = (a.float() - b.float()).abs()
+        bound = 1e-5 * max(1.0, b.float().abs().max().item())
+        if a.dtype == torch.bfloat16:
+            assert bool((diff <= torch.clamp(torch.maximum(
+                _bf16_ulp(a), _bf16_ulp(b)), min=bound)).all())
+        else:
+            assert diff.max().item() <= bound
+
+
 def test_cuda_layer_norm_counts_launches_and_refuses_wide_rows():
     x, gamma, beta, dz = _ln_case(16, 256, torch.bfloat16)
     x.requires_grad_()
@@ -875,6 +901,104 @@ def test_cuda_int8_matmul_vs_plain(m, k, n, x_dtype, out_dtype, bias):
             _bf16_ulp(got), _bf16_ulp(want)), min=bound)).all())
     else:
         assert diff.max().item() <= bound
+
+
+def _int8_mm_within(got, want, out_dtype):
+    """test_cuda_int8_matmul_vs_plain's bounds."""
+    diff = (got.float() - want.float()).abs()
+    bound = 1e-4 * max(1.0, want.float().abs().max().item())
+    if out_dtype == torch.bfloat16:
+        return bool((diff <= torch.clamp(torch.maximum(
+            _bf16_ulp(got), _bf16_ulp(want)), min=bound)).all())
+    return diff.max().item() <= bound
+
+
+# (k, n) of the schedule tests: GPT-2 small's two FFN products, ragged ones
+# (k not a multiple of 64 or of 8, n not of 16 or of a tile, n below a tile).
+_K4_KN = [(768, 3072), (3072, 768), (100, 30), (96, 200), (200, 96),
+          (4104, 144)]
+
+
+def _k4_cases():
+    """(schedule, m, k, n, forced (n tile, splits asked for) or None for
+    plan's own): skinny at every m it takes and forced tiles and splits
+    whose k ranges fit its shared memory; wide where TMA reads x and the
+    weight (k a multiple of 8, n of 16), also with split-k (3 splits: the
+    last one empty where k < 129); simple everywhere."""
+    quant = importlib.import_module("np_modeling_tpu_torch.ops.quantization")
+    cases = []
+    for k, n in _K4_KN:
+        for m in (1, 8, 9, 63, 64):
+            for f in (None, (32, 16), (64, 8), (128, 2)):
+                if f is None or quant.skinny_split(k, f[1])[0] \
+                        <= quant.SKINNY_MAX_ROWS:
+                    cases.append(("skinny", m, k, n, f))
+        if k % 8 == 0 and n % 16 == 0:
+            cases += [("wide", m, k, n, None) for m in (65, 300, 1792)]
+            cases.append(("wide", 65, k, n, (128, 3)))
+        cases += [("simple", m, k, n, None) for m in (1, 65, 300)]
+    return cases
+
+
+_K4_CASES = _k4_cases()
+
+
+@pytest.mark.parametrize(
+    "schedule,m,k,n,forced", _K4_CASES,
+    ids=[f"{s}-m{m}-k{k}-n{n}" + (f"-{f[0]}x{f[1]}" if f else "")
+         for s, m, k, n, f in _K4_CASES])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias", [False, True])
+def test_cuda_int8_matmul_schedules_vs_plain(schedule, m, k, n, forced,
+                                             out_dtype, bias, monkeypatch):
+    """K4's skinny, wide and simple schedules, each forced through a
+    monkeypatched plan (skinny also at forced n tiles and splits, up to the
+    cluster's 16; wide also with split-k), against the plain version within
+    test_cuda_int8_matmul_vs_plain's bounds; the same bits on a second
+    run; the launch counted under its schedule and its (schedule, k, n)."""
+    quant = importlib.import_module("np_modeling_tpu_torch.ops.quantization")
+    sms = fused.sm_count("cuda")
+    if schedule == "skinny":
+        tile, asked = forced or quant.plan(m, n, k, sms)[1:3]
+        splits = quant.skinny_split(k, asked)[1]
+        forced_plan = quant.Plan("skinny", tile, splits, splits)
+    elif schedule == "wide":
+        splits = forced[1] if forced else quant.plan(m, n, k, sms).splits
+        forced_plan = quant.Plan("wide", 128, splits, 1)
+    else:
+        forced_plan = quant.Plan("simple", 64, 1, 1)
+    monkeypatch.setattr(quant, "_cached_plan", lambda *a: forced_plan)
+    x, wq, scale, b = _int8_mm_case(m, k, n, torch.bfloat16, seed=m + k)
+    b = b if bias else None
+    name, by_shape = f"launches_{schedule}", ops.int8_matmul.launches_by_shape
+    before = (ops.int8_matmul.launches, getattr(ops.int8_matmul, name),
+              by_shape.get((schedule, k, n), 0))
+    got = ops.int8_matmul(x, wq, scale, b, out_dtype=out_dtype)
+    again = ops.int8_matmul(x, wq, scale, b, out_dtype=out_dtype)
+    assert (ops.int8_matmul.launches - before[0],
+            getattr(ops.int8_matmul, name) - before[1],
+            by_shape[schedule, k, n] - before[2]) == (2, 2, 2)
+    with dispatch.force_plain():
+        want = ops.int8_matmul(x, wq, scale, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert _int8_mm_within(got, want, out_dtype)
+    assert torch.equal(got, again)
+
+
+def test_cuda_int8_matmul_plans_the_serving_shapes():
+    """The wrapper's own plan: GPT-2 small's FFN products take skinny at
+    decode (8 rows) and wide at prefill (1792 rows); fp32 x takes simple."""
+    counts = ("launches_skinny", "launches_wide", "launches_simple")
+    for m, x_dtype, want in ((8, torch.bfloat16, "launches_skinny"),
+                             (1792, torch.bfloat16, "launches_wide"),
+                             (8, torch.float32, "launches_simple")):
+        for k, n in ((768, 3072), (3072, 768)):
+            x, wq, scale, b = _int8_mm_case(m, k, n, x_dtype)
+            before = {c: getattr(ops.int8_matmul, c) for c in counts}
+            ops.int8_matmul(x, wq, scale, b)
+            assert {c: getattr(ops.int8_matmul, c) - before[c]
+                    for c in counts} == {c: int(c == want) for c in counts}
 
 
 @pytest.mark.parametrize("sq,hq,hkv,d,psize", [

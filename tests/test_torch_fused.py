@@ -107,6 +107,33 @@ def test_layer_norm_kernel_row_team(d, threads):
     assert fused.ln_threads(d) == threads
 
 
+@pytest.mark.parametrize("n", [1, 7, 8, 33, 8192, 16384, 1 << 20])
+@pytest.mark.parametrize("d", [1, 64, 768, 1000, 1001, 1024])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_ln_bwd_plan_gives_rows_to_warps(n, d, itemsize):
+    """d <= 1024: a warp a row, a persistent grid of at most two blocks an
+    SM (one for fp32), never more blocks than its 8 warps have rows for."""
+    t_row, blocks = fused.ln_bwd_plan(n, d, 132, itemsize)
+    per_sm = 2 if itemsize == 2 else 1
+    assert t_row == 32
+    assert blocks == min(-(-n // fused.LN_BWD_WARPS), per_sm * 132)
+    assert 1 <= blocks <= per_sm * 132
+
+
+@pytest.mark.parametrize("n", [1, 7, 16384])
+@pytest.mark.parametrize("d", [1025, 2048, 8192])
+def test_ln_bwd_plan_keeps_the_row_team_past_1024(n, d):
+    t_row, blocks = fused.ln_bwd_plan(n, d, 132)
+    assert t_row == fused.ln_threads(d) >= 128
+    assert blocks == min(n, 4 * 132)
+
+
+@pytest.mark.parametrize("d", [0, 8193])
+def test_ln_bwd_plan_refuses_widths_the_kernels_cannot_hold(d):
+    with pytest.raises(ValueError):
+        fused.ln_bwd_plan(16, d, 132)
+
+
 @pytest.mark.parametrize("d", [0, 8193])
 def test_layer_norm_kernel_refuses_widths_it_cannot_hold(d):
     with pytest.raises(ValueError):

@@ -36,6 +36,7 @@ from np_modeling_tpu.ops import dispatch as jdispatch
 from np_modeling_tpu.ops import quantization as jq
 from np_modeling_tpu_torch import models, ops
 from np_modeling_tpu_torch.nn import Int8Weight, Linear
+from np_modeling_tpu_torch.ops import quantization as tq
 from np_modeling_tpu_torch.utils import (load_params, params_from_numpy,
                                          params_to_numpy)
 
@@ -248,6 +249,93 @@ def test_int8_matmul_cpu_dispatch_is_plain():
     torch.testing.assert_close(ops.int8_matmul_reference(*args), forced,
                                rtol=0, atol=0)
     assert ops.int8_matmul.launches == before
+
+
+# ---- K4's schedule plan (plain Python, shapes alone) ------------------------
+
+
+@pytest.mark.parametrize("m,want", [(1, "skinny"), (64, "skinny"),
+                                    (65, "wide"), (1792, "wide")])
+def test_plan_schedule_boundary_at_64_rows(m, want):
+    assert tq.plan(m, 3072, 768, 132).schedule == want
+    assert tq.plan(m, 768, 3072, 132).schedule == want
+
+
+@pytest.mark.parametrize("m,n,k", [(8, 3072, 768), (1792, 768, 3072),
+                                   (7, 30, 100), (300, 1000, 770)])
+def test_plan_fp32_x_is_always_simple(m, n, k):
+    assert tq.plan(m, n, k, 132, x_bf16=False) == ("simple", 64, 1, 1)
+
+
+@pytest.mark.parametrize("m,n,k,aligned", [
+    (65, 768, 100, True),      # k not a multiple of 8: TMA cannot read x
+    (300, 1000, 768, True),    # n not a multiple of 16: nor the weight
+    (300, 1000, 770, True),
+    (1792, 3072, 768, False),  # x not 16-byte aligned
+    (8, 768, 0, True), (1792, 768, 0, True), (0, 768, 768, True)])
+def test_plan_takes_simple_where_skinny_and_wide_cannot(m, n, k, aligned):
+    assert tq.plan(m, n, k, 132, aligned=aligned).schedule == "simple"
+
+
+@pytest.mark.parametrize("n,k", [(3072, 768), (768, 3072)])
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_plan_decode_grid_covers_one_and_a_half_waves(m, n, k):
+    """GPT-2 small's decode products on 132 SMs: n tiles x splits blocks
+    >= SKINNY_WAVES waves (about one and a half: 192 blocks, 1.45 waves, at
+    [3072, 768]), each split whole 64-row blocks of k, none empty, and one
+    cluster of the splits (at most 16 blocks)."""
+    p = tq.plan(m, n, k, sms=132)
+    assert p.schedule == "skinny" and p.n_tile in (32, 64, 128)
+    assert -(-n // p.n_tile) * p.splits >= tq.SKINNY_WAVES * 132 >= 1.4 * 132
+    rows = tq.skinny_split(k, p.splits)[0]
+    assert rows % 64 == 0 and (p.splits - 1) * rows < k <= p.splits * rows
+    assert p.cluster == p.splits <= 16
+    assert rows <= tq.SKINNY_MAX_ROWS
+
+
+@pytest.mark.parametrize("n,k,tile,splits", [(3072, 768, 128, 12),
+                                              (768, 3072, 64, 16)])
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_plan_picks_the_sweeps_fastest_decode_grid(m, n, k, tile, splits):
+    """On 132 SMs the plan takes the (n tile, splits) that
+    exp_torch_k4_k8.py's sweep timed fastest on the H100 at GPT-2 small's
+    two decode products: 128 x 12 (288 blocks) and 64 x 16 (192)."""
+    assert tq.plan(m, n, k, 132) == ("skinny", tile, splits, splits)
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 100, 768, 3072, 4104, 8192])
+@pytest.mark.parametrize("asked", [1, 2, 4, 8, 16])
+def test_skinny_split_gives_whole_nonempty_row_blocks(k, asked):
+    rows, splits = tq.skinny_split(k, asked)
+    assert rows % 64 == 0 and 1 <= splits <= asked
+    assert (splits - 1) * rows < k <= splits * rows
+
+
+@pytest.mark.parametrize("m,n,k", [(8, 30, 100), (1, 640, 64),
+                                   (64, 16, 40000), (5, 200, 96)])
+def test_plan_small_or_deep_skinny_shapes(m, n, k):
+    """Where no grid reaches SKINNY_WAVES waves, the most blocks; a k
+    too deep for 16 splits of SKINNY_MAX_ROWS rows is not skinny."""
+    p = tq.plan(m, n, k, sms=132)
+    if k > 16 * tq.SKINNY_MAX_ROWS:
+        assert p.schedule == "simple"
+        return
+    assert p.schedule == "skinny"
+    best = max(-(-n // t) * tq.skinny_split(k, s)[1]
+               for s in tq.SKINNY_SPLITS for t in tq.SKINNY_TILES
+               if tq.skinny_split(k, s)[0] <= tq.SKINNY_MAX_ROWS)
+    blocks = -(-n // p.n_tile) * p.splits
+    assert blocks >= tq.SKINNY_WAVES * 132 or blocks == best
+
+
+@pytest.mark.parametrize("m,n,k,splits", [
+    (1792, 3072, 768, 1),      # 336 tiles fill the card
+    (1792, 768, 3072, 1),      # 84 tiles: 132 // 84 = 1
+    (65, 208, 5000, 4),        # 2 tiles, k holds 4 splits of 16 slices
+    (128, 128, 1 << 20, 132)])
+def test_plan_wide_splits_k_only_where_tiles_leave_sms_idle(m, n, k, splits):
+    p = tq.plan(m, n, k, sms=132)
+    assert p == ("wide", 128, splits, 1)
 
 
 def _quantized_linear(seed=3):

@@ -65,10 +65,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
       forward and backward, at the step's logits [8192, 50257] fp32/bf16
       and ragged shapes with labels outside [0, v): ce within 1e-5 x
       max(1, max |plain|), dlogits within 1e-4 x |plain| + 1e-6 x max
-      |plain| (bf16: one ulp). Stochastic int8 K10 at [8192, 768],
-      [1792, 12, 64] and ragged shapes, fp32/bf16: values and scales equal
-      the plain twin's bit for bit, each value floor or floor + 1 of x /
-      scale; unbiased over 256 seeds; another seed draws other bits;
+      |plain| (bf16: one ulp). Stochastic int8 K10 at K10_SHAPES
+      ([8192, 768], [1792, 12, 64], Gemma-2's width, a long row, d % 8 ==
+      4 and ragged shapes), fp32/bf16, each with a zero row, as planned
+      and under each schedule (rows, block_row, simple) that can take the
+      shape, and misaligned views (simple) with seeds above 2^32: values
+      and scales equal the plain twin's bit for bit, each value floor or
+      floor + 1 of x / scale, one launch counted on the planned (or
+      forced) schedule; unbiased over 256 seeds; another seed draws other
+      bits;
   (d) serving: GPT-2 small (124M) at full width and depth with seeded random
       weights serves 8 requests through add_requests / step_many /
       add_request / step / finish; checks tokens, page accounting, that
@@ -657,6 +662,46 @@ def _schedule(fused_bwd=True, dual=False):
         yield
     finally:
         attention.FUSED_BWD, attention.FWD_DUAL_KV = saved
+
+
+@contextlib.contextmanager
+def _k10_schedule(schedule, **knobs):
+    """K10's plan forced to ``schedule`` (``quantization.schedule_plan``
+    with ``knobs``: lanes, warps) for every shape in a scope."""
+    from np_modeling_tpu_torch.ops import quantization
+    saved = quantization._cached_quantize_plan
+
+    def forced(n, d, dtype, aligned, index):
+        return quantization.schedule_plan(schedule, n, d, dtype, **knobs)
+
+    quantization._cached_quantize_plan = forced
+    try:
+        yield
+    finally:
+        quantization._cached_quantize_plan = saved
+
+
+def k10_run(x, seed):
+    """K10 on ``x`` once: (its QuantizedTensor, the schedule that ran), the
+    schedule read from the wrapper's launch counts."""
+    from np_modeling_tpu_torch import ops
+    counts = ops.quantize_int8_stochastic.launches_by_schedule
+    before, total = dict(counts), ops.quantize_int8_stochastic.launches
+    got = ops.quantize_int8_stochastic(x, seed)
+    ran = [k for k in counts if counts[k] != before[k]]
+    if ops.quantize_int8_stochastic.launches != total + 1 or len(ran) != 1 \
+            or counts[ran[0]] != before[ran[0]] + 1:
+        raise AssertionError(f"K10 not launched once: {before} -> {counts}")
+    return got, ran[0]
+
+
+def k10_planned(x):
+    """The schedule K10's plan (or a forced one) gives ``x``."""
+    from np_modeling_tpu_torch.ops import quantization
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    return quantization._cached_quantize_plan(
+        x2.shape[0], x2.shape[1], x.dtype, x2.data_ptr() % 16 == 0,
+        x.device.index).schedule
 
 
 def pack_rows(rng, rows, seq):
@@ -1570,21 +1615,23 @@ def phase_sxe_vs_plain():
 
 def _check_k10(tag, x, seed):
     """K10 vs its plain twin: values and scales bit for bit, every value
-    floor or floor + 1 of x / scale (clipped)."""
+    floor or floor + 1 of x / scale (clipped), launched once on the schedule
+    its plan (or a forced one) gives. Returns (values and scales, the
+    schedule)."""
     import torch
     from np_modeling_tpu_torch import ops
     from np_modeling_tpu_torch.ops import dispatch
-    before = ops.quantize_int8_stochastic.launches
-    got = ops.quantize_int8_stochastic(x, seed)
+    got, ran = k10_run(x, seed)
     with dispatch.force_plain():
         want = ops.quantize_int8_stochastic(x, seed)
     torch.cuda.synchronize()
-    if ops.quantize_int8_stochastic.launches != before + 1:
-        raise AssertionError(f"(c) {tag}: K10 not launched once")
+    if ran != k10_planned(x):
+        raise AssertionError(f"(c) {tag}: K10 ran {ran}, its plan says "
+                             f"{k10_planned(x)}")
     if not (torch.equal(got.values, want.values)
             and torch.equal(got.scales, want.scales)):
         raise AssertionError(
-            f"(c) {tag}: differs from the plain twin in "
+            f"(c) {tag} [{ran}]: differs from the plain twin in "
             f"{(got.values != want.values).sum().item()} values, "
             f"{(got.scales != want.scales).sum().item()} scales")
     s = x.float() / got.scales
@@ -1593,28 +1640,61 @@ def _check_k10(tag, x, seed):
     if not bool(((q == fl) | (q == (fl + 1).clamp(-127, 127))).all()):
         raise AssertionError(f"(c) {tag}: a value is neither floor nor "
                              "floor + 1 of x / scale")
-    return got
+    return got, ran
+
+
+# (c): K10 as planned at these shapes (fp32 and bf16), and each schedule
+# forced where it can take the shape; the first two are chip_smoke's
+# earlier shapes, then Gemma-2 2B's width, a long row (block_row), a bf16
+# row of 4-element vectors (d % 8 == 4) and the ragged shapes (simple).
+K10_SHAPES = ((GPT2_B * GPT2_S, 768), (1792, 12, 64), (1024, 2304),
+              (256, 16384), (300, 772), (5, 1001), (3, 1), (4, 33))
 
 
 def phase_quantize_vs_plain():
-    """K10 vs its plain twin (values and scales bit for bit) at [8192, 768]
-    and [1792, 12, 64] in fp32 and bf16 and at ragged shapes with a zero
-    row; unbiasedness over 256 seeds; another seed draws other bits."""
+    """K10 vs its plain twin (values and scales bit for bit) at K10_SHAPES
+    in fp32 and bf16, as planned and under each schedule that can take the
+    shape, a zero row in each, a misaligned view (simple) and seeds above
+    2^32; unbiasedness over 256 seeds; another seed draws other bits."""
     import torch
     from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import quantization
     rng = np.random.default_rng(SEED + 15)
-    n = 0
-    for shape in ((GPT2_B * GPT2_S, 768), (1792, 12, 64), (5, 1001), (3, 1),
-                  (4, 33)):
+    n, ran = 0, {}
+    for shape in K10_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                              device="cuda").to(dtype)
-            if shape[0] == 4:
-                x[1] = 0.0
-            seed = int(rng.integers(0, 2 ** 63))
-            _check_k10(f"quantize_int8_stochastic {shape} {str(dtype)[6:]}",
-                       x, seed)
-            n += 1
+            x.view(-1, shape[-1])[1 % x.view(-1, shape[-1]).shape[0]] = 0.0
+            rows, d = x.numel() // shape[-1], shape[-1]
+            for schedule in (None, "rows", "block_row", "simple"):
+                if schedule is not None:
+                    try:
+                        quantization.schedule_plan(schedule, rows, d, dtype)
+                    except ValueError:
+                        continue
+                seed = int(rng.integers(0, 2 ** 63))
+                with (_k10_schedule(schedule) if schedule
+                      else contextlib.nullcontext()):
+                    _, how = _check_k10(
+                        f"quantize_int8_stochastic {shape} {str(dtype)[6:]}"
+                        f" {schedule or 'planned'}", x, seed)
+                key = f"{schedule or 'planned'} {how}"
+                ran[key] = ran.get(key, 0) + 1
+                n += 1
+            del x
+    for d, dtype in ((768, torch.float32), (64, torch.bfloat16),
+                     (772, torch.bfloat16)):
+        flat = torch.tensor(rng.standard_normal(64 * d + 1),
+                            dtype=torch.float32, device="cuda").to(dtype)
+        _, how = _check_k10(f"quantize_int8_stochastic misaligned [64, {d}]"
+                            f" {str(dtype)[6:]}", flat[1:].view(64, d),
+                            int(rng.integers(2 ** 32, 2 ** 64,
+                                             dtype=np.uint64)))
+        if how != "simple":
+            raise AssertionError(f"(c) K10 misaligned view ran {how}")
+        n += 1
+    print(f"(c) quantize_int8_stochastic: cases by (asked, ran): {ran}")
     # Unbiasedness: per element, the mean over 256 seeds of (dequantized -
     # x) / scale has expectation 0 and variance f (1 - f) / 256, f = frac(x /
     # scale); held within 5 sigma plus one draw's worth (1/256), as the mean
@@ -1633,9 +1713,9 @@ def phase_quantize_vs_plain():
     if not bool((mean.abs() <= 5 * sigma + 1 / 256).all()):
         raise AssertionError(f"(c) quantize_int8_stochastic: biased, worst "
                              f"excess {worst:.2f} sigma")
-    print(f"(c) quantize_int8_stochastic: mean error over 256 seeds within 5 "
-          f"sigma + 1/256 at every element of [256, 768] (overall mean "
-          f"{mean.mean().item():.2e} steps)")
+    print(f"(c) quantize_int8_stochastic ({k10_planned(x)}): mean error over "
+          f"256 seeds within 5 sigma + 1/256 at every element of [256, 768] "
+          f"(overall mean {mean.mean().item():.2e} steps)")
     a = ops.quantize_int8_stochastic(x, 1).values
     b = ops.quantize_int8_stochastic(x, 2).values
     share = (a != b).float().mean().item()
@@ -2444,6 +2524,8 @@ def _launch_counts():
 def _zero_launch_counts():
     from np_modeling_tpu_torch import ops
     ops.matmul.launches = ops.quantize_int8_stochastic.launches = 0
+    ops.quantize_int8_stochastic.launches_by_schedule.update(
+        dict.fromkeys(ops.quantize_int8_stochastic.launches_by_schedule, 0))
     ops.matmul.launches_ragged = 0
     ops.softmax_cross_entropy_fused.launches_fwd = 0
     ops.softmax_cross_entropy_fused.launches_bwd = 0
@@ -2628,18 +2710,20 @@ def phase_forced_training():
             and dl_ok):
         raise AssertionError("(l) K9 differs from the integer-label CE")
     del logits, results, ce_k, dl_k, ce_r, dl_r
-    qt = _check_k10(f"(l) K10 on the step's hidden states "
-                    f"{tuple(hidden.shape)} bf16", hidden, SEED + 16)
+    qt, how = _check_k10(f"(l) K10 on the step's hidden states "
+                         f"{tuple(hidden.shape)} bf16", hidden, SEED + 16)
     deq_err = ((qt.values.float() * qt.scales - hidden.float()).abs()
                / qt.scales).max().item()
-    print(f"(l) K10 on the step's final hidden states {tuple(hidden.shape)}"
-          f" bf16: equal to the plain twin; max |dequantized - x| "
-          f"{deq_err:.4f} steps (< 1)")
+    print(f"(l) K10 ({how}) on the step's final hidden states "
+          f"{tuple(hidden.shape)} bf16: equal to the plain twin; max "
+          f"|dequantized - x| {deq_err:.4f} steps (< 1)")
     if not deq_err < 1.0 + 1e-5:
         raise AssertionError("(l) K10: error of a step or more")
     if ops.matmul.launches != k11_before:
         raise AssertionError("(l) K9/K10 changed K11's launch count")
     counts = _launch_counts()
+    counts["quantize_int8_stochastic_by_schedule"] = dict(
+        ops.quantize_int8_stochastic.launches_by_schedule)
     print(f"(l) kernel launches of the whole phase after the counts were set "
           f"to 0: {counts}")
     del hidden, qt
@@ -2786,7 +2870,7 @@ def phase_forced_timings(gpt, corpus, device_line):
     quant = (lambda: ops.quantize_int8_stochastic(x, 12345))  # noqa: E731
     _both(res, "m", name, quant, device_line)
     _device_both(res, "m", name, quant, device_line)
-    qt = quant()
+    qt, res["schedule " + name] = k10_run(x, 12345)
     res["bound " + name] = _bound(_nbytes(x, qt.values, qt.scales), 0)
     del x, qt
 
@@ -4249,7 +4333,8 @@ def main(phases="abcdefghijklmnopqrst"):
     # dequantize + torch.mm yardstick, three calls, is printed in (k), and
     # torch.mm on the weight already bf16 stands beside it in turns as
     # "bf16_mm_device_ms_in_turns"; none computes K10's stochastic
-    # rounding). K4's rows carry its launches by schedule.
+    # rounding). K4's rows carry its launches by schedule, K10's the
+    # schedule its timed call ran and its launches by schedule.
     kernels = []
     for name, source, where, launches, err, res, key in rows:
         ms, (bound_ms, bound_by) = res[key], res["bound " + key]
@@ -4274,6 +4359,10 @@ def main(phases="abcdefghijklmnopqrst"):
             kernels[-1].update({f"launches_{s}": quant_launches[
                 f"int8_matmul_{s}"] for s in ("skinny", "wide", "simple")})
             kernels[-1]["launches_at_shape"] = k4_at_shape[key]
+        if "schedule " + key in res:  # K10: the timed call's schedule
+            kernels[-1]["schedule"] = res["schedule " + key]
+            kernels[-1]["launches_by_schedule"] = forced_launches[
+                "quantize_int8_stochastic_by_schedule"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

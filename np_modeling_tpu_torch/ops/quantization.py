@@ -19,7 +19,9 @@ across a thread-block cluster), ``wide`` (prefill: wgmma) or ``simple``.
 stochastic rounding: the hand-written kernel K10 (``csrc/quantize.cu``) on
 CUDA tensors, its plain twin on CPU tensors. Both draw the same Philox bits
 (``ops.fused.philox_bits``), so they agree bit for bit; see its docstring
-for how this differs from JAX off the TPU.
+for how this differs from JAX off the TPU. ``quantize_plan`` picks K10's
+schedule from the shape, the dtype and x's alignment: ``rows`` (a lane
+group a row), ``block_row`` (a block a row) or ``simple``.
 """
 
 from __future__ import annotations
@@ -122,8 +124,138 @@ def quantize_int8_stochastic(x: torch.Tensor, seed) -> QuantizedTensor:
     return _quantize_stochastic_cuda(x, seed)
 
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset them to 0): all of
+# them, and again by schedule.
 quantize_int8_stochastic.launches = 0
+quantize_int8_stochastic.launches_by_schedule = {
+    "rows": 0, "block_row": 0, "simple": 0}
+
+
+class QuantizePlan(NamedTuple):
+    schedule: str   # "rows", "block_row" or "simple"
+    vec: int        # elements a vector load: 4 or 8 (simple: 1)
+    lanes: int      # threads a row: rows' lane group (1..32), block_row's
+                    # block, simple's 256
+    per_lane: int   # vectors a thread holds (a compiled width); simple 0
+    warps: int      # warps a block
+    grid: int       # blocks launched
+
+
+# The vectors a lane may hold, as csrc/quantize.cu compiles them.
+ROWS_PER_LANE = (1, 2, 3, 4, 6, 8)
+BLOCK_ROW_PER_LANE = (1, 2, 4, 8)
+BLOCK_ROW_MAX_THREADS = 512
+# rows: a power of two of lanes a row, one vector a lane for rows of up to
+# 8 vectors and two beyond (at most 32 lanes), ROWS_WARPS warps a block,
+# rows of at most ROWS_ELEMENTS elements a lane of 32; block_row:
+# BLOCK_ROW_THREADS threads a block (more where a row needs them); both a
+# grid that covers each row once. Each is the fastest that
+# exp_torch_k10.py's sweep timed on the H100, or within 3% of it (PERF.md
+# §6): at d 64 bf16 (8 vectors) 8 lanes over twice as fast as 32 and 2%
+# faster than 4; two vectors a lane 3% (d 128 bf16), 6% (d 64 fp32) and 7%
+# (d 256 bf16) faster than one; 1..8 warps a block within 1%; rows faster
+# than block_row at 32 elements a lane (d 1024 fp32), slower at 64 and 72
+# (d 2048, 2304 bf16).
+ROWS_WARPS, ROWS_ELEMENTS, BLOCK_ROW_THREADS = 4, 32, 128
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def quantize_vec(d: int, dtype) -> int:
+    """Elements a vector of K10's rows and block_row schedules: 16 bytes (4
+    fp32, 8 bf16), or 8 bytes (4 bf16) where d is a multiple of 4 but not of
+    8; 0 where d is not a multiple of 4 (a Philox draw's four words would
+    straddle two rows)."""
+    if d % 4:
+        return 0
+    return 8 if dtype == torch.bfloat16 and d % 8 == 0 else 4
+
+
+def _width(need: int, widths) -> int:
+    """The fewest compiled vectors a thread that holds ``need``; 0 if none."""
+    return next((w for w in widths if w >= need), 0)
+
+
+def schedule_plan(schedule: str, n: int, d: int, dtype, *,
+                  lanes: int | None = None,
+                  warps: int | None = None) -> QuantizePlan:
+    """K10's plan for x [n, d] of ``dtype`` under ``schedule``; ``lanes``
+    (rows: a row's lanes; block_row: the block's threads) and ``warps``
+    (rows) default to the plan's own. The grid covers each row once.
+    Raises ValueError where the schedule cannot take the shape (x's
+    alignment is the caller's to check)."""
+    if schedule == "simple":
+        return QuantizePlan("simple", 1, 256, 0, 8, n)
+    vec = quantize_vec(d, dtype)
+    if not vec or schedule not in ("rows", "block_row"):
+        raise ValueError(f"K10 {schedule}: cannot take d {d} ({dtype})")
+    nv = d // vec
+    if schedule == "rows":
+        lanes = lanes or min(32, _pow2_at_least(nv if nv <= 8
+                                                else -(-nv // 2)))
+        warps = warps or ROWS_WARPS
+        per_lane = _width(-(-nv // lanes), ROWS_PER_LANE)
+        if not per_lane or lanes & (lanes - 1) or not 1 <= lanes <= 32 \
+                or not 1 <= warps <= 16:
+            raise ValueError(f"K10 rows: cannot take d {d} at {lanes} lanes "
+                             f"and {warps} warps a block")
+        grid = -(-n // (warps * 32 // lanes))
+    else:
+        lanes = lanes or max(BLOCK_ROW_THREADS, 32 * _pow2_at_least(
+            -(-nv // (32 * BLOCK_ROW_PER_LANE[-1]))))
+        per_lane = _width(-(-nv // lanes), BLOCK_ROW_PER_LANE)
+        if not per_lane or lanes % 32 or not 32 <= lanes \
+                <= BLOCK_ROW_MAX_THREADS:
+            raise ValueError(f"K10 block_row: cannot take d {d} at {lanes} "
+                             f"threads")
+        warps, grid = lanes // 32, n
+    return QuantizePlan(schedule, vec, lanes, per_lane, warps, max(grid, 1))
+
+
+def quantize_plan(n: int, d: int, dtype, aligned: bool,
+                  sms: int) -> QuantizePlan:
+    """K10's schedule for x [n, d] of ``dtype`` (float32 or bfloat16);
+    ``aligned``: x's first row is 16-byte aligned. ``sms``, the card's SM
+    count (``fused.sm_count``), is not read: every grid covers each row
+    once, faster on the H100 than grids of 1 to 32 blocks an SM that walk
+    the rows (``exp_torch_k10.py``'s sweep). ``rows
+    where whole vectors line up (``quantize_vec``) and a row is at most
+    ROWS_ELEMENTS elements a lane of a warp (d 1024); ``block_row`` for
+    longer such rows, up to 512 threads x 8 vectors (16384 fp32, 32768
+    bf16); ``simple`` for ragged d, a misaligned x and longer rows."""
+    vec = quantize_vec(d, dtype)
+    if aligned and vec and n > 0:
+        nv = d // vec
+        if -(-nv // 32) * vec <= ROWS_ELEMENTS:
+            return schedule_plan("rows", n, d, dtype)
+        if -(-nv // BLOCK_ROW_MAX_THREADS) <= BLOCK_ROW_PER_LANE[-1]:
+            return schedule_plan("block_row", n, d, dtype)
+    return schedule_plan("simple", n, d, dtype)
+
+
+@functools.lru_cache(maxsize=1024)
+def _cached_quantize_plan(n, d, dtype, aligned, index):
+    """``quantize_plan`` once per shape, layout and device."""
+    return quantize_plan(n, d, dtype, aligned,
+                         sm_count(torch.device("cuda", index)))
+
+
+_QUANT_SCHEDULES = {"simple": 0, "rows": 1, "block_row": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _quantize_function():
+    """The library's C function ``np_quantize_int8_stochastic``, typed
+    (built at first use)."""
+    from np_modeling_tpu_torch.ops import cuda_build
+    fn = cuda_build.load("quantize").lib.np_quantize_int8_stochastic
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint64] + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return fn
 
 
 def _quantize_stochastic_cuda(x, seed):
@@ -138,20 +270,21 @@ def _quantize_stochastic_cuda(x, seed):
     values = torch.empty(x2.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     if n:
-        from np_modeling_tpu_torch.ops import cuda_build
-        fn = cuda_build.load("quantize").lib.np_quantize_int8_stochastic
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint64,
-            ctypes.c_void_p]
+        index = x.device.index if x.device.index is not None \
+            else torch.cuda.current_device()
+        p = _cached_quantize_plan(n, d, x.dtype, x2.data_ptr() % 16 == 0,
+                                  index)
         with torch.cuda.device(x.device):
-            rc = fn(x2.data_ptr(), values.data_ptr(), scales.data_ptr(),
-                    _X_CODES[x.dtype], n, d, seed,
-                    torch.cuda.current_stream(x.device).cuda_stream)
+            rc = _quantize_function()(
+                x2.data_ptr(), values.data_ptr(), scales.data_ptr(),
+                _X_CODES[x.dtype], n, d, seed, _QUANT_SCHEDULES[p.schedule],
+                p.vec, p.lanes, p.per_lane, p.warps, p.grid,
+                torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"K10 quantize kernel launch failed: CUDA "
-                               f"error {rc}")
+            raise RuntimeError(f"K10 quantize kernel ({p.schedule}) launch "
+                               f"failed: CUDA error {rc}")
         quantize_int8_stochastic.launches += 1
+        quantize_int8_stochastic.launches_by_schedule[p.schedule] += 1
     return QuantizedTensor(values.reshape(x.shape),
                            scales.reshape(*x.shape[:-1], 1))
 

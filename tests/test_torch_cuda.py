@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _schedule
+from chip_smoke import _k10_schedule, _schedule, k10_planned, k10_run
 from np_modeling_tpu_torch import models, ops
 from np_modeling_tpu_torch.ops import dispatch, fused
 
@@ -1182,22 +1182,130 @@ def test_cuda_softmax_cross_entropy_kernels_vs_plain(shape, dtype):
     assert bool((diff <= bound).all())
 
 
-@pytest.mark.parametrize("shape", [(300, 768), (64, 12, 64), (5, 1001),
-                                   (3, 1)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_quantize_stochastic_kernel_equals_plain_twin(shape, dtype):
-    g = torch.Generator(device="cuda").manual_seed(2)
-    x = torch.randn(*shape, generator=g, device="cuda").to(dtype)
-    x.view(-1, shape[-1])[0] = 0.0                   # a zero row
-    before = ops.quantize_int8_stochastic.launches
-    got = ops.quantize_int8_stochastic(x, 0x0123456789ABCDEF)
-    assert ops.quantize_int8_stochastic.launches == before + 1
+def _k10_equal_to_plain(x, seed, schedule=None, **knobs):
+    """K10 on ``x`` (under ``schedule`` with ``knobs`` where given) against
+    its plain twin, bit for bit; returns the schedule that ran."""
+    with (_k10_schedule(schedule, **knobs) if schedule
+          else contextlib.nullcontext()):
+        got, ran = k10_run(x, seed)
+        assert ran == k10_planned(x)
     with dispatch.force_plain():
-        want = ops.quantize_int8_stochastic(x, 0x0123456789ABCDEF)
+        want = ops.quantize_int8_stochastic(x, seed)
     torch.cuda.synchronize()
     assert torch.equal(got.values, want.values)
     assert torch.equal(got.scales, want.scales)
-    assert got.scales.shape == (*shape[:-1], 1)
+    assert got.scales.shape == (*x.shape[:-1], 1)
+    return ran
+
+
+@pytest.mark.parametrize("schedule", [None, "rows", "block_row", "simple"])
+@pytest.mark.parametrize("shape", [
+    (300, 768), (64, 12, 64), (5, 1001), (3, 1), (37, 4), (37, 64),
+    (37, 256), (37, 772), (37, 1024), (19, 2304), (9, 4096), (5, 16384),
+    (37, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quantize_stochastic_kernel_equals_plain_twin(shape, dtype,
+                                                           schedule):
+    """As planned (None) and under each schedule forced, at each
+    schedule's edges: two vectors a lane from 9 vectors a row (d 64 fp32,
+    256), 32 elements a lane of a warp (d 1024),
+    4-element bf16 vectors (772), block_row's longer rows, ragged d
+    (simple); 37 rows, not a multiple of a block's rows; a zero row. A
+    schedule that cannot take the shape is refused, and never planned."""
+    quant = importlib.import_module("np_modeling_tpu_torch.ops.quantization")
+    n, d = int(np.prod(shape[:-1])), shape[-1]
+    sms = fused.sm_count("cuda")
+    if schedule is not None:
+        try:
+            quant.schedule_plan(schedule, n, d, dtype)
+        except ValueError:
+            assert quant.quantize_plan(n, d, dtype, True, sms).schedule \
+                != schedule
+            return
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(*shape, generator=g, device="cuda").to(dtype)
+    x.view(-1, d)[0] = 0.0                           # a zero row
+    ran = _k10_equal_to_plain(x, 0x0123456789ABCDEF, schedule)
+    assert ran == (schedule or quant.quantize_plan(n, d, dtype, True,
+                                                   sms).schedule)
+
+
+@pytest.mark.parametrize("d", [4, 64, 768, 772, 2304])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quantize_stochastic_misaligned_view_and_high_seed(d, dtype):
+    """A view one element into its storage is not 16-byte aligned: the plan
+    takes simple, and the vector schedule the aligned view takes, forced,
+    is refused (d % 4 == 0); seeds above 2^32 key Philox's high word."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    flat = torch.randn(37 * d + 1, generator=g, device="cuda").to(dtype)
+    x = flat[1:].view(37, d)
+    assert _k10_equal_to_plain(x, 2 ** 32 + 12345) == "simple"
+    aligned = _k10_equal_to_plain(flat[:-1].view(37, d), 2 ** 63 + 7)
+    assert aligned in ("rows", "block_row")
+    with _k10_schedule(aligned), pytest.raises(RuntimeError):
+        ops.quantize_int8_stochastic(x, 1)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("warps", [1, 4, 16])
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16),
+                                     (768, torch.float32),
+                                     (772, torch.bfloat16)])
+def test_cuda_quantize_stochastic_rows_lanes_and_grids(lanes, warps, d,
+                                                       dtype):
+    """rows at every lane group and 1..16 warps a block (300 rows: the last
+    block holds rows past the end), against the plain twin."""
+    quant = importlib.import_module("np_modeling_tpu_torch.ops.quantization")
+    try:
+        quant.schedule_plan("rows", 300, d, dtype, lanes=lanes)
+    except ValueError:          # more vectors a lane than rows holds
+        assert d // quant.quantize_vec(d, dtype) > \
+            quant.ROWS_PER_LANE[-1] * lanes
+        return
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(300, d, generator=g, device="cuda").to(dtype)
+    x[7] = 0.0
+    assert _k10_equal_to_plain(x, 99, "rows", lanes=lanes,
+                               warps=warps) == "rows"
+
+
+@pytest.mark.parametrize("threads", [32, 128, 288, 512])
+@pytest.mark.parametrize("d,dtype", [(2304, torch.bfloat16),
+                                     (16384, torch.float32),
+                                     (32768, torch.bfloat16),
+                                     (4100, torch.bfloat16)])
+def test_cuda_quantize_stochastic_block_row_threads_and_grids(threads, d,
+                                                              dtype):
+    """block_row at 1..16 warps a block (9: 288 threads), a block a row
+    (300 rows)."""
+    quant = importlib.import_module("np_modeling_tpu_torch.ops.quantization")
+    try:
+        quant.schedule_plan("block_row", 300, d, dtype, lanes=threads)
+    except ValueError:          # more vectors a thread than block_row holds
+        assert d // quant.quantize_vec(d, dtype) > \
+            quant.BLOCK_ROW_PER_LANE[-1] * threads
+        return
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(300, d, generator=g, device="cuda").to(dtype)
+    x[299] = 0.0
+    assert _k10_equal_to_plain(x, 2 ** 40 + 1, "block_row",
+                               lanes=threads) == "block_row"
+
+
+def test_cuda_quantize_stochastic_counts_the_planned_schedule():
+    """launches_by_schedule counts each launch once, on the schedule the
+    plan chose, and launches counts them all."""
+    counts = ops.quantize_int8_stochastic.launches_by_schedule
+    before, total = dict(counts), ops.quantize_int8_stochastic.launches
+    for shape, dtype in (((8192, 768), torch.float32),
+                         ((21504, 64), torch.bfloat16),
+                         ((64, 16384), torch.float32),
+                         ((8, 1001), torch.float32)):
+        ops.quantize_int8_stochastic(torch.ones(shape, device="cuda",
+                                                dtype=dtype), 1)
+    assert ops.quantize_int8_stochastic.launches == total + 4
+    assert {k: counts[k] - before[k] for k in counts} == {
+        "rows": 2, "block_row": 1, "simple": 1}
 
 
 def test_cuda_gpt_step_forced_vs_default():

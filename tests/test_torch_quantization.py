@@ -505,3 +505,141 @@ def test_quantize_int8_stochastic_zero_rows_and_other_seeds():
     share = (a.values != b.values).float().mean().item()
     assert 0.15 < share < 0.5            # expected ~2 E[f (1 - f)] = 1/3
     assert ops.quantize_int8_stochastic.launches == 0
+
+
+def test_a_vector_of_four_is_one_philox_draw():
+    """With d % 4 == 0 the four elements (row, 4 j .. 4 j + 3) are the words
+    of Philox draw row * d / 4 + j, so K10's rows and block_row schedules
+    draw once a vector (8 bf16: draws 2 j' and 2 j' + 1)."""
+    from np_modeling_tpu_torch.ops.fused import philox4x32_10
+    n, d, seed = 3, 24, 0x1_2345_6789
+    bits = tq.philox_bits(seed, (n, d)).reshape(n, d // 4, 4)
+    q = torch.arange(n * d // 4, dtype=torch.int64)
+    zero = torch.zeros_like(q)
+    words = philox4x32_10(q & 0xFFFFFFFF, q >> 32, zero, zero,
+                          (seed & 0xFFFFFFFF, seed >> 32))
+    assert torch.equal(bits, torch.stack(words, -1).reshape(n, d // 4, 4))
+
+
+# ---- K10's schedule plan (plain Python, shapes alone) -----------------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("n,d,dtype,schedule,vec", [
+    (8192, 768, F32, "rows", 4), (8192, 768, BF16, "rows", 8),
+    (21504, 64, BF16, "rows", 8), (8192, 2304, BF16, "block_row", 8),
+    (1024, 16384, F32, "block_row", 4), (8192, 1001, F32, "simple", 1)])
+def test_quantize_plan_at_the_design_shapes(n, d, dtype, schedule, vec):
+    p = tq.quantize_plan(n, d, dtype, True, 132)
+    assert (p.schedule, p.vec) == (schedule, vec)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("n,d", [(1, 4), (3, 64), (21504, 64), (5, 768),
+                                 (8192, 768), (7, 772), (8192, 2304),
+                                 (2, 4096), (1024, 16384), (3, 16380)])
+def test_quantize_plan_covers_each_row_and_every_row(n, d, dtype):
+    """The vectors a row's threads hold cover its d elements, at the
+    fewest compiled vectors a thread that do; the grid covers each row
+    once."""
+    p = tq.quantize_plan(n, d, dtype, True, 132)
+    assert p.schedule in ("rows", "block_row")
+    assert d % p.vec == 0
+    assert p.lanes * p.per_lane * p.vec >= d
+    if p.schedule == "rows":
+        widths = tq.ROWS_PER_LANE
+        assert p.lanes in (1, 2, 4, 8, 16, 32) and 1 <= p.warps <= 16
+        assert p.grid * (p.warps * 32 // p.lanes) >= n
+    else:
+        widths = tq.BLOCK_ROW_PER_LANE
+        assert p.lanes == 32 * p.warps <= tq.BLOCK_ROW_MAX_THREADS
+        assert p.grid == n
+    assert p.per_lane in widths
+    assert all(p.lanes * w * p.vec < d for w in widths if w < p.per_lane)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("d", [1, 2, 3, 6, 33, 770, 1001])
+def test_quantize_plan_ragged_d_is_simple(d, dtype):
+    """d % 4 != 0: a Philox draw's four words straddle two rows."""
+    assert tq.quantize_vec(d, dtype) == 0
+    assert tq.quantize_plan(64, d, dtype, True, 132).schedule == "simple"
+    with pytest.raises(ValueError):
+        tq.schedule_plan("rows", 64, d, dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("d", [64, 768, 16384])
+def test_quantize_plan_misaligned_x_is_simple(d, dtype):
+    assert tq.quantize_plan(64, d, dtype, False, 132).schedule == "simple"
+
+
+@pytest.mark.parametrize("d,dtype,schedule", [
+    (1024, F32, "rows"), (1028, F32, "block_row"), (1024, BF16, "rows"),
+    (1032, BF16, "block_row"), (2048, BF16, "block_row"), (1020, BF16, "rows"),
+    (1028, BF16, "block_row"),
+    (16384, F32, "block_row"), (16388, F32, "simple"),
+    (32768, BF16, "block_row"), (32776, BF16, "simple"),
+    (16380, BF16, "block_row"), (16388, BF16, "simple")])
+def test_quantize_plan_row_length_limits(d, dtype, schedule):
+    """rows to 32 elements a lane of 32 (d 1024), block_row to 512 threads x
+    8 vectors (16384 fp32), simple past that (1020, 1028 and 16380 bf16:
+    4-element vectors, as d % 8 != 0)."""
+    assert tq.quantize_plan(16, d, dtype, True, 132).schedule == schedule
+
+
+@pytest.mark.parametrize("d,dtype,vec", [
+    (4, F32, 4), (768, F32, 4), (772, F32, 4), (4, BF16, 4), (8, BF16, 8),
+    (768, BF16, 8), (772, BF16, 4), (2308, BF16, 4), (16384, BF16, 8)])
+def test_quantize_vector_widths(d, dtype, vec):
+    """16 bytes a vector (4 fp32, 8 bf16); 8 bytes (4 bf16) where d is a
+    multiple of 4 but not of 8."""
+    assert tq.quantize_vec(d, dtype) == vec
+    assert tq.quantize_plan(16, d, dtype, True, 132).vec == vec
+
+
+@pytest.mark.parametrize("n,d,dtype,lanes,per_lane", [
+    (21504, 64, BF16, 8, 1), (21504, 64, F32, 8, 2), (21504, 128, BF16, 8, 2),
+    (21504, 256, BF16, 16, 2), (64, 128, F32, 16, 2), (64, 72, BF16, 8, 2),
+    (64, 132, F32, 32, 2), (64, 512, BF16, 32, 2), (8192, 768, F32, 32, 6),
+    (8192, 768, BF16, 32, 3), (64, 28, F32, 8, 1), (64, 4, F32, 1, 1)])
+def test_quantize_plan_lanes_a_row(n, d, dtype, lanes, per_lane):
+    """One vector a lane for rows of up to 8 vectors, two beyond (at most
+    32 lanes): the sweep's fastest at d 64 bf16 (8 vectors), d 128 bf16, d
+    64 fp32 (16) and d 256 bf16 (32)."""
+    p = tq.quantize_plan(n, d, dtype, True, 132)
+    assert (p.schedule, p.lanes, p.per_lane, p.warps) == (
+        "rows", lanes, per_lane, tq.ROWS_WARPS)
+    assert p.grid == -(-n // (p.warps * 32 // lanes))
+
+
+def test_schedule_plan_forced_shapes_and_caps():
+    p = tq.schedule_plan("rows", 8192, 768, F32, lanes=32, warps=8)
+    assert p == ("rows", 4, 32, 6, 8, 8192 // 8)    # each row once
+    assert tq.schedule_plan("rows", 8193, 768, F32, lanes=32,
+                            warps=2).grid == 4097
+    assert tq.schedule_plan("rows", 21504, 64, BF16) == (
+        "rows", 8, 8, 1, 4, 21504 // 16)
+    p = tq.schedule_plan("block_row", 8192, 2304, BF16, lanes=288)
+    assert p == ("block_row", 8, 288, 1, 9, 8192)
+    assert tq.schedule_plan("block_row", 3, 4, F32).per_lane == 1
+    assert tq.schedule_plan("simple", 5, 1001, F32) == (
+        "simple", 1, 256, 0, 8, 5)
+    for bad in (dict(lanes=3), dict(lanes=64), dict(lanes=16),
+                dict(warps=17)):
+        with pytest.raises(ValueError):
+            tq.schedule_plan("rows", 4, 768, F32, **bad)
+    with pytest.raises(ValueError):
+        tq.schedule_plan("block_row", 4, 768, F32, lanes=48)
+    with pytest.raises(ValueError):
+        tq.schedule_plan("block_row", 4, 16388, F32)
+    with pytest.raises(ValueError):
+        tq.schedule_plan("block_row", 4, 768, F32, lanes=1024)
+
+
+def test_quantize_int8_stochastic_cpu_launches_no_schedule():
+    before = dict(ops.quantize_int8_stochastic.launches_by_schedule)
+    ops.quantize_int8_stochastic(torch.ones(4, 768), 3)
+    assert ops.quantize_int8_stochastic.launches_by_schedule == before == {
+        "rows": 0, "block_row": 0, "simple": 0}

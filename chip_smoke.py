@@ -1,7 +1,9 @@
 """Drives the PyTorch port's serving path, its quantized serving path, its
-bench training step, its training entry point, that entry point with every
-product forced through the matmul kernel, packed-document training,
-Gemma-2 serving and Gemma-2 training once on one CUDA card.
+serving features (dense KV-cache generate, dense prefill, fork, the prefix
+cache, sampling) and serving example, its bench training step, its training
+entry point, that entry point with every product forced through the matmul
+kernel, packed-document training, Gemma-2 serving and generate, and Gemma-2
+training once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -46,7 +48,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
       ragged at every kv tile width, fp32 and bf16, d 64/128/256): o, lse
       of K1 and dq, dk, dv of K2 and K5 against the plain path within the
       flash tolerances, their o the mean of v over all keys, K12 bit-equal
-      to K1 on the same skv.
+      to K1 on the same skv. K1's mask option (MASK_CASES: sq 1 and 300,
+      skv 1000 and 333, GQA 8/4, per-row [b, 1, s, L] and broadcast [1, 1,
+      s, L] masks, a decode band, causal with window 100 and softcap 2,
+      softcap 50, a row without a key, non-causal and under causal with
+      window 64, v of mean ~2; fp32 and bf16 at d 64/128/256): o and lse
+      within the flash tolerances, the keyless row's lse equal to the plain
+      one and its o the mean of v over all keys.
       LayerNorm K8 (out, dx, dgamma, dbeta): fp32 max abs err <= 1e-5 times
       max(1, max |plain|); a bf16 output within one bf16 ulp (or that fp32
       bound, where a value is so near 0 that fp32 rounding before the last
@@ -81,6 +89,35 @@ Phases, each printed on its own lines; any failure exits non-zero:
       that fp32 greedy tokens equal those of the plain version (near-ties
       printed);
   (e) serving timings with CUDA events (median of >= 20 runs after warm-up);
+  (u) serving features on GPT-2 small at full width and depth, seeded
+      weights: fp32 GPT.generate of 32 tokens after 512 through dense KV
+      caches (K1's fp32 mask forward, 12 launches a step, no paged
+      attention) token for token against the fp32 paged engine (a
+      differing token prints generate's top-2 logit gap there and fails),
+      each step's logits within 1e-4 x max(1, max |logit|) of the
+      engine's; bf16 caches: GPT.apply decodes 8 ragged rows at per-row
+      indices (K1's bf16 mask forward), its logits within 1.25 x the plain
+      path's distance from the fp32 plain path's plus 1e-2 x max(1, max
+      |logit|); dense prefill
+      against chunked prefill: the same first tokens of (d)'s 8 prompts; a
+      600-token prompt forked into 3 greedy twins equal to the parent; the
+      prefix cache on 8 requests sharing a 512-token prefix: the cache-off
+      engine's tokens and hit_tokens 7 x 512; bf16 sampling at temperature
+      0.8 / top-k 50 / top-p 0.95: every drawn token in filter_logits'
+      keep-set, the same seed the same tokens; bf16 per-request greedy
+      penalties token for token across two runs; every page home after
+      finish;
+  (v) K1's mask option at the shapes of its paths: bf16 at (u)'s dense
+      decode (b8 h12 d64 sq1 L1024, per-row masks) and its prefill (sq512);
+      fp32 at generate's: GPT-2's decode (b1 sq1 L544) and prefill (sq512)
+      and Gemma-2's local decode (b1 8/4 heads of 256, L4108, band,
+      softcap 50): wall and device ms beside the plain path, the bound,
+      and SDPA with the boolean mask or
+      compiled flex_attention (softcap score_mod, band mask_mod) (a
+      report, not a check; exp_torch_decode.py times the engine's and
+      generate's decode);
+  (x) np_modeling_tpu_torch/serve_gpt.py on the card: joins, leaves,
+      pages home, fork twins;
   (j) quantized serving: (d)'s GPT-2 small with its FFN weights quantized
       to int8 (quantize_params_int8 -> params_from_numpy) and int8 KV pages
       (quantize_kv=True), bf16 compute, on (d)'s traffic; checks tokens,
@@ -183,6 +220,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
       max(1, max |logit|); fp32 greedy tokens equal the plain engine's
       (near-ties printed); each first token is the argmax of GPT.apply's
       last logits under force_plain(), within 1e-3 x max(1, max |logit|);
+  (w) (q)'s bf16 Gemma-2 generates 8 tokens after 4,100 through dense fp32
+      caches: K1's mask option at d256 with softcap 50 and the local
+      layers' window in the mask, 26 launches a step, no paged attention;
+      tokens equal those of the plain path (a differing token prints the
+      plain top-2 gap and fails); the same weights in fp32: each step's
+      logits within 1e-4 x max(1, max |logit|) of the plain path's, and
+      the bf16 run's within 1.25 x the plain bf16 run's distance from
+      them plus 1e-2 x max(1, max |logit|);
   (r) Gemma-2 timings: the engine's prefill ms and decode tokens/s, the
       decode profiled by kind (as (p)), K3 at that decode on the engine's
       pages for a local and a global layer beside its bound, and K3 on 8
@@ -310,11 +355,14 @@ GEMMA_BF16_SLACK = 1e-2
 # tensor-core operations/s. A bound is the larger of bytes / the first and
 # operations / the second.
 PEAK_BYTES_S, PEAK_BF16_S = 3.35e12, 989e12
+# float32 operations/s outside the tensor cores (the same data sheet).
+PEAK_F32_S = 67e12
 
 
-def _bound(nbytes, flops):
-    """(least ms the card could take, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_S * 1e3
+def _bound(nbytes, flops, peak=PEAK_BF16_S):
+    """(least ms the card could take, "bytes" or "operations"), the
+    operations at ``peak`` a second."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -459,11 +507,12 @@ def check_forward_sass(lib_path, log):
     want = {(d, h, o) for d in (64, 128, 256) for o in range(8)
             for h in (0, 1)}
     want |= {(d, 2, o) for d in (64, 128, 256) for o in (0, 2)}
+    want |= {(d, 1, o) for d in (64, 128, 256) for o in (8, 10, 12, 14)}
     for key in sorted(want):
         d, halves, opt = key
         kind = {0: "K5 dq", 1: "forward K1", 2: "forward K12"}[halves]
-        print(f"(b) {kind} d{d} options "
-              f"{opt} (seg 1, window 2, softcap 4): {regs.get(key, 'no usage')}"
+        print(f"(b) {kind} d{d} options {opt} (seg 1, window 2, softcap 4, "
+              f"mask 8): {regs.get(key, 'no usage')}"
               f", {hgmma.get(key, 0)} HGMMA in its SASS"
               f"{', wgmma serialized by ptxas (C7514)' if key in serialized else ''}")
     missing = sorted(k for k in want if not hgmma.get(k))
@@ -1104,6 +1153,110 @@ def phase_flash_no_key_vs_plain():
                   f"{err:.2e} from the mean of v")
     print(f"(c) flash no-key rows: {n} cases pass; max abs err fp32 "
           f"{errs[torch.float32]:.3e}, bf16 {errs[torch.bfloat16]:.3e}")
+
+
+# (c): K1's mask option. (name, b, hq, hkv, sq, skv, mask kind, causal,
+# window, softcap): "rows" a per-row [b, 1, 1, L] mask of each row's written
+# slots, a dense decode step's; "band" a [1, 1, 1, L] one of the slots in
+# a window behind the last, Gemma-2's local decode; "random" [b, 1, s, L]
+# with one row left without a key (non-causal); "causal" [1, 1, s, L] with
+# the diagonal kept, so every row keeps a key under causal + window;
+# "causal keyless" the same with row s // 2 left without a key, whose band
+# under causal + window ends tiles before skv (its o is the mean of v over
+# all skv keys, not over the band's tiles). skv is a multiple of no kv tile.
+MASK_CASES = (
+    ("decode rows", 4, 8, 4, 1, 1000, "rows", False, None, None),
+    ("decode band softcap", 4, 8, 4, 1, 1000, "band", False, None, 50.0),
+    ("rows keyless softcap", 2, 8, 4, 300, 333, "random", False, None, 50.0),
+    ("causal window softcap", 2, 8, 4, 300, 333, "causal", True, 100, 2.0),
+    ("causal keyless window", 2, 8, 4, 300, 333, "causal keyless", True, 64,
+     None),
+)
+
+
+def flash_mask_case(case, dtype, d, rng):
+    """(q, k, v, mask, kwargs, keyless rows [b, sq] or None) of a MASK_CASES
+    entry at ``dtype`` and head dim ``d``; v has a mean of ~2, so a row
+    without a key averaged over the visited columns in place of the skv
+    keys is far off."""
+    import torch
+    _, b, hq, hkv, sq, skv, kind, causal, window, softcap = case
+    q, k, v, _ = _flash_inputs((b, hq, hkv, sq, skv, d), dtype, rng)
+    v = v + 2
+    col = torch.arange(skv, device="cuda")
+    keyless = None
+    if kind == "rows":
+        lens = torch.tensor(rng.integers(1, skv + 1, b), device="cuda")
+        mask = (col[None, :] < lens[:, None])[:, None, None, :]
+    elif kind == "band":
+        pos = skv - 1 - 37
+        mask = ((col <= pos) & (col > pos - 400))[None, None, None, :]
+    else:
+        mask = torch.tensor(rng.random((b if kind == "random" else 1, 1, sq,
+                                        skv)) < 0.6, device="cuda")
+        if kind != "random":
+            mask[0, 0, torch.arange(sq), torch.arange(sq)] = True
+        if kind != "causal":
+            mask[0, 0, sq // 2] = False
+            keyless = ~mask[:, 0].any(-1)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              scale=d ** -0.5)
+    return q, k, v, mask, kw, keyless
+
+
+def phase_flash_mask_vs_plain():
+    """K1's mask option against the plain path on the card, fp32 and bf16 at
+    d 64/128/256 over MASK_CASES (sq 1 and 300, GQA 8/4, broadcast and
+    per-row masks, window and softcap, a row without a key): o and lse
+    within the flash tolerances, the keyless row's lse equal to the plain
+    one and its o the mean of v over all keys; one launch counted each."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import attention
+    rng = np.random.default_rng(SEED + 41)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128, 256):
+            for case in MASK_CASES:
+                q, k, v, mask, kw, keyless = flash_mask_case(case, dtype, d,
+                                                             rng)
+                before = ops.flash_attention.launches_fwd_mask
+                o, lse = attention._flash_fwd_cuda(q, k, v, kw["causal"],
+                                                   kw["scale"], True,
+                                                   window=kw["window"],
+                                                   softcap=kw["softcap"],
+                                                   mask=mask)
+                if ops.flash_attention.launches_fwd_mask != before + 1:
+                    raise AssertionError("(c) K1 with a mask not counted")
+                want = attention._attn_fwd_plain(q, k, v, mask, None,
+                                                 kw["causal"], kw["window"],
+                                                 kw["scale"], kw["softcap"])
+                tag = f"flash mask {case[0]} d{d} {str(dtype)[6:]}"
+                o = o.contiguous()
+                line = _hold(tag, ("o",), (o,), want[:1], dtype, errs)
+                if keyless is None:
+                    line += ", " + _hold(tag, ("lse",), (lse,), want[1:],
+                                         dtype, errs)
+                else:
+                    line += ", " + _hold_no_key_lse(tag, lse, want[1],
+                                                    keyless, dtype, errs)
+                    g = q.shape[1] // k.shape[1]
+                    mean = v.float().mean(dim=2, keepdim=True) \
+                        .repeat_interleave(g, 1).expand(o.shape)
+                    none = keyless[:, None, :, None].expand(o.shape)
+                    err = (o.float() - mean)[none].abs().max().item()
+                    if not err <= _tol(dtype) * max(1.0, mean.abs().max()
+                                                    .item()):
+                        raise AssertionError(f"(c) {tag}: the keyless row is "
+                                             f"{err} from the mean of v")
+                    line += f", keyless row's o {err:.2e} from the mean of v"
+                n += 1
+                print(f"(c) {tag}: {line}")
+    torch.cuda.synchronize()
+    print(f"(c) flash mask option: {n} cases pass; max abs err fp32 "
+          f"{errs[torch.float32]:.3e}, bf16 {errs[torch.bfloat16]:.3e}")
+    return errs[torch.float32], errs[torch.bfloat16]
 
 
 def _bf16_ulp(t):
@@ -2168,6 +2321,550 @@ def phase_quant_timings(qgpt, prompts, serving, device_line):
           f"{q_tps / b_tps:.3f}), prefill {res[prefill_name][0]:.3f} vs "
           f"{serving[prefill_name][0]:.3f} ms [{device_line}]")
     return res
+
+
+# (u): GPT-2 small's serving features. generate: a GEN_PROMPT-token prompt,
+# GEN_STEPS tokens; fork: a FORK_PROMPT-token prompt into FORK_TWINS twins;
+# the prefix cache: PREFIX_REQS requests sharing a PREFIX_LEN-token prefix.
+GEN_PROMPT, GEN_STEPS = 512, 32
+FORK_PROMPT, FORK_TWINS = 600, 3
+PREFIX_REQS, PREFIX_LEN = 8, 512
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+# (u)'s bf16 dense decode through GPT.apply: DENSE_B rows of ragged prompts
+# (DENSE_PROMPT tokens written, each row's own length of them real) in
+# bf16 caches of DENSE_L slots, then DENSE_STEPS one-token steps at per-row
+# indices.
+DENSE_B, DENSE_PROMPT, DENSE_L, DENSE_STEPS = 8, 512, 1024, 8
+# (w): Gemma-2's generate, GEMMA_GEN_STEPS tokens after a prompt that fills
+# the window and then some.
+GEMMA_GEN_PROMPT, GEMMA_GEN_STEPS = GEMMA_WINDOW + 4, 8
+
+
+def _generate_with_logits(gpt, prompt, steps, **kw):
+    """``gpt.generate`` and the fp32 logits each token came from ([b, steps,
+    vocab])."""
+    import torch
+    logits = []
+    inner = gpt._sample
+
+    def recording(lg, *args, **kwargs):
+        logits.append(lg.float().clone())
+        return inner(lg, *args, **kwargs)
+
+    gpt._sample = recording
+    try:
+        toks = gpt.generate(prompt, steps, **kw)
+    finally:
+        del gpt._sample
+    return toks, torch.stack(logits, dim=1)
+
+
+def _top2_gap(logits):
+    top = logits.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def _hold_logits(tag, got, want):
+    """max |got - want| <= F32_TOL x max(1, max |want|); returns the error
+    over that scale."""
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item() / scale
+    if not err <= F32_TOL:
+        raise AssertionError(f"{tag}: logits {err:.3e} x max(1, max |logit|)"
+                             f" apart (tol {F32_TOL})")
+    return err
+
+
+def _hold_bf16_logits(tag, got, plain, ref):
+    """bf16 logits ``got`` within 1.25 x the plain bf16 path's distance from
+    the fp32 ``ref`` plus GEMMA_BF16_SLACK x max(1, max |ref|), as (q)."""
+    err_k = (got - ref).abs().max().item()
+    err_p = (plain - ref).abs().max().item()
+    bound = 1.25 * err_p + GEMMA_BF16_SLACK * max(1.0, ref.abs().max().item())
+    print(f"{tag}: bf16 logits vs fp32 plain: kernels {err_k:.4e}, plain "
+          f"{err_p:.4e} (bound {bound:.4e})")
+    if not err_k <= bound:
+        raise AssertionError(f"{tag}: bf16 logits {err_k} from fp32 > {bound}")
+
+
+def _dense_decode(gpt, tokens, lens, nexts, dtype):
+    """GPT.apply through dense caches of ``dtype``: ``tokens`` [b, p] written
+    at index 0, then each row's index set to its length ``lens`` [b] (its
+    pad slots are overwritten and never seen) and the tokens ``nexts``
+    [steps, b] fed one a step. Returns the fp32 logits of each row's last
+    real token and of every step, [b, 1 + steps, vocab]."""
+    import torch
+    b = tokens.shape[0]
+    with torch.no_grad():
+        caches = gpt.init_cache(b, DENSE_L, dtype)
+        logits, caches = gpt.apply(tokens, caches=caches, decode=True)
+        out = [logits[torch.arange(b, device=tokens.device), lens - 1]]
+        for c in caches:
+            c["index"] = lens.clone()
+        for tok in nexts:
+            logits, caches = gpt.apply(tok[:, None], caches=caches,
+                                       decode=True)
+            out.append(logits[:, -1])
+    return torch.stack(out, dim=1).float()
+
+
+def _mask_counts():
+    from np_modeling_tpu_torch import ops
+    f = ops.flash_attention
+    return {"flash_attention_fwd": f.launches_fwd,
+            "flash_attention_fwd_mask": f.launches_fwd_mask,
+            "flash_attention_fwd_mask_fp32": f.launches_fwd_mask_fp32,
+            "paged_attention": ops.paged_attention.launches}
+
+
+def _zero_mask_counts():
+    from np_modeling_tpu_torch import ops
+    ops.flash_attention.launches_fwd = 0
+    ops.flash_attention.launches_fwd_mask = 0
+    ops.flash_attention.launches_fwd_mask_fp32 = 0
+    ops.paged_attention.launches = 0
+
+
+def _finish_all(eng, free0, tag, cached=0):
+    """Finish every live sequence; every page must be free again but those
+    the prefix cache holds (``cached``)."""
+    for sid in eng.live:
+        eng.finish(sid)
+    if eng.free_pages + cached != free0:
+        raise AssertionError(f"(u) {tag}: {eng.free_pages} free pages + "
+                             f"{cached} cached after finish, {free0} before")
+
+
+def phase_serving_features():
+    """(u) GPT-2 small's serving features at full width and depth, weights
+    from SEED. fp32: greedy GPT.generate of GEN_STEPS tokens after a
+    GEN_PROMPT-token prompt through dense KV caches (K1's fp32 mask forward
+    on every layer of every step: 12 launches a step) token for token
+    against the paged engine (a differing token prints the top-2 gap of
+    generate's logits there and fails), and each step's logits within
+    F32_TOL x max(1, max |logit|) of the engine's. bf16 caches: GPT.apply
+    decodes DENSE_B ragged rows at per-row indices (K1's bf16 mask forward,
+    [b, 1, 1, L] masks), its logits within 1.25 x the plain path's distance
+    from the fp32 plain path's plus GEMMA_BF16_SLACK. Dense prefill (prefill_chunk_size=None)
+    against chunked prefill on (d)'s 8 prompts: the same first tokens; a
+    FORK_PROMPT-token prompt forked into FORK_TWINS greedy twins equal to
+    the parent; the prefix cache on PREFIX_REQS requests sharing a
+    PREFIX_LEN-token prefix: the tokens of the cache-off engine and
+    hit_tokens (PREFIX_REQS - 1) x PREFIX_LEN. bf16: sampling at
+    temperature 0.8 / top-k 50 / top-p 0.95, every drawn token inside
+    filter_logits' keep-set of its logits and the same seed drawing the
+    same tokens; per-request greedy penalties token for token across two
+    runs. Every engine's pages come home after finish. Returns the launch
+    counts of generate ("fp32") and of the bf16 dense decode ("bf16")."""
+    import torch
+    from np_modeling_tpu_torch.models import GPT
+    from np_modeling_tpu_torch.models.transformer_lm import filter_logits
+    from np_modeling_tpu_torch.ops import dispatch
+    from np_modeling_tpu_torch.serving import GenerationEngine, SamplingParams
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gpt32 = GPT(gpt2_config(None), device="cuda").init(gen)
+    gpt16 = GPT(gpt2_config(torch.bfloat16), device="cuda")
+    gpt16.load_state_dict(gpt32.state_dict())
+    V, L = gpt32.config.vocab_size, gpt32.config.num_layers
+    rng = np.random.default_rng(SEED + 50)
+
+    # generate (dense KV caches, K1 with the mask) against the paged engine.
+    prompt = rng.integers(0, V, GEN_PROMPT)
+    _zero_mask_counts()
+    toks, glog = _generate_with_logits(
+        gpt32, torch.tensor(prompt, device="cuda")[None], GEN_STEPS)
+    counts = {"fp32": _mask_counts()}
+    want = {"flash_attention_fwd": L * GEN_STEPS,
+            "flash_attention_fwd_mask": L * GEN_STEPS,
+            "flash_attention_fwd_mask_fp32": L * GEN_STEPS,
+            "paged_attention": 0}
+    print(f"(u) fp32 generate: {GEN_STEPS} tokens after {GEN_PROMPT}; "
+          f"launches {counts['fp32']} (expected {want})")
+    if counts["fp32"] != want:
+        raise AssertionError(f"(u) generate launches {counts['fp32']}, "
+                             f"expected {want}")
+    eng = make_engine(gpt32, torch.float32)
+    free0 = eng.free_pages
+    heads, inner = [], eng._lm_head
+    eng._lm_head = lambda x: heads.append(inner(x)) or heads[-1]
+    paged = [eng.add_request(0, prompt)]
+    prefill_heads, slot = len(heads), eng._slots[0]
+    paged += eng.step_many(GEN_STEPS - 1)[0]
+    del eng._lm_head
+    # The prefill's last chunk holds the request in row 0; a decode step
+    # holds it in its slot.
+    elog = torch.stack([heads[prefill_heads - 1][0, 0]]
+                       + [h[slot, 0] for h in heads[prefill_heads:]])
+    del heads
+    gaps = _top2_gap(glog[0])
+    for i, (a, b) in enumerate(zip(toks[0].tolist(), paged)):
+        if a != b:
+            raise AssertionError(
+                f"(u) generate token {i}: {a} != the engine's {b}; generate's "
+                f"top-2 logit gap there {float(gaps[i]):.3e}")
+    err = _hold_logits("(u) generate vs the paged engine", glog[0], elog)
+    print(f"(u) fp32 generate equals the fp32 paged engine on all "
+          f"{GEN_STEPS} tokens; smallest top-2 gap {float(gaps.min()):.3e}; "
+          f"logits {err:.3e} x max(1, max |logit|) apart (tol {F32_TOL})")
+    _finish_all(eng, free0, "generate engine")
+    del glog, elog
+
+    # bf16 dense decode through GPT.apply at per-row indices.
+    lens = torch.tensor(rng.integers(DENSE_PROMPT // 2, DENSE_PROMPT + 1,
+                                     DENSE_B), device="cuda")
+    dense = torch.tensor(rng.integers(0, V, (DENSE_B, DENSE_PROMPT)),
+                         device="cuda")
+    nexts = torch.tensor(rng.integers(0, V, (DENSE_STEPS, DENSE_B)),
+                         device="cuda")
+    _zero_mask_counts()
+    lk = _dense_decode(gpt16, dense, lens, nexts, torch.bfloat16)
+    counts["bf16"] = _mask_counts()
+    want = {"flash_attention_fwd": L * (1 + DENSE_STEPS),
+            "flash_attention_fwd_mask": L * (1 + DENSE_STEPS),
+            "flash_attention_fwd_mask_fp32": 0, "paged_attention": 0}
+    print(f"(u) bf16 dense decode: {DENSE_B} rows of {lens.tolist()} tokens "
+          f"in bf16 caches of {DENSE_L}, then {DENSE_STEPS} steps at per-row "
+          f"indices; launches {counts['bf16']} (expected {want})")
+    if counts["bf16"] != want:
+        raise AssertionError(f"(u) bf16 dense decode launches "
+                             f"{counts['bf16']}, expected {want}")
+    with dispatch.force_plain():
+        lp = _dense_decode(gpt16, dense, lens, nexts, torch.bfloat16)
+        ref = _dense_decode(gpt32, dense, lens, nexts, torch.float32)
+    _hold_bf16_logits("(u) bf16 dense decode", lk, lp, ref)
+    del lk, lp, ref
+    torch.cuda.empty_cache()
+
+    # Dense prefill against chunked prefill.
+    prompts = traffic_prompts(V)
+    batch = {i: p for i, p in enumerate(prompts)}
+    firsts = {}
+    for chunk in (None, 256):
+        eng = GenerationEngine(gpt32, total_pages=640, page_size=16,
+                               max_seqs=8, kv_dtype=torch.float32,
+                               prefill_chunk_size=chunk)
+        firsts[chunk] = [eng.add_requests(batch), eng.step_many(4)]
+        _finish_all(eng, eng.total_pages - 1, f"prefill {chunk}")
+    for sid in batch:
+        if firsts[None][0][sid] != firsts[256][0][sid]:
+            with torch.no_grad():
+                lg = gpt32.apply(torch.tensor(batch[sid], device="cuda")[None],
+                                 logits_last_only=True)[0, -1]
+            top = lg.topk(2).values
+            raise AssertionError(
+                f"(u) seq {sid}: dense prefill's first token "
+                f"{firsts[None][0][sid]} != chunked {firsts[256][0][sid]}; "
+                f"top-2 gap {float(top[0] - top[1]):.3e}")
+    same = sum(firsts[None][1][s] == firsts[256][1][s] for s in batch)
+    print(f"(u) dense prefill (GPT.apply collect_kv, K1) equals chunked "
+          f"prefill on all {len(batch)} first tokens; the next 4 decode "
+          f"tokens equal on {same} of {len(batch)} sequences")
+
+    # fork.
+    eng = make_engine(gpt32, torch.float32)
+    free0 = eng.free_pages
+    first = eng.add_request(0, rng.integers(0, V, FORK_PROMPT))
+    used = free0 - eng.free_pages
+    for child in range(1, FORK_TWINS + 1):
+        eng.fork(0, child)
+    shared = free0 - eng.free_pages - used
+    out = eng.step_many(16)
+    if any(out[c] != out[0] for c in out):
+        raise AssertionError(f"(u) fork twins differ: {out}")
+    print(f"(u) fork: a {FORK_PROMPT}-token prompt ({used} pages) into "
+          f"{FORK_TWINS} twins took {shared} more pages; 16 greedy tokens of "
+          f"each equal the parent's ({[first] + out[0][:4]}...)")
+    _finish_all(eng, free0, "fork")
+
+    # The prefix cache, one request at a time, against the cache-off engine.
+    prefix = rng.integers(0, V, PREFIX_LEN)
+    reqs = [np.concatenate([prefix, rng.integers(0, V, n)])
+            for n in rng.integers(16, 129, PREFIX_REQS)]
+    streams = {}
+    for cache in (False, True):
+        eng = GenerationEngine(gpt32, total_pages=640, page_size=16,
+                               max_seqs=8, kv_dtype=torch.float32,
+                               enable_prefix_cache=cache)
+        free0 = eng.free_pages
+        streams[cache] = []
+        for i, p in enumerate(reqs):
+            streams[cache].append([eng.add_request(i, p)]
+                                  + eng.step_many(8)[i])
+            eng.finish(i)
+        stats = eng.prefix_cache_stats
+        _finish_all(eng, free0, f"prefix cache {cache}", stats["entries"])
+    if streams[True] != streams[False]:
+        raise AssertionError("(u) the prefix cache changed the tokens")
+    print(f"(u) prefix cache: {PREFIX_REQS} requests sharing a {PREFIX_LEN}-"
+          f"token prefix, tokens equal the cache-off engine's; stats {stats}")
+    if stats["hit_tokens"] != (PREFIX_REQS - 1) * PREFIX_LEN:
+        raise AssertionError(f"(u) hit_tokens {stats['hit_tokens']}, "
+                             f"expected {(PREFIX_REQS - 1) * PREFIX_LEN}")
+
+    # Sampling (bf16): the drawn tokens lie in the keep-set, the seed repeats.
+    def sampled(seed):
+        eng = GenerationEngine(gpt16, total_pages=640, page_size=16,
+                               max_seqs=8, kv_dtype=torch.bfloat16,
+                               seed=seed, **SAMPLING)
+        free0 = eng.free_pages
+        keeps = []
+        inner = eng._lm_head
+
+        def recording(x):
+            lg = inner(x)
+            keeps.append(filter_logits(lg[:, 0] / SAMPLING["temperature"],
+                                       SAMPLING["top_k"], SAMPLING["top_p"])
+                         > -torch.inf)
+            return lg
+
+        eng.add_requests({i: prompts[i] for i in range(4)})
+        eng._lm_head = recording
+        slots = dict(eng._slots)
+        toks = [eng.step() for _ in range(16)]
+        eng._lm_head = inner
+        outside = sum(not bool(keeps[t][slots[sid], tok])
+                      for t, step in enumerate(toks)
+                      for sid, tok in step.items())
+        kept = [int(k[0].sum()) for k in keeps]
+        _finish_all(eng, free0, "sampling")
+        return toks, outside, kept
+
+    a, outside, kept = sampled(7)
+    b = sampled(7)[0]
+    c = sampled(8)[0]
+    print(f"(u) bf16 sampling {SAMPLING}: 4 sequences x 16 steps; drawn "
+          f"tokens outside the keep-set {outside}; keep-set sizes of seq 0 "
+          f"{kept}; seed 7 twice equal: {a == b}; seed 8 differs: {a != c}")
+    if outside or a != b:
+        raise AssertionError("(u) a sampled token outside the keep-set, or "
+                             "one seed drew two streams")
+
+    # Per-request greedy penalties (bf16), twice.
+    sps = {0: SamplingParams(repetition_penalty=1.3),
+           1: SamplingParams(presence_penalty=0.5, frequency_penalty=0.3),
+           2: SamplingParams(repetition_penalty=0.9, logit_bias={11: 2.0},
+                             banned_tokens=(13, 198)),
+           3: None}
+    runs = []
+    for _ in range(2):
+        eng = GenerationEngine(gpt16, total_pages=640, page_size=16,
+                               max_seqs=8, kv_dtype=torch.bfloat16,
+                               per_request_sampling=True)
+        free0 = eng.free_pages
+        first = eng.add_requests({i: prompts[i] for i in sps},
+                                 sampling={k: v for k, v in sps.items() if v})
+        runs.append((first, eng.step_many(16)))
+        _finish_all(eng, free0, "per-request penalties")
+    if runs[0] != runs[1]:
+        raise AssertionError("(u) per-request greedy penalties differ between "
+                             "two runs")
+    if any(t in (13, 198) for t in [runs[0][0][2]] + runs[0][1][2]):
+        raise AssertionError("(u) a banned token was emitted")
+    print("(u) bf16 per-request greedy penalties: 4 slots x 17 tokens equal "
+          "across two runs; no banned token; every engine's pages came home")
+    return counts
+
+
+def _mask_bound(q, k, v, mask, o):
+    """K1 with a mask: q, k, v, the mask and o moved once; the operations of
+    the attended pairs (q.k and p.v, 4 d each), at the bf16 tensor cores'
+    rate or, for fp32 (the FMA path), float32's."""
+    import torch
+    b, hq, sq, d = q.shape
+    pairs = int(mask.expand(b, 1, sq, k.shape[2]).sum()) * hq
+    peak = PEAK_F32_S if q.dtype == torch.float32 else PEAK_BF16_S
+    return _bound(_nbytes(q, k, v, mask, o), 4 * d * pairs, peak)
+
+
+# (v): K1's mask option at the shapes its main paths give it: name ->
+# ((b, hq, hkv, sq, skv, d), softcap, dtype, mask). bf16 at (u)'s dense
+# decode through GPT.apply (ragged per-row [b, 1, 1, L] masks, and its
+# prefill's [1, 1, s, L]); fp32 at generate's (fp32 caches): GPT-2's decode
+# and prefill (u), Gemma-2's local decode (w), the window's band.
+MASK_SHAPES = {
+    "bf16 gpt2 decode": ((DENSE_B, 12, 12, 1, DENSE_L, 64), None, "bf16",
+                         "rows"),
+    "bf16 gpt2 prefill": ((DENSE_B, 12, 12, DENSE_PROMPT, DENSE_L, 64), None,
+                          "bf16", "causal"),
+    "fp32 gpt2 generate decode": ((1, 12, 12, 1, GEN_PROMPT + GEN_STEPS, 64),
+                                  None, "fp32", "slots"),
+    "fp32 gpt2 generate prefill": ((1, 12, 12, GEN_PROMPT,
+                                    GEN_PROMPT + GEN_STEPS, 64), None, "fp32",
+                                   "causal"),
+    "fp32 gemma2 generate decode": ((1, 8, 4, 1, GEMMA_GEN_PROMPT
+                                     + GEMMA_GEN_STEPS, 256),
+                                    GEMMA_CAP, "fp32", "band"),
+}
+
+
+def phase_mask_timings(device_line):
+    """(v) K1's mask option at MASK_SHAPES: wall and device ms beside the
+    plain path, the bound, and the library call (SDPA with the boolean mask
+    at d64; compiled flex_attention with a softcap score_mod and the band as
+    mask_mod at d256). A report, not a check (exp_torch_decode.py times the
+    engine's and generate's decode)."""
+    import torch
+    import torch.nn.functional as F
+    from np_modeling_tpu_torch import ops
+    rng = np.random.default_rng(SEED + 51)
+    res, keys = {}, {}
+    for name, (shape, cap, dt, kind) in MASK_SHAPES.items():
+        b, hq, hkv, sq, skv, d = shape
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        q, k, v, _ = _flash_inputs(shape, dtype, rng)
+        col = torch.arange(skv, device="cuda")
+        if kind == "rows":
+            lens = torch.tensor(rng.integers(DENSE_PROMPT // 2,
+                                             DENSE_PROMPT + DENSE_STEPS + 1, b),
+                                device="cuda")
+            mask = (col[None] < lens[:, None])[:, None, None, :]
+        elif kind == "causal":
+            mask = (col[None] <= torch.arange(sq, device="cuda")[:, None])[
+                None, None]
+        elif kind == "slots":
+            mask = (col <= skv - 2)[None, None, None, :]
+        else:
+            mask = (col > skv - 1 - GEMMA_WINDOW)[None, None, None, :]
+        scale = GEMMA_SCALE if cap else d ** -0.5
+        key = f"flash forward mask {name} b{b} h{hq}/{hkv} sq{sq} L{skv} d{d}" \
+              f"{' softcap' if cap else ''}"
+
+        def fn(q=q, k=k, v=v, mask=mask, cap=cap, scale=scale):
+            return ops.flash_attention(q, k, v, mask=mask, softcap=cap,
+                                       scale=scale)
+
+        with torch.no_grad():
+            o = fn()
+            _both(res, "v", key, fn, device_line)
+            _device_both(res, "v", key, fn, device_line)
+            res["bound " + key] = _mask_bound(q, k, v, mask, o)
+            try:
+                if cap is None:
+                    def lib(q=q, k=k, v=v, mask=mask, scale=scale):
+                        return F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=mask, scale=scale,
+                            enable_gqa=True)
+                    what = "F.scaled_dot_product_attention, boolean attn_mask"
+                else:
+                    lib = _flex_decode(skv, cap, scale, q, k, v)
+                    what = ("compiled flex_attention, softcap score_mod, the "
+                            "band as mask_mod")
+                err = (lib().float() - o.float()).abs().max().item()
+                res["library " + key] = _library("v", f"{what} {key} (max "
+                                                 f"|lib - K1| {err:.3e})",
+                                                 lib, device_line)
+            except Exception as e:      # a report: the yardstick stays null
+                print(f"(v) library call does not run at {key}: "
+                      f"{type(e).__name__}: {str(e)[:300]}")
+        print(f"(v) {key}: bound {res['bound ' + key][0]:.5f} ms "
+              f"({res['bound ' + key][1]}) [{device_line}]")
+        keys[name] = key
+        del q, k, v, mask, o
+    torch.cuda.empty_cache()
+
+    return res, keys
+
+
+def _flex_decode(skv, cap, scale, q, k, v):
+    """Compiled flex_attention at a decode step of Gemma-2's local layer:
+    one query at position skv - 1 over keys in its window, the softcap as
+    score_mod (the library yardstick of K1's mask option at d256)."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(HERE / "build" / "torchinductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(HERE / "build" / "triton"))
+    flex = torch.compile(flex_attention, dynamic=False)
+    pos = skv - 1
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        return (kv_idx <= pos) & (pos - kv_idx < GEMMA_WINDOW)
+
+    block = create_block_mask(mask_mod, None, None, q.shape[2], skv,
+                              device=q.device)
+    return lambda: flex(q, k, v, score_mod=score_mod, block_mask=block,
+                        scale=scale, enable_gqa=True)
+
+
+def phase_gemma2_generate(gpt):
+    """(w) Gemma-2 2B (the bf16 model of (q), 26 layers) generates
+    GEMMA_GEN_STEPS tokens after a prompt of GEMMA_GEN_PROMPT tokens through
+    dense fp32 caches: K1's fp32 mask forward at d256 with the softcap and
+    the local layers' window in the mask (it cuts from the first step), 26
+    launches a step; the tokens equal those of the same generate on the
+    plain path (a differing token prints the plain top-2 gap there and
+    fails). The same weights in fp32: generate's logits at every step
+    within F32_TOL x max(1, max |logit|) of the plain path's, and the bf16
+    run's within 1.25 x the plain bf16 run's distance from them plus
+    GEMMA_BF16_SLACK (compared over the steps whose tokens so far agree).
+    Returns the bf16 run's launch counts."""
+    import torch
+    from np_modeling_tpu_torch.models import GPT
+    from np_modeling_tpu_torch.ops import dispatch
+    rng = np.random.default_rng(SEED + 53)
+    steps, L = GEMMA_GEN_STEPS, gpt.config.num_layers
+    prompt = torch.tensor(rng.integers(0, gpt.config.vocab_size,
+                                       GEMMA_GEN_PROMPT), device="cuda")[None]
+    _zero_mask_counts()
+    t0 = time.perf_counter()
+    toks, lk = _generate_with_logits(gpt, prompt, steps)
+    seconds = time.perf_counter() - t0
+    counts = _mask_counts()
+    with dispatch.force_plain():
+        plain, lp = _generate_with_logits(gpt, prompt, steps)
+    print(f"(w) Gemma-2 generate: {steps} tokens after {prompt.shape[1]} in "
+          f"{seconds:.1f} s (fp32 caches), launches {counts}; kernel "
+          f"{toks[0].tolist()}, plain {plain[0].tolist()}")
+    want = {"flash_attention_fwd": L * steps,
+            "flash_attention_fwd_mask": L * steps,
+            "flash_attention_fwd_mask_fp32": L * steps, "paged_attention": 0}
+    if counts != want:
+        raise AssertionError(f"(w) launches {counts}, expected {want}")
+    gaps = _top2_gap(lp[0])
+    for i, (a, b) in enumerate(zip(toks[0].tolist(), plain[0].tolist())):
+        if a != b:
+            raise AssertionError(f"(w) token {i}: kernel {a} != plain {b}; "
+                                 f"plain top-2 gap {float(gaps[i]):.3e}")
+    gpt32 = GPT(gemma2_config(None), device="cuda")
+    gpt32.load_state_dict(gpt.state_dict())
+    toks32, lk32 = _generate_with_logits(gpt32, prompt, steps)
+    with dispatch.force_plain():
+        plain32, lp32 = _generate_with_logits(gpt32, prompt, steps)
+    del gpt32
+    if not torch.equal(toks32, plain32):
+        raise AssertionError(f"(w) fp32 tokens: kernel {toks32[0].tolist()} "
+                             f"!= plain {plain32[0].tolist()}")
+    err = _hold_logits("(w) fp32 generate vs plain", lk32, lp32)
+    # Step i's logits follow tokens 0..i-1: compare while both agree.
+    agree = (toks[0] == toks32[0]).long().cumprod(0)
+    n = 1 + int(agree[:-1].sum())
+    print(f"(w) fp32 generate: tokens equal the plain path's, logits "
+          f"{err:.3e} x max(1, max |logit|) apart (tol {F32_TOL}) over "
+          f"{steps} steps; bf16 against them over {n} steps")
+    _hold_bf16_logits("(w) Gemma-2 generate", lk[:, :n], lp[:, :n],
+                      lp32[:, :n])
+    del lk, lp, lk32, lp32
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_serve_gpt():
+    """(x) np_modeling_tpu_torch/serve_gpt.py on the card: its requests join
+    and leave, every page comes home, the fork's three continuations are
+    greedy twins, and paged attention carried it."""
+    from np_modeling_tpu_torch import ops, serve_gpt
+    ops.paged_attention.launches = 0
+    out = serve_gpt.main([], log=lambda line: print(f"(x) {line}"))
+    twins = list(out["forked"].values())
+    if out["free_pages"] != 255 or any(t != twins[0] for t in twins):
+        raise AssertionError(f"(x) serve_gpt: {out}")
+    if not ops.paged_attention.launches:
+        raise AssertionError("(x) serve_gpt launched no paged attention")
+    print(f"(x) serve_gpt ran: {ops.paged_attention.launches} K3 launches")
 
 
 def bench_gpt_config(dtype, activation="relu"):
@@ -4102,11 +4799,12 @@ def phase_gemma2_train_timings(gpt, corpus, device_line):
     return res, keys
 
 
-def main(phases="abcdefghijklmnopqrst"):
+def main(phases="abcdefghijklmnopqrstuvwx"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
-    runs the quantized serving path alone, ``"abcqr"`` Gemma-2 serving,
-    ``"abcst"`` Gemma-2 training); the JSON summary and the ok line come
-    only from a run of every phase a to t."""
+    runs the quantized serving path alone, ``"abcqrw"`` Gemma-2 serving and
+    generate, ``"abcst"`` Gemma-2 training, ``"abcuvx"`` GPT-2's serving
+    features); the JSON summary and the ok line come only from a run of
+    every phase a to x."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4135,6 +4833,7 @@ def main(phases="abcdefghijklmnopqrst"):
     flash_err = phase_flash_vs_plain()
     sched_err = phase_flash_schedules_vs_plain()
     phase_flash_no_key_vs_plain()
+    mask_err = phase_flash_mask_vs_plain()
     opt_err = phase_flash_options_vs_plain()
     fused_err = phase_fused_vs_plain()
     k11_err = phase_matmul_vs_plain()
@@ -4142,7 +4841,8 @@ def main(phases="abcdefghijklmnopqrst"):
     k10_err = phase_quantize_vs_plain()
     since("(c)")
     serving = training_res = entry_res = quant_res = forced_res = None
-    packed_res = gemma_res = gemma_train_res = None
+    packed_res = gemma_res = gemma_train_res = mask_res = None
+    gemma_gen_launches = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
         prompts = traffic_prompts(gpt.config.vocab_size)
@@ -4165,6 +4865,17 @@ def main(phases="abcdefghijklmnopqrst"):
             del qgpt
         del gpt
         torch.cuda.empty_cache()
+    if "u" in phases:
+        t0 = time.perf_counter()
+        gen_launches = phase_serving_features()
+        print(f"(u) serving features phase {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        if "v" in phases:
+            mask_res, mask_keys = phase_mask_timings(device_line)
+        since("(u), (v)")
+    if "x" in phases:
+        phase_serve_gpt()
+        since("(x)")
     if "f" in phases:
         t0 = time.perf_counter()
         gpt, opt, params, state, tokens, flash_launches = phase_training()
@@ -4209,6 +4920,9 @@ def main(phases="abcdefghijklmnopqrst"):
         t0 = time.perf_counter()
         gpt, prompts, gemma_launches = phase_gemma2()
         print(f"(q) Gemma-2 serving phase {time.perf_counter() - t0:.1f} s")
+        if "w" in phases:
+            gemma_gen_launches = phase_gemma2_generate(gpt)
+            since("(q), (w)")
         if "r" in phases:
             gemma_res, gemma_keys = phase_gemma2_timings(gpt, prompts,
                                                          device_line)
@@ -4227,7 +4941,8 @@ def main(phases="abcdefghijklmnopqrst"):
         torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
     if None in (serving, training_res, entry_res, quant_res, forced_res,
-                packed_res, gemma_res, gemma_train_res):
+                packed_res, gemma_res, gemma_train_res, mask_res,
+                gemma_gen_launches):
         return 0
     packed_shape = "b8 h12 s1024 d64 causal bf16"
     shape = "b4 h8 s4096 d128 causal bf16"
@@ -4319,6 +5034,21 @@ def main(phases="abcdefghijklmnopqrst"):
     local = {"fwd": g["flash_attention_fwd_window"],
              "bwd": g["flash_attention_bwd_window"]}
     every = {"fwd": g["flash_attention_fwd"], "bwd": g["flash_attention_bwd"]}
+    # K1's mask option, each row beside the launches of its dtype: bf16
+    # counts (u)'s dense decode through GPT.apply (12 a forward), fp32
+    # generate's, (u)'s for GPT-2 (12 a step) and (w)'s for Gemma-2 (26 a
+    # step); prefill and decode rows of one run share its count.
+    bf16 = gen_launches["bf16"]["flash_attention_fwd_mask"]
+    gpt2 = gen_launches["fp32"]["flash_attention_fwd_mask_fp32"]
+    gemma2 = gemma_gen_launches["flash_attention_fwd_mask_fp32"]
+    mask_launches = {"bf16 gpt2 decode": bf16, "bf16 gpt2 prefill": bf16,
+                     "fp32 gpt2 generate decode": gpt2,
+                     "fp32 gpt2 generate prefill": gpt2,
+                     "fp32 gemma2 generate decode": gemma2}
+    rows += [(f"flash_attention_fwd_mask_{name.replace(' ', '_')}",
+              FLASH_SOURCE, "np_modeling_tpu/ops/attention.py:756",
+              mask_launches[name], mask_err, mask_res, mask_keys[name])
+             for name in MASK_SHAPES]
     rows += [(f"flash_attention_{way}_d256_{kind}", FLASH_SOURCE,
               f"np_modeling_tpu/ops/attention.py:{line}",
               local[way] if kind == "local" else every[way] - local[way],

@@ -70,6 +70,21 @@
 // Tiles outside the band are never loaded. The cap uses tanhf (the fp32 path is
 // held to 1e-4 relative; tanh.approx.f32 would not keep that).
 //
+// The user mask (kOptMask, the forwards K1 and fp32 only; JAX's mask tile,
+// _tile_mask :454-507): a boolean [b|1, hq|1, sq, skv] (uint8 here, nonzero =
+// attend; h counts q heads), applied after scale, softcap and the structural
+// masks, on every kv tile (the interior shortcut is off, and causal and the window
+// skip no tile). A masked score takes the mask value, so a row that the mask leaves
+// without a key takes the mean of v over all skv keys with lse = mask + log(skv),
+// P6's rule. Each
+// thread reads its own scores' bytes by the mask's strides (plain loads, issued
+// while the tile's q.k^T runs): broadcast dims are zero-stride views, which a TMA
+// map cannot describe, and a decode step's mask is one row. It is instantiated
+// beside the window and the softcap only; the caller merges segment ids into it.
+// Dense KV-cache decode (sq = 1 and a [1|b, 1, 1, L] mask of the written slots)
+// runs here: a 128-row q tile with one real row, whose q box TMA fills with
+// zeros past sq, and whose stores stop at sq.
+//
 // What bounds them on this card. At the bench training shape (b 4, h 8, s 4096,
 // d 128, causal) attention is ~0.14 TFLOP forward and ~0.34 TFLOP backward a
 // layer against ~0.1 GB of q/k/v/o traffic, and at Gemma-2's (b 1, hq 8, s 8192,
@@ -122,6 +137,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kOptSeg = 1;  // segment ids
 constexpr int kOptWin = 2;  // a sliding window (causal only)
 constexpr int kOptCap = 4;  // a logit softcap
+constexpr int kOptMask = 8; // a boolean mask (K1 and the fp32 forward only)
 
 struct Strides {  // element strides of a [b, h, s, d] tensor; d is contiguous
   long long b, h, s;
@@ -141,6 +157,8 @@ struct Params {
   const int* q_seg;  // [b, sq] int32 segment ids, or null (no segments)
   const int* kv_seg; // [b, skv]
   long long seg_q_b, seg_q_s, seg_kv_b, seg_kv_s;  // their element strides
+  const uint8_t* mask;  // kOptMask: [b|1, hq|1, sq, skv], nonzero = attend, or null
+  long long mask_b, mask_h, mask_q, mask_k;        // its element strides (0: broadcast)
   Strides st_q, st_k, st_v, st_do;
   int b, hq, hkv, sq, skv, causal;
   int window;        // kOptWin: row r sees keys (r - window, r]
@@ -179,11 +197,13 @@ __device__ __forceinline__ float score(const Params& p, float raw, int row, int 
 }
 
 // The kv tiles [x, y) of KV rows that q rows [q0, q0 + QT) see: all of them, or with
-// causal up to the diagonal, and with a window from the tile of key q0 - W + 1.
+// causal up to the diagonal, and with a window from the tile of key q0 - W + 1. With the
+// user mask all of them: a row that the mask leaves without a key averages v over all
+// skv keys (P6), so no tile may be skipped.
 template <int QT, int KV, int kOpt>
 __device__ __forceinline__ int2 kv_tiles(const Params& p, int q0) {
   const int n = (p.skv + KV - 1) / KV;
-  if (!p.causal) return make_int2(0, n);
+  if (!p.causal || (kOpt & kOptMask) != 0) return make_int2(0, n);
   const int first = (kOpt & kOptWin) != 0 ? max(0, q0 - p.window + 1) / KV : 0;
   return make_int2(first, min(n, (q0 + QT - 1) / KV + 1));
 }
@@ -701,13 +721,14 @@ struct FwdAcc {
 // A operands pa; m and l are updated and alpha (the factor of o) returned. `edge`:
 // the tile needs the mask (uniform across the warpgroup). kv_ids (kOptSeg): the
 // segment ids of this thread's columns col0 + 8 j + e, at 2 j + e (see kv_ids_of).
+// mbits (kOptMask): bit i set where the user mask masks s[i] (see mask_bits_of).
 
 template <int R, int kOpt>
 __device__ __forceinline__ void fwd_softmax(const Params& p, float (&s)[R],
                                             uint32_t (&pa)[R / 8][4], float (&m)[2],
                                             float (&l)[2], float (&alpha)[2], bool edge,
                                             int row0, int col0, const int (&q_ids)[2],
-                                            const int (&kv_ids)[R / 2]) {
+                                            const int (&kv_ids)[R / 2], uint64_t mbits) {
   constexpr float kLog2e = 1.4426950408889634f;
   float mx[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f};
   if (edge || (kOpt & kOptCap) != 0 || !(p.scale > 0.f)) {
@@ -725,6 +746,8 @@ __device__ __forceinline__ void fwd_softmax(const Params& p, float (&s)[R],
         if constexpr ((kOpt & kOptWin) != 0) out = out || col <= row - p.window;
         if constexpr ((kOpt & kOptSeg) != 0)
           out = out || q_ids[(i >> 1) & 1] != kv_ids[2 * (i >> 2) + (i & 1)];
+        // The user mask after the structural ones, as JAX's _tile_mask (:499-506).
+        if constexpr ((kOpt & kOptMask) != 0) out = out || ((mbits >> i) & 1u) != 0;
         x = pad ? __int_as_float(0xff800000u) : out ? kMaskValue : x;
       }
       s[i] = x;
@@ -789,6 +812,26 @@ __device__ __forceinline__ void kv_ids_of(int (&kv_ids)[R / 2], const Params& p,
   }
 }
 
+// The user mask of this thread's scores of tile kv0 (col0 = kv0 + 2 t) as bits, bit i
+// for s[i]: R byte loads by their own strides (broadcast dims have stride 0, which a
+// TMA map cannot describe), issued while the tile's q.k^T runs. Rows past sq and
+// columns past skv are not read (their bits stay 0: bounds mask them anyway).
+template <int R, int kOpt>
+__device__ __forceinline__ uint64_t mask_bits_of(const Params& p, const uint8_t* mbase,
+                                                 int row0, int col0) {
+  uint64_t bits = 0;
+  if constexpr ((kOpt & kOptMask) != 0) {
+    static_assert(R <= 64, "one bit a score");
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = row0 + 8 * ((i >> 1) & 1), col = col0 + 8 * (i >> 2) + (i & 1);
+      if (row < p.sq && col < p.skv && __ldg(mbase + row * p.mask_q + col * p.mask_k) == 0)
+        bits |= uint64_t(1) << i;
+    }
+  }
+  return bits;
+}
+
 template <int D>
 __device__ __forceinline__ void scale_o(float (&o)[FwdAcc<D>::kNO][FwdAcc<D>::kON],
                                         const float (&alpha)[2]) {
@@ -834,8 +877,8 @@ template <int D, int kHalves, int kOpt>
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                    const __grid_constant__ CUtensorMap mv, const Params p) {
-  static_assert(kHalves == 1 || (kOpt & (kOptSeg | kOptCap)) == 0,
-                "K12 takes no segment ids or softcap");
+  static_assert(kHalves == 1 || (kOpt & (kOptSeg | kOptCap | kOptMask)) == 0,
+                "K12 takes no segment ids, softcap or mask");
   using S = FwdSmem<D>;
   using A = FwdAcc<D>;
   constexpr int KV = S::kKv, R = KV / 2, QT = S::kQ;
@@ -916,9 +959,12 @@ __global__ void __launch_bounds__(384, 1)
       q_ids[h] = row0 + 8 * h < p.sq ? __ldg(q_seg + (row0 + 8 * h) * p.seg_q_s) : 0;
     kv_seg = p.kv_seg + bb * p.seg_kv_b;
   }
-  // Does tile kv0 need the mask for any of this warpgroup's rows?
+  const uint8_t* mbase = nullptr;
+  if constexpr ((kOpt & kOptMask) != 0) mbase = p.mask + bb * p.mask_b + hh * p.mask_h;
+  // Does tile kv0 need the mask for any of this warpgroup's rows? With the user mask
+  // every visited tile does.
   auto edge_of = [&](int kv0) {
-    if constexpr ((kOpt & kOptSeg) != 0) return true;
+    if constexpr ((kOpt & (kOptSeg | kOptMask)) != 0) return true;
     bool e = kv0 + KV > p.skv || (p.causal && kv0 + KV - 1 > r0);
     if constexpr ((kOpt & kOptWin) != 0) e = e || kv0 <= r0 + 63 - p.window;
     return e;
@@ -946,6 +992,7 @@ __global__ void __launch_bounds__(384, 1)
       wg::commit();
       int kv_ids[R / 2];
       kv_ids_of<R, kOpt>(kv_ids, p, kv_seg, kv0 + 2 * t);
+      const uint64_t mbits = mask_bits_of<R, kOpt>(p, mbase, row0, kv0 + 2 * t);
       wg::wait<0>();  // s has landed, and the previous tile's p.v is done
       wg::fence_acc(s);
       fence_o<D>(o);
@@ -956,7 +1003,7 @@ __global__ void __launch_bounds__(384, 1)
       }
       float alpha[2];
       fwd_softmax<R, kOpt>(p, s, pa, m, l, alpha, edge_of(kv0), row0, kv0 + 2 * t, q_ids,
-                           kv_ids);
+                           kv_ids, mbits);
       scale_o<D>(o, alpha);
       wg::mbar_wait(&v_full[slot], parity);
       wg::fence();
@@ -981,7 +1028,7 @@ __global__ void __launch_bounds__(384, 1)
       wg::fence_acc(sa);
       if (leader) wg::mbar_arrive(&k_empty[0]);
       fwd_softmax<R, kOpt>(p, sa, pa, m, l, alpha, edge_of(kv0), row0, kv0 + 2 * t, q_ids,
-                           kv_ids);
+                           kv_ids, 0);
       scale_o<D>(o, alpha);
       wg::mbar_wait(&v_full[0], parity);
       wg::fence();
@@ -991,7 +1038,7 @@ __global__ void __launch_bounds__(384, 1)
       wg::fence_acc(sb);
       if (leader) wg::mbar_arrive(&k_empty[1]);
       fwd_softmax<R, kOpt>(p, sb, pb, m, l, alpha, edge_of(kv0 + KV), row0, kv0 + KV + 2 * t,
-                           q_ids, kv_ids);
+                           q_ids, kv_ids, 0);
       wg::wait<0>();  // the first tile's p.v is done
       fence_o<D>(o);
       fence_a(pa);
@@ -1317,21 +1364,25 @@ __device__ __forceinline__ float row_reduce(float x) {
 // K1's work on one kv tile at kv0 for tile row r, columns of residue h
 // (fp32): s = q.k^T in, scaled, capped and masked; the online-softmax update;
 // acc += p . v through the row's p in shared memory. K12 runs it on its
-// halves in turn.
+// halves in turn. mrow (kOptMask): the user mask's row of tile row r (read only
+// for a row < sq and a key < skv), after the structural masks.
 template <int D, int kOpt>
 __device__ __forceinline__ void fwd_update_f32(const Params& p, float (&s)[F32Smem<D>::kCols],
                                                float& m, float& l,
                                                float (&acc)[F32Smem<D>::kDims], float* ps,
                                                const float* vs, const int* seg_q,
                                                const int* seg_kv, int q0, int kv0, int r,
-                                               int h) {
+                                               int h, const uint8_t* mrow) {
   using S = F32Smem<D>;
   constexpr int LD = S::kLd, LP = S::kLdP, P = S::kPar, NC = S::kCols, HD = S::kDims;
   float cap_grad;
 #pragma unroll
-  for (int j = 0; j < NC; ++j)
-    s[j] = score<kOpt>(p, s[j], q0 + r, kv0 + P * j + h, seg_q, r, seg_kv, P * j + h,
-                       cap_grad);
+  for (int j = 0; j < NC; ++j) {
+    const int col = kv0 + P * j + h;
+    s[j] = score<kOpt>(p, s[j], q0 + r, col, seg_q, r, seg_kv, P * j + h, cap_grad);
+    if constexpr ((kOpt & kOptMask) != 0)
+      if (q0 + r < p.sq && col < p.skv && __ldg(mrow + col * p.mask_k) == 0) s[j] = kMaskValue;
+  }
   float mx = m;
 #pragma unroll
   for (int j = 0; j < NC; ++j) mx = fmaxf(mx, s[j]);
@@ -1379,8 +1430,8 @@ __device__ __forceinline__ void dots_f32(float (&s)[F32Smem<D>::kCols], const fl
 
 template <int D, int kHalves, int kOpt>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
-  static_assert(kHalves == 1 || (kOpt & (kOptSeg | kOptCap)) == 0,
-                "K12 takes no segment ids or softcap");
+  static_assert(kHalves == 1 || (kOpt & (kOptSeg | kOptCap | kOptMask)) == 0,
+                "K12 takes no segment ids, softcap or mask");
   using S = F32Smem<D>;
   constexpr int T = S::kRows, LD = S::kLd, P = S::kPar, HD = S::kDims, E = S::kTileElems;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1401,6 +1452,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
   const float* k = static_cast<const float*>(p.k) + bb * p.st_k.b + hk * p.st_k.h;
   const float* v = static_cast<const float*>(p.v) + bb * p.st_v.b + hk * p.st_v.h;
   const int* kv_seg = p.kv_seg + bb * p.seg_kv_b;
+  const uint8_t* mrow = nullptr;
+  if constexpr ((kOpt & kOptMask) != 0)
+    mrow = p.mask + bb * p.mask_b + hh * p.mask_h + static_cast<long long>(row) * p.mask_q;
   load_rows<float, D, LD, T, kThreads>(qs, q + q0 * p.st_q.s, p.st_q.s, p.sq - q0);
   if (kOpt & kOptSeg) load_seg<T, kThreads>(seg, p.q_seg + bb * p.seg_q_b, p.seg_q_s, q0, p.sq);
 
@@ -1431,7 +1485,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
 #pragma unroll
     for (int hv = 0; hv < kHalves; ++hv)
       fwd_update_f32<D, kOpt>(p, s[hv], m, l, acc, ps, vs + hv * E, seg, seg + T, q0,
-                              (kt + hv) * T, r, h);
+                              (kt + hv) * T, r, h, mrow);
   }
 
   if (row < p.sq) {
@@ -1669,6 +1723,22 @@ int with_opt(int opt, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// with_opt for the forward, which also takes the mask: beside the window and the
+// softcap only (the caller merges segment ids into the mask), so that the mask adds
+// four instantiations a head dim and dtype, not eight.
+template <typename F>
+int with_fwd_opt(int opt, F&& f) {
+  switch (opt) {
+    case kOptMask: return f(std::integral_constant<int, kOptMask>());
+    case kOptMask | kOptWin: return f(std::integral_constant<int, kOptMask | kOptWin>());
+    case kOptMask | kOptCap: return f(std::integral_constant<int, kOptMask | kOptCap>());
+    case kOptMask | kOptWin | kOptCap:
+      return f(std::integral_constant<int, kOptMask | kOptWin | kOptCap>());
+  }
+  if (opt & kOptMask) return static_cast<int>(cudaErrorInvalidValue);
+  return with_opt(opt, f);
+}
+
 Params make_params(const long long* strides, const int* q_seg, const int* kv_seg, int b,
                    int hq, int hkv, int sq, int skv, int causal, int window, float scale,
                    float softcap) {
@@ -1681,6 +1751,10 @@ Params make_params(const long long* strides, const int* q_seg, const int* kv_seg
   p.seg_q_s = strides[13];
   p.seg_kv_b = strides[14];
   p.seg_kv_s = strides[15];
+  p.mask_b = strides[16];
+  p.mask_h = strides[17];
+  p.mask_q = strides[18];
+  p.mask_k = strides[19];
   p.b = b;
   p.hq = hq;
   p.hkv = hkv;
@@ -1697,7 +1771,7 @@ Params make_params(const long long* strides, const int* q_seg, const int* kv_seg
 // The option bits of a call.
 int opts_of(const Params& p) {
   return (p.q_seg != nullptr ? kOptSeg : 0) | (p.window > 0 ? kOptWin : 0) |
-         (p.softcap > 0.f ? kOptCap : 0);
+         (p.softcap > 0.f ? kOptCap : 0) | (p.mask != nullptr ? kOptMask : 0);
 }
 
 dim3 tiles(int n, int rows, int bh) { return dim3((n + rows - 1) / rows, bh); }
@@ -1775,7 +1849,7 @@ int launch_fwd(const Params& p, int dtype, int dual, cudaStream_t s) {
                : launch(flash_fwd_f32<D, 2, 0>, tiles(p.sq, F::kRows, bh), kThreads,
                         F::fwd_bytes(2), s, p);
   }
-  return with_opt(opt, [&](auto o) {
+  return with_fwd_opt(opt, [&](auto o) {
     constexpr int kOpt = decltype(o)::value;
     if (dtype == 1) return launch_fwd_bf16<D, 1, kOpt>(p, s);
     return launch(flash_fwd_f32<D, 1, kOpt>, tiles(p.sq, F::kRows, bh), kThreads,
@@ -1811,8 +1885,11 @@ int launch_bwd(const Params& p, int dtype, int split, cudaStream_t s) {
 
 // dtype codes: 0 = float32 (FMA path), 1 = bfloat16 (tensor cores); d is 64,
 // 128 or 256. strides: 16 element strides, (b, h, s) of q, k, v and do, in that
-// order (the forward reads the first 9), then (b, s) of q_seg and of kv_seg.
-// q_seg/kv_seg: int32 segment ids, both null for none. window: 0 for none, else
+// order (the forward reads the first 9), then (b, s) of q_seg and of kv_seg,
+// then (b, h, q, k) of the mask (the forward only; 20 in all, the backward
+// reads 16). q_seg/kv_seg: int32 segment ids, both null for none. mask (the
+// forward only): uint8 [b|1, hq|1, sq, skv], nonzero = attend, null for none;
+// not with segment ids (the caller merges them into it). window: 0 for none, else
 // W >= 1 (causal only). softcap: 0 for none, else the cap > 0. Outputs and
 // scratch are allocated by the caller: o [b, sq, hq, d] in q's dtype; lse
 // [b, hq, sq] fp32 or null; dk/dv in k's dtype, [b, skv, hkv, d] for bf16 (the
@@ -1823,8 +1900,9 @@ int launch_bwd(const Params& p, int dtype, int split, cudaStream_t s) {
 // of their launches (0 on success).
 extern "C" int np_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       float* lse, const int* q_seg, const int* kv_seg,
-                                      const long long* strides, int dtype, int b, int hq,
-                                      int hkv, int sq, int skv, int d, int causal, int dual,
+                                      const uint8_t* mask, const long long* strides, int dtype,
+                                      int b, int hq, int hkv, int sq, int skv, int d, int causal,
+                                      int dual,
                                       int window, float scale, float softcap, void* stream) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(strides, q_seg, kv_seg, b, hq, hkv, sq, skv, causal, window, scale,
@@ -1834,6 +1912,7 @@ extern "C" int np_flash_attention_fwd(const void* q, const void* k, const void* 
   p.v = v;
   p.o = o;
   p.lse = lse;
+  p.mask = mask;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_fwd<64>(p, dtype, dual, s);
   if (d == 128) return launch_fwd<128>(p, dtype, dual, s);

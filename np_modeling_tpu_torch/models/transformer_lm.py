@@ -11,9 +11,12 @@ logit softcaps and ``query_pre_attn_scalar``. A config outside those raises
 NotImplementedError. ``GPT`` owns its parameters under the JAX parameter
 paths (``embedding.table``, ``layer_{i}.self_attention.wq``,
 ``layer_{i}.dense1.linear.w`` or ``layer_{i}.swiglu.w_gate``, ...).
-``GPT.apply`` is the dense forward over flash attention and ``GPT.loss``
-the next-token loss that training differentiates; the serving engine runs
-the same modules over paged attention.
+``GPT.apply`` is the dense forward over flash attention (or, with
+``caches`` from ``GPT.init_cache`` and ``decode=True``, the dense KV-cache
+step), ``GPT.generate`` the autoregressive decode over it, greedy or
+sampled through ``filter_logits``, and ``GPT.loss`` the next-token loss
+that training differentiates; the serving engine runs the same modules over
+paged attention.
 """
 
 from __future__ import annotations
@@ -23,10 +26,11 @@ import dataclasses
 import torch
 from torch import nn
 
-from np_modeling_tpu_torch import ops
+from np_modeling_tpu_torch import ops, rng as _rng
 from np_modeling_tpu_torch.nn import Dropout, Embedding, LayerNorm, RMSNorm
 from np_modeling_tpu_torch.nn.module import (maybe_cast, resolve_rngs,
                                              split_rngs)
+from np_modeling_tpu_torch.nn.attention import cache_positions
 from np_modeling_tpu_torch.nn.transformer import TransformerEncoderBlock
 
 
@@ -170,7 +174,9 @@ class GPT(nn.Module):
         return self
 
     def apply(self, tokens, training=False, rngs=None, return_hidden=False,
-              logits_dtype=None, segment_ids=None, positions=None):
+              logits_dtype=None, segment_ids=None, positions=None,
+              caches=None, decode=False, collect_kv=False,
+              logits_last_only=False):
         """Dense forward (JAX :221-333): token embedding (times
         sqrt(d_model) in its own dtype with ``embed_scale``) plus learned
         positions, cast to the compute dtype, dropout (salt 1000), the
@@ -183,12 +189,23 @@ class GPT(nn.Module):
         seed drawn from it a call) or an integer seed. Returns the
         final-norm hidden states with ``return_hidden=True``, else the
         tied-head logits, fp32 unless ``logits_dtype`` says otherwise, and
-        capped by ``final_logit_softcap``."""
+        capped by ``final_logit_softcap``. ``decode=True`` runs the tokens
+        through ``caches`` (one a layer, from ``init_cache``) at their
+        write index, which also gives the learned positions, and returns
+        ``(logits, caches)``; ``collect_kv=True`` returns ``(logits,
+        [(k, v) a layer])``; ``logits_last_only=True`` computes the head on
+        the last position only (JAX :222-333, the unscanned branch)."""
         c = self.config
         x = self.embedding(tokens)
         if c.embed_scale:
             x = x * torch.tensor(c.d_model ** 0.5, dtype=x.dtype)
         if c.positional == "learned":
+            if positions is None and decode:
+                # Past the table a position reads its last row, as JAX's
+                # clamping gather does (a decode may outrun max_len).
+                positions = cache_positions(
+                    caches[0]["index"], tokens.shape[-1],
+                    tokens.device).clamp(max=c.max_len - 1)
             if positions is None:
                 if tokens.shape[-1] > c.max_len:
                     raise ValueError(f"{tokens.shape[-1]} tokens: the "
@@ -200,14 +217,22 @@ class GPT(nn.Module):
         block_positions = positions if c.positional == "rope" else None
         rngs = resolve_rngs(rngs) if training else None
         x = self.drop(maybe_cast(x, c.dtype), training, rngs, salt=1000)
+        extras = [] if decode or collect_kv else None
         for i in range(c.num_layers):
             x = self._block_for(i)(x, training=training,
                                    rngs=split_rngs(rngs, i),
                                    segment_ids=segment_ids,
-                                   positions=block_positions)
+                                   positions=block_positions,
+                                   cache=caches[i] if decode else None,
+                                   decode=decode, collect_kv=collect_kv)
+            if extras is not None:
+                x, extra = x
+                extras.append(extra)
         x = self.final_norm(x)
         if return_hidden:
             return x
+        if logits_last_only:
+            x = x[..., -1:, :]
         # The tied head's product accumulates in fp32 (JAX:
         # preferred_element_type), here as the product of the exact fp32
         # copies of the compute-dtype operands.
@@ -217,7 +242,58 @@ class GPT(nn.Module):
         if c.final_logit_softcap is not None:
             cap = torch.tensor(c.final_logit_softcap, dtype=logits.dtype)
             logits = cap * torch.tanh(logits / cap)
+        if extras is not None:
+            return logits, extras
         return logits
+
+    def init_cache(self, batch, max_len=None, dtype=torch.float32):
+        """One dense KV cache a layer (JAX :450), of ``max_len`` (default
+        the config's) positions, on the model's device."""
+        c = self.config
+        max_len = max_len or c.max_len
+        return [self._block_for(i).init_cache(batch, max_len, c.d_model,
+                                              dtype)
+                for i in range(c.num_layers)]
+
+    @torch.no_grad()
+    def generate(self, prompt_tokens, steps: int, generator=None,
+                 temperature: float = 0.0, top_k: int | None = None,
+                 top_p: float | None = None):
+        """Autoregressive decode through dense KV caches (JAX :461-495):
+        the prompt [b, plen] in one decode step (its head on the last
+        position only), then ``steps - 1`` one-token steps; returns the
+        ``steps`` new tokens [b, steps]. ``temperature=0`` (or no
+        ``generator``) is greedy; otherwise each step draws from
+        ``softmax(filter_logits(logits / temperature, top_k, top_p))`` with
+        ``generator`` (a ``torch.Generator`` on the model's device: the same
+        seed gives the same tokens; the bits are not JAX's). The caches are
+        fp32, as JAX's: a bf16 model attends over them in fp32."""
+        b, plen = prompt_tokens.shape
+        caches = self.init_cache(b, plen + steps)
+        logits, caches = self.apply(prompt_tokens, caches=caches,
+                                    decode=True, logits_last_only=True)
+        tok = self._sample(logits[:, -1], generator, temperature, 0, top_k,
+                           top_p)
+        out = [tok]
+        for i in range(1, steps):
+            logits, caches = self.apply(tok[:, None], caches=caches,
+                                        decode=True)
+            tok = self._sample(logits[:, -1], generator, temperature, i,
+                               top_k, top_p)
+            out.append(tok)
+        return torch.stack(out, dim=1)
+
+    @staticmethod
+    def _sample(logits, generator, temperature, salt, top_k=None,
+                top_p=None):
+        """JAX :497: the argmax, or a draw from the filtered, tempered
+        logits. ``salt`` (JAX folds it into the key) is unused: the port's
+        generator advances from draw to draw."""
+        del salt
+        if temperature == 0.0 or generator is None:
+            return torch.argmax(logits, dim=-1)
+        lg = filter_logits(logits / temperature, top_k, top_p)
+        return _rng.categorical(lg, generator)
 
     def loss(self, tokens, training=False, rngs=None, segment_ids=None,
              positions=None):
@@ -260,3 +336,24 @@ class GPT(nn.Module):
         if valid is None:
             return ce.mean()
         return (ce * valid).sum() / valid.sum().clamp(min=1.0)
+
+
+def filter_logits(lg, top_k=None, top_p=None):
+    """Top-k and/or nucleus (top-p) filtering (JAX :505-): logits outside
+    the keep-set become -inf. ``softmax(filter_logits(logits / T))`` is the
+    distribution ``GPT._sample`` draws from. Top-k keeps every logit at
+    least the k-th largest (ties included); top-p keeps the smallest prefix
+    of the sorted distribution whose mass reaches ``top_p`` (the top token
+    always), cut at its smallest logit."""
+    if top_k is not None:
+        kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+        lg = torch.where(lg < kth, -torch.inf, lg)
+    if top_p is not None:
+        sorted_lg = torch.sort(lg, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_lg, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep_sorted = cum - probs < top_p
+        cutoff = torch.where(keep_sorted, sorted_lg, torch.inf).amin(
+            dim=-1, keepdim=True)
+        lg = torch.where(lg < cutoff, -torch.inf, lg)
+    return lg

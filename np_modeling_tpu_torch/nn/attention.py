@@ -3,12 +3,14 @@
 Counterpart of np_modeling_tpu/nn/attention.py ``MultiHeadAttention`` with
 its parameter layout: wq [d, hq, dk], wk/wv [d, hkv, dk], wo [hq, dk, d],
 bq [hq, dk], bk/bv [hkv, dk], bo [d]. The serving engine uses ``_dims``,
-``_project`` and ``_rope`` around paged attention; ``forward`` is the dense
-self-attention path of the JAX ``apply`` (no cache, no ``attn_impl``), over
-``ops.flash_attention``. The score options are JAX's: ``rope`` (with
-``rope_base``, ``rope_dim``) rotates q and k, ``window`` slides a causal
-window, ``attn_scale`` replaces 1/sqrt(dk) and ``attn_softcap`` caps the
-scaled scores.
+``_project`` and ``_rope`` around paged attention; ``forward`` is the
+self-attention path of the JAX ``apply`` (no ``attn_impl``), over
+``ops.flash_attention``: dense, or (``decode=True``) through a dense KV
+cache from ``init_cache``, whose written slots reach the kernel as a mask
+(K1's mask option on the card). The score options are JAX's: ``rope``
+(with ``rope_base``, ``rope_dim``) rotates q and k, ``window`` slides a
+causal window, ``attn_scale`` replaces 1/sqrt(dk) and ``attn_softcap`` caps
+the scaled scores.
 """
 
 from __future__ import annotations
@@ -86,24 +88,113 @@ class MultiHeadAttention(nn.Module):
             return t
         return ops.apply_rope(t, positions, self.rope_base, self.rope_dim)
 
-    def forward(self, x, segment_ids=None, positions=None):
-        """Dense self-attention over [b, s, d]: projections, RoPE at
-        ``positions`` (default ``arange(s)``), flash attention (causal if
-        the module is; with ``segment_ids`` [b, s] a position attends only
-        within its segment), output projection."""
+    def forward(self, x, segment_ids=None, positions=None, cache=None,
+                decode=False, collect_kv=False):
+        """Self-attention over [b, s, d]: projections, RoPE, flash
+        attention, output projection. Dense (the default): RoPE at
+        ``positions`` (default ``arange(s)``), causal if the module is, with
+        ``segment_ids`` [b, s] a position attends only within its segment.
+        ``decode=True`` (JAX :212-236): RoPE at the cache's write positions,
+        k and v written into ``cache`` at its ``index``, and non-causal
+        attention over the whole cache under the mask of the written slots
+        (and the window); returns ``(out, cache)`` with the index advanced.
+        ``collect_kv=True`` returns ``(out, (k, v))``, k and v [b, hkv, s,
+        dk] after RoPE (serving prefill seeds pages with them)."""
         q = self._project(x, self.wq, self.bq)
         k = self._project(x, self.wk, self.bk)
         v = self._project(x, self.wv, self.bv)
-        if self.rope and positions is None:
+        if decode:
+            if cache is None:
+                raise ValueError("decode=True requires a cache; build one "
+                                 "with init_cache()")
+            if self.rope:
+                positions = cache_positions(cache["index"], q.shape[2],
+                                            q.device)
+        elif self.rope and positions is None:
             positions = torch.arange(q.shape[2], device=q.device)
         q, k = self._rope(q, positions), self._rope(k, positions)
-        o = ops.flash_attention(q, k, v, segment_ids=segment_ids,
-                                causal=self.causal, window=self.window,
-                                scale=self.attn_scale,
-                                softcap=self.attn_softcap)
+        if decode:
+            k, v, mask, cache = self._update_cache(cache, k, v)
+            # Mixed dtypes promote, as JAX's einsums do (a bf16 model over
+            # an fp32 cache attends in fp32); o returns in q's dtype.
+            dt = torch.promote_types(q.dtype, k.dtype)
+            o = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), mask=mask,
+                                    causal=False, scale=self.attn_scale,
+                                    softcap=self.attn_softcap).to(q.dtype)
+        else:
+            o = ops.flash_attention(q, k, v, segment_ids=segment_ids,
+                                    causal=self.causal, window=self.window,
+                                    scale=self.attn_scale,
+                                    softcap=self.attn_softcap)
         wo, bo = maybe_cast(self.wo, self.dtype), maybe_cast(self.bo,
                                                              self.dtype)
         hq, dk, d_out = wo.shape
         o = o.transpose(-3, -2)
         o = o.reshape(*o.shape[:-2], hq * dk)
-        return ops.linear(o, wo.reshape(hq * dk, d_out), bo)
+        out = ops.linear(o, wo.reshape(hq * dk, d_out), bo)
+        if decode:
+            return out, cache
+        if collect_kv:
+            return out, (k, v)
+        return out
+
+    # ---- the dense KV cache (JAX :270-311) ------------------------------
+
+    def init_cache(self, batch, max_len, features, dtype=torch.float32):
+        """Zeroed k/v [batch, hkv, max_len, dk] on the weights' device and
+        write index 0 (a Python int; a [batch] int tensor there gives each
+        row its own)."""
+        _, hkv, dk = self._dims(features)
+        shape = (batch, hkv, max_len, dk)
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.wq.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.wq.device),
+                "index": 0}
+
+    def _update_cache(self, cache, k_new, v_new):
+        """Write the step's k/v at ``cache['index']`` (in place) and build
+        the mask of the slots each query position sees: slots <= its own,
+        and with a window the last ``window`` of them. The index is a scalar
+        (every row writes at one position: [1, 1, s, L] mask) or per row,
+        a [b] tensor ([b, 1, s, L] mask). As JAX's dynamic_update_slice, a
+        write that would run past the cache starts at ``L - s``; the mask
+        follows the index as given. Returns (k, v, mask, new cache)."""
+        idx = cache["index"]
+        ck, cv = cache["k"], cache["v"]
+        s_new, max_len = k_new.shape[2], ck.shape[2]
+        dev = ck.device
+        kv_pos = torch.arange(max_len, device=dev)
+        q_iota = torch.arange(s_new, device=dev)
+        if not (torch.is_tensor(idx) and idx.dim() == 1):
+            i = int(idx)
+            start = min(max(i, 0), max_len - s_new)
+            ck[:, :, start:start + s_new] = k_new.to(ck.dtype)
+            cv[:, :, start:start + s_new] = v_new.to(cv.dtype)
+            q_pos = (i + q_iota)[:, None]                    # [s, 1]
+            keep = kv_pos[None] <= q_pos
+            if self.window is not None:
+                keep = keep & (kv_pos[None] > q_pos - self.window)
+            mask = keep[None, None]                          # [1, 1, s, L]
+        else:
+            idx = idx.to(device=dev, dtype=torch.long)
+            start = idx.clamp(0, max_len - s_new)
+            rows = torch.arange(ck.shape[0], device=dev)[:, None]
+            cols = start[:, None] + q_iota                   # [b, s]
+            ck[rows, :, cols] = k_new.transpose(1, 2).to(ck.dtype)
+            cv[rows, :, cols] = v_new.transpose(1, 2).to(cv.dtype)
+            q_pos = (idx[:, None] + q_iota)[:, :, None]      # [b, s, 1]
+            keep = kv_pos[None, None] <= q_pos
+            if self.window is not None:
+                keep = keep & (kv_pos[None, None] > q_pos - self.window)
+            mask = keep[:, None]                             # [b, 1, s, L]
+        new_cache = {"k": ck, "v": cv, "index": cache["index"] + s_new}
+        return ck, cv, mask, new_cache
+
+
+def cache_positions(idx, s, device):
+    """The positions of ``s`` tokens written at a cache index: [s] for a
+    scalar index (an int or a 0-d tensor), [b, s] for a [b] one."""
+    if torch.is_tensor(idx) and idx.dim() == 1:
+        return idx.to(device=device, dtype=torch.long)[:, None] \
+            + torch.arange(s, device=device)
+    i = int(idx)
+    return torch.arange(i, i + s, device=device)

@@ -104,15 +104,27 @@ class TransformerEncoderBlock(nn.Module):
         up = ops.linear(yc, maybe_cast(w.w_up, self.dtype))
         return ops.linear(gate * up, maybe_cast(w.w_down, self.dtype))
 
+    def init_cache(self, batch, max_len, features, dtype=torch.float32):
+        return self.self_attention.init_cache(batch, max_len, features,
+                                              dtype)
+
     def forward(self, x, training: bool = False, rngs=None,
-                segment_ids=None, positions=None):
+                segment_ids=None, positions=None, cache=None, decode=False,
+                collect_kv=False):
         """``segment_ids`` [b, s]: packed documents, each attending only
         within itself (JAX :255-257); ``positions`` ([s] or [b, s]): the
-        RoPE positions (default ``arange(s)``)."""
+        RoPE positions (default ``arange(s)``). ``decode=True`` attends
+        through ``cache`` and returns ``(out, cache)``; ``collect_kv=True``
+        returns ``(out, (k, v))`` (``MultiHeadAttention.forward``)."""
         skip = x            # the residual skips the dropout
         y = self.self_attention(self.norm1(self.drop(x, training, rngs,
                                                      salt=1)),
-                                segment_ids=segment_ids, positions=positions)
+                                segment_ids=segment_ids, positions=positions,
+                                cache=cache, decode=decode,
+                                collect_kv=collect_kv)
+        extra = None
+        if decode or collect_kv:
+            y, extra = y
         if self.sandwich_norm:
             y = self.post_norm1(y)
         y = y + skip
@@ -120,4 +132,6 @@ class TransformerEncoderBlock(nn.Module):
         y = self._ffn(self.norm2(self.drop(y, training, rngs, salt=2)))
         if self.sandwich_norm:
             y = self.post_norm2(y)
+        if extra is not None:
+            return y + skip, extra
         return y + skip

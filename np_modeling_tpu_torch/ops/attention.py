@@ -18,13 +18,17 @@ The causal mask is top-left (``col <= row`` in absolute indices), as in JAX.
 The kernels take causal and non-causal attention, GQA, segment ids, a
 sliding window, a logit softcap (each a template option of the kernels, so
 a call without it runs code without it), any sq/skv >= 1, head_dim 64, 128
-or 256, and fp32 (FMA path) or bf16 (tensor cores). On a CUDA tensor, mask
-and bias raise NotImplementedError (ROADMAP.md Queue 2), and so does any
-other head_dim (ValueError). Sinks run, as in JAX, as a plain rescale
-around the kernels. ``block_q``/``block_kv`` are accepted for the JAX
-signature; the kernels' tiles are their own (the bf16 forward: 128 q rows
-by 128 keys, 64 keys at head_dim 256; the bf16 backward 64-row q tiles; fp32
-64 x 64, 32 x 32 at head_dim 256).
+or 256, and fp32 (FMA path) or bf16 (tensor cores). The forward K1 also
+takes a boolean ``mask`` (read by its own strides, broadcast dims
+included; segment ids are merged into it on the host): dense KV-cache
+decode runs through it at every sq, 1 included, where JAX sends sq < 128
+to XLA. On a CUDA tensor, a mask where q, k or v needs a gradient and any
+bias raise NotImplementedError (their backwards, ROADMAP.md Queue 2 A),
+and so does any other head_dim (ValueError). Sinks run, as in JAX, as a
+plain rescale around the kernels. ``block_q``/``block_kv`` are accepted for
+the JAX signature; the kernels' tiles are their own (the bf16 forward: 128
+q rows by 128 keys, 64 keys at head_dim 256; the bf16 backward 64-row q
+tiles; fp32 64 x 64, 32 x 32 at head_dim 256).
 """
 
 from __future__ import annotations
@@ -214,10 +218,33 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name, tensors, strided, segs, dims, scale, window, softcap):
+def _mask_u8(mask, q, k):
+    """The mask as the kernel reads it: a uint8 view of a bool [b|1, hq|1,
+    sq, skv] (no copy of a broadcast view; a dimension of size 1 gets stride
+    0, which the kernel never steps)."""
+    b, hq, sq, _ = q.shape
+    if mask.dim() != 4 or mask.shape[0] not in (1, b) \
+            or mask.shape[1] not in (1, hq) \
+            or tuple(mask.shape[2:]) != (sq, k.shape[2]):
+        raise ValueError(f"mask {tuple(mask.shape)}: want [b|1, h|1, {sq}, "
+                         f"{k.shape[2]}]")
+    if mask.device != q.device:
+        raise ValueError(f"mask on {mask.device}, q on {q.device}")
+    if mask.dtype != torch.bool:
+        mask = mask != 0
+    return mask.view(torch.uint8)
+
+
+def _mask_strides(mask):
+    return [0 if n == 1 else s for n, s in zip(mask.shape, mask.stride())]
+
+
+def _launch(name, tensors, strided, segs, dims, scale, window, softcap,
+            mask=None):
     """Calls ``name`` in the library: the data pointers of ``tensors`` (None
-    for null), 16 strides ((b, h, s) of ``strided``, q, k, v[, do], then
-    (b, s) of the segment ids ``segs``, zeros without them), the 9 ints
+    for null), 20 strides ((b, h, s) of ``strided``, q, k, v[, do], then
+    (b, s) of the segment ids ``segs``, zeros without them, then (b, h, q, k)
+    of ``mask``, zeros without one), the 9 ints
     ``dims``, the window (0 for none; one past any row is cut to 2**30, where
     it cuts nothing either way), the scale, the softcap (0 for none) and the
     current stream; raises if a launch returned a CUDA error."""
@@ -231,10 +258,11 @@ def _launch(name, tensors, strided, segs, dims, scale, window, softcap):
     strides += [0] * (12 - len(strides))
     strides += ([s for t in segs for s in t.stride()] if segs[0] is not None
                 else [0] * 4)
+    strides += _mask_strides(mask) if mask is not None else [0] * 4
     q = strided[0]
     with torch.cuda.device(q.device):
         rc = fn(*[_ptr(t) for t in tensors],
-                (ctypes.c_longlong * 16)(*strides), *dims,
+                (ctypes.c_longlong * 20)(*strides), *dims,
                 0 if window is None else min(int(window), 1 << 30), scale,
                 0.0 if softcap is None else softcap,
                 torch.cuda.current_stream(q.device).cuda_stream)
@@ -244,9 +272,16 @@ def _launch(name, tensors, strided, segs, dims, scale, window, softcap):
 
 
 def _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg=None,
-                    kv_seg=None, dual=False, window=None, softcap=None):
-    """K1 (or K12 with ``dual``): o [b, hq, sq, d] (a view) and lse."""
+                    kv_seg=None, dual=False, window=None, softcap=None,
+                    mask=None):
+    """K1 (or K12 with ``dual``): o [b, hq, sq, d] (a view) and lse. With
+    ``mask`` K1 reads it (segment ids merged into it here)."""
     _check_kernel_inputs(q, k, v, q_seg, kv_seg)
+    if mask is not None:
+        if dual:
+            raise ValueError("K12 takes no mask (JAX :856-858)")
+        mask = _mask_u8(_merge_seg_into_mask(mask, q_seg, kv_seg), q, k)
+        q_seg = kv_seg = None
     q, k, v = (_kernel_layout(x) for x in (q, k, v))
     q_seg, kv_seg = _seg_int32(q_seg), _seg_int32(kv_seg)
     b, hq, sq, d = q.shape
@@ -254,16 +289,20 @@ def _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg=None,
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    _launch("np_flash_attention_fwd", (q, k, v, o, lse, q_seg, kv_seg),
+    _launch("np_flash_attention_fwd", (q, k, v, o, lse, q_seg, kv_seg, mask),
             (q, k, v), (q_seg, kv_seg), (_DTYPE_CODES[q.dtype], b, hq, hkv, sq,
                                          skv, d, int(causal), int(dual)),
-            scale, window, softcap)
+            scale, window, softcap, mask)
     if dual:
         flash_attention.launches_fwd_dual += 1
     else:
         flash_attention.launches_fwd += 1
     if window is not None:
         flash_attention.launches_fwd_window += 1
+    if mask is not None:
+        flash_attention.launches_fwd_mask += 1
+        if q.dtype == torch.float32:
+            flash_attention.launches_fwd_mask_fp32 += 1
     return o.transpose(1, 2), lse
 
 
@@ -313,21 +352,15 @@ class _FlashAttention(torch.autograd.Function):
         kernel = dispatch.use_kernel(q)
         split = not FUSED_BWD
         if kernel:
-            unported = [n for n, x in (("mask", mask), ("bias", bias))
-                        if x is not None]
-            if unported:
-                raise NotImplementedError(
-                    f"the CUDA flash-attention kernels do not take {unported}"
-                    " yet (ROADMAP.md Queue 2)")
             need_lse = sinks is not None or any(ctx.needs_input_grad[:5])
             # JAX's conditions for K12 (:856-858), an even number of kv
             # tiles counted at the width of the forward kernel that runs;
-            # mask and bias have raised above.
+            # bias has raised in flash_attention.
             tile = _fwd_kv_tile(q.dtype, q.shape[-1])
             dual = (FWD_DUAL_KV and q_seg is None and softcap is None
-                    and -(-k.shape[2] // tile) % 2 == 0)
+                    and mask is None and -(-k.shape[2] // tile) % 2 == 0)
             o, lse = _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg,
-                                     kv_seg, dual, window, softcap)
+                                     kv_seg, dual, window, softcap, mask)
         else:
             o, lse = _attn_fwd_plain(
                 q, k, v, _merge_seg_into_mask(mask, q_seg, kv_seg), bias,
@@ -399,6 +432,18 @@ def flash_attention(q, k, v, mask=None, bias=None, segment_ids=None, *,
     q_seg, kv_seg = segment_ids if segment_ids is not None else (None, None)
     if sinks is not None and tuple(sinks.shape) != (q.shape[1],):
         raise ValueError(f"sinks must be [hq], got {tuple(sinks.shape)}")
+    if dispatch.use_kernel(q):
+        # The kernels' backwards take no mask and no kernel takes a bias yet.
+        grad = torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v, bias) if x is not None)
+        unported = [n for n, x, bad in (("mask", mask, grad),
+                                        ("bias", bias, True))
+                    if x is not None and bad]
+        if unported:
+            raise NotImplementedError(
+                f"the CUDA flash-attention kernels do not take {unported} "
+                f"{'with gradients ' if unported == ['mask'] else ''}yet "
+                "(ROADMAP.md Queue 2 A)")
     return _FlashAttention.apply(q, k, v, bias, sinks, mask, q_seg, kv_seg,
                                  causal, window, scale, softcap)
 
@@ -407,10 +452,14 @@ def flash_attention(q, k, v, mask=None, bias=None, segment_ids=None, *,
 # shows with them that its attention went through K1 (launches_fwd), K12
 # (launches_fwd_dual), K2 (launches_bwd) or K5 (launches_bwd_split, one a
 # pair of its kernels); of those, the ones with a window count again in
-# launches_fwd_window (K1, K12) and launches_bwd_window (K2, K5).
+# launches_fwd_window (K1, K12) and launches_bwd_window (K2, K5), and K1's
+# with a mask in launches_fwd_mask (those of the fp32 forward again in
+# launches_fwd_mask_fp32).
 flash_attention.launches_fwd = 0
 flash_attention.launches_fwd_dual = 0
 flash_attention.launches_bwd = 0
 flash_attention.launches_bwd_split = 0
 flash_attention.launches_fwd_window = 0
+flash_attention.launches_fwd_mask = 0
+flash_attention.launches_fwd_mask_fp32 = 0
 flash_attention.launches_bwd_window = 0

@@ -24,7 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Per library: the paged library's 150 instantiations (q and page dtypes,
 # head dims, window, softcap, the decode and chunk variants, the merge
-# kernel) and the flash kernels' 204 (dtypes, head dims,
+# kernel) and the flash kernels' 228 (dtypes, head dims, the mask,
 # segment ids, window and softcap) are optimized in parallel, one thread a
 # CPU.
 EXTRA_FLAGS = {"paged_attention": ("-split-compile=0",),

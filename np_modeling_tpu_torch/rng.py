@@ -1,4 +1,5 @@
-"""Dropout seeds: host integers, never read from a device tensor.
+"""Dropout seeds (host integers, never read from a device tensor) and the
+categorical draw of sampling.
 
 JAX threads a key and folds a layer index or a site's salt into it with
 ``jax.random.fold_in``. The port's counterpart is a 64-bit integer seed:
@@ -6,6 +7,11 @@ JAX threads a key and folds a layer index or a site's salt into it with
 passes an integer through), and ``fold_seed`` mixes a salt into a seed with
 splitmix64. The dropout kernel and its plain twin (``ops.fused``) take the
 resulting integer.
+
+``categorical`` is the draw of ``jax.random.categorical`` (Gumbel-max: the
+argmax of the logits plus Gumbel noise) from a ``torch.Generator`` on the
+logits' device. Its bits are torch's, not JAX's: the same seed draws the
+same tokens in the port, and other tokens than JAX's.
 """
 
 from __future__ import annotations
@@ -41,3 +47,12 @@ def seed_of(rng) -> int:
         raise TypeError(f"a dropout rng is a torch.Generator or a 64-bit "
                         f"integer seed, not {rng!r}")
     return rng
+
+
+def categorical(logits: torch.Tensor, generator: torch.Generator):
+    """One draw a row of ``softmax(logits)`` over the last axis (-inf logits
+    are never drawn), as int64: argmax(logits + Gumbel noise), the noise
+    from ``generator`` (on the logits' device)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    return torch.argmax(logits.float() + gumbel, dim=-1)

@@ -1,19 +1,40 @@
 """Generation engine: continuous-batching GPT serving on a paged KV cache.
 
 Counterpart of np_modeling_tpu/serving/engine.py ``GenerationEngine``, for
-one lane, greedy decoding and chunked prefill. The host keeps the control
-plane (page free list, seq-id -> slot map, page-table growth); the device
-runs the data plane, one step for all slots: embedding, per-layer page
-append (in place), paged attention over the shared page table, MLP, argmax.
-Prompts stream through the same paged path in fixed chunks
-(``prefill_chunk_size``), so both prefill and decode attend through
-``ops.paged_attention``.
+one lane. The host keeps the control plane (page free list and refcounts,
+seq-id -> slot map, page-table growth, the prefix cache's index); the
+device runs the data plane, one step for all slots: embedding, per-layer
+page append (in place), paged attention over the shared page table, MLP,
+the sampling processors and the draw. Prompts stream through the same
+paged path in fixed chunks (``prefill_chunk_size``), so both prefill and
+decode attend through ``ops.paged_attention``; ``prefill_chunk_size=None``
+prefills each prompt densely (``GPT.apply(collect_kv=True)``, flash
+attention) and scatters its k/v into pages.
+
+Sampling (JAX's fields and ``serving.sampling``): ``temperature`` /
+``top_k`` / ``top_p``, or an engine-wide ``sampling=SamplingParams``
+(penalties over per-slot ``counts`` / ``prompt_mask`` device tables,
+``min_p``, logit bias, banned tokens), or ``per_request_sampling=True``
+with a SamplingParams per ``add_request`` (a [max_seqs, 7] row table and a
+[max_seqs, vocab] bias table). Draws come from a ``torch.Generator`` on
+the engine's device seeded with ``seed``: the same seed gives the same
+tokens, and other tokens than JAX's ``jax.random`` draws; everything
+before the draw equals JAX's.
+
+Pages are refcounted: ``fork`` shares a sequence's full pages with a
+child (and copies its tail page), ``enable_prefix_cache`` shares the full
+pages of earlier prompts that a new prompt starts with (content hashes of
+each full page's tokens, LRU-evicted when the free list runs short), and
+a sliding-window model's pages that fall out of every layer's window go
+back to the free list as decode goes on. A page is freed when its last
+owner leaves.
 
 Differences from the JAX engine: ``gpt`` owns its weights, so there is no
 ``params`` field; state tensors are updated in place instead of donated;
 ``step_many(n)`` is a Python loop of device steps that reads the tokens
-back once, after the loop. The engine's options that are not ported yet
-raise NotImplementedError.
+back once, after the loop. ``constraints``, ``lora_adapters``,
+``draft_gpt`` (``step_speculative``), ``step_lookup`` and ``mesh`` are not
+ported yet and raise NotImplementedError.
 
 Quantized serving: ``quantize_kv=True`` stores int8 pages with fp32
 per-token scales (``ops.quantize_int8`` at each append) that paged
@@ -24,7 +45,9 @@ its FFN through ``ops.int8_matmul`` with no change here.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import hashlib
 from typing import Optional
 
 import numpy as np
@@ -32,9 +55,10 @@ import torch
 
 from np_modeling_tpu_torch import ops
 from np_modeling_tpu_torch.ops.quantization import quantize_int8
+from np_modeling_tpu_torch.serving import sampling as _sampling
 from np_modeling_tpu_torch.serving.kv_cache import OutOfPagesError
 
-_LATER = "is not ported yet (ROADMAP.md Queue 1, serving)"
+_LATER = "is not ported yet (ROADMAP.md Queue 1 item 3, serving)"
 
 
 @dataclasses.dataclass
@@ -44,36 +68,67 @@ class GenerationEngine:
     page_size: int = 16
     max_seqs: int = 16
     kv_dtype: object = None      # page dtype; None = fp32
-    prefill_chunk_size: Optional[int] = 256
+    prefill_chunk_size: Optional[int] = 256   # None: dense prefill
     quantize_kv: bool = False    # int8 pages + fp32 per-token scales
+    temperature: float = 0.0     # 0: greedy
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    sampling: Optional[object] = None   # serving.SamplingParams: overrides
+                                        # the three fields above
+    per_request_sampling: bool = False  # a SamplingParams per add_request
+    enable_prefix_cache: bool = False   # share earlier prompts' full pages
+    seed: int = 0                # the draws' torch.Generator
     # The JAX engine's options below are not ported yet: any value but the
     # default raises NotImplementedError.
-    temperature: float = 0.0
-    sampling: Optional[object] = None
-    per_request_sampling: bool = False
     constraints: Optional[dict] = None
-    enable_prefix_cache: bool = False
     draft_gpt: object = None
     lora_adapters: Optional[dict] = None
     mesh: Optional[object] = None
 
     def __post_init__(self):
-        later = {"temperature > 0": self.temperature != 0.0,
-                 "sampling": self.sampling is not None,
-                 "per_request_sampling": self.per_request_sampling,
-                 "constraints": self.constraints is not None,
-                 "enable_prefix_cache": self.enable_prefix_cache,
+        later = {"constraints": self.constraints is not None,
                  "draft_gpt": self.draft_gpt is not None,
                  "lora_adapters": self.lora_adapters is not None,
-                 "mesh": self.mesh is not None,
-                 "prefill_chunk_size=None (dense prefill needs GPT.apply)":
-                     self.prefill_chunk_size is None}
+                 "mesh": self.mesh is not None}
         later = [k for k, v in later.items() if v]
         if later:
             raise NotImplementedError(f"GenerationEngine option(s) {later} "
                                       + _LATER)
         c = self.gpt.config
         self.device = self.gpt.embedding.table.device
+        # ---- sampling (JAX :447-480): a SamplingParams overrides the
+        # plain fields, which follow it.
+        self._sp = self.sampling
+        self._sp_bias = None
+        self._sp_stats = False
+        if self.per_request_sampling:
+            if self.sampling is not None:
+                raise ValueError(
+                    "per_request_sampling takes SamplingParams per "
+                    "add_request; the plain temperature/top_k/top_p fields "
+                    "set the default for requests without one: drop the "
+                    "engine-level sampling=")
+            self._default_row = _sampling.params_row(_sampling.SamplingParams(
+                temperature=self.temperature, top_k=self.top_k,
+                top_p=self.top_p))
+        if self._sp is not None:
+            self.temperature = self._sp.temperature
+            self.top_k = self._sp.top_k
+            self.top_p = self._sp.top_p
+            self._sp_bias = _sampling.static_bias(self._sp, c.vocab_size,
+                                                  self.device)
+            self._sp_stats = self._sp.needs_token_stats
+        self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        # ---- automatic prefix caching: chain hash -> page, LRU order.
+        self._prefix_cache = None
+        self._cache_hit_tokens = 0
+        self._cache_lookup_tokens = 0
+        if self.enable_prefix_cache:
+            if self.prefill_chunk_size is None:
+                raise ValueError("the prefix cache prefills suffixes "
+                                 "through the chunked path: "
+                                 "prefill_chunk_size=None cannot use it")
+            self._prefix_cache = collections.OrderedDict()
         self._dims = self.gpt._block_for(0).self_attention._dims(c.d_model)
         self.max_pages = -(-c.max_len // self.page_size)
         self._max_tokens = min(self.max_pages * self.page_size, c.max_len)
@@ -82,8 +137,10 @@ class GenerationEngine:
         # there, so a step needs no masking of its writes.
         self._trash = self.total_pages - 1
         self._free = list(range(self.total_pages - 2, -1, -1))
-        self._slots: dict[int, int] = {}        # seq_id -> slot
-        self._host_len: dict[int, int] = {}     # authoritative lengths
+        self._refs: dict[int, int] = {}          # page -> owners
+        self._reclaim_mark: dict[int, int] = {}  # window-reclaim watermark
+        self._slots: dict[int, int] = {}         # seq_id -> slot
+        self._host_len: dict[int, int] = {}      # authoritative lengths
         self._seq_pages: dict[int, list[int]] = {}
 
     def _make_lane_state(self, gpt, total_pages):
@@ -93,20 +150,30 @@ class GenerationEngine:
         store = (torch.int8 if self.quantize_kv
                  else self.kv_dtype or torch.float32)
         dev = self.device
+        S, V = self.max_seqs, c.vocab_size
         state = {
             "k_pages": [torch.zeros(shape, dtype=store, device=dev)
                         for _ in range(c.num_layers)],
             "v_pages": [torch.zeros(shape, dtype=store, device=dev)
                         for _ in range(c.num_layers)],
-            "table": torch.zeros((self.max_seqs, self.max_pages),
-                                 dtype=torch.int32, device=dev),
-            "lengths": torch.zeros((self.max_seqs,), dtype=torch.int32,
-                                   device=dev),
-            "last_tok": torch.zeros((self.max_seqs,), dtype=torch.int32,
-                                    device=dev),
-            "active": torch.zeros((self.max_seqs,), dtype=torch.bool,
-                                  device=dev),
+            "table": torch.zeros((S, self.max_pages), dtype=torch.int32,
+                                 device=dev),
+            "lengths": torch.zeros((S,), dtype=torch.int32, device=dev),
+            "last_tok": torch.zeros((S,), dtype=torch.int32, device=dev),
+            "active": torch.zeros((S,), dtype=torch.bool, device=dev),
         }
+        if self._sp_stats or self.per_request_sampling:
+            # Penalty statistics: generated-token counts and prompt
+            # membership, a [vocab] row a slot.
+            state["counts"] = torch.zeros((S, V), dtype=torch.int32,
+                                          device=dev)
+            state["prompt_mask"] = torch.zeros((S, V), dtype=torch.bool,
+                                               device=dev)
+        if self.per_request_sampling:
+            state["samp"] = torch.from_numpy(
+                np.tile(self._default_row[None], (S, 1))).to(dev)
+            state["samp_bias"] = torch.zeros((S, V), dtype=torch.float32,
+                                             device=dev)
         if self.quantize_kv:
             sshape = shape[:-1] + (1,)
             for key in ("k_scales", "v_scales"):
@@ -130,16 +197,55 @@ class GenerationEngine:
         per-sequence token bound (model max_len / page-table rows)."""
         return self._max_tokens - self._host_len[seq_id]
 
+    def _prefix_hashes(self, prompt, plen: int) -> list:
+        """Chained content hashes of the prompt's full pages: entry i names
+        tokens [0, (i + 1) * page_size), so equal prefixes hash equal and a
+        walk of the cache finds the longest cached page prefix (JAX :542;
+        adapter 0, the only one the port serves)."""
+        ps = self.page_size
+        toks = np.asarray(prompt, np.int32)
+        run = hashlib.sha1(repr((0, ps)).encode())
+        out = []
+        for i in range(plen // ps):
+            run.update(toks[i * ps:(i + 1) * ps].tobytes())
+            out.append(run.hexdigest())
+        return out
+
+    def _evict_for(self, n: int) -> None:
+        """Evict prefix-cache entries, least recently used first, until the
+        free list holds ``n`` pages. Dropping the cache's reference frees a
+        page only when no live sequence shares it; the cache shrinks either
+        way, so this ends."""
+        while self._prefix_cache and len(self._free) < n:
+            _, pg = self._prefix_cache.popitem(last=False)
+            self._release([pg])
+
+    @property
+    def prefix_cache_stats(self) -> dict:
+        """{entries, hit_tokens, lookup_tokens}: hit_tokens counts prompt
+        tokens whose k/v came from the cache instead of a prefill pass."""
+        return {"entries": len(self._prefix_cache or ()),
+                "hit_tokens": self._cache_hit_tokens,
+                "lookup_tokens": self._cache_lookup_tokens}
+
     def _alloc(self, n: int) -> list[int]:
+        self._evict_for(n)
         if len(self._free) < n:
             raise OutOfPagesError(
                 f"out of KV pages ({self.total_pages} total)")
-        return [self._free.pop() for _ in range(n)]
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._refs[p] = 1
+        return pages
 
     def _release(self, pages) -> None:
-        # Pages are never shared until fork / the prefix cache are ported,
-        # so each has one owner and no refcount.
-        self._free.extend(pages)
+        for p in pages:
+            if p not in self._refs:
+                continue   # the trash page (a window-reclaimed position)
+            self._refs[p] -= 1
+            if self._refs[p] == 0:
+                del self._refs[p]
+                self._free.append(p)
 
     def _free_slots(self):
         used = set(self._slots.values())
@@ -155,22 +261,86 @@ class GenerationEngine:
                 "per-sequence capacity (model max_len / page table)")
         return arr, len(arr)
 
+    # ---- sampling state ---------------------------------------------------
+
+    def _seed_stats(self, rows) -> None:
+        """Prompt membership and zeroed counts of newly prefilled slots
+        (``rows``: [(slot, prompt)])."""
+        if "counts" not in self._state:
+            return
+        V = self.gpt.config.vocab_size
+        st = self._state
+        for slot, prompt in rows:
+            st["prompt_mask"][slot] = _sampling.token_histogram(
+                prompt, V, self.device) > 0
+            st["counts"][slot] = 0
+
+    def _stat_rows(self, slots):
+        """The slots' rows of counts, prompt_mask, samp and samp_bias (None
+        for tables the engine does not carry)."""
+        return tuple(self._state[k][slots] if k in self._state else None
+                     for k in ("counts", "prompt_mask", "samp", "samp_bias"))
+
+    def _count_first(self, slots, toks) -> None:
+        """Count the first tokens (drawn at prefill) into the slots' rows."""
+        if "counts" in self._state:
+            self._state["counts"].index_put_(
+                (slots, toks.long()),
+                torch.ones(toks.shape, dtype=torch.int32,
+                           device=self.device), accumulate=True)
+
+    def _set_request_sampling(self, slot: int, sp) -> None:
+        """A slot's knob row and bias row (the engine default for None)."""
+        st = self._state
+        row = self._default_row if sp is None else _sampling.params_row(sp)
+        st["samp"][slot] = torch.from_numpy(row).to(self.device)
+        bias = None if sp is None else _sampling.static_bias(
+            sp, self.gpt.config.vocab_size, self.device)
+        st["samp_bias"][slot] = 0.0 if bias is None else bias
+
+    def _sample(self, logits, counts=None, prompt_mask=None, samp=None,
+                bias=None):
+        """JAX :1687-1708: per-request rows (``sample_batch``), the
+        engine-wide SamplingParams (``sample``), greedy, or temperature /
+        top-k / top-p (``GPT._sample``); int32 tokens."""
+        if self.per_request_sampling:
+            return _sampling.sample_batch(logits, self._gen, samp, counts,
+                                          prompt_mask, bias)
+        if self._sp is not None:
+            return _sampling.sample(logits, self._gen, self._sp, counts,
+                                    prompt_mask, self._sp_bias)
+        if self.temperature == 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return self.gpt._sample(logits, self._gen, self.temperature, 0,
+                                self.top_k, self.top_p).to(torch.int32)
+
+    # ---- admission ----------------------------------------------------------
+
     def add_request(self, seq_id: int, prompt_tokens, adapter=None,
                     sampling=None, constraint=None) -> int:
-        """Prefill a prompt; returns the first generated token."""
-        if adapter is not None or sampling is not None \
-                or constraint is not None:
-            raise NotImplementedError("per-request adapter/sampling/"
-                                      "constraint " + _LATER)
-        return self.add_requests({seq_id: prompt_tokens})[seq_id]
+        """Prefill a prompt; returns the first generated token.
+        ``sampling``: this request's SamplingParams (per_request_sampling
+        engines only)."""
+        return self.add_requests({seq_id: prompt_tokens},
+                                 {seq_id: adapter} if adapter else None,
+                                 {seq_id: sampling} if sampling else None,
+                                 {seq_id: constraint} if constraint
+                                 else None)[seq_id]
 
     def add_requests(self, prompts: dict, adapters=None, sampling=None,
                      constraints=None) -> dict:
-        """Prefill several prompts in batched chunks; returns {seq_id: first
-        token}."""
-        if adapters or sampling or constraints:
-            raise NotImplementedError("per-request adapter/sampling/"
-                                      "constraint " + _LATER)
+        """Prefill several prompts; returns {seq_id: first token}. Chunked
+        prefill batches them into [B, chunk] forwards; dense prefill
+        (``prefill_chunk_size=None``) runs them one by one. ``sampling``:
+        {seq_id: SamplingParams} (per_request_sampling engines only)."""
+        if adapters or constraints:
+            raise NotImplementedError("per-request adapters and "
+                                      "constraints " + _LATER)
+        sampling = sampling or {}
+        if sampling and not self.per_request_sampling:
+            raise ValueError("construct the engine with per_request_"
+                             "sampling=True to pass per-request "
+                             "SamplingParams")
         items = sorted(prompts.items())
         free_slots = self._free_slots()
         if len(free_slots) < len(items):
@@ -181,7 +351,55 @@ class GenerationEngine:
         for (sid, toks), slot in zip(items, free_slots):
             arr, plen = self._check_prompt(sid, toks)
             reqs.append((sid, slot, arr, plen))
+        if self.per_request_sampling:
+            for sid, slot, _, _ in reqs:
+                self._set_request_sampling(slot, sampling.get(sid))
+        if self.prefill_chunk_size is None:
+            return {sid: self._add_request_dense(sid, slot, arr, plen)
+                    for sid, slot, arr, plen in reqs}
         return self._add_requests_chunked(reqs)
+
+    @torch.no_grad()
+    def _add_request_dense(self, seq_id, slot, prompt, plen) -> int:
+        """Dense prefill (JAX :778-838): one ``GPT.apply(collect_kv=True,
+        logits_last_only=True)`` over the prompt, the first token drawn
+        from its last logits, and every layer's k/v scattered into fresh
+        pages (``_pad_kvs`` / ``_make_prefill``)."""
+        ps = self.page_size
+        toks = torch.from_numpy(prompt).to(self.device)[None]
+        logits, kvs = self.gpt.apply(toks, collect_kv=True,
+                                     logits_last_only=True)
+        n_pages = -(-plen // ps)
+        pages = self._alloc(n_pages)
+        self._seed_stats([(slot, prompt)])
+        slots = torch.tensor([slot], device=self.device)
+        tok = self._sample(logits[:, -1].float(), *self._stat_rows(slots))
+        self._count_first(slots, tok)
+        st = self._state
+        pos = torch.arange(n_pages * ps, device=self.device)
+        pages_t = torch.tensor(pages, dtype=torch.long, device=self.device)
+        p_idx = torch.where(pos < plen, pages_t[pos // ps], self._trash)
+        for li, (k, v) in enumerate(kvs):
+            self._append(st, li, p_idx, pos % ps, *self._pad_kvs(k, v, pos))
+        row = np.full((self.max_pages,), self._trash, np.int32)
+        row[:n_pages] = pages
+        st["table"][slot] = torch.from_numpy(row).to(self.device)
+        st["lengths"][slot] = plen
+        st["last_tok"][slot] = tok[0]
+        st["active"][slot] = True
+        self._slots[seq_id] = slot
+        self._host_len[seq_id] = plen
+        self._seq_pages[seq_id] = pages
+        return int(tok[0])
+
+    @staticmethod
+    def _pad_kvs(k, v, pos):
+        """A layer's collected k/v [1, hkv, plen, dk] as [hkv, n, dk] over
+        whole pages (``pos``: n positions; the padding lands on the trash
+        page)."""
+        pad = pos.shape[0] - k.shape[2]
+        return tuple(torch.nn.functional.pad(x[0], (0, 0, 0, pad))
+                     for x in (k, v))
 
     @torch.no_grad()
     def _add_requests_chunked(self, reqs) -> dict:
@@ -190,57 +408,98 @@ class GenerationEngine:
         is exhausted goes inactive (its appends land on the trash page); the
         per-row causal mask makes a padded final chunk exact.
 
+        With ``enable_prefix_cache`` each row first takes the longest
+        page-aligned prefix of its prompt that the cache holds (at most
+        ``plen - 1`` tokens, so one token always runs and gives the first
+        logits): those pages are shared, and only the suffix streams
+        through the chunks, each row from its own base (JAX :903-1052).
+
         ``reqs``: list of (seq_id, slot, prompt [plen], plen)."""
         chunk = self.prefill_chunk_size
         B = len(reqs)
         ps = self.page_size
-        total = sum(-(-plen // ps) for *_, plen in reqs)
+        matches = {sid: [] for sid, *_ in reqs}
+        if self._prefix_cache is not None:
+            for sid, _, prompt, plen in reqs:
+                for h in self._prefix_hashes(prompt, plen)[:(plen - 1) // ps]:
+                    pg = self._prefix_cache.get(h)
+                    if pg is None:
+                        break
+                    self._prefix_cache.move_to_end(h)      # LRU touch
+                    matches[sid].append(pg)
+                self._cache_lookup_tokens += plen
+                self._cache_hit_tokens += len(matches[sid]) * ps
+            # The rows own their matched pages before any eviction below,
+            # so that no eviction frees a page this batch just matched.
+            for pages in matches.values():
+                for pg in pages:
+                    self._refs[pg] += 1
+        bases = np.asarray([len(matches[sid]) * ps for sid, *_ in reqs])
+        total = sum(-(-plen // ps) - len(matches[sid])
+                    for sid, _, _, plen in reqs)
+        self._evict_for(total)
         if len(self._free) < total:          # all-or-nothing across rows
+            for pages in matches.values():
+                self._release(pages)
             raise OutOfPagesError("out of KV pages for chunked prefill")
         st = self._state
-        for seq_id, slot, _, plen in reqs:
+        for sid, slot, _, plen in reqs:
             n_pages = -(-plen // ps)
-            pages = self._alloc(n_pages)
-            self._seq_pages[seq_id] = pages
+            pages = matches[sid] + self._alloc(n_pages - len(matches[sid]))
+            self._seq_pages[sid] = pages
             # Tail entries -> trash: a padded final chunk's appends beyond
             # the allocated pages must not land on a live page.
             row = np.full((self.max_pages,), self._trash, np.int32)
             row[:n_pages] = pages
             st["table"][slot] = torch.from_numpy(row).to(self.device)
-        for seq_id, slot, _, plen in reqs:
-            self._slots[seq_id] = slot
-            self._host_len[seq_id] = plen
+        for sid, slot, _, plen in reqs:
+            self._slots[sid] = slot
+            self._host_len[sid] = plen
 
         plens = np.asarray([plen for *_, plen in reqs])
+        suffix = plens - bases
         slots = torch.tensor([slot for _, slot, _, _ in reqs],
                              dtype=torch.long, device=self.device)
-        n_chunks = int(-(-plens.max() // chunk))
+        n_chunks = int(-(-suffix.max() // chunk))
         padded = np.zeros((B, n_chunks * chunk), np.int64)
         for i, (_, _, prompt, plen) in enumerate(reqs):
-            padded[i, :plen] = prompt
+            padded[i, :suffix[i]] = prompt[bases[i]:]
         padded = torch.from_numpy(padded).to(self.device)
-        final_ci = (plens - 1) // chunk        # row i's last chunk index
+        final_ci = (suffix - 1) // chunk       # row i's last chunk index
         row_logits = [None] * B
         for ci in range(n_chunks):
-            n_valid = np.clip(plens - ci * chunk, 0, chunk)
+            n_valid = np.clip(suffix - ci * chunk, 0, chunk)
             lg = self._prefill_chunk(
                 st, padded[:, ci * chunk:(ci + 1) * chunk], slots,
-                torch.full((B,), ci * chunk, dtype=torch.int32,
-                           device=self.device),
+                torch.from_numpy((bases + ci * chunk).astype(np.int32)).to(
+                    self.device),
                 torch.from_numpy(n_valid.astype(np.int32)).to(self.device))
             for i in np.nonzero(final_ci == ci)[0]:
                 row_logits[int(i)] = lg[i]
-        toks = torch.argmax(torch.stack(row_logits), dim=-1).to(torch.int32)
+
+        # Every full prompt page is now content-addressed; the cache holds
+        # a reference of its own, so entries outlive finish() until evicted.
+        if self._prefix_cache is not None:
+            for sid, _, prompt, plen in reqs:
+                pages = self._seq_pages[sid]
+                for i, h in enumerate(self._prefix_hashes(prompt, plen)):
+                    if h not in self._prefix_cache:
+                        self._prefix_cache[h] = pages[i]
+                        self._refs[pages[i]] += 1
+
+        self._seed_stats([(slot, prompt) for _, slot, prompt, _ in reqs])
+        toks = self._sample(torch.stack(row_logits), *self._stat_rows(slots))
         st["lengths"][slots] = torch.from_numpy(
             plens.astype(np.int32)).to(self.device)
         st["last_tok"][slots] = toks
         st["active"][slots] = True
-        return {seq_id: int(t) for (seq_id, *_), t in zip(reqs, toks.tolist())}
+        self._count_first(slots, toks)
+        return {sid: int(t) for (sid, *_), t in zip(reqs, toks.tolist())}
 
     def _prefill_chunk(self, state, toks, slots, base_len, n_valid):
         """One chunk forward over a batch-B view of the lane (port of the
-        JAX ``_make_prefill_chunk`` body). Returns last-position logits of
-        each row's valid tokens, [B, vocab] fp32."""
+        JAX ``_make_prefill_chunk`` body; ``base_len`` [B] per row). Returns
+        last-position logits of each row's valid tokens, [B, vocab] fp32."""
         chunk = toks.shape[1]
         view = dict(state)         # page tensors are shared and written
         view["table"] = state["table"][slots]
@@ -255,16 +514,122 @@ class GenerationEngine:
     def finish(self, seq_id: int) -> None:
         slot = self._slots.pop(seq_id)
         del self._host_len[seq_id]
+        self._reclaim_mark.pop(seq_id, None)
         self._release(self._seq_pages.pop(seq_id))
-        self._state["active"][slot] = False
-        self._state["lengths"][slot] = 0
+        st = self._state
+        st["active"][slot] = False
+        st["lengths"][slot] = 0
+        if "counts" in st:     # a reused slot inherits no penalties
+            st["counts"][slot] = 0
+            st["prompt_mask"][slot] = False
+        if "samp" in st:       # ...and no knobs
+            st["samp"][slot] = torch.from_numpy(self._default_row).to(
+                self.device)
+            st["samp_bias"][slot] = 0.0
+
+    # ---- fork: refcounted page sharing ----------------------------------
+
+    @torch.no_grad()
+    def fork(self, parent_id: int, new_id: int) -> None:
+        """Clone a live sequence (JAX :1137-1225). The child shares the
+        parent's full pages (refcounted; pages are append-only, so none is
+        ever copied on write) and copies the partial tail page; it inherits
+        the parent's last token, sampling rows and counts. Both then decode
+        on their own; ``finish`` frees a page when its last owner leaves."""
+        if new_id in self._slots:
+            raise ValueError(f"sequence {new_id} already live")
+        pslot = self._slots[parent_id]
+        free_slots = self._free_slots()
+        if not free_slots:
+            raise RuntimeError(f"all {self.max_seqs} slots busy")
+        slot = free_slots[0]
+        plen = self._host_len[parent_id]
+        full, partial = divmod(plen, self.page_size)
+        parent_pages = self._seq_pages[parent_id]
+        child = list(parent_pages[:full])
+        dst = self._alloc(1)[0] if partial else None   # raises before sharing
+        for p in child:
+            if p in self._refs:   # reclaimed positions hold the trash page
+                self._refs[p] += 1
+        st = self._state
+        if partial:
+            src = parent_pages[full]
+            child.append(dst)
+            for key in ("k_pages", "v_pages", "k_scales", "v_scales"):
+                for buf in st.get(key, ()):
+                    buf[:, dst] = buf[:, src]
+        row = np.full((self.max_pages,), self._trash, np.int32)
+        row[:len(child)] = child
+        st["table"][slot] = torch.from_numpy(row).to(self.device)
+        st["lengths"][slot] = plen
+        st["active"][slot] = True
+        for key in ("last_tok", "counts", "prompt_mask", "samp",
+                    "samp_bias"):
+            if key in st:
+                st[key][slot] = st[key][pslot]
+        self._seq_pages[new_id] = child
+        # The child's page list shares the parent's trash placeholders below
+        # the parent's watermark, so it inherits the watermark too.
+        if parent_id in self._reclaim_mark:
+            self._reclaim_mark[new_id] = self._reclaim_mark[parent_id]
+        self._slots[new_id] = slot
+        self._host_len[new_id] = plen
+
+    # ---- sliding-window page reclamation ------------------------------------
+
+    def _reclaim_window_pages(self) -> None:
+        """Free the pages that fell out of a sliding-window model's span
+        (positions < length - window) (JAX :1228-1267): per-sequence KV
+        memory stays near ``window`` tokens however long it decodes. Paged
+        attention never reads such positions (it masks below the band), so
+        a reclaimed and reused page is at worst loaded and discarded. Their
+        table entries point at the trash page; shared pages are freed when
+        their last owner lets them go. Models whose layers alternate
+        local and global windows keep every page: the global layers read
+        them."""
+        c = self.gpt.config
+        w = c.attention_window
+        if w is None or c.window_pattern > 1:
+            return
+        upd = []                                   # (slot, page position)
+        for seq_id, slot in self._slots.items():
+            expired = (self._host_len[seq_id] - w) // self.page_size
+            pages = self._seq_pages[seq_id]
+            start = self._reclaim_mark.get(seq_id, 0)
+            for pos in range(start, min(expired, len(pages))):
+                if pages[pos] == self._trash:
+                    continue            # reclaimed already (a fork's share)
+                self._release([pages[pos]])
+                pages[pos] = self._trash
+                upd.append((slot, pos))
+            self._reclaim_mark[seq_id] = max(start, min(expired, len(pages)))
+        if upd:
+            slots, poss = (torch.tensor(u, dtype=torch.long,
+                                        device=self.device)
+                           for u in zip(*upd))
+            self._state["table"][slots, poss] = self._trash
+
+    # ---- not ported yet ---------------------------------------------------
+
+    def step_speculative(self, gamma: int = 4) -> dict:
+        raise NotImplementedError("step_speculative needs draft_gpt, which "
+                                  + _LATER)
+
+    def step_speculative_many(self, rounds: int, gamma: int = 4) -> dict:
+        raise NotImplementedError("step_speculative_many needs draft_gpt, "
+                                  "which " + _LATER)
+
+    def step_lookup(self, gamma: int = 4, ngram: int = 3) -> dict:
+        raise NotImplementedError("step_lookup " + _LATER)
 
     # ---- decode step (host: page growth, then one device step) ----------
 
     def _grow_tables(self, n: int):
         """Ensure every live sequence's page table covers ``n`` more tokens.
-        All-or-nothing: needs are computed first, and the free list, host
+        Window reclamation runs first (it can only free pages). The growth
+        is all-or-nothing: needs are computed first, and the free list, host
         bookkeeping and device table change only once the growth fits."""
+        self._reclaim_window_pages()
         needs = []                            # (seq_id, slot, n_new_pages)
         for seq_id, slot in self._slots.items():
             ln_len = self._host_len[seq_id]
@@ -277,6 +642,7 @@ class GenerationEngine:
             if extra > 0:
                 needs.append((seq_id, slot, extra))
         total = sum(e for *_, e in needs)
+        self._evict_for(total)
         if len(self._free) < total:
             raise OutOfPagesError(
                 f"out of KV pages ({self.total_pages} total; need {total}, "
@@ -371,7 +737,13 @@ class GenerationEngine:
     def _device_step(self, state, return_logits=False):
         active = state["active"]
         state, logits = self._forward_tokens(state, state["last_tok"][:, None])
-        new_tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        new_tok = self._sample(logits[:, 0], state.get("counts"),
+                               state.get("prompt_mask"), state.get("samp"),
+                               state.get("samp_bias"))
+        if "counts" in state:
+            state["counts"].index_put_(
+                (torch.arange(new_tok.shape[0], device=new_tok.device),
+                 new_tok.long()), active.to(torch.int32), accumulate=True)
         state["last_tok"] = torch.where(active, new_tok, state["last_tok"])
         state["lengths"] = state["lengths"] + active.to(torch.int32)
         out = torch.where(active, new_tok, -1)

@@ -11,9 +11,10 @@ The recipe is the example's: dropout 0.1, ``GPT.loss(training=True)``,
 with adamw's defaults, driven by ``training.make_train_step`` over batches
 from ``data.epochs`` through ``data.prefetch_to_device``. The dropout rng is
 a CPU generator seeded 1 that the model draws one seed from a step, as the
-example splits its key a step. The example's ``--moe``, ``--shard``,
-``--remat`` and ``--ckpt`` options and its closing ``generate`` sample are
-not ported yet.
+example splits its key a step. It closes, as the example does, with a
+greedy ``GPT.generate`` sample of 16 tokens after the first row's first 8.
+The example's ``--moe``, ``--shard``, ``--remat`` and ``--ckpt`` options
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -91,6 +92,9 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     corpus = rng.integers(0, args.vocab, (64 * args.batch, args.seq))
     losses, _ = train(gpt, corpus, args.steps, args.batch, args.device)
+    sample = gpt.generate(torch.as_tensor(corpus[:1, :8], device=args.device),
+                          steps=16)
+    print("sample continuation:", sample.cpu().numpy()[0])
     return losses
 
 

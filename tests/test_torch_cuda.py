@@ -22,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _k10_schedule, _schedule, k10_planned, k10_run
+from chip_smoke import (MASK_CASES, _k10_schedule, _schedule,
+                        flash_mask_case, k10_planned, k10_run)
 from np_modeling_tpu_torch import models, ops
 from np_modeling_tpu_torch.ops import dispatch, fused
 
@@ -261,12 +262,53 @@ def test_cuda_flash_kernels_count_launches():
 
 @pytest.mark.parametrize("option", ["mask", "bias"])
 def test_cuda_flash_unported_options_raise(option):
+    """A bias, and a mask where q needs a gradient (the kernels' backwards
+    take no mask yet), raise on the card."""
     q, k, v, _ = _flash_inputs(1, 2, 2, 64, 64, 64, torch.float32)
     kw = {"mask": dict(mask=torch.ones(1, 1, 64, 64, dtype=torch.bool,
                                        device="cuda")),
           "bias": dict(bias=torch.zeros(1, 2, 64, 64, device="cuda"))}[option]
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(q, k, v, **kw)
+    with pytest.raises(NotImplementedError, match="Queue 2 A"):
+        ops.flash_attention(q.requires_grad_(option == "mask"), k, v, **kw)
+
+
+@pytest.mark.parametrize("case", MASK_CASES,
+                         ids=[c[0].replace(" ", "_") for c in MASK_CASES])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_mask_vs_plain(dtype, d, case):
+    """K1's mask option (chip_smoke's MASK_CASES: sq 1 and 300, skv 1000 and
+    333, GQA 8/4, per-row and broadcast masks, window and softcap, a row
+    without a key) against ``_attn_fwd_plain``: o, and lse on rows with a
+    key, within the flash tolerances; the keyless row's lse equal to the
+    plain one and its o the mean of v over all keys; one launch counted."""
+    from np_modeling_tpu_torch.ops import attention
+    rng = np.random.default_rng(d)
+    q, k, v, mask, kw, keyless = flash_mask_case(case, dtype, d, rng)
+    before = ops.flash_attention.launches_fwd_mask
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, v, mask=mask, **kw)
+    o2, lse = attention._flash_fwd_cuda(
+        q, k, v, kw["causal"], kw["scale"], True, window=kw["window"],
+        softcap=kw["softcap"], mask=mask)
+    assert ops.flash_attention.launches_fwd_mask == before + 2
+    want = attention._attn_fwd_plain(q, k, v, mask, None, kw["causal"],
+                                     kw["window"], kw["scale"],
+                                     kw["softcap"])
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
+    rows = torch.zeros(lse.shape, dtype=torch.bool, device="cuda") \
+        if keyless is None else keyless[:, None, :].expand(lse.shape)
+    for x, y in ((o, want[0]), (lse[~rows], want[1][~rows])):
+        bound = _tol(dtype) * max(1.0, y.float().abs().max().item())
+        assert (x.float() - y.float()).abs().max().item() <= bound
+    if keyless is not None:
+        assert torch.equal(lse[rows], want[1][rows])
+        g = q.shape[1] // k.shape[1]
+        mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(g, 1)
+        none = keyless[:, None, :, None].expand(o.shape)
+        err = (o.float() - mean.expand(o.shape))[none].abs().max().item()
+        assert err <= _tol(dtype) * max(1.0, mean.abs().max().item())
 
 
 def test_cuda_flash_other_head_dims_raise():

@@ -89,8 +89,8 @@ def test_out_of_pages_is_all_or_nothing():
 
 
 @pytest.mark.parametrize("option", [
-    dict(temperature=0.7), dict(enable_prefix_cache=True),
-    dict(draft_gpt=object()), dict(prefill_chunk_size=None),
+    dict(mesh=object()), dict(constraints={"any": object()}),
+    dict(draft_gpt=object()), dict(lora_adapters={"a": {}}),
     dict(constraints={}), dict(lora_adapters={})])
 def test_unported_engine_options_raise(option):
     gpt = tmodels.GPT(tmodels.GPTConfig(**CFG), device="cpu")

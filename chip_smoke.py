@@ -508,11 +508,16 @@ def check_forward_sass(lib_path, log):
             for h in (0, 1)}
     want |= {(d, 2, o) for d in (64, 128, 256) for o in (0, 2)}
     want |= {(d, 1, o) for d in (64, 128, 256) for o in (8, 10, 12, 14)}
+    # The bias: alone and with segment ids (K1, K5's dq), with the mask (K1)
+    # at every head dim, with the softcap at d 64.
+    want |= {(d, h, o) for d in (64, 128, 256) for h in (0, 1)
+             for o in (16, 17)}
+    want |= {(d, 1, 24) for d in (64, 128, 256)} | {(64, 0, 20), (64, 1, 20)}
     for key in sorted(want):
         d, halves, opt = key
         kind = {0: "K5 dq", 1: "forward K1", 2: "forward K12"}[halves]
         print(f"(b) {kind} d{d} options {opt} (seg 1, window 2, softcap 4, "
-              f"mask 8): {regs.get(key, 'no usage')}"
+              f"mask 8, bias 16): {regs.get(key, 'no usage')}"
               f", {hgmma.get(key, 0)} HGMMA in its SASS"
               f"{', wgmma serialized by ptxas (C7514)' if key in serialized else ''}")
     missing = sorted(k for k in want if not hgmma.get(k))
@@ -1257,6 +1262,150 @@ def phase_flash_mask_vs_plain():
     print(f"(c) flash mask option: {n} cases pass; max abs err fp32 "
           f"{errs[torch.float32]:.3e}, bf16 {errs[torch.bfloat16]:.3e}")
     return errs[torch.float32], errs[torch.bfloat16]
+
+
+# K1, K2 and K5 with the score bias: (name, b, hq, hkv, sq, skv, d, the bias's
+# shape ("1h" [1, hq], "bh" [b, hq], "b1" [b, 1], each [.., sq, skv]), causal,
+# segment ids (padded tails: the source's, T5's encoder), softcap, scale). T5's
+# own shapes are d 64 at scale 1; scale 0.125 with a cap that bites holds the
+# bias added after the scale and the cap (at scale 1 a wrongly scaled bias
+# would not show). sq x skv 500 x 77 is ragged on every tile width; the GQA
+# and d 128 / 256 cases take the other head dims' instantiations.
+BIAS_CASES = (
+    ("t5 encoder padded", 2, 12, 12, 300, 300, 64, "1h", False, True, None,
+     1.0),
+    ("t5 decoder", 2, 12, 12, 200, 200, 64, "1h", True, False, None, 1.0),
+    ("full causal", 2, 4, 4, 256, 256, 64, "bh", True, False, None, 0.125),
+    ("ragged", 2, 4, 4, 500, 77, 64, "b1", False, False, None, 0.125),
+    ("gqa d128", 1, 8, 2, 300, 300, 128, "1h", True, False, None, 0.088),
+    ("gqa d256 segments", 1, 4, 2, 200, 200, 256, "bh", False, True, None,
+     0.0625),
+    ("scale softcap", 2, 4, 4, 200, 200, 64, "bh", True, False, 5.0, 0.125),
+)
+# K1 with the mask and the bias at sq = 1 (T5's decode over an fp32 cache):
+# (name, b, hq, L, written slots a row).
+BIAS_DECODE_CASES = (("t5 decode", 8, 12, 160, (1, 17, 64, 129, 160, 77, 5,
+                                                  100)),)
+
+
+def flash_bias_case(case, dtype, rng):
+    """(q, k, v, do, bias, kwargs) of a BIAS_CASES entry at ``dtype``: the
+    bias fp32 N(0, 1), the segment ids (with them) of rows whose tails are
+    padding (id 0 after each row's length, 1 before; q ids kv's first sq)."""
+    import torch
+    _, b, hq, hkv, sq, skv, d, kind, causal, seg, softcap, scale = case
+    q, k, v, do = _flash_inputs((b, hq, hkv, sq, skv, d), dtype, rng)
+    shape = {"1h": (1, hq), "bh": (b, hq), "b1": (b, 1)}[kind] + (sq, skv)
+    bias = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device="cuda")
+    kw = dict(causal=causal, softcap=softcap, scale=scale)
+    if seg:
+        lens = rng.integers(skv // 3, skv + 1, b)
+        kv_seg = torch.tensor(np.arange(skv)[None] < lens[:, None],
+                              dtype=torch.int32, device="cuda")
+        kw["segment_ids"] = (kv_seg[:, :sq].clone(), kv_seg)
+    return q, k, v, do, bias, kw
+
+
+def flash_bias_decode_case(case, dtype, rng):
+    """(q, k, v, mask, bias) of a BIAS_DECODE_CASES entry: q [b, hq, 1, 64],
+    a cache of L slots of which the first ``lens[i]`` are written, the bias
+    [1, hq, 1, L]."""
+    import torch
+    _, b, hq, length, lens = case
+    q, k, v, _ = _flash_inputs((b, hq, hq, 1, length, 64), dtype, rng)
+    col = torch.arange(length, device="cuda")
+    mask = (col[None] < torch.tensor(lens, device="cuda")[:, None])[
+        :, None, None, :]
+    bias = torch.tensor(rng.standard_normal((1, hq, 1, length)),
+                        dtype=torch.float32, device="cuda")
+    return q, k, v, mask, bias
+
+
+def _bias_fwd_bwd(q, k, v, do, bias, plain, **kw):
+    """o, dq, dk, dv, dbias through ops.flash_attention (kernels or plain)."""
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+    with dispatch.force_plain() if plain else contextlib.nullcontext():
+        o = ops.flash_attention(*leaves[:3], bias=leaves[3], **kw)
+        o.backward(do)
+    return [o.detach()] + [x.grad for x in leaves]
+
+
+def phase_flash_bias_vs_plain():
+    """K1, K2 and K5 with the score bias against the plain version on the
+    card, fp32 and bf16, over BIAS_CASES: o, lse, dq, dk, dv and dbias within
+    the flash tolerances; K5's dq, dk, dv and dbias equal across two runs
+    bit for bit; one K1 and one K2 or K5 bias launch counted a call. Then
+    K1 with the mask and the bias at sq = 1 (BIAS_DECODE_CASES): o and lse.
+    Returns the max abs errors {"fwd", "bwd"} -> (fp32, bf16)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import attention
+    rng = np.random.default_rng(SEED + 51)
+    f32, f16 = torch.float32, torch.bfloat16
+    errs = {key: {f32: 0.0, f16: 0.0} for key in ("fwd", "bwd")}
+    fa = ops.flash_attention
+    n = 0
+    for case in BIAS_CASES:
+        for dtype in (f32, f16):
+            q, k, v, do, bias, kw = flash_bias_case(case, dtype, rng)
+            q_seg, kv_seg = kw.get("segment_ids", (None, None))
+            want = _bias_fwd_bwd(q, k, v, do, bias, True, **kw)
+            want.insert(1, attention._attn_fwd_plain(
+                q, k, v, attention._merge_seg_into_mask(None, q_seg, kv_seg),
+                bias, kw["causal"], None, kw["scale"], kw["softcap"])[1])
+            for split in (False, True):
+                before = (fa.launches_fwd_bias, fa.launches_bwd_bias)
+                with _schedule(fused_bwd=not split):
+                    got = _bias_fwd_bwd(q, k, v, do, bias, False, **kw)
+                    again = (_bias_fwd_bwd(q, k, v, do, bias, False, **kw)
+                             if split else None)
+                runs = 2 if split else 1
+                if (fa.launches_fwd_bias, fa.launches_bwd_bias) != (
+                        before[0] + runs, before[1] + runs):
+                    raise AssertionError("(c) flash bias launches not counted")
+                got.insert(1, attention._flash_fwd_cuda(
+                    q, k, v, kw["causal"], kw["scale"], True, q_seg, kv_seg,
+                    softcap=kw["softcap"], bias=bias)[1])
+                torch.cuda.synchronize()
+                tag = (f"flash bias {'K1+K5' if split else 'K1+K2'} {case[0]} "
+                       f"b{case[1]} hq{case[2]}/{case[3]} {case[4]}x{case[5]} "
+                       f"d{case[6]} bias {case[7]} {str(dtype)[6:]}")
+                line = _hold(tag, ("o", "lse"), got[:2], want[:2], dtype,
+                             errs["fwd"])
+                line += ", " + _hold(tag, ("dq", "dk", "dv", "dbias"),
+                                     got[2:], want[2:], dtype, errs["bwd"])
+                if split and not all(torch.equal(x, y)
+                                     for x, y in zip(got[2:], again[1:])):
+                    raise AssertionError(f"(c) {tag}: K5's dq/dk/dv/dbias "
+                                         "differ between two runs")
+                n += 1
+                print(f"(c) {tag}: max abs err / bound: {line}"
+                      f"{'; dq, dk, dv, dbias bit-equal across two runs' if split else ''}")
+            del q, k, v, do, bias, got, want, again
+    for case in BIAS_DECODE_CASES:
+        for dtype in (f32, f16):
+            q, k, v, mask, bias = flash_bias_decode_case(case, dtype, rng)
+            before = (fa.launches_fwd_mask, fa.launches_fwd_bias)
+            got = attention._flash_fwd_cuda(q, k, v, False, 1.0, True,
+                                            mask=mask, bias=bias)
+            if (fa.launches_fwd_mask, fa.launches_fwd_bias) != (
+                    before[0] + 1, before[1] + 1):
+                raise AssertionError("(c) K1 mask + bias launch not counted")
+            want = attention._attn_fwd_plain(q, k, v, mask, bias, False, None,
+                                             1.0)
+            torch.cuda.synchronize()
+            tag = (f"flash mask+bias {case[0]} b{case[1]} hq{case[2]} sq1 "
+                   f"L{case[3]} d64 {str(dtype)[6:]}")
+            line = _hold(tag, ("o", "lse"), (got[0].contiguous(), got[1]),
+                         want, dtype, errs["fwd"])
+            n += 1
+            print(f"(c) {tag}: max abs err / bound: {line}")
+    out = {key: (e[f32], e[f16]) for key, e in errs.items()}
+    print(f"(c) flash bias: {n} cases pass; max abs err (fp32, bf16): {out}")
+    return out
 
 
 def _bf16_ulp(t):
@@ -4799,12 +4948,538 @@ def phase_gemma2_train_timings(gpt, corpus, device_line):
     return res, keys
 
 
-def main(phases="abcdefghijklmnopqrstuvwx"):
+# google-t5/t5-base's config.json (https://huggingface.co/google-t5/t5-base):
+# vocab 32128, d_model 768, 12 heads of d_kv 64, d_ff 3072 (relu), 12 encoder
+# and 12 decoder layers, 32 relative buckets to distance 128, tied
+# embeddings, dropout 0.1, layer_norm_epsilon 1e-6 (~223M parameters). Not
+# cut: full width and depth, seeded random weights.
+T5_BASE = dict(vocab_size=32128, d_model=768, d_kv=64, num_heads=12,
+               num_encoder_layers=12, num_decoder_layers=12, d_ff=3072,
+               relpos_buckets=32, relpos_max_distance=128, gated_act=False,
+               tie_embeddings=True, drop_rate=0.1, ln_eps=1e-6)
+T5_B, T5_SRC, T5_TGT, T5_STEPS = 8, 512, 128, 10
+T5_GREEDY, T5_BEAM, T5_BEAM_STEPS, T5_DECODE_B = 32, 4, 16, 4
+# Seq2SeqTransformer at its default Seq2SeqConfig (models/seq2seq.py): vocab
+# 32000, d 512, 8 heads, 4 + 4 layers, FFN 2048, fp32.
+S2S_B, S2S_SRC, S2S_TGT, S2S_GREEDY = 8, 256, 128, 32
+
+
+def t5_base_config(dtype):
+    from np_modeling_tpu_torch.models import T5Config
+    return T5Config(**T5_BASE, dtype=dtype)
+
+
+def t5_batches(n, seed):
+    """``n`` batches of T5_B seeded Zipf sources of T5_SRC tokens whose tails
+    are padding (``src_valid`` 0 past each row's length, 128..T5_SRC) and
+    targets of T5_TGT + 1 tokens, on the card."""
+    import torch
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        src = zipf_corpus(T5_BASE["vocab_size"], T5_B, T5_SRC,
+                          seed=int(rng.integers(2 ** 31)))
+        tgt = zipf_corpus(T5_BASE["vocab_size"], T5_B, T5_TGT + 1,
+                          seed=int(rng.integers(2 ** 31)))
+        lens = rng.integers(128, T5_SRC + 1, T5_B)
+        lens[0] = T5_SRC
+        valid = (np.arange(T5_SRC)[None] < lens[:, None]).astype(np.int32)
+        out.append({"src": torch.tensor(src * valid, device="cuda"),
+                    "tgt": torch.tensor(tgt, device="cuda"),
+                    "valid": torch.tensor(valid, device="cuda")})
+    return out
+
+
+def _t5_model(dtype):
+    """t5-base on the card from SEED; its relpos tables scaled to N(0, 1), so
+    that the bias moves the scores about as much as q.k does."""
+    import torch
+    from np_modeling_tpu_torch.models import T5
+    t5 = T5(t5_base_config(dtype), device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED + 60))
+    with torch.no_grad():
+        for t in (t5.enc_relpos, t5.dec_relpos):
+            t.mul_(50.0)
+    return t5
+
+
+def _t5_step0(t5, batch, seed, plain):
+    """Step 0 of the recipe without the update: loss, and the gradients after
+    clip_by_global_norm(1.0), dropout seeded by ``seed`` (the kernel's and the
+    plain twin's masks are the same bits)."""
+    from np_modeling_tpu_torch import training
+    from np_modeling_tpu_torch.ops import dispatch
+    t5.zero_grad(set_to_none=True)
+    with dispatch.force_plain() if plain else contextlib.nullcontext():
+        loss = t5.loss(batch["src"], batch["tgt"], training=True,
+                       rngs={"dropout": seed}, src_valid=batch["valid"])
+        loss.backward()
+        grads, _ = training.clip_by_global_norm(1.0).update(
+            {n: p.grad for n, p in t5.named_parameters()}, ())
+    return loss.item(), {n: g.detach().clone() for n, g in grads.items()}
+
+
+def _t5_counts():
+    """_launch_counts with the flash kernels' bias and mask counts."""
+    from np_modeling_tpu_torch import ops
+    f = ops.flash_attention
+    return {**_launch_counts(), "flash_attention_fwd_bias": f.launches_fwd_bias,
+            "flash_attention_bwd_bias": f.launches_bwd_bias,
+            "flash_attention_fwd_mask": f.launches_fwd_mask,
+            "flash_attention_fwd_mask_fp32": f.launches_fwd_mask_fp32}
+
+
+def _zero_t5_counts():
+    from np_modeling_tpu_torch import ops
+    _zero_launch_counts()
+    f = ops.flash_attention
+    f.launches_fwd_bias = f.launches_bwd_bias = 0
+    f.launches_fwd_mask = f.launches_fwd_mask_fp32 = 0
+
+
+def _t5_train(t5, batches, steps):
+    """``steps`` steps of the entry point's recipe (train_gpt.recipe: clip +
+    adamw + warmup-cosine) through training.make_train_step over T5.loss
+    (training=True, dropout 0.1), cycling ``batches``: the losses, each
+    step's seconds (the host's clock, the card synchronised after each step)
+    and the launch counts."""
+    import torch
+    from np_modeling_tpu_torch import train_gpt, training
+    opt = train_gpt.recipe(steps)
+    params = dict(t5.named_parameters())
+    state = opt.init(params)
+    step = training.make_train_step(
+        lambda x, training, rngs: t5.loss(x["src"], x["tgt"], training, rngs,
+                                          src_valid=x["valid"]),
+        lambda loss, _: loss, opt)
+    gen = torch.Generator().manual_seed(1)
+    _zero_t5_counts()
+    losses, seconds = [], []
+    torch.cuda.synchronize()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batches[i % len(batches)],
+                                   None, gen)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss)
+    losses = torch.stack(losses).tolist()
+    del state
+    return losses, seconds, _t5_counts()
+
+
+@contextlib.contextmanager
+def _recording(model, name, rows):
+    """``model.<name>`` (the head) wrapped so that each call's last-position
+    output lands in ``rows`` (fp32)."""
+    inner = getattr(model, name)
+
+    def head(y):
+        out = inner(y)
+        rows.append(out[:, -1].float().clone())
+        return out
+
+    setattr(model, name, head)
+    try:
+        yield
+    finally:
+        delattr(model, name)
+
+
+def _decode_vs_plain(tag, decode, model, head):
+    """``decode()`` (greedy tokens [b, n]) through the kernels and plain, the
+    logits of each step recorded at ``head``: tokens equal, except where the
+    plain path's top-2 logits lie within NEAR_TIE (the row is then compared
+    up to that step only); logits within F32_TOL x max(1, max |logit|)."""
+    import torch
+    from np_modeling_tpu_torch.ops import dispatch
+    runs = []
+    for plain in (False, True):
+        rows = []
+        with _recording(model, head, rows), (
+                dispatch.force_plain() if plain else contextlib.nullcontext()):
+            toks = decode()
+        runs.append((toks, torch.stack(rows, dim=1)))
+    (tk, lk), (tp, lp) = runs
+    gap = _top2_gap(lp)
+    err, ties = 0.0, 0
+    for r in range(tk.shape[0]):
+        diff = (tk[r] != tp[r]).nonzero()
+        end = tk.shape[1] if len(diff) == 0 else int(diff[0]) + 1
+        if len(diff) and not gap[r, end - 1] < NEAR_TIE:
+            raise AssertionError(f"{tag}: row {r} step {end - 1}: kernel "
+                                 f"{int(tk[r, end - 1])} != plain "
+                                 f"{int(tp[r, end - 1])}, plain top-2 gap "
+                                 f"{float(gap[r, end - 1])}")
+        ties += len(diff) > 0
+        err = max(err, _hold_logits(f"{tag} row {r}", lk[r, :end],
+                                    lp[r, :end]))
+    print(f"{tag}: {tk.numel()} greedy tokens kernel vs plain, {ties} rows "
+          f"parted at a near tie (< {NEAR_TIE}), all else equal; logits "
+          f"{err:.3e} x max(1, max |logit|) apart (tol {F32_TOL})")
+    return tk
+
+
+def _t5_bias_timings(res, batch, device_line, t5):
+    """K1, K2 and K5 with the bias at T5's encoder self-attention shape (b8
+    h12 s512 d64 bf16, the [1, 12, 512, 512] fp32 relpos bias as ``t5``'s
+    ``_relpos_bias`` gives it to the encoder, in its layout, the padded
+    tails as segment ids): wall and device time, kernel and plain, each
+    beside its bound (bytes: q, k, v, o, do, the bias and dbias [1, h, s, s],
+    dq, dk, dv once; operations: 4 d a (q, k) pair forward, 10 d backward,
+    the in-segment pairs of this batch) and SDPA with the bias and the
+    segments as one float attn_mask (forward; autograd backward with the
+    mask's gradient). Then K1 fp32 with the mask and the bias at the greedy
+    decode's step (b T5_DECODE_B, sq 1 over T5_GREEDY + 1 slots, the bias
+    row that greedy_decode builds for that step). Returns the four keys."""
+    import torch
+    import torch.nn.functional as F
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    rng = np.random.default_rng(SEED + 61)
+    b, h, s, d = T5_B, T5_BASE["num_heads"], T5_SRC, 64
+    q, k, v, do = _flash_inputs((b, h, h, s, s, d), torch.bfloat16, rng)
+    pos = torch.arange(s, device="cuda")
+    with torch.no_grad():
+        bias = t5._relpos_bias(t5.enc_relpos, pos, pos, True)
+    print(f"(y) the encoder's bias as T5._relpos_bias gives it: shape "
+          f"{tuple(bias.shape)}, strides {bias.stride()}, "
+          f"{bias.dtype}")
+    seg = batch["valid"]
+    kw = dict(segment_ids=seg, scale=1.0)
+    pairs = _doc_pairs(seg.cpu().numpy(), causal=False)
+    shape = f"b{b} h{h} s{s} d{d} bias [1, h, s, s] segments bf16"
+    lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    keys = {}
+
+    def fwd():
+        with torch.no_grad():
+            return ops.flash_attention(q, k, v, bias=bias, **kw)
+
+    name = keys["fwd"] = f"flash forward bias t5 encoder {shape}"
+    _both(res, "y", name, fwd, device_line, runs=20)
+    _device_both(res, "y", name, fwd, device_line)
+    res["bound " + name] = _bound(_nbytes(q, k, v, q, bias, seg, seg),
+                                  4 * h * d * pairs)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+    outs = {}
+    for split in (False, True):
+        with _schedule(fused_bwd=not split):
+            outs[split] = ops.flash_attention(*leaves[:3], bias=leaves[3],
+                                              **kw)
+    with dispatch.force_plain():
+        o_plain = ops.flash_attention(*leaves[:3], bias=leaves[3], **kw)
+
+    def bwd(o):
+        return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+    for split, way in ((False, "bwd"), (True, "bwd_split")):
+        name = keys[way] = (f"flash backward {'split ' if split else ''}bias "
+                            f"t5 encoder {shape}")
+        _both(res, "y", name, bwd(outs[split]), device_line, runs=10,
+              plain_fn=bwd(o_plain))
+        _device_both(res, "y", name, bwd(outs[split]), device_line,
+                     plain_fn=bwd(o_plain))
+        res["bound " + name] = _bound(
+            _nbytes(q, k, v, q, q, lse, lse, bias, q, k, v, bias, seg, seg),
+            10 * h * d * pairs)
+    # Where the bias's cost lies: the same backward without the bias
+    # (segments alone), and the wrapper's sum of dbias over b.
+    plain_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    parts = {}
+    for split in (False, True):
+        with _schedule(fused_bwd=not split):
+            o_nb = ops.flash_attention(*plain_leaves, **kw)
+        parts[split] = _device_ms(lambda: torch.autograd.grad(
+            o_nb, plain_leaves, do, retain_graph=True))
+    full = torch.empty((b, h, s, s), device="cuda")
+    t_sum = _device_ms(lambda: full.sum(dim=0, keepdim=True))
+    print(f"(y) without the bias (segments alone), device time: K2 backward "
+          f"{parts[False]:.4f} ms, K5 backward {parts[True]:.4f} ms; the "
+          f"wrapper's sum of dbias [b, h, s, s] over b {t_sum:.4f} ms "
+          f"[{device_line}]")
+    # The same values h floats apart along keys (the gather's [q, k, h] seen
+    # as [1, h, q, k], the layout before _relpos_bias made it contiguous).
+    strided = bias.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    s_leaves = [x.clone().requires_grad_() for x in (q, k, v)] + [
+        strided.clone().requires_grad_()]
+    o_s = ops.flash_attention(*s_leaves[:3], bias=s_leaves[3], **kw)
+
+    def fwd_strided():
+        with torch.no_grad():
+            return ops.flash_attention(q, k, v, bias=strided, **kw)
+
+    t_sf = _device_ms(fwd_strided)
+    t_sb = _device_ms(lambda: torch.autograd.grad(o_s, s_leaves, do,
+                                                  retain_graph=True))
+    print(f"(y) the bias with strides {strided.stride()} (h floats apart "
+          f"along keys), device time: K1 forward {t_sf:.4f} ms, K2 backward "
+          f"{t_sb:.4f} ms [{device_line}]")
+    del s_leaves, o_s, strided
+    del plain_leaves, o_nb, full
+    # The library call: SDPA with the bias and the segments as one float
+    # mask ([b, h, s, s] in q's dtype, -inf across segments), forward and
+    # autograd backward (dq, dk, dv and the mask's gradient).
+    keep = seg[:, None, :, None] == seg[:, None, None, :]
+    amask = (bias + torch.where(keep, 0.0, float("-inf"))).to(q.dtype)
+    try:
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=amask,
+                                                      scale=1.0)
+
+        res["library " + keys["fwd"]] = _library(
+            "y", f"F.scaled_dot_product_attention(attn_mask=bias + segments,"
+            f" a float [b, h, s, s] bf16 mask) forward {shape}", lib_fwd,
+            device_line)
+        lib_leaves = [x.clone().requires_grad_() for x in (q, k, v, amask)]
+        o_lib = F.scaled_dot_product_attention(*lib_leaves[:3],
+                                               attn_mask=lib_leaves[3],
+                                               scale=1.0)
+
+        def lib_bwd():
+            return torch.autograd.grad(o_lib, lib_leaves, do,
+                                       retain_graph=True)
+
+        lib = _library("y", f"F.scaled_dot_product_attention autograd "
+                       f"backward with the float mask's gradient {shape}",
+                       lib_bwd, device_line)
+        res["library " + keys["bwd"]] = res["library " + keys["bwd_split"]] \
+            = lib
+    except Exception as e:          # a report: the yardstick stays null
+        print(f"(y) SDPA with a float mask does not run here: "
+              f"{type(e).__name__}: {str(e)[:300]}")
+    del leaves, outs, o_plain, q, k, v, do
+    torch.cuda.empty_cache()
+
+    # The greedy decode's step: fp32 q [b, 12, 1, 64] over a cache of
+    # T5_GREEDY + 1 slots, the first half written, mask and bias.
+    length = T5_GREEDY + 1
+    q, k, v, _ = _flash_inputs((T5_DECODE_B, h, h, 1, length, d),
+                               torch.float32, rng)
+    mask = (torch.arange(length, device="cuda") <= length // 2)[
+        None, None, None, :]
+    kpos = torch.arange(length, device="cuda")
+    with torch.no_grad():
+        dbias = t5._relpos_bias(t5.dec_relpos,
+                                kpos[length // 2:length // 2 + 1], kpos, False)
+
+    def dec():
+        with torch.no_grad():
+            return ops.flash_attention(q, k, v, mask=mask, bias=dbias,
+                                       scale=1.0)
+
+    name = keys["decode"] = (f"flash forward mask+bias t5 decode b"
+                             f"{T5_DECODE_B} h{h} sq1 L{length} d{d} fp32")
+    _both(res, "y", name, dec, device_line, runs=20)
+    _device_both(res, "y", name, dec, device_line)
+    o = torch.empty_like(q)
+    live = int(mask.sum())
+    res["bound " + name] = _bound(_nbytes(q, k, v, o, mask, dbias),
+                                  4 * T5_DECODE_B * h * d * live,
+                                  peak=PEAK_F32_S)
+    fmask = torch.where(mask, dbias, float("-inf"))
+
+    def lib_dec():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=fmask,
+                                                  scale=1.0)
+
+    res["library " + name] = _library(
+        "y", f"F.scaled_dot_product_attention(attn_mask=bias, -inf past the "
+        f"written slots) forward {name[14:]}", lib_dec, device_line)
+    for key in keys.values():
+        print(f"(y) {key}: bound {res['bound ' + key][0]:.5f} ms "
+              f"({res['bound ' + key][1]}) [{device_line}]")
+    return keys
+
+
+def phase_t5(device_line):
+    """(y) T5 at google-t5/t5-base's full width and depth (T5_BASE), seeded
+    random weights, fp32 master weights, bf16 compute, on T5_B sources of
+    T5_SRC seeded Zipf tokens with padded tails and targets of T5_TGT. Step
+    0 (forward, backward, clip; dropout 0.1 seeded) through K1 + K2 and K1 +
+    K5 against the plain step by phase (q)'s bf16 rule (each gradient, the
+    relpos tables' included, no further from the fp32 plain step's than
+    1.25 x the plain bf16 step's, or 2e-2; loss 5e-3). Then the main path:
+    T5_STEPS steps of the entry point's recipe through make_train_step under
+    FUSED_BWD True and then False (from the same weights): losses finite and
+    falling, each step 36 K1 launches (24 with the bias: encoder and decoder
+    self-attention; 12 cross-attention with segment ids) and 36 K2 (or K5)
+    launches, 24 with the bias, and nonzero relpos gradients. Then fp32
+    greedy_decode (T5_GREEDY steps) and beam_decode (beam T5_BEAM,
+    T5_BEAM_STEPS steps) on T5_DECODE_B sources, kernels vs plain: tokens
+    equal, logits and scores within F32_TOL. Then the bias kernels' timings
+    (_t5_bias_timings). Returns (results, keys, launch counts)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    t_phase = time.perf_counter()
+    batches = t5_batches(4, SEED + 62)
+    seed = SEED + 63
+    t5 = _t5_model(torch.bfloat16)
+    n_params = sum(p.numel() for p in t5.parameters())
+    print(f"(y) t5-base (google-t5/t5-base config.json): d 768, 12 heads of "
+          f"64, d_ff 3072 relu, 12 + 12 layers, 32 buckets to 128, vocab "
+          f"32128, tied, dropout 0.1; {n_params} params (fp32 master "
+          f"weights), bf16 compute; batch {T5_B} x {T5_SRC} source tokens "
+          f"(padded tails, lengths {batches[0]['valid'].sum(1).tolist()}) "
+          f"and {T5_TGT} targets")
+    twin = _t5_model(None)
+    twin.load_state_dict(t5.state_dict())
+    _, ref = _t5_step0(twin, batches[0], seed, plain=True)
+    twin.zero_grad(set_to_none=True)
+    lp, gp = _t5_step0(t5, batches[0], seed, plain=True)
+    for fused_bwd, name in ((True, "K1 + K2"), (False, "K1 + K5")):
+        with _schedule(fused_bwd=fused_bwd):
+            lk, gk = _t5_step0(t5, batches[0], seed, plain=False)
+        _hold_bf16(f"(y) t5-base, {name}:", lk, lp, gk, gp, ref)
+        for n in ("enc_relpos", "dec_relpos"):
+            if not gk[n].abs().sum().item() > 0:
+                raise AssertionError(f"(y) {name}: {n} gets no gradient")
+        del gk
+    del ref, gp
+    torch.cuda.empty_cache()
+    print(f"(y) step-0 comparisons {time.perf_counter() - t_phase:.1f} s")
+
+    initial = {n: p.detach().clone() for n, p in t5.named_parameters()}
+    launches = {}
+    per_step = {"flash_attention_fwd": 36, "flash_attention_fwd_bias": 24,
+                "flash_attention_bwd_bias": 24}
+    for fused_bwd, way in ((True, "bwd"), (False, "bwd_split")):
+        with torch.no_grad():
+            for n, p in t5.named_parameters():
+                p.copy_(initial[n])
+        torch.cuda.reset_peak_memory_stats()
+        with _schedule(fused_bwd=fused_bwd):
+            losses, seconds, counts = _t5_train(t5, batches, T5_STEPS)
+        later = sorted(seconds[1:])
+        want = {key: n * T5_STEPS for key, n in per_step.items()}
+        want[f"flash_attention_{way}"] = 36 * T5_STEPS
+        got = {key: counts[key] for key in want}
+        print(f"(y) {T5_STEPS} steps of the recipe, FUSED_BWD={fused_bwd}, "
+              f"in {sum(seconds):.3f} s: step 0 {seconds[0] * 1e3:.1f} ms, "
+              f"steps 1 to {T5_STEPS - 1} median "
+              f"{later[len(later) // 2] * 1e3:.1f} ms (min "
+              f"{later[0] * 1e3:.1f}, max {later[-1] * 1e3:.1f}; the host's "
+              f"clock, synchronised a step); losses "
+              f"{[round(x, 4) for x in losses]}; "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"launches {counts}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"(y) loss not finite: {losses}")
+        if not losses[-1] < losses[1]:
+            raise AssertionError(f"(y) loss at step {T5_STEPS - 1} "
+                                 f"({losses[-1]}) not below step 1's "
+                                 f"({losses[1]})")
+        other = "bwd_split" if way == "bwd" else "bwd"
+        if got != want or counts["flash_attention_fwd_dual"] or \
+                counts[f"flash_attention_{other}"]:
+            raise AssertionError(f"(y) launches {counts}, expected {want}")
+        launches[way] = counts
+        for n in ("enc_relpos", "dec_relpos"):
+            if torch.equal(getattr(t5, n), initial[n]):
+                raise AssertionError(f"(y) {n} did not move in training")
+    del initial, t5
+    torch.cuda.empty_cache()
+
+    src, valid = (batches[1][key][:T5_DECODE_B] for key in ("src", "valid"))
+    _zero_t5_counts()
+    with torch.no_grad():
+        _decode_vs_plain(
+            f"(y) t5-base fp32 greedy_decode of {T5_GREEDY}",
+            lambda: twin.greedy_decode(src, 0, T5_GREEDY, src_valid=valid),
+            twin, "_head")
+    launches["decode"] = _t5_counts()
+    want = T5_BASE["num_decoder_layers"] * T5_GREEDY
+    got = (launches["decode"]["flash_attention_fwd_mask_fp32"],
+           launches["decode"]["flash_attention_fwd_bias"])
+    if got != (want, want + T5_BASE["num_encoder_layers"]):
+        raise AssertionError(f"(y) greedy decode launches "
+                             f"{launches['decode']}")
+    from np_modeling_tpu_torch.ops import dispatch
+    beams = []
+    for plain in (False, True):
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            beams.append(twin.beam_decode(src, 0, T5_BEAM_STEPS, T5_BEAM,
+                                          src_valid=valid))
+    (tk, sk), (tp, sp) = beams
+    if not torch.equal(tk, tp):
+        raise AssertionError("(y) beam_decode tokens differ from the plain "
+                             "path's")
+    err = _hold_logits("(y) beam scores", sk, sp)
+    print(f"(y) t5-base fp32 beam_decode (beam {T5_BEAM}, {T5_BEAM_STEPS} "
+          f"steps, {T5_DECODE_B} sources): tokens equal to the plain path's,"
+          f" scores {err:.3e} x max(1, max |score|) apart (tol {F32_TOL})")
+    res = {}
+    keys = _t5_bias_timings(res, batches[0], device_line, twin)
+    del twin
+    print(f"(y) t5 phase {time.perf_counter() - t_phase:.1f} s")
+    return res, keys, launches
+
+
+def phase_seq2seq():
+    """(z) Seq2SeqTransformer at its default Seq2SeqConfig (fp32), seeded
+    weights, S2S_B sources of S2S_SRC Zipf tokens with padded tails and
+    targets of S2S_TGT: one step (loss, every gradient) through the kernels
+    (K1 with segment ids and causal, K2) against the plain step, loss within
+    1e-5 and each gradient within 5e-3 relative L2 (relu: a last-bit
+    difference in a pre-activation near 0 flips its gradient, so two correct
+    fp32 steps differ by ~1e-3 behind a relu, ROADMAP.md's P5); then greedy
+    decode of S2S_GREEDY tokens, kernels vs plain, tokens equal and logits
+    within F32_TOL."""
+    import torch
+    from np_modeling_tpu_torch.models import Seq2SeqConfig, Seq2SeqTransformer
+    from np_modeling_tpu_torch.ops import dispatch
+    t0 = time.perf_counter()
+    cfg = Seq2SeqConfig()
+    m = Seq2SeqTransformer(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED + 70))
+    rng = np.random.default_rng(SEED + 71)
+    src = torch.tensor(zipf_corpus(cfg.vocab_size, S2S_B, S2S_SRC,
+                                   seed=SEED + 72), device="cuda")
+    tgt = torch.tensor(zipf_corpus(cfg.vocab_size, S2S_B, S2S_TGT + 1,
+                                   seed=SEED + 73), device="cuda")
+    lens = torch.tensor(rng.integers(64, S2S_SRC + 1, S2S_B), device="cuda")
+    valid = (torch.arange(S2S_SRC, device="cuda")[None] < lens[:, None]).to(
+        torch.int32)
+    out = []
+    for plain in (False, True):
+        m.zero_grad(set_to_none=True)
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            loss = m.loss(src, tgt, src_valid=valid)
+            loss.backward()
+        out.append((loss.item(), {n: p.grad.clone()
+                                  for n, p in m.named_parameters()}))
+    (lk, gk), (lp, gp) = out
+    errs = {n: _rel(gk[n], gp[n]) for n in gp
+            if not n.endswith("attention.bk")}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(lk - lp) / abs(lp)
+    print(f"(z) Seq2SeqTransformer (default config: d {cfg.d_model}, "
+          f"{cfg.num_heads} heads, {cfg.num_encoder_layers} + "
+          f"{cfg.num_decoder_layers} layers, FFN {cfg.hidden_units}, vocab "
+          f"{cfg.vocab_size}) fp32 step, kernels vs plain: loss {lk:.7f} vs "
+          f"{lp:.7f} (relative {loss_err:.2e}, tol 1e-05); worst gradient "
+          f"relative L2 {errs[worst]:.2e} ({worst}, tol 5e-03)")
+    if not (math.isfinite(lk) and loss_err <= 1e-5 and errs[worst] <= 5e-3):
+        raise AssertionError("(z) Seq2Seq step differs from the plain step")
+    del out, gk, gp
+    _decode_vs_plain(f"(z) Seq2Seq fp32 greedy_decode of {S2S_GREEDY}",
+                     lambda: m.greedy_decode(src, 1, S2S_GREEDY,
+                                             src_valid=valid), m, "_attend")
+    print(f"(z) seq2seq phase {time.perf_counter() - t0:.1f} s")
+    del m
+    torch.cuda.empty_cache()
+
+
+def main(phases="abcdefghijklmnopqrstuvwxyz"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
     runs the quantized serving path alone, ``"abcqrw"`` Gemma-2 serving and
     generate, ``"abcst"`` Gemma-2 training, ``"abcuvx"`` GPT-2's serving
-    features); the JSON summary and the ok line come only from a run of
-    every phase a to x."""
+    features, ``"abcyz"`` T5 and Seq2Seq); the JSON summary and the ok line
+    come only from a run of every phase a to z."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4834,6 +5509,7 @@ def main(phases="abcdefghijklmnopqrstuvwx"):
     sched_err = phase_flash_schedules_vs_plain()
     phase_flash_no_key_vs_plain()
     mask_err = phase_flash_mask_vs_plain()
+    bias_err = phase_flash_bias_vs_plain()
     opt_err = phase_flash_options_vs_plain()
     fused_err = phase_fused_vs_plain()
     k11_err = phase_matmul_vs_plain()
@@ -4841,7 +5517,7 @@ def main(phases="abcdefghijklmnopqrstuvwx"):
     k10_err = phase_quantize_vs_plain()
     since("(c)")
     serving = training_res = entry_res = quant_res = forced_res = None
-    packed_res = gemma_res = gemma_train_res = mask_res = None
+    packed_res = gemma_res = gemma_train_res = mask_res = t5_res = None
     gemma_gen_launches = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
@@ -4939,10 +5615,16 @@ def main(phases="abcdefghijklmnopqrstuvwx"):
             since("(s), (t)")
         del gpt
         torch.cuda.empty_cache()
+    if "y" in phases:
+        t5_res, t5_keys, t5_launches = phase_t5(device_line)
+        since("(y)")
+    if "z" in phases:
+        phase_seq2seq()
+        since("(z)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
     if None in (serving, training_res, entry_res, quant_res, forced_res,
                 packed_res, gemma_res, gemma_train_res, mask_res,
-                gemma_gen_launches):
+                gemma_gen_launches, t5_res) or "z" not in phases:
         return 0
     packed_shape = "b8 h12 s1024 d64 causal bf16"
     shape = "b4 h8 s4096 d128 causal bf16"
@@ -5055,6 +5737,23 @@ def main(phases="abcdefghijklmnopqrstuvwx"):
               opt_err[way], gemma_train_res, train_keys[kind][i])
              for kind in ("local", "global")
              for i, (way, line) in enumerate((("fwd", 756), ("bwd", 1100)))]
+    # The bias option on T5's path (y): K1 + bias and K2 + bias counted in the
+    # 10 steps under FUSED_BWD True, K5 + bias under False (24 a step each),
+    # K1 fp32 mask + bias in the greedy decode (12 a step); timed at T5's
+    # encoder shape (the decode row at its step's).
+    t5_rows = (("fwd_bias", "fwd", 756, t5_launches["bwd"][
+                    "flash_attention_fwd_bias"], bias_err["fwd"]),
+               ("bwd_bias", "bwd", 1100, t5_launches["bwd"][
+                   "flash_attention_bwd_bias"], bias_err["bwd"]),
+               ("bwd_split_bias", "bwd_split", 983, t5_launches["bwd_split"][
+                   "flash_attention_bwd_bias"], bias_err["bwd"]),
+               ("fwd_mask_bias_fp32_decode", "decode", 756,
+                t5_launches["decode"]["flash_attention_fwd_mask_fp32"],
+                bias_err["fwd"]))
+    rows += [(f"flash_attention_{name}", FLASH_SOURCE,
+              f"np_modeling_tpu/ops/attention.py:{line}", launches, err,
+              t5_res, t5_keys[key])
+             for name, key, line, launches, err in t5_rows]
     # "ms": a call's wall time (CUDA events, host included), every entry;
     # "device_ms": calls back to back behind a sleep kernel (device only);
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its

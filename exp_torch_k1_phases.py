@@ -147,8 +147,8 @@ def main():
                             device="cuda").bfloat16() for _ in range(2))
         o = torch.empty(b, s_len, hq, d, device="cuda", dtype=torch.bfloat16)
         lse = torch.empty(b, hq, s_len, device="cuda")
-        strides = (ctypes.c_longlong * 20)(
-            *[x for t in (q, k, v) for x in t.stride()[:3]], *([0] * 7))
+        strides = (ctypes.c_longlong * 24)(
+            *[x for t in (q, k, v) for x in t.stride()[:3]], *([0] * 15))
         stream = torch.cuda.current_stream().cuda_stream
         times = {name: [] for name in VARIANTS}
         for _ in range(2):

@@ -121,8 +121,8 @@ def main():
     dq = torch.zeros(b, s_len, h, d, device="cuda")
     dk = torch.empty(b, s_len, h, d, device="cuda", dtype=torch.bfloat16)
     dv = torch.empty_like(dk)
-    strides = (ctypes.c_longlong * 20)(
-        *[x for t in (q, k, v, do) for x in t.stride()[:3]], 0, 0, 0, 0)
+    strides = (ctypes.c_longlong * 24)(
+        *[x for t in (q, k, v, do) for x in t.stride()[:3]], *([0] * 12))
     stream = torch.cuda.current_stream().cuda_stream
 
     calls = {}

@@ -85,6 +85,26 @@
 // runs here: a 128-row q tile with one real row, whose q box TMA fills with
 // zeros past sq, and whose stores stop at sq.
 //
+// The score bias (kOptBias, every kernel; JAX's bias tile, _fwd_tile :784-785,
+// _dq_tile :1013-1023, _dkvq_tile :1134-1147): an fp32 [b|1, hq|1, sq, skv]
+// (T5's relative-position bias, ALiBi) read by its own strides like the mask
+// (broadcast dims have stride 0), added to the score after scale and softcap
+// and before the masks (a masked score takes the mask value, bias or not, so a
+// row without a key still takes P6's mean of v). Each thread loads its own
+// scores' bias values; no tile of it is staged in shared memory. With the bias
+// every tile takes the score-domain softmax (no interior shortcut), but causal
+// and the window still skip tiles. The backwards add it to the recomputed
+// scores; K2 and K5's dq kernel also write dbias = p (dp - di), the gradient of
+// the post-bias score before the cap's factor and the scale, once per element
+// of a fp32 [b, hq, sq, skv] (no atomics: each (q row, key) pair of a head is
+// owned by one thread of one block, so the bits are the same on every run).
+// Pairs of tiles that the band skips are not written: the caller zeroes dbias
+// under causal. The caller sums dbias over the bias's broadcast dims. The bias
+// is instantiated alone, with segment ids, with the mask (the forwards) at
+// every head dim, and with the softcap alone at d 64: K2's bf16 d 64 / 128
+// kernel keeps p beside p (1 - t^2) for dbias, 32 more registers a thread,
+// which d 128 has not got to spare.
+//
 // What bounds them on this card. At the bench training shape (b 4, h 8, s 4096,
 // d 128, causal) attention is ~0.14 TFLOP forward and ~0.34 TFLOP backward a
 // layer against ~0.1 GB of q/k/v/o traffic, and at Gemma-2's (b 1, hq 8, s 8192,
@@ -138,6 +158,7 @@ constexpr int kOptSeg = 1;  // segment ids
 constexpr int kOptWin = 2;  // a sliding window (causal only)
 constexpr int kOptCap = 4;  // a logit softcap
 constexpr int kOptMask = 8; // a boolean mask (K1 and the fp32 forward only)
+constexpr int kOptBias = 16; // an additive fp32 score bias (and dbias)
 
 struct Strides {  // element strides of a [b, h, s, d] tensor; d is contiguous
   long long b, h, s;
@@ -159,6 +180,9 @@ struct Params {
   long long seg_q_b, seg_q_s, seg_kv_b, seg_kv_s;  // their element strides
   const uint8_t* mask;  // kOptMask: [b|1, hq|1, sq, skv], nonzero = attend, or null
   long long mask_b, mask_h, mask_q, mask_k;        // its element strides (0: broadcast)
+  const float* bias;    // kOptBias: [b|1, hq|1, sq, skv] fp32, or null
+  long long bias_b, bias_h, bias_q, bias_k;        // its element strides (0: broadcast)
+  float* dbias;         // kOptBias, K2 and K5's dq kernel: [b, hq, sq, skv] fp32, or null
   Strides st_q, st_k, st_v, st_do;
   int b, hq, hkv, sq, skv, causal;
   int window;        // kOptWin: row r sees keys (r - window, r]
@@ -177,23 +201,54 @@ __device__ __forceinline__ void load_seg(int* dst, const int* seg, long long str
 }
 
 // The score of q row `row` and key `col` from their raw product q . k: scaled;
-// with kOptCap capped (cap_grad = 1 - t^2, the cap's derivative); the mask
-// value where bounds, causality, the window or (kOptSeg) the segment ids
-// row_ids[ri] != col_ids[ci] mask it. The ids are read only with kOptSeg.
+// with kOptCap capped (cap_grad = 1 - t^2, the cap's derivative); with kOptBias
+// plus `bias`; the mask value where bounds, causality, the window or (kOptSeg)
+// the segment ids row_ids[ri] != col_ids[ci] mask it. The ids are read only
+// with kOptSeg.
 template <int kOpt>
 __device__ __forceinline__ float score(const Params& p, float raw, int row, int col,
                                        const int* row_ids, int ri, const int* col_ids, int ci,
-                                       float& cap_grad) {
+                                       float& cap_grad, float bias = 0.f) {
   float x = raw * p.scale;
   if constexpr ((kOpt & kOptCap) != 0) {
     const float t = tanhf(x * p.inv_softcap);
     cap_grad = 1.f - t * t;
     x = p.softcap * t;
   }
+  if constexpr ((kOpt & kOptBias) != 0) x += bias;
   bool out = row >= p.sq || col >= p.skv || (p.causal && col > row);
   if constexpr ((kOpt & kOptWin) != 0) out = out || col <= row - p.window;
   if constexpr ((kOpt & kOptSeg) != 0) out = out || row_ids[ri] != col_ids[ci];
   return out ? kMaskValue : x;
+}
+
+// kOptBias: the bias of head (bb, hh) (its base) at (row, col), read by its
+// strides; 0 past sq or skv, where the bounds mask the score anyway.
+__device__ __forceinline__ const float* bias_base(const Params& p, int bb, int hh) {
+  return p.bias + bb * p.bias_b + hh * p.bias_h;
+}
+
+template <int kOpt>
+__device__ __forceinline__ float bias_at(const Params& p, const float* base, int row, int col) {
+  if constexpr ((kOpt & kOptBias) != 0)
+    return row < p.sq && col < p.skv ? __ldg(base + row * p.bias_q + col * p.bias_k) : 0.f;
+  return 0.f;
+}
+
+// kOptBias: dbias of head (bb, hh) (its base, or null: not asked for) at (row,
+// col) = ds_raw, stored once; rows past sq and keys past skv are not stored.
+__device__ __forceinline__ float* dbias_base(const Params& p, int bb, int hh) {
+  return p.dbias == nullptr
+             ? nullptr
+             : p.dbias + (static_cast<long long>(bb) * p.hq + hh) * p.sq * p.skv;
+}
+
+template <int kOpt>
+__device__ __forceinline__ void store_dbias(const Params& p, float* base, int row, int col,
+                                            float ds_raw) {
+  if constexpr ((kOpt & kOptBias) != 0)
+    if (base != nullptr && row < p.sq && col < p.skv)
+      base[static_cast<long long>(row) * p.skv + col] = ds_raw;
 }
 
 // The kv tiles [x, y) of KV rows that q rows [q0, q0 + QT) see: all of them, or with
@@ -498,6 +553,16 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
     bf16* dst_x = kSplitD ? xb + kTile * XP : xb;     // ds^T [KV][XP]
     float s[32], dp[32];
     uint32_t ap[4][4], ads[4][4];  // p^T and ds^T as the register A of dv and dk
+    // kOptBias: head hh's bias, and its dbias (K2 only: K5's dq kernel writes it).
+    const float* bbase = nullptr;
+    float* dbase = nullptr;
+    if constexpr ((kOpt & kOptBias) != 0) {
+      bbase = bias_base(p, bb, hh);
+      if constexpr (kDq) dbase = dbias_base(p, bb, hh);
+    }
+    // With the bias and the cap, p^T alone for dbias (s keeps p^T (1 - t^2)).
+    constexpr bool kKeepP = (kOpt & kOptBias) != 0 && (kOpt & kOptCap) != 0 && kDq;
+    float pk[32];
     if constexpr (!kSplitD) {
       // s^T = k q^T and dp^T = v do^T (m64n64, K = d) for this warpgroup's rows, in
       // two groups: p^T is formed while dp^T is still in flight, and dv += p^T do
@@ -523,9 +588,10 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
         for (int e = 0; e < 2; ++e) {
           const int kl = kr + g + 8 * ((i >> 1) & 1), ql = 8 * (i >> 2) + 2 * t + e;
           float cap_grad;
-          const float x =
-              score<kOpt>(p, s[i + e], q0 + ql, kv0 + kl, seg_q, ql, seg_kv, kl, cap_grad);
+          const float x = score<kOpt>(p, s[i + e], q0 + ql, kv0 + kl, seg_q, ql, seg_kv, kl,
+                                      cap_grad, bias_at<kOpt>(p, bbase, q0 + ql, kv0 + kl));
           pe[e] = expf(x - lse_s[ql]);
+          if constexpr (kKeepP) pk[i + e] = pe[e];
           s[i + e] = (kOpt & kOptCap) != 0 ? pe[e] * cap_grad : pe[e];
         }
         ap[i / 8][(i % 8) / 2] = wg::pack_bf16(pe[0], pe[1]);
@@ -535,11 +601,21 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
       wg::commit();
       wg::wait<1>();  // dp^T has landed (dv may still be in flight)
       wg::fence_acc(dp);
-      // ds^T = p^T (dp^T - di) (* 1 - t^2) * scale
+      // ds^T = p^T (dp^T - di) (* 1 - t^2) * scale; K2 with the bias stores
+      // dbias = p^T (dp^T - di) on the way.
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int ql = 8 * (i >> 2) + 2 * t + (i & 1);
-        dp[i] = s[i] * (dp[i] - di_s[ql]) * p.scale;
+        if constexpr ((kOpt & kOptBias) != 0 && kDq) {
+          const int kl = kr + g + 8 * ((i >> 1) & 1);
+          const float diff = dp[i] - di_s[ql];
+          float pe = s[i];
+          if constexpr (kKeepP) pe = pk[i];
+          store_dbias<kOpt>(p, dbase, q0 + ql, kv0 + kl, pe * diff);
+          dp[i] = s[i] * diff * p.scale;
+        } else {
+          dp[i] = s[i] * (dp[i] - di_s[ql]) * p.scale;
+        }
       }
       acc_to_a(ads, dp);
       wg::fence();
@@ -601,10 +677,11 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
             const int i = 4 * j + e;
             const int kl = rw + g + 8 * (e >> 1), ql = 8 * j + 2 * t + (e & 1);
             float cap_grad;
-            const float x =
-                score<kOpt>(p, s[i], q0 + ql, kv0 + kl, seg_q, ql, seg_kv, kl, cap_grad);
+            const float x = score<kOpt>(p, s[i], q0 + ql, kv0 + kl, seg_q, ql, seg_kv, kl,
+                                        cap_grad, bias_at<kOpt>(p, bbase, q0 + ql, kv0 + kl));
             const float pe = expf(x - lse_s[ql]);
             float d = pe * (dp[i] - di_s[ql]);
+            if constexpr (kDq) store_dbias<kOpt>(p, dbase, q0 + ql, kv0 + kl, d);
             if constexpr ((kOpt & kOptCap) != 0) d *= cap_grad;
             s[i] = pe;
             dp[i] = d * p.scale;
@@ -722,22 +799,26 @@ struct FwdAcc {
 // the tile needs the mask (uniform across the warpgroup). kv_ids (kOptSeg): the
 // segment ids of this thread's columns col0 + 8 j + e, at 2 j + e (see kv_ids_of).
 // mbits (kOptMask): bit i set where the user mask masks s[i] (see mask_bits_of).
+// bbase (kOptBias): this head's bias (see bias_base), added after the cap on every
+// tile, which then takes the score-domain branch.
 
 template <int R, int kOpt>
 __device__ __forceinline__ void fwd_softmax(const Params& p, float (&s)[R],
                                             uint32_t (&pa)[R / 8][4], float (&m)[2],
                                             float (&l)[2], float (&alpha)[2], bool edge,
                                             int row0, int col0, const int (&q_ids)[2],
-                                            const int (&kv_ids)[R / 2], uint64_t mbits) {
+                                            const int (&kv_ids)[R / 2], uint64_t mbits,
+                                            const float* bbase) {
   constexpr float kLog2e = 1.4426950408889634f;
   float mx[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f};
-  if (edge || (kOpt & kOptCap) != 0 || !(p.scale > 0.f)) {
-    // Scores in the score domain: scaled, capped, masked.
+  if (edge || (kOpt & (kOptCap | kOptBias)) != 0 || !(p.scale > 0.f)) {
+    // Scores in the score domain: scaled, capped, biased, masked.
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int row = row0 + 8 * ((i >> 1) & 1), col = col0 + 8 * (i >> 2) + (i & 1);
       float x = s[i] * p.scale;
       if constexpr ((kOpt & kOptCap) != 0) x = p.softcap * tanhf(x * p.inv_softcap);
+      if constexpr ((kOpt & kOptBias) != 0) x += bias_at<kOpt>(p, bbase, row, col);
       if (edge) {
         // A key column past skv takes -inf: it leaves the max alone (m starts at
         // the finite mask value and never falls) and adds p = 2^-inf = 0.
@@ -877,8 +958,8 @@ template <int D, int kHalves, int kOpt>
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                    const __grid_constant__ CUtensorMap mv, const Params p) {
-  static_assert(kHalves == 1 || (kOpt & (kOptSeg | kOptCap | kOptMask)) == 0,
-                "K12 takes no segment ids, softcap or mask");
+  static_assert(kHalves == 1 || (kOpt & (kOptSeg | kOptCap | kOptMask | kOptBias)) == 0,
+                "K12 takes no segment ids, softcap, mask or bias");
   using S = FwdSmem<D>;
   using A = FwdAcc<D>;
   constexpr int KV = S::kKv, R = KV / 2, QT = S::kQ;
@@ -961,6 +1042,8 @@ __global__ void __launch_bounds__(384, 1)
   }
   const uint8_t* mbase = nullptr;
   if constexpr ((kOpt & kOptMask) != 0) mbase = p.mask + bb * p.mask_b + hh * p.mask_h;
+  const float* bbase = nullptr;
+  if constexpr ((kOpt & kOptBias) != 0) bbase = bias_base(p, bb, hh);
   // Does tile kv0 need the mask for any of this warpgroup's rows? With the user mask
   // every visited tile does.
   auto edge_of = [&](int kv0) {
@@ -1003,7 +1086,7 @@ __global__ void __launch_bounds__(384, 1)
       }
       float alpha[2];
       fwd_softmax<R, kOpt>(p, s, pa, m, l, alpha, edge_of(kv0), row0, kv0 + 2 * t, q_ids,
-                           kv_ids, mbits);
+                           kv_ids, mbits, bbase);
       scale_o<D>(o, alpha);
       wg::mbar_wait(&v_full[slot], parity);
       wg::fence();
@@ -1028,7 +1111,7 @@ __global__ void __launch_bounds__(384, 1)
       wg::fence_acc(sa);
       if (leader) wg::mbar_arrive(&k_empty[0]);
       fwd_softmax<R, kOpt>(p, sa, pa, m, l, alpha, edge_of(kv0), row0, kv0 + 2 * t, q_ids,
-                           kv_ids, 0);
+                           kv_ids, 0, nullptr);
       scale_o<D>(o, alpha);
       wg::mbar_wait(&v_full[0], parity);
       wg::fence();
@@ -1038,7 +1121,7 @@ __global__ void __launch_bounds__(384, 1)
       wg::fence_acc(sb);
       if (leader) wg::mbar_arrive(&k_empty[1]);
       fwd_softmax<R, kOpt>(p, sb, pb, m, l, alpha, edge_of(kv0 + KV), row0, kv0 + KV + 2 * t,
-                           q_ids, kv_ids, 0);
+                           q_ids, kv_ids, 0, nullptr);
       wg::wait<0>();  // the first tile's p.v is done
       fence_o<D>(o);
       fence_a(pa);
@@ -1121,14 +1204,17 @@ struct DqSmem {
 
 // p = exp(s - lse) of this thread's two rows (row0, row0 + 8) over one kv tile, in
 // place, times the cap's derivative 1 - t^2 with kOptCap; the mask on edge tiles only.
-// lse2: lse * log2(e), used on interior tiles only (there lse is real).
+// lse2: lse * log2(e), used on interior tiles only (there lse is real). kOptBias: the
+// bias (bbase, see bias_base) added after the cap on every tile, and s keeps p alone,
+// the cap's derivative going to cg (dbias is p (dp - di), before it).
 template <int R, int kOpt>
-__device__ __forceinline__ void dq_probs(const Params& p, float (&s)[R], bool edge, int row0,
-                                         int col0, const float (&lse)[2],
-                                         const float (&lse2)[2], const int (&q_ids)[2],
-                                         const int (&kv_ids)[R / 2]) {
+__device__ __forceinline__ void dq_probs(const Params& p, float (&s)[R], float (&cg)[R],
+                                         bool edge, int row0, int col0,
+                                         const float (&lse)[2], const float (&lse2)[2],
+                                         const int (&q_ids)[2], const int (&kv_ids)[R / 2],
+                                         const float* bbase) {
   constexpr float kLog2e = 1.4426950408889634f;
-  if (edge || (kOpt & kOptCap) != 0) {
+  if (edge || (kOpt & (kOptCap | kOptBias)) != 0) {
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int h = (i >> 1) & 1, row = row0 + 8 * h, col = col0 + 8 * (i >> 2) + (i & 1);
@@ -1137,6 +1223,11 @@ __device__ __forceinline__ void dq_probs(const Params& p, float (&s)[R], bool ed
         const float t = tanhf(x * p.inv_softcap);
         cap_grad = 1.f - t * t;
         x = p.softcap * t;
+      }
+      if constexpr ((kOpt & kOptBias) != 0) {
+        x += bias_at<kOpt>(p, bbase, row, col);
+        cg[i] = cap_grad;
+        cap_grad = 1.f;
       }
       if (edge) {
         bool out = row >= p.sq || col >= p.skv || (p.causal && col > row);
@@ -1256,6 +1347,13 @@ __global__ void __launch_bounds__(384, 1)
     return e;
   };
 
+  const float* bbase = nullptr;
+  float* dbase = nullptr;
+  if constexpr ((kOpt & kOptBias) != 0) {
+    bbase = bias_base(p, bb, hh);
+    dbase = dbias_base(p, bb, hh);
+  }
+
   float dq[A::kNO][A::kON];
 #pragma unroll
   for (int c = 0; c < A::kNO; ++c)
@@ -1269,7 +1367,7 @@ __global__ void __launch_bounds__(384, 1)
   for (int i = 0; i < n; ++i) {
     const int slot = i & 1, kv0 = (band.x + i) * KV;
     const uint32_t parity = (i >> 1) & 1;
-    float s[R], dp[R];
+    float s[R], dp[R], cg[R];  // cg: kOptBias only
     wg::mbar_wait(&k_full[slot], parity);
     wg::fence();
     fwd_qk<D>(s, q_s, k_s + slot * S::kKvBytes);
@@ -1284,12 +1382,23 @@ __global__ void __launch_bounds__(384, 1)
     fence_o<D>(dq);
     fence_a(pa);
     if (leader && i > 0) wg::mbar_arrive(&k_empty[slot ^ 1]);
-    dq_probs<R, kOpt>(p, s, edge_of(kv0), row0, kv0 + 2 * t, lse, lse2, q_ids, kv_ids);
+    dq_probs<R, kOpt>(p, s, cg, edge_of(kv0), row0, kv0 + 2 * t, lse, lse2, q_ids, kv_ids,
+                      bbase);
     wg::wait<0>();  // dp has landed
     wg::fence_acc(dp);
     if (leader) wg::mbar_arrive(&v_empty[slot]);
+    if constexpr ((kOpt & kOptBias) != 0) {
 #pragma unroll
-    for (int j = 0; j < R; ++j) dp[j] = s[j] * (dp[j] - di[(j >> 1) & 1]) * p.scale;
+      for (int j = 0; j < R; ++j) {  // dbias = p (dp - di); ds = dbias (1 - t^2) scale
+        const float d = s[j] * (dp[j] - di[(j >> 1) & 1]);
+        store_dbias<kOpt>(p, dbase, row0 + 8 * ((j >> 1) & 1),
+                          kv0 + 2 * t + 8 * (j >> 2) + (j & 1), d);
+        dp[j] = d * cg[j] * p.scale;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) dp[j] = s[j] * (dp[j] - di[(j >> 1) & 1]) * p.scale;
+    }
 #pragma unroll
     for (int kk = 0; kk < KV / 16; ++kk) wg::pack_a(pa[kk], &dp[8 * kk], &dp[8 * kk + 4]);
     wg::fence();
@@ -1365,21 +1474,23 @@ __device__ __forceinline__ float row_reduce(float x) {
 // (fp32): s = q.k^T in, scaled, capped and masked; the online-softmax update;
 // acc += p . v through the row's p in shared memory. K12 runs it on its
 // halves in turn. mrow (kOptMask): the user mask's row of tile row r (read only
-// for a row < sq and a key < skv), after the structural masks.
+// for a row < sq and a key < skv), after the structural masks. bbase (kOptBias):
+// the head's bias (see bias_base).
 template <int D, int kOpt>
 __device__ __forceinline__ void fwd_update_f32(const Params& p, float (&s)[F32Smem<D>::kCols],
                                                float& m, float& l,
                                                float (&acc)[F32Smem<D>::kDims], float* ps,
                                                const float* vs, const int* seg_q,
                                                const int* seg_kv, int q0, int kv0, int r,
-                                               int h, const uint8_t* mrow) {
+                                               int h, const uint8_t* mrow, const float* bbase) {
   using S = F32Smem<D>;
   constexpr int LD = S::kLd, LP = S::kLdP, P = S::kPar, NC = S::kCols, HD = S::kDims;
   float cap_grad;
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
     const int col = kv0 + P * j + h;
-    s[j] = score<kOpt>(p, s[j], q0 + r, col, seg_q, r, seg_kv, P * j + h, cap_grad);
+    s[j] = score<kOpt>(p, s[j], q0 + r, col, seg_q, r, seg_kv, P * j + h, cap_grad,
+                       bias_at<kOpt>(p, bbase, q0 + r, col));
     if constexpr ((kOpt & kOptMask) != 0)
       if (q0 + r < p.sq && col < p.skv && __ldg(mrow + col * p.mask_k) == 0) s[j] = kMaskValue;
   }
@@ -1430,8 +1541,8 @@ __device__ __forceinline__ void dots_f32(float (&s)[F32Smem<D>::kCols], const fl
 
 template <int D, int kHalves, int kOpt>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
-  static_assert(kHalves == 1 || (kOpt & (kOptSeg | kOptCap | kOptMask)) == 0,
-                "K12 takes no segment ids, softcap or mask");
+  static_assert(kHalves == 1 || (kOpt & (kOptSeg | kOptCap | kOptMask | kOptBias)) == 0,
+                "K12 takes no segment ids, softcap, mask or bias");
   using S = F32Smem<D>;
   constexpr int T = S::kRows, LD = S::kLd, P = S::kPar, HD = S::kDims, E = S::kTileElems;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1455,6 +1566,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
   const uint8_t* mrow = nullptr;
   if constexpr ((kOpt & kOptMask) != 0)
     mrow = p.mask + bb * p.mask_b + hh * p.mask_h + static_cast<long long>(row) * p.mask_q;
+  const float* bbase = nullptr;
+  if constexpr ((kOpt & kOptBias) != 0) bbase = bias_base(p, bb, hh);
   load_rows<float, D, LD, T, kThreads>(qs, q + q0 * p.st_q.s, p.st_q.s, p.sq - q0);
   if (kOpt & kOptSeg) load_seg<T, kThreads>(seg, p.q_seg + bb * p.seg_q_b, p.seg_q_s, q0, p.sq);
 
@@ -1485,7 +1598,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p) {
 #pragma unroll
     for (int hv = 0; hv < kHalves; ++hv)
       fwd_update_f32<D, kOpt>(p, s[hv], m, l, acc, ps, vs + hv * E, seg, seg + T, q0,
-                              (kt + hv) * T, r, h, mrow);
+                              (kt + hv) * T, r, h, mrow, bbase);
   }
 
   if (row < p.sq) {
@@ -1529,6 +1642,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_f32(const Params p) {
   const float* dout = static_cast<const float*>(p.dout) + bb * p.st_do.b + hh * p.st_do.h;
   const int* q_seg = p.q_seg + bb * p.seg_q_b;
   const long long row_stats = (static_cast<long long>(bb) * p.hq + hh) * p.sq;
+  const float* bbase = nullptr;
+  float* dbase = nullptr;
+  if constexpr ((kOpt & kOptBias) != 0) {
+    bbase = bias_base(p, bb, hh);
+    if constexpr (kDq) dbase = dbias_base(p, bb, hh);
+  }
   load_rows<float, D, LD, T, kThreads>(ks, k + kv0 * p.st_k.s, p.st_k.s, p.skv - kv0);
   load_rows<float, D, LD, T, kThreads>(vs, v + kv0 * p.st_v.s, p.st_v.s, p.skv - kv0);
   if (kOpt & kOptSeg)
@@ -1561,7 +1680,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_f32(const Params p) {
     for (int j = 0; j < NC; ++j) {
       const int ql = P * j + h;
       float cap_grad;
-      const float sc = score<kOpt>(p, x[j], q0 + ql, col, seg, ql, seg_kv, c, cap_grad);
+      const float sc = score<kOpt>(p, x[j], q0 + ql, col, seg, ql, seg_kv, c, cap_grad,
+                                   bias_at<kOpt>(p, bbase, q0 + ql, col));
       pt[c * LP + ql] = expf(sc - lse_s[ql]);
       if constexpr ((kOpt & kOptCap) != 0) dst_t[c * LP + ql] = cap_grad;
     }
@@ -1570,6 +1690,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_f32(const Params p) {
     for (int j = 0; j < NC; ++j) {
       const int ql = P * j + h;
       float d = pt[c * LP + ql] * (x[j] - di_s[ql]);
+      if constexpr (kDq) store_dbias<kOpt>(p, dbase, q0 + ql, col, d);
       if constexpr ((kOpt & kOptCap) != 0) d *= dst_t[c * LP + ql];
       dst_t[c * LP + ql] = d * p.scale;
     }
@@ -1651,6 +1772,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(const Params p) {
   if (kOpt & kOptSeg) load_seg<T, kThreads>(seg, p.q_seg + bb * p.seg_q_b, p.seg_q_s, q0, p.sq);
   const float lse = row < p.sq ? p.lse[row_stats + row] : 0.f;
   const float di = row < p.sq ? p.di[row_stats + row] : 0.f;
+  const float* bbase = nullptr;
+  float* dbase = nullptr;
+  if constexpr ((kOpt & kOptBias) != 0) {
+    bbase = bias_base(p, bb, hh);
+    dbase = dbias_base(p, bb, hh);
+  }
 
   float acc[HD];
 #pragma unroll
@@ -1673,8 +1800,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(const Params p) {
     for (int j = 0; j < NC; ++j) {
       const int cl = P * j + h;
       float cap_grad;
-      const float x = score<kOpt>(p, pr[j], row, kv0 + cl, seg, r, seg + T, cl, cap_grad);
+      const float x = score<kOpt>(p, pr[j], row, kv0 + cl, seg, r, seg + T, cl, cap_grad,
+                                  bias_at<kOpt>(p, bbase, row, kv0 + cl));
       float d = expf(x - lse) * (dp[j] - di);
+      store_dbias<kOpt>(p, dbase, row, kv0 + cl, d);
       if constexpr ((kOpt & kOptCap) != 0) d *= cap_grad;
       dss[r * LP + cl] = d * p.scale;
     }
@@ -1739,6 +1868,25 @@ int with_fwd_opt(int opt, F&& f) {
   return with_opt(opt, f);
 }
 
+// The bias's instantiations (the opt bits with kOptBias): alone and with segment
+// ids at every head dim, with the mask (kFwd, the forwards) at every head dim, and
+// with the softcap alone at head dim 64 (see the header). Other combinations are
+// refused here and, before any launch, by the caller.
+template <int D, bool kFwd, typename F>
+int with_bias_opt(int opt, F&& f) {
+  switch (opt) {
+    case kOptBias: return f(std::integral_constant<int, kOptBias>());
+    case kOptBias | kOptSeg: return f(std::integral_constant<int, kOptBias | kOptSeg>());
+  }
+  if constexpr (kFwd)
+    if (opt == (kOptBias | kOptMask))
+      return f(std::integral_constant<int, kOptBias | kOptMask>());
+  if constexpr (D == 64)
+    if (opt == (kOptBias | kOptCap))
+      return f(std::integral_constant<int, kOptBias | kOptCap>());
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 Params make_params(const long long* strides, const int* q_seg, const int* kv_seg, int b,
                    int hq, int hkv, int sq, int skv, int causal, int window, float scale,
                    float softcap) {
@@ -1755,6 +1903,10 @@ Params make_params(const long long* strides, const int* q_seg, const int* kv_seg
   p.mask_h = strides[17];
   p.mask_q = strides[18];
   p.mask_k = strides[19];
+  p.bias_b = strides[20];
+  p.bias_h = strides[21];
+  p.bias_q = strides[22];
+  p.bias_k = strides[23];
   p.b = b;
   p.hq = hq;
   p.hkv = hkv;
@@ -1771,7 +1923,8 @@ Params make_params(const long long* strides, const int* q_seg, const int* kv_seg
 // The option bits of a call.
 int opts_of(const Params& p) {
   return (p.q_seg != nullptr ? kOptSeg : 0) | (p.window > 0 ? kOptWin : 0) |
-         (p.softcap > 0.f ? kOptCap : 0) | (p.mask != nullptr ? kOptMask : 0);
+         (p.softcap > 0.f ? kOptCap : 0) | (p.mask != nullptr ? kOptMask : 0) |
+         (p.bias != nullptr ? kOptBias : 0);
 }
 
 dim3 tiles(int n, int rows, int bh) { return dim3((n + rows - 1) / rows, bh); }
@@ -1849,19 +2002,21 @@ int launch_fwd(const Params& p, int dtype, int dual, cudaStream_t s) {
                : launch(flash_fwd_f32<D, 2, 0>, tiles(p.sq, F::kRows, bh), kThreads,
                         F::fwd_bytes(2), s, p);
   }
-  return with_fwd_opt(opt, [&](auto o) {
+  auto run = [&](auto o) {
     constexpr int kOpt = decltype(o)::value;
     if (dtype == 1) return launch_fwd_bf16<D, 1, kOpt>(p, s);
     return launch(flash_fwd_f32<D, 1, kOpt>, tiles(p.sq, F::kRows, bh), kThreads,
                   F::fwd_bytes(1), s, p);
-  });
+  };
+  if (opt & kOptBias) return with_bias_opt<D, true>(opt, run);
+  return with_fwd_opt(opt, run);
 }
 
 template <int D>
 int launch_bwd(const Params& p, int dtype, int split, cudaStream_t s) {
   const int bh = p.b * p.hq;
   using F = F32Smem<D>;
-  return with_opt(opts_of(p), [&](auto o) {
+  auto run = [&](auto o) {
     constexpr int kOpt = decltype(o)::value;
     if (dtype == 1) {
       using W = BwdSmem<D>;
@@ -1878,18 +2033,23 @@ int launch_bwd(const Params& p, int dtype, int split, cudaStream_t s) {
     int rc = launch(flash_bwd_dq_f32<D, kOpt>, grid_q, kThreads, F::kDqBytes, s, p);
     if (rc == 0) rc = launch(flash_bwd_f32<D, false, kOpt>, grid_kv, kThreads, F::kBwdBytes, s, p);
     return rc;
-  });
+  };
+  const int opt = opts_of(p);
+  if (opt & kOptBias) return with_bias_opt<D, false>(opt, run);
+  return with_opt(opt, run);
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32 (FMA path), 1 = bfloat16 (tensor cores); d is 64,
-// 128 or 256. strides: 16 element strides, (b, h, s) of q, k, v and do, in that
+// 128 or 256. strides: 24 element strides, (b, h, s) of q, k, v and do, in that
 // order (the forward reads the first 9), then (b, s) of q_seg and of kv_seg,
-// then (b, h, q, k) of the mask (the forward only; 20 in all, the backward
-// reads 16). q_seg/kv_seg: int32 segment ids, both null for none. mask (the
+// then (b, h, q, k) of the mask (the forward only), then (b, h, q, k) of the
+// bias. q_seg/kv_seg: int32 segment ids, both null for none. mask (the
 // forward only): uint8 [b|1, hq|1, sq, skv], nonzero = attend, null for none;
-// not with segment ids (the caller merges them into it). window: 0 for none, else
+// not with segment ids (the caller merges them into it). bias: fp32 [b|1, hq|1,
+// sq, skv], null for none; with it the backward writes dbias (fp32 [b, hq, sq,
+// skv], zeroed by the caller under causal; null: not stored). window: 0 for none, else
 // W >= 1 (causal only). softcap: 0 for none, else the cap > 0. Outputs and
 // scratch are allocated by the caller: o [b, sq, hq, d] in q's dtype; lse
 // [b, hq, sq] fp32 or null; dk/dv in k's dtype, [b, skv, hkv, d] for bf16 (the
@@ -1900,7 +2060,8 @@ int launch_bwd(const Params& p, int dtype, int split, cudaStream_t s) {
 // of their launches (0 on success).
 extern "C" int np_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       float* lse, const int* q_seg, const int* kv_seg,
-                                      const uint8_t* mask, const long long* strides, int dtype,
+                                      const uint8_t* mask, const float* bias,
+                                      const long long* strides, int dtype,
                                       int b, int hq, int hkv, int sq, int skv, int d, int causal,
                                       int dual,
                                       int window, float scale, float softcap, void* stream) {
@@ -1913,6 +2074,7 @@ extern "C" int np_flash_attention_fwd(const void* q, const void* k, const void* 
   p.o = o;
   p.lse = lse;
   p.mask = mask;
+  p.bias = bias;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_fwd<64>(p, dtype, dual, s);
   if (d == 128) return launch_fwd<128>(p, dtype, dual, s);
@@ -1922,8 +2084,9 @@ extern "C" int np_flash_attention_fwd(const void* q, const void* k, const void* 
 
 extern "C" int np_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* dout, const float* lse, const float* di,
-                                      const int* q_seg, const int* kv_seg, void* dq, void* dk,
-                                      void* dv, const long long* strides, int dtype, int b,
+                                      const int* q_seg, const int* kv_seg, const float* bias,
+                                      void* dq, void* dk, void* dv, float* dbias,
+                                      const long long* strides, int dtype, int b,
                                       int hq, int hkv, int sq, int skv, int d, int causal,
                                       int split, int window, float scale, float softcap,
                                       void* stream) {
@@ -1939,6 +2102,8 @@ extern "C" int np_flash_attention_bwd(const void* q, const void* k, const void* 
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
+  p.bias = bias;
+  p.dbias = dbias;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_bwd<64>(p, dtype, split, s);
   if (d == 128) return launch_bwd<128>(p, dtype, split, s);

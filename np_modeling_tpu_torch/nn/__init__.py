@@ -7,9 +7,13 @@ from np_modeling_tpu_torch.nn.linear import (Dense, Dropout, Int8Weight,
                                              LayerNorm, Linear, RMSNorm)
 from np_modeling_tpu_torch.nn.module import (Sequential, maybe_cast,
                                              resolve_rngs, split_rngs)
-from np_modeling_tpu_torch.nn.transformer import TransformerEncoderBlock
+from np_modeling_tpu_torch.nn.transformer import (TransformerDecoder,
+                                                  TransformerDecoderBlock,
+                                                  TransformerEncoder,
+                                                  TransformerEncoderBlock)
 
 __all__ = ["Dense", "Dropout", "Embedding", "Int8Weight", "LayerNorm",
            "Linear", "MultiHeadAttention", "RMSNorm", "Sequential",
-           "TransformerEncoderBlock", "initializers", "maybe_cast",
-           "resolve_rngs", "split_rngs"]
+           "TransformerDecoder", "TransformerDecoderBlock",
+           "TransformerEncoder", "TransformerEncoderBlock", "initializers",
+           "maybe_cast", "resolve_rngs", "split_rngs"]

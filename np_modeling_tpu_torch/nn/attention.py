@@ -2,15 +2,19 @@
 
 Counterpart of np_modeling_tpu/nn/attention.py ``MultiHeadAttention`` with
 its parameter layout: wq [d, hq, dk], wk/wv [d, hkv, dk], wo [hq, dk, d],
-bq [hq, dk], bk/bv [hkv, dk], bo [d]. The serving engine uses ``_dims``,
-``_project`` and ``_rope`` around paged attention; ``forward`` is the
-self-attention path of the JAX ``apply`` (no ``attn_impl``), over
-``ops.flash_attention``: dense, or (``decode=True``) through a dense KV
-cache from ``init_cache``, whose written slots reach the kernel as a mask
-(K1's mask option on the card). The score options are JAX's: ``rope``
-(with ``rope_base``, ``rope_dim``) rotates q and k, ``window`` slides a
-causal window, ``attn_scale`` replaces 1/sqrt(dk) and ``attn_softcap`` caps
-the scaled scores.
+bq [hq, dk], bk/bv [hkv, dk], bo [d]; ``kv_features`` (default
+``features``) sizes wk/wv for cross-attention over a memory of another
+width. The serving engine uses ``_dims``, ``_project`` and ``_rope`` around
+paged attention; ``forward`` is the JAX ``apply`` (no ``attn_impl``) over
+``ops.flash_attention``: self- or cross-attention (``key``/``value``), with
+a boolean ``mask``, an additive score ``bias`` (T5's relative positions;
+the bias option of the flash kernels on the card) and segment ids (one
+[b, s] array, or a (q, kv) pair), dense or (``decode=True``) through a
+dense KV cache from ``init_cache``, whose written slots reach the kernel as
+a mask (K1's mask option on the card), or over ``precomputed_kv``. The
+score options are JAX's: ``rope`` (with ``rope_base``, ``rope_dim``)
+rotates q and k, ``window`` slides a causal window, ``attn_scale`` replaces
+1/sqrt(dk) and ``attn_softcap`` caps the scaled scores.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ class MultiHeadAttention(nn.Module):
                  rope_base: float = 10000.0, rope_dim: Optional[int] = None,
                  window: Optional[int] = None,
                  attn_scale: Optional[float] = None,
-                 attn_softcap: Optional[float] = None, device=None):
+                 attn_softcap: Optional[float] = None,
+                 kv_features: Optional[int] = None, device=None):
         super().__init__()
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.head_dim, self.dtype, self.causal = head_dim, dtype, causal
@@ -42,8 +47,9 @@ class MultiHeadAttention(nn.Module):
         self.window, self.attn_scale = window, attn_scale
         self.attn_softcap = attn_softcap
         hq, hkv, dk = self._dims(features)
-        shapes = {"wq": (features, hq, dk), "wk": (features, hkv, dk),
-                  "wv": (features, hkv, dk), "wo": (hq, dk, features)}
+        d_kv = kv_features or features
+        shapes = {"wq": (features, hq, dk), "wk": (d_kv, hkv, dk),
+                  "wv": (d_kv, hkv, dk), "wo": (hq, dk, features)}
         if use_bias if qkv_bias is None else qkv_bias:
             shapes.update(bq=(hq, dk), bk=(hkv, dk), bv=(hkv, dk))
         if use_bias:
@@ -88,21 +94,44 @@ class MultiHeadAttention(nn.Module):
             return t
         return ops.apply_rope(t, positions, self.rope_base, self.rope_dim)
 
-    def forward(self, x, segment_ids=None, positions=None, cache=None,
-                decode=False, collect_kv=False):
-        """Self-attention over [b, s, d]: projections, RoPE, flash
-        attention, output projection. Dense (the default): RoPE at
-        ``positions`` (default ``arange(s)``), causal if the module is, with
-        ``segment_ids`` [b, s] a position attends only within its segment.
-        ``decode=True`` (JAX :212-236): RoPE at the cache's write positions,
-        k and v written into ``cache`` at its ``index``, and non-causal
-        attention over the whole cache under the mask of the written slots
-        (and the window); returns ``(out, cache)`` with the index advanced.
-        ``collect_kv=True`` returns ``(out, (k, v))``, k and v [b, hkv, s,
-        dk] after RoPE (serving prefill seeds pages with them)."""
+    def forward(self, x, key=None, value=None, mask=None, segment_ids=None,
+                positions=None, cache=None, decode=False, collect_kv=False,
+                bias=None, precomputed_kv=None):
+        """Attention of ``x`` [b, s, d] over ``key`` (default ``x``) and
+        ``value`` (default ``key``): projections, RoPE, flash attention,
+        output projection (JAX :160-260). Dense (the default): RoPE at
+        ``positions`` (default ``arange(s)``), causal if the module is,
+        ``mask`` [b|1, h|1, s, skv] (True = attend), ``bias`` [b|1, h|1, s,
+        skv] added to the scores, and ``segment_ids`` ([b, s], or a (q_seg,
+        kv_seg) pair for cross-attention): a position attends only within
+        its segment. ``decode=True`` (JAX :212-236): RoPE at the cache's
+        write positions, k and v written into ``cache`` at its ``index``,
+        and non-causal attention over the whole cache under the mask of the
+        written slots (and the window), which replaces ``mask`` as in JAX,
+        with ``bias`` [.., s, L] over the cache's slots; returns ``(out,
+        cache)`` with the index advanced. ``collect_kv=True`` returns
+        ``(out, (k, v))``, k and v [b, hkv, s, dk] after RoPE (serving
+        prefill seeds pages with them). ``precomputed_kv``: (k, v) already
+        projected, [b, hkv, skv, dk] (an encoder memory's, projected once
+        for every decode step, JAX :178-199); q is projected without RoPE,
+        as JAX does."""
+        if key is None:
+            key = x
+        if value is None:
+            value = key
         q = self._project(x, self.wq, self.bq)
-        k = self._project(x, self.wk, self.bk)
-        v = self._project(x, self.wv, self.bv)
+        if precomputed_kv is not None:
+            if cache is not None or collect_kv:
+                raise ValueError("precomputed_kv takes no cache or collect_kv")
+            k, v = precomputed_kv
+            o = ops.flash_attention(q, k, v, mask=mask, bias=bias,
+                                    segment_ids=segment_ids,
+                                    causal=self.causal, window=self.window,
+                                    scale=self.attn_scale,
+                                    softcap=self.attn_softcap)
+            return self._out(o)
+        k = self._project(key, self.wk, self.bk)
+        v = self._project(value, self.wv, self.bv)
         if decode:
             if cache is None:
                 raise ValueError("decode=True requires a cache; build one "
@@ -119,24 +148,30 @@ class MultiHeadAttention(nn.Module):
             # an fp32 cache attends in fp32); o returns in q's dtype.
             dt = torch.promote_types(q.dtype, k.dtype)
             o = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), mask=mask,
-                                    causal=False, scale=self.attn_scale,
+                                    bias=bias, causal=False,
+                                    scale=self.attn_scale,
                                     softcap=self.attn_softcap).to(q.dtype)
         else:
-            o = ops.flash_attention(q, k, v, segment_ids=segment_ids,
+            o = ops.flash_attention(q, k, v, mask=mask, bias=bias,
+                                    segment_ids=segment_ids,
                                     causal=self.causal, window=self.window,
                                     scale=self.attn_scale,
                                     softcap=self.attn_softcap)
-        wo, bo = maybe_cast(self.wo, self.dtype), maybe_cast(self.bo,
-                                                             self.dtype)
-        hq, dk, d_out = wo.shape
-        o = o.transpose(-3, -2)
-        o = o.reshape(*o.shape[:-2], hq * dk)
-        out = ops.linear(o, wo.reshape(hq * dk, d_out), bo)
+        out = self._out(o)
         if decode:
             return out, cache
         if collect_kv:
             return out, (k, v)
         return out
+
+    def _out(self, o):
+        """The output projection of o [b, hq, s, dk]."""
+        wo, bo = maybe_cast(self.wo, self.dtype), maybe_cast(self.bo,
+                                                             self.dtype)
+        hq, dk, d_out = wo.shape
+        o = o.transpose(-3, -2)
+        o = o.reshape(*o.shape[:-2], hq * dk)
+        return ops.linear(o, wo.reshape(hq * dk, d_out), bo)
 
     # ---- the dense KV cache (JAX :270-311) ------------------------------
 

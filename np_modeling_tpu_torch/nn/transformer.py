@@ -1,8 +1,8 @@
-"""Transformer block, pre-norm.
+"""Transformer blocks and stacks.
 
 Counterpart of np_modeling_tpu/nn/transformer.py ``TransformerEncoderBlock``
-(pre-norm, sequential form): ``norm1``, ``self_attention``, ``norm2`` and
-the FFN. ``norm`` is ``"layer"`` (LayerNorm) or ``"rms"`` (RMSNorm, with
+(sequential form, pre-norm or with ``norm_first=False`` post-norm):
+``norm1``, ``self_attention``, ``norm2`` and the FFN. ``norm`` is ``"layer"`` (LayerNorm) or ``"rms"`` (RMSNorm, with
 ``rms_offset`` Gemma's ``gamma + 1`` gain). ``ffn="mlp"`` is
 ``dense2(dense1(y))`` (``dense1`` carries the activation); ``"swiglu"`` /
 ``"geglu"`` is the gated FFN ``w_down(act(y w_gate) * (y w_up))``, biasless,
@@ -12,6 +12,14 @@ sublayer's output before its residual add (JAX :255-278). ``forward`` is
 the dense path, in JAX's order of dropout (salt 1 before ``norm1``, salt 2
 before ``norm2``), norm, sublayer and residual; the serving engine's
 ``_block_step`` composes the same modules around paged attention.
+
+``TransformerDecoderBlock`` (self-attention, cross-attention over an
+encoder memory, FFN; JAX :293-390), ``TransformerEncoder`` and
+``TransformerDecoder`` (stacks keyed ``layer_{i}``, each layer's rngs
+with its index folded in; JAX :393-472) are the JAX stacks that
+``models.Seq2Seq`` pairs. Their ``mask`` / ``self_mask`` / ``cross_mask``
+run K1's mask option on the card in the forward; with gradients the flash
+kernels raise (the mask's backward, ROADMAP.md Queue 2 A).
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from np_modeling_tpu_torch.nn import initializers
 from np_modeling_tpu_torch.nn.attention import MultiHeadAttention
 from np_modeling_tpu_torch.nn.linear import (Dense, Dropout, LayerNorm,
                                              Linear, RMSNorm)
-from np_modeling_tpu_torch.nn.module import maybe_cast
+from np_modeling_tpu_torch.nn.module import maybe_cast, split_rngs
 
 
 class GatedFFN(nn.Module):
@@ -61,11 +69,15 @@ class TransformerEncoderBlock(nn.Module):
                  rope_base: float = 10000.0, rope_dim: Optional[int] = None,
                  window: Optional[int] = None,
                  attn_scale: Optional[float] = None,
-                 attn_softcap: Optional[float] = None, device=None):
+                 attn_softcap: Optional[float] = None,
+                 norm_first: bool = True, device=None):
         super().__init__()
         if ffn not in ("mlp", "swiglu", "geglu"):
             raise NotImplementedError(f"ffn {ffn!r} is not ported")
+        if sandwich_norm and not norm_first:
+            raise ValueError("sandwich_norm is a pre-norm form (JAX asserts)")
         self.dtype, self.ffn, self.sandwich_norm = dtype, ffn, sandwich_norm
+        self.norm_first = norm_first
         self.self_attention = MultiHeadAttention(
             features, num_heads, num_kv_heads, head_dim=head_dim,
             use_bias=use_bias, qkv_bias=qkv_bias, causal=causal, dtype=dtype,
@@ -110,28 +122,186 @@ class TransformerEncoderBlock(nn.Module):
 
     def forward(self, x, training: bool = False, rngs=None,
                 segment_ids=None, positions=None, cache=None, decode=False,
-                collect_kv=False):
+                collect_kv=False, mask=None):
         """``segment_ids`` [b, s]: packed documents, each attending only
         within itself (JAX :255-257); ``positions`` ([s] or [b, s]): the
-        RoPE positions (default ``arange(s)``). ``decode=True`` attends
-        through ``cache`` and returns ``(out, cache)``; ``collect_kv=True``
-        returns ``(out, (k, v))`` (``MultiHeadAttention.forward``)."""
+        RoPE positions (default ``arange(s)``); ``mask`` [b|1, h|1, s, s]
+        (True = attend). ``decode=True`` attends through ``cache`` and
+        returns ``(out, cache)``; ``collect_kv=True`` returns ``(out, (k,
+        v))`` (``MultiHeadAttention.forward``)."""
+        pre = self.norm_first
         skip = x            # the residual skips the dropout
-        y = self.self_attention(self.norm1(self.drop(x, training, rngs,
-                                                     salt=1)),
-                                segment_ids=segment_ids, positions=positions,
-                                cache=cache, decode=decode,
-                                collect_kv=collect_kv)
+        if pre:
+            x = self.norm1(self.drop(x, training, rngs, salt=1))
+        y = self.self_attention(x, mask=mask, segment_ids=segment_ids,
+                                positions=positions, cache=cache,
+                                decode=decode, collect_kv=collect_kv)
         extra = None
         if decode or collect_kv:
             y, extra = y
         if self.sandwich_norm:
             y = self.post_norm1(y)
         y = y + skip
+        if not pre:
+            y = self.norm1(self.drop(y, training, rngs, salt=1))
         skip = y
-        y = self._ffn(self.norm2(self.drop(y, training, rngs, salt=2)))
+        if pre:
+            y = self.norm2(self.drop(y, training, rngs, salt=2))
+        y = self._ffn(y)
         if self.sandwich_norm:
             y = self.post_norm2(y)
+        y = y + skip
+        if not pre:
+            y = self.norm2(self.drop(y, training, rngs, salt=2))
         if extra is not None:
-            return y + skip, extra
-        return y + skip
+            return y, extra
+        return y
+
+
+class TransformerDecoderBlock(nn.Module):
+    """JAX :293-390: ``self_attention`` (causal if asked), then
+    ``cross_attention`` over the encoder memory, then the FFN ``dense1`` (a
+    relu Dense) and ``dense2``, each with its LayerNorm (``norm1..3``, eps
+    1e-3) and residual, pre-norm or post-norm, dropout salts 1, 2, 3."""
+
+    def __init__(self, features: int, num_heads: int, hidden_units: int,
+                 norm_first: bool = True, drop_rate: float = 0.0,
+                 causal: bool = False, device=None):
+        super().__init__()
+        self.norm_first = norm_first
+        self.self_attention = MultiHeadAttention(features, num_heads,
+                                                 causal=causal, device=device)
+        self.cross_attention = MultiHeadAttention(features, num_heads,
+                                                  device=device)
+        self.norm1, self.norm2, self.norm3 = (LayerNorm(features,
+                                                        device=device)
+                                              for _ in range(3))
+        self.dense1 = Dense(features, hidden_units, device=device)
+        self.dense2 = Linear(hidden_units, features, device=device)
+        self.drop = Dropout(drop_rate)
+
+    def init(self, generator: torch.Generator):
+        for m in self.children():
+            m.init(generator)
+        return self
+
+    def forward(self, q, kv, self_mask=None, cross_mask=None,
+                training: bool = False, rngs=None, cache=None, decode=False,
+                cross_segment_ids=None):
+        """``q`` [b, s, d] over the memory ``kv`` [b, skv, d];
+        ``cross_segment_ids``: (q_seg [b, s], kv_seg [b, skv]), e.g. (ones,
+        src_valid) to mask a padded memory inside the flash kernels.
+        ``decode=True`` runs the self-attention through ``cache`` and
+        returns ``(out, cache)``."""
+        pre = self.norm_first
+
+        def sub(y, salt, norm, fn):
+            skip = y
+            if pre:
+                y = norm(self.drop(y, training, rngs, salt=salt))
+            y = fn(y) + skip
+            if not pre:
+                y = norm(self.drop(y, training, rngs, salt=salt))
+            return y
+
+        new_cache = []
+
+        def attend(y):
+            out = self.self_attention(y, mask=self_mask, cache=cache,
+                                      decode=decode)
+            if decode:
+                out, c = out
+                new_cache.append(c)
+            return out
+
+        y = sub(q, 1, self.norm1, attend)
+        y = sub(y, 2, self.norm2, lambda y: self.cross_attention(
+            y, kv, mask=cross_mask, segment_ids=cross_segment_ids))
+        y = sub(y, 3, self.norm3, lambda y: self.dense2(self.dense1(y)))
+        if decode:
+            return y, new_cache[0]
+        return y
+
+    def init_cache(self, batch, max_len, features, dtype=torch.float32):
+        return self.self_attention.init_cache(batch, max_len, features,
+                                              dtype)
+
+
+class TransformerEncoder(nn.Module):
+    """JAX :393-433: ``num_layers`` blocks ``layer_{i}`` (relu MLP FFN,
+    biased, LayerNorm eps 1e-3), layer i with ``split_rngs(rngs, i)``."""
+
+    def __init__(self, features: int, num_layers: int, num_heads: int,
+                 hidden_units: int, norm_first: bool = True,
+                 drop_rate: float = 0.0, causal: bool = False, device=None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", TransformerEncoderBlock(
+                features, num_heads, hidden_units, causal=causal,
+                drop_rate=drop_rate, norm_first=norm_first, device=device))
+
+    def init(self, generator: torch.Generator):
+        for m in self.children():
+            m.init(generator)
+        return self
+
+    def forward(self, x, mask=None, training: bool = False, rngs=None,
+                caches=None, decode=False, segment_ids=None):
+        new_caches = [] if decode else None
+        for i in range(self.num_layers):
+            layer = getattr(self, f"layer_{i}")
+            r = split_rngs(rngs, i)
+            if decode:
+                x, c = layer(x, training, r, cache=caches[i], decode=True,
+                             mask=mask)
+                new_caches.append(c)
+            else:
+                x = layer(x, training, r, segment_ids=segment_ids, mask=mask)
+        return (x, new_caches) if decode else x
+
+    def init_cache(self, batch, max_len, features, dtype=torch.float32):
+        return [getattr(self, f"layer_{i}").init_cache(batch, max_len,
+                                                       features, dtype)
+                for i in range(self.num_layers)]
+
+
+class TransformerDecoder(nn.Module):
+    """JAX :436-472: ``num_layers`` decoder blocks ``layer_{i}`` (causal
+    self-attention by default), layer i with ``split_rngs(rngs, i)``."""
+
+    def __init__(self, features: int, num_layers: int, num_heads: int,
+                 hidden_units: int, norm_first: bool = True,
+                 drop_rate: float = 0.0, causal: bool = True, device=None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", TransformerDecoderBlock(
+                features, num_heads, hidden_units, norm_first, drop_rate,
+                causal, device))
+
+    def init(self, generator: torch.Generator):
+        for m in self.children():
+            m.init(generator)
+        return self
+
+    def forward(self, q, kv, self_mask=None, cross_mask=None,
+                training: bool = False, rngs=None, caches=None,
+                decode=False, cross_segment_ids=None):
+        new_caches = [] if decode else None
+        for i in range(self.num_layers):
+            out = getattr(self, f"layer_{i}")(
+                q, kv, self_mask, cross_mask, training, split_rngs(rngs, i),
+                cache=caches[i] if decode else None, decode=decode,
+                cross_segment_ids=cross_segment_ids)
+            if decode:
+                q, c = out
+                new_caches.append(c)
+            else:
+                q = out
+        return (q, new_caches) if decode else q
+
+    def init_cache(self, batch, max_len, features, dtype=torch.float32):
+        return [getattr(self, f"layer_{i}").init_cache(batch, max_len,
+                                                       features, dtype)
+                for i in range(self.num_layers)]

@@ -22,10 +22,17 @@ or 256, and fp32 (FMA path) or bf16 (tensor cores). The forward K1 also
 takes a boolean ``mask`` (read by its own strides, broadcast dims
 included; segment ids are merged into it on the host): dense KV-cache
 decode runs through it at every sq, 1 included, where JAX sends sq < 128
-to XLA. On a CUDA tensor, a mask where q, k or v needs a gradient and any
-bias raise NotImplementedError (their backwards, ROADMAP.md Queue 2 A),
-and so does any other head_dim (ValueError). Sinks run, as in JAX, as a
-plain rescale around the kernels. ``block_q``/``block_kv`` are accepted for
+to XLA. Every kernel takes an additive fp32 ``bias`` (T5's relative
+positions), read by its strides like the mask and added after the softcap;
+K2 and K5's dq kernel write dbias, which the wrapper sums over the bias's
+broadcast dims. The bias runs alone, with segment ids, with K1's mask, and
+with the softcap alone at head_dim 64; with a window, or with the softcap
+beside segment ids or a mask or at another head_dim, it raises
+NotImplementedError on a CUDA tensor
+(uninstantiated, ROADMAP.md Queue 2 A), as does a mask where q, k or v needs
+a gradient (its backward, Queue 2 A), and any other head_dim (ValueError).
+K12 takes no bias: a bias sends the forward to K1, as JAX does. Sinks run,
+as in JAX, as a plain rescale around the kernels. ``block_q``/``block_kv`` are accepted for
 the JAX signature; the kernels' tiles are their own (the bf16 forward: 128
 q rows by 128 keys, 64 keys at head_dim 256; the bf16 backward 64-row q
 tiles; fp32 64 x 64, 32 x 32 at head_dim 256).
@@ -239,12 +246,28 @@ def _mask_strides(mask):
     return [0 if n == 1 else s for n, s in zip(mask.shape, mask.stride())]
 
 
+def _bias_f32(bias, q, k):
+    """The bias as the kernels read it: fp32 [b|1, hq|1, sq, skv] by its
+    strides (a broadcast sq or skv dim as a zero-stride view, no copy of an
+    fp32 one)."""
+    b, hq, sq, _ = q.shape
+    skv = k.shape[2]
+    if bias.dim() != 4 or bias.shape[0] not in (1, b) \
+            or bias.shape[1] not in (1, hq) or bias.shape[2] not in (1, sq) \
+            or bias.shape[3] not in (1, skv):
+        raise ValueError(f"bias {tuple(bias.shape)}: want [b|1, h|1, {sq}, "
+                         f"{skv}]")
+    if bias.device != q.device:
+        raise ValueError(f"bias on {bias.device}, q on {q.device}")
+    return bias.float().expand(bias.shape[0], bias.shape[1], sq, skv)
+
+
 def _launch(name, tensors, strided, segs, dims, scale, window, softcap,
-            mask=None):
+            mask=None, bias=None):
     """Calls ``name`` in the library: the data pointers of ``tensors`` (None
-    for null), 20 strides ((b, h, s) of ``strided``, q, k, v[, do], then
+    for null), 24 strides ((b, h, s) of ``strided``, q, k, v[, do], then
     (b, s) of the segment ids ``segs``, zeros without them, then (b, h, q, k)
-    of ``mask``, zeros without one), the 9 ints
+    of ``mask`` and of ``bias``, zeros without one), the 9 ints
     ``dims``, the window (0 for none; one past any row is cut to 2**30, where
     it cuts nothing either way), the scale, the softcap (0 for none) and the
     current stream; raises if a launch returned a CUDA error."""
@@ -258,11 +281,12 @@ def _launch(name, tensors, strided, segs, dims, scale, window, softcap,
     strides += [0] * (12 - len(strides))
     strides += ([s for t in segs for s in t.stride()] if segs[0] is not None
                 else [0] * 4)
-    strides += _mask_strides(mask) if mask is not None else [0] * 4
+    for x in (mask, bias):
+        strides += _mask_strides(x) if x is not None else [0] * 4
     q = strided[0]
     with torch.cuda.device(q.device):
         rc = fn(*[_ptr(t) for t in tensors],
-                (ctypes.c_longlong * 20)(*strides), *dims,
+                (ctypes.c_longlong * 24)(*strides), *dims,
                 0 if window is None else min(int(window), 1 << 30), scale,
                 0.0 if softcap is None else softcap,
                 torch.cuda.current_stream(q.device).cuda_stream)
@@ -273,13 +297,28 @@ def _launch(name, tensors, strided, segs, dims, scale, window, softcap,
 
 def _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg=None,
                     kv_seg=None, dual=False, window=None, softcap=None,
-                    mask=None):
+                    mask=None, bias=None):
     """K1 (or K12 with ``dual``): o [b, hq, sq, d] (a view) and lse. With
-    ``mask`` K1 reads it (segment ids merged into it here)."""
+    ``mask`` K1 reads it (segment ids merged into it here), with ``bias``
+    adds it to the scores."""
     _check_kernel_inputs(q, k, v, q_seg, kv_seg)
+    if (mask is not None or bias is not None) and dual:
+        raise ValueError("K12 takes no mask or bias (JAX :856-858)")
+    if bias is not None:
+        # The bias's instantiations (csrc/flash_attention.cu,
+        # with_bias_opt): alone, with segment ids, with K1's mask, and with
+        # the softcap alone at head_dim 64; no window.
+        why = ("a bias with a window" if window is not None
+               else None if softcap is None
+               else "a bias with a softcap and a mask or segment ids"
+               if mask is not None or q_seg is not None
+               else None if q.shape[-1] == 64
+               else f"a bias with a softcap at head_dim {q.shape[-1]}")
+        if why is not None:
+            raise NotImplementedError(f"the flash kernels are not built for "
+                                      f"{why} (ROADMAP.md Queue 2 A)")
+        bias = _bias_f32(bias, q, k)
     if mask is not None:
-        if dual:
-            raise ValueError("K12 takes no mask (JAX :856-858)")
         mask = _mask_u8(_merge_seg_into_mask(mask, q_seg, kv_seg), q, k)
         q_seg = kv_seg = None
     q, k, v = (_kernel_layout(x) for x in (q, k, v))
@@ -289,10 +328,11 @@ def _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg=None,
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    _launch("np_flash_attention_fwd", (q, k, v, o, lse, q_seg, kv_seg, mask),
-            (q, k, v), (q_seg, kv_seg), (_DTYPE_CODES[q.dtype], b, hq, hkv, sq,
-                                         skv, d, int(causal), int(dual)),
-            scale, window, softcap, mask)
+    _launch("np_flash_attention_fwd",
+            (q, k, v, o, lse, q_seg, kv_seg, mask, bias), (q, k, v),
+            (q_seg, kv_seg), (_DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d,
+                              int(causal), int(dual)),
+            scale, window, softcap, mask, bias)
     if dual:
         flash_attention.launches_fwd_dual += 1
     else:
@@ -303,13 +343,21 @@ def _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg=None,
         flash_attention.launches_fwd_mask += 1
         if q.dtype == torch.float32:
             flash_attention.launches_fwd_mask_fp32 += 1
+    if bias is not None:
+        flash_attention.launches_fwd_bias += 1
     return o.transpose(1, 2), lse
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, q_seg=None,
-                    kv_seg=None, split=False, window=None, softcap=None):
-    """K2 (or K5 with ``split``): dq, dk, dv in the JAX layouts."""
+                    kv_seg=None, split=False, window=None, softcap=None,
+                    bias=None, need_dbias=True):
+    """K2 (or K5 with ``split``): dq, dk, dv in the JAX layouts, and with
+    ``bias`` dbias [b, hq, sq, skv] fp32 (None unless ``need_dbias``), the
+    gradient of the post-bias scores, not yet summed over the bias's
+    broadcast dims."""
     _check_kernel_inputs(q, k, v, q_seg, kv_seg)
+    if bias is not None:        # its combinations were checked forward
+        bias = _bias_f32(bias, q, k)
     q, k, v, do = (_kernel_layout(x) for x in (q, k, v, do.to(q.dtype)))
     q_seg, kv_seg = _seg_int32(q_seg), _seg_int32(kv_seg)
     b, hq, sq, d = q.shape
@@ -326,22 +374,31 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, q_seg=None,
     hkv_out = hkv if q.dtype == torch.bfloat16 else hq
     dk = torch.empty((b, skv, hkv_out, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    # Written once an element by K2 or K5's dq kernel; the pairs that causal
+    # band skipping never visits keep the zeros.
+    dbias = None
+    if bias is not None and need_dbias:
+        alloc = torch.zeros if causal else torch.empty
+        dbias = alloc((b, hq, sq, skv), dtype=torch.float32, device=q.device)
     _launch("np_flash_attention_bwd",
-            (q, k, v, do, lse, di, q_seg, kv_seg, dq, dk, dv), (q, k, v, do),
-            (q_seg, kv_seg), (_DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d,
-                              int(causal), int(split)), scale, window, softcap)
+            (q, k, v, do, lse, di, q_seg, kv_seg, bias, dq, dk, dv, dbias),
+            (q, k, v, do), (q_seg, kv_seg),
+            (_DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d, int(causal),
+             int(split)), scale, window, softcap, None, bias)
     if split:
         flash_attention.launches_bwd_split += 1
     else:
         flash_attention.launches_bwd += 1
     if window is not None:
         flash_attention.launches_bwd_window += 1
+    if bias is not None:
+        flash_attention.launches_bwd_bias += 1
     g = hkv_out // hkv
     if g > 1:   # fp32: [b, skv, hq, d] -> [b, skv, hkv, d]
         dk = dk.view(b, skv, hkv, g, d).sum(dim=3)
         dv = dv.view(b, skv, hkv, g, d).sum(dim=3)
     return dq.to(q.dtype).transpose(1, 2), dk.transpose(1, 2), \
-        dv.transpose(1, 2)
+        dv.transpose(1, 2), dbias
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -354,13 +411,14 @@ class _FlashAttention(torch.autograd.Function):
         if kernel:
             need_lse = sinks is not None or any(ctx.needs_input_grad[:5])
             # JAX's conditions for K12 (:856-858), an even number of kv
-            # tiles counted at the width of the forward kernel that runs;
-            # bias has raised in flash_attention.
+            # tiles counted at the width of the forward kernel that runs.
             tile = _fwd_kv_tile(q.dtype, q.shape[-1])
             dual = (FWD_DUAL_KV and q_seg is None and softcap is None
-                    and mask is None and -(-k.shape[2] // tile) % 2 == 0)
+                    and mask is None and bias is None
+                    and -(-k.shape[2] // tile) % 2 == 0)
             o, lse = _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg,
-                                     kv_seg, dual, window, softcap, mask)
+                                     kv_seg, dual, window, softcap, mask,
+                                     bias)
         else:
             o, lse = _attn_fwd_plain(
                 q, k, v, _merge_seg_into_mask(mask, q_seg, kv_seg), bias,
@@ -383,8 +441,11 @@ class _FlashAttention(torch.autograd.Function):
         kernel, split, causal, window, scale, softcap = ctx.opts
         dbias = dsinks = None
         if kernel:
-            dq, dk, dv = _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
-                                         q_seg, kv_seg, split, window, softcap)
+            dq, dk, dv, dbias = _flash_bwd_cuda(
+                q, k, v, o, lse, do, causal, scale, q_seg, kv_seg, split,
+                window, softcap, bias, need_dbias=ctx.needs_input_grad[3])
+            if dbias is not None:
+                dbias = _unbroadcast_bias(dbias, bias)
         else:
             dq, dk, dv, dbias = _attn_bwd_plain(
                 q, k, v, o, lse, do, _merge_seg_into_mask(mask, q_seg, kv_seg),
@@ -433,17 +494,12 @@ def flash_attention(q, k, v, mask=None, bias=None, segment_ids=None, *,
     if sinks is not None and tuple(sinks.shape) != (q.shape[1],):
         raise ValueError(f"sinks must be [hq], got {tuple(sinks.shape)}")
     if dispatch.use_kernel(q):
-        # The kernels' backwards take no mask and no kernel takes a bias yet.
-        grad = torch.is_grad_enabled() and any(
-            x.requires_grad for x in (q, k, v, bias) if x is not None)
-        unported = [n for n, x, bad in (("mask", mask, grad),
-                                        ("bias", bias, True))
-                    if x is not None and bad]
-        if unported:
+        # The kernels' backwards take no mask yet.
+        if mask is not None and torch.is_grad_enabled() and any(
+                x.requires_grad for x in (q, k, v, bias) if x is not None):
             raise NotImplementedError(
-                f"the CUDA flash-attention kernels do not take {unported} "
-                f"{'with gradients ' if unported == ['mask'] else ''}yet "
-                "(ROADMAP.md Queue 2 A)")
+                "the CUDA flash-attention kernels do not take a mask with "
+                "gradients yet (ROADMAP.md Queue 2 A)")
     return _FlashAttention.apply(q, k, v, bias, sinks, mask, q_seg, kv_seg,
                                  causal, window, scale, softcap)
 
@@ -452,9 +508,10 @@ def flash_attention(q, k, v, mask=None, bias=None, segment_ids=None, *,
 # shows with them that its attention went through K1 (launches_fwd), K12
 # (launches_fwd_dual), K2 (launches_bwd) or K5 (launches_bwd_split, one a
 # pair of its kernels); of those, the ones with a window count again in
-# launches_fwd_window (K1, K12) and launches_bwd_window (K2, K5), and K1's
+# launches_fwd_window (K1, K12) and launches_bwd_window (K2, K5), K1's
 # with a mask in launches_fwd_mask (those of the fp32 forward again in
-# launches_fwd_mask_fp32).
+# launches_fwd_mask_fp32), K1's with a bias in launches_fwd_bias and K2's
+# and K5's (pairs) with a bias in launches_bwd_bias.
 flash_attention.launches_fwd = 0
 flash_attention.launches_fwd_dual = 0
 flash_attention.launches_bwd = 0
@@ -463,3 +520,5 @@ flash_attention.launches_fwd_window = 0
 flash_attention.launches_fwd_mask = 0
 flash_attention.launches_fwd_mask_fp32 = 0
 flash_attention.launches_bwd_window = 0
+flash_attention.launches_fwd_bias = 0
+flash_attention.launches_bwd_bias = 0

@@ -3,12 +3,14 @@
 ``load_params(module, tree)`` copies a JAX parameter tree, nested dicts of
 arrays (numpy, or anything ``np.asarray`` reads), into any port module whose
 parameter names are the tree's paths with ``.`` for ``/``; a missing, extra
-or mis-shaped leaf raises. ``params_from_numpy`` does so for the JAX GPT's
-tree (``layer_{i}/self_attention/wq``, ``layer_{i}/dense1/linear/w``,
-``embedding/table``, ...) and returns a port ``GPT`` holding those weights.
-``params_to_numpy`` and ``tree_to_numpy`` are the way back: the port's
-parameters, or any ``{name: tensor}`` dict such as their gradients, as the
-JAX-shaped nested dict of fp32 numpy arrays, for a leaf-by-leaf comparison.
+or mis-shaped leaf raises. ``params_from_numpy`` does so for the JAX GPT's,
+T5's or Seq2SeqTransformer's tree (``layer_{i}/self_attention/wq``,
+``enc_relpos``, ``decoder/layer_{i}/cross_attention/wk``, ...), the model
+picked by the config's type, and returns the port's model holding those
+weights. ``params_to_numpy`` and ``tree_to_numpy`` are the way back: a
+port model's parameters, or any ``{name: tensor}`` dict such as their
+gradients, as the JAX-shaped nested dict of fp32 numpy arrays, for a
+leaf-by-leaf comparison.
 
 Weight-only int8 leaves (``{"int8", "scale"}``, from
 ``ops.quantize_params_int8``) load into a ``Linear``'s weight, which then
@@ -23,6 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from np_modeling_tpu_torch.models.seq2seq import (Seq2SeqConfig,
+                                                  Seq2SeqTransformer)
+from np_modeling_tpu_torch.models.t5 import T5, T5Config
 from np_modeling_tpu_torch.models.transformer_lm import GPT, GPTConfig
 from np_modeling_tpu_torch.nn.linear import Int8Weight, Linear
 from np_modeling_tpu_torch.ops.quantization import QKEYS, QKEYS4
@@ -77,10 +82,18 @@ def load_params(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
     return module
 
 
-def params_from_numpy(tree: dict, config: GPTConfig, device=None) -> GPT:
-    """A ``GPT`` on ``device`` (default: the card, as ``GPT``) holding the
-    JAX tree's weights."""
-    return load_params(GPT(config, device=device), tree)
+_MODELS = ((GPTConfig, GPT), (T5Config, T5),
+           (Seq2SeqConfig, Seq2SeqTransformer))
+
+
+def params_from_numpy(tree: dict, config, device=None) -> torch.nn.Module:
+    """The model of ``config`` (a ``GPTConfig``, ``T5Config`` or
+    ``Seq2SeqConfig``) on ``device`` (default: the card, as the models)
+    holding the JAX tree's weights."""
+    for cfg_type, model in _MODELS:
+        if isinstance(config, cfg_type):
+            return load_params(model(config, device=device), tree)
+    raise TypeError(f"no port model for a {type(config).__name__}")
 
 
 def tree_to_numpy(named: dict) -> dict:
@@ -97,11 +110,11 @@ def tree_to_numpy(named: dict) -> dict:
     return tree
 
 
-def params_to_numpy(gpt: GPT) -> dict:
-    """The port GPT's parameters as the JAX parameter tree (int8 weights as
+def params_to_numpy(model: torch.nn.Module) -> dict:
+    """A port model's parameters as the JAX parameter tree (int8 weights as
     their ``{"int8", "scale"}`` leaves)."""
-    named = dict(gpt.named_parameters())
-    for name, m in gpt.named_modules():
+    named = dict(model.named_parameters())
+    for name, m in model.named_modules():
         if isinstance(m, Int8Weight):
             named[f"{name}.int8"], named[f"{name}.scale"] = m.int8, m.scale
     return tree_to_numpy(named)

@@ -22,7 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (MASK_CASES, _k10_schedule, _schedule,
+from chip_smoke import (BIAS_CASES, BIAS_DECODE_CASES, MASK_CASES,
+                        _bias_fwd_bwd, _k10_schedule, _schedule,
+                        flash_bias_case, flash_bias_decode_case,
                         flash_mask_case, k10_planned, k10_run)
 from np_modeling_tpu_torch import models, ops
 from np_modeling_tpu_torch.ops import dispatch, fused
@@ -262,14 +264,72 @@ def test_cuda_flash_kernels_count_launches():
 
 @pytest.mark.parametrize("option", ["mask", "bias"])
 def test_cuda_flash_unported_options_raise(option):
-    """A bias, and a mask where q needs a gradient (the kernels' backwards
-    take no mask yet), raise on the card."""
+    """A mask where q needs a gradient (the kernels' backwards take no mask
+    yet), and a bias with a window, with a softcap beside segment ids or at
+    head_dim 128 (not instantiated), raise on the card."""
     q, k, v, _ = _flash_inputs(1, 2, 2, 64, 64, 64, torch.float32)
-    kw = {"mask": dict(mask=torch.ones(1, 1, 64, 64, dtype=torch.bool,
-                                       device="cuda")),
-          "bias": dict(bias=torch.zeros(1, 2, 64, 64, device="cuda"))}[option]
+    if option == "mask":
+        with pytest.raises(NotImplementedError, match="Queue 2 A"):
+            ops.flash_attention(q.requires_grad_(), k, v, mask=torch.ones(
+                1, 1, 64, 64, dtype=torch.bool, device="cuda"))
+        return
+    bias = torch.zeros(1, 2, 64, 64, device="cuda")
     with pytest.raises(NotImplementedError, match="Queue 2 A"):
-        ops.flash_attention(q.requires_grad_(option == "mask"), k, v, **kw)
+        ops.flash_attention(q, k, v, bias=bias, causal=True, window=8)
+    seg = torch.zeros(1, 64, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="Queue 2 A"):
+        ops.flash_attention(q, k, v, bias=bias, softcap=5.0, segment_ids=seg)
+    q, k, v, _ = _flash_inputs(1, 2, 2, 64, 64, 128, torch.float32)
+    with pytest.raises(NotImplementedError, match="Queue 2 A"):
+        ops.flash_attention(q, k, v, bias=bias, softcap=5.0)
+
+
+@pytest.mark.parametrize("case", BIAS_CASES,
+                         ids=[c[0].replace(" ", "_") for c in BIAS_CASES])
+@pytest.mark.parametrize("fused_bwd", [True, False], ids=["k2", "k5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_bias_vs_plain(dtype, fused_bwd, case):
+    """K1 and K2 (or K5) with the score bias (chip_smoke's BIAS_CASES: [1,
+    h], [b, h] and [b, 1] biases, causal and not, padded segment ids, ragged
+    500 x 77, GQA at d 128 and 256, scale 0.125 with a softcap) against the
+    plain path: o, dq, dk, dv and dbias within the flash tolerances; K5's
+    grads bit-equal across two runs; one bias launch each way counted."""
+    rng = np.random.default_rng(7)
+    q, k, v, do, bias, kw = flash_bias_case(case, dtype, rng)
+    fa = ops.flash_attention
+    before = (fa.launches_fwd_bias, fa.launches_bwd_bias)
+    with _schedule(fused_bwd=fused_bwd):
+        got = _bias_fwd_bwd(q, k, v, do, bias, False, **kw)
+        again = None if fused_bwd else _bias_fwd_bwd(q, k, v, do, bias,
+                                                     False, **kw)
+    runs = 1 if fused_bwd else 2
+    assert (fa.launches_fwd_bias, fa.launches_bwd_bias) == (
+        before[0] + runs, before[1] + runs)
+    want = _bias_fwd_bwd(q, k, v, do, bias, True, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        bound = _tol(dtype) * max(1.0, y.float().abs().max().item())
+        assert (x.float() - y.float()).abs().max().item() <= bound
+    if again is not None:
+        assert all(torch.equal(x, y) for x, y in zip(got[1:], again[1:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_mask_and_bias_decode_vs_plain(dtype):
+    """K1 with the mask and the bias at sq = 1 (T5's decode step over a
+    cache of which a prefix is written): o and lse against the plain
+    path."""
+    from np_modeling_tpu_torch.ops import attention
+    rng = np.random.default_rng(8)
+    q, k, v, mask, bias = flash_bias_decode_case(BIAS_DECODE_CASES[0], dtype,
+                                                 rng)
+    o, lse = attention._flash_fwd_cuda(q, k, v, False, 1.0, True, mask=mask,
+                                       bias=bias)
+    want = attention._attn_fwd_plain(q, k, v, mask, bias, False, None, 1.0)
+    torch.cuda.synchronize()
+    for x, y in ((o, want[0]), (lse, want[1])):
+        bound = _tol(dtype) * max(1.0, y.float().abs().max().item())
+        assert (x.float() - y.float()).abs().max().item() <= bound
 
 
 @pytest.mark.parametrize("case", MASK_CASES,
@@ -495,10 +555,11 @@ def test_cuda_flash_bwd_bf16_vs_plain_backward(d, group, causal, option,
                                        *(seg or (None, None)), **kw)
     o = o.contiguous()
     got = attention._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
-                                    *(seg or (None, None)), split=split, **kw)
+                                    *(seg or (None, None)), split=split,
+                                    **kw)[:3]
     again = attention._flash_bwd_cuda(q, k, v, o, lse, do, causal, scale,
                                       *(seg or (None, None)), split=split,
-                                      **kw)
+                                      **kw)[:3]
     mask = attention._merge_seg_into_mask(None, *(seg or (None, None)))
     want = attention._attn_bwd_plain(q, k, v, o, lse, do, mask, None, causal,
                                      kw.get("window"), scale,

@@ -7,8 +7,9 @@ cache with a scalar and a per-row index; ``GPT.apply`` with caches,
 ``collect_kv`` and ``logits_last_only``; ``GPT.generate`` token-exact for a
 GPT-2-style and a Gemma-2-style config (RoPE, alternating window, both
 softcaps, GQA, sandwich norms); and the training entry point's closing
-sample. Inputs and weights are seeded numpy arrays fed to both (weights by
-``utils.params_from_numpy``); the JAX side runs under ``jax.jit``. fp32 at
+sample. Inputs and weights are seeded numpy arrays fed to both (the GPTs'
+from the port's init, carried across by ``utils.params_from_numpy``); the
+JAX side runs under ``jax.jit``. fp32 at
 rtol 1e-5 / atol 2e-5 (the JAX package's kernel tests).
 """
 
@@ -25,7 +26,11 @@ from np_modeling_tpu.ops import dispatch as jdispatch
 from np_modeling_tpu_torch import models as tmodels
 from np_modeling_tpu_torch import nn as tnn
 from np_modeling_tpu_torch import ops, train_gpt
-from np_modeling_tpu_torch.utils import params_from_numpy
+from np_modeling_tpu_torch.utils import params_from_numpy, params_to_numpy
+
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=2e-5)
 
@@ -40,11 +45,11 @@ GEMMA2 = dict(GPT2, num_kv_heads=2, positional="rope", norm="rms",
 
 def _pair(cfg, seed=0):
     jgpt = jmodels.GPT(jmodels.GPTConfig(**cfg))
-    params = jax.jit(lambda k: jgpt.init(k, jnp.zeros((1, 8), jnp.int32)))(
-        jax.random.PRNGKey(seed))
-    tgpt = params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
-                             tmodels.GPTConfig(**cfg), device="cpu")
-    return jgpt, params, tgpt
+    tree = params_to_numpy(tmodels.GPT(tmodels.GPTConfig(**cfg),
+                                       device="cpu").init(
+        torch.Generator().manual_seed(seed)))
+    tgpt = params_from_numpy(tree, tmodels.GPTConfig(**cfg), device="cpu")
+    return jgpt, jax.tree_util.tree_map(jnp.asarray, tree), tgpt
 
 
 def _mask_case(rng, b, hq, hkv, sq, skv, d, per_row, keyless=True):

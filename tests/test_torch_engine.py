@@ -4,7 +4,9 @@ Same weights (carried across by utils.convert.params_from_numpy), same
 traffic: batched chunked prefill of ragged prompts longer than one chunk,
 step, step_many, a mid-stream join and a finish. fp32 throughout: greedy
 tokens must be identical and the last step's logits agree to atol 1e-4
-(the two frameworks sum in different orders).
+(the two frameworks sum in different orders). The weights come from the
+port's ``init`` (eager JAX init traced the model op by op), and the JAX
+engine's step with its logits runs compiled (``_jax_logits_step``).
 """
 
 import pathlib
@@ -21,7 +23,11 @@ from np_modeling_tpu import models as jmodels
 from np_modeling_tpu.serving import GenerationEngine as JaxEngine
 from np_modeling_tpu_torch import models as tmodels
 from np_modeling_tpu_torch.serving import GenerationEngine, OutOfPagesError
-from np_modeling_tpu_torch.utils import params_from_numpy
+from np_modeling_tpu_torch.utils import params_from_numpy, params_to_numpy
+
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
 
 CFG = dict(vocab_size=64, d_model=32, num_heads=4, num_kv_heads=2,
            num_layers=2, hidden_units=64, max_len=64, activation="gelu",
@@ -29,12 +35,30 @@ CFG = dict(vocab_size=64, d_model=32, num_heads=4, num_kv_heads=2,
 ENGINE = dict(total_pages=64, page_size=4, max_seqs=4, prefill_chunk_size=8)
 
 
+def _tree(cfg, seed=0):
+    """Seeded weights of a GPT of ``cfg`` as the JAX tree (numpy), from the
+    port's init (JAX's distributions)."""
+    return params_to_numpy(tmodels.GPT(tmodels.GPTConfig(**cfg),
+                                       device="cpu").init(
+        torch.Generator().manual_seed(seed)))
+
+
+def _jax_logits_step(jeng):
+    """The JAX engine's device step with its logits, compiled (eagerly it
+    traces the whole model op by op). Its new state becomes the engine's,
+    as the eager call's writes into the state dict make it."""
+    step = jax.jit(jeng._device_step, static_argnames="return_logits")
+    jeng._state, tok, logits = step(jeng._state, jeng._serve_params,
+                                    jax.random.PRNGKey(0), return_logits=True)
+    return jeng._state, tok, logits
+
+
 def _pair(seed=0):
     jgpt = jmodels.GPT(jmodels.GPTConfig(**CFG))
-    params = jgpt.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))
-    tree = jax.tree_util.tree_map(np.asarray, params)
+    tree = _tree(CFG, seed)
     tgpt = params_from_numpy(tree, tmodels.GPTConfig(**CFG), device="cpu")
-    return (JaxEngine(jgpt, params, **ENGINE),
+    return (JaxEngine(jgpt, jax.tree_util.tree_map(jnp.asarray, tree),
+                      **ENGINE),
             GenerationEngine(tgpt, **ENGINE))
 
 
@@ -60,9 +84,7 @@ def test_engine_matches_jax_engine():
     assert teng.capacity(3) == jeng.capacity(3)
 
     _, t_tok, t_logits = teng._device_step(teng._state, return_logits=True)
-    _, j_tok, j_logits = jeng._device_step(
-        jeng._state, jeng._serve_params, jax.random.PRNGKey(0),
-        return_logits=True)
+    _, j_tok, j_logits = _jax_logits_step(jeng)
     np.testing.assert_array_equal(t_tok.numpy(), np.asarray(j_tok))
     active = np.asarray(jeng._state["active"])
     np.testing.assert_allclose(t_logits.numpy()[active],
@@ -117,9 +139,8 @@ def test_ported_config_features_match_jax(feature):
     (fp32, rtol 1e-5 / atol 2e-5) over 24 tokens, past the window of 8."""
     cfg = {**CFG, **feature}
     jgpt = jmodels.GPT(jmodels.GPTConfig(**cfg))
-    params = jax.jit(lambda k: jgpt.init(k, jnp.zeros((1, 8), jnp.int32)))(
-        jax.random.PRNGKey(1))
-    tree = jax.tree_util.tree_map(np.asarray, params)
+    tree = _tree(cfg, 1)
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
     tgpt = params_from_numpy(tree, tmodels.GPTConfig(**cfg), device="cpu")
     toks = np.random.default_rng(1).integers(0, 64, (2, 24))
     want = jax.jit(jgpt.apply)(params, jnp.asarray(toks))
@@ -174,7 +195,7 @@ def _quantized_pair(dtype):
     """JAX and port engines with quantize_kv=True over one int8-FFN tree."""
     from np_modeling_tpu.ops import quantize_params_int8
     jgpt = jmodels.GPT(jmodels.GPTConfig(**QCFG, dtype=getattr(jnp, dtype)))
-    params = jgpt.init(jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32))
+    params = jax.tree_util.tree_map(jnp.asarray, _tree(QCFG, 1))
     tree = jax.tree_util.tree_map(
         np.asarray, quantize_params_int8(params, match=FFN))
     tgpt = params_from_numpy(
@@ -206,9 +227,7 @@ def test_quantized_engine_matches_jax_engine(dtype):
     assert _traffic(teng, prompts, late, False) == _traffic(
         jeng, prompts, late, True)
     _, t_tok, t_logits = teng._device_step(teng._state, return_logits=True)
-    _, j_tok, j_logits = jeng._device_step(
-        jeng._state, jeng._serve_params, jax.random.PRNGKey(0),
-        return_logits=True)
+    _, j_tok, j_logits = _jax_logits_step(jeng)
     np.testing.assert_array_equal(t_tok.numpy(), np.asarray(j_tok))
     if dtype == "float32":      # bf16: the two round K at other places
         for key in ("k_scales", "v_scales"):

@@ -3,7 +3,8 @@
 The plain version (what runs on CPU tensors) is held against JAX
 ``flash_attention`` on its jnp path and against the Pallas kernels in
 interpret mode (``force_pallas(True, interpret=True)``, 128 x 128 blocks, as
-tests/test_attention.py runs them), forward and backward, with every
+tests/test_attention.py runs them; the JAX side under ``jax.jit``), forward
+and backward, with every
 option: K1/K2, K1/K2 with segment ids, the split backward K5 (JAX's
 ``FUSED_BWD`` False) and the dual-kv forward K12 (``FWD_DUAL_KV`` True),
 each with the port's flag set likewise, and Gemma-2's window and softcap at
@@ -26,6 +27,10 @@ from chip_smoke import _schedule
 from np_modeling_tpu import ops as jops
 from np_modeling_tpu.ops import dispatch as jdispatch
 from np_modeling_tpu_torch import ops
+
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-5, atol=5e-5)
@@ -51,14 +56,16 @@ def _jax(q, k, v, do, bias=None, sinks=None, pallas=False, **kw):
             q, k, v, bias=next(it) if bias is not None else None,
             sinks=next(it) if sinks is not None else None, **kw)
 
-    args = [jnp.asarray(x) for x in (q, k, v, *extra)]
-    if pallas:
-        with jdispatch.force_pallas(True, interpret=True):
-            o, vjp = jax.vjp(f, *args)
-            grads = vjp(jnp.asarray(do))
-    else:
+    def run(args, ct):
         o, vjp = jax.vjp(f, *args)
-        grads = vjp(jnp.asarray(do))
+        return o, vjp(ct)
+
+    # One compiled function a call (eagerly, JAX runs the interpret-mode
+    # kernels op by op, about twice as long).
+    args = [jnp.asarray(x) for x in (q, k, v, *extra)]
+    with (jdispatch.force_pallas(True, interpret=True) if pallas
+          else contextlib.nullcontext()):
+        o, grads = jax.jit(run)(args, jnp.asarray(do))
     return np.asarray(o), [np.asarray(g) for g in grads]
 
 

@@ -31,6 +31,10 @@ from np_modeling_tpu_torch import ops
 from np_modeling_tpu_torch.ops import fused
 from np_modeling_tpu_torch.rng import fold_seed, seed_of
 
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=2e-5)
 rng = np.random.default_rng(23)
 

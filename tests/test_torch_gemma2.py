@@ -40,6 +40,10 @@ from np_modeling_tpu_torch.serving import GenerationEngine
 from np_modeling_tpu_torch.utils import (params_from_numpy, params_to_numpy,
                                          tree_to_numpy)
 
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-5, atol=5e-5)
 CFG = dict(vocab_size=256, d_model=64, num_layers=4, num_heads=4,
@@ -343,7 +347,9 @@ def test_engine_matches_jax_engine():
     assert teng.step_many(4) == jeng.step_many(4)
     assert teng.step() == jeng.step()
     _, t_tok, t_logits = teng._device_step(teng._state, return_logits=True)
-    _, j_tok, j_logits = jeng._device_step(
+    # compiled: eagerly JAX traces the whole model op by op
+    _, j_tok, j_logits = jax.jit(
+        jeng._device_step, static_argnames="return_logits")(
         jeng._state, jeng._serve_params, jax.random.PRNGKey(0),
         return_logits=True)
     np.testing.assert_array_equal(t_tok.numpy(), np.asarray(j_tok))

@@ -26,6 +26,10 @@ from np_modeling_tpu.ops.matmul import matmul as jmatmul
 from np_modeling_tpu_torch import ops
 from np_modeling_tpu_torch.ops import dispatch
 
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-4)
 BLOCKS = dict(block_m=128, block_n=128, block_k=128)
 rng = np.random.default_rng(31)

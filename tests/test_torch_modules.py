@@ -17,7 +17,11 @@ from np_modeling_tpu_torch import models as tmodels
 from np_modeling_tpu_torch import ops
 from np_modeling_tpu_torch.nn import initializers
 from np_modeling_tpu_torch.serving import GenerationEngine
-from np_modeling_tpu_torch.utils import params_from_numpy
+from np_modeling_tpu_torch.utils import params_from_numpy, params_to_numpy
+
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=2e-5)
 rng = np.random.default_rng(0)
@@ -153,11 +157,15 @@ def test_block_step_vs_jax_block(hkv):
                num_layers=1, hidden_units=64, max_len=16, activation="gelu",
                ln_eps=1e-5)
     jgpt = jmodels.GPT(jmodels.GPTConfig(**cfg))
-    params = jgpt.init(jax.random.PRNGKey(1), jnp.zeros((1, 4), jnp.int32))
-    tgpt = params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
-                             tmodels.GPTConfig(**cfg), device="cpu")
+    # the port's seeded init and a compiled JAX block (eager JAX traces op
+    # by op)
+    tree = params_to_numpy(tmodels.GPT(tmodels.GPTConfig(**cfg),
+                                       device="cpu").init(
+        torch.Generator().manual_seed(1)))
+    tgpt = params_from_numpy(tree, tmodels.GPTConfig(**cfg), device="cpu")
     x = _randn(2, 6, 32)
-    want = jgpt.block.apply(params["layer_0"], jnp.asarray(x))
+    want = jax.jit(jgpt.block.apply)(
+        jax.tree_util.tree_map(jnp.asarray, tree["layer_0"]), jnp.asarray(x))
 
     eng = GenerationEngine(tgpt, total_pages=9, page_size=4, max_seqs=2,
                            prefill_chunk_size=8)

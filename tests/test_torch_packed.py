@@ -9,6 +9,8 @@ fused and unfused loss, at full length and at ``max_len + 1`` tokens, where
 both cut the last input. The batches reach the device through
 ``prefetch_to_device`` as dicts and namedtuples. fp32 at rtol 1e-5 / atol
 2e-5; gradients at atol 5e-5, and at 1e-4 for the ``max_len + 1`` case.
+The weights come from the port's ``init``; the JAX side runs compiled, one
+function a loss kind shared by the cases.
 """
 
 import collections
@@ -23,7 +25,12 @@ from np_modeling_tpu import models as jmodels
 from np_modeling_tpu.training import data as jdata
 from np_modeling_tpu_torch import models as tmodels
 from np_modeling_tpu_torch.training import data
-from np_modeling_tpu_torch.utils import params_from_numpy, tree_to_numpy
+from np_modeling_tpu_torch.utils import (params_from_numpy, params_to_numpy,
+                                         tree_to_numpy)
+
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-5, atol=5e-5)
@@ -32,15 +39,35 @@ VOCAB, MAX_LEN = 64, 32
 rng = np.random.default_rng(0)
 
 
+_jax_sides = {}
+
+
 def _gpt_pair(fused):
+    """The JAX GPT, its weights (seeded, from the port's init) and the port's
+    GPT on them (a new one a call: backward fills its grads)."""
     cfg = dict(vocab_size=VOCAB, d_model=32, num_heads=4, num_layers=2,
                hidden_units=64, max_len=MAX_LEN, fused_loss=fused)
-    jgpt = jmodels.GPT(jmodels.GPTConfig(**cfg))
-    params = jgpt.init(jax.random.PRNGKey(5),
-                       jnp.zeros((1, MAX_LEN), jnp.int32))
-    tgpt = params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
-                             tmodels.GPTConfig(**cfg), device="cpu")
-    return jgpt, params, tgpt
+    if fused not in _jax_sides:
+        tree = params_to_numpy(tmodels.GPT(tmodels.GPTConfig(**cfg),
+                                           device="cpu").init(
+            torch.Generator().manual_seed(5)))
+        _jax_sides[fused] = (jmodels.GPT(jmodels.GPTConfig(**cfg)), tree)
+    jgpt, tree = _jax_sides[fused]
+    tgpt = params_from_numpy(tree, tmodels.GPTConfig(**cfg), device="cpu")
+    return jgpt, jax.tree_util.tree_map(jnp.asarray, tree), tgpt
+
+
+_jax_loss_grads = {}
+
+
+def _jax_loss_and_grads(fused):
+    """JAX's loss and its gradients, compiled once a loss kind."""
+    if fused not in _jax_loss_grads:
+        jgpt = _gpt_pair(fused)[0]
+        _jax_loss_grads[fused] = jax.jit(jax.value_and_grad(
+            lambda p, t, seg, pos: jgpt.loss(p, t, segment_ids=seg,
+                                             positions=pos)))
+    return _jax_loss_grads[fused]
 
 
 def _packed(b, s, mean_len=8):
@@ -71,11 +98,10 @@ def _assert_grads_close(tgpt, jgrads, **tol):
 
 
 def _loss_vs_jax(fused, tokens, seg, pos, grad_tol):
-    jgpt, params, tgpt = _gpt_pair(fused)
-    jkw = {k: None if x is None else jnp.asarray(x)
-           for k, x in (("segment_ids", seg), ("positions", pos))}
-    want, jgrads = jax.value_and_grad(
-        lambda p: jgpt.loss(p, jnp.asarray(tokens), **jkw))(params)
+    _, params, tgpt = _gpt_pair(fused)
+    want, jgrads = _jax_loss_and_grads(fused)(
+        params, jnp.asarray(tokens),
+        *(None if x is None else jnp.asarray(x) for x in (seg, pos)))
     tkw = {k: None if x is None else torch.tensor(x)
            for k, x in (("segment_ids", seg), ("positions", pos))}
     got = tgpt.loss(torch.tensor(tokens), **tkw)
@@ -108,8 +134,9 @@ def test_packed_apply_logits_vs_jax(per_row):
     tokens, seg, pos = _packed(2, MAX_LEN)
     if not per_row:
         pos = pos[0]
-    want = jgpt.apply(params, jnp.asarray(tokens),
-                      segment_ids=jnp.asarray(seg), positions=jnp.asarray(pos))
+    want = jax.jit(jgpt.apply)(params, jnp.asarray(tokens),
+                               segment_ids=jnp.asarray(seg),
+                               positions=jnp.asarray(pos))
     with torch.no_grad():
         got = tgpt.apply(torch.tensor(tokens), segment_ids=torch.tensor(seg),
                          positions=torch.tensor(pos))

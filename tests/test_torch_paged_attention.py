@@ -2,15 +2,19 @@
 
 The plain PyTorch version is held against JAX ``paged_attention_reference``
 (every option of the oracle) and against the JAX Pallas kernel run in
-interpret mode, on the same numpy inputs, in fp32 at rtol 1e-5 / atol 2e-5.
+interpret mode, on the same numpy inputs (the JAX side under ``jax.jit``), in
+fp32 at rtol 1e-5 / atol 2e-5.
 Rows are compared only where every query row sees at least one position
 (lengths >= sq): for emptier rows the TPU kernel and the oracle disagree by
 design. The CUDA kernel itself runs only on the card
 (tests/test_torch_cuda.py).
 """
 
+import contextlib
+import functools
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +25,10 @@ from np_modeling_tpu.ops import dispatch as jdispatch
 from np_modeling_tpu_torch import ops
 from np_modeling_tpu_torch.ops import dispatch
 from np_modeling_tpu_torch.serving import PagedKVCache
+
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=2e-5)
 
@@ -43,6 +51,12 @@ def _torch(*arrays):
     return [torch.tensor(np.asarray(a)) for a in arrays]
 
 
+def _jit(fn, *args, **kw):
+    """``fn(*args, **kw)`` as one compiled JAX function (keywords static):
+    eagerly JAX compiles each op for each new shape."""
+    return jax.jit(functools.partial(fn, **kw))(*args)
+
+
 CASES = [
     dict(),                                   # 3-D q, GQA g=2
     dict(hq=4, hkv=4),                        # MHA
@@ -60,9 +74,8 @@ OPTIONS = [dict(), dict(window=3), dict(window=20), dict(softcap=5.0),
 @pytest.mark.parametrize("case", CASES)
 def test_plain_vs_jax_reference(case, opts):
     q, k, v, lengths, table = _case(**case)
-    want = jops.paged_attention_reference(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
-        jnp.asarray(table), **opts)
+    want = _jit(jops.paged_attention_reference,
+                *(jnp.asarray(a) for a in (q, k, v, lengths, table)), **opts)
     got = ops.paged_attention(*_torch(q, k, v, lengths, table), **opts)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -73,9 +86,9 @@ def test_plain_vs_jax_reference_bias_and_sinks(sq):
     rng = np.random.default_rng(1)
     bias = rng.standard_normal((3, 8, 4 * 8)).astype(np.float32)
     sinks = rng.standard_normal((8,)).astype(np.float32)
-    want = jops.paged_attention_reference(
-        *(jnp.asarray(a) for a in (q, k, v, lengths, table)),
-        bias=jnp.asarray(bias), sinks=jnp.asarray(sinks))
+    want = _jit(lambda *a: jops.paged_attention_reference(
+        *a[:5], bias=a[5], sinks=a[6]),
+        *(jnp.asarray(a) for a in (q, k, v, lengths, table, bias, sinks)))
     got = ops.paged_attention(*_torch(q, k, v, lengths, table),
                               bias=torch.from_numpy(bias),
                               sinks=torch.from_numpy(sinks))
@@ -113,9 +126,9 @@ def test_plain_int8_dequant_vs_jax():
 def test_plain_vs_jax_pallas_kernel_interpret(case, opts):
     q, k, v, lengths, table = _case(**case)
     with jdispatch.force_pallas(True, interpret=True):
-        want = jops.paged_attention(
-            *(jnp.asarray(a) for a in (q, k, v, lengths, table)),
-            pages_per_block=2, **opts)
+        want = _jit(jops.paged_attention,
+                    *(jnp.asarray(a) for a in (q, k, v, lengths, table)),
+                    pages_per_block=2, **opts)
     got = ops.paged_attention(*_torch(q, k, v, lengths, table), **opts)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -185,12 +198,12 @@ INT8_CASES = [dict(hq=8, hkv=2),                       # decode, GQA
 @pytest.mark.parametrize("case", INT8_CASES)
 def test_plain_int8_pages_vs_jax(case, pallas, q_dtype):
     jax_args, scales, torch_args, torch_scales = _int8_case(case, q_dtype)
-    if pallas:
-        with jdispatch.force_pallas(True, interpret=True):
-            want = jops.paged_attention(*jax_args, pages_per_block=2,
-                                        **scales)
-    else:
-        want = jops.paged_attention(*jax_args, **scales)
+    block = dict(pages_per_block=2) if pallas else {}
+    run = (lambda *a: jops.paged_attention(*a[:5], k_scales=a[5],
+                                           v_scales=a[6], **block))
+    with (jdispatch.force_pallas(True, interpret=True) if pallas
+          else contextlib.nullcontext()):
+        want = _jit(run, *jax_args, scales["k_scales"], scales["v_scales"])
     got = ops.paged_attention(*torch_args, **torch_scales)
     assert got.dtype == torch_args[0].dtype and got.shape == want.shape
     if q_dtype == "float32":
@@ -274,8 +287,8 @@ def test_split_and_merge_vs_reference_and_jax(case, opts, split_keys, int8):
         *_torch(q, k, v, lengths, table), splits, split_keys, **opts)
     want = ops.paged_attention_reference(*_torch(q, k, v, lengths, table),
                                          **opts)
-    jwant = jops.paged_attention_reference(
-        *(jnp.asarray(a) for a in (q, k, v, lengths, table)), **opts)
+    jwant = _jit(jops.paged_attention_reference,
+                 *(jnp.asarray(a) for a in (q, k, v, lengths, table)), **opts)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(jwant), **TOL)
 

@@ -40,6 +40,10 @@ from np_modeling_tpu_torch.ops import quantization as tq
 from np_modeling_tpu_torch.utils import (load_params, params_from_numpy,
                                          params_to_numpy)
 
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
+
 FFN = r".*(dense1/linear/w|dense2/w)$"
 
 

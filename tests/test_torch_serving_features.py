@@ -30,7 +30,11 @@ from np_modeling_tpu_torch import serve_gpt
 from np_modeling_tpu_torch.models.transformer_lm import filter_logits
 from np_modeling_tpu_torch.serving import GenerationEngine, SamplingParams
 from np_modeling_tpu_torch.serving import sampling
-from np_modeling_tpu_torch.utils import params_from_numpy
+from np_modeling_tpu_torch.utils import params_to_numpy
+
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
 
 V = 128
 CFG = dict(vocab_size=V, d_model=64, num_heads=4, num_kv_heads=2,
@@ -158,12 +162,12 @@ def test_draws_in_keep_set_and_chi_square(kw):
 # ---- the engine against JAX's ---------------------------------------------
 
 def _weights(cfg=CFG, seed=0):
-    jgpt = jmodels.GPT(jmodels.GPTConfig(**cfg))
-    params = jax.jit(lambda k: jgpt.init(k, jnp.zeros((1, 8), jnp.int32)))(
-        jax.random.PRNGKey(seed))
-    tgpt = params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
-                             tmodels.GPTConfig(**cfg), device="cpu")
-    return jgpt, params, tgpt
+    """The JAX GPT, its params and the port's GPT on the same seeded weights,
+    from the port's init (JAX's distributions; a JAX init compiles)."""
+    tgpt = tmodels.GPT(tmodels.GPTConfig(**cfg), device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    params = jax.tree_util.tree_map(jnp.asarray, params_to_numpy(tgpt))
+    return jmodels.GPT(jmodels.GPTConfig(**cfg)), params, tgpt
 
 
 def _engines(weights, sp=None, **kw):
@@ -339,7 +343,8 @@ def test_sampled_engine_repeats_with_its_seed(weights):
 
 
 def test_engine_option_errors():
-    _, _, tgpt = _weights(dict(CFG, num_layers=1))
+    tgpt = tmodels.GPT(tmodels.GPTConfig(**dict(CFG, num_layers=1)),
+                       device="cpu").init(torch.Generator())
     eng = GenerationEngine(tgpt, total_pages=16, page_size=4)
     with pytest.raises(ValueError, match="per_request_sampling"):
         eng.add_request(0, [1, 2], sampling=SamplingParams(min_p=0.1))

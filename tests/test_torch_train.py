@@ -1,8 +1,9 @@
 """The port's training path against the JAX package: losses, optimizers, and
 a small GPT's loss, gradients and Adam trajectory.
 
-Inputs and weights come from seeded numpy arrays (JAX's init, carried across
-by utils.convert) and go through both packages. fp32 at rtol 1e-5 / atol
+Inputs and weights come from seeded numpy arrays (the GPT's from the port's
+init, carried across by utils.convert) and go through both packages; the
+GPT's JAX side runs compiled. fp32 at rtol 1e-5 / atol
 2e-5 (BASELINE.md), gradients at atol 5e-5 as the JAX package's own
 attention tests hold them, unless a case states otherwise.
 """
@@ -21,6 +22,10 @@ from np_modeling_tpu_torch import nn as tnn
 from np_modeling_tpu_torch import ops, training
 from np_modeling_tpu_torch.utils import (params_from_numpy, params_to_numpy,
                                          tree_to_numpy)
+
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-5, atol=5e-5)
@@ -134,18 +139,19 @@ def _gpt_pair(hkv, fused):
                num_layers=2, hidden_units=128, max_len=64, fused_loss=fused)
     jgpt = jmodels.GPT(jmodels.GPTConfig(**cfg))
     tokens = rng.integers(0, 128, (2, 64)).astype(np.int32)
-    params = jgpt.init(jax.random.PRNGKey(3), jnp.asarray(tokens))
-    tgpt = params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
-                             tmodels.GPTConfig(**cfg), device="cpu")
-    return jgpt, params, tgpt, tokens
+    tree = params_to_numpy(tmodels.GPT(tmodels.GPTConfig(**cfg),
+                                       device="cpu").init(
+        torch.Generator().manual_seed(3)))
+    tgpt = params_from_numpy(tree, tmodels.GPTConfig(**cfg), device="cpu")
+    return jgpt, jax.tree_util.tree_map(jnp.asarray, tree), tgpt, tokens
 
 
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("hkv", [4, 2])
 def test_gpt_loss_and_grads_vs_jax(hkv, fused):
     jgpt, params, tgpt, tokens = _gpt_pair(hkv, fused)
-    want, jgrads = jax.value_and_grad(
-        lambda p: jgpt.loss(p, jnp.asarray(tokens)))(params)
+    want, jgrads = jax.jit(jax.value_and_grad(jgpt.loss))(
+        params, jnp.asarray(tokens))
     got = tgpt.loss(torch.tensor(tokens))
     got.backward()
     np.testing.assert_allclose(got.item(), float(want), **TOL)
@@ -159,13 +165,14 @@ def test_gpt_apply_logits_and_hidden_vs_jax():
         logits = tgpt.apply(torch.tensor(tokens))
         hidden = tgpt.apply(torch.tensor(tokens), return_hidden=True)
     assert logits.dtype == torch.float32 and logits.shape == (2, 64, 128)
+    japply = jax.jit(jgpt.apply, static_argnames="return_hidden")
     np.testing.assert_allclose(
-        logits.numpy(), np.asarray(jgpt.apply(params, jnp.asarray(tokens))),
+        logits.numpy(), np.asarray(japply(params, jnp.asarray(tokens))),
         **TOL)
     np.testing.assert_allclose(
         hidden.numpy(),
-        np.asarray(jgpt.apply(params, jnp.asarray(tokens),
-                              return_hidden=True)), **TOL)
+        np.asarray(japply(params, jnp.asarray(tokens), return_hidden=True)),
+        **TOL)
 
 
 def test_gpt_adam_trajectory_vs_jax():
@@ -176,11 +183,16 @@ def test_gpt_adam_trajectory_vs_jax():
     tparams = dict(tgpt.named_parameters())
     tstate = topt.init(tparams)
     jt, tt = jnp.asarray(tokens), torch.tensor(tokens)
+
+    @jax.jit
+    def jax_step(p, state):
+        loss, grads = jax.value_and_grad(jgpt.loss)(p, jt)
+        updates, state = jopt.update(grads, state, p)
+        return jtraining.apply_updates(p, updates), state, loss
+
     jl, tl = [], []
     for _ in range(3):
-        loss, grads = jax.value_and_grad(lambda p: jgpt.loss(p, jt))(params)
-        updates, jstate = jopt.update(grads, jstate, params)
-        params = jtraining.apply_updates(params, updates)
+        params, jstate, loss = jax_step(params, jstate)
         jl.append(float(loss))
         tgpt.zero_grad()
         loss = tgpt.loss(tt)

@@ -8,7 +8,8 @@ states at rtol 1e-6, unless a case states otherwise. Dropout masks: the
 port draws them (its plain twin of kernel K7's bits); a spy records them in
 call order and JAX is handed the same masks in the same order, by
 monkeypatching ``np_modeling_tpu.ops.normalization.make_dropout_mask``
-within the test.
+within the test. The GPT cases take their weights from the port's ``init``
+and run their JAX side compiled, the masks passed in as an argument.
 """
 
 import jax
@@ -30,7 +31,11 @@ from np_modeling_tpu_torch.ops import normalization as tnorm
 from np_modeling_tpu_torch.rng import fold_seed
 from np_modeling_tpu_torch.training import data, schedules
 from np_modeling_tpu_torch.utils import (load_params, params_from_numpy,
-                                         tree_to_numpy)
+                                         params_to_numpy, tree_to_numpy)
+
+# Tier-1 runs several pytest workers side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-5, atol=5e-5)
@@ -51,10 +56,14 @@ def _assert_trees_close(got, want, **tol):
 
 
 class _SharedMasks:
-    """Records the port's dropout masks and replays them to JAX in order."""
+    """Records the port's dropout masks and replays them to JAX in order:
+    ``take(n)`` hands the first ``n`` recorded masks over as JAX arrays, and
+    ``compiled(fn)`` is ``jax.jit(fn)`` with the masks as its second
+    argument, replayed in order while it traces."""
 
     def __init__(self, monkeypatch):
         self.masks = []
+        self._replaying = []
         draw = tnorm.make_dropout_mask
 
         def spy(seed, shape, rate, device=None):
@@ -64,15 +73,37 @@ class _SharedMasks:
 
         def replay(key, shape, rate):
             del key, rate
-            mask = self.masks.pop(0)
+            mask = self._replaying.pop(0)
             assert tuple(mask.shape) == tuple(shape)
-            return jnp.asarray(mask.numpy())
+            return mask
 
         monkeypatch.setattr(tnorm, "make_dropout_mask", spy)
         monkeypatch.setattr(jnorm, "make_dropout_mask", replay)
 
+    def take(self, n):
+        taken, self.masks = self.masks[:n], self.masks[n:]
+        return tuple(jnp.asarray(m.numpy()) for m in taken)
+
+    def compiled(self, fn):
+        def traced(p, masks, *args):
+            self._replaying = list(masks)
+            out = fn(p, *args)
+            assert not self._replaying
+            return out
+
+        return jax.jit(traced)
+
 
 # ---- a GPT with dropout ------------------------------------------------------------
+
+def _tree(cfg, seed):
+    """Seeded weights of a GPT of ``cfg`` as the JAX tree (numpy), from the
+    port's init (JAX's distributions; JAX's eager init traced the model op
+    by op)."""
+    return params_to_numpy(tmodels.GPT(tmodels.GPTConfig(**cfg),
+                                       device="cpu").init(
+        torch.Generator().manual_seed(seed)))
+
 
 def _gpt_pair(fused_loss):
     cfg = dict(vocab_size=128, d_model=64, num_heads=4, num_layers=2,
@@ -80,10 +111,9 @@ def _gpt_pair(fused_loss):
                fused_loss=fused_loss)
     jgpt = jmodels.GPT(jmodels.GPTConfig(**cfg))
     tokens = rng.integers(0, 128, (2, 64)).astype(np.int32)
-    params = jgpt.init(jax.random.PRNGKey(3), jnp.asarray(tokens))
-    tgpt = params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
-                             tmodels.GPTConfig(**cfg), device="cpu")
-    return jgpt, params, tgpt, tokens
+    tree = _tree(cfg, 3)
+    tgpt = params_from_numpy(tree, tmodels.GPTConfig(**cfg), device="cpu")
+    return jgpt, jax.tree_util.tree_map(jnp.asarray, tree), tgpt, tokens
 
 
 @pytest.mark.parametrize("fused_loss", [False, True])
@@ -95,9 +125,10 @@ def test_gpt_dropout_loss_and_grads_vs_jax(monkeypatch, fused_loss):
     got.backward()
     # embedding, then (before norm1, before norm2) for each of 2 layers
     assert len(shared.masks) == 5
-    want, jgrads = jax.value_and_grad(
-        lambda p: jgpt.loss(p, jnp.asarray(tokens), training=True,
-                            rngs={"dropout": jax.random.PRNGKey(0)}))(params)
+    want, jgrads = shared.compiled(jax.value_and_grad(
+        lambda p, t: jgpt.loss(p, t, training=True,
+                               rngs={"dropout": jax.random.PRNGKey(0)})))(
+        params, shared.take(5), jnp.asarray(tokens))
     assert not shared.masks
     np.testing.assert_allclose(got.item(), float(want), **TOL)
     grads = tree_to_numpy({n: p.grad for n, p in tgpt.named_parameters()})
@@ -304,9 +335,9 @@ def test_train_gpt_recipe_three_steps_vs_jax(monkeypatch):
                hidden_units=128, max_len=16, drop_rate=0.1)
     corpus = np.random.default_rng(0).integers(0, 64, (32, 16))
     jgpt = jmodels.GPT(jmodels.GPTConfig(**cfg))
-    params = jgpt.init(jax.random.PRNGKey(0), jnp.asarray(corpus[:4]))
-    tgpt = params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
-                             tmodels.GPTConfig(**cfg), device="cpu")
+    tree = _tree(cfg, 0)
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    tgpt = params_from_numpy(tree, tmodels.GPTConfig(**cfg), device="cpu")
     steps = 3
     tl, _ = train_gpt.train(tgpt, corpus, steps, batch=4, device="cpu",
                             log=None)
@@ -316,15 +347,20 @@ def test_train_gpt_recipe_three_steps_vs_jax(monkeypatch):
                            jtraining.adamw(jschedules.warmup_cosine(
                                3e-4, warmup_steps=10, total_steps=steps)))
     jstate = jopt.init(params)
+
+    def jax_step(p, state, batch):
+        loss, grads = jax.value_and_grad(
+            lambda p: jgpt.loss(p, batch, training=True,
+                                rngs={"dropout": jax.random.PRNGKey(1)}))(p)
+        updates, state = jopt.update(grads, state, p)
+        return jtraining.apply_updates(p, updates), state, loss
+
+    jax_step = shared.compiled(jax_step)
     jl = []
     for (batch,), _ in zip(jdata.epochs([corpus], 4, num_epochs=100),
                            range(steps)):
-        loss, grads = jax.value_and_grad(
-            lambda p: jgpt.loss(p, jnp.asarray(batch), training=True,
-                                rngs={"dropout": jax.random.PRNGKey(1)}))(
-                                    params)
-        updates, jstate = jopt.update(grads, jstate, params)
-        params = jtraining.apply_updates(params, updates)
+        params, jstate, loss = jax_step(params, shared.take(5), jstate,
+                                        jnp.asarray(batch))
         jl.append(float(loss))
     assert not shared.masks
     np.testing.assert_allclose(tl.numpy(), jl, rtol=1e-5)

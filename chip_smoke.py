@@ -2,8 +2,9 @@
 serving features (dense KV-cache generate, dense prefill, fork, the prefix
 cache, sampling) and serving example, its bench training step, its training
 entry point, that entry point with every product forced through the matmul
-kernel, packed-document training, Gemma-2 serving and generate, and Gemma-2
-training once on one CUDA card.
+kernel, packed-document training, Gemma-2 serving and generate, Gemma-2
+training, T5 training and decode, Seq2Seq, and T5 serving through the
+encoder-decoder engine once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -54,7 +55,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
       softcap 50, a row without a key, non-causal and under causal with
       window 64, v of mean ~2; fp32 and bf16 at d 64/128/256): o and lse
       within the flash tolerances, the keyless row's lse equal to the plain
-      one and its o the mean of v over all keys.
+      one and its o the mean of v over all keys. K3's score bias
+      (PAGED_BIAS_CASES: 3-D biases as the T5 engine hands them over and
+      4-D ones, narrower than the table, as wide and wider, sq 1, 5 and 64,
+      GQA 1 and 2, d 64/128/256, fp32, bf16 and int8 pages with fp32 and
+      bf16 q, one key split and five, lengths 0, 1, a page and a page + 1):
+      the paged tolerances, table entries past the length poisoned.
       LayerNorm K8 (out, dx, dgamma, dbeta): fp32 max abs err <= 1e-5 times
       max(1, max |plain|); a bf16 output within one bf16 ulp (or that fp32
       bound, where a value is so near 0 that fp32 rounding before the last
@@ -248,18 +254,36 @@ Phases, each printed on its own lines; any failure exits non-zero:
       without a score_mod (its library call; K12 against K1 and against
       it in rounds), SDPA without cap or window beside as
       another function, and the 12-layer step in ms and tokens/s,
-      profiled by kind (a report, not a check).
+      profiled by kind (a report, not a check);
+  (y) T5 at t5-base's full width and depth: training, greedy and beam
+      decode, the flash kernels' bias timings (``phase_t5``);
+  (z) Seq2SeqTransformer at its default config (``phase_seq2seq``);
+  (A) t5-base served through serving.Seq2SeqEngine (8 slots, sources of
+      64..512 tokens, 128 target tokens, page 16; ``phase_t5_serving``):
+      joins mid-stream, a leave, step and step_many, 34..42 tokens a
+      sequence; fp32 tokens equal the plain engine's and the solo
+      T5.greedy_decode's, logits within 1e-4 x max(1, max |logit|) of the
+      plain engine's, K3 launched with the bias 12 times a step; bf16
+      compute logits by (q)'s rule; the decode step in rounds with the
+      plain engine, the step profiled by kind, and K3 + bias at the
+      engine's decode and at 512 tokens beside K3 without it, the plain
+      version, its bound and SDPA over the gathered K/V with the bias as a
+      float mask (a report, not a check).
 Each path runs with the launch counts set to 0 just before it and read just
 after. Library yardsticks (one PyTorch call computing a kernel's function,
 which the port never calls) are timed beside K1/K2/K5/K12 (scaled_dot_
-product_attention; with window and softcap, compiled flex_attention), K7
-(F.dropout), K8 (F.layer_norm), K9 (F.cross_entropy) and K11 (torch.addmm /
-torch.mm); no single call computes K3, K4 or K10. Timings run each side twice, in the order plain, kernel, kernel,
+product_attention; with window and softcap, compiled flex_attention), K3
+with the bias (scaled_dot_product_attention over the K/V gathered from the
+pages beforehand), K7 (F.dropout), K8 (F.layer_norm), K9 (F.cross_entropy)
+and K11 (torch.addmm / torch.mm); no single call computes K3 on pages, K4
+or K10. Timings run each side twice, in the order plain, kernel, kernel,
 plain. K5's bound is the gradients' work, K2's 5 products a pair, not
 the 7 of its schedule. Every kernel is timed with CUDA events two ways: a call's wall time,
 the host's share included (the JSON line's "ms"), and device time, calls
 queued back to back behind a sleep kernel so the host's gaps drop out
-("device_ms"). The line before the last holds the kernels' JSON summary;
+("device_ms"; up to 20 calls of a kernel, 5 of a plain version). The SASS
+check of (b) runs on a thread beside (c) and reports after it. The line
+before the last holds the kernels' JSON summary;
 the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}. It imports nothing of JAX and needs no network.
 """
@@ -444,6 +468,10 @@ def phase_device():
 
 
 def phase_build():
+    """Builds the six libraries; returns the SASS check of the flash library
+    (``check_forward_sass``) started on a thread of its own, a future: the
+    cuobjdump runs take about a minute and overlap phase (c)."""
+    import concurrent.futures
     from np_modeling_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
     libs = cuda_build.build("paged_attention", "flash_attention", "fused",
@@ -454,8 +482,24 @@ def phase_build():
         for ln in lib.log.splitlines():
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
                 print(f"    ptxas: {ln.strip()}")
-    check_forward_sass(libs["flash_attention"].path,
-                       libs["flash_attention"].log)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    check = pool.submit(check_forward_sass, libs["flash_attention"].path,
+                        libs["flash_attention"].log)
+    pool.shutdown(wait=False)
+    return check
+
+
+def finish_forward_sass(check):
+    """Prints the SASS check's lines (phase_build's future) and fails the
+    run where an instantiation has no HGMMA."""
+    lines, missing, n = check.result()
+    for ln in lines:
+        print(ln)
+    if missing:
+        raise AssertionError(f"(b) bf16 forward or K5 dq instantiations "
+                             f"without HGMMA (wgmma) in their SASS: {missing}")
+    print(f"(b) all {n} bf16 forward (K1, K12) and K5 dq instantiations run "
+          f"on wgmma")
 
 
 def _fwd_variant(mangled):
@@ -477,7 +521,8 @@ def check_forward_sass(lib_path, log):
     (wgmma) in its SASS, and whether ptxas serialized its wgmma (C7514 in the
     build's ``log``, a loss of speed, reported); fails where an instantiation
     has no HGMMA, so that a forward or dq kernel built on mma.sync cannot
-    pass."""
+    pass. Returns (the report's lines, the instantiations without HGMMA, the
+    count checked) for ``finish_forward_sass``, which prints them."""
     import re
     from torch.utils.cpp_extension import CUDA_HOME
     tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
@@ -513,19 +558,16 @@ def check_forward_sass(lib_path, log):
     want |= {(d, h, o) for d in (64, 128, 256) for h in (0, 1)
              for o in (16, 17)}
     want |= {(d, 1, 24) for d in (64, 128, 256)} | {(64, 0, 20), (64, 1, 20)}
+    lines = []
     for key in sorted(want):
         d, halves, opt = key
         kind = {0: "K5 dq", 1: "forward K1", 2: "forward K12"}[halves]
-        print(f"(b) {kind} d{d} options {opt} (seg 1, window 2, softcap 4, "
-              f"mask 8, bias 16): {regs.get(key, 'no usage')}"
-              f", {hgmma.get(key, 0)} HGMMA in its SASS"
-              f"{', wgmma serialized by ptxas (C7514)' if key in serialized else ''}")
-    missing = sorted(k for k in want if not hgmma.get(k))
-    if missing:
-        raise AssertionError(f"(b) bf16 forward or K5 dq instantiations "
-                             f"without HGMMA (wgmma) in their SASS: {missing}")
-    print(f"(b) all {len(want)} bf16 forward (K1, K12) and K5 dq "
-          f"instantiations run on wgmma")
+        lines.append(
+            f"(b) {kind} d{d} options {opt} (seg 1, window 2, softcap 4, "
+            f"mask 8, bias 16): {regs.get(key, 'no usage')}"
+            f", {hgmma.get(key, 0)} HGMMA in its SASS"
+            f"{', wgmma serialized by ptxas (C7514)' if key in serialized else ''}")
+    return lines, sorted(k for k in want if not hgmma.get(k)), len(want)
 
 
 def _pa_inputs(b, sq, hq, hkv, d, psize, lengths, dtype, rng, extra_pages=2):
@@ -683,6 +725,118 @@ def phase_paged_options_vs_plain():
     print(f"(c) paged d256 window/softcap: {n} cases pass: max abs err fp32 "
           f"{errs[torch.float32]:.3e} (tol {F32_TOL}), bf16 "
           f"{errs[torch.bfloat16]:.3e} (tol {BF16_TOL})")
+    return errs[torch.float32], errs[torch.bfloat16]
+
+
+# (c) K3's bias option (T5's serving engine): (head_dim, q heads, kv heads,
+# sq (None: 3-D q), bias form, bias width against the table's, longest
+# sequence). "3d" is [b, hq, L] as the engine hands it over (its [h, b, L]
+# gather seen as [b, h, L], unit stride along positions), "4d" a contiguous
+# [b, hq, sq, L]; "narrow" ends 37 positions before the table, so that rows
+# see positions without a bias, "wide" 45 after it. A longest sequence of
+# 300 keeps the table under 512 positions (one split at these grids), 1500
+# splits it (split_plan: ranges of >= 256 keys).
+PAGED_BIAS_CASES = tuple(
+    (d, hq, hkv, sq, form, width, long)
+    for d, hq, hkv, sq, form, width in (
+        (64, 12, 12, None, "3d", "table"), (64, 12, 12, 1, "4d", "narrow"),
+        (64, 8, 4, 5, "3d", "wide"), (128, 8, 4, None, "3d", "narrow"),
+        (128, 8, 8, 64, "4d", "wide"), (256, 8, 4, 64, "3d", "table"),
+        (256, 8, 8, 1, "4d", "wide"))
+    for long in (300, 1500))
+PAGED_BIAS_PAGES = ("float32", "bfloat16", "int8 fp32 q", "int8 bf16 q")
+
+
+def paged_bias_case(case, pages, rng):
+    """Inputs of a PAGED_BIAS_CASES entry with ``pages`` (PAGED_BIAS_PAGES):
+    (q, k, v, lengths, table, kwargs with the bias and int8 scales, the
+    lengths as a list, q's dtype). Decode rows take lengths 0, 1, a page, a
+    page + 1 and the longest; chunk rows their own count, whole pages, one
+    more and the longest. The bias is N(0, 2), fp32."""
+    import torch
+    d, hq, hkv, sq, form, width, long = case
+    rows, psize = sq or 1, 16
+    if rows == 1:
+        lengths = [0, 1, psize, psize + 1, long]
+    else:
+        lengths = [rows, psize * -(-rows // psize), rows + 1, long]
+    dtype = torch.bfloat16 if pages in ("bfloat16", "int8 bf16 q") \
+        else torch.float32
+    int8 = pages.startswith("int8")
+    q, k, v, lens, table = _pa_inputs(len(lengths), sq, hq, hkv, d, psize,
+                                      lengths, torch.float32 if int8 else
+                                      dtype, rng)
+    kw = {}
+    if int8:
+        q = q.to(dtype)
+        k, v, kw = _int8_pages(k, v)
+    n = table.shape[1] * psize + {"table": 0, "narrow": -37, "wide": 45}[width]
+    b = len(lengths)
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2 ** 31)))
+    if form == "3d":
+        bias = 2.0 * torch.randn(hq, b, n, generator=gen,
+                                 device="cuda").movedim(1, 0)
+    else:
+        bias = 2.0 * torch.randn(b, hq, rows, n, generator=gen, device="cuda")
+    kw["bias"] = bias
+    return q, k, v, lens, table, kw, lengths, dtype
+
+
+def phase_paged_bias_vs_plain():
+    """K3's bias option vs the plain version over PAGED_BIAS_CASES x
+    PAGED_BIAS_PAGES: 3-D and 4-D biases narrower than the table, as wide
+    and wider, decode (sq 1) and chunk rows (5, 64), GQA 1 and 2, d 64, 128
+    and 256, fp32, bf16 and int8 pages, one key split and several; the
+    tolerances of the cases above; table entries past the length poisoned
+    (the kernel must read none); a length-0 row stores 0. Returns (max err
+    fp32, bf16) by q's dtype."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    rng = np.random.default_rng(SEED + 4)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = split = 0
+    ops.paged_attention.launches_bias = 0
+    for case in PAGED_BIAS_CASES:
+        for pages in PAGED_BIAS_PAGES:
+            q, k, v, lens, table, kw, lengths, dtype = paged_bias_case(
+                case, pages, rng)
+            before = ops.paged_attention.launches_split
+            got = ops.paged_attention(q, k, v, lens, table, scale=1.0, **kw)
+            split += ops.paged_attention.launches_split - before
+            with dispatch.force_plain():
+                want = ops.paged_attention(q, k, v, lens, table, scale=1.0,
+                                           **kw)
+            poisoned = table.clone()
+            for i, ln in enumerate(lengths):
+                poisoned[i, -(-ln // 16):] = 2 ** 30
+            again = ops.paged_attention(q, k, v, lens, poisoned, scale=1.0,
+                                        **kw)
+            torch.cuda.synchronize()
+            live = lens > 0
+            err = (got[live].float() - want[live].float()).abs().max().item()
+            tol = _tol(dtype)
+            tag = (f"paged bias d{case[0]} hq{case[1]}/hkv{case[2]} "
+                   f"sq={case[3]} {case[4]} {case[5]} "
+                   f"({kw['bias'].shape[-1]} of {table.shape[1] * 16}) "
+                   f"{pages} pages lengths={lengths}")
+            if not err <= tol:
+                raise AssertionError(f"(c) {tag}: max abs err {err} > {tol}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"(c) {tag}: output depends on table "
+                                     "entries past the length")
+            if not bool((got[~live] == 0).all()):
+                raise AssertionError(f"(c) {tag}: length-0 row not 0")
+            errs[dtype] = max(errs[dtype], err)
+            n += 1
+            print(f"(c) {tag}: max abs err {err:.3e}")
+    launched = ops.paged_attention.launches_bias
+    if launched != 2 * n or not 0 < split < n:
+        raise AssertionError(f"(c) paged bias: {launched} bias launches of "
+                             f"{2 * n} calls, {split} split")
+    print(f"(c) paged bias: {n} cases pass ({split} split across blocks): "
+          f"max abs err fp32 {errs[torch.float32]:.3e} (tol {F32_TOL}), "
+          f"bf16 {errs[torch.bfloat16]:.3e} (tol {BF16_TOL})")
     return errs[torch.float32], errs[torch.bfloat16]
 
 
@@ -2343,17 +2497,20 @@ def phase_timings(gpt, prompts, device_line):
     return res
 
 
-def _paged_bound(q, k_pages, lens, table, scales=(), window=None):
+def _paged_bound(q, k_pages, lens, table, scales=(), window=None,
+                 bias=False, peak=PEAK_BF16_S):
     """Bound of a paged call: q and out, the K/V rows of every position
     below a sequence's length (with a window, of the window's last
-    positions only) and their scales, lengths and the table; 4 x positions
-    x q heads x head_dim operations."""
+    positions only) and their scales, lengths and the table (with ``bias``,
+    its fp32 values at those positions for each q head of a decode row); 4 x
+    positions x q heads x head_dim operations at ``peak``."""
     hkv, d = k_pages.shape[0], k_pages.shape[-1]
     seen = int((lens if window is None else lens.clamp(max=window)).sum())
     tokens = seen * hkv
     nbytes = (2 * _nbytes(q, lens, table) + 2 * tokens * d
-              * k_pages.element_size() + 4 * tokens * len(scales))
-    return _bound(nbytes, 4 * seen * q.shape[-2] * d)
+              * k_pages.element_size() + 4 * tokens * len(scales)
+              + (4 * seen * q.shape[-2] if bias else 0))
+    return _bound(nbytes, 4 * seen * q.shape[-2] * d, peak)
 
 
 def _engine_timings(res, tag, eng, prompts, device_line):
@@ -3732,15 +3889,24 @@ def phase_forced_timings(gpt, corpus, device_line):
     return res
 
 
+# _device_both: calls a plain version's device time is taken over (up to 20
+# for a kernel). The plain versions run tens of milliseconds a call at the
+# training shapes, and the sleep ahead of the calls lasts four times their
+# wall time: 20 calls of them took minutes of the run's 1200 s.
+PLAIN_DEVICE_RUNS = 5
+
+
 def _device_both(res, tag, name, fn, device_line, plain_fn=None):
     """Device time of kernel and plain version (order plain, kernel, kernel,
     plain), kept beside the CUDA-event times in ``res[name]``."""
     plain_fn = plain_fn or _plain(fn)
-    t = [_device_ms(f) for f in (plain_fn, fn, fn, plain_fn)]
+    t = [_device_ms(f, runs=PLAIN_DEVICE_RUNS if f is plain_fn else 20)
+         for f in (plain_fn, fn, fn, plain_fn)]
     res[name] += (min(t[1], t[2]), min(t[0], t[3]))
     print(f"({tag}) {name}: device time kernel {t[1]:.4f} / {t[2]:.4f} ms, plain "
-          f"{t[0]:.4f} / {t[3]:.4f} ms (CUDA events over up to 20 calls "
-          f"queued behind a sleep kernel) [{device_line}]")
+          f"{t[0]:.4f} / {t[3]:.4f} ms (CUDA events over up to 20 kernel and "
+          f"{PLAIN_DEVICE_RUNS} plain calls queued behind a sleep kernel) "
+          f"[{device_line}]")
 
 
 def _entry_step(gpt, corpus, batch=GPT2_B, steps=GPT2_STEPS):
@@ -5474,12 +5640,312 @@ def phase_seq2seq():
     torch.cuda.empty_cache()
 
 
-def main(phases="abcdefghijklmnopqrstuvwxyz"):
+# Phase (A): t5-base served through Seq2SeqEngine: slots, source budget,
+# target capacity a sequence, page size, pages (every slot full, and the
+# trash page); S2E_SRC_MIN..S2E_SRC source tokens a request; the traffic's
+# steps: S2E_FIRST after six admissions, S2E_MID after two more, then one
+# sequence finishes and step_many(S2E_LAST) runs; step_many(S2E_TIMED) in
+# the timings.
+S2E_SLOTS, S2E_SRC, S2E_TGT, S2E_PAGE = 8, 512, 128, 16
+S2E_PAGES = S2E_SLOTS * S2E_TGT // S2E_PAGE + 1
+S2E_SRC_MIN, S2E_FIRST, S2E_MID, S2E_LAST, S2E_TIMED = 64, 4, 30, 8, 4
+
+
+def t5_sources(vocab, seed=SEED + 80):
+    """S2E_SLOTS seeded Zipf sources of S2E_SRC_MIN..S2E_SRC tokens (one of
+    each bound), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(S2E_SRC_MIN, S2E_SRC + 1, S2E_SLOTS)
+    lens[:2] = S2E_SRC, S2E_SRC_MIN
+    rows = zipf_corpus(vocab, S2E_SLOTS, S2E_SRC, seed=seed + 1)
+    return [rows[i, :n] for i, n in enumerate(lens)]
+
+
+def _s2e_counts():
+    from np_modeling_tpu_torch import ops
+    p = ops.paged_attention
+    return {**_t5_counts(), "paged_attention": p.launches,
+            "paged_attention_bias": p.launches_bias,
+            "paged_attention_split": p.launches_split}
+
+
+def _zero_s2e_counts():
+    from np_modeling_tpu_torch import ops
+    _zero_t5_counts()
+    p = ops.paged_attention
+    p.launches = p.launches_bias = p.launches_split = 0
+    p.launches_int8 = p.launches_window = 0
+
+
+def _s2e_traffic(t5, sources, plain=False):
+    """The phase's traffic on a fresh Seq2SeqEngine over ``t5`` (through
+    the kernels, or plain): six admissions, S2E_FIRST steps, two more
+    admissions, S2E_MID steps, sequence 0 finishes, step_many(S2E_LAST).
+    Returns (engine, {seq_id: tokens}, {seq_id: fp32 logits [n, vocab]}, the
+    launch counts, device steps)."""
+    import torch
+    from np_modeling_tpu_torch.ops import dispatch
+    from np_modeling_tpu_torch.serving import Seq2SeqEngine
+    eng = Seq2SeqEngine(t5, max_src_len=S2E_SRC, max_tgt_len=S2E_TGT,
+                        total_pages=S2E_PAGES, page_size=S2E_PAGE,
+                        max_seqs=S2E_SLOTS)
+    rows, log, toks = [], [], {}
+
+    def run(fn, n):
+        slots = dict(eng._slots)
+        for sid, t in fn().items():
+            toks.setdefault(sid, []).extend(t if isinstance(t, list) else [t])
+        log.extend([slots] * n)
+
+    _zero_s2e_counts()
+    with _recording(t5, "_head", rows), (
+            dispatch.force_plain() if plain else contextlib.nullcontext()):
+        for sid in range(6):
+            eng.add_request(sid, sources[sid])
+        for _ in range(S2E_FIRST):
+            run(eng.step, 1)
+        for sid in (6, 7):
+            eng.add_request(sid, sources[sid])
+        for _ in range(S2E_MID):
+            run(eng.step, 1)
+        eng.finish(0)
+        run(lambda: eng.step_many(S2E_LAST), S2E_LAST)
+    torch.cuda.synchronize()
+    counts = _s2e_counts()
+    logits = {sid: torch.stack([rows[j][slots[sid]]
+                                for j, slots in enumerate(log)
+                                if sid in slots]) for sid in toks}
+    return eng, toks, logits, counts, len(log)
+
+
+def _agreeing(*streams):
+    """Steps whose logits follow the same tokens in every stream: up to and
+    including the first step whose token differs."""
+    n = min(len(s) for s in streams)
+    for i in range(n):
+        if len({s[i] for s in streams}) > 1:
+            return i + 1
+    return n
+
+
+def _hold_stream(tag, got, want, want_logits):
+    """Tokens ``got`` equal ``want``, except where ``want``'s top-2 logits
+    lie within NEAR_TIE (the stream is then held up to that step only)."""
+    n = _agreeing(got, want)
+    if got[:n] != want[:n]:
+        gap = float(_top2_gap(want_logits[n - 1]))
+        if not gap < NEAR_TIE:
+            raise AssertionError(f"{tag}: step {n - 1}: {got[n - 1]} != "
+                                 f"{want[n - 1]}, top-2 gap {gap:.3e}")
+        return n, True
+    return n, False
+
+
+def _s2e_decode_timings(res, eng_k, eng_p, what, device_line):
+    """Decode step_many(S2E_TIMED) of the kernel engine in AB rounds with
+    the plain engine (plain, kernel, kernel, plain; the host's clock, the
+    card synchronised around each call): ms a step and tokens/s."""
+    import torch
+    from np_modeling_tpu_torch.ops import dispatch
+    live = len(eng_k.live)
+
+    def timer(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / S2E_TIMED
+
+    def plain():
+        with dispatch.force_plain():
+            eng_p.step_many(S2E_TIMED)
+
+    timer(lambda: eng_k.step_many(S2E_TIMED))
+    timer(plain)
+    ab = _alternate(plain, lambda: eng_k.step_many(S2E_TIMED), timer)
+    med = [statistics.median(x) for x in ab]
+    name = f"t5-base Seq2SeqEngine decode step {what} {live} seqs"
+    res[name] = (med[1], med[0])
+    print(f"(A) {name}: {_ab_line(ab, 'plain', 'kernel', '.3f')} ms a step "
+          f"(step_many({S2E_TIMED}) / {S2E_TIMED}); kernel "
+          f"{live / med[1] * 1e3:.1f} tokens/s, plain "
+          f"{live / med[0] * 1e3:.1f} tokens/s [{device_line}]")
+
+
+def _s2e_k3_timings(res, eng, device_line):
+    """K3 + bias alone at the engine's decode shape: q [8, 12, 64] fp32 over
+    layer 0's fp32 pages and table at the engine's lengths, the bias gathered
+    as the engine gathers it; then 8 sequences of 512 tokens (random pages
+    and bias, the same layout). Kernel and plain (wall and device time), K3
+    without the bias, the bound (q, o, the bias at the positions read and
+    each sequence's K/V once) and F.scaled_dot_product_attention over the
+    K/V gathered beforehand (not timed) with the bias + -inf past the length
+    as an fp32 float mask. Returns the key of the engine-shape row."""
+    import torch
+    import torch.nn.functional as F
+    from np_modeling_tpu_torch import ops
+    st = eng._state
+    h, d = eng.model.config.num_heads, eng.model.config.d_kv
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    lens = torch.where(st["active"], st["lengths"] + 1, 0).to(torch.int32)
+    n_pos = eng.max_pages * eng.page_size
+    dist = (lens[:, None].long() - torch.arange(n_pos, device="cuda")).clamp(
+        0, n_pos - 1)
+    shapes = [("engine", st["k_pages"][0], st["v_pages"][0], st["table"], lens,
+               eng._by_dist[:, dist].movedim(1, 0))]
+    rng = np.random.default_rng(SEED + 82)
+    q0, k, v, lens512, table = _pa_inputs(S2E_SLOTS, None, h, h, d, S2E_PAGE,
+                                          [512] * S2E_SLOTS, torch.float32,
+                                          rng)
+    shapes.append(("512", k, v, table, lens512, torch.randn(
+        h, S2E_SLOTS, table.shape[1] * S2E_PAGE, generator=gen,
+        device="cuda").movedim(1, 0)))
+    keys = {}
+    for kind, kp, vp, tbl, ln, bias in shapes:
+        q = torch.randn(S2E_SLOTS, h, d, generator=gen, device="cuda")
+        key = (f"paged_attention bias decode t5-base b{S2E_SLOTS} h{h} d{d} "
+               f"fp32 pages ctx {ln.tolist()}")
+
+        def fn(q=q, kp=kp, vp=vp, tbl=tbl, ln=ln, bias=bias):
+            return ops.paged_attention(q, kp, vp, ln, tbl, scale=1.0,
+                                       bias=bias)
+
+        _both(res, "A", key, fn, device_line)
+        _device_both(res, "A", key, fn, device_line)
+        res["bound " + key] = _paged_bound(q, kp, ln, tbl, bias=True,
+                                           peak=PEAK_F32_S)
+        no_bias = _device_ms(lambda: ops.paged_attention(q, kp, vp, ln, tbl,
+                                                         scale=1.0))
+        L = tbl.shape[1] * S2E_PAGE
+        ks = kp[:, tbl.long()].movedim(1, 0).reshape(S2E_SLOTS, h, L, d)
+        vs = vp[:, tbl.long()].movedim(1, 0).reshape(S2E_SLOTS, h, L, d)
+        keep = torch.arange(L, device="cuda") < ln.clamp(min=1)[:, None]
+        amask = (bias[..., :L] + torch.where(keep, 0.0, float("-inf"))[
+            :, None])[:, :, None]                          # [b, h, 1, L]
+
+        def lib():
+            return F.scaled_dot_product_attention(q[:, :, None], ks, vs,
+                                                  attn_mask=amask, scale=1.0)
+
+        res["library " + key] = _library(
+            "A", f"F.scaled_dot_product_attention over K/V gathered from the "
+            f"pages beforehand (the gather not timed), the bias + -inf past "
+            f"the length as an fp32 float mask, {key[16:]}", lib, device_line)
+        print(f"(A) {key}: K3 without the bias {no_bias:.4f} ms device; bound "
+              f"{res['bound ' + key][0]:.5f} ms ({res['bound ' + key][1]}) "
+              f"[{device_line}]")
+        keys[kind] = key
+    return keys["engine"]
+
+
+def phase_t5_serving(device_line):
+    """(A) t5-base (T5_BASE, (y)'s seeded weights, relpos tables N(0, 1))
+    served through Seq2SeqEngine(max_seqs S2E_SLOTS, max_src_len S2E_SRC,
+    max_tgt_len S2E_TGT, page_size S2E_PAGE) on S2E_SLOTS seeded Zipf
+    sources of S2E_SRC_MIN..S2E_SRC tokens (``_s2e_traffic``: joins
+    mid-stream, a leave, step and step_many; 34..42 tokens a sequence). fp32:
+    each sequence's tokens equal the plain engine's and its solo
+    T5.greedy_decode's (the K1 mask + bias path; a differing token is
+    allowed only where the reference's top-2 logits lie within NEAR_TIE,
+    and the stream is held up to it), each step's logits within F32_TOL x
+    max(1, max |logit|) of the plain engine's; the kernel run launches K3
+    with the bias 12 times a step and no other paged call, and K1 12 times
+    an admission with the bias. bf16 compute (fp32 pages): each step's
+    logits within 1.25 x the plain bf16 engine's distance from the fp32
+    plain engine's plus GEMMA_BF16_SLACK x max(1, max |logit|), over the
+    steps whose tokens so far agree. Then the decode step in AB rounds with
+    the plain engine (fp32 and bf16), the fp32 step profiled by kind
+    (``_profile``), and K3 + bias alone (``_s2e_k3_timings``). Returns
+    (results, key, launch counts)."""
+    import torch
+    t_phase = time.perf_counter()
+    t5 = _t5_model(None)
+    t16 = _t5_model(torch.bfloat16)
+    t16.load_state_dict(t5.state_dict())
+    sources = t5_sources(T5_BASE["vocab_size"])
+    L = T5_BASE["num_decoder_layers"]
+    print(f"(A) t5-base Seq2SeqEngine: {sum(p.numel() for p in t5.parameters())}"
+          f" params, {S2E_SLOTS} slots, max_src_len {S2E_SRC}, max_tgt_len "
+          f"{S2E_TGT}, page {S2E_PAGE}, {S2E_PAGES} pages; sources of "
+          f"{[len(x) for x in sources]} tokens")
+    t0 = time.perf_counter()
+    eng_k, tk, lk, counts, steps = _s2e_traffic(t5, sources)
+    t_traffic = time.perf_counter() - t0
+    eng_p, tp, lp, plain_counts, _ = _s2e_traffic(t5, sources, plain=True)
+    want = {"paged_attention": L * steps, "paged_attention_bias": L * steps,
+            "flash_attention_fwd_bias": T5_BASE["num_encoder_layers"]
+            * S2E_SLOTS}
+    got = {key: counts[key] for key in want}
+    print(f"(A) fp32 traffic: {steps} device steps, tokens "
+          f"{ {sid: len(t) for sid, t in tk.items()} } in {t_traffic:.2f} s; "
+          f"launches {counts}")
+    if got != want or plain_counts["paged_attention"]:
+        raise AssertionError(f"(A) launches {counts} (plain "
+                             f"{plain_counts}), expected {want}")
+    if min(len(t) for t in tk.values()) < 32:
+        raise AssertionError("(A) a sequence decoded fewer than 32 tokens")
+    # The solo reference: greedy_decode of every source alone (padded to
+    # S2E_SRC under src_valid), the logits of each step recorded.
+    src = torch.zeros((S2E_SLOTS, S2E_SRC), dtype=torch.long, device="cuda")
+    valid = torch.zeros_like(src, dtype=torch.bool)
+    for i, x in enumerate(sources):
+        src[i, :len(x)] = torch.tensor(x, device="cuda")
+        valid[i, :len(x)] = True
+    n_greedy = max(len(t) for t in tk.values())
+    rows = []
+    with torch.no_grad(), _recording(t5, "_head", rows):
+        greedy = t5.greedy_decode(src, 0, n_greedy, src_valid=valid).tolist()
+    glog = torch.stack(rows, dim=1)                        # [b, n, vocab]
+    err, ties = 0.0, 0
+    for sid, toks in tk.items():
+        n, tie = _hold_stream(f"(A) seq {sid} engine vs plain engine", toks,
+                              tp[sid], lp[sid])
+        ties += tie
+        err = max(err, _hold_logits(f"(A) seq {sid}", lk[sid][:n],
+                                    lp[sid][:n]))
+        _, tie = _hold_stream(f"(A) seq {sid} engine vs solo greedy_decode",
+                              toks, greedy[sid][:len(toks)], glog[sid])
+        ties += tie
+    print(f"(A) fp32: {sum(len(t) for t in tk.values())} tokens of "
+          f"{len(tk)} sequences equal the plain engine's and the solo "
+          f"greedy_decode's ({ties} streams parted at a near tie < "
+          f"{NEAR_TIE}); logits {err:.3e} x max(1, max |logit|) from the "
+          f"plain engine's (tol {F32_TOL})")
+    del glog, rows
+    eng_k16, tk16, lk16, counts16, _ = _s2e_traffic(t16, sources)
+    eng_p16, tp16, lp16, _, _ = _s2e_traffic(t16, sources, plain=True)
+    if counts16["paged_attention_bias"] != L * steps:
+        raise AssertionError(f"(A) bf16 launches {counts16}")
+    got, plain, ref = [], [], []
+    for sid in tk16:
+        n = _agreeing(tk16[sid], tp16[sid], tp[sid])
+        got.append(lk16[sid][:n])
+        plain.append(lp16[sid][:n])
+        ref.append(lp[sid][:n])
+    print(f"(A) bf16 compute, fp32 pages: held over "
+          f"{sum(len(x) for x in got)} of {sum(len(t) for t in tk16.values())}"
+          f" steps whose tokens agree with the fp32 plain engine's")
+    _hold_bf16_logits("(A) t5-base Seq2SeqEngine", torch.cat(got),
+                      torch.cat(plain), torch.cat(ref))
+    del lk, lp, lk16, lp16, got, plain, ref
+    res = {}
+    _s2e_decode_timings(res, eng_k, eng_p, "fp32", device_line)
+    _s2e_decode_timings(res, eng_k16, eng_p16, "bf16", device_line)
+    _profile("A", f"t5-base Seq2SeqEngine decode step() fp32 "
+             f"{len(eng_k.live)} seqs", eng_k.step, device_line, warmup=2)
+    key = _s2e_k3_timings(res, eng_k, device_line)
+    del eng_k, eng_p, eng_k16, eng_p16, t5, t16
+    torch.cuda.empty_cache()
+    print(f"(A) t5 serving phase {time.perf_counter() - t_phase:.1f} s")
+    return res, key, counts
+
+
+def main(phases="abcdefghijklmnopqrstuvwxyzA"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
     runs the quantized serving path alone, ``"abcqrw"`` Gemma-2 serving and
     generate, ``"abcst"`` Gemma-2 training, ``"abcuvx"`` GPT-2's serving
-    features, ``"abcyz"`` T5 and Seq2Seq); the JSON summary and the ok line
-    come only from a run of every phase a to z."""
+    features, ``"abcyz"`` T5 and Seq2Seq, ``"abcA"`` T5 serving); the
+    JSON summary and the ok line come only from a run of every phase."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -5498,11 +5964,12 @@ def main(phases="abcdefghijklmnopqrstuvwxyz"):
         lap[0] = now
 
     device_line = phase_device()
-    phase_build()
+    sass_check = phase_build()
     since("(a), (b)")
     paged_err = phase_paged_vs_plain()
     paged8_err = phase_paged_vs_plain(int8=True)
     paged256_err = phase_paged_options_vs_plain()
+    paged_bias_err = phase_paged_bias_vs_plain()
     k4_err = phase_int8_matmul_vs_plain()
     k4_err = tuple(map(max, k4_err, phase_int8_schedules_vs_plain()))
     flash_err = phase_flash_vs_plain()
@@ -5515,9 +5982,11 @@ def main(phases="abcdefghijklmnopqrstuvwxyz"):
     k11_err = phase_matmul_vs_plain()
     sxe_err = phase_sxe_vs_plain()
     k10_err = phase_quantize_vs_plain()
+    finish_forward_sass(sass_check)
     since("(c)")
     serving = training_res = entry_res = quant_res = forced_res = None
     packed_res = gemma_res = gemma_train_res = mask_res = t5_res = None
+    s2e_res = None
     gemma_gen_launches = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
@@ -5621,10 +6090,13 @@ def main(phases="abcdefghijklmnopqrstuvwxyz"):
     if "z" in phases:
         phase_seq2seq()
         since("(z)")
+    if "A" in phases:
+        s2e_res, s2e_key, s2e_launches = phase_t5_serving(device_line)
+        since("(A)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
     if None in (serving, training_res, entry_res, quant_res, forced_res,
                 packed_res, gemma_res, gemma_train_res, mask_res,
-                gemma_gen_launches, t5_res) or "z" not in phases:
+                gemma_gen_launches, t5_res, s2e_res) or "z" not in phases:
         return 0
     packed_shape = "b8 h12 s1024 d64 causal bf16"
     shape = "b4 h8 s4096 d128 causal bf16"
@@ -5754,6 +6226,11 @@ def main(phases="abcdefghijklmnopqrstuvwxyz"):
               f"np_modeling_tpu/ops/attention.py:{line}", launches, err,
               t5_res, t5_keys[key])
              for name, key, line, launches, err in t5_rows]
+    # K3's bias option on (A)'s fp32 engine (12 a step), timed at its decode.
+    rows.append(("paged_attention_bias", PAGED_SOURCE,
+                 "np_modeling_tpu/ops/paged_attention.py:221",
+                 s2e_launches["paged_attention_bias"], paged_bias_err,
+                 s2e_res, s2e_key))
     # "ms": a call's wall time (CUDA events, host included), every entry;
     # "device_ms": calls back to back behind a sleep kernel (device only);
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its

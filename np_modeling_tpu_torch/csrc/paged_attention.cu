@@ -16,10 +16,19 @@
 // kernel does (:272-278), and p then stays fp32 (JAX's p.astype(v.dtype) with v
 // dequantized to fp32). int8 pages halve the bytes of bf16 pages.
 // A sequence with length 0 stores 0 (the l == 0 guard of the TPU kernel).
-// Two options are template parameters, so that a call without them runs the
+// Three options are template parameters, so that a call without them runs the
 // code it ran before they existed: the softcap (Gemma-2) replaces each scaled
-// score s by cap * tanh(s / cap) before the mask (:286-287), and the sliding
-// window keeps, for a row at position own, only pos > own - window (:297-298).
+// score s by cap * tanh(s / cap) before the mask (:286-287), the sliding
+// window keeps, for a row at position own, only pos > own - window (:297-298),
+// and the score bias (T5's relative positions in the encoder-decoder serving
+// engine) adds an fp32 bias over absolute cache positions after the scale and
+// the softcap and before the mask (:288-289). The bias is [b, hq, sq | 1,
+// bias_len], read by its strides (stride 0 on a broadcast axis, no copy):
+// row r = t g + j reads q head h g + j, token t, at the key's position pos,
+// and positions past bias_len get no bias (they are not masked). A masked key
+// keeps the mask value, so a row that sees no key still stores 0. Each split
+// reads the bias of its own key range, so the merge does not change. The bias
+// is built without window and softcap (no caller combines them).
 //
 // What bounds it. At decode each (sequence, kv head) reads 2*ctx*d*bytes of K/V
 // once and does 4*ctx*d*g flops on them: a few flops per byte, far below the
@@ -142,8 +151,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// A call's arguments; window 0 and cap 0 are off. part_acc [b, hkv, splits, rows, D]
-// and part_ml [b, hkv, splits, rows, 2] (m, l) are the split partials (splits > 1).
+// A call's arguments; window 0 and cap 0 are off. part_acc [b, hkv, splits, rows,
+// D] and part_ml [b, hkv, splits, rows, 2] (m, l) are the split partials
+// (splits > 1).
 struct Args {
   const void *q, *k_pages, *v_pages;
   const float *k_scales, *v_scales;
@@ -155,6 +165,18 @@ struct Args {
   int window;
   float cap;
 };
+
+// The bias (null: none), its strides in elements over (b, q head, query token,
+// position) and its width. Only the kernels built with the bias take these
+// fields: the other kernels keep Args as it was, since a larger argument struct
+// alone made their chunk rows 1.5..4.6% slower (ptxas allocates otherwise).
+struct BiasArgs : Args {
+  const float* bias;
+  long long bias_sb, bias_sh, bias_sq, bias_sk;
+  int bias_len;
+};
+template <bool kBias>
+using KernelArgs = typename std::conditional<kBias, BiasArgs, Args>::type;
 
 // The shape of a variant: RW rows a warp; kRowSplit: the warps own rows (a tile of
 // 4 RW rows, every warp over every key) or share them (a tile of RW rows, the warps
@@ -200,9 +222,10 @@ __device__ __forceinline__ int q_slot(int e) {
   return ((j * (EV / 4) + h) * 8 + pt) * 4 + w;
 }
 
-template <typename TQ, typename TKV, int D, int RW, bool kRowSplit, bool kWindow, bool kCap>
+template <typename TQ, typename TKV, int D, int RW, bool kRowSplit, bool kWindow, bool kCap,
+          bool kBias>
 __global__ void __launch_bounds__(Shape<TKV, D, RW, kRowSplit>::kThreads)
-    paged_attention_kernel(const Args a) {
+    paged_attention_kernel(const KernelArgs<kBias> a) {
   using S = Shape<TKV, D, RW, kRowSplit>;
   constexpr int KB = S::kKb, WK = S::kWk, EV = S::kEv, J = S::kJ, E = D / 32;
   constexpr int NT = S::kThreads, NW = S::kWarps, NK = S::kNk;
@@ -331,8 +354,8 @@ __global__ void __launch_bounds__(Shape<TKV, D, RW, kRowSplit>::kThreads)
     const int kb0 = kstart + it * KB;
 
     // Scores of the warp's WK keys, 4 NK at a time (8 lanes a key, NK keys a lane
-    // group, so that each q load serves NK keys), into pw (scaled, capped, masked by
-    // position). Local key kp 4 NK + 4 n + kg.
+    // group, so that each q load serves NK keys), into pw (scaled, capped, biased,
+    // masked by position). Local key kp 4 NK + 4 n + kg.
 #pragma unroll
     for (int kp = 0; kp < WK / (4 * NK); ++kp) {
       float kf[NK][D / 8];
@@ -351,6 +374,13 @@ __global__ void __launch_bounds__(Shape<TKV, D, RW, kRowSplit>::kThreads)
 #pragma unroll
       for (int i = 0; i < RW; ++i) {
         if (i < w_rows) {
+          // The bias row of row r = t g + j: q head h g + j, query token t.
+          [[maybe_unused]] const float* brow = nullptr;
+          if constexpr (kBias) {
+            const int r = wr0 + i, t = r / g;
+            brow = a.bias + b * a.bias_sb + (h * g + r - t * g) * a.bias_sh +
+                   t * a.bias_sq;
+          }
           float s[NK];
 #pragma unroll
           for (int n = 0; n < NK; ++n) s[n] = 0.f;
@@ -380,7 +410,12 @@ __global__ void __launch_bounds__(Shape<TKV, D, RW, kRowSplit>::kThreads)
             const int lk = 4 * (kp * NK + n) + kg, pos = kb0 + kw0 + lk;
             bool keep = pos <= own[i];
             if constexpr (kWindow) keep = keep && pos > own[i] - a.window;
-            if (pt == 0) pw[i * WK + lk] = keep ? x : kMaskValue;
+            if (pt == 0) {
+              if constexpr (kBias) {
+                if (keep && pos < a.bias_len) x += __ldg(brow + pos * a.bias_sk);
+              }
+              pw[i * WK + lk] = keep ? x : kMaskValue;
+            }
           }
         }
       }
@@ -548,34 +583,41 @@ __global__ void __launch_bounds__(kThreads) paged_attention_merge(const Args a) 
   for (int u = 0; u < E; ++u) dst[u] = from_f<TQ>(acc[u] * l_inv);
 }
 
-template <typename TQ, typename TKV, int D, int RW, bool kRowSplit, bool kWindow, bool kCap>
-int launch_variant(const Args& a, cudaStream_t stream) {
+template <typename TQ, typename TKV, int D, int RW, bool kRowSplit, bool kWindow, bool kCap,
+          bool kBias>
+int launch_variant(const BiasArgs& a, cudaStream_t stream) {
   using S = Shape<TKV, D, RW, kRowSplit>;
-  auto kernel = paged_attention_kernel<TQ, TKV, D, RW, kRowSplit, kWindow, kCap>;
+  auto kernel = paged_attention_kernel<TQ, TKV, D, RW, kRowSplit, kWindow, kCap, kBias>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = a.sq * (a.hq / a.hkv);
   const dim3 grid(((rows + S::kRows - 1) / S::kRows) * a.splits, a.hkv, a.b);
-  kernel<<<grid, S::kThreads, S::kBytes, stream>>>(a);
+  kernel<<<grid, S::kThreads, S::kBytes, stream>>>(
+      static_cast<const KernelArgs<kBias>&>(a));
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
   paged_attention_merge<TQ, D><<<dim3((rows + kWarps - 1) / kWarps, a.hkv, a.b), kThreads, 0,
-                              stream>>>(a);
+                              stream>>>(static_cast<const Args&>(a));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Row tiles of up to 2 rows (decode) share the rows among the warps; larger ones
 // give each warp 16 rows (8 at d 256). The wrapper's split plan assumes these tiles.
-template <typename TQ, typename TKV, int D, bool kWindow, bool kCap>
-int launch(const Args& a, cudaStream_t stream) {
+template <typename TQ, typename TKV, int D, bool kWindow, bool kCap, bool kBias = false>
+int launch(const BiasArgs& a, cudaStream_t stream) {
   if (a.sq * (a.hq / a.hkv) <= 2)
-    return launch_variant<TQ, TKV, D, 2, false, kWindow, kCap>(a, stream);
-  return launch_variant<TQ, TKV, D, (D > 128 ? 8 : 16), true, kWindow, kCap>(a, stream);
+    return launch_variant<TQ, TKV, D, 2, false, kWindow, kCap, kBias>(a, stream);
+  return launch_variant<TQ, TKV, D, (D > 128 ? 8 : 16), true, kWindow, kCap, kBias>(a,
+                                                                                     stream);
 }
 
+// The bias is built alone: with a window or a softcap it is refused.
 template <typename TQ, typename TKV, int D>
-int launch_opts(const Args& a, cudaStream_t s) {
+int launch_opts(const BiasArgs& a, cudaStream_t s) {
+  if (a.bias != nullptr)
+    return a.window > 0 || a.cap > 0.f ? static_cast<int>(cudaErrorInvalidValue)
+                                       : launch<TQ, TKV, D, false, false, true>(a, s);
   if (a.window > 0)
     return a.cap > 0.f ? launch<TQ, TKV, D, true, true>(a, s)
                        : launch<TQ, TKV, D, true, false>(a, s);
@@ -584,7 +626,7 @@ int launch_opts(const Args& a, cudaStream_t s) {
 }
 
 template <typename TQ, typename TKV>
-int launch_d(int d, const Args& a, cudaStream_t s) {
+int launch_d(int d, const BiasArgs& a, cudaStream_t s) {
   if (d == 64) return launch_opts<TQ, TKV, 64>(a, s);
   if (d == 128) return launch_opts<TQ, TKV, 128>(a, s);
   if (d == 256) return launch_opts<TQ, TKV, 256>(a, s);
@@ -592,7 +634,7 @@ int launch_d(int d, const Args& a, cudaStream_t s) {
 }
 
 template <typename TQ>
-int launch_kv(int kv_dtype, int d, const Args& a, cudaStream_t s) {
+int launch_kv(int kv_dtype, int d, const BiasArgs& a, cudaStream_t s) {
   if (kv_dtype == 0 && a.k_scales == nullptr) return launch_d<TQ, float>(d, a, s);
   if (kv_dtype == 1 && a.k_scales == nullptr) return launch_d<TQ, __nv_bfloat16>(d, a, s);
   if (kv_dtype == 2 && a.k_scales != nullptr && a.v_scales != nullptr)
@@ -604,7 +646,10 @@ int launch_kv(int kv_dtype, int d, const Args& a, cudaStream_t s) {
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pages only, with fp32 scales
 // [hkv, P, ps, 1]; null scales otherwise). window: the sliding window's width,
-// 0 for none; softcap: the cap, 0 for none. splits >= 1 key ranges of split_keys
+// 0 for none; softcap: the cap, 0 for none. bias: fp32 over (b, q head, query
+// token, position) with strides bias_sb, bias_sh, bias_sq, bias_sk (elements;
+// 0 on a broadcast axis) and bias_len positions, or null for none; not with a
+// window or a softcap. splits >= 1 key ranges of split_keys
 // keys each (a multiple of 32 and of the page size); with splits > 1, part_acc
 // (fp32 [b, hkv, splits, sq * hq / hkv, d]) and part_ml (fp32 [..., 2]) are the
 // caller's scratch. Returns the first nonzero cudaGetLastError() of the launches
@@ -615,14 +660,19 @@ extern "C" int np_paged_attention(const void* q, const void* k_pages, const void
                                   void* part_acc, void* part_ml, int q_dtype, int kv_dtype,
                                   int b, int sq, int hq, int hkv, int d, int total_pages,
                                   int ps_shift, int pages_per_seq, int splits, int split_keys,
-                                  float scale, int window, float softcap, void* stream) {
+                                  float scale, int window, float softcap, const void* bias,
+                                  long long bias_sb, long long bias_sh, long long bias_sq,
+                                  long long bias_sk, int bias_len, void* stream) {
   if (b == 0 || sq == 0) return 0;
   if (splits < 1 || split_keys < 1 || (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
-               static_cast<const float*>(v_scales), lengths, table, out,
-               static_cast<float*>(part_acc), static_cast<float*>(part_ml), b, sq, hq, hkv,
-               total_pages, ps_shift, pages_per_seq, splits, split_keys, scale, window, softcap};
+  const BiasArgs a{{q, k_pages, v_pages, static_cast<const float*>(k_scales),
+                    static_cast<const float*>(v_scales), lengths, table, out,
+                    static_cast<float*>(part_acc), static_cast<float*>(part_ml), b, sq, hq, hkv,
+                    total_pages, ps_shift, pages_per_seq, splits, split_keys, scale, window,
+                    softcap},
+                   static_cast<const float*>(bias), bias_sb, bias_sh, bias_sq, bias_sk,
+                   bias_len};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0) return launch_kv<float>(kv_dtype, d, a, s);
   if (q_dtype == 1) return launch_kv<__nv_bfloat16>(kv_dtype, d, a, s);

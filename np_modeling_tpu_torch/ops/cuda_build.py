@@ -22,9 +22,9 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "np_modeling_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Per library: the paged library's 150 instantiations (q and page dtypes,
-# head dims, window, softcap, the decode and chunk variants, the merge
-# kernel) and the flash kernels' 228 (dtypes, head dims, the mask,
+# Per library: the paged library's 186 instantiations (q and page dtypes,
+# head dims, window, softcap, the bias, the decode and chunk variants, the
+# merge kernel) and the flash kernels' 228 (dtypes, head dims, the mask,
 # segment ids, window and softcap) are optimized in parallel, one thread a
 # CPU.
 EXTRA_FLAGS = {"paged_attention": ("-split-compile=0",),

@@ -17,6 +17,15 @@ Shapes (the JAX layout):
   k/v_scales   [num_kv_heads, total_pages, page_size, 1] fp32 per-token
                scales, given with int8 pages and only with them: each page
                row is dequantized as int8 * scale in fp32
+  bias         [batch, num_q_heads, bias_len] (one row for every query
+               token) or [batch, num_q_heads, sq, bias_len], an additive
+               score bias over ABSOLUTE cache positions (T5's relative
+               positions in the encoder-decoder serving engine), added after
+               the scale and the softcap and before the mask; positions past
+               bias_len get none, columns past the table's width are
+               ignored. The kernel reads an fp32 bias by its strides (a
+               size-1 axis broadcasts): no copy is made, so hand it a view
+               with unit stride along positions.
 Returns [batch, num_q_heads, head_dim] or [batch, sq, num_q_heads, head_dim]
 in q's dtype.
 
@@ -155,10 +164,11 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
                     softcap=None, sinks=None):
     """Paged-KV attention: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors. Int8 pages come with their scales, and scales
-    only with int8 pages. ``window`` (a positive width) and ``softcap`` (a
-    positive cap) run in both. The kernel takes fp32 or bf16 q, fp32, bf16
-    or int8 pages, head_dim 64, 128 or 256, any GQA group, any sq >= 1,
-    page sizes 8..128 (powers of two); it raises on bias and sinks."""
+    only with int8 pages. ``window`` (a positive width), ``softcap`` (a
+    positive cap) and ``bias`` (fp32, 3-D or 4-D, any width) run in both.
+    The kernel takes fp32 or bf16 q, fp32, bf16 or int8 pages, head_dim 64,
+    128 or 256, any GQA group, any sq >= 1, page sizes 8..128 (powers of
+    two); it raises on sinks and on a bias with a window or a softcap."""
     int8_pages = k_pages.dtype == torch.int8 or v_pages.dtype == torch.int8
     scaled = k_scales is not None or v_scales is not None
     if int8_pages != scaled or (scaled and (k_scales is None
@@ -176,24 +186,29 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
         return paged_attention_reference(q, k_pages, v_pages, lengths,
                                          page_indices, scale, window, bias,
                                          softcap, sinks)
-    unported = {"bias": bias, "sinks": sinks}
-    unported = [k for k, v in unported.items() if v is not None]
-    if unported:
+    if sinks is not None:
         raise NotImplementedError(
-            f"the CUDA paged-attention kernel does not take {unported} yet "
-            "(ROADMAP.md Queue 2, K3)")
+            "the CUDA paged-attention kernel does not take sinks yet "
+            "(ROADMAP.md Queue 2 A, K3)")
+    if bias is not None and (window is not None or softcap is not None):
+        raise NotImplementedError(
+            "the CUDA paged-attention kernel takes the bias alone: a bias "
+            "with a window or a softcap is not built yet (ROADMAP.md Queue 2 "
+            "A, K3)")
     return _launch(q, k_pages, v_pages, k_scales, v_scales, lengths,
-                   page_indices, scale, window, softcap)
+                   page_indices, scale, window, softcap, bias)
 
 
 # Kernel launches since import (or since a caller reset it to 0): a run
 # shows with it that its attention went through the kernel. launches counts
 # every call (its split pass and, with more than one split, its merge are one
 # launch), launches_int8 those over int8 pages, launches_window those with a
-# sliding window, launches_split those whose grid had more than one split.
+# sliding window, launches_bias those with a score bias, launches_split those
+# whose grid had more than one split.
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
 paged_attention.launches_window = 0
+paged_attention.launches_bias = 0
 paged_attention.launches_split = 0
 
 # The split plan (flash-decoding). The kernel's row tiles: up to 2 rows (a
@@ -228,8 +243,28 @@ def split_plan(batch, num_kv_heads, rows, head_dim, pages_per_seq,
     return -(-width // keys), keys
 
 
+def _bias_strides(bias, b, hq, sq):
+    """(strides over (b, q head, query token, position), width) of a 3-D
+    [b, hq, L] or 4-D [b, hq, sq, L] fp32 bias, 0 on a broadcast axis (size
+    1, and the query axis of a 3-D bias); raises on what the kernel cannot
+    read."""
+    if bias.dim() not in (3, 4) or bias.dtype != torch.float32:
+        raise ValueError(f"bias {bias.dtype} {tuple(bias.shape)}: want fp32 "
+                         f"[{b}, {hq}, L] or [{b}, {hq}, {sq}, L]")
+    shape, strides = list(bias.shape), list(bias.stride())
+    if bias.dim() == 3:
+        shape.insert(2, 1)
+        strides.insert(2, 0)
+    for n, want in zip(shape[:3], (b, hq, sq)):
+        if n not in (1, want):
+            raise ValueError(f"bias {tuple(bias.shape)} does not broadcast "
+                             f"over [{b}, {hq}, {sq}, L]")
+    return [0 if n == 1 else st for n, st in zip(shape[:3], strides[:3])] + [
+        strides[3]], shape[3]
+
+
 def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
-            scale, window, softcap):
+            scale, window, softcap, bias):
     q4 = q[:, None] if q.dim() == 3 else q
     if q4.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} / pages {tuple(k_pages.shape)}:"
@@ -268,13 +303,19 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
         raise ValueError("paged attention takes contiguous tensors")
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("q and pages must be 16-byte aligned")
+    bias_strides, bias_len = [0, 0, 0, 0], 0
+    if bias is not None:
+        if bias.device != q.device:
+            raise ValueError("the bias must lie on q's CUDA device")
+        bias_strides, bias_len = _bias_strides(bias, b, hq, sq)
 
     from np_modeling_tpu_torch.ops import cuda_build
     fn = cuda_build.load("paged_attention").lib.np_paged_attention
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p] + [ctypes.c_longlong] * 4
+                   + [ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(q)
     rows, pps = sq * (hq // hkv), page_indices.shape[1]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -297,7 +338,9 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
                 _DTYPE_CODES[q.dtype], _KV_CODES[k_pages.dtype], b, sq, hq,
                 hkv, d, total_pages, psize.bit_length() - 1, pps, splits,
                 split_keys, scale, 0 if window is None else int(window),
-                0.0 if softcap is None else float(softcap), stream)
+                0.0 if softcap is None else float(softcap),
+                None if bias is None else bias.data_ptr(), *bias_strides,
+                bias_len, stream)
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -308,4 +351,6 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
         paged_attention.launches_int8 += 1
     if window is not None:
         paged_attention.launches_window += 1
+    if bias is not None:
+        paged_attention.launches_bias += 1
     return out

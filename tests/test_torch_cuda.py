@@ -23,9 +23,10 @@ import pytest
 import torch
 
 from chip_smoke import (BIAS_CASES, BIAS_DECODE_CASES, MASK_CASES,
-                        _bias_fwd_bwd, _k10_schedule, _schedule,
-                        flash_bias_case, flash_bias_decode_case,
-                        flash_mask_case, k10_planned, k10_run)
+                        PAGED_BIAS_CASES, PAGED_BIAS_PAGES, _bias_fwd_bwd,
+                        _k10_schedule, _schedule, flash_bias_case,
+                        flash_bias_decode_case, flash_mask_case, k10_planned,
+                        k10_run, paged_bias_case)
 from np_modeling_tpu_torch import models, ops
 from np_modeling_tpu_torch.ops import dispatch, fused
 
@@ -179,12 +180,79 @@ def test_cuda_paged_split_kv_vs_plain(sq, hq, hkv, d, opts, pages, split,
 
 @pytest.mark.parametrize("option", ["bias", "sinks"])
 def test_cuda_paged_unported_options_raise(option):
+    """The bias is built alone: with a window or a softcap it raises, as
+    sinks do (ROADMAP Queue 2 A)."""
     q, k, v, lengths, table = (torch.tensor(a).cuda() for a in _paged_case(
         2, None, 4, 2, 64, 16, 4, 10))
-    kw = {"bias": dict(bias=torch.zeros(2, 4, 64, device="cuda")),
-          "sinks": dict(sinks=torch.zeros(4, device="cuda"))}[option]
-    with pytest.raises(NotImplementedError, match=option):
-        ops.paged_attention(q, k, v, lengths, table, **kw)
+    bias = torch.zeros(2, 4, 64, device="cuda")
+    cases = {"bias": [dict(bias=bias, window=8), dict(bias=bias, softcap=5.0)],
+             "sinks": [dict(sinks=torch.zeros(4, device="cuda"))]}[option]
+    for kw in cases:
+        with pytest.raises(NotImplementedError, match=f"{option}.*Queue 2 A"):
+            ops.paged_attention(q, k, v, lengths, table, **kw)
+
+
+@pytest.mark.parametrize("pages", PAGED_BIAS_PAGES)
+@pytest.mark.parametrize("case", PAGED_BIAS_CASES)
+def test_cuda_paged_bias_vs_plain(case, pages):
+    """K3's bias option over chip_smoke (c)'s cases: the plain version's
+    output within its tolerance, table entries past the length unread,
+    length-0 rows 0, one bias launch counted a call."""
+    rng = np.random.default_rng(8 * PAGED_BIAS_CASES.index(case)
+                                + PAGED_BIAS_PAGES.index(pages))
+    q, k, v, lens, table, kw, lengths, dtype = paged_bias_case(case, pages,
+                                                               rng)
+    before = ops.paged_attention.launches_bias
+    got = ops.paged_attention(q, k, v, lens, table, scale=1.0, **kw)
+    assert ops.paged_attention.launches_bias == before + 1
+    with dispatch.force_plain():
+        want = ops.paged_attention(q, k, v, lens, table, scale=1.0, **kw)
+    poisoned = table.clone()
+    for i, ln in enumerate(lengths):
+        poisoned[i, -(-ln // 16):] = 2 ** 30
+    again = ops.paged_attention(q, k, v, lens, poisoned, scale=1.0, **kw)
+    torch.cuda.synchronize()
+    live = lens > 0
+    assert (got[live].float() - want[live].float()).abs().max().item() \
+        <= _tol(dtype)
+    assert torch.equal(got, again)
+    assert bool((got[~live] == 0).all())
+
+
+def test_cuda_seq2seq_engine_vs_plain_engine():
+    """A small T5 (d_kv 64, the kernel's head dim), fp32, relpos tables N(0,
+    1): the Seq2SeqEngine's greedy tokens through K3's bias equal the plain
+    engine's under joins and a leave, K3 launching with the bias once a
+    decoder layer a step."""
+    from np_modeling_tpu_torch.serving import Seq2SeqEngine
+    cfg = models.T5Config(vocab_size=256, d_model=128, d_kv=64, num_heads=4,
+                          num_encoder_layers=2, num_decoder_layers=2,
+                          d_ff=256, relpos_buckets=8, relpos_max_distance=20)
+    t5 = models.T5(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        t5.dec_relpos.mul_(50.0)
+        t5.enc_relpos.mul_(50.0)
+    rng = np.random.default_rng(0)
+    sources = [rng.integers(1, 256, n) for n in (40, 7, 64, 21)]
+    streams = []
+    for plain in (False, True):
+        eng = Seq2SeqEngine(t5, max_src_len=64, max_tgt_len=48,
+                            total_pages=16, page_size=16, max_seqs=4)
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            before = ops.paged_attention.launches_bias
+            eng.add_request(0, sources[0])
+            eng.add_request(1, sources[1])
+            out = [eng.step() for _ in range(3)]
+            eng.add_request(2, sources[2])
+            eng.add_request(3, sources[3])
+            out.append(eng.step_many(20))
+            eng.finish(1)
+            out.append(eng.step_many(10))
+            launched = ops.paged_attention.launches_bias - before
+        streams.append(out)
+        assert launched == (0 if plain else 2 * 33)
+    assert streams[0] == streams[1]
 
 
 def test_cuda_gemma2_engine_vs_plain_engine():

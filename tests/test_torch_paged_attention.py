@@ -95,6 +95,50 @@ def test_plain_vs_jax_reference_bias_and_sinks(sq):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+# (bias form, sq): a 4-D [b, hq, sq, L] bias, and 3-D biases narrower (L 20)
+# and wider (L 45) than the table's 32 positions, GQA g = 2.
+BIAS_CASES = [("4d", 3), ("narrow", None), ("narrow", 3), ("wide", None),
+              ("wide", 3)]
+
+
+@pytest.mark.parametrize("form,sq", BIAS_CASES)
+def test_plain_bias_vs_jax_reference(form, sq):
+    """Positions past a narrow bias get none; columns past the table are
+    ignored; the bias follows each row's q head (h g + j) and token."""
+    q, k, v, lengths, table = _case(sq=sq, hq=8, hkv=4)
+    rng = np.random.default_rng(2)
+    width = {"4d": 32, "narrow": 20, "wide": 45}[form]
+    shape = (3, 8, sq, width) if form == "4d" else (3, 8, width)
+    bias = (4.0 * rng.standard_normal(shape)).astype(np.float32)
+    want = _jit(lambda *a: jops.paged_attention_reference(*a[:5], bias=a[5]),
+                *(jnp.asarray(a) for a in (q, k, v, lengths, table, bias)))
+    got = ops.paged_attention(*_torch(q, k, v, lengths, table),
+                              bias=torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    plain = ops.paged_attention(*_torch(q, k, v, lengths, table))
+    assert not np.allclose(got.numpy(), plain.numpy(), atol=1e-3)
+
+
+def test_kernel_bias_strides_from_views():
+    """The wrapper hands the kernel a bias's strides (elements, over b, q
+    head, query token, position), 0 on a broadcast axis, and copies
+    nothing: the engine's [h, S, n] gather seen as [S, h, n], a 4-D bias,
+    a size-1 broadcast; other dtypes and shapes raise."""
+    pa = importlib.import_module("np_modeling_tpu_torch.ops.paged_attention")
+    by_dist = torch.zeros(12, 8, 128)            # [h, S, n] gather
+    assert pa._bias_strides(by_dist.movedim(1, 0), 8, 12, 1) == (
+        [128, 8 * 128, 0, 1], 128)
+    assert pa._bias_strides(torch.zeros(2, 4, 5, 40), 2, 4, 5) == (
+        [800, 200, 40, 1], 40)
+    assert pa._bias_strides(torch.zeros(1, 4, 1, 40), 2, 4, 5) == (
+        [0, 40, 0, 1], 40)
+    for bad in (torch.zeros(2, 4, 40, dtype=torch.bfloat16),
+                torch.zeros(2, 3, 40), torch.zeros(2, 4, 3, 40),
+                torch.zeros(4, 40)):
+        with pytest.raises(ValueError):
+            pa._bias_strides(bad, 2, 4, 5)
+
+
 def test_plain_int8_dequant_vs_jax():
     from np_modeling_tpu.ops.quantization import quantize_int8
     q, k, v, lengths, table = _case(hq=8, hkv=2)

@@ -3,8 +3,9 @@ serving features (dense KV-cache generate, dense prefill, fork, the prefix
 cache, sampling) and serving example, its bench training step, its training
 entry point, that entry point with every product forced through the matmul
 kernel, packed-document training, Gemma-2 serving and generate, Gemma-2
-training, T5 training and decode, Seq2Seq, and T5 serving through the
-encoder-decoder engine once on one CUDA card.
+training, T5 training and decode, Seq2Seq, T5 serving through the
+encoder-decoder engine, and DeepSeek-V2-Lite's latent attention (MLA)
+served on latent pages once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -268,16 +269,34 @@ Phases, each printed on its own lines; any failure exits non-zero:
       plain engine, the step profiled by kind, and K3 + bias at the
       engine's decode and at 512 tokens beside K3 without it, the plain
       version, its bound and SDPA over the gathered K/V with the bias as a
-      float mask (a report, not a check).
+      float mask (a report, not a check);
+  (B) K3's latent option (d 576, one page array as k and v; LATENT_CASES x
+      LATENT_PAGES: the engine's decode and chunk shapes, 128 heads, fp32,
+      bf16 and int8 pages, the planned split and forced ones, a length-0
+      row) against its plain version by (c)'s tolerances; then
+      DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite's config.json as the
+      JAX package's hf_compat maps it; DSV2_CUT: the MoE layers replaced by
+      the dense first-layer FFN, the table cut to 2048 positions) at its
+      widths and 27 layers with seeded weights, served through
+      GenerationEngine (8 slots, page 16, chunk 256) on latent pages: 8
+      prompts of 200..1000 tokens, step_many(32); K3's latent option 27
+      times a prefill chunk and a decode step; fp32 tokens equal the plain
+      engine's and plain GPT.generate's (near ties printed), logits within
+      DSV2_F32_TOL x max(1, max |logit|) of the plain engine's; bf16
+      compute and pages by (q)'s rule; the decode step in rounds with the
+      plain engine, profiled by kind, K3 latent beside its bound, the plain
+      version and SDPA over the gathered rows, and peak memory
+      (``phase_deepseek_serving``).
 Each path runs with the launch counts set to 0 just before it and read just
 after. Library yardsticks (one PyTorch call computing a kernel's function,
 which the port never calls) are timed beside K1/K2/K5/K12 (scaled_dot_
 product_attention; with window and softcap, compiled flex_attention), K3
 with the bias (scaled_dot_product_attention over the K/V gathered from the
 pages beforehand), K7 (F.dropout), K8 (F.layer_norm), K9 (F.cross_entropy)
-and K11 (torch.addmm / torch.mm); no single call computes K3 on pages, K4
-or K10. Timings run each side twice, in the order plain, kernel, kernel,
-plain. K5's bound is the gradients' work, K2's 5 products a pair, not
+and K11 (torch.addmm / torch.mm), K3's latent option
+(scaled_dot_product_attention over the latent rows gathered beforehand,
+enable_gqa); no single call computes K3 on pages, K4 or K10. Timings
+run each side twice, in the order plain, kernel, kernel, plain. K5's bound is the gradients' work, K2's 5 products a pair, not
 the 7 of its schedule. Every kernel is timed with CUDA events two ways: a call's wall time,
 the host's share included (the JSON line's "ms"), and device time, calls
 queued back to back behind a sleep kernel so the host's gaps drop out
@@ -3932,7 +3951,8 @@ def _entry_step(gpt, corpus, batch=GPT2_B, steps=GPT2_STEPS):
 
 def _kind(kernel):
     """The section of PERF.md's step breakdown that a device op falls in."""
-    if "paged_attention_kernel" in kernel or "paged_attention_merge" in kernel:
+    if "paged_attention_kernel" in kernel or "paged_attention_merge" in kernel \
+            or "paged_latent_" in kernel:
         return "K3 paged attention"
     if "sgemm" in kernel or "gemm_f32f32" in kernel:
         return "fp32 GEMMs (the tied LM head, on CUDA cores)"
@@ -5940,12 +5960,480 @@ def phase_t5_serving(device_line):
     return res, key, counts
 
 
-def main(phases="abcdefghijklmnopqrstuvwxyzA"):
+# Phase (B): DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite's config.json, as
+# np_modeling_tpu/utils/hf_compat.py's import_deepseek_v2 and llama_config map it)
+# served through GenerationEngine on latent pages. The MoE layers 1..26 are cut to
+# the model's dense first-layer FFN (swiglu 10944): nn/moe.py is a module of its
+# own that no kernel needs. DSV2_MAX_LEN cuts the table a sequence (the published
+# 163840 positions) to what the traffic reaches.
+DSV2_LITE = dict(vocab_size=102400, d_model=2048, num_heads=16, num_kv_heads=16,
+                 head_dim=64, hidden_units=10944, positional="rope",
+                 rope_base=10000.0, rope_scaling=("yarn", 40.0, 32.0, 1.0, 4096.0,
+                                                  1.0),
+                 norm="rms", ln_eps=1e-6, ffn="swiglu", use_bias=False,
+                 tie_embeddings=False,
+                 mla=dict(kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=128,
+                          qk_rope_head_dim=64, v_head_dim=128))
+DSV2_LAYERS, DSV2_MAX_LEN = 27, 2048
+DSV2_CUT = ("MoE layers 1..26 (64 routed experts of 1408, top 6, 2 shared) "
+            "replaced by the model's dense first-layer FFN (swiglu 10944); the "
+            f"table a sequence cut from 163840 positions to {DSV2_MAX_LEN}")
+# The engine: slots, page size, prefill chunk, pages (every slot's table full,
+# and the trash page); prompts of DSV2_PROMPT_MIN..DSV2_PROMPT_MAX seeded Zipf
+# tokens; step_many(DSV2_STEPS) after the admission; step_many(DSV2_TIMED) a
+# timed call.
+DSV2_SLOTS, DSV2_PAGE, DSV2_CHUNK, DSV2_STEPS, DSV2_TIMED = 8, 16, 256, 32, 4
+DSV2_PAGES = DSV2_SLOTS * DSV2_MAX_LEN // DSV2_PAGE + 1
+DSV2_PROMPT_MIN, DSV2_PROMPT_MAX = 200, 1000
+# fp32 logits of the kernel engine against the plain engine's, times max(1, max
+# |logit|): DSV2_F32_TOL, or 1.25 x the plain engine's distance from plain
+# generate's where that is larger (fp32 reassociation over 27 layers), at most
+# F32_TOL.
+DSV2_F32_TOL = 1e-6
+LATENT_D = 576
+# K3's latent option against its plain version: (label, b, sq, hq, lengths,
+# split); split None is the wrapper's plan from a table of DSV2_MAX_LEN positions,
+# else forced (splits, keys a split). The engine's decode (8 sequences, 16 heads,
+# a length-0 slot) and chunk (sq 256) shapes, and DeepSeek-V2's 128 heads.
+LATENT_CASES = (
+    ("decode", 8, None, 16, [0, 1, 16, 17, 200, 640, 1100, 2048], None),
+    ("decode one split", 8, None, 16, [0, 1, 16, 17, 200, 640, 1100, 2048],
+     (1, DSV2_MAX_LEN)),
+    ("chunk", 8, 256, 16, [256, 257, 272, 300, 512, 700, 1000, 1100], None),
+    ("chunk split", 3, 40, 16, [40, 41, 1500], (5, 448)),
+    ("decode g128", 4, None, 128, [0, 5, 700, 1500], None),
+    ("chunk g128", 2, 3, 128, [3, 900], (4, 512)),
+)
+LATENT_PAGES = ("float32", "bfloat16", "int8 fp32 q", "int8 bf16 q")
+
+
+def deepseek_v2_lite_config(dtype=None, layers=DSV2_LAYERS):
+    """DeepSeek-V2-Lite at its published widths (DSV2_LITE; DSV2_CUT says what
+    is cut), ``layers`` deep, in compute ``dtype``."""
+    from np_modeling_tpu_torch.models import GPTConfig
+    return GPTConfig(**DSV2_LITE, num_layers=layers, max_len=DSV2_MAX_LEN,
+                     dtype=dtype)
+
+
+@contextlib.contextmanager
+def _forced_split(split):
+    """The paged wrapper's split plan replaced by ``split`` (splits, keys a
+    split) in this scope; None keeps the plan."""
+    import importlib
+    pa = importlib.import_module("np_modeling_tpu_torch.ops.paged_attention")
+    plan = pa.split_plan
+    if split is not None:
+        pa.split_plan = lambda *args: split
+    try:
+        yield
+    finally:
+        pa.split_plan = plan
+
+
+def paged_latent_case(b, sq, hq, lengths, pages, seed, pps=DSV2_MAX_LEN // 16):
+    """Inputs of the latent option: q [b, (sq,) hq, 576] and one page array
+    [1, total, 16, 576] of N(0, 1) rows (fp32, bf16, or int8 with its one scale
+    set, LATENT_PAGES), a scrambled table of ``pps`` pages a sequence over the
+    pool. Returns (q, pages, lengths, table, kwargs with the scales as both
+    k_scales and v_scales, q's dtype)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    psize, total = 16, b * pps + 2
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    perm = torch.randperm(total, generator=gen, device="cuda")[:b * pps]
+    table = perm.reshape(b, pps).to(torch.int32)
+    dtype = (torch.bfloat16 if pages in ("bfloat16", "int8 bf16 q")
+             else torch.float32)
+    q = torch.randn((b, hq, LATENT_D) if sq is None else (b, sq, hq, LATENT_D),
+                    generator=gen, device="cuda").to(dtype)
+    rows = torch.randn((1, total, psize, LATENT_D), generator=gen,
+                       device="cuda")
+    kw = {}
+    if pages.startswith("int8"):
+        quant = ops.quantize_int8(rows)
+        rows = quant.values
+        kw = {"k_scales": quant.scales, "v_scales": quant.scales}
+    else:
+        rows = rows.to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, rows, lens, table, kw, dtype
+
+
+def latent_vs_plain(case, pages, seed):
+    """One LATENT_CASES x LATENT_PAGES check: the kernel (the page array as k
+    and v) against the plain version, a length-0 row 0, the same output with
+    every table entry past a row's length poisoned; one latent launch counted.
+    Returns (max abs err, tolerance, q's dtype, splits launched)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    label, b, sq, hq, lengths, split = case
+    q, rows, lens, table, kw, dtype = paged_latent_case(b, sq, hq, lengths,
+                                                        pages, seed)
+    scale = 192 ** -0.5
+    pa = ops.paged_attention
+    before = (pa.launches_latent, pa.launches_split)
+    with _forced_split(split):
+        got = pa(q, rows, rows, lens, table, scale=scale, **kw)
+        poisoned = table.clone()
+        for i, ln in enumerate(lengths):
+            poisoned[i, -(-ln // 16):] = 2 ** 30
+        again = pa(q, rows, rows, lens, poisoned, scale=scale, **kw)
+    launched = (pa.launches_latent - before[0], pa.launches_split - before[1])
+    with dispatch.force_plain():
+        want = pa(q, rows, rows, lens, table, scale=scale, **kw)
+    torch.cuda.synchronize()
+    live = lens > 0
+    err = (got[live].float() - want[live].float()).abs().max().item()
+    tol = _tol(dtype)
+    tag = f"K3 latent {label} b{b} sq={sq} hq{hq} {pages} pages lengths={lengths}"
+    if not err <= tol:
+        raise AssertionError(f"{tag}: max abs err {err} > {tol}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag}: output depends on table entries past the "
+                             "length")
+    if not bool((got[~live] == 0).all()):
+        raise AssertionError(f"{tag}: a length-0 row is not 0")
+    if launched[0] != 2:
+        raise AssertionError(f"{tag}: {launched[0]} latent launches of 2 calls")
+    return err, tol, dtype, launched[1] // 2
+
+
+def phase_latent_vs_plain():
+    """(B) K3's latent option against its plain version over LATENT_CASES x
+    LATENT_PAGES (``latent_vs_plain``): max abs err <= 1e-4 with fp32 q, 2e-2
+    with bf16 q; distinct k and v arrays at 576 raise. Returns (max err fp32,
+    bf16)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = split = 0
+    for i, case in enumerate(LATENT_CASES):
+        for j, pages in enumerate(LATENT_PAGES):
+            err, tol, dtype, s = latent_vs_plain(case, pages, SEED + 90 + 7 * i + j)
+            errs[dtype] = max(errs[dtype], err)
+            n, split = n + 1, split + s
+            print(f"(B) K3 latent {case[0]} b{case[1]} sq={case[2]} hq{case[3]} "
+                  f"{pages} pages: max abs err {err:.3e} (tol {tol}){' split' * s}")
+    q, rows, lens, table, _, _ = paged_latent_case(2, None, 16, [5, 9],
+                                                   "float32", SEED + 89, pps=2)
+    try:
+        ops.paged_attention(q, rows, rows.clone(), lens, table)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("(B) distinct k and v arrays at d 576 did not raise")
+    if not 0 < split < n:
+        raise AssertionError(f"(B) K3 latent: {split} of {n} cases split")
+    print(f"(B) K3 latent: {n} cases pass ({split} split across blocks): max abs "
+          f"err fp32 {errs[torch.float32]:.3e} (tol {F32_TOL}), bf16 "
+          f"{errs[torch.bfloat16]:.3e} (tol {BF16_TOL})")
+    return errs[torch.float32], errs[torch.bfloat16]
+
+
+def dsv2_prompts(vocab, seed=SEED + 95):
+    """DSV2_SLOTS seeded Zipf prompts of DSV2_PROMPT_MIN..DSV2_PROMPT_MAX tokens
+    (one of each bound), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(DSV2_PROMPT_MIN, DSV2_PROMPT_MAX + 1, DSV2_SLOTS)
+    lens[:2] = DSV2_PROMPT_MAX, DSV2_PROMPT_MIN
+    rows = zipf_corpus(vocab, DSV2_SLOTS, DSV2_PROMPT_MAX, seed=seed + 1)
+    return [rows[i, :n] for i, n in enumerate(lens)]
+
+
+def _dsv2_model(dtype):
+    """The phase's model on the card, weights from seed SEED + 96."""
+    import torch
+    from np_modeling_tpu_torch.models import GPT
+    return GPT(deepseek_v2_lite_config(dtype)).init(
+        torch.Generator(device="cuda").manual_seed(SEED + 96))
+
+
+def _dsv2_counts():
+    from np_modeling_tpu_torch import ops
+    p = ops.paged_attention
+    return {"paged_attention": p.launches, "paged_attention_latent":
+            p.launches_latent, "paged_attention_split": p.launches_split,
+            "paged_attention_int8": p.launches_int8,
+            "flash_attention_fwd": ops.flash_attention.launches_fwd}
+
+
+def _zero_dsv2_counts():
+    from np_modeling_tpu_torch import ops
+    p = ops.paged_attention
+    p.launches = p.launches_latent = p.launches_split = p.launches_int8 = 0
+    p.launches_window = p.launches_bias = 0
+    ops.flash_attention.launches_fwd = 0
+
+
+def _dsv2_engine(gpt, kv_dtype):
+    from np_modeling_tpu_torch.serving import GenerationEngine
+    return GenerationEngine(gpt, total_pages=DSV2_PAGES, page_size=DSV2_PAGE,
+                            max_seqs=DSV2_SLOTS, kv_dtype=kv_dtype,
+                            prefill_chunk_size=DSV2_CHUNK)
+
+
+def _dsv2_traffic(gpt, prompts, kv_dtype, plain=False):
+    """The phase's traffic on a fresh engine over ``gpt`` (kernels, or plain):
+    every prompt in one add_requests (chunked prefill), then
+    step_many(DSV2_STEPS). Returns (engine, {seq_id: tokens}, {seq_id: the
+    fp32 logits each token came from [1 + DSV2_STEPS, vocab]}, launch counts,
+    prefill chunks, the admission's seconds)."""
+    import torch
+    from np_modeling_tpu_torch.ops import dispatch
+    eng = _dsv2_engine(gpt, kv_dtype)
+    rows = []
+    _zero_dsv2_counts()
+    with dispatch.force_plain() if plain else contextlib.nullcontext(), \
+            _recording(eng, "_lm_head", rows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = eng.add_requests(dict(enumerate(prompts)))
+        torch.cuda.synchronize()
+        admit = time.perf_counter() - t0
+        steps = eng.step_many(DSV2_STEPS)
+        torch.cuda.synchronize()
+    counts = _dsv2_counts()
+    # rows: one [8, vocab] a prefill chunk (request i at row i; its first token
+    # from the chunk holding its last prompt token), then one a decode step
+    # (slot-indexed).
+    chunks = -(-max(len(p) for p in prompts) // DSV2_CHUNK)
+    decode = torch.stack(rows[chunks:], dim=1)            # [slots, steps, V]
+    toks, logits = {}, {}
+    for sid, tok in first.items():
+        slot = eng._slots[sid]
+        toks[sid] = [tok] + steps[sid]
+        head = rows[(len(prompts[sid]) - 1) // DSV2_CHUNK][sid]
+        logits[sid] = torch.cat([head[None], decode[slot]])
+    return eng, toks, logits, counts, chunks, admit
+
+
+def _logit_dist(got, want):
+    """max |got - want| / max(1, max |want|)."""
+    return (got - want).abs().max().item() / max(1.0,
+                                                  want.abs().max().item())
+
+
+def _latent_bound(q, pages, lens, table, scales=(), peak=PEAK_F32_S):
+    """Bound of a latent call: q and out, every latent row below a sequence's
+    length once (and its scale), lengths and the table; 4 x positions x q rows
+    x 576 operations (q.k and p.v, a multiply and an add each) at ``peak``."""
+    seen = int(lens.sum())
+    rows = q.shape[-2] * (q.shape[1] if q.dim() == 4 else 1)
+    nbytes = (2 * _nbytes(q) + _nbytes(lens, table)
+              + seen * LATENT_D * pages.element_size() + 4 * seen * len(scales))
+    return _bound(nbytes, 4 * seen * rows * LATENT_D, peak)
+
+
+def _dsv2_k3_timings(res, eng, dtype, device_line):
+    """K3's latent option at the engine's decode: q [8, 1, 16, 576] (seeded)
+    over layer 0's latent pages and table at the engine's lengths + 1. Kernel
+    and plain (wall and device time), the bound, and F.scaled_dot_product_
+    attention over the latent rows gathered beforehand (not timed), q [8, 16,
+    1, 576] against k = v [8, 1, L, 576] with enable_gqa and -inf past each
+    length as a float mask, L the longest length. Returns the row's key."""
+    import torch
+    import torch.nn.functional as F
+    from np_modeling_tpu_torch import ops
+    st = eng._state
+    kp, table = st["k_pages"][0], st["table"]
+    lens = torch.where(st["active"], st["lengths"] + 1, 0).to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 97)
+    q = torch.randn(DSV2_SLOTS, 1, DSV2_LITE["num_heads"], LATENT_D,
+                    generator=gen, device="cuda").to(dtype)
+    scale = 192 ** -0.5
+    key = (f"paged_attention latent decode DeepSeek-V2-Lite b{DSV2_SLOTS} h16 "
+           f"d{LATENT_D} {str(dtype)[6:]} pages ctx {lens.tolist()}")
+
+    def fn():
+        return ops.paged_attention(q, kp, kp, lens, table, scale=scale)
+
+    _both(res, "B", key, fn, device_line)
+    _device_both(res, "B", key, fn, device_line)
+    res["bound " + key] = _latent_bound(
+        q, kp, lens, table, peak=PEAK_F32_S if dtype == torch.float32
+        else PEAK_BF16_S)
+    L = -(-int(lens.max()) // DSV2_PAGE) * DSV2_PAGE
+    idx = table[:, :L // DSV2_PAGE].long()
+    rows = kp[:, idx].movedim(1, 0).reshape(DSV2_SLOTS, 1, L, LATENT_D)
+    keep = torch.arange(L, device="cuda") < lens[:, None]
+    amask = torch.where(keep, 0.0, float("-inf")).to(dtype)[:, None, None]
+    qs = q.transpose(1, 2)                                  # [8, 16, 1, 576]
+
+    def lib():
+        return F.scaled_dot_product_attention(qs, rows, rows, attn_mask=amask,
+                                              scale=scale, enable_gqa=True)
+
+    res["library " + key] = _library(
+        "B", f"F.scaled_dot_product_attention over the latent rows gathered "
+        f"beforehand (the gather not timed), k = v [8, 1, {L}, 576], "
+        f"enable_gqa, -inf past each length as a float mask, {key[24:]}", lib,
+        device_line)
+    print(f"(B) {key}: bound {res['bound ' + key][0]:.5f} ms "
+          f"({res['bound ' + key][1]}) [{device_line}]")
+    return key
+
+
+def _dsv2_decode_timings(res, eng_k, eng_p, what, device_line):
+    """step_many(DSV2_TIMED) of the kernel engine in AB rounds with the plain
+    engine (the host's clock, the card synchronised around each call): ms a
+    step and tokens/s."""
+    import torch
+    from np_modeling_tpu_torch.ops import dispatch
+    live = len(eng_k.live)
+
+    def timer(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / DSV2_TIMED
+
+    def plain():
+        with dispatch.force_plain():
+            eng_p.step_many(DSV2_TIMED)
+
+    def kernel():
+        eng_k.step_many(DSV2_TIMED)
+
+    timer(kernel)
+    timer(plain)
+    ab = _alternate(plain, kernel, timer, rounds=3)
+    med = [statistics.median(x) for x in ab]
+    name = f"DeepSeek-V2-Lite GenerationEngine decode step {what} {live} seqs"
+    res[name] = (med[1], med[0])
+    print(f"(B) {name}: {_ab_line(ab, 'plain', 'kernel', '.3f')} ms a step "
+          f"(step_many({DSV2_TIMED}) / {DSV2_TIMED}); kernel "
+          f"{live / med[1] * 1e3:.1f} tokens/s, plain "
+          f"{live / med[0] * 1e3:.1f} tokens/s [{device_line}]")
+
+
+def phase_deepseek_serving(device_line):
+    """(B) DeepSeek-V2-Lite at its published widths and 27 layers (DSV2_CUT),
+    seeded weights, served through GenerationEngine(max_seqs DSV2_SLOTS,
+    page_size DSV2_PAGE, prefill_chunk_size DSV2_CHUNK) on latent pages:
+    DSV2_SLOTS seeded Zipf prompts of DSV2_PROMPT_MIN..DSV2_PROMPT_MAX tokens in
+    one add_requests, then step_many(DSV2_STEPS). fp32 pages: K3's latent option
+    launches 27 times a prefill chunk and a decode step, and no other paged call
+    and no flash kernel runs; each sequence's tokens equal the plain engine's
+    (force_plain) and those of GPT.generate under force_plain (the dense latent
+    cache), a differing token allowed only where the reference's top-2 logits
+    lie within NEAR_TIE (the stream is then held up to that step); each step's
+    logits (prefill's and decode's) within DSV2_F32_TOL x max(1, max |logit|)
+    of the plain engine's, or 1.25 x the plain engine's distance from plain
+    generate's where that is larger (at most F32_TOL). bf16 compute and bf16 pages: each step's
+    logits within 1.25 x the plain
+    bf16 engine's distance from the fp32 plain engine's plus GEMMA_BF16_SLACK x
+    max(1, max |logit|), over the steps whose tokens so far agree (phase (A)'s
+    rule). Then the decode step in AB rounds with the plain engine, the fp32
+    step profiled by kind (``_profile``: the idle share), K3's latent option
+    alone (``_dsv2_k3_timings``) and peak memory. Returns (results, keys by
+    page dtype, the fp32 and the bf16 run's launch counts)."""
+    import torch
+    from np_modeling_tpu_torch.ops import dispatch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    L = DSV2_LAYERS
+    print(f"(B) DeepSeek-V2-Lite cut: {DSV2_CUT}")
+    gpt = _dsv2_model(None)
+    prompts = dsv2_prompts(DSV2_LITE["vocab_size"])
+    n_params = sum(p.numel() for p in gpt.parameters())
+    print(f"(B) DeepSeek-V2-Lite GenerationEngine: {n_params} params, "
+          f"{DSV2_SLOTS} slots, page {DSV2_PAGE}, chunk {DSV2_CHUNK}, "
+          f"{DSV2_PAGES} pages of [1, {DSV2_PAGE}, {LATENT_D}] a layer; prompts "
+          f"of {[len(p) for p in prompts]} tokens")
+    eng_k, tk, lk, counts, chunks, admit = _dsv2_traffic(gpt, prompts, None)
+    want = {"paged_attention": L * (chunks + DSV2_STEPS),
+            "paged_attention_latent": L * (chunks + DSV2_STEPS),
+            "flash_attention_fwd": 0}
+    print(f"(B) fp32 traffic: admission of {sum(len(p) for p in prompts)} prompt "
+          f"tokens in {chunks} chunks {admit:.2f} s, {DSV2_STEPS} decode steps; "
+          f"launches {counts}")
+    if {key: counts[key] for key in want} != want:
+        raise AssertionError(f"(B) launches {counts}, expected {want}")
+    eng_p, tp, lp, plain_counts, _, _ = _dsv2_traffic(gpt, prompts, None,
+                                                      plain=True)
+    if plain_counts["paged_attention"]:
+        raise AssertionError(f"(B) the plain engine launched {plain_counts}")
+    err = floor = 0.0
+    ties = 0
+    for sid, toks in tk.items():
+        n, tie = _hold_stream(f"(B) seq {sid} engine vs plain engine", toks,
+                              tp[sid], lp[sid])
+        ties += tie
+        err = max(err, _logit_dist(lk[sid][:n], lp[sid][:n]))
+    with torch.no_grad(), dispatch.force_plain():
+        for sid, prompt in enumerate(prompts):
+            p = torch.tensor(prompt, device="cuda")[None]
+            gen, glog = _generate_with_logits(gpt, p, DSV2_STEPS + 1)
+            gen = gen[0].tolist()
+            _, tie = _hold_stream(f"(B) seq {sid} engine vs plain generate",
+                                  tk[sid], gen, glog[0])
+            ties += tie
+            n = _agreeing(tp[sid], gen)
+            floor = max(floor, _logit_dist(glog[0][:n], lp[sid][:n]))
+    # fp32 over 27 layers: the plain engine and plain generate (two plain
+    # paths, other reduction orders) set the noise floor of the comparison.
+    tol = min(F32_TOL, max(DSV2_F32_TOL, 1.25 * floor))
+    print(f"(B) fp32: {sum(len(t) for t in tk.values())} tokens of {len(tk)} "
+          f"sequences equal the plain engine's and plain GPT.generate's ({ties} "
+          f"streams parted at a near tie < {NEAR_TIE}); logits {err:.3e} x "
+          f"max(1, max |logit|) from the plain engine's; the plain engine's "
+          f"from plain generate's {floor:.3e}; tol {tol:.3e} (the larger of "
+          f"{DSV2_F32_TOL} and 1.25 x that, at most {F32_TOL})")
+    if not err <= tol:
+        raise AssertionError(f"(B) fp32 logits {err:.3e} x max(1, max |logit|)"
+                             f" from the plain engine's > {tol:.3e}")
+    res = {}
+    _dsv2_decode_timings(res, eng_k, eng_p, "fp32 pages", device_line)
+    del eng_p
+    _profile("B", f"DeepSeek-V2-Lite GenerationEngine decode step() fp32 "
+             f"{len(eng_k.live)} seqs", eng_k.step, device_line, warmup=2)
+    keys = {"float32": _dsv2_k3_timings(res, eng_k, torch.float32, device_line)}
+    del eng_k, lk
+    torch.cuda.empty_cache()
+    from np_modeling_tpu_torch.models import GPT
+    g16 = GPT(deepseek_v2_lite_config(torch.bfloat16))
+    g16.load_state_dict(gpt.state_dict())
+    eng_k16, tk16, lk16, counts16, _, admit16 = _dsv2_traffic(
+        g16, prompts, torch.bfloat16)
+    if counts16["paged_attention_latent"] != want["paged_attention_latent"]:
+        raise AssertionError(f"(B) bf16 launches {counts16}")
+    eng_p16, tp16, lp16, _, _, _ = _dsv2_traffic(g16, prompts, torch.bfloat16,
+                                                  plain=True)
+    got, plain, ref = [], [], []
+    for sid in tk16:
+        n = _agreeing(tk16[sid], tp16[sid], tp[sid])
+        got.append(lk16[sid][:n])
+        plain.append(lp16[sid][:n])
+        ref.append(lp[sid][:n])
+    print(f"(B) bf16 compute, bf16 pages: admission {admit16:.2f} s; held over "
+          f"{sum(len(x) for x in got)} of {sum(len(t) for t in tk16.values())} "
+          f"steps whose tokens agree with the fp32 plain engine's")
+    _hold_bf16_logits("(B) DeepSeek-V2-Lite GenerationEngine", torch.cat(got),
+                      torch.cat(plain), torch.cat(ref))
+    del lk16, lp16, lp, got, plain, ref
+    _dsv2_decode_timings(res, eng_k16, eng_p16, "bf16 pages", device_line)
+    keys["bfloat16"] = _dsv2_k3_timings(res, eng_k16, torch.bfloat16,
+                                        device_line)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"(B) peak memory {peak / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated; two copies of the weights, fp32 "
+          f"and the bf16 model's fp32 master) [{device_line}]")
+    del eng_k16, eng_p16, gpt, g16
+    torch.cuda.empty_cache()
+    print(f"(B) DeepSeek-V2-Lite serving phase {time.perf_counter() - t_phase:.1f}"
+          " s")
+    return res, keys, counts, counts16
+
+
+def main(phases="abcdefghijklmnopqrstuvwxyzAB"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
     runs the quantized serving path alone, ``"abcqrw"`` Gemma-2 serving and
     generate, ``"abcst"`` Gemma-2 training, ``"abcuvx"`` GPT-2's serving
-    features, ``"abcyz"`` T5 and Seq2Seq, ``"abcA"`` T5 serving); the
-    JSON summary and the ok line come only from a run of every phase."""
+    features, ``"abcyz"`` T5 and Seq2Seq, ``"abcA"`` T5 serving, ``"abcB"``
+    DeepSeek-V2-Lite serving); the JSON summary and the ok line come only
+    from a run of every phase."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -5986,7 +6474,7 @@ def main(phases="abcdefghijklmnopqrstuvwxyzA"):
     since("(c)")
     serving = training_res = entry_res = quant_res = forced_res = None
     packed_res = gemma_res = gemma_train_res = mask_res = t5_res = None
-    s2e_res = None
+    s2e_res = dsv2_res = None
     gemma_gen_launches = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
@@ -6093,10 +6581,16 @@ def main(phases="abcdefghijklmnopqrstuvwxyzA"):
     if "A" in phases:
         s2e_res, s2e_key, s2e_launches = phase_t5_serving(device_line)
         since("(A)")
+    if "B" in phases:
+        latent_err = phase_latent_vs_plain()
+        dsv2_res, dsv2_keys, dsv2_launches, dsv2_launches16 = \
+            phase_deepseek_serving(device_line)
+        since("(B)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
     if None in (serving, training_res, entry_res, quant_res, forced_res,
                 packed_res, gemma_res, gemma_train_res, mask_res,
-                gemma_gen_launches, t5_res, s2e_res) or "z" not in phases:
+                gemma_gen_launches, t5_res, s2e_res, dsv2_res) \
+            or "z" not in phases:
         return 0
     packed_shape = "b8 h12 s1024 d64 causal bf16"
     shape = "b4 h8 s4096 d128 causal bf16"
@@ -6231,6 +6725,15 @@ def main(phases="abcdefghijklmnopqrstuvwxyzA"):
                  "np_modeling_tpu/ops/paged_attention.py:221",
                  s2e_launches["paged_attention_bias"], paged_bias_err,
                  s2e_res, s2e_key))
+    # K3's latent option on (B)'s engines (27 a prefill chunk and a decode
+    # step), fp32 pages and bf16 pages, timed at their decode.
+    rows += [(f"paged_attention_latent_{name}", PAGED_SOURCE,
+              "np_modeling_tpu/ops/paged_attention.py:221",
+              launches["paged_attention_latent"], latent_err, dsv2_res,
+              dsv2_keys[dtype])
+             for name, dtype, launches in (
+                 ("fp32_pages", "float32", dsv2_launches),
+                 ("bf16_pages", "bfloat16", dsv2_launches16))]
     # "ms": a call's wall time (CUDA events, host included), every entry;
     # "device_ms": calls back to back behind a sleep kernel (device only);
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its

@@ -63,6 +63,29 @@
 //   over all of a key block's keys.
 //   Loops run over the tile's row count, 2 at decode. Arithmetic is fp32 FMA for
 //   every page dtype (JAX's fp32 dequantize semantics for int8).
+//
+// The latent option (MLA, DeepSeek-V2's absorbed decode; JAX serving/engine.py
+// :1739-1817). The serving engine's pages hold one latent row of kv_lora_rank +
+// rope = 576 numbers a token, under one shared kv head, and it passes the same page
+// array as k and v (and, with int8 pages, one scale set as both scales): the first
+// 512 output columns are p @ c_kv. launch_d takes it when d == 576 and the k and v
+// pointers (and the scale pointers) are equal; it is a kernel of its own,
+// paged_latent_kernel, with the semantics above (no window, softcap or bias):
+// - Each latent row is read once, into one ring buffer a stage, for both q.k and
+//   p.v (separate K and V stages would not fit shared memory at 576, and would
+//   read each row twice).
+// - A row tile of 16 rows (a decode token's 16 heads over the one kv head) or 32
+//   (chunks, and groups wider than 16), 8 warps. Scores: the tile x a stage's keys
+//   (16 fp32 keys, 32 bf16 or int8) in micro-tiles of MR rows x 4 keys, one per
+//   lane group of 8; a lane sums every 8th 4-element chunk of the row (18 of 144),
+//   so a group reads 128 contiguous bytes of q and of each key, and 3 shuffles
+//   sum a score. The online softmax: a warp R / 8 rows, lane = key. p.v: a thread
+//   R / 4 rows x 9 columns (c + 64 i), so a warp reads 32 consecutive elements of a
+//   row and one p broadcast.
+// - What bounds it: the 16 q rows share every key, so decode does ~2 x 2 x 16 x 576
+//   flops a row of 1152 bf16 bytes, ~32 flop/B, above the fp32 FMA ridge (~20):
+//   this SIMT kernel is bounded by arithmetic. The tensor-core design (the heads as
+//   the M of mma.sync m16n8k16) is ROADMAP Queue 2 B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -625,11 +648,367 @@ int launch_opts(const BiasArgs& a, cudaStream_t s) {
                      : launch<TQ, TKV, D, false, false>(a, s);
 }
 
+// ---- The latent option (d = 576, one page array as k and v) ----------------
+
+constexpr int kLatentD = 576;
+
+// The shape of a latent variant: R rows a tile (16 or 32), 256 threads.
+template <typename TKV, int R>
+struct LatentShape {
+  static constexpr int kThreads = 256;
+  static constexpr int kStages = 3;
+  // Keys a ring stage: 16 fp32 rows or 32 bf16 / int8 rows (36.9 / 36.9 / 18.4 KB).
+  static constexpr int kKb = sizeof(TKV) == 4 ? 16 : 32;
+  static constexpr int kRowBytes = kLatentD * static_cast<int>(sizeof(TKV));
+  static constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
+  // A stage: the rows, then (int8) their scales.
+  static constexpr int kStageBytes = (kKb * kRowBytes + (kInt8 ? 4 * kKb : 0) + 127) / 128 * 128;
+  // Scores: 32 lane groups, each a micro-tile of kMr rows x 4 keys of the R x kKb tile.
+  static constexpr int kMr = R * kKb / 128;
+  static constexpr int kRowGroups = R / kMr;
+  // p.v: 4 row groups of kPr rows x 64 column groups (columns c + 64 i, i < 9).
+  static constexpr int kPr = R / 4;
+  static constexpr int kCols = kLatentD / 64;
+  // The ring, q (fp32), scores / p [R][kKb], alpha [R], l [R].
+  static constexpr int kBytes =
+      kStages * kStageBytes + R * kLatentD * 4 + R * kKb * 4 + 2 * R * 4;
+  static_assert(kRowGroups * (kKb / 4) == 32, "one micro-tile a lane group");
+  static_assert(R % 8 == 0 && kLatentD % 64 == 0, "tile");
+};
+
+template <typename TQ, typename TKV, int R>
+__global__ void __launch_bounds__(256, 1) paged_latent_kernel(const Args a) {
+  using S = LatentShape<TKV, R>;
+  constexpr int D = kLatentD, KB = S::kKb, NT = S::kThreads, NST = S::kStages;
+  constexpr int MR = S::kMr, PR = S::kPr, NC = S::kCols, RS = R / 8;
+  constexpr bool kInt8 = S::kInt8;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* stages = smem;
+  float* qs = reinterpret_cast<float*>(smem + NST * S::kStageBytes);
+  float* ss = qs + R * D;        // scores, then p, [R][KB]
+  float* alpha_s = ss + R * KB;  // [R]
+  float* l_s = alpha_s + R;      // [R]
+
+  const int split = blockIdx.x % a.splits, tile = blockIdx.x / a.splits;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int g = a.hq / a.hkv, rows = a.sq * g;
+  const int r0 = tile * R, n_rows = min(R, rows - r0);
+  const int length = a.lengths[b];
+  const int page_size = 1 << a.ps_shift;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // The keys the tile's rows see, cut to this split's range: [lo, hi).
+  const int own_last = length - a.sq + (r0 + n_rows - 1) / g;
+  const int hi = min(min(own_last + 1, a.pages_per_seq << a.ps_shift), (split + 1) * a.split_keys);
+  const int lo = split * a.split_keys;
+  const long long part_row0 =
+      ((static_cast<long long>(b) * a.hkv + h) * a.splits + split) * rows + r0;
+  if (hi <= lo) {  // no key: no table entry or page is read
+    if (a.splits == 1) {
+      for (int i = threadIdx.x; i < n_rows * D; i += NT) {
+        const int r = r0 + i / D, t = r / g, j = r % g;
+        static_cast<TQ*>(a.out)[((static_cast<size_t>(b) * a.sq + t) * a.hq + h * g + j) * D +
+                                i % D] = from_f<TQ>(0.f);
+      }
+    } else {
+      for (int i = threadIdx.x; i < n_rows; i += NT) {
+        a.part_ml[(part_row0 + i) * 2] = kMaskValue;
+        a.part_ml[(part_row0 + i) * 2 + 1] = 0.f;
+      }
+    }
+    return;
+  }
+
+  const TKV* pages = static_cast<const TKV*>(a.k_pages);
+  const int* row_table = a.table + static_cast<size_t>(b) * a.pages_per_seq;
+  const int kstart = lo & ~(KB - 1);
+  const int n_kb = (hi - kstart + KB - 1) / KB;
+
+  // Key block `it` into its stage, one cp.async group (an empty one past the last
+  // block). Keys outside [lo, hi) are zeros.
+  auto issue = [&](int it) {
+    if (it < n_kb) {
+      uint8_t* st = stages + (it % NST) * S::kStageBytes;
+      const int kb0 = kstart + it * KB;
+      constexpr int CPR = S::kRowBytes / 16;
+      for (int c = threadIdx.x; c < KB * CPR; c += NT) {
+        const int pos = kb0 + c / CPR, ch = c % CPR;
+        const bool live = pos >= lo && pos < hi;
+        const TKV* src = pages;
+        if (live) {
+          const long long token =
+              (static_cast<long long>(h) * a.total_pages + __ldg(row_table + (pos >> a.ps_shift))) *
+                  page_size + (pos & (page_size - 1));
+          src += token * D + ch * (16 / static_cast<int>(sizeof(TKV)));
+        }
+        cp_async16(smem_u32(st + c * 16), src, live ? 16 : 0);
+      }
+      if constexpr (kInt8) {
+        float* scl = reinterpret_cast<float*>(st + KB * S::kRowBytes);
+        for (int c = threadIdx.x; c < KB; c += NT) {
+          const int pos = kb0 + c;
+          const bool live = pos >= lo && pos < hi;
+          const float* src = a.k_scales;
+          if (live)
+            src += (static_cast<long long>(h) * a.total_pages +
+                    __ldg(row_table + (pos >> a.ps_shift))) * page_size +
+                   (pos & (page_size - 1));
+          cp_async4(smem_u32(scl + c), src, live ? 4 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < NST - 1; ++s) issue(s);
+
+  // q rows of the tile, fp32, while the first key blocks land.
+  for (int i = threadIdx.x; i < R * D; i += NT) {
+    const int r = r0 + i / D;
+    float x = 0.f;
+    if (r < rows) {
+      const int t = r / g, j = r % g;
+      x = to_f(static_cast<const TQ*>(a.q)[((static_cast<size_t>(b) * a.sq + t) * a.hq + h * g + j) *
+                                               D + i % D]);
+    }
+    qs[i] = x;
+  }
+
+  // Scores: lane group gi's micro-tile (rows rq MR.., keys kq 4..), lane part sl.
+  const int gi = threadIdx.x / 8, sl = threadIdx.x % 8;
+  const int rq = gi % S::kRowGroups, kq = gi / S::kRowGroups;
+  // p.v: rows pr PR.., columns cg + 64 i.
+  const int cg = threadIdx.x % 64, pr = threadIdx.x / 64;
+  // The softmax: this warp's rows warp RS.., lane = key.
+  float m[RS], l[RS];
+#pragma unroll
+  for (int i = 0; i < RS; ++i) {
+    m[i] = kMaskValue;
+    l[i] = 0.f;
+  }
+  float acc[PR][NC];
+#pragma unroll
+  for (int u = 0; u < PR; ++u)
+#pragma unroll
+    for (int i = 0; i < NC; ++i) acc[u][i] = 0.f;
+
+  for (int it = 0; it < n_kb; ++it) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // block it has landed (and q); every read of block it - 1 is done
+    issue(it + NST - 1);
+    const uint8_t* st = stages + (it % NST) * S::kStageBytes;
+    const TKV* kst = reinterpret_cast<const TKV*>(st);
+    const float* kscl = reinterpret_cast<const float*>(st + KB * S::kRowBytes);
+    const int kb0 = kstart + it * KB;
+
+    {  // scores of the micro-tile: 18 chunks of 4 elements a lane, then 3 shuffles
+      float sc[MR][4];
+#pragma unroll
+      for (int mr = 0; mr < MR; ++mr)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) sc[mr][n] = 0.f;
+#pragma unroll 6
+      for (int c = 0; c < D / 32; ++c) {
+        const int e = (8 * c + sl) * 4;
+        float kf[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) load_vec<TKV, 4>(kst + (kq * 4 + n) * D + e, kf[n]);
+#pragma unroll
+        for (int mr = 0; mr < MR; ++mr) {
+          const float4 qv = *reinterpret_cast<const float4*>(qs + (rq * MR + mr) * D + e);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            sc[mr][n] = fmaf(qv.x, kf[n][0], sc[mr][n]);
+            sc[mr][n] = fmaf(qv.y, kf[n][1], sc[mr][n]);
+            sc[mr][n] = fmaf(qv.z, kf[n][2], sc[mr][n]);
+            sc[mr][n] = fmaf(qv.w, kf[n][3], sc[mr][n]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mr = 0; mr < MR; ++mr)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          float x = sc[mr][n];
+          x += __shfl_xor_sync(kFull, x, 1);
+          x += __shfl_xor_sync(kFull, x, 2);
+          x += __shfl_xor_sync(kFull, x, 4);
+          if (((mr * 4 + n) & 7) == sl) {
+            const int r = rq * MR + mr, k = kq * 4 + n, pos = kb0 + k;
+            x *= a.scale;
+            if constexpr (kInt8) x *= kscl[k];
+            ss[r * KB + k] = pos <= length - a.sq + (r0 + r) / g ? x : kMaskValue;
+          }
+        }
+    }
+    __syncthreads();
+    {  // the online softmax of the warp's rows over the stage's keys; keys outside
+       // [lo, hi) (zeros in the ring) add p = 0. p is rounded to the page dtype, or
+       // (int8) scaled by the key's scale: the dequantized row times p.
+      const int pos = kb0 + lane;
+      const bool valid = lane < KB && pos >= lo && pos < hi;
+#pragma unroll
+      for (int i = 0; i < RS; ++i) {
+        const int r = warp * RS + i;
+        const float x = valid ? ss[r * KB + lane] : kMaskValue;
+        const float m_next = fmaxf(m[i], warp_max(x));
+        const float alpha = expf(m[i] - m_next);
+        const float pe = valid ? expf(x - m_next) : 0.f;
+        l[i] = alpha * l[i] + warp_sum(pe);
+        m[i] = m_next;
+        if (lane < KB) {
+          if constexpr (kInt8)
+            ss[r * KB + lane] = valid ? pe * kscl[lane] : 0.f;
+          else
+            ss[r * KB + lane] = to_f(from_f<TKV>(pe));
+        }
+        if (lane == 0) alpha_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+    // acc[u][i] = alpha acc[u][i] + sum_k p[row u][k] v[k][cg + 64 i], 4 keys a step.
+#pragma unroll
+    for (int u = 0; u < PR; ++u) {
+      const float al = alpha_s[pr * PR + u];
+#pragma unroll
+      for (int i = 0; i < NC; ++i) acc[u][i] *= al;
+    }
+#pragma unroll 2
+    for (int k4 = 0; k4 < KB; k4 += 4) {
+      float vf[4][NC];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < NC; ++i) vf[n][i] = to_f(kst[(k4 + n) * D + cg + 64 * i]);
+#pragma unroll
+      for (int u = 0; u < PR; ++u) {
+        const float4 p = *reinterpret_cast<const float4*>(ss + (pr * PR + u) * KB + k4);
+#pragma unroll
+        for (int i = 0; i < NC; ++i) {
+          acc[u][i] = fmaf(p.x, vf[0][i], acc[u][i]);
+          acc[u][i] = fmaf(p.y, vf[1][i], acc[u][i]);
+          acc[u][i] = fmaf(p.z, vf[2][i], acc[u][i]);
+          acc[u][i] = fmaf(p.w, vf[3][i], acc[u][i]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // Each row's l (and, with splits, its partial's m and l) from its softmax warp.
+#pragma unroll
+  for (int i = 0; i < RS; ++i) {
+    const int r = warp * RS + i;
+    if (lane == 0) {
+      l_s[r] = l[i];
+      if (a.splits > 1 && r < n_rows) {
+        a.part_ml[(part_row0 + r) * 2] = m[i];
+        a.part_ml[(part_row0 + r) * 2 + 1] = l[i];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < PR; ++u) {
+    const int r = pr * PR + u;
+    if (r < n_rows) {
+      if (a.splits == 1) {
+        const int t = (r0 + r) / g, j = (r0 + r) % g;
+        TQ* dst = static_cast<TQ*>(a.out) +
+                  ((static_cast<size_t>(b) * a.sq + t) * a.hq + h * g + j) * D + cg;
+        const float l_inv = l_s[r] == 0.f ? 1.f : 1.f / l_s[r];
+#pragma unroll
+        for (int i = 0; i < NC; ++i) dst[64 * i] = from_f<TQ>(acc[u][i] * l_inv);
+      } else {
+        float* dst = a.part_acc + (part_row0 + r) * D + cg;
+#pragma unroll
+        for (int i = 0; i < NC; ++i) dst[64 * i] = acc[u][i];
+      }
+    }
+  }
+}
+
+// paged_attention_merge at d = 576: a lane holds columns lane + 32 u (u < 18), so
+// every load and store of a warp is 32 consecutive elements.
+template <typename TQ>
+__global__ void __launch_bounds__(kThreads) paged_latent_merge(const Args a) {
+  constexpr int D = kLatentD, E = D / 32;
+  const int g = a.hq / a.hkv, rows = a.sq * g;
+  const int r = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (r >= rows) return;  // uniform over the warp
+  const long long base = (static_cast<long long>(b) * a.hkv + h) * a.splits * rows + r;
+  float mx = kMaskValue;
+  for (int s0 = 0; s0 < a.splits; s0 += 32) {
+    const long long pr = base + static_cast<long long>(s0 + lane) * rows;
+    if (s0 + lane < a.splits && a.part_ml[pr * 2 + 1] > 0.f) mx = fmaxf(mx, a.part_ml[pr * 2]);
+  }
+  mx = warp_max(mx);
+  float acc[E], lsum = 0.f;
+#pragma unroll
+  for (int u = 0; u < E; ++u) acc[u] = 0.f;
+  for (int s0 = 0; s0 < a.splits; s0 += 32) {
+    const long long pr = base + static_cast<long long>(s0 + lane) * rows;
+    float w = 0.f;
+    if (s0 + lane < a.splits) {
+      const float ls = a.part_ml[pr * 2 + 1];
+      if (ls > 0.f) {
+        w = expf(a.part_ml[pr * 2] - mx);
+        lsum += w * ls;
+      }
+    }
+    const unsigned live = __ballot_sync(kFull, w > 0.f);
+    for (unsigned m = live; m != 0; m &= m - 1) {
+      const int sl = __ffs(m) - 1;
+      const float ws = __shfl_sync(kFull, w, sl);
+      const float* src = a.part_acc + (base + static_cast<long long>(s0 + sl) * rows) * D + lane;
+#pragma unroll
+      for (int u = 0; u < E; ++u) acc[u] = fmaf(ws, src[32 * u], acc[u]);
+    }
+  }
+  lsum = warp_sum(lsum);
+  const float l_inv = lsum == 0.f ? 1.f : 1.f / lsum;
+  const int t = r / g, j = r % g;
+  TQ* dst = static_cast<TQ*>(a.out) + ((static_cast<size_t>(b) * a.sq + t) * a.hq + h * g + j) * D +
+            lane;
+#pragma unroll
+  for (int u = 0; u < E; ++u) dst[32 * u] = from_f<TQ>(acc[u] * l_inv);
+}
+
+template <typename TQ, typename TKV, int R>
+int launch_latent_variant(const Args& a, cudaStream_t stream) {
+  using S = LatentShape<TKV, R>;
+  auto kernel = paged_latent_kernel<TQ, TKV, R>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = a.sq * (a.hq / a.hkv);
+  const dim3 grid(((rows + R - 1) / R) * a.splits, a.hkv, a.b);
+  kernel<<<grid, S::kThreads, S::kBytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
+  paged_latent_merge<TQ><<<dim3((rows + kWarps - 1) / kWarps, a.hkv, a.b), kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The latent option: one page array (and one scale set) as k and v, no window,
+// softcap or bias. Tiles of 16 rows (one decode token's heads) or 32; the wrapper's
+// split plan assumes these tiles.
+template <typename TQ, typename TKV>
+int launch_latent(const BiasArgs& a, cudaStream_t s) {
+  if (a.v_pages != a.k_pages || a.v_scales != a.k_scales || a.bias != nullptr ||
+      a.window > 0 || a.cap > 0.f)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args& args = a;
+  if (a.sq * (a.hq / a.hkv) <= 16) return launch_latent_variant<TQ, TKV, 16>(args, s);
+  return launch_latent_variant<TQ, TKV, 32>(args, s);
+}
+
 template <typename TQ, typename TKV>
 int launch_d(int d, const BiasArgs& a, cudaStream_t s) {
   if (d == 64) return launch_opts<TQ, TKV, 64>(a, s);
   if (d == 128) return launch_opts<TQ, TKV, 128>(a, s);
   if (d == 256) return launch_opts<TQ, TKV, 256>(a, s);
+  if (d == kLatentD) return launch_latent<TQ, TKV>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -645,7 +1024,8 @@ int launch_kv(int kv_dtype, int d, const BiasArgs& a, cudaStream_t s) {
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pages only, with fp32 scales
-// [hkv, P, ps, 1]; null scales otherwise). window: the sliding window's width,
+// [hkv, P, ps, 1]; null scales otherwise). d: 64, 128, 256, or 576 with k_pages ==
+// v_pages and k_scales == v_scales (the latent option). window: the sliding window's width,
 // 0 for none; softcap: the cap, 0 for none. bias: fp32 over (b, q head, query
 // token, position) with strides bias_sb, bias_sh, bias_sq, bias_sk (elements;
 // 0 on a broadcast axis) and bias_len positions, or null for none; not with a

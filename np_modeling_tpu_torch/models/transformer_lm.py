@@ -7,7 +7,9 @@ with an MLP FFN, relu or tanh-gelu, biases optional, tied embeddings) and
 Gemma-2's features: RoPE, RMSNorm (with the ``gamma + 1`` offset), gated
 FFNs (swiglu, geglu), sandwich norms, the embedding scale, a sliding window
 that alternates by layer (``window_pattern``), the attention and final
-logit softcaps and ``query_pre_attn_scalar``. A config outside those raises
+logit softcaps and ``query_pre_attn_scalar``; and DeepSeek-V2's latent
+attention (``mla``, JAX nn/mla.py) with YaRN RoPE scaling and an untied LM
+head (``lm_head.w`` [d, vocab], no bias). A config outside those raises
 NotImplementedError. ``GPT`` owns its parameters under the JAX parameter
 paths (``embedding.table``, ``layer_{i}.self_attention.wq``,
 ``layer_{i}.dense1.linear.w`` or ``layer_{i}.swiglu.w_gate``, ...).
@@ -27,7 +29,8 @@ import torch
 from torch import nn
 
 from np_modeling_tpu_torch import ops, rng as _rng
-from np_modeling_tpu_torch.nn import Dropout, Embedding, LayerNorm, RMSNorm
+from np_modeling_tpu_torch.nn import (Dropout, Embedding, LayerNorm, Linear,
+                                      RMSNorm)
 from np_modeling_tpu_torch.nn.module import (maybe_cast, resolve_rngs,
                                              split_rngs)
 from np_modeling_tpu_torch.nn.attention import cache_positions
@@ -92,12 +95,13 @@ class GPTConfig:
 
 
 # Config values the port builds; anything else is a later slice. The
-# window, both softcaps and query_pre_attn_scalar take any value.
+# window, both softcaps, query_pre_attn_scalar and the mla dims take any
+# value; rope_scaling is None or a ("yarn", ...) tuple.
 _PORTED = {"positional": ("learned", "rope"), "norm": ("layer", "rms"),
            "ffn": ("mlp", "swiglu", "geglu"),
            "activation": ("relu", "gelu"), "norm_first": (True,),
-           "tie_embeddings": (True,), "scan_layers": (False,),
-           "moe_experts": (0,), "mla": (None,), "rope_scaling": (None,),
+           "tie_embeddings": (True, False), "lm_head_bias": (False,),
+           "scan_layers": (False,), "moe_experts": (0,),
            "attn_sinks": (False,), "qk_norm": (False,),
            "parallel_residual": (False,), "sandwich_norm": (False, True),
            "embed_scale": (False, True)}
@@ -109,6 +113,9 @@ def check_ported(config: GPTConfig) -> None:
     asserts)."""
     bad = {k: getattr(config, k) for k, ok in _PORTED.items()
            if getattr(config, k) not in ok}
+    scaling = config.rope_scaling
+    if scaling is not None and (scaling[0] != "yarn" or len(scaling) != 6):
+        bad["rope_scaling"] = scaling
     if bad:
         raise NotImplementedError(
             f"GPTConfig features not ported yet: {bad} (ROADMAP.md Queue 1)")
@@ -142,6 +149,11 @@ class GPT(nn.Module):
             self.pos_embedding = Embedding(c.max_len, c.d_model, device)
         attn_scale = (c.query_pre_attn_scalar ** -0.5
                       if c.query_pre_attn_scalar is not None else None)
+        mla = None
+        if c.mla is not None:
+            mla = dict(c.mla)
+            if c.positional == "rope":   # JAX sets them on the block's attn
+                mla.update(rope_base=c.rope_base, rope_scaling=c.rope_scaling)
         for i in range(c.num_layers):
             self.add_module(f"layer_{i}", TransformerEncoderBlock(
                 c.d_model, c.num_heads, c.hidden_units,
@@ -154,11 +166,14 @@ class GPT(nn.Module):
                 rope=c.positional == "rope", rope_base=c.rope_base,
                 rope_dim=c.rope_dim, window=window_for(c, i),
                 attn_scale=attn_scale, attn_softcap=c.attn_logit_softcap,
-                device=device))
+                mla=mla, device=device))
         self.final_norm = (RMSNorm(c.d_model, c.ln_eps, c.rms_offset, device)
                            if c.norm == "rms"
                            else LayerNorm(c.d_model, c.ln_eps, device))
         self.drop = Dropout(c.drop_rate)
+        if not c.tie_embeddings:
+            self.lm_head = Linear(c.d_model, c.vocab_size, use_bias=False,
+                                  dtype=c.dtype, device=device)
 
     def _block_for(self, i: int) -> TransformerEncoderBlock:
         return getattr(self, f"layer_{i}")
@@ -171,6 +186,8 @@ class GPT(nn.Module):
         for i in range(self.config.num_layers):
             self._block_for(i).init(generator)
         self.final_norm.init(generator)
+        if not self.config.tie_embeddings:
+            self.lm_head.init(generator)
         return self
 
     def apply(self, tokens, training=False, rngs=None, return_hidden=False,
@@ -188,7 +205,7 @@ class GPT(nn.Module):
         training, ``rngs={"dropout": g}`` with ``g`` a CPU generator (one
         seed drawn from it a call) or an integer seed. Returns the
         final-norm hidden states with ``return_hidden=True``, else the
-        tied-head logits, fp32 unless ``logits_dtype`` says otherwise, and
+        logits (``head``), fp32 unless ``logits_dtype`` says otherwise, and
         capped by ``final_logit_softcap``. ``decode=True`` runs the tokens
         through ``caches`` (one a layer, from ``init_cache``) at their
         write index, which also gives the learned positions, and returns
@@ -233,18 +250,23 @@ class GPT(nn.Module):
             return x
         if logits_last_only:
             x = x[..., -1:, :]
-        # The tied head's product accumulates in fp32 (JAX:
-        # preferred_element_type), here as the product of the exact fp32
-        # copies of the compute-dtype operands.
-        table = maybe_cast(self.embedding.table, c.dtype)
-        logits = torch.matmul(x.float(), table.float().t())
-        logits = logits.to(logits_dtype or torch.float32)
+        logits = self.head(x).to(logits_dtype or torch.float32)
         if c.final_logit_softcap is not None:
             cap = torch.tensor(c.final_logit_softcap, dtype=logits.dtype)
             logits = cap * torch.tanh(logits / cap)
         if extras is not None:
             return logits, extras
         return logits
+
+    def head(self, x):
+        """The LM head before the final softcap. Tied: its product
+        accumulates in fp32 (JAX: preferred_element_type), here as the
+        product of the exact fp32 copies of the compute-dtype operands;
+        untied: ``lm_head``, a Linear in the compute dtype (JAX :311-323)."""
+        if not self.config.tie_embeddings:
+            return self.lm_head(x)
+        table = maybe_cast(self.embedding.table, self.config.dtype)
+        return torch.matmul(x.float(), table.float().t())
 
     def init_cache(self, batch, max_len=None, dtype=torch.float32):
         """One dense KV cache a layer (JAX :450), of ``max_len`` (default
@@ -329,9 +351,12 @@ class GPT(nn.Module):
         out = self.apply(inputs, training=training, rngs=rngs,
                          return_hidden=c.fused_loss, logits_dtype=c.dtype,
                          segment_ids=seg, positions=pos)
-        if c.fused_loss:
+        if c.fused_loss and c.tie_embeddings:
             return ops.fused_lm_head_loss(out, self.embedding.table, targets,
                                           valid=valid)
+        if c.fused_loss:
+            return ops.fused_lm_head_loss(out, self.lm_head.w, targets,
+                                          valid=valid, table_layout="dv")
         ce = ops.softmax_cross_entropy_with_integer_labels(out, targets)
         if valid is None:
             return ce.mean()

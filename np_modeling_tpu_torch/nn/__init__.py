@@ -5,6 +5,7 @@ from np_modeling_tpu_torch.nn.attention import MultiHeadAttention
 from np_modeling_tpu_torch.nn.embedding import Embedding
 from np_modeling_tpu_torch.nn.linear import (Dense, Dropout, Int8Weight,
                                              LayerNorm, Linear, RMSNorm)
+from np_modeling_tpu_torch.nn.mla import MLAttention
 from np_modeling_tpu_torch.nn.module import (Sequential, maybe_cast,
                                              resolve_rngs, split_rngs)
 from np_modeling_tpu_torch.nn.transformer import (TransformerDecoder,
@@ -13,7 +14,7 @@ from np_modeling_tpu_torch.nn.transformer import (TransformerDecoder,
                                                   TransformerEncoderBlock)
 
 __all__ = ["Dense", "Dropout", "Embedding", "Int8Weight", "LayerNorm",
-           "Linear", "MultiHeadAttention", "RMSNorm", "Sequential",
+           "Linear", "MLAttention", "MultiHeadAttention", "RMSNorm", "Sequential",
            "TransformerDecoder", "TransformerDecoderBlock",
            "TransformerEncoder", "TransformerEncoderBlock", "initializers",
            "maybe_cast", "resolve_rngs", "split_rngs"]

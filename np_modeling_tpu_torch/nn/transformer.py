@@ -8,7 +8,11 @@ Counterpart of np_modeling_tpu/nn/transformer.py ``TransformerEncoderBlock``
 ``"geglu"`` is the gated FFN ``w_down(act(y w_gate) * (y w_up))``, biasless,
 with silu or tanh-gelu (JAX :189-197), its weights under ``swiglu``.
 ``sandwich_norm`` (Gemma-2) adds ``post_norm1``/``post_norm2`` on each
-sublayer's output before its residual add (JAX :255-278). ``forward`` is
+sublayer's output before its residual add (JAX :255-278). ``mla`` (a dict
+of ``MLAttention`` dims: kv_lora_rank, q_lora_rank, qk_nope_head_dim,
+qk_rope_head_dim, v_head_dim, and the GPT's rope_base / rope_scaling)
+replaces the attention by DeepSeek-V2's latent attention, which composes
+with no window, softcap, qk_norm or sandwich norm (JAX :82-90). ``forward`` is
 the dense path, in JAX's order of dropout (salt 1 before ``norm1``, salt 2
 before ``norm2``), norm, sublayer and residual; the serving engine's
 ``_block_step`` composes the same modules around paged attention.
@@ -34,6 +38,7 @@ from np_modeling_tpu_torch.nn import initializers
 from np_modeling_tpu_torch.nn.attention import MultiHeadAttention
 from np_modeling_tpu_torch.nn.linear import (Dense, Dropout, LayerNorm,
                                              Linear, RMSNorm)
+from np_modeling_tpu_torch.nn.mla import MLAttention
 from np_modeling_tpu_torch.nn.module import maybe_cast, split_rngs
 
 
@@ -70,7 +75,8 @@ class TransformerEncoderBlock(nn.Module):
                  window: Optional[int] = None,
                  attn_scale: Optional[float] = None,
                  attn_softcap: Optional[float] = None,
-                 norm_first: bool = True, device=None):
+                 norm_first: bool = True, mla: Optional[dict] = None,
+                 device=None):
         super().__init__()
         if ffn not in ("mlp", "swiglu", "geglu"):
             raise NotImplementedError(f"ffn {ffn!r} is not ported")
@@ -78,11 +84,23 @@ class TransformerEncoderBlock(nn.Module):
             raise ValueError("sandwich_norm is a pre-norm form (JAX asserts)")
         self.dtype, self.ffn, self.sandwich_norm = dtype, ffn, sandwich_norm
         self.norm_first = norm_first
-        self.self_attention = MultiHeadAttention(
-            features, num_heads, num_kv_heads, head_dim=head_dim,
-            use_bias=use_bias, qkv_bias=qkv_bias, causal=causal, dtype=dtype,
-            rope=rope, rope_base=rope_base, rope_dim=rope_dim, window=window,
-            attn_scale=attn_scale, attn_softcap=attn_softcap, device=device)
+        if mla is not None:
+            if window is not None or attn_softcap is not None \
+                    or sandwich_norm:
+                raise ValueError("MLA composes with none of: sliding "
+                                 "windows, softcap, qk_norm, sandwich_norm "
+                                 "(they would be silently dropped; JAX "
+                                 "asserts)")
+            self.self_attention = MLAttention(
+                features, num_heads, causal=causal, dtype=dtype,
+                ln_eps=ln_eps, device=device, **mla)
+        else:
+            self.self_attention = MultiHeadAttention(
+                features, num_heads, num_kv_heads, head_dim=head_dim,
+                use_bias=use_bias, qkv_bias=qkv_bias, causal=causal,
+                dtype=dtype, rope=rope, rope_base=rope_base,
+                rope_dim=rope_dim, window=window, attn_scale=attn_scale,
+                attn_softcap=attn_softcap, device=device)
         self.drop = Dropout(drop_rate)
 
         def make_norm():

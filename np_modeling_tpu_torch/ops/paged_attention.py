@@ -32,6 +32,14 @@ in q's dtype.
 A sequence with length 0 differs between the two versions, as it does in
 the JAX package: the kernel stores 0, the plain version returns the mean of
 v over the table's positions (its mask value is finite).
+
+The latent option (MLA's absorbed serving form, JAX serving/engine.py
+:1739-1817): at head_dim 576 the kernel takes one page array as both k and
+v (``paged_attention(q, P, P, ...)``, and with int8 pages one scale set as
+both scales), and reads each latent row once for q.k and p.v; it returns
+the full 576 columns. Distinct k and v arrays at 576 raise ValueError, a
+window, softcap or bias there NotImplementedError. The plain version is
+``paged_attention_reference`` with the same array as k and v.
 """
 
 from __future__ import annotations
@@ -167,8 +175,9 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
     only with int8 pages. ``window`` (a positive width), ``softcap`` (a
     positive cap) and ``bias`` (fp32, 3-D or 4-D, any width) run in both.
     The kernel takes fp32 or bf16 q, fp32, bf16 or int8 pages, head_dim 64,
-    128 or 256, any GQA group, any sq >= 1, page sizes 8..128 (powers of
-    two); it raises on sinks and on a bias with a window or a softcap."""
+    128 or 256, or 576 with one page array as k and v (the latent option),
+    any GQA group, any sq >= 1, page sizes 8..128 (powers of two); it
+    raises on sinks and on a bias with a window or a softcap."""
     int8_pages = k_pages.dtype == torch.int8 or v_pages.dtype == torch.int8
     scaled = k_scales is not None or v_scales is not None
     if int8_pages != scaled or (scaled and (k_scales is None
@@ -203,12 +212,14 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
 # shows with it that its attention went through the kernel. launches counts
 # every call (its split pass and, with more than one split, its merge are one
 # launch), launches_int8 those over int8 pages, launches_window those with a
-# sliding window, launches_bias those with a score bias, launches_split those
-# whose grid had more than one split.
+# sliding window, launches_bias those with a score bias, launches_latent
+# those of the latent option (head_dim 576, one array as k and v),
+# launches_split those whose grid had more than one split.
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
 paged_attention.launches_window = 0
 paged_attention.launches_bias = 0
+paged_attention.launches_latent = 0
 paged_attention.launches_split = 0
 
 # The split plan (flash-decoding). The kernel's row tiles: up to 2 rows (a
@@ -222,6 +233,11 @@ paged_attention.launches_split = 0
 # 8 x 4096 tokens (512 was faster there, but 2.77x slower than 256 at 8 x
 # 1024); GPT-2's decode is ~3% slower with 256 than with 128.
 FULL_GRID_PER_SM, MAX_BLOCKS_PER_SM, MIN_SPLIT_KEYS = 2, 16, 256
+# The latent option (head_dim LATENT_DIM): row tiles of 16 rows (a decode
+# token's 16 heads) or 32; a key costs 576-wide q.k and p.v for every row,
+# so its ranges start at LATENT_MIN_SPLIT_KEYS keys: a table of 2048
+# positions gives MLA's 8 decode sequences 16 ranges each, ~132 blocks.
+LATENT_DIM, LATENT_MIN_SPLIT_KEYS = 576, 128
 
 
 def split_plan(batch, num_kv_heads, rows, head_dim, pages_per_seq,
@@ -230,10 +246,14 @@ def split_plan(batch, num_kv_heads, rows, head_dim, pages_per_seq,
     rows a kv head (sq x the GQA group), the table's width pages_per_seq x
     page_size, on a card of ``sms`` streaming multiprocessors. Never reads
     lengths (they lie on the card)."""
-    tile = 2 if rows <= 2 else (32 if head_dim > 128 else 64)
+    if head_dim == LATENT_DIM:
+        tile, min_keys = (16 if rows <= 16 else 32), LATENT_MIN_SPLIT_KEYS
+    else:
+        tile = 2 if rows <= 2 else (32 if head_dim > 128 else 64)
+        min_keys = MIN_SPLIT_KEYS
     width = pages_per_seq * page_size
     blocks = -(-rows // tile) * num_kv_heads * batch
-    splits = min(width // MIN_SPLIT_KEYS,
+    splits = min(width // min_keys,
                  -(-MAX_BLOCKS_PER_SM * sms // blocks))
     if blocks >= FULL_GRID_PER_SM * sms or splits <= 1:
         return 1, max(width, 1)
@@ -273,9 +293,22 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
     hkv, total_pages, psize, dk = k_pages.shape
     if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype:
         raise ValueError("k_pages and v_pages differ in shape or dtype")
-    if dk != d or d not in (64, 128, 256):
+    latent = d == LATENT_DIM
+    if dk != d or d not in (64, 128, 256, LATENT_DIM):
         raise ValueError(f"head_dim {d} (pages {dk}): the kernel takes 64, "
-                         "128 or 256")
+                         f"128, 256, or {LATENT_DIM} with one page array as "
+                         "k and v")
+    if latent and (v_pages.data_ptr() != k_pages.data_ptr() or (
+            k_scales is not None
+            and v_scales.data_ptr() != k_scales.data_ptr())):
+        raise ValueError(f"head_dim {LATENT_DIM} is the latent option (MLA): "
+                         "it takes one page array as both k and v, and one "
+                         "scale set as both scales")
+    if latent and (window is not None or softcap is not None
+                   or bias is not None):
+        raise NotImplementedError(
+            "the paged kernel's latent option takes no window, softcap or "
+            "bias (no MLA caller passes them; ROADMAP.md Queue 2 A, K3)")
     if hq % hkv:
         raise ValueError(f"{hq} q heads do not group over {hkv} kv heads")
     if psize < 8 or psize > 128 or psize & (psize - 1):
@@ -353,4 +386,6 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
         paged_attention.launches_window += 1
     if bias is not None:
         paged_attention.launches_bias += 1
+    if latent:
+        paged_attention.launches_latent += 1
     return out

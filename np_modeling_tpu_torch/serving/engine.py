@@ -41,6 +41,14 @@ per-token scales (``ops.quantize_int8`` at each append) that paged
 attention dequantizes; a GPT whose FFN weights were loaded as int8
 (``utils.params_from_numpy`` of an ``ops.quantize_params_int8`` tree) runs
 its FFN through ``ops.int8_matmul`` with no change here.
+
+MLA models (``GPTConfig.mla``, DeepSeek-V2) are served on latent pages (JAX
+:150-203, :408-427, :1739-1817): one shared "kv head" of ``kv_lora_rank +
+qk_rope_head_dim`` numbers a token, no ``v_pages`` and, with
+``quantize_kv``, one scale set; a step runs the absorbed form, q_nope
+through kv_b's k half, paged attention with the page array as both k and v
+(the paged kernel's latent option on the card), and the first kv_lora_rank
+output columns through kv_b's v half. MLA needs chunked prefill.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import math
 from typing import Optional
 
 import numpy as np
@@ -129,7 +138,17 @@ class GenerationEngine:
                                  "through the chunked path: "
                                  "prefill_chunk_size=None cannot use it")
             self._prefix_cache = collections.OrderedDict()
-        self._dims = self.gpt._block_for(0).self_attention._dims(c.d_model)
+        self._mla = c.mla is not None
+        if self._mla:
+            if self.prefill_chunk_size is None:
+                raise ValueError("MLA serving requires chunked prefill (the "
+                                 "dense path collects per-head K/V, which MLA "
+                                 "never materializes; JAX asserts)")
+            attn = self.gpt._block_for(0).self_attention
+            self._dims = (c.num_heads, 1, attn.latent_width)
+        else:
+            self._dims = self.gpt._block_for(0).self_attention._dims(
+                c.d_model)
         self.max_pages = -(-c.max_len // self.page_size)
         self._max_tokens = min(self.max_pages * self.page_size, c.max_len)
         self._state = self._make_lane_state(self.gpt, self.total_pages)
@@ -151,11 +170,13 @@ class GenerationEngine:
                  else self.kv_dtype or torch.float32)
         dev = self.device
         S, V = self.max_seqs, c.vocab_size
+        # Latent pages (MLA): the row doubles as v, so no v_pages and one
+        # scale set.
+        kinds = ("k",) if self._mla else ("k", "v")
         state = {
-            "k_pages": [torch.zeros(shape, dtype=store, device=dev)
-                        for _ in range(c.num_layers)],
-            "v_pages": [torch.zeros(shape, dtype=store, device=dev)
-                        for _ in range(c.num_layers)],
+            **{f"{kind}_pages": [torch.zeros(shape, dtype=store, device=dev)
+                                 for _ in range(c.num_layers)]
+               for kind in kinds},
             "table": torch.zeros((S, self.max_pages), dtype=torch.int32,
                                  device=dev),
             "lengths": torch.zeros((S,), dtype=torch.int32, device=dev),
@@ -176,10 +197,10 @@ class GenerationEngine:
                                              device=dev)
         if self.quantize_kv:
             sshape = shape[:-1] + (1,)
-            for key in ("k_scales", "v_scales"):
-                state[key] = [torch.zeros(sshape, dtype=torch.float32,
-                                          device=dev)
-                              for _ in range(c.num_layers)]
+            for kind in kinds:
+                state[f"{kind}_scales"] = [
+                    torch.zeros(sshape, dtype=torch.float32, device=dev)
+                    for _ in range(c.num_layers)]
         return state
 
     # ---- request lifecycle ----------------------------------------------
@@ -723,11 +744,9 @@ class GenerationEngine:
         return state, self._lm_head(x)
 
     def _lm_head(self, x):
-        """Tied LM head, fp32 logits: the product of x and the table cast to
-        x's dtype, accumulated in fp32 (JAX: preferred_element_type), then
-        the final softcap."""
-        table = self.gpt.embedding.table
-        logits = torch.matmul(x.float(), table.to(x.dtype).float().T)
+        """The LM head, fp32 logits (JAX :1640-1651): ``GPT.head`` (x is in
+        the compute dtype), then the final softcap."""
+        logits = self.gpt.head(x).float()
         cap = self.gpt.config.final_logit_softcap
         if cap is not None:
             logits = cap * torch.tanh(logits / cap)
@@ -755,20 +774,40 @@ class GenerationEngine:
         """Write [hkv, N, dk] new K/V into layer li's pages at (pages[n],
         offs[n]), in place (index_put_); with ``quantize_kv`` the int8
         values into the pages and their scales at the same (pages, offs).
-        Duplicate targets occur only on the trash page."""
-        writes = [("k_pages", k_new), ("v_pages", v_new)]
+        Duplicate targets occur only on the trash page. ``v_new`` None (MLA's
+        latent rows): k only."""
+        writes = [("k", k_new)] + ([] if v_new is None else [("v", v_new)])
         if self.quantize_kv:
-            kq, vq = quantize_int8(k_new), quantize_int8(v_new)
-            writes = [("k_pages", kq.values), ("v_pages", vq.values),
-                      ("k_scales", kq.scales), ("v_scales", vq.scales)]
+            quant = [(kind, quantize_int8(new)) for kind, new in writes]
+            writes = [(f"{kind}_pages", q.values) for kind, q in quant] + [
+                (f"{kind}_scales", q.scales) for kind, q in quant]
+        else:
+            writes = [(f"{kind}_pages", new) for kind, new in writes]
         for key, new in writes:
             buf = state[key][li]
             buf[:, pages, offs] = new.to(buf.dtype)
         return state
 
+    def _write_slots(self, state, tok_pos):
+        """(pages [S * t], offsets [S * t]) where the tokens at ``tok_pos``
+        [S, t] land: slot n's token i writes (page_of(lengths[n] + i),
+        (lengths[n] + i) % ps); inactive slots, and positions past the page
+        table (which JAX's out-of-bounds scatter drops), write the trash
+        page."""
+        page_pos = tok_pos // self.page_size
+        slot_off = (tok_pos % self.page_size).reshape(-1)
+        in_table = page_pos < self.max_pages
+        pages = torch.gather(state["table"], 1,
+                             page_pos.clamp(max=self.max_pages - 1)).long()
+        pages = torch.where(state["active"][:, None] & in_table, pages,
+                            self._trash).reshape(-1)
+        return pages, slot_off
+
     def _block_step(self, bp, x, li, state):
         """One pre-norm block on the [S, t, d] slice: page append, paged
         attention, FFN. Mirrors the JAX engine's ``_block_step``."""
+        if self._mla:
+            return self._block_step_mla(bp, x, li, state)
         attn = bp.self_attention
         active, lengths = state["active"], state["lengths"]
         S, t = x.shape[:2]
@@ -780,17 +819,7 @@ class GenerationEngine:
         v = attn._project(y, attn.wv, attn.bv)
         tok_pos = lengths[:, None].long() + torch.arange(t, device=x.device)
         q, k = attn._rope(q, tok_pos), attn._rope(k, tok_pos)
-
-        # Slot n's token i writes (page_of(lengths[n] + i), (lengths[n] + i)
-        # % ps); inactive slots, and positions past the page table (which
-        # JAX's out-of-bounds scatter drops), write the trash page.
-        page_pos = tok_pos // self.page_size
-        slot_off = (tok_pos % self.page_size).reshape(-1)
-        in_table = page_pos < self.max_pages
-        pages = torch.gather(state["table"], 1,
-                             page_pos.clamp(max=self.max_pages - 1)).long()
-        pages = torch.where(active[:, None] & in_table, pages,
-                            self._trash).reshape(-1)
+        pages, slot_off = self._write_slots(state, tok_pos)
         hkv, dk = k.shape[1], k.shape[-1]
         k_flat = k.transpose(0, 1).reshape(hkv, -1, dk)     # [hkv, S*t, dk]
         v_flat = v.transpose(0, 1).reshape(hkv, -1, dk)
@@ -820,4 +849,54 @@ class GenerationEngine:
         z = bp._ffn(bp.norm2(y)).to(x.dtype)
         if bp.sandwich_norm:
             z = bp.post_norm2(z)
+        return z + skip, state
+
+    def _block_step_mla(self, bp, x, li, state):
+        """One MLA block on the [S, t, d] slice (JAX :1739-1817, with its
+        casts): the tokens' latent rows concat(c_kv, k_pe) appended to the
+        pages, then the absorbed paged attention, the page array as both k
+        and v (one scale set with int8 pages), and the first kv_lora_rank
+        output columns through kv_b's v half in fp32. The einsums are plain
+        torch, as JAX computes them outside any Pallas kernel."""
+        attn = bp.self_attention
+        active, lengths = state["active"], state["lengths"]
+        S, t = x.shape[:2]
+        nope = attn.qk_nope_head_dim
+
+        skip = x
+        y = bp.norm1(x)
+        q_nope, q_pe = attn._split_q(attn._q_heads(y))     # [S, hq, t, .]
+        c_lat, k_pe = attn._latent(y)                       # [S, 1, t, .]
+        tok_pos = lengths[:, None].long() + torch.arange(t, device=x.device)
+        q_pe, k_pe = attn._rope(q_pe, tok_pos), attn._rope(k_pe, tok_pos)
+        k_new = torch.cat([c_lat, k_pe], dim=-1)            # [S, 1, t, w]
+        pages, slot_off = self._write_slots(state, tok_pos)
+        width = k_new.shape[-1]
+        state = self._append(state, li, pages, slot_off,
+                             k_new.transpose(0, 1).reshape(1, -1, width), None)
+
+        att_len = torch.where(active, lengths + t, 0).to(torch.int32)
+        kwargs = {}
+        if self.quantize_kv:
+            sc = state["k_scales"][li]
+            kwargs = {"k_scales": sc, "v_scales": sc}
+        wk = attn.kv_b[:, :, :nope]                         # [rank, hq, n]
+        q_abs = torch.einsum("bhtn,rhn->bhtr", q_nope, wk.to(q_nope.dtype))
+        q_eff = torch.cat([q_abs, q_pe], dim=-1)            # [S, hq, t, w]
+        kp = state["k_pages"][li]
+        o = ops.paged_attention(q_eff.transpose(1, 2).contiguous(), kp, kp,
+                                att_len, state["table"],
+                                scale=1.0 / math.sqrt(attn.qk_head_dim),
+                                **kwargs)
+        o_lat = o[..., :attn.kv_lora_rank]                  # [S, t, hq, r]
+        wv = attn.kv_b[:, :, nope:]                         # [rank, hq, v]
+        o_heads = torch.einsum("bthr,rhv->bthv", o_lat.float(), wv.float())
+        hq, vd = o_heads.shape[2], o_heads.shape[3]
+        wo = attn.wo.to(x.dtype)
+        y = ops.linear(o_heads.reshape(S, t, hq * vd).to(x.dtype),
+                       wo.reshape(hq * vd, -1))
+        y = y + skip
+
+        skip = y
+        z = bp._ffn(bp.norm2(y)).to(x.dtype)
         return z + skip, state

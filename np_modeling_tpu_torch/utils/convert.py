@@ -5,9 +5,11 @@ arrays (numpy, or anything ``np.asarray`` reads), into any port module whose
 parameter names are the tree's paths with ``.`` for ``/``; a missing, extra
 or mis-shaped leaf raises. ``params_from_numpy`` does so for the JAX GPT's,
 T5's or Seq2SeqTransformer's tree (``layer_{i}/self_attention/wq``,
-``enc_relpos``, ``decoder/layer_{i}/cross_attention/wk``, ...), the model
-picked by the config's type, and returns the port's model holding those
-weights. ``params_to_numpy`` and ``tree_to_numpy`` are the way back: a
+``enc_relpos``, ``decoder/layer_{i}/cross_attention/wk``, ...; an MLA GPT's
+``layer_{i}/self_attention/kv_a``, ``kv_a_norm/gamma``, ``kv_b``, ``wo`` and
+``wq`` or ``q_a`` / ``q_a_norm/gamma`` / ``q_b``, and an untied head's
+``lm_head/w``), the model picked by the config's type, and returns the
+port's model holding those weights. ``params_to_numpy`` and ``tree_to_numpy`` are the way back: a
 port model's parameters, or any ``{name: tensor}`` dict such as their
 gradients, as the JAX-shaped nested dict of fp32 numpy arrays, for a
 leaf-by-leaf comparison.

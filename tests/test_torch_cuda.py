@@ -22,11 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BIAS_CASES, BIAS_DECODE_CASES, MASK_CASES,
-                        PAGED_BIAS_CASES, PAGED_BIAS_PAGES, _bias_fwd_bwd,
-                        _k10_schedule, _schedule, flash_bias_case,
-                        flash_bias_decode_case, flash_mask_case, k10_planned,
-                        k10_run, paged_bias_case)
+from chip_smoke import (BIAS_CASES, BIAS_DECODE_CASES, LATENT_CASES,
+                        LATENT_PAGES, MASK_CASES, PAGED_BIAS_CASES,
+                        PAGED_BIAS_PAGES, _bias_fwd_bwd, _k10_schedule,
+                        _schedule, flash_bias_case, flash_bias_decode_case,
+                        flash_mask_case, k10_planned, k10_run,
+                        latent_vs_plain, paged_latent_case, paged_bias_case)
 from np_modeling_tpu_torch import models, ops
 from np_modeling_tpu_torch.ops import dispatch, fused
 
@@ -253,6 +254,84 @@ def test_cuda_seq2seq_engine_vs_plain_engine():
         streams.append(out)
         assert launched == (0 if plain else 2 * 33)
     assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("pages", LATENT_PAGES)
+@pytest.mark.parametrize("case", LATENT_CASES, ids=[c[0] for c in LATENT_CASES])
+def test_cuda_paged_latent_vs_plain(case, pages):
+    """K3's latent option (d 576, one page array as k and v) over chip_smoke
+    (B)'s cases: g 16 and 128, decode and chunk rows, the planned split and
+    forced ones, fp32, bf16 and int8 pages (one scale set) with fp32 and bf16
+    q; within the paged tolerances of the plain version, a length-0 row 0,
+    table entries past the length unread, one latent launch a call."""
+    err, tol, _, _ = latent_vs_plain(case, pages, seed=len(case[4]))
+    assert err <= tol
+
+
+def test_cuda_latent_and_mla_refusals():
+    """d 576 with distinct k and v arrays raises ValueError; a window, a
+    softcap or a bias there NotImplementedError; MLAttention's dense forward
+    (flash at d 192) and GPT.generate's latent decode (d 576) raise on the
+    card, naming ROADMAP."""
+    q, rows, lens, table, _, _ = paged_latent_case(2, None, 16, [5, 9],
+                                                   "float32", 0, pps=2)
+    with pytest.raises(ValueError, match="one page array"):
+        ops.paged_attention(q, rows, rows.clone(), lens, table)
+    for kw in (dict(window=4), dict(softcap=5.0),
+               dict(bias=torch.zeros(2, 16, 32, device="cuda"))):
+        with pytest.raises(NotImplementedError, match="latent"):
+            ops.paged_attention(q, rows, rows, lens, table, **kw)
+    cfg = models.GPTConfig(vocab_size=64, d_model=32, num_heads=4,
+                           num_layers=1, hidden_units=48, max_len=32,
+                           positional="rope", norm="rms", ffn="swiglu",
+                           use_bias=False, tie_embeddings=False,
+                           mla=dict(kv_lora_rank=16, q_lora_rank=None,
+                                    qk_nope_head_dim=8, qk_rope_head_dim=4,
+                                    v_head_dim=8))
+    gpt = models.GPT(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.zeros(1, 4, dtype=torch.long, device="cuda")
+    for run in (lambda: gpt.apply(toks), lambda: gpt.generate(toks, 2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run()
+    with dispatch.force_plain():
+        assert gpt.generate(toks, 2).shape == (1, 2)
+
+
+def test_cuda_mla_engine_vs_plain_engine():
+    """A small MLA GPT with d 576 latent rows (rank 512 + rope 64, 16 heads),
+    YaRN and an untied head, fp32 and int8 latent pages: the engine's greedy
+    tokens through K3's latent option equal the plain engine's under joins
+    and a leave; 3 latent launches a forward (one a layer)."""
+    from np_modeling_tpu_torch.serving import GenerationEngine
+    cfg = models.GPTConfig(
+        vocab_size=256, d_model=256, num_heads=16, num_layers=3,
+        hidden_units=256, max_len=512, positional="rope", norm="rms",
+        ln_eps=1e-6, ffn="swiglu", use_bias=False, tie_embeddings=False,
+        rope_scaling=("yarn", 40.0, 32.0, 1.0, 4096.0, 1.0),
+        mla=dict(kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=32,
+                 qk_rope_head_dim=64, v_head_dim=32))
+    gpt = models.GPT(cfg).init(torch.Generator(device="cuda").manual_seed(1))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, n) for n in (300, 7, 129, 40)]
+    for quantize in (False, True):
+        streams = []
+        for plain in (False, True):
+            eng = GenerationEngine(gpt, total_pages=160, page_size=16,
+                                   max_seqs=4, prefill_chunk_size=64,
+                                   quantize_kv=quantize)
+            with dispatch.force_plain() if plain else contextlib.nullcontext():
+                before = ops.paged_attention.launches_latent
+                out = [eng.add_requests({0: prompts[0], 1: prompts[1]})]
+                out += [eng.step() for _ in range(3)]
+                out.append(eng.add_requests({2: prompts[2], 3: prompts[3]}))
+                out.append(eng.step_many(12))
+                eng.finish(1)
+                out.append(eng.step_many(6))
+                launched = ops.paged_attention.launches_latent - before
+            streams.append(out)
+            # chunks: 5 + 3 at admission; 21 decode steps; 3 layers each
+            assert launched == (0 if plain else 3 * (5 + 3 + 21))
+        assert streams[0] == streams[1]
 
 
 def test_cuda_gemma2_engine_vs_plain_engine():

@@ -10,7 +10,8 @@ tests/test_engine.py, test_sampling.py and test_prefix_cache.py mirrored
 against the JAX engine on the same weights: dense prefill, fork, the
 prefix cache with its stats, window reclamation with fork, and greedy
 penalties (engine-wide and per request) token for token, free pages
-included. fp32, a 2-layer GPT of width 64 and vocabulary 128; the JAX side
+included; int8 KV pages (``quantize_kv=True``) under dense prefill, fork
+and the prefix cache. fp32, a 2-layer GPT of width 64 and vocabulary 128; the JAX side
 runs under ``jax.jit`` (its engine jits its own steps).
 """
 
@@ -256,6 +257,57 @@ def test_prefix_cache_vs_jax(weights):
     assert teng.prefix_cache_stats == jeng.prefix_cache_stats
     assert teng.prefix_cache_stats["hit_tokens"] > 0
     assert teng.free_pages == jeng.free_pages
+
+
+# ---- int8 KV pages (quantize_kv=True) under the serving features ------------
+
+def test_quantized_kv_dense_prefill_vs_jax(weights):
+    """quantize_kv=True with dense prefill: first tokens, steps and free
+    pages equal JAX's (the int8 pages and their scales scattered from the
+    collected k/v)."""
+    jeng, teng = _engines(weights, prefill_chunk_size=None, quantize_kv=True)
+    prompts = {i: rng.integers(0, V, n) for i, n in enumerate((13, 5, 21))}
+    want = jeng.add_requests({i: jnp.asarray(p) for i, p in prompts.items()})
+    assert teng.add_requests(prompts) == want
+    assert teng.step_many(6) == jeng.step_many(6)
+    assert teng.free_pages == jeng.free_pages
+
+
+def test_quantized_kv_fork_vs_jax(weights):
+    """quantize_kv=True with fork: the child copies the tail page's int8
+    rows and scales; greedy twins equal the parent and JAX's."""
+    jeng, teng = _engines(weights, quantize_kv=True)
+    free0 = teng.free_pages
+    prompt = rng.integers(0, V, 22)
+    assert teng.add_request(0, prompt) == jeng.add_request(
+        0, jnp.asarray(prompt))
+    teng.fork(0, 1)
+    jeng.fork(0, 1)
+    got, want = teng.step_many(8), jeng.step_many(8)
+    assert got == want and got[0] == got[1]
+    for sid in (0, 1):
+        teng.finish(sid)
+        jeng.finish(sid)
+    assert teng.free_pages == jeng.free_pages == free0
+
+
+def test_quantized_kv_prefix_cache_vs_jax(weights):
+    """quantize_kv=True with the prefix cache: shared int8 pages, tokens,
+    stats and free pages equal JAX's."""
+    jeng, teng = _engines(weights, total_pages=24, prefill_chunk_size=4,
+                          enable_prefix_cache=True, quantize_kv=True)
+    shared = rng.integers(0, V, 12)
+    prompts = [np.concatenate([shared[:n], rng.integers(0, V, m)])
+               for n, m in ((12, 5), (8, 7), (12, 1))]
+    for i, p in enumerate(prompts):
+        got = [teng.add_request(i, p)] + teng.step_many(3)[i]
+        want = [jeng.add_request(i, jnp.asarray(p))] + jeng.step_many(3)[i]
+        assert got == want
+        assert teng.prefix_cache_stats == jeng.prefix_cache_stats
+        assert teng.free_pages == jeng.free_pages
+        teng.finish(i)
+        jeng.finish(i)
+    assert teng.prefix_cache_stats["hit_tokens"] > 0
 
 
 def test_window_reclamation_with_fork_vs_jax():

@@ -5,7 +5,8 @@ entry point, that entry point with every product forced through the matmul
 kernel, packed-document training, Gemma-2 serving and generate, Gemma-2
 training, T5 training and decode, Seq2Seq, T5 serving through the
 encoder-decoder engine, and DeepSeek-V2-Lite's latent attention (MLA)
-served on latent pages once on one CUDA card.
+served on latent pages and trained through the training entry point once
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -286,7 +287,29 @@ Phases, each printed on its own lines; any failure exits non-zero:
       compute and pages by (q)'s rule; the decode step in rounds with the
       plain engine, profiled by kind, K3 latent beside its bound, the plain
       version and SDPA over the gathered rows, and peak memory
-      (``phase_deepseek_serving``).
+      (``phase_deepseek_serving``);
+  (C) DeepSeek-V2-Lite's latent attention trained on the card. The flash
+      kernels at MLA's qk head dim 192 (MLA_FLASH_CASES: ragged 200, GQA
+      8/2, sq 130 < skv 333, sq 257 > skv 100, and the slice's b1 h16 s4096;
+      fp32 and bf16, causal and not, with and without segment ids): o, lse,
+      dq, dk, dv of K1 + K2 and K1 + K5 within the flash tolerances of the
+      plain version, K12 (where JAX's condition holds) equal to K1 bit for
+      bit. Timings at b1 h16 s4096 d192 causal bf16: K1, K12, K2 and K5
+      beside the plain version, the bound and F.scaled_dot_product_attention
+      forward and autograd backward (in rounds of SDPA, K, K, SDPA). Step 0
+      at full width and 2 layers on 1 x 4096 Zipf tokens through K1 + K2 and
+      K12 + K5 against force_plain() in fp32 by (h)'s criteria (the
+      attention weights' gradients printed) and in bf16 by (h)'s rule. Then
+      the main path: train_gpt.train at MLA_TRAIN_LAYERS layers, bf16
+      compute, 1 x 4096 tokens, MLA_TRAIN_STEPS steps (the loss finite and
+      falling, K1 and K2 once a layer a step) and MLA_FLAG_STEPS more under
+      FUSED_BWD False / FWD_DUAL_KV True (K12 and K5 once a layer a step),
+      the peak memory printed; the closing fp32 GPT.generate (16 greedy
+      tokens after 8) on the trained weights equal to plain generate's (near
+      ties as in (B)), logits within F32_TOL, K3's latent option once a
+      layer a step over the dense cache viewed as pages, no flash call; K3
+      there timed beside its bound, the plain version and SDPA
+      (``phase_mla_training``).
 Each path runs with the launch counts set to 0 just before it and read just
 after. Library yardsticks (one PyTorch call computing a kernel's function,
 which the port never calls) are timed beside K1/K2/K5/K12 (scaled_dot_
@@ -577,6 +600,8 @@ def check_forward_sass(lib_path, log):
     want |= {(d, h, o) for d in (64, 128, 256) for h in (0, 1)
              for o in (16, 17)}
     want |= {(d, 1, 24) for d in (64, 128, 256)} | {(64, 0, 20), (64, 1, 20)}
+    # d 192 (MLA): K1 and K5's dq alone and with segment ids, K12 alone.
+    want |= {(192, h, o) for h in (0, 1) for o in (0, 1)} | {(192, 2, 0)}
     lines = []
     for key in sorted(want):
         d, halves, opt = key
@@ -6427,13 +6452,413 @@ def phase_deepseek_serving(device_line):
     return res, keys, counts, counts16
 
 
-def main(phases="abcdefghijklmnopqrstuvwxyzAB"):
+# Phase (C): DeepSeek-V2-Lite's latent attention (MLA) trained on the card at its
+# published widths ((B)'s DSV2_LITE with DSV2_CUT's MoE cut), through the training
+# entry point. MLAttention's dense form runs the flash kernels at its qk head dim,
+# nope + rope = 192 (v zero-padded to it, as JAX does): K1 and K2 by default, K12 and
+# K5 under JAX's schedule flags. The closing GPT.generate runs K3's latent option over
+# the dense latent cache viewed as pages. MLA_S is YaRN's original length
+# (rope_scaling's original_max_position_embeddings, 4096); MLA_TRAIN_LAYERS of the 27
+# layers are what one card's 80 GB holds with the functional optimizer at 1 x MLA_S
+# tokens (exp_torch_mla.py --depths measures the peak a depth).
+MLA_D, MLA_S = 192, 4096
+MLA_LAYER = (1, 16, 16, MLA_S, MLA_S, MLA_D)      # b, hq, hkv, sq, skv, d
+# The d 192 kernels against their plain version: (label, shape), each in fp32 and
+# bf16, causal and not, with and without segment ids (sq == skv): ragged lengths
+# that no kv tile divides, GQA, sq != skv both ways, and the slice's own shape.
+MLA_FLASH_CASES = (
+    ("ragged", (2, 4, 4, 200, 200, MLA_D)),
+    ("gqa", (1, 8, 2, 300, 300, MLA_D)),
+    ("sq < skv", (1, 4, 4, 130, 333, MLA_D)),
+    ("sq > skv", (1, 4, 4, 257, 100, MLA_D)),
+    ("slice", MLA_LAYER),
+)
+MLA_TRAIN_LAYERS, MLA_TRAIN_STEPS, MLA_FLAG_STEPS = 20, 8, 2
+MLA_STEP0_LAYERS, MLA_TRAIN_ROWS = 2, 16
+# train_gpt.main's closing sample: MLA_GEN_STEPS greedy tokens after the first
+# row's first MLA_GEN_PROMPT.
+MLA_GEN_PROMPT, MLA_GEN_STEPS = 8, 16
+
+
+def mla_flash_case(shape, dtype, causal, segments, seed):
+    """The d 192 kernels on one shape against the plain version (o, lse, dq, dk,
+    dv): K1 + K2 and K1 + K5 (FUSED_BWD False) within _tol(dtype) x max(1, max
+    |plain|); under FWD_DUAL_KV, K12 where JAX's condition holds (no segment ids,
+    an even number of kv tiles), its o and lse equal to K1's bit for bit, else K1.
+    Returns (max forward err, max backward err, the tag, whether K12 ran)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import attention
+    rng = np.random.default_rng(seed)
+    q, k, v, do = _flash_inputs(shape, dtype, rng)
+    b, hq, hkv, sq, skv, d = shape
+    seg, kw = None, {}
+    if segments:
+        seg = torch.tensor(pack_rows(rng, b, sq)[0], device="cuda")
+        kw["segment_ids"] = seg
+    scale = d ** -0.5
+    tag = (f"d192 {shape} causal={causal} segments={segments} "
+           f"{str(dtype)[6:]}")
+    want = _flash_fwd_bwd(q, k, v, do, causal, plain=True, **kw)
+    want.insert(1, attention._attn_fwd_plain(
+        q, k, v, attention._merge_seg_into_mask(None, seg, seg), None, causal,
+        None, scale)[1])
+    fa = ops.flash_attention
+    errs = [0.0, 0.0]
+    for name, fused in (("K1 + K2", True), ("K1 + K5", False)):
+        before = (fa.launches_fwd, fa.launches_bwd, fa.launches_bwd_split)
+        with _schedule(fused_bwd=fused):
+            got = _flash_fwd_bwd(q, k, v, do, causal, plain=False, **kw)
+        if (fa.launches_fwd - before[0], fa.launches_bwd - before[1],
+                fa.launches_bwd_split - before[2]) != (1, int(fused),
+                                                       int(not fused)):
+            raise AssertionError(f"(c) {tag}: {name} did not launch once each")
+        got.insert(1, attention._flash_fwd_cuda(q, k, v, causal, scale, True,
+                                                seg, seg)[1])
+        torch.cuda.synchronize()
+        for i, (part, x, y) in enumerate(zip(("o", "lse", "dq", "dk", "dv"),
+                                             got, want)):
+            err = (x.float() - y.float()).abs().max().item()
+            bound = _tol(dtype) * max(1.0, y.float().abs().max().item())
+            if not err <= bound:
+                raise AssertionError(f"(c) {tag} {name}: {part} max abs err "
+                                     f"{err} > {bound}")
+            errs[i >= 2] = max(errs[i >= 2], err)
+        o_k1, lse_k1 = got[0], got[1]
+    before = fa.launches_fwd_dual
+    with _schedule(dual=True), torch.no_grad():
+        o_dual = ops.flash_attention(q, k, v, causal=causal, **kw)
+    dual = fa.launches_fwd_dual - before == 1
+    tile = attention._fwd_kv_tile(dtype, d)
+    if dual != (seg is None and -(-skv // tile) % 2 == 0):
+        raise AssertionError(f"(c) {tag}: K12 ran {dual}, against JAX's "
+                             "condition")
+    if dual:
+        lse_dual = attention._flash_fwd_cuda(q, k, v, causal, scale, True,
+                                             dual=True)[1]
+        if not (torch.equal(o_dual, o_k1) and torch.equal(lse_dual, lse_k1)):
+            raise AssertionError(f"(c) {tag}: K12's o or lse differ from K1's")
+    return errs[0], errs[1], tag, dual
+
+
+def phase_mla_flash_vs_plain():
+    """(C) The d 192 kernels (K1, K12, K2, K5) over MLA_FLASH_CASES x fp32/bf16 x
+    causal/not x segment ids/not (sq == skv) against the plain version
+    (``mla_flash_case``). Returns the max abs errors {"fwd", "bwd"} -> (fp32,
+    bf16)."""
+    import torch
+    errs = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    n = duals = 0
+    for i, (label, shape) in enumerate(MLA_FLASH_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                for segments in (False, True) if shape[3] == shape[4] else (
+                        False,):
+                    ef, eb, tag, dual = mla_flash_case(
+                        shape, dtype, causal, segments,
+                        SEED + 100 + 7 * i + 2 * causal + segments)
+                    slot = dtype == torch.bfloat16
+                    errs["fwd"][slot] = max(errs["fwd"][slot], ef)
+                    errs["bwd"][slot] = max(errs["bwd"][slot], eb)
+                    n, duals = n + 1, duals + dual
+                    print(f"(C) {label} {tag}: K1 + K2, K1 + K5 max abs err "
+                          f"forward {ef:.2e}, backward {eb:.2e} (tol "
+                          f"{_tol(dtype)} x max(1, max |plain|))"
+                          f"{'; K12 equal to K1' if dual else ''}")
+    print(f"(C) d192 flash kernels: {n} cases pass ({duals} with K12): max abs "
+          f"err fp32 forward {errs['fwd'][0]:.3e} backward {errs['bwd'][0]:.3e},"
+          f" bf16 forward {errs['fwd'][1]:.3e} backward {errs['bwd'][1]:.3e}")
+    return errs
+
+
+def phase_mla_flash_timings(device_line):
+    """(C) K1, K12, K2 and K5 at the slice's shape (MLA_LAYER: b1 h16 s4096 d192,
+    causal, bf16): wall and device ms, kernel and plain (order plain, kernel,
+    kernel, plain), beside the bound (4 d operations a causal (q, k) pair
+    forward, 10 d backward, at 989 TFLOP/s) and F.scaled_dot_product_attention
+    (is_causal, its flash backend) forward and autograd backward, the library
+    call, also in AB_ROUNDS rounds of SDPA, K, K, SDPA. Returns (results, {kernel:
+    its key})."""
+    import torch
+    import torch.nn.functional as F
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    res, keys = {}, {}
+    rng = np.random.default_rng(SEED + 110)
+    q, k, v, do = _flash_inputs(MLA_LAYER, torch.bfloat16, rng)
+    b, hq, s_len, d = q.shape
+    pairs = b * hq * d * s_len * (s_len + 1) // 2
+    lse = torch.empty((b, hq, s_len), dtype=torch.float32, device="cuda")
+    shape = f"b{b} h{hq} s{s_len} d{d} causal bf16"
+    fwd_bound = _bound(_nbytes(q, k, v, q), 4 * pairs)
+    bwd_bound = _bound(_nbytes(q, k, v, q, q, lse, q, k, v), 10 * pairs)
+
+    def sdpa():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    lib_fwd = _library("C", f"F.scaled_dot_product_attention(is_causal=True) "
+                       f"forward {shape}", sdpa, device_line)
+    for kernel, dual in (("K1", False), ("K12", True)):
+        def fwd(dual=dual):
+            with _schedule(dual=dual), torch.no_grad():
+                return ops.flash_attention(q, k, v, causal=True)
+
+        name = f"flash forward{' dual' if dual else ''} mla {shape}"
+        _both(res, "C", name, fwd, device_line, runs=10)
+        _device_both(res, "C", name, fwd, device_line)
+        res["bound " + name] = fwd_bound
+        res["library " + name] = lib_fwd
+        ab = _alternate(sdpa, fwd, _device_ms)
+        res["ab " + name] = [statistics.median(x) for x in ab]
+        print(f"(C) {name}: device time {_ab_line(ab, 'SDPA', kernel)}; bound "
+              f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}) [{device_line}]")
+        keys[kernel] = name
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+    def lib_bwd():
+        return torch.autograd.grad(o_lib, leaves, do, retain_graph=True)
+
+    res_lib_bwd = _library("C", f"F.scaled_dot_product_attention(is_causal=True)"
+                           f" autograd backward {shape}", lib_bwd, device_line)
+    with dispatch.force_plain():
+        o_plain = ops.flash_attention(*leaves, causal=True)
+    for kernel, fused in (("K2", True), ("K5", False)):
+        with _schedule(fused_bwd=fused):
+            o_kernel = ops.flash_attention(*leaves, causal=True)
+
+        def bwd(o):
+            return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+        name = f"flash backward{'' if fused else ' split'} mla {shape}"
+        _both(res, "C", name, bwd(o_kernel), device_line, runs=10,
+              plain_fn=bwd(o_plain))
+        _device_both(res, "C", name, bwd(o_kernel), device_line,
+                     plain_fn=bwd(o_plain))
+        res["bound " + name] = bwd_bound
+        res["library " + name] = res_lib_bwd
+        ab = _alternate(lib_bwd, bwd(o_kernel), _device_ms)
+        res["ab " + name] = [statistics.median(x) for x in ab]
+        if not fused:
+            res["parts " + name] = _kernel_split_ms(
+                bwd(o_kernel), ("flash_bwd_dq", "flash_bwd_bf16"))
+        print(f"(C) {name}: device time {_ab_line(ab, 'SDPA', kernel)}; bound "
+              f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}) [{device_line}]")
+        keys[kernel] = name
+    return res, keys
+
+
+def mla_train_config(dtype, layers, max_len=MLA_S):
+    """(B)'s DeepSeek-V2-Lite config with ``layers`` layers and a table of
+    ``max_len`` positions (the loss then runs all of a row's tokens)."""
+    return dataclasses.replace(deepseek_v2_lite_config(dtype, layers),
+                               max_len=max_len)
+
+
+def _mla_gpt(dtype, layers):
+    import torch
+    from np_modeling_tpu_torch.models import GPT
+    return GPT(mla_train_config(dtype, layers)).init(
+        torch.Generator(device="cuda").manual_seed(SEED + 102))
+
+
+def _mla_counts():
+    from np_modeling_tpu_torch import ops
+    fa = ops.flash_attention
+    return {"flash_attention_fwd": fa.launches_fwd,
+            "flash_attention_fwd_dual": fa.launches_fwd_dual,
+            "flash_attention_bwd": fa.launches_bwd,
+            "flash_attention_bwd_split": fa.launches_bwd_split,
+            "paged_attention": ops.paged_attention.launches,
+            "paged_attention_latent": ops.paged_attention.launches_latent}
+
+
+def _zero_mla_counts():
+    from np_modeling_tpu_torch import ops
+    fa = ops.flash_attention
+    fa.launches_fwd = fa.launches_fwd_dual = 0
+    fa.launches_bwd = fa.launches_bwd_split = 0
+    ops.paged_attention.launches = ops.paged_attention.launches_latent = 0
+
+
+def _attention_grad_errs(grads, ref):
+    """The worst relative L2 error of the attention weights' gradients."""
+    errs = {n: _rel(grads[n], ref[n]) for n in ref if ".self_attention." in n}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def phase_mla_training(device_line):
+    """(C) Step 0 (forward, backward, clip) of DeepSeek-V2-Lite at full width and
+    MLA_STEP0_LAYERS layers on 1 x MLA_S seeded Zipf tokens through the kernels
+    against the plain step (force_plain): in fp32 with K1 + K2 and with K12 + K5
+    (loss 1e-5 relative, each gradient 1e-4 relative L2, the attention weights'
+    printed), in bf16 by (h)'s rule. Then the main path, counts set to 0 just
+    before it: MLA_TRAIN_STEPS steps of train_gpt.train at MLA_TRAIN_LAYERS
+    layers, bf16 compute (the loss is finite and falls; K1 and K2 once a layer a
+    step), MLA_FLAG_STEPS more under FUSED_BWD False and FWD_DUAL_KV True (K12 and
+    K5 once a layer a step), and the closing sample: GPT.generate in fp32 on the
+    trained weights, MLA_GEN_STEPS greedy tokens after MLA_GEN_PROMPT, equal to
+    plain generate's (near ties allowed as in (B)) with logits within F32_TOL x
+    max(1, max |logit|), K3's latent option once a layer a step and no flash
+    call. Returns the launch counts and the peak device memory."""
+    import torch
+    from np_modeling_tpu_torch import train_gpt
+    from np_modeling_tpu_torch.models import GPT
+    from np_modeling_tpu_torch.ops import dispatch
+    t_phase = time.perf_counter()
+    vocab = DSV2_LITE["vocab_size"]
+    corpus = zipf_corpus(vocab, MLA_TRAIN_ROWS, MLA_S, seed=SEED + 101)
+    tokens = torch.tensor(corpus[:1], device="cuda")
+    seed = SEED + 103          # GPT.loss's dropout seed (the rate is 0)
+    L0 = MLA_STEP0_LAYERS
+    tag = f"(C) {L0} layers, 1 x {MLA_S} tokens,"
+    gpt = _mla_gpt(None, L0)
+    lp, ref = _step0(gpt, tokens, seed, plain=True)
+    for fused_bwd, name in ((True, "K1 + K2"), (False, "K12 + K5")):
+        with _schedule(fused_bwd=fused_bwd, dual=not fused_bwd):
+            lk, gk = _step0(gpt, tokens, seed, plain=False)
+        _hold_fp32(tag, f"{name} vs plain", lk, gk, lp, ref)
+        err, worst = _attention_grad_errs(gk, ref)
+        print(f"{tag} fp32 {name}: attention weights' gradients within {err:.2e}"
+              f" relative L2 of the plain step's ({worst}; tol 1e-04)")
+        del gk
+    del gpt
+    torch.cuda.empty_cache()
+    gpt = _mla_gpt(torch.bfloat16, L0)
+    lp16, gp16 = _step0(gpt, tokens, seed, plain=True)
+    lk16, gk16 = _step0(gpt, tokens, seed, plain=False)
+    _hold_bf16(tag, lk16, lp16, gk16, gp16, ref)
+    del gpt, ref, gp16, gk16
+    torch.cuda.empty_cache()
+    print(f"(C) step-0 comparisons {time.perf_counter() - t_phase:.1f} s")
+
+    L = MLA_TRAIN_LAYERS
+    gpt = _mla_gpt(torch.bfloat16, L)
+    n_params = sum(p.numel() for p in gpt.parameters())
+    print(f"(C) DeepSeek-V2-Lite at full width, depth cut to {L} of 27 layers "
+          f"({DSV2_CUT}): d {DSV2_LITE['d_model']}, 16 heads, MLA rank 512, "
+          f"nope 128, rope 64, v 128 (qk head dim {MLA_D}), FFN "
+          f"{DSV2_LITE['hidden_units']}, vocab {vocab}, untied, YaRN; "
+          f"{n_params} params (fp32 master weights), bf16 compute; batch 1 x "
+          f"{MLA_S} seeded Zipf tokens; recipe chain(clip_by_global_norm(1.0), "
+          f"adamw(warmup_cosine(3e-4, 10, {MLA_TRAIN_STEPS})))")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_mla_counts()
+    t0 = time.perf_counter()
+    losses, state = train_gpt.train(gpt, corpus, MLA_TRAIN_STEPS, 1, "cuda",
+                                    log=lambda line: print(f"(C) {line}"))
+    losses = losses.tolist()
+    seconds = time.perf_counter() - t0
+    del state
+    counts = _mla_counts()
+    print(f"(C) {MLA_TRAIN_STEPS} steps of the recipe in {seconds:.1f} s; "
+          f"losses {[round(x, 4) for x in losses]}; launches {counts}")
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention_fwd=L * MLA_TRAIN_STEPS,
+                flash_attention_bwd=L * MLA_TRAIN_STEPS)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(C) loss not finite: {losses}")
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"(C) loss at step {MLA_TRAIN_STEPS - 1} "
+                             f"({losses[-1]}) not below step 1's ({losses[1]})")
+    if counts != want:
+        raise AssertionError(f"(C) launches {counts}, expected {want}")
+    with _schedule(fused_bwd=False, dual=True):
+        flagged, state = train_gpt.train(gpt, corpus, MLA_FLAG_STEPS, 1, "cuda",
+                                         log=lambda line: print(f"(C) {line}"))
+    del state
+    flagged = flagged.tolist()
+    peak = torch.cuda.max_memory_allocated()
+    counts = _mla_counts()
+    want.update(flash_attention_fwd_dual=L * MLA_FLAG_STEPS,
+                flash_attention_bwd_split=L * MLA_FLAG_STEPS)
+    print(f"(C) {MLA_FLAG_STEPS} steps under FUSED_BWD False, FWD_DUAL_KV True: "
+          f"losses {[round(x, 4) for x in flagged]}; launches {counts}; peak "
+          f"device memory {peak / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) [{device_line}]")
+    if not all(math.isfinite(x) for x in flagged) or counts != want:
+        raise AssertionError(f"(C) under the flags: losses {flagged}, launches "
+                             f"{counts}, expected {want}")
+    g32 = GPT(mla_train_config(None, L))
+    g32.load_state_dict(gpt.state_dict())
+    del gpt
+    torch.cuda.empty_cache()
+    prompt = torch.tensor(corpus[:1, :MLA_GEN_PROMPT], device="cuda")
+    toks, logits = _generate_with_logits(g32, prompt, MLA_GEN_STEPS)
+    counts = _mla_counts()
+    with dispatch.force_plain():
+        ptoks, plogits = _generate_with_logits(g32, prompt, MLA_GEN_STEPS)
+    toks, ptoks = toks[0].tolist(), ptoks[0].tolist()
+    n, tie = _hold_stream("(C) fp32 generate vs plain generate", toks, ptoks,
+                          plogits[0])
+    err = _hold_logits("(C) fp32 generate vs plain generate", logits[0][:n],
+                       plogits[0][:n])
+    want.update(paged_attention=L * MLA_GEN_STEPS,
+                paged_attention_latent=L * MLA_GEN_STEPS)
+    print(f"(C) fp32 GPT.generate on the trained weights: {toks} (plain "
+          f"{ptoks}{', parted at a near tie' if tie else ''}); logits "
+          f"{err:.3e} x max(1, max |logit|) from plain generate's (tol "
+          f"{F32_TOL}); launches {counts}")
+    if counts != want:
+        raise AssertionError(f"(C) launches {counts}, expected {want}")
+    del g32
+    torch.cuda.empty_cache()
+    print(f"(C) MLA training phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, peak
+
+
+def phase_mla_generate_timings(device_line):
+    """(C) K3's latent option at the closing generate's last decode step: q [1,
+    16, 576] fp32 over a seeded cache of MLA_GEN_PROMPT + MLA_GEN_STEPS rows
+    viewed as pages (``nn.mla.latent_pages``), length the cache's: wall and
+    device ms, kernel and plain, the bound, and F.scaled_dot_product_attention
+    over the rows (enable_gqa). Returns (results, the key)."""
+    import torch
+    import torch.nn.functional as F
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.nn import mla
+    res = {}
+    rows_n = MLA_GEN_PROMPT + MLA_GEN_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 104)
+    cache = mla._latent_cache(1, rows_n, LATENT_D, torch.float32, "cuda")
+    cache.copy_(torch.randn(cache.shape, generator=gen, device="cuda"))
+    pages, table = mla.latent_pages(cache)
+    q = torch.randn(1, 16, LATENT_D, generator=gen, device="cuda")
+    lens = torch.full((1,), rows_n, dtype=torch.int32, device="cuda")
+    scale = MLA_D ** -0.5
+    key = (f"paged_attention latent decode generate b1 h16 d{LATENT_D} fp32 "
+           f"ctx {rows_n}")
+
+    def fn():
+        return ops.paged_attention(q, pages, pages, lens, table, scale=scale)
+
+    _both(res, "C", key, fn, device_line)
+    _device_both(res, "C", key, fn, device_line)
+    res["bound " + key] = _latent_bound(q, pages, lens, table)
+    rows = cache[:, :, :rows_n]
+    qs = q[:, :, None]                                   # [1, 16, 1, 576]
+
+    def lib():
+        return F.scaled_dot_product_attention(qs, rows, rows, scale=scale,
+                                              enable_gqa=True)
+
+    res["library " + key] = _library(
+        "C", f"F.scaled_dot_product_attention over the latent rows, k = v [1, "
+        f"1, {rows_n}, 576], enable_gqa, {key[24:]}", lib, device_line)
+    print(f"(C) {key}: bound {res['bound ' + key][0]:.5f} ms "
+          f"({res['bound ' + key][1]}) [{device_line}]")
+    return res, key
+
+
+def main(phases="abcdefghijklmnopqrstuvwxyzABC"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
     runs the quantized serving path alone, ``"abcqrw"`` Gemma-2 serving and
     generate, ``"abcst"`` Gemma-2 training, ``"abcuvx"`` GPT-2's serving
     features, ``"abcyz"`` T5 and Seq2Seq, ``"abcA"`` T5 serving, ``"abcB"``
-    DeepSeek-V2-Lite serving); the JSON summary and the ok line come only
-    from a run of every phase."""
+    DeepSeek-V2-Lite serving, ``"abcC"`` DeepSeek-V2-Lite training); the
+    JSON summary and the ok line come only from a run of every phase."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -6474,7 +6899,7 @@ def main(phases="abcdefghijklmnopqrstuvwxyzAB"):
     since("(c)")
     serving = training_res = entry_res = quant_res = forced_res = None
     packed_res = gemma_res = gemma_train_res = mask_res = t5_res = None
-    s2e_res = dsv2_res = None
+    s2e_res = dsv2_res = mla_res = None
     gemma_gen_launches = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
@@ -6586,10 +7011,18 @@ def main(phases="abcdefghijklmnopqrstuvwxyzAB"):
         dsv2_res, dsv2_keys, dsv2_launches, dsv2_launches16 = \
             phase_deepseek_serving(device_line)
         since("(B)")
+    if "C" in phases:
+        mla_err = phase_mla_flash_vs_plain()
+        mla_res, mla_keys = phase_mla_flash_timings(device_line)
+        mla_launches, _ = phase_mla_training(device_line)
+        gen_res, gen_key = phase_mla_generate_timings(device_line)
+        mla_res.update(gen_res)
+        mla_keys["K3"] = gen_key
+        since("(C)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
     if None in (serving, training_res, entry_res, quant_res, forced_res,
                 packed_res, gemma_res, gemma_train_res, mask_res,
-                gemma_gen_launches, t5_res, s2e_res, dsv2_res) \
+                gemma_gen_launches, t5_res, s2e_res, dsv2_res, mla_res) \
             or "z" not in phases:
         return 0
     packed_shape = "b8 h12 s1024 d64 causal bf16"
@@ -6734,6 +7167,24 @@ def main(phases="abcdefghijklmnopqrstuvwxyzAB"):
              for name, dtype, launches in (
                  ("fp32_pages", "float32", dsv2_launches),
                  ("bf16_pages", "bfloat16", dsv2_launches16))]
+    # (C): the flash kernels at MLA's head dim 192 on DeepSeek-V2-Lite's
+    # training path (K1 and K2 in its default steps, K12 and K5 in the steps
+    # under the flags), timed at its shape; K3's latent option under the
+    # closing fp32 generate (once a layer a step), timed at its last step.
+    mla_err2 = {way: tuple(mla_err[way]) for way in mla_err}
+    rows += [(f"flash_attention_{name}_d192", FLASH_SOURCE,
+              f"np_modeling_tpu/ops/attention.py:{line}",
+              mla_launches[f"flash_attention_{count}"], mla_err2[way], mla_res,
+              mla_keys[kernel])
+             for name, count, way, line, kernel in (
+                 ("fwd", "fwd", "fwd", 756, "K1"),
+                 ("fwd_dual", "fwd_dual", "fwd", 693, "K12"),
+                 ("bwd", "bwd", "bwd", 1100, "K2"),
+                 ("bwd_split", "bwd_split", "bwd", 983, "K5"))]
+    rows.append(("paged_attention_latent_generate", PAGED_SOURCE,
+                 "np_modeling_tpu/ops/paged_attention.py:221",
+                 mla_launches["paged_attention_latent"], latent_err, mla_res,
+                 mla_keys["K3"]))
     # "ms": a call's wall time (CUDA events, host included), every entry;
     # "device_ms": calls back to back behind a sleep kernel (device only);
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its

@@ -7,7 +7,7 @@
 //   K2  fused backward _dkvq_tile     (:1100, launched by _flash_bwd_pallas :1188, call :1335)
 //   K5  split backward _dq_tile (:983, call :1267) + _dkv_tile (:1045, call :1335)
 //
-// What they compute. q [b, hq, sq, d], k/v [b, hkv, skv, d], d 64, 128 or 256;
+// What they compute. q [b, hq, sq, d], k/v [b, hkv, skv, d], d 64, 128, 192 or 256;
 // q head h reads kv head h / (hq / hkv) (GQA). Scores s = (q . k) * scale in
 // fp32; with a softcap (Gemma-2) s = cap * tanh(s / cap) on the scaled score,
 // before the mask (:776-787). Masked scores take the JAX package's finite mask
@@ -127,9 +127,9 @@
 // fp32 layout (a plain FMA path; exact comparisons need it). 128 threads; a
 // thread owns one row of the tile and the columns and head dims j with
 // j % P == its lane's residue, P threads a row. At d 64 and 128 tiles have 64
-// rows (P = 2); at d 256, 32 rows (P = 4), because a 64-row tile of 256 fp32
+// rows (P = 2); at d 192 and 256, 32 rows (P = 4), because a 64-row tile of 256 fp32
 // would need 263 KB of shared memory in the backward, and dk + dv would be 256
-// registers a thread at P = 2. Shared-memory rows are padded to an odd pitch so
+// registers a thread at P = 2 (192 at d 192). Shared-memory rows are padded to an odd pitch so
 // that the rows a warp reads at once fall in distinct banks. Loads are
 // synchronous 16-byte vectors.
 
@@ -323,6 +323,13 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 //   once each and meet in shared memory: warpgroup 1 hands dp^T over in fp32,
 //   warpgroup 0 forms p^T and ds^T and hands them back in bf16. Five products a tile
 //   pair, as at d 64 / 128.
+// d 192 (MLA's qk head dim): d 256's layout over three 64-wide column blocks, which do
+//   not halve: warpgroup 0 owns dk and dv of blocks 0 and 1 (m64n128), warpgroup 1 of
+//   block 2 (m64n64), and K2's dq the other way round (warpgroup 0 block 0, warpgroup 1
+//   blocks 1 and 2), so that each warpgroup's products of a tile pair span 192 dims in
+//   K2. A split at 96 would start a product inside a swizzled column block, which a
+//   wgmma operand cannot. d 128's layout (each warpgroup its own 64 rows, all 192
+//   dims) would hold dk and dv in 192 registers a thread, beside s and dp.
 // dq (K2) is added into the fp32 buffer with 8-byte vector atomics (float2 atomicAdd,
 // compute capability 9.x): its summation order varies from run to run, by rounding.
 template <int D>
@@ -335,7 +342,7 @@ struct BwdSmem {
   // Stages of the q/do ring (a third measured no faster at the bench shape).
   static constexpr int kStages = 2;
   static constexpr int kXPitch = kTile + 8;          // bf16 pitch of ds^T / p^T rows
-  // Exchange: ds^T [kKv][kXPitch] bf16 (d 64/128), or at d 256 dp^T [64][kXPitch]
+  // Exchange: ds^T [kKv][kXPitch] bf16 (d 64/128), or at d 192 / 256 dp^T [64][kXPitch]
   // fp32, then p^T and ds^T [64][kXPitch] bf16 in the same bytes.
   static constexpr int kXBytes = 128 * kXPitch * 2;
   static constexpr int kBytes =
@@ -406,6 +413,15 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[R][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
+// The first 32 floats of an accumulator, as the accumulator of an m64n64 product (d
+// 192's warpgroup 1 keeps dk and dv of one column block in the first half of arrays
+// sized for two).
+template <int R>
+__device__ __forceinline__ float (&first64(float (&x)[R]))[32] {
+  static_assert(R >= 32, "an m64n64 accumulator is 32 floats a thread");
+  return *reinterpret_cast<float(*)[32]>(&x[0]);
+}
+
 // acc (m64 x N) += A (4 k steps of 16 rows) . X[16 kk.., cols], X a stage tile (q or
 // do) read MN-major from column block `cb` on: 8 KB blocks of 64 rows.
 template <int R>
@@ -464,7 +480,9 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
   using S = BwdSmem<D>;
   constexpr int KV = S::kKv, KD = D / 16, XP = S::kXPitch;
   constexpr bool kSplitD = D > 128;
-  constexpr int DW = kSplitD ? D / 2 : D;  // head dims of a warpgroup's dk and dv
+  // Head dims of warpgroup 0's dk and dv (their registers' width): all of them at d 64 /
+  // 128, half at d 256, two column blocks at d 192 (warpgroup 1 uses the first 64).
+  constexpr int DW = D == 192 ? 128 : kSplitD ? D / 2 : D;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -549,7 +567,7 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
     const int* seg_q = reinterpret_cast<const int*>(di_s + kTile);
 
     bf16* xb = reinterpret_cast<bf16*>(xch);
-    bf16* pt_x = xb;                                  // d 256: p^T [64][XP]
+    bf16* pt_x = xb;                                  // d 192 / 256: p^T [64][XP]
     bf16* dst_x = kSplitD ? xb + kTile * XP : xb;     // ds^T [KV][XP]
     float s[32], dp[32];
     uint32_t ap[4][4], ads[4][4];  // p^T and ds^T as the register A of dv and dk
@@ -632,7 +650,7 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
         __syncthreads();
       }
     } else {
-      // d 256: s^T by warpgroup 0, dp^T by warpgroup 1, once each (16 k steps).
+      // d 192 / 256: s^T by warpgroup 0, dp^T by warpgroup 1, once each (D / 16 k steps).
       wg::fence();
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
@@ -706,10 +724,20 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
         smem_to_a(ap, pt_x, rw, g, t);
         smem_to_a(ads, dst_x, rw, g, t);
       }
-      // dv += p^T do, dk += ds^T q over this warpgroup's half of the head dims.
+      // dv += p^T do, dk += ds^T q over this warpgroup's head dims.
       wg::fence();
-      rs_stage(dv, ap, do_s, d0 / 64);
-      rs_stage(dk, ads, q_s, d0 / 64);
+      if constexpr (D == 192) {
+        if (w == 1) {
+          rs_stage(first64(dv), ap, do_s, 2);
+          rs_stage(first64(dk), ads, q_s, 2);
+        } else {
+          rs_stage(dv, ap, do_s, 0);
+          rs_stage(dk, ads, q_s, 0);
+        }
+      } else {
+        rs_stage(dv, ap, do_s, d0 / 64);
+        rs_stage(dk, ads, q_s, d0 / 64);
+      }
       wg::commit();
     }
     wg::wait<0>();
@@ -724,14 +752,21 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
       float* dq_rows = static_cast<float*>(p.dq) +
                        ((static_cast<long long>(bb) * p.sq + q0) * p.hq + hh) * D;
       constexpr int NQ = D / 2 > 64 ? 64 : D / 2;  // dims a pass
+      if constexpr (D == 192) {  // warpgroup 0 block 0, warpgroup 1 blocks 1 and 2
 #pragma unroll
-      for (int pass = 0; pass < D / 2 / NQ; ++pass)
-        dq_pass<D, NQ, KV>(p, dst_x, k_s, w * (D / 2) + pass * NQ, dq_rows, q0, rw, g, t);
+        for (int pass = 0; pass < 1 + w; ++pass)
+          dq_pass<D, NQ, KV>(p, dst_x, k_s, w * 64 + pass * NQ, dq_rows, q0, rw, g, t);
+      } else {
+#pragma unroll
+        for (int pass = 0; pass < D / 2 / NQ; ++pass)
+          dq_pass<D, NQ, KV>(p, dst_x, k_s, w * (D / 2) + pass * NQ, dq_rows, q0, rw, g, t);
+      }
     }
   }
   wg::cp_async_wait<0>();
 
   // dk, dv of this warpgroup's rows and head dims, rounded once, [b, skv, hkv, d].
+  const int dims = D == 192 && w == 1 ? 64 : DW;  // this warpgroup's
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = kv0 + kr + g + 8 * h;
@@ -742,6 +777,7 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
     bf16* dvd = static_cast<bf16*>(p.dv) + off;
 #pragma unroll
     for (int j = 0; j < DW / 8; ++j) {
+      if (8 * j >= dims) break;
       *reinterpret_cast<uint32_t*>(dkd + 8 * j) =
           wg::pack_bf16(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
       *reinterpret_cast<uint32_t*>(dvd + 8 * j) =
@@ -786,11 +822,12 @@ struct FwdSmem {
   static constexpr int kBytes = kBarOff + 128 + 1024;  // + the 1024-byte alignment
 };
 
-// Rows of o parts: o is NO accumulators of ON floats (m64 x 2 ON each).
+// Rows of o parts: o is NO accumulators of ON floats (m64 x 2 ON each): one m64nD at d
+// 64 / 128, two m64n128 at d 256, three m64n64 at d 192 (one a column block).
 template <int D>
 struct FwdAcc {
-  static constexpr int kNO = D > 128 ? 2 : 1;
-  static constexpr int kON = D > 128 ? 64 : D / 2;
+  static constexpr int kNO = D == 192 ? 3 : D > 128 ? 2 : 1;
+  static constexpr int kON = D == 192 ? 32 : D > 128 ? 64 : D / 2;
 };
 
 // One tile's softmax for this thread's two rows (row0, row0 + 8): s (a m64 x N
@@ -1190,11 +1227,12 @@ __global__ void __launch_bounds__(384, 1)
 // the same slot (K1's p.v with k in v's place). dq stays in fp32 registers and is
 // written once, rounded to q's dtype, through the q tile's rows: no atomics, so the
 // same bits on every run. Kv tiles of 64 keys at d 64 / 128 (s, dp 32 registers a
-// thread, dq 64 at d 128) and 32 at d 256 (s, dp 16 each beside dq's 128).
+// thread, dq 64 at d 128, 96 at d 192, whose block takes 192 KB of shared memory) and
+// 32 at d 256 (s, dp 16 each beside dq's 128).
 template <int D>
 struct DqSmem {
   static constexpr int kQ = 128;                  // q rows of a block
-  static constexpr int kKv = D > 128 ? 32 : 64;   // kv rows of a tile
+  static constexpr int kKv = D > 192 ? 32 : 64;   // kv rows of a tile
   static constexpr int kQBytes = kQ * D * 2;      // a q (or do) tile
   static constexpr int kKvBytes = kKv * D * 2;    // a k (or v) slot
   // q, do, two k slots, two v slots, the mbarriers (q; k full, empty; v full, empty).
@@ -1989,27 +2027,45 @@ int launch_dq_bf16(const Params& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// d 192 (MLA) is built for what its callers pass: no option or segment ids (K12: no
+// option). Calls with others are refused here and, before any launch, by the caller.
+template <typename F>
+int with_mla_opt(int opt, F&& f) {
+  if (opt == 0) return f(std::integral_constant<int, 0>());
+  if (opt == kOptSeg) return f(std::integral_constant<int, kOptSeg>());
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int D>
 int launch_fwd(const Params& p, int dtype, int dual, cudaStream_t s) {
   const int opt = opts_of(p), bh = p.b * p.hq;
   using F = F32Smem<D>;
-  if (dual) {  // K12: the window only
-    if (opt & ~kOptWin) return static_cast<int>(cudaErrorInvalidValue);
-    if (dtype == 1)
-      return opt ? launch_fwd_bf16<D, 2, kOptWin>(p, s) : launch_fwd_bf16<D, 2, 0>(p, s);
-    return opt ? launch(flash_fwd_f32<D, 2, kOptWin>, tiles(p.sq, F::kRows, bh), kThreads,
-                        F::fwd_bytes(2), s, p)
-               : launch(flash_fwd_f32<D, 2, 0>, tiles(p.sq, F::kRows, bh), kThreads,
-                        F::fwd_bytes(2), s, p);
-  }
+  auto run_dual = [&](auto o) {  // K12
+    constexpr int kOpt = decltype(o)::value;
+    if (dtype == 1) return launch_fwd_bf16<D, 2, kOpt>(p, s);
+    return launch(flash_fwd_f32<D, 2, kOpt>, tiles(p.sq, F::kRows, bh), kThreads,
+                  F::fwd_bytes(2), s, p);
+  };
   auto run = [&](auto o) {
     constexpr int kOpt = decltype(o)::value;
     if (dtype == 1) return launch_fwd_bf16<D, 1, kOpt>(p, s);
     return launch(flash_fwd_f32<D, 1, kOpt>, tiles(p.sq, F::kRows, bh), kThreads,
                   F::fwd_bytes(1), s, p);
   };
-  if (opt & kOptBias) return with_bias_opt<D, true>(opt, run);
-  return with_fwd_opt(opt, run);
+  if constexpr (D == 192) {
+    if (dual)
+      return opt ? static_cast<int>(cudaErrorInvalidValue)
+                 : run_dual(std::integral_constant<int, 0>());
+    return with_mla_opt(opt, run);
+  } else {
+    if (dual) {  // K12: the window only
+      if (opt & ~kOptWin) return static_cast<int>(cudaErrorInvalidValue);
+      return opt ? run_dual(std::integral_constant<int, kOptWin>())
+                 : run_dual(std::integral_constant<int, 0>());
+    }
+    if (opt & kOptBias) return with_bias_opt<D, true>(opt, run);
+    return with_fwd_opt(opt, run);
+  }
 }
 
 template <int D>
@@ -2035,14 +2091,19 @@ int launch_bwd(const Params& p, int dtype, int split, cudaStream_t s) {
     return rc;
   };
   const int opt = opts_of(p);
-  if (opt & kOptBias) return with_bias_opt<D, false>(opt, run);
-  return with_opt(opt, run);
+  if constexpr (D == 192) {
+    return with_mla_opt(opt, run);
+  } else {
+    if (opt & kOptBias) return with_bias_opt<D, false>(opt, run);
+    return with_opt(opt, run);
+  }
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32 (FMA path), 1 = bfloat16 (tensor cores); d is 64,
-// 128 or 256. strides: 24 element strides, (b, h, s) of q, k, v and do, in that
+// 128, 192 (no option but segment ids; K12 none) or 256. strides: 24 element
+// strides, (b, h, s) of q, k, v and do, in that
 // order (the forward reads the first 9), then (b, s) of q_seg and of kv_seg,
 // then (b, h, q, k) of the mask (the forward only), then (b, h, q, k) of the
 // bias. q_seg/kv_seg: int32 segment ids, both null for none. mask (the
@@ -2078,6 +2139,7 @@ extern "C" int np_flash_attention_fwd(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_fwd<64>(p, dtype, dual, s);
   if (d == 128) return launch_fwd<128>(p, dtype, dual, s);
+  if (d == 192) return launch_fwd<192>(p, dtype, dual, s);
   if (d == 256) return launch_fwd<256>(p, dtype, dual, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -2107,6 +2169,7 @@ extern "C" int np_flash_attention_bwd(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_bwd<64>(p, dtype, split, s);
   if (d == 128) return launch_bwd<128>(p, dtype, split, s);
+  if (d == 192) return launch_bwd<192>(p, dtype, split, s);
   if (d == 256) return launch_bwd<256>(p, dtype, split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,11 +19,14 @@ value, and the latent output expands through kv_b's v half. The scale is
 wide. The casts are JAX's: ``maybe_cast`` on x and the weights, the
 latent's RMSNorm in fp32.
 
-On the card both forms would need flash kernels at head dims the port does
-not build (192 for the dense form, rank + rope = 576 for the absorbed
-decode); they raise there, and come with the MLA training slice (ROADMAP.md
-Queue 1 item 0). The serving engine reaches the latent pages through the
-paged kernel's latent option instead (``serving/engine.py``).
+On the card the dense form runs the flash kernels at head dim nope + rope
+(192 for DeepSeek-V2: K1 or K12 forward, K2 or K5 backward). The absorbed
+decode runs the paged kernel's latent option (K3 at rank + rope = 576, one
+row as key and value), as the serving engine does (``serving/engine.py``):
+the dense cache is viewed, without a copy, as pages of one sequence's rows
+(``init_cache`` pads a sequence's rows to a multiple of 8 for that), with
+causal rows from the write index. On the CPU the same call runs K3's plain
+version.
 """
 
 from __future__ import annotations
@@ -39,12 +42,45 @@ from np_modeling_tpu_torch.nn import initializers
 from np_modeling_tpu_torch.nn.attention import cache_positions
 from np_modeling_tpu_torch.nn.linear import RMSNorm
 from np_modeling_tpu_torch.nn.module import maybe_cast
-from np_modeling_tpu_torch.ops import dispatch
 
-_ON_CARD = ("MLA's {what} runs flash attention at head dim {d}, which the "
-            "port's kernels do not build yet (ROADMAP.md Queue 1 item 0, the "
-            "MLA training slice); serve MLA through serving.GenerationEngine, "
-            "or run this under ops.dispatch.force_plain()")
+# A sequence's rows in the latent cache are padded to a multiple of ROW_ALIGN,
+# the smallest page size the paged kernel takes.
+ROW_ALIGN = 8
+
+
+def _padded_rows(max_len):
+    return -(-max_len // ROW_ALIGN) * ROW_ALIGN
+
+
+def latent_pages(k):
+    """The latent cache ``k`` [b, 1, max_len, w] as pages of the paged
+    kernel, without a copy: (pages [1, b * rows / ps, ps, w], the page
+    table [b, rows / ps] int32, so that sequence i's rows are its pages in
+    order), where each sequence's rows lie ``rows`` (a multiple of 8 and
+    at least max_len) apart and ps is the largest power of two up to 128
+    that divides rows; or None where ``k``'s layout does not allow it."""
+    b, _, max_len, w = k.shape
+    rows = k.stride(0) // w if b > 1 else _padded_rows(max_len)
+    if k.stride(3) != 1 or k.stride(2) != w or rows % ROW_ALIGN \
+            or rows < max_len or (b > 1 and k.stride(0) != rows * w) \
+            or k.storage_offset() + b * rows * w > (
+                k.untyped_storage().nbytes() // k.element_size()):
+        return None
+    ps = 128
+    while rows % ps:
+        ps //= 2
+    pages = k.as_strided((1, b * rows // ps, ps, w), (b * rows * w, ps * w,
+                                                       w, 1))
+    table = torch.arange(b * rows // ps, dtype=torch.int32,
+                         device=k.device).reshape(b, rows // ps)
+    return pages, table
+
+
+def _latent_cache(b, max_len, w, dtype, device):
+    """A zeroed cache [b, 1, max_len, w] whose sequences' rows are padded to
+    a multiple of ROW_ALIGN (a view of the padded buffer)."""
+    return torch.zeros((b, 1, _padded_rows(max_len), w), dtype=dtype,
+                       device=device)[:, :, :max_len]
 
 
 class MLAttention(nn.Module):
@@ -167,9 +203,6 @@ class MLAttention(nn.Module):
         c, k_pe = self._latent(x)
         if decode:
             return self._decode(q_nope, q_pe, c, k_pe, cache, scale)
-        if dispatch.use_kernel(q_pe):
-            raise NotImplementedError(_ON_CARD.format(
-                what="forward", d=self.qk_head_dim))
         if positions is None:
             positions = torch.arange(x.shape[-2], device=x.device)
         q_pe, k_pe = self._rope(q_pe, positions), self._rope(k_pe, positions)
@@ -190,10 +223,12 @@ class MLAttention(nn.Module):
 
     def init_cache(self, batch, max_len, features, dtype=torch.float32):
         """A zeroed latent cache [batch, 1, max_len, rank + rope] on the
-        weights' device, write index 0."""
+        weights' device, write index 0; a sequence's rows are padded to a
+        multiple of 8 in its buffer, so that the decode reads it as pages
+        (``latent_pages``)."""
         del features
-        return {"k": torch.zeros((batch, 1, max_len, self.latent_width),
-                                 dtype=dtype, device=self.kv_a.device),
+        return {"k": _latent_cache(batch, max_len, self.latent_width, dtype,
+                                   self.kv_a.device),
                 "index": 0}
 
     def _decode(self, q_nope, q_pe, c, k_pe, cache, scale):
@@ -206,6 +241,12 @@ class MLAttention(nn.Module):
         q_pe, k_pe = self._rope(q_pe, positions), self._rope(k_pe, positions)
         k_new = torch.cat([c, k_pe], dim=-1)            # [b, 1, s, r + rope]
         k = cache["k"]
+        if latent_pages(k) is None:
+            # A cache laid out otherwise (not from init_cache, or gathered
+            # by beam search) moves into a padded one, once: the returned
+            # cache is that one.
+            k = _latent_cache(k.shape[0], k.shape[2], k.shape[3], k.dtype,
+                              k.device).copy_(k)
         max_len = k.shape[2]
         i = int(idx)
         start = min(max(i, 0), max_len - s_new)          # JAX's clamp
@@ -216,20 +257,42 @@ class MLAttention(nn.Module):
         wk = maybe_cast(self.kv_b[:, :, :self.qk_nope_head_dim], self.dtype)
         q_abs = torch.einsum("bhsn,rhn->bhsr", q_nope, wk)
         q_eff = torch.cat([q_abs, q_pe], dim=-1)        # [b, hq, s, r + rope]
-        if dispatch.use_kernel(q_eff):
-            raise NotImplementedError(_ON_CARD.format(
-                what="latent-cache decode (GPT.generate)",
-                d=self.latent_width))
-        kv_pos = torch.arange(max_len, device=k.device)
-        mask = (kv_pos[None] <= (i + torch.arange(
-            s_new, device=k.device))[:, None])[None, None]
         # MQA over the latent: v IS the cache row, whose first rank columns
         # of p @ row are p @ c_kv, the latent attention output. Mixed dtypes
-        # promote, as JAX's einsums do.
+        # promote, as JAX's einsums do (the pages keep theirs: the kernel
+        # reads them into fp32 exactly).
         dt = torch.promote_types(q_eff.dtype, k.dtype)
-        o = ops.flash_attention(q_eff.to(dt), k.to(dt), k.to(dt), mask=mask,
-                                causal=False, scale=scale)
+        o = _latent_attention(q_eff.to(dt), k, i, scale)
         o_lat = o[..., :self.kv_lora_rank]
         wv = maybe_cast(self.kv_b[:, :, self.qk_nope_head_dim:], self.dtype)
         o_heads = torch.einsum("bhsr,rhv->bhsv", o_lat.to(wv.dtype), wv)
         return self._out(o_heads), new_cache
+
+
+def _latent_attention(q, k, idx, scale):
+    """q [b, hq, s, w] attending over the latent cache ``k`` [b, 1, max_len,
+    w] (written at rows idx..idx + s - 1; a layout ``latent_pages`` takes)
+    through the paged kernel's latent option, the row as key and value;
+    returns [b, hq, s, w] in q's dtype. Row t sees keys 0..idx + t, JAX's
+    mask (np_modeling_tpu/nn/mla.py:226-228), as the paged kernel's causal
+    rows of a sequence of length idx + s do. Past the end of the cache JAX
+    clamps the write (:215) but not the mask: row t then sees keys
+    0..min(idx + t, max_len - 1), so each row goes as a sequence of its own
+    with that length."""
+    b, hq, s, w = q.shape
+    max_len = k.shape[2]
+    pages, table = latent_pages(k)
+    rows = q.transpose(1, 2).contiguous()                # [b, s, hq, w]
+    if idx + s <= max_len:
+        lengths = torch.full((b,), idx + s, dtype=torch.int32, device=q.device)
+        o = ops.paged_attention(rows, pages, pages, lengths, table,
+                                scale=scale)
+    else:
+        seen = torch.clamp(idx + torch.arange(s, device=q.device),
+                           max=max_len - 1) + 1
+        o = ops.paged_attention(
+            rows.reshape(b * s, hq, w), pages, pages,
+            seen.to(torch.int32).repeat(b),
+            table.repeat_interleave(s, dim=0), scale=scale).reshape(b, s, hq,
+                                                                    w)
+    return o.transpose(1, 2)

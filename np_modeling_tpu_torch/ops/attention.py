@@ -18,7 +18,10 @@ The causal mask is top-left (``col <= row`` in absolute indices), as in JAX.
 The kernels take causal and non-causal attention, GQA, segment ids, a
 sliding window, a logit softcap (each a template option of the kernels, so
 a call without it runs code without it), any sq/skv >= 1, head_dim 64, 128
-or 256, and fp32 (FMA path) or bf16 (tensor cores). The forward K1 also
+or 256, and fp32 (FMA path) or bf16 (tensor cores). Head_dim 192 (MLA's
+nope + rope, v zero-padded to it) is built for what MLA passes: causal or
+not, GQA, segment ids, and nothing else (a window, softcap, mask or bias
+there raises NotImplementedError on a CUDA tensor). The forward K1 also
 takes a boolean ``mask`` (read by its own strides, broadcast dims
 included; segment ids are merged into it on the host): dense KV-cache
 decode runs through it at every sq, 1 included, where JAX sends sq < 128
@@ -34,8 +37,8 @@ a gradient (its backward, Queue 2 A), and any other head_dim (ValueError).
 K12 takes no bias: a bias sends the forward to K1, as JAX does. Sinks run,
 as in JAX, as a plain rescale around the kernels. ``block_q``/``block_kv`` are accepted for
 the JAX signature; the kernels' tiles are their own (the bf16 forward: 128
-q rows by 128 keys, 64 keys at head_dim 256; the bf16 backward 64-row q
-tiles; fp32 64 x 64, 32 x 32 at head_dim 256).
+q rows by 128 keys, 64 keys at head_dim 192 and 256; the bf16 backward 64-row q
+tiles; fp32 64 x 64, 32 x 32 at head_dim 192 and 256).
 """
 
 from __future__ import annotations
@@ -200,8 +203,9 @@ def _check_kernel_inputs(q, k, v, q_seg, kv_seg):
     if k.shape[0] != b or k.shape[3] != d or hq % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "match (batch, head_dim, or head groups)")
-    if d not in (64, 128, 256):
-        raise ValueError(f"head_dim {d}: the kernels take 64, 128 or 256")
+    if d not in (64, 128, 192, 256):
+        raise ValueError(f"head_dim {d}: the kernels take 64, 128, 192 or "
+                         "256")
     if sq == 0 or k.shape[2] == 0:
         raise ValueError("flash attention needs sq >= 1 and skv >= 1")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
@@ -215,6 +219,21 @@ def _check_kernel_inputs(q, k, v, q_seg, kv_seg):
             if tuple(seg.shape) != (b, n) or seg.device != q.device:
                 raise ValueError(f"{name} segment ids {tuple(seg.shape)}: "
                                  f"want [{b}, {n}] on {q.device}")
+
+
+def _check_d192(d, window, softcap, mask, bias):
+    """Head_dim 192 is instantiated without options but segment ids
+    (csrc/flash_attention.cu, with_mla_opt): MLA refuses a window and passes
+    no softcap, mask or bias."""
+    if d == 192:
+        given = [name for name, x in (("a window", window), ("a softcap",
+                                                             softcap),
+                                      ("a mask", mask), ("a bias", bias))
+                 if x is not None]
+        if given:
+            raise NotImplementedError(
+                f"the flash kernels at head_dim 192 (MLA) are not built with "
+                f"{' or '.join(given)} (ROADMAP.md Queue 2 A)")
 
 
 def _seg_int32(seg):
@@ -302,6 +321,7 @@ def _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg=None,
     ``mask`` K1 reads it (segment ids merged into it here), with ``bias``
     adds it to the scores."""
     _check_kernel_inputs(q, k, v, q_seg, kv_seg)
+    _check_d192(q.shape[-1], window, softcap, mask, bias)
     if (mask is not None or bias is not None) and dual:
         raise ValueError("K12 takes no mask or bias (JAX :856-858)")
     if bias is not None:
@@ -356,6 +376,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, q_seg=None,
     gradient of the post-bias scores, not yet summed over the bias's
     broadcast dims."""
     _check_kernel_inputs(q, k, v, q_seg, kv_seg)
+    _check_d192(q.shape[-1], window, softcap, None, bias)
     if bias is not None:        # its combinations were checked forward
         bias = _bias_f32(bias, q, k)
     q, k, v, do = (_kernel_layout(x) for x in (q, k, v, do.to(q.dtype)))

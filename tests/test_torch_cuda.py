@@ -23,11 +23,13 @@ import pytest
 import torch
 
 from chip_smoke import (BIAS_CASES, BIAS_DECODE_CASES, LATENT_CASES,
-                        LATENT_PAGES, MASK_CASES, PAGED_BIAS_CASES,
-                        PAGED_BIAS_PAGES, _bias_fwd_bwd, _k10_schedule,
-                        _schedule, flash_bias_case, flash_bias_decode_case,
-                        flash_mask_case, k10_planned, k10_run,
-                        latent_vs_plain, paged_latent_case, paged_bias_case)
+                        LATENT_PAGES, MASK_CASES, MLA_FLASH_CASES,
+                        PAGED_BIAS_CASES, PAGED_BIAS_PAGES, _bias_fwd_bwd,
+                        _generate_with_logits, _hold_fp32, _k10_schedule,
+                        _schedule, _step0, flash_bias_case,
+                        flash_bias_decode_case, flash_mask_case, k10_planned,
+                        k10_run, latent_vs_plain, mla_flash_case,
+                        paged_latent_case, paged_bias_case)
 from np_modeling_tpu_torch import models, ops
 from np_modeling_tpu_torch.ops import dispatch, fused
 
@@ -270,9 +272,12 @@ def test_cuda_paged_latent_vs_plain(case, pages):
 
 def test_cuda_latent_and_mla_refusals():
     """d 576 with distinct k and v arrays raises ValueError; a window, a
-    softcap or a bias there NotImplementedError; MLAttention's dense forward
-    (flash at d 192) and GPT.generate's latent decode (d 576) raise on the
-    card, naming ROADMAP."""
+    softcap or a bias there NotImplementedError. An MLA model at head dims
+    the kernels are not built for (qk 12, latent 20) raises ValueError on
+    the card, naming the head dims that are built: its dense forward those
+    of the flash kernels, its generate those of the paged kernel; the flash
+    kernels at d 192 (MLA's) raise NotImplementedError on a window, a
+    softcap, a mask or a bias, which no MLA caller passes."""
     q, rows, lens, table, _, _ = paged_latent_case(2, None, 16, [5, 9],
                                                    "float32", 0, pps=2)
     with pytest.raises(ValueError, match="one page array"):
@@ -290,11 +295,121 @@ def test_cuda_latent_and_mla_refusals():
                                     v_head_dim=8))
     gpt = models.GPT(cfg).init(torch.Generator(device="cuda").manual_seed(0))
     toks = torch.zeros(1, 4, dtype=torch.long, device="cuda")
-    for run in (lambda: gpt.apply(toks), lambda: gpt.generate(toks, 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run()
+    with pytest.raises(ValueError, match="head_dim 12: the kernels take 64, "
+                                         "128, 192 or 256"):
+        gpt.apply(toks)
+    with pytest.raises(ValueError, match="head_dim 20 .*64, 128, 256, or "
+                                         "576"):
+        gpt.generate(toks, 2)
     with dispatch.force_plain():
         assert gpt.generate(toks, 2).shape == (1, 2)
+    q, k, v, _ = _flash_inputs(1, 2, 2, 64, 64, 192, torch.bfloat16)
+    for kw in (dict(window=8), dict(softcap=5.0),
+               dict(mask=torch.ones(1, 1, 64, 64, dtype=torch.bool,
+                                    device="cuda")),
+               dict(bias=torch.zeros(1, 2, 64, 64, device="cuda"))):
+        with pytest.raises(NotImplementedError, match="head_dim 192"):
+            ops.flash_attention(q, k, v, causal=True, **kw)
+
+
+# ---- MLA's training path: the flash kernels at d 192 ---------------------------
+
+@pytest.mark.parametrize("segments", [False, True], ids=["plain", "segments"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLA_FLASH_CASES,
+                         ids=[c[0] for c in MLA_FLASH_CASES])
+def test_cuda_flash_d192_vs_plain(case, dtype, causal, segments):
+    """K1 + K2 and K1 + K5 at MLA's head dim 192 over chip_smoke (C)'s
+    shapes (ragged, GQA, sq != skv both ways, the slice's b1 h16 s4096):
+    o, lse, dq, dk, dv within the flash tolerances of the plain version; K12
+    where JAX's condition holds, its o and lse equal to K1's bit for bit
+    (``mla_flash_case``). Segment ids where sq == skv."""
+    label, shape = case
+    if segments and shape[3] != shape[4]:
+        pytest.skip("segment ids are self-attention's (sq == skv)")
+    # Raises where a value lies outside its bound or K12 differs from K1.
+    mla_flash_case(shape, dtype, causal, segments, seed=len(label) + causal)
+
+
+# The real head dims (qk 192, latent 576) at a narrow width: 16 heads, rank
+# 512, nope 128, rope 64, v 128, YaRN, an untied head, fp32.
+MLA_SMALL = dict(vocab_size=512, d_model=256, num_heads=16, num_layers=2,
+                 hidden_units=384, max_len=512, positional="rope", norm="rms",
+                 ln_eps=1e-6, ffn="swiglu", use_bias=False,
+                 tie_embeddings=False,
+                 rope_scaling=("yarn", 40.0, 32.0, 1.0, 4096.0, 1.0),
+                 mla=dict(kv_lora_rank=512, q_lora_rank=None,
+                          qk_nope_head_dim=128, qk_rope_head_dim=64,
+                          v_head_dim=128))
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["rows", "packed"])
+@pytest.mark.parametrize("fused_bwd", [True, False], ids=["k1_k2", "k12_k5"])
+def test_cuda_mla_gpt_loss_fp32_kernels_vs_plain(fused_bwd, packed):
+    """GPT.loss of a 2-layer MLA GPT at the real head dims on 2 x 300 tokens
+    (packed: segment ids and positions restarting in each document), fp32:
+    through K1 + K2 (or K12 + K5; K1 with segment ids) against
+    force_plain(), loss within 1e-5 relative and every gradient within 1e-4
+    relative L2 (chip_smoke's _hold_fp32); the kernels launched once a
+    layer each way."""
+    gpt = models.GPT(models.GPTConfig(**MLA_SMALL)).init(
+        torch.Generator(device="cuda").manual_seed(3))
+    rng = np.random.default_rng(3)
+    tokens = torch.tensor(rng.integers(0, 512, (2, 300)), device="cuda")
+    kw = {}
+    if packed:
+        seg = np.repeat(np.arange(6), 50)[None].repeat(2, 0)
+        pos = np.tile(np.arange(50), 6)[None].repeat(2, 0)
+        kw = dict(segment_ids=torch.tensor(seg, device="cuda"),
+                  positions=torch.tensor(pos, device="cuda"))
+    lp, ref = _step0(gpt, tokens, 0, plain=True, **kw)
+    fa = ops.flash_attention
+    before = (fa.launches_fwd + fa.launches_fwd_dual,
+              fa.launches_bwd + fa.launches_bwd_split)
+    with _schedule(fused_bwd=fused_bwd, dual=not fused_bwd):
+        lk, gk = _step0(gpt, tokens, 0, plain=False, **kw)
+    _hold_fp32("MLA GPT", "kernels vs plain", lk, gk, lp, ref)
+    assert (fa.launches_fwd + fa.launches_fwd_dual - before[0],
+            fa.launches_bwd + fa.launches_bwd_split - before[1]) == (2, 2)
+
+
+def test_cuda_mla_generate_fp32_equals_plain():
+    """fp32 GPT.generate of the 2-layer MLA GPT (12 tokens after 13: a cache
+    of 25 rows, padded to 32) through K3's latent option: the tokens equal
+    plain generate's, each step's logits within 1e-4 x max(1, max |logit|);
+    one latent launch a layer a step and no flash call. MLAttention's decode
+    past the end of its cache (JAX clamps the write, not the mask) equals
+    the plain version's."""
+    gpt = models.GPT(models.GPTConfig(**MLA_SMALL)).init(
+        torch.Generator(device="cuda").manual_seed(4))
+    prompt = torch.tensor(np.random.default_rng(4).integers(0, 512, (2, 13)),
+                          device="cuda")
+    before = (ops.paged_attention.launches_latent,
+              ops.flash_attention.launches_fwd)
+    toks, logits = _generate_with_logits(gpt, prompt, 12)
+    assert (ops.paged_attention.launches_latent - before[0],
+            ops.flash_attention.launches_fwd - before[1]) == (2 * 12, 0)
+    with dispatch.force_plain():
+        ptoks, plogits = _generate_with_logits(gpt, prompt, 12)
+    assert torch.equal(toks, ptoks)
+    scale = max(1.0, plogits.abs().max().item())
+    assert (logits - plogits).abs().max().item() <= 1e-4 * scale
+    attn = gpt.layer_0.self_attention
+    x = torch.randn(2, 9, 256, generator=torch.Generator(device="cuda")
+                    .manual_seed(5), device="cuda")
+    outs = []
+    for plain in (False, True):
+        cache = attn.init_cache(2, 7, 256)
+        got = []
+        with torch.no_grad(), (dispatch.force_plain() if plain
+                               else contextlib.nullcontext()):
+            for lo, hi in ((0, 4), (4, 8), (8, 9)):
+                y, cache = attn(x[:, lo:hi], cache=cache, decode=True)
+                got.append(y)
+        outs.append(torch.cat(got, dim=1))
+    scale = max(1.0, outs[1].abs().max().item())
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-4 * scale
 
 
 def test_cuda_mla_engine_vs_plain_engine():

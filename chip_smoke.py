@@ -274,21 +274,30 @@ Phases, each printed on its own lines; any failure exits non-zero:
   (B) K3's latent option (d 576, one page array as k and v; LATENT_CASES x
       LATENT_PAGES: the engine's decode and chunk shapes, 128 heads, fp32,
       bf16 and int8 pages, the planned split and forced ones, a length-0
-      row) against its plain version by (c)'s tolerances; then
-      DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite's config.json as the
-      JAX package's hf_compat maps it; DSV2_CUT: the MoE layers replaced by
-      the dense first-layer FFN, the table cut to 2048 positions) at its
-      widths and 27 layers with seeded weights, served through
-      GenerationEngine (8 slots, page 16, chunk 256) on latent pages: 8
-      prompts of 200..1000 tokens, step_many(32); K3's latent option 27
-      times a prefill chunk and a decode step; fp32 tokens equal the plain
-      engine's and plain GPT.generate's (near ties printed), logits within
-      DSV2_F32_TOL x max(1, max |logit|) of the plain engine's; bf16
-      compute and pages by (q)'s rule; the decode step in rounds with the
-      plain engine, profiled by kind, K3 latent beside its bound, the plain
-      version and SDPA over the gathered rows, and peak memory
+      row) against its plain version by (c)'s tolerances; DeepSeek-V2-Lite's
+      MoE layer (64 experts of 1408, top 6, 2 shared) on the card against
+      the same layer on the CPU, bf16 and fp32, 8 and 64 tokens, seven
+      experts tied exactly at the top: the same six experts (the lowest
+      indices) on both, outputs within (c)'s tolerances x max |CPU's|
+      (``phase_moe_layer_vs_cpu``); then DeepSeek-V2-Lite
+      (deepseek-ai/DeepSeek-V2-Lite's config.json as the JAX package's
+      hf_compat maps it, its MoE layers included: 15,706,484,224
+      parameters; DSV2_CUT: the table cut to 2048 positions) at its widths
+      and 27 layers with seeded weights, served through GenerationEngine (8
+      slots, page 16, chunk 256) on latent pages: 8 prompts of 200..1000
+      tokens, step_many(32); K3's latent option 27 times a prefill chunk
+      and a decode step; fp32 tokens equal the plain engine's and plain
+      GPT.generate's (near ties printed), logits within DSV2_F32_TOL x
+      max(1, max |logit|) of the plain engine's; bf16 compute (on the fp32
+      weights' storage) and pages by (q)'s rule; the experts a decode step
+      reaches, the decode step in rounds with the plain engine and with
+      the MoE's two product routes, profiled by kind with the MoE's share,
+      K3 latent beside its bound, the plain version and SDPA over the
+      gathered rows, and each run's peak memory
       (``phase_deepseek_serving``);
-  (C) DeepSeek-V2-Lite's latent attention trained on the card. The flash
+  (C) DeepSeek-V2-Lite's latent attention trained on the card, every MoE
+      layer cut to the dense first-layer FFN (DSV2_DENSE_CUT; the MoE's
+      backward is the next slice). The flash
       kernels at MLA's qk head dim 192 (MLA_FLASH_CASES: ragged 200, GQA
       8/2, sq 130 < skv 333, sq 257 > skv 100, and the slice's b1 h16 s4096;
       fp32 and bf16, causal and not, with and without segment ids): o, lse,
@@ -3992,12 +4001,14 @@ def _kind(kernel):
     return "other elementwise and reductions"
 
 
-def _profile(tag, what, step, device_line, warmup=PROFILE_WARMUP):
+def _profile(tag, what, step, device_line, warmup=PROFILE_WARMUP, spans=()):
     """Where ``step()`` spends the card's time: its wall time without a
     profiler (median of 10 after ``warmup``, returned), then torch.profiler
     over PROFILE_STEPS calls: device ms a call by kernel and by kind, and
     the device ops a call. The device's idle share of the unprofiled call
-    is 1 - busy / wall."""
+    is 1 - busy / wall. ``spans``: names of torch.profiler.record_function
+    spans whose device time (the kernels launched inside them) is printed
+    with its share of the busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4009,7 +4020,8 @@ def _profile(tag, what, step, device_line, warmup=PROFILE_WARMUP):
         torch.cuda.synchronize()
     per_kernel = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # A span is also a range on the device's timeline, not a kernel.
+        if e.device_type != DeviceType.CUDA or e.key in spans:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -4035,6 +4047,22 @@ def _profile(tag, what, step, device_line, warmup=PROFILE_WARMUP):
               f"{kind}")
     for key, (ms, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0]):
         print(f"({tag}) {ms:9.3f} ms/call x {n:6.1f}  {key[:110]}")
+    for span in spans:
+        ev = [e for e in prof.key_averages() if e.key == span
+              and e.device_type != DeviceType.CUDA]
+        us = None
+        if ev:
+            us = getattr(ev[0], "device_time_total", None)
+            if us is None:
+                us = ev[0].cuda_time_total
+        if not us:
+            print(f"({tag}) span {span}: device time not measured (the "
+                  f"profiler gave none) [{device_line}]")
+            continue
+        ms = us / 1e3 / PROFILE_STEPS
+        print(f"({tag}) span {span}: {ms:.3f} ms of device time a call, "
+              f"{100 * ms / busy:.1f}% of the busy time, x "
+              f"{ev[0].count / PROFILE_STEPS:.0f} a call [{device_line}]")
     return wall
 
 
@@ -5987,10 +6015,13 @@ def phase_t5_serving(device_line):
 
 # Phase (B): DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite's config.json, as
 # np_modeling_tpu/utils/hf_compat.py's import_deepseek_v2 and llama_config map it)
-# served through GenerationEngine on latent pages. The MoE layers 1..26 are cut to
-# the model's dense first-layer FFN (swiglu 10944): nn/moe.py is a module of its
-# own that no kernel needs. DSV2_MAX_LEN cuts the table a sequence (the published
-# 163840 positions) to what the traffic reaches.
+# served through GenerationEngine on latent pages, with its MoE layers (DSV2_MOE:
+# layer 0 keeps the dense swiglu FFN of 10944, layers 1..26 route each token to 6
+# of 64 experts of 1408 with raw softmax gates, routed scaling 1.0, no-drop, and
+# add 2 shared experts, a gated FFN of 2816; DSV2_PARAMS parameters). DSV2_MAX_LEN
+# cuts the table a sequence (the published 163840 positions) to what the traffic
+# reaches. (C) trains the model with every MoE layer cut to the dense first-layer
+# FFN (DSV2_DENSE_CUT): the MoE's backward is the next slice.
 DSV2_LITE = dict(vocab_size=102400, d_model=2048, num_heads=16, num_kv_heads=16,
                  head_dim=64, hidden_units=10944, positional="rope",
                  rope_base=10000.0, rope_scaling=("yarn", 40.0, 32.0, 1.0, 4096.0,
@@ -5999,10 +6030,15 @@ DSV2_LITE = dict(vocab_size=102400, d_model=2048, num_heads=16, num_kv_heads=16,
                  tie_embeddings=False,
                  mla=dict(kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=128,
                           qk_rope_head_dim=64, v_head_dim=128))
+DSV2_MOE = dict(moe_experts=64, moe_top_k=6, moe_capacity_factor=None,
+                moe_router_weights="softmax", moe_routed_scaling=1.0,
+                moe_shared_units=2816, moe_hidden_units=1408, moe_first_dense=1)
 DSV2_LAYERS, DSV2_MAX_LEN = 27, 2048
-DSV2_CUT = ("MoE layers 1..26 (64 routed experts of 1408, top 6, 2 shared) "
-            "replaced by the model's dense first-layer FFN (swiglu 10944); the "
-            f"table a sequence cut from 163840 positions to {DSV2_MAX_LEN}")
+DSV2_PARAMS = 15_706_484_224
+DSV2_CUT = f"the table a sequence cut from 163840 positions to {DSV2_MAX_LEN}"
+DSV2_DENSE_CUT = ("MoE layers 1..26 (64 routed experts of 1408, top 6, 2 shared) "
+                  "replaced by the model's dense first-layer FFN (swiglu 10944), "
+                  "in (C) alone: the MoE's backward is the next slice")
 # The engine: slots, page size, prefill chunk, pages (every slot's table full,
 # and the trash page); prompts of DSV2_PROMPT_MIN..DSV2_PROMPT_MAX seeded Zipf
 # tokens; step_many(DSV2_STEPS) after the admission; step_many(DSV2_TIMED) a
@@ -6033,8 +6069,17 @@ LATENT_PAGES = ("float32", "bfloat16", "int8 fp32 q", "int8 bf16 q")
 
 
 def deepseek_v2_lite_config(dtype=None, layers=DSV2_LAYERS):
-    """DeepSeek-V2-Lite at its published widths (DSV2_LITE; DSV2_CUT says what
-    is cut), ``layers`` deep, in compute ``dtype``."""
+    """(B)'s DeepSeek-V2-Lite: its published widths and MoE layers (DSV2_LITE,
+    DSV2_MOE; DSV2_CUT says what is cut), ``layers`` deep, in compute
+    ``dtype``."""
+    from np_modeling_tpu_torch.models import GPTConfig
+    return GPTConfig(**DSV2_LITE, **DSV2_MOE, num_layers=layers,
+                     max_len=DSV2_MAX_LEN, dtype=dtype)
+
+
+def deepseek_v2_lite_dense_config(dtype=None, layers=DSV2_LAYERS):
+    """(C)'s DeepSeek-V2-Lite: every layer's FFN the dense first-layer FFN
+    (DSV2_DENSE_CUT), ``layers`` deep, in compute ``dtype``."""
     from np_modeling_tpu_torch.models import GPTConfig
     return GPTConfig(**DSV2_LITE, num_layers=layers, max_len=DSV2_MAX_LEN,
                      dtype=dtype)
@@ -6333,33 +6378,172 @@ def _dsv2_decode_timings(res, eng_k, eng_p, what, device_line):
           f"{live / med[0] * 1e3:.1f} tokens/s [{device_line}]")
 
 
-def phase_deepseek_serving(device_line):
-    """(B) DeepSeek-V2-Lite at its published widths and 27 layers (DSV2_CUT),
-    seeded weights, served through GenerationEngine(max_seqs DSV2_SLOTS,
-    page_size DSV2_PAGE, prefill_chunk_size DSV2_CHUNK) on latent pages:
-    DSV2_SLOTS seeded Zipf prompts of DSV2_PROMPT_MIN..DSV2_PROMPT_MAX tokens in
-    one add_requests, then step_many(DSV2_STEPS). fp32 pages: K3's latent option
-    launches 27 times a prefill chunk and a decode step, and no other paged call
-    and no flash kernel runs; each sequence's tokens equal the plain engine's
-    (force_plain) and those of GPT.generate under force_plain (the dense latent
-    cache), a differing token allowed only where the reference's top-2 logits
-    lie within NEAR_TIE (the stream is then held up to that step); each step's
-    logits (prefill's and decode's) within DSV2_F32_TOL x max(1, max |logit|)
-    of the plain engine's, or 1.25 x the plain engine's distance from plain
-    generate's where that is larger (at most F32_TOL). bf16 compute and bf16 pages: each step's
-    logits within 1.25 x the plain
-    bf16 engine's distance from the fp32 plain engine's plus GEMMA_BF16_SLACK x
-    max(1, max |logit|), over the steps whose tokens so far agree (phase (A)'s
-    rule). Then the decode step in AB rounds with the plain engine, the fp32
-    step profiled by kind (``_profile``: the idle share), K3's latent option
-    alone (``_dsv2_k3_timings``) and peak memory. Returns (results, keys by
-    page dtype, the fp32 and the bf16 run's launch counts)."""
+# DeepSeek-V2-Lite's MoE layer on the card against the same layer on the CPU:
+# (label, tokens); 8 tokens x top 6 take the gathered products (nn.moe.GATHER_MAX),
+# 64 the loop over experts. MOE_TIE_EXPERTS: seven router columns made equal and
+# lead for every token, so that seven experts tie for the top 6.
+MOE_LAYER_CASES = (("decode", 8), ("chunk", 64))
+MOE_TIE_EXPERTS = (3, 9, 17, 20, 33, 40, 63)
+
+
+def _dsv2_moe_layer(device):
+    """One DeepSeek-V2-Lite MoE layer (DSV2_MOE at d 2048) from seed SEED + 98 on
+    the CPU, moved to ``device``, the router's MOE_TIE_EXPERTS columns equal
+    copies led by 3.0 on feature 0."""
     import torch
+    from np_modeling_tpu_torch.nn import MoE
+    m = MoE(DSV2_LITE["d_model"], DSV2_MOE["moe_experts"],
+            DSV2_MOE["moe_hidden_units"], capacity_factor=None,
+            router_top_k=DSV2_MOE["moe_top_k"], router_weights="softmax",
+            shared_experts_units=DSV2_MOE["moe_shared_units"], ffn="swiglu",
+            device="cpu").init(torch.Generator().manual_seed(SEED + 98))
+    with torch.no_grad():
+        tie = list(MOE_TIE_EXPERTS)
+        m.router[0, tie[0]] = 3.0
+        m.router[:, tie] = m.router[:, tie[:1]]
+    return m.to(device)
+
+
+def phase_moe_layer_vs_cpu():
+    """(B) DeepSeek-V2-Lite's MoE layer (64 experts of 1408, top 6, raw softmax
+    gates, 2 shared experts, no-drop) on the card against the same layer on the
+    CPU, MOE_LAYER_CASES on N(0, 1) inputs whose feature 0 is 3.0, bf16 and
+    fp32: seven experts (MOE_TIE_EXPERTS) tie exactly at the top of every
+    token's scores, so both sides must keep the six lowest of them (the lower
+    index first among equals, as jax.lax.top_k), and every chosen expert is
+    equal; the output within BF16_TOL (bf16) or F32_TOL (fp32) x max |CPU's|."""
+    import torch
+    cpu, card = _dsv2_moe_layer("cpu"), _dsv2_moe_layer("cuda")
+    for label, t in MOE_LAYER_CASES:
+        x = torch.tensor(np.random.default_rng(SEED + 99 + t).standard_normal(
+            (t, DSV2_LITE["d_model"])), dtype=torch.float32)
+        x[:, 0] = 3.0
+        for dtype in (torch.float32, torch.bfloat16):
+            xc = x.to(dtype)
+            with torch.no_grad():
+                want = cpu(xc).float()
+                got = card(xc.cuda()).float().cpu()
+                _, i_cpu, _ = cpu._route(xc)
+                _, i_card, _ = card._route(xc.cuda())
+            tag = f"(B) MoE layer {label} {t} tokens {str(dtype)[6:]}"
+            if not torch.equal(i_card.cpu(), i_cpu):
+                raise AssertionError(f"{tag}: the card chose other experts "
+                                     "than the CPU")
+            if not bool((i_cpu == torch.tensor(MOE_TIE_EXPERTS[:6])).all()):
+                raise AssertionError(f"{tag}: the tied experts were not taken "
+                                     f"lowest first: {i_cpu[0].tolist()}")
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            tol = _tol(dtype)
+            print(f"{tag}: experts {i_cpu[0].tolist()} on every token, equal on "
+                  f"both; output {err:.3e} x max |CPU's| apart (tol {tol})")
+            if not err <= tol:
+                raise AssertionError(f"{tag}: output {err:.3e} > {tol}")
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _moe_spans(experts=None):
+    """Each MoE call inside a torch.profiler span "MoE" in this scope; with a
+    list ``experts``, each call's number of experts that received tokens is
+    appended to it (a read to the host a call)."""
+    import torch
+    from np_modeling_tpu_torch.nn import moe
+    forward, route = moe.MoE._forward, moe.MoE._route
+
+    def spanned(self, x):
+        with torch.profiler.record_function("MoE"):
+            return forward(self, x)
+
+    def counted(self, xt):
+        gates, i_k, w = route(self, xt)
+        experts.append(int(torch.unique(i_k).numel()))
+        return gates, i_k, w
+
+    moe.MoE._forward = spanned
+    if experts is not None:
+        moe.MoE._route = counted
+    try:
+        yield
+    finally:
+        moe.MoE._forward, moe.MoE._route = forward, route
+
+
+def _dsv2_route_timings(res, eng, device_line):
+    """The fp32 decode step (step_many(DSV2_TIMED), the host's clock, the card
+    synchronised around each call) with the no-drop expert products gathered
+    (48 assignments <= nn.moe.GATHER_MAX: one batched product a weight, no host
+    read) and with the loop over the experts that received tokens (GATHER_MAX 0:
+    the counts read to the host once a layer), in AB rounds."""
+    import torch
+    from np_modeling_tpu_torch.nn import moe
+    keep = moe.GATHER_MAX
+
+    def timer(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / DSV2_TIMED
+
+    def gathered():
+        moe.GATHER_MAX = max(keep, 64)
+        try:
+            eng.step_many(DSV2_TIMED)
+        finally:
+            moe.GATHER_MAX = keep
+
+    def loop():
+        moe.GATHER_MAX = 0
+        try:
+            eng.step_many(DSV2_TIMED)
+        finally:
+            moe.GATHER_MAX = keep
+
+    timer(loop)
+    timer(gathered)
+    ab = _alternate(loop, gathered, timer, rounds=3)
+    med = [statistics.median(x) for x in ab]
+    name = "DeepSeek-V2-Lite decode step fp32 MoE products loop vs gathered"
+    res[name] = (med[1], med[0])
+    print(f"(B) {name}: {_ab_line(ab, 'loop', 'gathered', '.3f')} ms a step "
+          f"(step_many({DSV2_TIMED}) / {DSV2_TIMED}; GATHER_MAX {keep}) "
+          f"[{device_line}]")
+
+
+def phase_deepseek_serving(device_line):
+    """(B) DeepSeek-V2-Lite at its published widths, MoE layers and 27 layers
+    (DSV2_MOE, DSV2_PARAMS parameters; DSV2_CUT), seeded weights, served through
+    GenerationEngine(max_seqs DSV2_SLOTS, page_size DSV2_PAGE, prefill_chunk_size
+    DSV2_CHUNK) on latent pages: DSV2_SLOTS seeded Zipf prompts of
+    DSV2_PROMPT_MIN..DSV2_PROMPT_MAX tokens in one add_requests, then
+    step_many(DSV2_STEPS). fp32 pages: K3's latent option launches 27 times a
+    prefill chunk and a decode step, and no other paged call and no flash kernel
+    runs; each sequence's tokens equal the plain engine's (force_plain) and
+    those of GPT.generate under force_plain (the dense latent cache), a
+    differing token allowed only where the reference's top-2 logits lie within
+    NEAR_TIE (the stream is then held up to that step); each step's logits
+    (prefill's and decode's) within DSV2_F32_TOL x max(1, max |logit|) of the
+    plain engine's, or 1.25 x the plain engine's distance from plain generate's
+    where that is larger (at most F32_TOL). bf16 compute (the bf16 model holds
+    the fp32 model's parameter storage, cast at use) and bf16 pages: each
+    step's logits within 1.25 x the plain bf16 engine's distance from the fp32
+    plain engine's plus GEMMA_BF16_SLACK x max(1, max |logit|), over the steps
+    whose tokens so far agree (phase (A)'s rule). Then the experts that
+    received tokens in a decode step, the decode step in AB rounds with the
+    plain engine and with the MoE's two product routes, the fp32 step profiled
+    by kind with the MoE's share (``_profile``: the idle share), K3's latent
+    option alone (``_dsv2_k3_timings``) and the peak memory of each run.
+    Returns (results, keys by page dtype, the fp32 and the bf16 run's launch
+    counts)."""
+    import torch
+    from np_modeling_tpu_torch.models import GPT
     from np_modeling_tpu_torch.ops import dispatch
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     L = DSV2_LAYERS
-    print(f"(B) DeepSeek-V2-Lite cut: {DSV2_CUT}")
+    print(f"(B) DeepSeek-V2-Lite cut: {DSV2_CUT}; nothing else (MoE layers "
+          f"1..26: {DSV2_MOE})")
     gpt = _dsv2_model(None)
     prompts = dsv2_prompts(DSV2_LITE["vocab_size"])
     n_params = sum(p.numel() for p in gpt.parameters())
@@ -6367,6 +6551,8 @@ def phase_deepseek_serving(device_line):
           f"{DSV2_SLOTS} slots, page {DSV2_PAGE}, chunk {DSV2_CHUNK}, "
           f"{DSV2_PAGES} pages of [1, {DSV2_PAGE}, {LATENT_D}] a layer; prompts "
           f"of {[len(p) for p in prompts]} tokens")
+    if n_params != DSV2_PARAMS:
+        raise AssertionError(f"(B) {n_params} params, not {DSV2_PARAMS}")
     eng_k, tk, lk, counts, chunks, admit = _dsv2_traffic(gpt, prompts, None)
     want = {"paged_attention": L * (chunks + DSV2_STEPS),
             "paged_attention_latent": L * (chunks + DSV2_STEPS),
@@ -6409,17 +6595,33 @@ def phase_deepseek_serving(device_line):
     if not err <= tol:
         raise AssertionError(f"(B) fp32 logits {err:.3e} x max(1, max |logit|)"
                              f" from the plain engine's > {tol:.3e}")
+    experts = []
+    with torch.no_grad(), _moe_spans(experts):
+        eng_k.step()
+    print(f"(B) experts that received tokens in one fp32 decode step of "
+          f"{len(eng_k.live)} tokens x top {DSV2_MOE['moe_top_k']}, layer by "
+          f"layer (1..26): {experts}; {min(experts)}..{max(experts)} of "
+          f"{DSV2_MOE['moe_experts']}, median {statistics.median(experts)}")
     res = {}
     _dsv2_decode_timings(res, eng_k, eng_p, "fp32 pages", device_line)
     del eng_p
-    _profile("B", f"DeepSeek-V2-Lite GenerationEngine decode step() fp32 "
-             f"{len(eng_k.live)} seqs", eng_k.step, device_line, warmup=2)
+    _dsv2_route_timings(res, eng_k, device_line)
+    with _moe_spans():
+        _profile("B", f"DeepSeek-V2-Lite GenerationEngine decode step() fp32 "
+                 f"{len(eng_k.live)} seqs", eng_k.step, device_line, warmup=2,
+                 spans=("MoE",))
     keys = {"float32": _dsv2_k3_timings(res, eng_k, torch.float32, device_line)}
+    peak32 = torch.cuda.max_memory_allocated()
+    print(f"(B) fp32 run peak memory {peak32 / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: the fp32 weights, two engines' "
+          f"pages, plain generate's caches) [{device_line}]")
     del eng_k, lk
     torch.cuda.empty_cache()
-    from np_modeling_tpu_torch.models import GPT
-    g16 = GPT(deepseek_v2_lite_config(torch.bfloat16))
-    g16.load_state_dict(gpt.state_dict())
+    torch.cuda.reset_peak_memory_stats()
+    # The bf16 model on the fp32 model's parameter storage (its modules cast
+    # at use; the routed experts only those a call selects), not a second copy.
+    g16 = GPT(deepseek_v2_lite_config(torch.bfloat16), device="meta")
+    g16.load_state_dict(gpt.state_dict(), assign=True)
     eng_k16, tk16, lk16, counts16, _, admit16 = _dsv2_traffic(
         g16, prompts, torch.bfloat16)
     if counts16["paged_attention_latent"] != want["paged_attention_latent"]:
@@ -6441,10 +6643,10 @@ def phase_deepseek_serving(device_line):
     _dsv2_decode_timings(res, eng_k16, eng_p16, "bf16 pages", device_line)
     keys["bfloat16"] = _dsv2_k3_timings(res, eng_k16, torch.bfloat16,
                                         device_line)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"(B) peak memory {peak / 2 ** 30:.2f} GiB "
-          f"(torch.cuda.max_memory_allocated; two copies of the weights, fp32 "
-          f"and the bf16 model's fp32 master) [{device_line}]")
+    peak16 = torch.cuda.max_memory_allocated()
+    print(f"(B) bf16 run peak memory {peak16 / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: one copy of the weights, fp32, "
+          f"shared by both models) [{device_line}]")
     del eng_k16, eng_p16, gpt, g16
     torch.cuda.empty_cache()
     print(f"(B) DeepSeek-V2-Lite serving phase {time.perf_counter() - t_phase:.1f}"
@@ -6453,7 +6655,7 @@ def phase_deepseek_serving(device_line):
 
 
 # Phase (C): DeepSeek-V2-Lite's latent attention (MLA) trained on the card at its
-# published widths ((B)'s DSV2_LITE with DSV2_CUT's MoE cut), through the training
+# published widths ((B)'s DSV2_LITE with DSV2_DENSE_CUT's MoE cut), through the training
 # entry point. MLAttention's dense form runs the flash kernels at its qk head dim,
 # nope + rope = 192 (v zero-padded to it, as JAX does): K1 and K2 by default, K12 and
 # K5 under JAX's schedule flags. The closing GPT.generate runs K3's latent option over
@@ -6650,9 +6852,10 @@ def phase_mla_flash_timings(device_line):
 
 
 def mla_train_config(dtype, layers, max_len=MLA_S):
-    """(B)'s DeepSeek-V2-Lite config with ``layers`` layers and a table of
-    ``max_len`` positions (the loss then runs all of a row's tokens)."""
-    return dataclasses.replace(deepseek_v2_lite_config(dtype, layers),
+    """DeepSeek-V2-Lite with every FFN dense (DSV2_DENSE_CUT), ``layers``
+    layers and a table of ``max_len`` positions (the loss then runs all of
+    a row's tokens)."""
+    return dataclasses.replace(deepseek_v2_lite_dense_config(dtype, layers),
                                max_len=max_len)
 
 
@@ -6738,7 +6941,8 @@ def phase_mla_training(device_line):
     gpt = _mla_gpt(torch.bfloat16, L)
     n_params = sum(p.numel() for p in gpt.parameters())
     print(f"(C) DeepSeek-V2-Lite at full width, depth cut to {L} of 27 layers "
-          f"({DSV2_CUT}): d {DSV2_LITE['d_model']}, 16 heads, MLA rank 512, "
+          f"({DSV2_DENSE_CUT}; a table of {MLA_S} positions): d "
+          f"{DSV2_LITE['d_model']}, 16 heads, MLA rank 512, "
           f"nope 128, rope 64, v 128 (qk head dim {MLA_D}), FFN "
           f"{DSV2_LITE['hidden_units']}, vocab {vocab}, untied, YaRN; "
           f"{n_params} params (fp32 master weights), bf16 compute; batch 1 x "
@@ -7008,6 +7212,7 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABC"):
         since("(A)")
     if "B" in phases:
         latent_err = phase_latent_vs_plain()
+        phase_moe_layer_vs_cpu()
         dsv2_res, dsv2_keys, dsv2_launches, dsv2_launches16 = \
             phase_deepseek_serving(device_line)
         since("(B)")

@@ -7,9 +7,12 @@ with an MLP FFN, relu or tanh-gelu, biases optional, tied embeddings) and
 Gemma-2's features: RoPE, RMSNorm (with the ``gamma + 1`` offset), gated
 FFNs (swiglu, geglu), sandwich norms, the embedding scale, a sliding window
 that alternates by layer (``window_pattern``), the attention and final
-logit softcaps and ``query_pre_attn_scalar``; and DeepSeek-V2's latent
+logit softcaps and ``query_pre_attn_scalar``; DeepSeek-V2's latent
 attention (``mla``, JAX nn/mla.py) with YaRN RoPE scaling and an untied LM
-head (``lm_head.w`` [d, vocab], no bias). A config outside those raises
+head (``lm_head.w`` [d, vocab], no bias); and routed MoE FFNs
+(``moe_experts``, ``nn.MoE``: every routing rule, no-drop and capacity
+dispatch, shared experts, the first ``moe_first_dense`` layers dense; the
+forward only, its backward raises). A config outside those raises
 NotImplementedError. ``GPT`` owns its parameters under the JAX parameter
 paths (``embedding.table``, ``layer_{i}.self_attention.wq``,
 ``layer_{i}.dense1.linear.w`` or ``layer_{i}.swiglu.w_gate``, ...).
@@ -98,10 +101,10 @@ class GPTConfig:
 # window, both softcaps, query_pre_attn_scalar and the mla dims take any
 # value; rope_scaling is None or a ("yarn", ...) tuple.
 _PORTED = {"positional": ("learned", "rope"), "norm": ("layer", "rms"),
-           "ffn": ("mlp", "swiglu", "geglu"),
+           "ffn": ("mlp", "swiglu", "geglu", "glu_clamp"),
            "activation": ("relu", "gelu"), "norm_first": (True,),
            "tie_embeddings": (True, False), "lm_head_bias": (False,),
-           "scan_layers": (False,), "moe_experts": (0,),
+           "scan_layers": (False,),
            "attn_sinks": (False,), "qk_norm": (False,),
            "parallel_residual": (False,), "sandwich_norm": (False, True),
            "embed_scale": (False, True)}
@@ -121,6 +124,33 @@ def check_ported(config: GPTConfig) -> None:
             f"GPTConfig features not ported yet: {bad} (ROADMAP.md Queue 1)")
     if config.window_pattern > 1 and config.attention_window is None:
         raise ValueError("window_pattern > 1 needs an attention_window")
+    if config.moe_first_dense > 0:
+        if not config.moe_experts:
+            raise ValueError("moe_first_dense keeps the first layers dense "
+                             "in an MoE model: it needs moe_experts (JAX "
+                             "asserts)")
+        if config.window_pattern != 1:
+            raise ValueError("window_pattern and moe_first_dense both fork "
+                             "the block; composing them is not wired (JAX "
+                             "asserts)")
+
+
+def moe_fields(config: GPTConfig, dense: bool = False) -> dict:
+    """The block's ``moe_*`` arguments; ``dense``: a first layer kept dense
+    (``moe_first_dense``, DeepSeek's first_k_dense_replace)."""
+    c = config
+    return dict(moe_experts=0 if dense else c.moe_experts,
+                moe_top_k=c.moe_top_k,
+                moe_capacity_factor=c.moe_capacity_factor,
+                moe_router_weights=c.moe_router_weights,
+                moe_routed_scaling=c.moe_routed_scaling,
+                moe_shared_units=c.moe_shared_units,
+                moe_router_groups=c.moe_router_groups,
+                moe_router_score=c.moe_router_score,
+                moe_router_select_bias=c.moe_router_select_bias,
+                moe_group_metric=c.moe_group_metric,
+                moe_hidden_units=c.moe_hidden_units,
+                moe_router_bias=c.moe_router_bias)
 
 
 def window_for(config: GPTConfig, i: int):
@@ -166,7 +196,8 @@ class GPT(nn.Module):
                 rope=c.positional == "rope", rope_base=c.rope_base,
                 rope_dim=c.rope_dim, window=window_for(c, i),
                 attn_scale=attn_scale, attn_softcap=c.attn_logit_softcap,
-                mla=mla, device=device))
+                mla=mla, device=device,
+                **moe_fields(c, dense=i < c.moe_first_dense)))
         self.final_norm = (RMSNorm(c.d_model, c.ln_eps, c.rms_offset, device)
                            if c.norm == "rms"
                            else LayerNorm(c.d_model, c.ln_eps, device))
@@ -193,7 +224,7 @@ class GPT(nn.Module):
     def apply(self, tokens, training=False, rngs=None, return_hidden=False,
               logits_dtype=None, segment_ids=None, positions=None,
               caches=None, decode=False, collect_kv=False,
-              logits_last_only=False):
+              logits_last_only=False, collect_aux=False):
         """Dense forward (JAX :221-333): token embedding (times
         sqrt(d_model) in its own dtype with ``embed_scale``) plus learned
         positions, cast to the compute dtype, dropout (salt 1000), the
@@ -210,8 +241,11 @@ class GPT(nn.Module):
         through ``caches`` (one a layer, from ``init_cache``) at their
         write index, which also gives the learned positions, and returns
         ``(logits, caches)``; ``collect_kv=True`` returns ``(logits,
-        [(k, v) a layer])``; ``logits_last_only=True`` computes the head on
-        the last position only (JAX :222-333, the unscanned branch)."""
+        [(k, v) a layer])``; else ``collect_aux=True`` returns ``(logits,
+        aux)`` (or ``(hidden, aux)``), the sum of the MoE layers'
+        load-balancing aux, fp32; ``logits_last_only=True`` computes the
+        head on the last position only (JAX :222-333, the unscanned
+        branch)."""
         c = self.config
         x = self.embedding(tokens)
         if c.embed_scale:
@@ -235,18 +269,26 @@ class GPT(nn.Module):
         rngs = resolve_rngs(rngs) if training else None
         x = self.drop(maybe_cast(x, c.dtype), training, rngs, salt=1000)
         extras = [] if decode or collect_kv else None
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
+            if collect_aux else None
         for i in range(c.num_layers):
             x = self._block_for(i)(x, training=training,
                                    rngs=split_rngs(rngs, i),
                                    segment_ids=segment_ids,
                                    positions=block_positions,
                                    cache=caches[i] if decode else None,
-                                   decode=decode, collect_kv=collect_kv)
+                                   decode=decode, collect_kv=collect_kv,
+                                   collect_aux=collect_aux)
             if extras is not None:
                 x, extra = x
                 extras.append(extra)
+            elif collect_aux:
+                x, aux = x
+                aux_total = aux_total + aux
         x = self.final_norm(x)
         if return_hidden:
+            if aux_total is not None and extras is None:
+                return x, aux_total
             return x
         if logits_last_only:
             x = x[..., -1:, :]
@@ -256,6 +298,8 @@ class GPT(nn.Module):
             logits = cap * torch.tanh(logits / cap)
         if extras is not None:
             return logits, extras
+        if aux_total is not None:
+            return logits, aux_total
         return logits
 
     def head(self, x):
@@ -325,8 +369,9 @@ class GPT(nn.Module):
         the first token). Longer, it runs on ``tokens[..., :-1]`` against
         ``tokens[..., 1:]``, ``segment_ids`` and ``positions`` cut with
         them. With ``segment_ids``, a position whose next token lies in
-        another document is not a target either. ``rngs`` as in
-        ``apply``."""
+        another document is not a target either. An MoE model adds
+        ``moe_aux_weight`` times the summed load-balancing aux; its
+        backward raises (``nn.moe``). ``rngs`` as in ``apply``."""
         c = self.config
         if c.fused_loss and c.final_logit_softcap is not None:
             raise ValueError("fused_loss never materializes logits, so the "
@@ -350,17 +395,23 @@ class GPT(nn.Module):
                 valid[..., :-1] *= same
         out = self.apply(inputs, training=training, rngs=rngs,
                          return_hidden=c.fused_loss, logits_dtype=c.dtype,
-                         segment_ids=seg, positions=pos)
+                         segment_ids=seg, positions=pos,
+                         collect_aux=bool(c.moe_experts))
+        if c.moe_experts:
+            out, aux = out
         if c.fused_loss and c.tie_embeddings:
-            return ops.fused_lm_head_loss(out, self.embedding.table, targets,
+            loss = ops.fused_lm_head_loss(out, self.embedding.table, targets,
                                           valid=valid)
-        if c.fused_loss:
-            return ops.fused_lm_head_loss(out, self.lm_head.w, targets,
+        elif c.fused_loss:
+            loss = ops.fused_lm_head_loss(out, self.lm_head.w, targets,
                                           valid=valid, table_layout="dv")
-        ce = ops.softmax_cross_entropy_with_integer_labels(out, targets)
-        if valid is None:
-            return ce.mean()
-        return (ce * valid).sum() / valid.sum().clamp(min=1.0)
+        else:
+            ce = ops.softmax_cross_entropy_with_integer_labels(out, targets)
+            loss = (ce.mean() if valid is None else
+                    (ce * valid).sum() / valid.sum().clamp(min=1.0))
+        if c.moe_experts:     # the load-balancing aux (JAX :443-448)
+            loss = loss + c.moe_aux_weight * aux
+        return loss
 
 
 def filter_logits(lg, top_k=None, top_p=None):

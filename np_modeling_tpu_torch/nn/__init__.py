@@ -6,6 +6,7 @@ from np_modeling_tpu_torch.nn.embedding import Embedding
 from np_modeling_tpu_torch.nn.linear import (Dense, Dropout, Int8Weight,
                                              LayerNorm, Linear, RMSNorm)
 from np_modeling_tpu_torch.nn.mla import MLAttention
+from np_modeling_tpu_torch.nn.moe import MoE
 from np_modeling_tpu_torch.nn.module import (Sequential, maybe_cast,
                                              resolve_rngs, split_rngs)
 from np_modeling_tpu_torch.nn.transformer import (TransformerDecoder,
@@ -14,7 +15,8 @@ from np_modeling_tpu_torch.nn.transformer import (TransformerDecoder,
                                                   TransformerEncoderBlock)
 
 __all__ = ["Dense", "Dropout", "Embedding", "Int8Weight", "LayerNorm",
-           "Linear", "MLAttention", "MultiHeadAttention", "RMSNorm", "Sequential",
+           "Linear", "MLAttention", "MoE", "MultiHeadAttention", "RMSNorm",
+           "Sequential",
            "TransformerDecoder", "TransformerDecoderBlock",
            "TransformerEncoder", "TransformerEncoderBlock", "initializers",
            "maybe_cast", "resolve_rngs", "split_rngs"]

@@ -12,7 +12,10 @@ sublayer's output before its residual add (JAX :255-278). ``mla`` (a dict
 of ``MLAttention`` dims: kv_lora_rank, q_lora_rank, qk_nope_head_dim,
 qk_rope_head_dim, v_head_dim, and the GPT's rope_base / rope_scaling)
 replaces the attention by DeepSeek-V2's latent attention, which composes
-with no window, softcap, qk_norm or sandwich norm (JAX :82-90). ``forward`` is
+with no window, softcap, qk_norm or sandwich norm (JAX :82-90).
+``moe_experts`` > 0 puts the routed ``moe`` (``nn.MoE``, from the ``moe_*``
+fields: ``ffn`` is its expert form, ``moe_hidden_units`` its expert width)
+in the FFN's place (JAX :131-145). ``forward`` is
 the dense path, in JAX's order of dropout (salt 1 before ``norm1``, salt 2
 before ``norm2``), norm, sublayer and residual; the serving engine's
 ``_block_step`` composes the same modules around paged attention.
@@ -39,6 +42,7 @@ from np_modeling_tpu_torch.nn.attention import MultiHeadAttention
 from np_modeling_tpu_torch.nn.linear import (Dense, Dropout, LayerNorm,
                                              Linear, RMSNorm)
 from np_modeling_tpu_torch.nn.mla import MLAttention
+from np_modeling_tpu_torch.nn.moe import MoE
 from np_modeling_tpu_torch.nn.module import maybe_cast, split_rngs
 
 
@@ -76,9 +80,18 @@ class TransformerEncoderBlock(nn.Module):
                  attn_scale: Optional[float] = None,
                  attn_softcap: Optional[float] = None,
                  norm_first: bool = True, mla: Optional[dict] = None,
-                 device=None):
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: Optional[float] = 1.25,
+                 moe_router_weights: str = "default",
+                 moe_routed_scaling: float = 1.0, moe_shared_units: int = 0,
+                 moe_router_groups=None, moe_router_score: str = "softmax",
+                 moe_router_select_bias: bool = False,
+                 moe_group_metric: str = "max",
+                 moe_hidden_units: Optional[int] = None,
+                 moe_router_bias: bool = False, device=None):
         super().__init__()
-        if ffn not in ("mlp", "swiglu", "geglu"):
+        if ffn not in ("mlp", "swiglu", "geglu") and not (
+                moe_experts and ffn == "glu_clamp"):
             raise NotImplementedError(f"ffn {ffn!r} is not ported")
         if sandwich_norm and not norm_first:
             raise ValueError("sandwich_norm is a pre-norm form (JAX asserts)")
@@ -111,7 +124,22 @@ class TransformerEncoderBlock(nn.Module):
         self.norm1, self.norm2 = make_norm(), make_norm()
         if sandwich_norm:
             self.post_norm1, self.post_norm2 = make_norm(), make_norm()
-        if ffn == "mlp":
+        self.moe_experts = moe_experts
+        if moe_experts:
+            self.moe = MoE(features, moe_experts,
+                           moe_hidden_units or hidden_units,
+                           capacity_factor=moe_capacity_factor,
+                           router_top_k=moe_top_k, activation=activation,
+                           ffn=ffn, router_weights=moe_router_weights,
+                           routed_scaling=moe_routed_scaling,
+                           shared_experts_units=moe_shared_units,
+                           router_groups=moe_router_groups,
+                           router_bias=moe_router_bias,
+                           router_score=moe_router_score,
+                           router_select_bias=moe_router_select_bias,
+                           router_group_metric=moe_group_metric,
+                           device=device)
+        elif ffn == "mlp":
             self.dense1 = Dense(features, hidden_units, activation, use_bias,
                                 dtype, device)
             self.dense2 = Linear(hidden_units, features, use_bias, dtype,
@@ -140,13 +168,15 @@ class TransformerEncoderBlock(nn.Module):
 
     def forward(self, x, training: bool = False, rngs=None,
                 segment_ids=None, positions=None, cache=None, decode=False,
-                collect_kv=False, mask=None):
+                collect_kv=False, mask=None, collect_aux=False):
         """``segment_ids`` [b, s]: packed documents, each attending only
         within itself (JAX :255-257); ``positions`` ([s] or [b, s]): the
         RoPE positions (default ``arange(s)``); ``mask`` [b|1, h|1, s, s]
         (True = attend). ``decode=True`` attends through ``cache`` and
         returns ``(out, cache)``; ``collect_kv=True`` returns ``(out, (k,
-        v))`` (``MultiHeadAttention.forward``)."""
+        v))`` (``MultiHeadAttention.forward``); else ``collect_aux=True``
+        returns ``(out, aux)``, the MoE's load-balancing aux (fp32 0 for a
+        dense block)."""
         pre = self.norm_first
         skip = x            # the residual skips the dropout
         if pre:
@@ -165,7 +195,11 @@ class TransformerEncoderBlock(nn.Module):
         skip = y
         if pre:
             y = self.norm2(self.drop(y, training, rngs, salt=2))
-        y = self._ffn(y)
+        aux = None
+        if self.moe_experts:
+            y, aux = self.moe.apply_with_aux(y)
+        else:
+            y = self._ffn(y)
         if self.sandwich_norm:
             y = self.post_norm2(y)
         y = y + skip
@@ -173,6 +207,10 @@ class TransformerEncoderBlock(nn.Module):
             y = self.norm2(self.drop(y, training, rngs, salt=2))
         if extra is not None:
             return y, extra
+        if collect_aux:
+            if aux is None:
+                aux = torch.zeros((), dtype=torch.float32, device=y.device)
+            return y, aux
         return y
 
 

@@ -49,6 +49,12 @@ qk_rope_head_dim`` numbers a token, no ``v_pages`` and, with
 through kv_b's k half, paged attention with the page array as both k and v
 (the paged kernel's latent option on the card), and the first kv_lora_rank
 output columns through kv_b's v half. MLA needs chunked prefill.
+
+MoE models (``GPTConfig.moe_experts``) run each block's routed ``moe`` in
+the FFN's place. No-drop routing (``moe_capacity_factor=None``) is per
+token, so chunked prefill is exact; capacity-limited routing depends on
+the token population and takes the dense prefill, and refuses the prefix
+cache and MLA, as JAX asserts (JAX :402-418, :785-791).
 """
 
 from __future__ import annotations
@@ -132,11 +138,18 @@ class GenerationEngine:
         self._prefix_cache = None
         self._cache_hit_tokens = 0
         self._cache_lookup_tokens = 0
+        # Capacity-limited MoE takes the dense prefill (module docstring).
+        capacity_moe = (bool(c.moe_experts)
+                        and c.moe_capacity_factor is not None)
+        self._chunked = (self.prefill_chunk_size is not None
+                         and not capacity_moe)
         if self.enable_prefix_cache:
-            if self.prefill_chunk_size is None:
+            if not self._chunked:
                 raise ValueError("the prefix cache prefills suffixes "
                                  "through the chunked path: "
-                                 "prefill_chunk_size=None cannot use it")
+                                 "prefill_chunk_size=None and capacity-"
+                                 "limited MoE (dense prefill) cannot use it "
+                                 "(JAX asserts)")
             self._prefix_cache = collections.OrderedDict()
         self._mla = c.mla is not None
         if self._mla:
@@ -144,6 +157,10 @@ class GenerationEngine:
                 raise ValueError("MLA serving requires chunked prefill (the "
                                  "dense path collects per-head K/V, which MLA "
                                  "never materializes; JAX asserts)")
+            if capacity_moe:
+                raise ValueError("MLA + capacity-limited MoE would fall back "
+                                 "to the dense prefill; use no-drop routing "
+                                 "(moe_capacity_factor=None; JAX asserts)")
             attn = self.gpt._block_for(0).self_attention
             self._dims = (c.num_heads, 1, attn.latent_width)
         else:
@@ -375,7 +392,7 @@ class GenerationEngine:
         if self.per_request_sampling:
             for sid, slot, _, _ in reqs:
                 self._set_request_sampling(slot, sampling.get(sid))
-        if self.prefill_chunk_size is None:
+        if not self._chunked:
             return {sid: self._add_request_dense(sid, slot, arr, plen)
                     for sid, slot, arr, plen in reqs}
         return self._add_requests_chunked(reqs)
@@ -846,10 +863,18 @@ class GenerationEngine:
         y = y + skip
 
         skip = y
-        z = bp._ffn(bp.norm2(y)).to(x.dtype)
+        z = self._ffn_step(bp, bp.norm2(y), x.dtype)
         if bp.sandwich_norm:
             z = bp.post_norm2(z)
         return z + skip, state
+
+    @staticmethod
+    def _ffn_step(bp, y, dtype):
+        """The block's FFN on the step's rows: its routed ``moe`` (JAX
+        :1804-1807, :1909-1913) or its dense FFN in ``dtype``."""
+        if bp.moe_experts:
+            return bp.moe(y)
+        return bp._ffn(y).to(dtype)
 
     def _block_step_mla(self, bp, x, li, state):
         """One MLA block on the [S, t, d] slice (JAX :1739-1817, with its
@@ -898,5 +923,5 @@ class GenerationEngine:
         y = y + skip
 
         skip = y
-        z = bp._ffn(bp.norm2(y)).to(x.dtype)
+        z = self._ffn_step(bp, bp.norm2(y), x.dtype)
         return z + skip, state

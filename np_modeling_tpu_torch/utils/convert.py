@@ -8,8 +8,11 @@ T5's or Seq2SeqTransformer's tree (``layer_{i}/self_attention/wq``,
 ``enc_relpos``, ``decoder/layer_{i}/cross_attention/wk``, ...; an MLA GPT's
 ``layer_{i}/self_attention/kv_a``, ``kv_a_norm/gamma``, ``kv_b``, ``wo`` and
 ``wq`` or ``q_a`` / ``q_a_norm/gamma`` / ``q_b``, and an untied head's
-``lm_head/w``), the model picked by the config's type, and returns the
-port's model holding those weights. ``params_to_numpy`` and ``tree_to_numpy`` are the way back: a
+``lm_head/w``; an MoE layer's ``layer_{i}/moe/router``, its 3-D expert
+weights ``w_gate`` / ``w_up`` / ``w_down`` [E, ., .] (or ``w1`` / ``b1`` /
+``w2`` / ``b2``), biases, and ``moe/shared/w_gate|w_up|w_down``), the model
+picked by the config's type, and returns the port's model holding those
+weights. ``params_to_numpy`` and ``tree_to_numpy`` are the way back: a
 port model's parameters, or any ``{name: tensor}`` dict such as their
 gradients, as the JAX-shaped nested dict of fp32 numpy arrays, for a
 leaf-by-leaf comparison.
@@ -19,7 +22,9 @@ Weight-only int8 leaves (``{"int8", "scale"}``, from
 runs ``ops.int8_matmul``; the way back gives them as they were (int8 values,
 fp32 scales). A quantized leaf aimed at any other module raises
 NotImplementedError: the attention projections take plain weights, and the
-JAX engine fails on int8 ``wq/wk/wv/wo`` too (ROADMAP.md Queue 3, F4).
+JAX engine fails on int8 ``wq/wk/wv/wo`` too (ROADMAP.md Queue 3, F4). MoE
+expert leaves raise the same way: they are no JAX int8 target either
+(``WEIGHT_QUANT_TARGETS`` names the dense FFN's and attention's leaves).
 """
 
 from __future__ import annotations

@@ -449,6 +449,83 @@ def test_cuda_mla_engine_vs_plain_engine():
         assert streams[0] == streams[1]
 
 
+@pytest.mark.parametrize("tokens", [8, 48], ids=["gathered", "loop"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_moe_vs_cpu(dtype, tokens):
+    """A DeepSeek-form MoE (64 experts of 64, top 6, raw softmax gates, 2
+    shared experts, no-drop) on the card against the same module on the
+    CPU: seven router columns tie exactly at the top of every token's
+    scores, so both keep the six lowest; the chosen experts equal, the
+    output within 1e-4 (fp32) or 2e-2 (bf16) x max |CPU's|. 8 tokens take
+    the gathered products, 48 the loop over experts."""
+    from np_modeling_tpu_torch.nn import MoE
+    tie = [3, 9, 17, 20, 33, 40, 63]
+    cpu = MoE(256, 64, 64, capacity_factor=None, router_top_k=6,
+              router_weights="softmax", shared_experts_units=128,
+              ffn="swiglu", device="cpu").init(
+                  torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        cpu.router[0, tie[0]] = 3.0
+        cpu.router[:, tie] = cpu.router[:, tie[:1]]
+    card = MoE(256, 64, 64, capacity_factor=None, router_top_k=6,
+               router_weights="softmax", shared_experts_units=128,
+               ffn="swiglu", device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.tensor(np.random.default_rng(tokens).standard_normal(
+        (tokens, 256)), dtype=torch.float32)
+    x[:, 0] = 3.0
+    x = x.to(dtype)
+    with torch.no_grad():
+        want = cpu(x).float()
+        got = card(x.cuda()).float().cpu()
+        i_cpu = cpu._route(x)[1]
+        i_card = card._route(x.cuda())[1].cpu()
+    assert torch.equal(i_card, i_cpu)
+    assert bool((i_cpu == torch.tensor(tie[:6])).all())
+    assert ((got - want).abs().max() / want.abs().max()).item() <= _tol(dtype)
+
+
+def test_cuda_mla_moe_engine_vs_plain_engine():
+    """A small MLA GPT with MoE layers (the first dense, 16 experts, top 4,
+    shared experts, no-drop), fp32 pages: the engine's greedy tokens
+    through K3's latent option equal the plain engine's and the plain
+    ``generate``'s; one latent launch a layer a forward."""
+    from np_modeling_tpu_torch.serving import GenerationEngine
+    cfg = models.GPTConfig(
+        vocab_size=256, d_model=256, num_heads=16, num_layers=3,
+        hidden_units=256, max_len=512, positional="rope", norm="rms",
+        ln_eps=1e-6, ffn="swiglu", use_bias=False, tie_embeddings=False,
+        rope_scaling=("yarn", 40.0, 32.0, 1.0, 4096.0, 1.0),
+        mla=dict(kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=32,
+                 qk_rope_head_dim=64, v_head_dim=32),
+        moe_experts=16, moe_top_k=4, moe_capacity_factor=None,
+        moe_router_weights="softmax", moe_shared_units=128,
+        moe_hidden_units=64, moe_first_dense=1)
+    gpt = models.GPT(cfg).init(torch.Generator(device="cuda").manual_seed(3))
+    with torch.no_grad():
+        gpt.embedding.table.mul_(50.0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, n) for n in (300, 7, 129)]
+    streams = []
+    for plain in (False, True):
+        eng = GenerationEngine(gpt, total_pages=160, page_size=16,
+                               max_seqs=4, prefill_chunk_size=64)
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            before = ops.paged_attention.launches_latent
+            first = eng.add_requests(dict(enumerate(prompts)))
+            steps = eng.step_many(10)
+            launched = ops.paged_attention.launches_latent - before
+        streams.append({i: [first[i]] + steps[i] for i in first})
+        # chunks: 5 at admission; 10 decode steps; 3 layers each
+        assert launched == (0 if plain else 3 * (5 + 10))
+    assert streams[0] == streams[1]
+    with torch.no_grad(), dispatch.force_plain():
+        for i, p in enumerate(prompts):
+            gen = gpt.generate(torch.tensor(p, device="cuda")[None], 11)
+            assert gen[0].tolist() == streams[0][i]
+
+
 def test_cuda_gemma2_engine_vs_plain_engine():
     """A small Gemma-2-shaped GPT (head_dim 256, window 8 on even layers,
     both softcaps), fp32: the kernel engine's greedy tokens equal the plain

@@ -11,8 +11,9 @@ with one page array as k and v (float, and int8 with one scale set) against
 JAX's; the latent split plan; and the serving engine on latent pages
 against JAX's engine token for token: test_mla.py's cases (chunk 256 and 4,
 continuous batching, the chunked-prefill requirement), bf16 and int8 latent
-pages, fork and the prefix cache. Then phase (B)'s DeepSeek-V2-Lite config
-against the JAX package's own mapping of its published config. The weights
+pages, fork and the prefix cache. Then chip_smoke's DeepSeek-V2-Lite
+configs against the JAX package's own mapping of its published config:
+phase (B)'s with its MoE layers, and (C)'s with every layer dense. The weights
 come from the port's ``init``; the JAX side runs under ``jax.jit``. fp32 at
 rtol 1e-5 / atol 2e-5 (BASELINE.md:16), gradients at atol 5e-5 (the flash
 tests').
@@ -423,31 +424,73 @@ V2_LITE_HF = dict(vocab_size=102400, hidden_size=2048, intermediate_size=10944,
                                 "original_max_position_embeddings": 4096})
 
 
-def test_phase_b_config_is_the_jax_mapping_of_v2_lite():
-    """chip_smoke's DeepSeek-V2-Lite config equals what the JAX package's
-    hf_compat (llama_config, _rope_scaling_tuple, import_deepseek_v2's MLA
-    fields) makes of the published config with every layer dense
-    (first_k_dense_replace=27), except the cuts phase (B) states: no MoE
-    fields (every layer is the dense first-layer FFN) and max_len."""
+def _v2_lite_jax_config(first_k_dense_replace, moe):
+    """What the JAX package's hf_compat (llama_config, _rope_scaling_tuple,
+    import_deepseek_v2's MLA fields, and with ``moe`` its MoE fields,
+    hf_compat.py:1486-1497) makes of the published config."""
     transformers = pytest.importorskip("transformers")
     from np_modeling_tpu.utils import hf_compat
-    import chip_smoke
-    hc = transformers.DeepseekV2Config(**V2_LITE_HF, first_k_dense_replace=27)
-    jcfg = hf_compat.llama_config(
-        hc, ffn="swiglu", tie_embeddings=bool(hc.tie_word_embeddings),
-        mla=dict(kv_lora_rank=hc.kv_lora_rank, q_lora_rank=hc.q_lora_rank,
-                 qk_nope_head_dim=hc.qk_nope_head_dim,
-                 qk_rope_head_dim=hc.qk_rope_head_dim,
-                 v_head_dim=hc.v_head_dim))
+    hc = transformers.DeepseekV2Config(
+        **V2_LITE_HF, first_k_dense_replace=first_k_dense_replace)
+    kw = dict(ffn="swiglu", tie_embeddings=bool(hc.tie_word_embeddings),
+              mla=dict(kv_lora_rank=hc.kv_lora_rank,
+                       q_lora_rank=hc.q_lora_rank,
+                       qk_nope_head_dim=hc.qk_nope_head_dim,
+                       qk_rope_head_dim=hc.qk_rope_head_dim,
+                       v_head_dim=hc.v_head_dim))
+    if moe:
+        kw.update(moe_experts=hc.n_routed_experts,
+                  moe_top_k=hc.num_experts_per_tok, moe_capacity_factor=None,
+                  moe_router_weights="softmax",
+                  moe_routed_scaling=float(hc.routed_scaling_factor),
+                  moe_shared_units=(hc.moe_intermediate_size
+                                    * (hc.n_shared_experts or 0)),
+                  moe_hidden_units=hc.moe_intermediate_size,
+                  moe_first_dense=hc.first_k_dense_replace,
+                  moe_router_groups=None)
+    jcfg = hf_compat.llama_config(hc, **kw)
     assert jcfg.rope_scaling == ("yarn", 40.0, 32.0, 1.0, 4096.0, 1.0)
-    assert hc.first_k_dense_replace == jcfg.num_layers == 27
-    tcfg = chip_smoke.deepseek_v2_lite_config()
-    want = dataclasses.asdict(jcfg)
-    got = dataclasses.asdict(tcfg)
+    return hc, jcfg
+
+
+def _differ(tcfg, jcfg):
+    want, got = dataclasses.asdict(jcfg), dataclasses.asdict(tcfg)
     assert set(got) == set(want)
-    differ = {k for k in got if got[k] != want[k]}
-    assert differ == {"max_len"}, {k: (got[k], want[k]) for k in differ}
-    assert tcfg.max_len == chip_smoke.DSV2_MAX_LEN < want["max_len"]
+    return {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+
+
+def test_phase_b_config_is_the_jax_mapping_of_v2_lite():
+    """chip_smoke's dense-cut DeepSeek-V2-Lite config, phase (C)'s, equals
+    what the JAX package's hf_compat makes of the published config with
+    every layer dense (first_k_dense_replace=27), except the cuts it states:
+    no MoE fields (every layer is the dense first-layer FFN) and max_len."""
+    import chip_smoke
+    hc, jcfg = _v2_lite_jax_config(27, moe=False)
+    assert hc.first_k_dense_replace == jcfg.num_layers == 27
+    tcfg = chip_smoke.deepseek_v2_lite_dense_config()
+    differ = _differ(tcfg, jcfg)
+    assert set(differ) == {"max_len"}, differ
+    assert tcfg.max_len == chip_smoke.DSV2_MAX_LEN < jcfg.max_len
     big = tmodels.GPT(tcfg, device="meta")
     n = sum(p.numel() for p in big.parameters())
     assert 2.60e9 < n < 2.62e9
+
+
+def test_phase_b_moe_config_is_the_jax_mapping_of_v2_lite():
+    """Phase (B)'s DeepSeek-V2-Lite config equals import_deepseek_v2's
+    mapping of the published config (first_k_dense_replace=1, the MoE
+    fields through llama_config) except max_len, and has
+    chip_smoke.DSV2_PARAMS = 15,706,484,224 parameters, counted on the
+    meta device."""
+    import chip_smoke
+    hc, jcfg = _v2_lite_jax_config(1, moe=True)
+    tcfg = chip_smoke.deepseek_v2_lite_config()
+    differ = _differ(tcfg, jcfg)
+    assert set(differ) == {"max_len"}, differ
+    assert tcfg.max_len == chip_smoke.DSV2_MAX_LEN < jcfg.max_len
+    assert (tcfg.moe_experts, tcfg.moe_top_k, tcfg.moe_first_dense) == (
+        64, 6, 1)
+    big = tmodels.GPT(tcfg, device="meta")
+    assert not big.layer_0.moe_experts and big.layer_26.moe_experts == 64
+    n = sum(p.numel() for p in big.parameters())
+    assert n == chip_smoke.DSV2_PARAMS == 15_706_484_224

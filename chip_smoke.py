@@ -4,9 +4,9 @@ cache, sampling) and serving example, its bench training step, its training
 entry point, that entry point with every product forced through the matmul
 kernel, packed-document training, Gemma-2 serving and generate, Gemma-2
 training, T5 training and decode, Seq2Seq, T5 serving through the
-encoder-decoder engine, and DeepSeek-V2-Lite's latent attention (MLA)
-served on latent pages and trained through the training entry point once
-on one CUDA card.
+encoder-decoder engine, DeepSeek-V2-Lite's latent attention (MLA) served
+on latent pages and trained through the training entry point, and
+gpt-oss-20b served with its attention sinks once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -62,7 +62,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
       4-D ones, narrower than the table, as wide and wider, sq 1, 5 and 64,
       GQA 1 and 2, d 64/128/256, fp32, bf16 and int8 pages with fp32 and
       bf16 q, one key split and five, lengths 0, 1, a page and a page + 1):
-      the paged tolerances, table entries past the length poisoned.
+      the paged tolerances, table entries past the length poisoned. K3's
+      sinks (PAGED_SINKS_CASES: gpt-oss's d 64 with 64 q heads over 8 kv
+      heads, decode and a chunk of 256 over a table of 2048 positions, the
+      planned split (decode) and unsplit (chunk) plans and forced ones,
+      window 128 and none, fp32, bf16 and int8 pages with fp32 and bf16 q,
+      sinks 30 below, at and 30 above each head's top score, a length-0
+      row): the paged tolerances over every row, no NaN, table entries
+      outside a row's reach poisoned; sinks with a softcap, a bias or at d
+      128 raise.
       LayerNorm K8 (out, dx, dgamma, dbeta): fp32 max abs err <= 1e-5 times
       max(1, max |plain|); a bf16 output within one bf16 ulp (or that fp32
       bound, where a value is so near 0 that fp32 rounding before the last
@@ -219,10 +227,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
   (q) Gemma-2 2B serving (google/gemma-2-2b's config: 26 layers, d 2304,
       8 heads over 4 kv heads of 256, geglu FFN 9216, vocab 256000, RoPE,
       RMSNorm, sandwich norms, a window of 4096 on even layers, softcaps 50
-      and 30) at full width and depth with seeded random weights, bf16
-      compute and pages, 8 slots, page 16, chunk 256: 6 prompts of
-      128..1024 tokens and one of 4,600 in one batched prefill, then 16
-      decode steps. K3 launches 26 times a forward (13 with the window) and
+      and 30) at full width and 13 of its 26 layers (GEMMA_SERVE_LAYERS)
+      with seeded random weights, bf16 compute and pages, 8 slots, page 16,
+      chunk 256: 6 prompts of 128..1024 tokens and one of 4,600 in one
+      batched prefill, then 16 decode steps. K3 launches once a layer a
+      forward (on the even layers with the window) and
       no other kernel does; bf16 last-position logits within 1.25 x the
       plain bf16 engine's distance from the fp32 engine's plus 1e-2 x
       max(1, max |logit|); fp32 greedy tokens equal the plain engine's
@@ -230,7 +239,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
       last logits under force_plain(), within 1e-3 x max(1, max |logit|);
   (w) (q)'s bf16 Gemma-2 generates 8 tokens after 4,100 through dense fp32
       caches: K1's mask option at d256 with softcap 50 and the local
-      layers' window in the mask, 26 launches a step, no paged attention;
+      layers' window in the mask, a launch a layer a step, no paged attention;
       tokens equal those of the plain path (a differing token prints the
       plain top-2 gap and fails); the same weights in fp32: each step's
       logits within 1e-4 x max(1, max |logit|) of the plain path's, and
@@ -281,12 +290,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
       indices) on both, outputs within (c)'s tolerances x max |CPU's|
       (``phase_moe_layer_vs_cpu``); then DeepSeek-V2-Lite
       (deepseek-ai/DeepSeek-V2-Lite's config.json as the JAX package's
-      hf_compat maps it, its MoE layers included: 15,706,484,224
-      parameters; DSV2_CUT: the table cut to 2048 positions) at its widths
-      and 27 layers with seeded weights, served through GenerationEngine (8
-      slots, page 16, chunk 256) on latent pages: 8 prompts of 200..1000
-      tokens, step_many(32); K3's latent option 27 times a prefill chunk
-      and a decode step; fp32 tokens equal the plain engine's and plain
+      hf_compat maps it, its MoE layers included; DSV2_CUT: 8 of 27 layers,
+      4,594,374,656 of 15,706,484,224 parameters, and the table cut to 2048
+      positions) at its widths with seeded weights, served through
+      GenerationEngine (8 slots, page 16, chunk 256) on latent pages: 8
+      prompts of 200..1000 tokens, step_many(32); K3's latent option once a
+      layer a prefill chunk and a decode step; fp32 tokens equal the plain engine's and plain
       GPT.generate's (near ties printed), logits within DSV2_F32_TOL x
       max(1, max |logit|) of the plain engine's; bf16 compute (on the fp32
       weights' storage) and pages by (q)'s rule; the experts a decode step
@@ -318,7 +327,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
       ties as in (B)), logits within F32_TOL, K3's latent option once a
       layer a step over the dense cache viewed as pages, no flash call; K3
       there timed beside its bound, the plain version and SDPA
-      (``phase_mla_training``).
+      (``phase_mla_training``);
+  (D) gpt-oss-20b (openai/gpt-oss-20b's config.json as the JAX package's
+      import_gpt_oss maps it: 64 q / 8 kv heads of 64 with biases and
+      sinks, YaRN, a window of 128 on even layers, 32 glu_clamp experts of
+      2880, top 4; GPT_OSS_CUT: 16 of 24 layers, 14,329,261,376
+      parameters, and the table cut to 2048 positions) with seeded weights
+      served through GenerationEngine on (B)'s engine and traffic with 16
+      decode steps: K3 with
+      the sinks 16 times a prefill chunk and a decode step (8 with the
+      window), no flash call; fp32 tokens equal the plain engine's (near
+      ties as in (B)), logits within F32_TOL x max(1, max |logit|); bf16
+      compute (on the fp32 weights' storage) and pages by (q)'s rule; the
+      experts a decode step reaches, the decode step in rounds with the
+      plain engine, profiled by kind with the MoE's share, K3 with sinks on
+      a sliding and a full layer beside its bound, the plain version and
+      (in rounds) K3 without the sinks, and each run's peak memory
+      (``phase_gpt_oss_serving``).
 Each path runs with the launch counts set to 0 just before it and read just
 after. Library yardsticks (one PyTorch call computing a kernel's function,
 which the port never calls) are timed beside K1/K2/K5/K12 (scaled_dot_
@@ -327,7 +352,8 @@ with the bias (scaled_dot_product_attention over the K/V gathered from the
 pages beforehand), K7 (F.dropout), K8 (F.layer_norm), K9 (F.cross_entropy)
 and K11 (torch.addmm / torch.mm), K3's latent option
 (scaled_dot_product_attention over the latent rows gathered beforehand,
-enable_gqa); no single call computes K3 on pages, K4 or K10. Timings
+enable_gqa); no single call computes K3 on pages (with or without sinks),
+K4 or K10. Timings
 run each side twice, in the order plain, kernel, kernel, plain. K5's bound is the gradients' work, K2's 5 products a pair, not
 the 7 of its schedule. Every kernel is timed with CUDA events two ways: a call's wall time,
 the host's share included (the JSON line's "ms"), and device time, calls
@@ -342,6 +368,7 @@ the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -407,6 +434,9 @@ GPT2_LAYER = (GPT2_B, 12, 12, GPT2_S, GPT2_S, 64)
 GEMMA_WINDOW, GEMMA_SCALE = 4096, 256.0 ** -0.5
 GEMMA_SLOTS, GEMMA_PAGE, GEMMA_CHUNK, GEMMA_PAGES = 8, 16, 256, 1024
 GEMMA_LONG, GEMMA_DECODE = 4600, 16
+# (q), (w), (r) serve 13 of Gemma-2's 26 layers: at 26 the whole run outgrew its
+# 1200 s on a slow host.
+GEMMA_SERVE_LAYERS = 13
 # Phase (s): Gemma-2 2B training at full width, its depth cut to
 # GEMMA_TRAIN_LAYERS (6 local, 6 global: 26 layers do not fit the card with
 # the port's optimizer state), batch 1 x GEMMA_TRAIN_S tokens (Gemma-2's
@@ -3150,11 +3180,11 @@ def _flex_decode(skv, cap, scale, q, k, v):
 
 
 def phase_gemma2_generate(gpt):
-    """(w) Gemma-2 2B (the bf16 model of (q), 26 layers) generates
+    """(w) Gemma-2 2B (the bf16 model of (q), GEMMA_SERVE_LAYERS deep) generates
     GEMMA_GEN_STEPS tokens after a prompt of GEMMA_GEN_PROMPT tokens through
     dense fp32 caches: K1's fp32 mask forward at d256 with the softcap and
-    the local layers' window in the mask (it cuts from the first step), 26
-    launches a step; the tokens equal those of the same generate on the
+    the local layers' window in the mask (it cuts from the first step), a
+    launch a layer a step; the tokens equal those of the same generate on the
     plain path (a differing token prints the plain top-2 gap there and
     fails). The same weights in fp32: generate's logits at every step
     within F32_TOL x max(1, max |logit|) of the plain path's, and the bf16
@@ -3188,7 +3218,7 @@ def phase_gemma2_generate(gpt):
         if a != b:
             raise AssertionError(f"(w) token {i}: kernel {a} != plain {b}; "
                                  f"plain top-2 gap {float(gaps[i]):.3e}")
-    gpt32 = GPT(gemma2_config(None), device="cuda")
+    gpt32 = GPT(gemma2_config(None, GEMMA_SERVE_LAYERS), device="cuda")
     gpt32.load_state_dict(gpt.state_dict())
     toks32, lk32 = _generate_with_logits(gpt32, prompt, steps)
     with dispatch.force_plain():
@@ -4591,14 +4621,15 @@ def phase_packed_timings(gpt, corpus, packed, device_line):
     return res
 
 
-def gemma2_config(dtype):
+def gemma2_config(dtype, layers=26):
     """google/gemma-2-2b (its config.json, as np_modeling_tpu/utils/
-    hf_compat.py's import_gemma2 and llama_config map it): 26 layers, d 2304,
+    hf_compat.py's import_gemma2 and llama_config map it), ``layers`` of its
+    26 layers deep: d 2304,
     8 heads over 4 kv heads of 256, a tanh-gelu-gated FFN of 9216, vocab
     256000, RoPE, zero-centred RMSNorm, sandwich norms, the embedding
     scale, a window of 4096 on even layers, caps 50 and 30, scale 256**-0.5."""
     from np_modeling_tpu_torch.models import GPTConfig
-    return GPTConfig(vocab_size=256000, d_model=2304, num_layers=26,
+    return GPTConfig(vocab_size=256000, d_model=2304, num_layers=layers,
                      num_heads=8, num_kv_heads=4, head_dim=256,
                      hidden_units=9216, max_len=8192, positional="rope",
                      rope_base=10000.0, norm="rms", ln_eps=1e-6,
@@ -4682,10 +4713,11 @@ def _zero_paged_counts():
 
 
 def phase_gemma2():
-    """(q) Gemma-2 2B serving at full width and depth, weights from SEED:
+    """(q) Gemma-2 2B serving at full width, GEMMA_SERVE_LAYERS deep, weights
+    from SEED:
     the 7 prompts through one batched chunked prefill, then GEMMA_DECODE
     decode steps, bf16 compute and bf16 pages (the main path). Checks that
-    K3 launched once a layer a forward (26), with the window on the 13 local
+    K3 launched once a layer a forward, with the window on the local (even)
     layers, and no other kernel; that the bf16 engine's last-position
     logits lie within 1.25 x the plain bf16 engine's distance from the fp32
     engine's, plus GEMMA_BF16_SLACK x max(1, max |fp32 logit|); that fp32
@@ -4696,7 +4728,7 @@ def phase_gemma2():
     import torch
     from np_modeling_tpu_torch.models import GPT
     from np_modeling_tpu_torch.ops import dispatch
-    cfg = gemma2_config(torch.bfloat16)
+    cfg = gemma2_config(torch.bfloat16, GEMMA_SERVE_LAYERS)
     gpt = GPT(cfg, device="cuda").init(
         torch.Generator(device="cuda").manual_seed(SEED))
     prompts = gemma2_prompts(cfg.vocab_size)
@@ -4738,7 +4770,7 @@ def phase_gemma2():
         _, _, last16p, _ = gemma2_traffic(make_gemma_engine(gpt, torch.bfloat16),
                                           prompts, steps=0)
 
-    gpt32 = GPT(gemma2_config(None), device="cuda")
+    gpt32 = GPT(gemma2_config(None, GEMMA_SERVE_LAYERS), device="cuda")
     gpt32.load_state_dict(gpt.state_dict())
     k_streams, _, last32, _ = gemma2_traffic(
         make_gemma_engine(gpt32, torch.float32), prompts)
@@ -6018,9 +6050,11 @@ def phase_t5_serving(device_line):
 # served through GenerationEngine on latent pages, with its MoE layers (DSV2_MOE:
 # layer 0 keeps the dense swiglu FFN of 10944, layers 1..26 route each token to 6
 # of 64 experts of 1408 with raw softmax gates, routed scaling 1.0, no-drop, and
-# add 2 shared experts, a gated FFN of 2816; DSV2_PARAMS parameters). DSV2_MAX_LEN
-# cuts the table a sequence (the published 163840 positions) to what the traffic
-# reaches. (C) trains the model with every MoE layer cut to the dense first-layer
+# add 2 shared experts, a gated FFN of 2816; DSV2_PARAMS parameters at its 27
+# layers). (B) serves DSV2_SERVE_LAYERS of them (the dense first layer and 7 MoE
+# layers, DSV2_SERVE_PARAMS parameters): at 27 the whole run outgrew its 1200 s on
+# a slow host. DSV2_MAX_LEN cuts the table a sequence (the published 163840
+# positions) to what the traffic reaches. (C) trains the model with every MoE layer cut to the dense first-layer
 # FFN (DSV2_DENSE_CUT): the MoE's backward is the next slice.
 DSV2_LITE = dict(vocab_size=102400, d_model=2048, num_heads=16, num_kv_heads=16,
                  head_dim=64, hidden_units=10944, positional="rope",
@@ -6033,22 +6067,25 @@ DSV2_LITE = dict(vocab_size=102400, d_model=2048, num_heads=16, num_kv_heads=16,
 DSV2_MOE = dict(moe_experts=64, moe_top_k=6, moe_capacity_factor=None,
                 moe_router_weights="softmax", moe_routed_scaling=1.0,
                 moe_shared_units=2816, moe_hidden_units=1408, moe_first_dense=1)
-DSV2_LAYERS, DSV2_MAX_LEN = 27, 2048
-DSV2_PARAMS = 15_706_484_224
-DSV2_CUT = f"the table a sequence cut from 163840 positions to {DSV2_MAX_LEN}"
+DSV2_LAYERS, DSV2_MAX_LEN, DSV2_SERVE_LAYERS = 27, 2048, 8
+DSV2_PARAMS, DSV2_SERVE_PARAMS = 15_706_484_224, 4_594_374_656
+DSV2_CUT = (f"{DSV2_SERVE_LAYERS} of {DSV2_LAYERS} layers (the dense first layer "
+            f"and {DSV2_SERVE_LAYERS - 1} MoE layers: {DSV2_SERVE_PARAMS:,} of "
+            f"{DSV2_PARAMS:,} parameters) and the table a sequence cut from 163840 "
+            f"positions to {DSV2_MAX_LEN}")
 DSV2_DENSE_CUT = ("MoE layers 1..26 (64 routed experts of 1408, top 6, 2 shared) "
                   "replaced by the model's dense first-layer FFN (swiglu 10944), "
                   "in (C) alone: the MoE's backward is the next slice")
 # The engine: slots, page size, prefill chunk, pages (every slot's table full,
 # and the trash page); prompts of DSV2_PROMPT_MIN..DSV2_PROMPT_MAX seeded Zipf
-# tokens; step_many(DSV2_STEPS) after the admission; step_many(DSV2_TIMED) a
-# timed call.
+# tokens; step_many(DSV2_STEPS) after the admission (``steps`` of
+# ``_dsv2_traffic``); step_many(DSV2_TIMED) a timed call.
 DSV2_SLOTS, DSV2_PAGE, DSV2_CHUNK, DSV2_STEPS, DSV2_TIMED = 8, 16, 256, 32, 4
 DSV2_PAGES = DSV2_SLOTS * DSV2_MAX_LEN // DSV2_PAGE + 1
 DSV2_PROMPT_MIN, DSV2_PROMPT_MAX = 200, 1000
 # fp32 logits of the kernel engine against the plain engine's, times max(1, max
 # |logit|): DSV2_F32_TOL, or 1.25 x the plain engine's distance from plain
-# generate's where that is larger (fp32 reassociation over 27 layers), at most
+# generate's where that is larger (fp32 reassociation over the layers), at most
 # F32_TOL.
 DSV2_F32_TOL = 1e-6
 LATENT_D = 576
@@ -6212,10 +6249,11 @@ def dsv2_prompts(vocab, seed=SEED + 95):
 
 
 def _dsv2_model(dtype):
-    """The phase's model on the card, weights from seed SEED + 96."""
+    """The phase's model (DSV2_SERVE_LAYERS deep) on the card, weights from
+    seed SEED + 96."""
     import torch
     from np_modeling_tpu_torch.models import GPT
-    return GPT(deepseek_v2_lite_config(dtype)).init(
+    return GPT(deepseek_v2_lite_config(dtype, DSV2_SERVE_LAYERS)).init(
         torch.Generator(device="cuda").manual_seed(SEED + 96))
 
 
@@ -6225,6 +6263,8 @@ def _dsv2_counts():
     return {"paged_attention": p.launches, "paged_attention_latent":
             p.launches_latent, "paged_attention_split": p.launches_split,
             "paged_attention_int8": p.launches_int8,
+            "paged_attention_sinks": p.launches_sinks,
+            "paged_attention_window": p.launches_window,
             "flash_attention_fwd": ops.flash_attention.launches_fwd}
 
 
@@ -6232,7 +6272,7 @@ def _zero_dsv2_counts():
     from np_modeling_tpu_torch import ops
     p = ops.paged_attention
     p.launches = p.launches_latent = p.launches_split = p.launches_int8 = 0
-    p.launches_window = p.launches_bias = 0
+    p.launches_window = p.launches_bias = p.launches_sinks = 0
     ops.flash_attention.launches_fwd = 0
 
 
@@ -6243,12 +6283,12 @@ def _dsv2_engine(gpt, kv_dtype):
                             prefill_chunk_size=DSV2_CHUNK)
 
 
-def _dsv2_traffic(gpt, prompts, kv_dtype, plain=False):
+def _dsv2_traffic(gpt, prompts, kv_dtype, plain=False, steps=DSV2_STEPS):
     """The phase's traffic on a fresh engine over ``gpt`` (kernels, or plain):
     every prompt in one add_requests (chunked prefill), then
-    step_many(DSV2_STEPS). Returns (engine, {seq_id: tokens}, {seq_id: the
-    fp32 logits each token came from [1 + DSV2_STEPS, vocab]}, launch counts,
-    prefill chunks, the admission's seconds)."""
+    step_many(steps). Returns (engine, {seq_id: tokens}, {seq_id: the fp32
+    logits each token came from [1 + steps, vocab]}, launch counts, prefill
+    chunks, the admission's seconds)."""
     import torch
     from np_modeling_tpu_torch.ops import dispatch
     eng = _dsv2_engine(gpt, kv_dtype)
@@ -6261,7 +6301,7 @@ def _dsv2_traffic(gpt, prompts, kv_dtype, plain=False):
         first = eng.add_requests(dict(enumerate(prompts)))
         torch.cuda.synchronize()
         admit = time.perf_counter() - t0
-        steps = eng.step_many(DSV2_STEPS)
+        decoded = eng.step_many(steps)
         torch.cuda.synchronize()
     counts = _dsv2_counts()
     # rows: one [8, vocab] a prefill chunk (request i at row i; its first token
@@ -6272,7 +6312,7 @@ def _dsv2_traffic(gpt, prompts, kv_dtype, plain=False):
     toks, logits = {}, {}
     for sid, tok in first.items():
         slot = eng._slots[sid]
-        toks[sid] = [tok] + steps[sid]
+        toks[sid] = [tok] + decoded[sid]
         head = rows[(len(prompts[sid]) - 1) // DSV2_CHUNK][sid]
         logits[sid] = torch.cat([head[None], decode[slot]])
     return eng, toks, logits, counts, chunks, admit
@@ -6344,7 +6384,8 @@ def _dsv2_k3_timings(res, eng, dtype, device_line):
     return key
 
 
-def _dsv2_decode_timings(res, eng_k, eng_p, what, device_line):
+def _dsv2_decode_timings(res, eng_k, eng_p, what, device_line, tag="B",
+                         model="DeepSeek-V2-Lite"):
     """step_many(DSV2_TIMED) of the kernel engine in AB rounds with the plain
     engine (the host's clock, the card synchronised around each call): ms a
     step and tokens/s."""
@@ -6370,9 +6411,9 @@ def _dsv2_decode_timings(res, eng_k, eng_p, what, device_line):
     timer(plain)
     ab = _alternate(plain, kernel, timer, rounds=3)
     med = [statistics.median(x) for x in ab]
-    name = f"DeepSeek-V2-Lite GenerationEngine decode step {what} {live} seqs"
+    name = f"{model} GenerationEngine decode step {what} {live} seqs"
     res[name] = (med[1], med[0])
-    print(f"(B) {name}: {_ab_line(ab, 'plain', 'kernel', '.3f')} ms a step "
+    print(f"({tag}) {name}: {_ab_line(ab, 'plain', 'kernel', '.3f')} ms a step "
           f"(step_many({DSV2_TIMED}) / {DSV2_TIMED}); kernel "
           f"{live / med[1] * 1e3:.1f} tokens/s, plain "
           f"{live / med[0] * 1e3:.1f} tokens/s [{device_line}]")
@@ -6386,10 +6427,10 @@ MOE_LAYER_CASES = (("decode", 8), ("chunk", 64))
 MOE_TIE_EXPERTS = (3, 9, 17, 20, 33, 40, 63)
 
 
-def _dsv2_moe_layer(device):
+def _dsv2_moe_layer():
     """One DeepSeek-V2-Lite MoE layer (DSV2_MOE at d 2048) from seed SEED + 98 on
-    the CPU, moved to ``device``, the router's MOE_TIE_EXPERTS columns equal
-    copies led by 3.0 on feature 0."""
+    the CPU, the router's MOE_TIE_EXPERTS columns equal copies led by 3.0 on
+    feature 0."""
     import torch
     from np_modeling_tpu_torch.nn import MoE
     m = MoE(DSV2_LITE["d_model"], DSV2_MOE["moe_experts"],
@@ -6401,7 +6442,7 @@ def _dsv2_moe_layer(device):
         tie = list(MOE_TIE_EXPERTS)
         m.router[0, tie[0]] = 3.0
         m.router[:, tie] = m.router[:, tie[:1]]
-    return m.to(device)
+    return m
 
 
 def phase_moe_layer_vs_cpu():
@@ -6413,7 +6454,8 @@ def phase_moe_layer_vs_cpu():
     index first among equals, as jax.lax.top_k), and every chosen expert is
     equal; the output within BF16_TOL (bf16) or F32_TOL (fp32) x max |CPU's|."""
     import torch
-    cpu, card = _dsv2_moe_layer("cpu"), _dsv2_moe_layer("cuda")
+    cpu = _dsv2_moe_layer()
+    card = copy.deepcopy(cpu).to("cuda")
     for label, t in MOE_LAYER_CASES:
         x = torch.tensor(np.random.default_rng(SEED + 99 + t).standard_normal(
             (t, DSV2_LITE["d_model"])), dtype=torch.float32)
@@ -6512,13 +6554,14 @@ def _dsv2_route_timings(res, eng, device_line):
 
 
 def phase_deepseek_serving(device_line):
-    """(B) DeepSeek-V2-Lite at its published widths, MoE layers and 27 layers
-    (DSV2_MOE, DSV2_PARAMS parameters; DSV2_CUT), seeded weights, served through
+    """(B) DeepSeek-V2-Lite at its published widths with MoE layers,
+    DSV2_SERVE_LAYERS deep (DSV2_MOE, DSV2_SERVE_PARAMS parameters; DSV2_CUT),
+    seeded weights, served through
     GenerationEngine(max_seqs DSV2_SLOTS, page_size DSV2_PAGE, prefill_chunk_size
     DSV2_CHUNK) on latent pages: DSV2_SLOTS seeded Zipf prompts of
     DSV2_PROMPT_MIN..DSV2_PROMPT_MAX tokens in one add_requests, then
-    step_many(DSV2_STEPS). fp32 pages: K3's latent option launches 27 times a
-    prefill chunk and a decode step, and no other paged call and no flash kernel
+    step_many(DSV2_STEPS). fp32 pages: K3's latent option launches once a layer
+    a prefill chunk and a decode step, and no other paged call and no flash kernel
     runs; each sequence's tokens equal the plain engine's (force_plain) and
     those of GPT.generate under force_plain (the dense latent cache), a
     differing token allowed only where the reference's top-2 logits lie within
@@ -6541,9 +6584,9 @@ def phase_deepseek_serving(device_line):
     from np_modeling_tpu_torch.ops import dispatch
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    L = DSV2_LAYERS
+    L = DSV2_SERVE_LAYERS
     print(f"(B) DeepSeek-V2-Lite cut: {DSV2_CUT}; nothing else (MoE layers "
-          f"1..26: {DSV2_MOE})")
+          f"1..{L - 1}: {DSV2_MOE})")
     gpt = _dsv2_model(None)
     prompts = dsv2_prompts(DSV2_LITE["vocab_size"])
     n_params = sum(p.numel() for p in gpt.parameters())
@@ -6551,8 +6594,8 @@ def phase_deepseek_serving(device_line):
           f"{DSV2_SLOTS} slots, page {DSV2_PAGE}, chunk {DSV2_CHUNK}, "
           f"{DSV2_PAGES} pages of [1, {DSV2_PAGE}, {LATENT_D}] a layer; prompts "
           f"of {[len(p) for p in prompts]} tokens")
-    if n_params != DSV2_PARAMS:
-        raise AssertionError(f"(B) {n_params} params, not {DSV2_PARAMS}")
+    if n_params != DSV2_SERVE_PARAMS:
+        raise AssertionError(f"(B) {n_params} params, not {DSV2_SERVE_PARAMS}")
     eng_k, tk, lk, counts, chunks, admit = _dsv2_traffic(gpt, prompts, None)
     want = {"paged_attention": L * (chunks + DSV2_STEPS),
             "paged_attention_latent": L * (chunks + DSV2_STEPS),
@@ -6583,7 +6626,7 @@ def phase_deepseek_serving(device_line):
             ties += tie
             n = _agreeing(tp[sid], gen)
             floor = max(floor, _logit_dist(glog[0][:n], lp[sid][:n]))
-    # fp32 over 27 layers: the plain engine and plain generate (two plain
+    # fp32 over the layers: the plain engine and plain generate (two plain
     # paths, other reduction orders) set the noise floor of the comparison.
     tol = min(F32_TOL, max(DSV2_F32_TOL, 1.25 * floor))
     print(f"(B) fp32: {sum(len(t) for t in tk.values())} tokens of {len(tk)} "
@@ -6600,7 +6643,7 @@ def phase_deepseek_serving(device_line):
         eng_k.step()
     print(f"(B) experts that received tokens in one fp32 decode step of "
           f"{len(eng_k.live)} tokens x top {DSV2_MOE['moe_top_k']}, layer by "
-          f"layer (1..26): {experts}; {min(experts)}..{max(experts)} of "
+          f"layer (1..{L - 1}): {experts}; {min(experts)}..{max(experts)} of "
           f"{DSV2_MOE['moe_experts']}, median {statistics.median(experts)}")
     res = {}
     _dsv2_decode_timings(res, eng_k, eng_p, "fp32 pages", device_line)
@@ -6620,7 +6663,7 @@ def phase_deepseek_serving(device_line):
     torch.cuda.reset_peak_memory_stats()
     # The bf16 model on the fp32 model's parameter storage (its modules cast
     # at use; the routed experts only those a call selects), not a second copy.
-    g16 = GPT(deepseek_v2_lite_config(torch.bfloat16), device="meta")
+    g16 = GPT(deepseek_v2_lite_config(torch.bfloat16, L), device="meta")
     g16.load_state_dict(gpt.state_dict(), assign=True)
     eng_k16, tk16, lk16, counts16, _, admit16 = _dsv2_traffic(
         g16, prompts, torch.bfloat16)
@@ -7056,13 +7099,379 @@ def phase_mla_generate_timings(device_line):
     return res, key
 
 
-def main(phases="abcdefghijklmnopqrstuvwxyzABC"):
+# Phase (D): gpt-oss-20b (openai/gpt-oss-20b's config.json, as
+# np_modeling_tpu/utils/hf_compat.py's import_gpt_oss and llama_config map it)
+# served through GenerationEngine with K3's sinks option: 64 q heads over 8 kv
+# heads of 64 with biased q/k/v/o and a sink logit a q head, RMSNorm 1e-5, RoPE
+# base 150000 with YaRN (factor 32, beta 32 / 1, 4096 original positions, mscale
+# 0.1 ln 32 + 1), a window of 128 on even layers, and on every layer an MoE of 32
+# glu_clamp experts of 2880 (biased), top 4 by the biased router's logits then a
+# softmax over the four (topk_softmax), no-drop; an untied head. GPT_OSS_CUT says
+# what is cut. The engine and its traffic are (B)'s (DSV2_SLOTS slots, page
+# DSV2_PAGE, chunk DSV2_CHUNK, DSV2_PAGES pages, prompts of DSV2_PROMPT_MIN..
+# DSV2_PROMPT_MAX tokens, step_many(DSV2_TIMED) timed), through its helpers,
+# with step_many(GPT_OSS_STEPS) after the admission (cut from (B)'s 32 when the
+# whole run outgrew its 1200 s on a slow host); every prompt runs past the
+# window.
+GPT_OSS = dict(vocab_size=201088, d_model=2880, num_heads=64, num_kv_heads=8,
+               head_dim=64, hidden_units=2880, positional="rope",
+               rope_base=150000.0,
+               rope_scaling=("yarn", 32.0, 32.0, 1.0, 4096.0,
+                             0.1 * math.log(32.0) + 1.0),
+               norm="rms", ln_eps=1e-5, ffn="glu_clamp", use_bias=True,
+               tie_embeddings=False, attn_sinks=True, attention_window=128,
+               window_pattern=2, moe_experts=32, moe_top_k=4,
+               moe_capacity_factor=None, moe_router_weights="topk_softmax",
+               moe_router_bias=True, moe_hidden_units=2880)
+GPT_OSS_LAYERS, GPT_OSS_MAX_LEN, GPT_OSS_STEPS = 16, 2048, 16
+GPT_OSS_PARAMS = 14_329_261_376
+GPT_OSS_CUT = ("16 of 24 layers (8 sliding, 8 full: 14,329,261,376 parameters, "
+               "53.4 GiB in fp32; all 24 layers' 20,914,757,184, 77.9 GiB, do "
+               "not fit on one 80 GB card beside pages and temporaries) and the "
+               f"table a sequence cut from 131072 positions to {GPT_OSS_MAX_LEN}")
+# K3's sinks option against its plain version at (D)'s shapes: 8 sequences, 64 q
+# heads over 8 kv heads of 64 (GQA 8), a table of GPT_OSS_MAX_LEN positions a
+# sequence (page 16). (label, sq (None: decode), lengths, split): split None is
+# the wrapper's plan (decode: 8 ranges of 256 keys; a chunk: one), else forced
+# (splits, keys a split). Each case runs with the window (128) and without, over
+# PAGED_SINKS_PAGES, with every head's sink PAGED_SINKS_OFFSETS above the largest
+# score its q head reaches in the table.
+SINKS_DECODE_LENS = [0, 1, 16, 17, 129, 700, 1100, GPT_OSS_MAX_LEN]
+SINKS_CHUNK_LENS = [0, 256, 257, 384, 700, 1000, 1100, GPT_OSS_MAX_LEN]
+PAGED_SINKS_CASES = (
+    ("decode", None, SINKS_DECODE_LENS, None),
+    ("decode one split", None, SINKS_DECODE_LENS, (1, GPT_OSS_MAX_LEN)),
+    ("chunk", DSV2_CHUNK, SINKS_CHUNK_LENS, None),
+    ("chunk split", DSV2_CHUNK, SINKS_CHUNK_LENS, (8, 256)),
+)
+PAGED_SINKS_PAGES = ("float32", "bfloat16", "int8 fp32 q", "int8 bf16 q")
+PAGED_SINKS_OFFSETS = (-30.0, 0.0, 30.0)
+PAGED_SINKS_WINDOWS = (GPT_OSS["attention_window"], None)
+
+
+def gpt_oss_20b_config(dtype=None, layers=GPT_OSS_LAYERS):
+    """(D)'s gpt-oss-20b: its published widths (GPT_OSS; GPT_OSS_CUT says what
+    is cut), ``layers`` deep, in compute ``dtype``."""
+    from np_modeling_tpu_torch.models import GPTConfig
+    return GPTConfig(**GPT_OSS, num_layers=layers, max_len=GPT_OSS_MAX_LEN,
+                     dtype=dtype)
+
+
+def paged_sinks_case(case, pages, offset, window, seed):
+    """Inputs of a PAGED_SINKS_CASES entry: q [8, (sq,) 64, 64] and pages [8,
+    total, 16, 64] of N(0, 1) (fp32, bf16, or int8 with their scales), a
+    scrambled table of GPT_OSS_MAX_LEN / 16 pages a sequence, and sinks [64]
+    each ``offset`` above the largest scaled score of its q head against any
+    key of the table (from the float pages). Returns (q, k, v, lengths, table,
+    kwargs with the sinks, window and int8 scales, q's dtype)."""
+    import torch
+    _, sq, lengths, _ = case
+    b, hq, hkv, d, psize = len(lengths), 64, 8, 64, 16
+    pps = GPT_OSS_MAX_LEN // psize
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    total = b * pps + 2
+    table = torch.randperm(total, generator=gen, device="cuda")[:b * pps]
+    table = table.reshape(b, pps).to(torch.int32)
+    dtype = (torch.bfloat16 if pages in ("bfloat16", "int8 bf16 q")
+             else torch.float32)
+    q = torch.randn((b, hq, d) if sq is None else (b, sq, hq, d),
+                    generator=gen, device="cuda")
+    k, v = (torch.randn(hkv, total, psize, d, generator=gen, device="cuda")
+            for _ in range(2))
+    top = torch.full((hq,), -math.inf, device="cuda")
+    q4 = q if sq is not None else q[:, None]
+    for i in range(b):
+        ks = k[:, table[i].long()].reshape(hkv, pps * psize, d)
+        s = torch.einsum("thgd,hkd->hgtk", q4[i].reshape(-1, hkv, hq // hkv, d),
+                         ks) * d ** -0.5
+        top = torch.maximum(top, s.amax(dim=(2, 3)).reshape(hq))
+    kw = {"sinks": top + offset, "window": window}
+    if pages.startswith("int8"):
+        k, v, scales = _int8_pages(k, v)
+        kw.update(scales)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q.to(dtype), k, v, lens, table, kw, dtype
+
+
+def sinks_vs_plain(case, pages, offset, window, seed):
+    """One PAGED_SINKS_CASES x PAGED_SINKS_PAGES x PAGED_SINKS_OFFSETS check:
+    the kernel against the plain version over every row (a length-0 row gives 0
+    in both, and the kernel no NaN anywhere), the same output with the table's
+    entries past each length and below the first row's window poisoned, one
+    sinks launch counted a call. Returns (max abs err, tolerance, q's dtype,
+    whether the grid split the keys)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    label, sq, lengths, split = case
+    q, k, v, lens, table, kw, dtype = paged_sinks_case(case, pages, offset,
+                                                       window, seed)
+    pa = ops.paged_attention
+    before = (pa.launches_sinks, pa.launches_split)
+    rows, reach = sq or 1, window or 1 << 30
+    poisoned = table.clone()
+    for i, ln in enumerate(lengths):
+        poisoned[i, -(-ln // 16):] = 2 ** 30
+        poisoned[i, :max(0, ln - rows - reach + 1) // 16] = 2 ** 30
+    with _forced_split(split):
+        got = pa(q, k, v, lens, table, **kw)
+        again = pa(q, k, v, lens, poisoned, **kw)
+    launched = (pa.launches_sinks - before[0], pa.launches_split - before[1])
+    with dispatch.force_plain():
+        want = pa(q, k, v, lens, table, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = _tol(dtype)
+    tag = (f"K3 sinks {label} sq={sq} window {window} {pages} pages, sinks "
+           f"{offset:+g} above the top score")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: a value is not finite")
+    if not err <= tol:
+        raise AssertionError(f"{tag}: max abs err {err} > {tol}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag}: output depends on table entries past the "
+                             "length or below the window")
+    if not bool((got[lens == 0] == 0).all()):
+        raise AssertionError(f"{tag}: a length-0 row is not 0")
+    if launched[0] != 2:
+        raise AssertionError(f"{tag}: {launched[0]} sinks launches of 2 calls")
+    return err, tol, dtype, launched[1] == 2
+
+
+def phase_paged_sinks_vs_plain():
+    """(c) K3's sinks option against its plain version over PAGED_SINKS_CASES x
+    PAGED_SINKS_WINDOWS x PAGED_SINKS_PAGES x PAGED_SINKS_OFFSETS
+    (``sinks_vs_plain``): max abs err <= 1e-4 with fp32 q, 2e-2 with bf16 q; the
+    planned decode grid splits the keys and the planned chunk does not; sinks at
+    another head dim, with a softcap or with a bias raise. Returns (max err
+    fp32, bf16)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n, split = 0, {}
+    for i, case in enumerate(PAGED_SINKS_CASES):
+        for window in PAGED_SINKS_WINDOWS:
+            for j, pages in enumerate(PAGED_SINKS_PAGES):
+                for offset in PAGED_SINKS_OFFSETS:
+                    err, tol, dtype, s = sinks_vs_plain(
+                        case, pages, offset, window, SEED + 110 + 8 * i + j)
+                    errs[dtype] = max(errs[dtype], err)
+                    split.setdefault(case[0], set()).add(s)
+                    n += 1
+                    print(f"(c) K3 sinks {case[0]} sq={case[1]} window {window} "
+                          f"{pages} pages, sinks {offset:+g}: max abs err "
+                          f"{err:.3e} (tol {tol}){' split' * s}")
+    want = {"decode": {True}, "decode one split": {False}, "chunk": {False},
+            "chunk split": {True}}
+    if split != want:
+        raise AssertionError(f"(c) K3 sinks: split by case {split}, want {want}")
+    q, k, v, lens, table, kw, _ = paged_sinks_case(
+        PAGED_SINKS_CASES[0], "float32", 0.0, None, SEED + 109)
+    q128 = torch.zeros(q.shape[:-1] + (128,), device="cuda")
+    k128 = torch.zeros(k.shape[:-1] + (128,), device="cuda")
+    bias = torch.zeros(q.shape[0], q.shape[1], GPT_OSS_MAX_LEN, device="cuda")
+    for tag, call in (
+            ("head_dim 128", lambda: ops.paged_attention(
+                q128, k128, k128, lens, table, sinks=kw["sinks"])),
+            ("a softcap", lambda: ops.paged_attention(
+                q, k, v, lens, table, sinks=kw["sinks"], softcap=30.0)),
+            ("a bias", lambda: ops.paged_attention(
+                q, k, v, lens, table, sinks=kw["sinks"], bias=bias))):
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"(c) K3 sinks with {tag} did not raise")
+    print(f"(c) K3 sinks: {n} cases pass (decode split across blocks, chunks "
+          f"whole and forced split): max abs err fp32 {errs[torch.float32]:.3e} "
+          f"(tol {F32_TOL}), bf16 {errs[torch.bfloat16]:.3e} (tol {BF16_TOL})")
+    return errs[torch.float32], errs[torch.bfloat16]
+
+
+def _oss_model(dtype):
+    """The phase's model on the card, weights from seed SEED + 111; the sinks
+    (zeros from init, as JAX's) drawn N(0, 1) from seed SEED + 112, so that
+    each head's differs."""
+    import torch
+    from np_modeling_tpu_torch.models import GPT
+    gpt = GPT(gpt_oss_20b_config(dtype)).init(
+        torch.Generator(device="cuda").manual_seed(SEED + 111))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 112)
+    with torch.no_grad():
+        for i in range(GPT_OSS_LAYERS):
+            sinks = gpt._block_for(i).self_attention.sinks
+            sinks.copy_(torch.randn(sinks.shape, generator=gen, device="cuda"))
+    return gpt
+
+
+def _oss_k3_timings(res, eng, device_line):
+    """K3 with sinks at the engine's decode: q [8, 64, 64] fp32 (seeded) over a
+    sliding layer's (0) and a full layer's (1) fp32 pages and table at the
+    engine's lengths + 1, with that layer's sinks and window. Kernel and plain
+    (wall and device time), the bound (q, o, each kv head's rows below a
+    length, or the window's last ones, once), and the device time in AB rounds
+    with K3 on the same inputs without the sinks. No PyTorch call computes a
+    softmax with a sink (library null). Returns the keys by kind."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    st = eng._state
+    lens = torch.where(st["active"], st["lengths"] + 1, 0).to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 113)
+    keys = {}
+    for kind, li in (("local", 0), ("global", 1)):
+        attn = eng.gpt._block_for(li).self_attention
+        kp, vp, table = st["k_pages"][li], st["v_pages"][li], st["table"]
+        q = torch.randn(DSV2_SLOTS, GPT_OSS["num_heads"], GPT_OSS["head_dim"],
+                        generator=gen, device="cuda")
+        key = (f"paged_attention sinks decode gpt-oss-20b {kind} b{DSV2_SLOTS} "
+               f"h64/8 d64 fp32 pages window {attn.window} ctx {lens.tolist()}")
+
+        def fn(q=q, kp=kp, vp=vp, attn=attn):
+            return ops.paged_attention(q, kp, vp, lens, table, sinks=attn.sinks,
+                                       window=attn.window)
+
+        def no_sinks(q=q, kp=kp, vp=vp, attn=attn):
+            return ops.paged_attention(q, kp, vp, lens, table, window=attn.window)
+
+        _both(res, "D", key, fn, device_line)
+        _device_both(res, "D", key, fn, device_line)
+        res["bound " + key] = _paged_bound(q, kp, lens, table, window=attn.window,
+                                           peak=PEAK_F32_S)
+        ab = _alternate(no_sinks, fn, _device_ms, rounds=3)
+        res["ab_no_sinks " + key] = tuple(statistics.median(x) for x in ab)
+        print(f"(D) {key}: device time in turns, "
+              f"{_ab_line(ab, 'K3 without sinks', 'K3 with sinks')}; bound "
+              f"{res['bound ' + key][0]:.5f} ms ({res['bound ' + key][1]}) "
+              f"[{device_line}]")
+        keys[kind] = key
+    return keys
+
+
+def phase_gpt_oss_serving(device_line):
+    """(D) gpt-oss-20b at its published widths, GPT_OSS_LAYERS of 24 layers
+    (GPT_OSS_PARAMS parameters; GPT_OSS_CUT), seeded weights, served through
+    GenerationEngine with (B)'s engine and traffic (GPT_OSS_STEPS decode steps):
+    GPT_OSS_LAYERS K3 launches a
+    prefill chunk and a decode step, every one with the sinks and half with the
+    window, no flash call; fp32 tokens equal the plain engine's (force_plain),
+    a differing token allowed only where the plain engine's top-2 logits lie
+    within NEAR_TIE (the stream is then held up to that step), each step's
+    logits within F32_TOL x max(1, max |logit|) of the plain engine's; bf16
+    compute (on the fp32 weights' storage) and pages by (q)'s rule. Then the
+    experts a decode step reaches, the decode step in AB rounds with the plain
+    engine, the fp32 step profiled by kind with the MoE's share, K3 with sinks
+    alone (``_oss_k3_timings``) and each run's peak memory. Returns (results,
+    keys by kind, the fp32 run's launch counts)."""
+    import torch
+    from np_modeling_tpu_torch.models import GPT
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    L = GPT_OSS_LAYERS
+    print(f"(D) gpt-oss-20b cut: {GPT_OSS_CUT}")
+    gpt = _oss_model(None)
+    prompts = dsv2_prompts(GPT_OSS["vocab_size"], seed=SEED + 114)
+    n_params = sum(p.numel() for p in gpt.parameters())
+    print(f"(D) gpt-oss-20b GenerationEngine: {n_params} params, {DSV2_SLOTS} "
+          f"slots, page {DSV2_PAGE}, chunk {DSV2_CHUNK}, {DSV2_PAGES} pages of "
+          f"[8, {DSV2_PAGE}, 64] a layer for k and v; prompts of "
+          f"{[len(p) for p in prompts]} tokens")
+    if n_params != GPT_OSS_PARAMS:
+        raise AssertionError(f"(D) {n_params} params, not {GPT_OSS_PARAMS}")
+    eng_k, tk, lk, counts, chunks, admit = _dsv2_traffic(gpt, prompts, None,
+                                                         steps=GPT_OSS_STEPS)
+    calls = L * (chunks + GPT_OSS_STEPS)
+    want = {"paged_attention": calls, "paged_attention_sinks": calls,
+            "paged_attention_window": calls // 2, "paged_attention_latent": 0,
+            "flash_attention_fwd": 0}
+    print(f"(D) fp32 traffic: admission of {sum(len(p) for p in prompts)} prompt "
+          f"tokens in {chunks} chunks {admit:.2f} s, {GPT_OSS_STEPS} decode steps; "
+          f"launches {counts}")
+    if {key: counts[key] for key in want} != want:
+        raise AssertionError(f"(D) launches {counts}, expected {want}")
+    eng_p, tp, lp, plain_counts, _, _ = _dsv2_traffic(
+        gpt, prompts, None, plain=True, steps=GPT_OSS_STEPS)
+    if plain_counts["paged_attention"]:
+        raise AssertionError(f"(D) the plain engine launched {plain_counts}")
+    err = 0.0
+    ties = 0
+    for sid, toks in tk.items():
+        n, tie = _hold_stream(f"(D) seq {sid} engine vs plain engine", toks,
+                              tp[sid], lp[sid])
+        ties += tie
+        err = max(err, _logit_dist(lk[sid][:n], lp[sid][:n]))
+    print(f"(D) fp32: {sum(len(t) for t in tk.values())} tokens of {len(tk)} "
+          f"sequences equal the plain engine's ({ties} streams parted at a near "
+          f"tie < {NEAR_TIE}); logits {err:.3e} x max(1, max |logit|) from the "
+          f"plain engine's (tol {F32_TOL})")
+    if not err <= F32_TOL:
+        raise AssertionError(f"(D) fp32 logits {err:.3e} x max(1, max |logit|)"
+                             f" from the plain engine's > {F32_TOL}")
+    experts = []
+    with torch.no_grad(), _moe_spans(experts):
+        eng_k.step()
+    print(f"(D) experts that received tokens in one fp32 decode step of "
+          f"{len(eng_k.live)} tokens x top {GPT_OSS['moe_top_k']}, layer by "
+          f"layer: {experts}; {min(experts)}..{max(experts)} of "
+          f"{GPT_OSS['moe_experts']}, median {statistics.median(experts)}")
+    res = {}
+    _dsv2_decode_timings(res, eng_k, eng_p, "fp32 pages", device_line, tag="D",
+                         model="gpt-oss-20b")
+    del eng_p
+    with _moe_spans():
+        _profile("D", f"gpt-oss-20b GenerationEngine decode step() fp32 "
+                 f"{len(eng_k.live)} seqs", eng_k.step, device_line, warmup=2,
+                 spans=("MoE",))
+    keys = _oss_k3_timings(res, eng_k, device_line)
+    peak32 = torch.cuda.max_memory_allocated()
+    print(f"(D) fp32 run peak memory {peak32 / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: the fp32 weights, two engines' "
+          f"pages) [{device_line}]")
+    del eng_k, lk
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # The bf16 model on the fp32 model's parameter storage, as (B)'s.
+    g16 = GPT(gpt_oss_20b_config(torch.bfloat16), device="meta")
+    g16.load_state_dict(gpt.state_dict(), assign=True)
+    eng_k16, tk16, lk16, counts16, _, admit16 = _dsv2_traffic(
+        g16, prompts, torch.bfloat16, steps=GPT_OSS_STEPS)
+    if counts16["paged_attention_sinks"] != calls:
+        raise AssertionError(f"(D) bf16 launches {counts16}")
+    eng_p16, tp16, lp16, _, _, _ = _dsv2_traffic(
+        g16, prompts, torch.bfloat16, plain=True, steps=GPT_OSS_STEPS)
+    got, plain, ref = [], [], []
+    for sid in tk16:
+        n = _agreeing(tk16[sid], tp16[sid], tp[sid])
+        got.append(lk16[sid][:n])
+        plain.append(lp16[sid][:n])
+        ref.append(lp[sid][:n])
+    print(f"(D) bf16 compute, bf16 pages: admission {admit16:.2f} s; held over "
+          f"{sum(len(x) for x in got)} of {sum(len(t) for t in tk16.values())} "
+          f"steps whose tokens agree with the fp32 plain engine's")
+    _hold_bf16_logits("(D) gpt-oss-20b GenerationEngine", torch.cat(got),
+                      torch.cat(plain), torch.cat(ref))
+    del lk16, lp16, lp, got, plain, ref
+    _dsv2_decode_timings(res, eng_k16, eng_p16, "bf16 pages", device_line,
+                         tag="D", model="gpt-oss-20b")
+    peak16 = torch.cuda.max_memory_allocated()
+    print(f"(D) bf16 run peak memory {peak16 / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated: one copy of the weights, fp32, "
+          f"shared by both models) [{device_line}]")
+    del eng_k16, eng_p16, gpt, g16
+    torch.cuda.empty_cache()
+    print(f"(D) gpt-oss-20b serving phase {time.perf_counter() - t_phase:.1f} s")
+    return res, keys, counts
+
+
+def main(phases="abcdefghijklmnopqrstuvwxyzABCD"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
     runs the quantized serving path alone, ``"abcqrw"`` Gemma-2 serving and
     generate, ``"abcst"`` Gemma-2 training, ``"abcuvx"`` GPT-2's serving
     features, ``"abcyz"`` T5 and Seq2Seq, ``"abcA"`` T5 serving, ``"abcB"``
-    DeepSeek-V2-Lite serving, ``"abcC"`` DeepSeek-V2-Lite training); the
-    JSON summary and the ok line come only from a run of every phase."""
+    DeepSeek-V2-Lite serving, ``"abcC"`` DeepSeek-V2-Lite training,
+    ``"abcD"`` gpt-oss-20b serving); the JSON summary and the ok line come
+    only from a run of every phase."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -7087,6 +7496,7 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABC"):
     paged8_err = phase_paged_vs_plain(int8=True)
     paged256_err = phase_paged_options_vs_plain()
     paged_bias_err = phase_paged_bias_vs_plain()
+    sinks_err = phase_paged_sinks_vs_plain()
     k4_err = phase_int8_matmul_vs_plain()
     k4_err = tuple(map(max, k4_err, phase_int8_schedules_vs_plain()))
     flash_err = phase_flash_vs_plain()
@@ -7103,7 +7513,7 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABC"):
     since("(c)")
     serving = training_res = entry_res = quant_res = forced_res = None
     packed_res = gemma_res = gemma_train_res = mask_res = t5_res = None
-    s2e_res = dsv2_res = mla_res = None
+    s2e_res = dsv2_res = mla_res = oss_res = None
     gemma_gen_launches = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
@@ -7224,10 +7634,14 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABC"):
         mla_res.update(gen_res)
         mla_keys["K3"] = gen_key
         since("(C)")
+    if "D" in phases:
+        oss_res, oss_keys, oss_launches = phase_gpt_oss_serving(device_line)
+        since("(D)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
     if None in (serving, training_res, entry_res, quant_res, forced_res,
                 packed_res, gemma_res, gemma_train_res, mask_res,
-                gemma_gen_launches, t5_res, s2e_res, dsv2_res, mla_res) \
+                gemma_gen_launches, t5_res, s2e_res, dsv2_res, mla_res,
+                oss_res) \
             or "z" not in phases:
         return 0
     packed_shape = "b8 h12 s1024 d64 causal bf16"
@@ -7322,8 +7736,8 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABC"):
     every = {"fwd": g["flash_attention_fwd"], "bwd": g["flash_attention_bwd"]}
     # K1's mask option, each row beside the launches of its dtype: bf16
     # counts (u)'s dense decode through GPT.apply (12 a forward), fp32
-    # generate's, (u)'s for GPT-2 (12 a step) and (w)'s for Gemma-2 (26 a
-    # step); prefill and decode rows of one run share its count.
+    # generate's, (u)'s for GPT-2 (12 a step) and (w)'s for Gemma-2 (one a
+    # layer a step); prefill and decode rows of one run share its count.
     bf16 = gen_launches["bf16"]["flash_attention_fwd_mask"]
     gpt2 = gen_launches["fp32"]["flash_attention_fwd_mask_fp32"]
     gemma2 = gemma_gen_launches["flash_attention_fwd_mask_fp32"]
@@ -7363,8 +7777,8 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABC"):
                  "np_modeling_tpu/ops/paged_attention.py:221",
                  s2e_launches["paged_attention_bias"], paged_bias_err,
                  s2e_res, s2e_key))
-    # K3's latent option on (B)'s engines (27 a prefill chunk and a decode
-    # step), fp32 pages and bf16 pages, timed at their decode.
+    # K3's latent option on (B)'s engines (one a layer a prefill chunk and a
+    # decode step), fp32 pages and bf16 pages, timed at their decode.
     rows += [(f"paged_attention_latent_{name}", PAGED_SOURCE,
               "np_modeling_tpu/ops/paged_attention.py:221",
               launches["paged_attention_latent"], latent_err, dsv2_res,
@@ -7390,6 +7804,15 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABC"):
                  "np_modeling_tpu/ops/paged_attention.py:221",
                  mla_launches["paged_attention_latent"], latent_err, mla_res,
                  mla_keys["K3"]))
+    # K3's sinks option on (D)'s fp32 engine (every call; the sliding layers'
+    # with the window), timed at its decode on a sliding and a full layer.
+    rows += [(f"paged_attention_sinks_{kind}", PAGED_SOURCE,
+              "np_modeling_tpu/ops/paged_attention.py:221", launches,
+              sinks_err, oss_res, oss_keys[kind])
+             for kind, launches in (
+                 ("local", oss_launches["paged_attention_window"]),
+                 ("global", oss_launches["paged_attention_sinks"]
+                  - oss_launches["paged_attention_window"]))]
     # "ms": a call's wall time (CUDA events, host included), every entry;
     # "device_ms": calls back to back behind a sleep kernel (device only);
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its
@@ -7418,6 +7841,9 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABC"):
         if "ab " + key in res:  # device ms in AB rounds with the library call
             kernels[-1]["library_device_ms_in_turns"], \
                 kernels[-1]["device_ms_in_turns"] = res["ab " + key]
+        if "ab_no_sinks " + key in res:  # K3 sinks: in AB rounds without them
+            kernels[-1]["no_sinks_device_ms_in_turns"], \
+                kernels[-1]["device_ms_in_turns"] = res["ab_no_sinks " + key]
         if "ab_mm " + key in res:  # K4: in AB rounds with torch.mm, bf16 weight
             kernels[-1]["bf16_mm_device_ms_in_turns"], \
                 kernels[-1]["device_ms_in_turns"] = res["ab_mm " + key]

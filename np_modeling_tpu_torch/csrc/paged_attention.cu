@@ -29,6 +29,18 @@
 // keeps the mask value, so a row that sees no key still stores 0. Each split
 // reads the bias of its own key range, so the merge does not change. The bias
 // is built without window and softcap (no caller combines them).
+// The sinks (gpt-oss's attention sinks, :113-116, :212-216, :314-318) are a
+// fourth option: an fp32 logit sinks[hq] a q head that joins each row's softmax
+// as a key with no value, o = sum_k e^{s_k} v_k / (sum_k e^{s_k} + e^{sink}). Row
+// r = t g + j takes sinks[h g + j]. It joins once a row, after every key: in
+// the block's store with one split, in the merge with more (the partials
+// combine first), never in a key range. The TPU kernel adds e^{sink - m} to l
+// with m the running max of the scores, which overflows fp32 for a sink far
+// above them; here m' = max(m, sink), l' = l e^{m - m'} + e^{sink - m'} and o =
+// acc e^{m - m'} / l'. A row that sees no key (l = 0, m the mask value) stores
+// 0, as the plain version gives. The sinks pointer lives in SinkArgs, taken only
+// by the kernels built with it (as BiasArgs). Built at d 64 (gpt-oss's head
+// dim), with and without the window, without softcap or bias.
 //
 // What bounds it. At decode each (sequence, kv head) reads 2*ctx*d*bytes of K/V
 // once and does 4*ctx*d*g flops on them: a few flops per byte, far below the
@@ -198,8 +210,42 @@ struct BiasArgs : Args {
   long long bias_sb, bias_sh, bias_sq, bias_sk;
   int bias_len;
 };
-template <bool kBias>
-using KernelArgs = typename std::conditional<kBias, BiasArgs, Args>::type;
+
+// The sinks (fp32 [hq]), taken only by the kernels built with them.
+struct SinkArgs : Args {
+  const float* sinks;
+};
+
+// A call's arguments as the entry point gathers them: every option's fields.
+struct CallArgs : BiasArgs {
+  const float* sinks;
+};
+
+template <bool kBias, bool kSinks>
+using KernelArgs = typename std::conditional<
+    kBias, BiasArgs, typename std::conditional<kSinks, SinkArgs, Args>::type>::type;
+
+// The struct a kernel built with these options takes, cut from the call's.
+template <bool kBias, bool kSinks>
+KernelArgs<kBias, kSinks> kernel_args(const CallArgs& a) {
+  if constexpr (kSinks) {
+    SinkArgs k;
+    static_cast<Args&>(k) = static_cast<const Args&>(a);
+    k.sinks = a.sinks;
+    return k;
+  } else {
+    return static_cast<const KernelArgs<kBias, false>&>(a);
+  }
+}
+
+// Folds a q head's sink into a row's (m, l): returns the factor e^{m - m'} that
+// acc and l take, and sets l to l e^{m - m'} + e^{sink - m'}, m' = max(m, sink).
+__device__ __forceinline__ float join_sink(float m, float& l, float sink) {
+  const float mn = fmaxf(m, sink);
+  const float c = expf(m - mn);
+  l = l * c + expf(sink - mn);
+  return c;
+}
 
 // The shape of a variant: RW rows a warp; kRowSplit: the warps own rows (a tile of
 // 4 RW rows, every warp over every key) or share them (a tile of RW rows, the warps
@@ -246,9 +292,9 @@ __device__ __forceinline__ int q_slot(int e) {
 }
 
 template <typename TQ, typename TKV, int D, int RW, bool kRowSplit, bool kWindow, bool kCap,
-          bool kBias>
+          bool kBias, bool kSinks>
 __global__ void __launch_bounds__(Shape<TKV, D, RW, kRowSplit>::kThreads)
-    paged_attention_kernel(const KernelArgs<kBias> a) {
+    paged_attention_kernel(const KernelArgs<kBias, kSinks> a) {
   using S = Shape<TKV, D, RW, kRowSplit>;
   constexpr int KB = S::kKb, WK = S::kWk, EV = S::kEv, J = S::kJ, E = D / 32;
   constexpr int NT = S::kThreads, NW = S::kWarps, NK = S::kNk;
@@ -537,7 +583,9 @@ __global__ void __launch_bounds__(Shape<TKV, D, RW, kRowSplit>::kThreads)
         const int t = r / g, j = r % g;
         TQ* dst = static_cast<TQ*>(a.out) +
                   ((static_cast<size_t>(b) * a.sq + t) * a.hq + h * g + j) * D + lane * E;
-        const float l_inv = l[i] == 0.f ? 1.f : 1.f / l[i];
+        float c = 1.f;  // the sink's factor on acc and l
+        if constexpr (kSinks) c = join_sink(m[i], l[i], __ldg(a.sinks + h * g + j));
+        const float l_inv = l[i] == 0.f ? 1.f : c / l[i];
 #pragma unroll
         for (int u = 0; u < E; ++u) dst[u] = from_f<TQ>(acc[i][u] * l_inv);
       } else {
@@ -558,9 +606,10 @@ __global__ void __launch_bounds__(Shape<TKV, D, RW, kRowSplit>::kThreads)
 // The lanes read the splits' (m, l) side by side (32 at a time) and agree on m and
 // the weights by shuffles; then each non-empty split's acc is added, the loads
 // independent of one another. Empty partials (l = 0) are skipped unread; a row
-// with none stores 0.
-template <typename TQ, int D>
-__global__ void __launch_bounds__(kThreads) paged_attention_merge(const Args a) {
+// with none stores 0. With kSinks the row's sink joins (m, l) once, here.
+template <typename TQ, int D, bool kSinks>
+__global__ void __launch_bounds__(kThreads)
+    paged_attention_merge(const typename std::conditional<kSinks, SinkArgs, Args>::type a) {
   constexpr int E = D / 32;
   const int g = a.hq / a.hkv, rows = a.sq * g;
   const int r = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -598,8 +647,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_merge(const Args a) 
     }
   }
   lsum = warp_sum(lsum);
-  const float l_inv = lsum == 0.f ? 1.f : 1.f / lsum;
   const int t = r / g, j = r % g;
+  float c = 1.f;  // the sink's factor on acc and lsum
+  if constexpr (kSinks) c = join_sink(mx, lsum, __ldg(a.sinks + h * g + j));
+  const float l_inv = lsum == 0.f ? 1.f : c / lsum;
   TQ* dst = static_cast<TQ*>(a.out) + ((static_cast<size_t>(b) * a.sq + t) * a.hq + h * g + j) * D +
             lane * E;
 #pragma unroll
@@ -607,37 +658,48 @@ __global__ void __launch_bounds__(kThreads) paged_attention_merge(const Args a) 
 }
 
 template <typename TQ, typename TKV, int D, int RW, bool kRowSplit, bool kWindow, bool kCap,
-          bool kBias>
-int launch_variant(const BiasArgs& a, cudaStream_t stream) {
+          bool kBias, bool kSinks>
+int launch_variant(const CallArgs& a, cudaStream_t stream) {
   using S = Shape<TKV, D, RW, kRowSplit>;
-  auto kernel = paged_attention_kernel<TQ, TKV, D, RW, kRowSplit, kWindow, kCap, kBias>;
+  auto kernel = paged_attention_kernel<TQ, TKV, D, RW, kRowSplit, kWindow, kCap, kBias, kSinks>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = a.sq * (a.hq / a.hkv);
   const dim3 grid(((rows + S::kRows - 1) / S::kRows) * a.splits, a.hkv, a.b);
-  kernel<<<grid, S::kThreads, S::kBytes, stream>>>(
-      static_cast<const KernelArgs<kBias>&>(a));
+  kernel<<<grid, S::kThreads, S::kBytes, stream>>>(kernel_args<kBias, kSinks>(a));
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
-  paged_attention_merge<TQ, D><<<dim3((rows + kWarps - 1) / kWarps, a.hkv, a.b), kThreads, 0,
-                              stream>>>(static_cast<const Args&>(a));
+  paged_attention_merge<TQ, D, kSinks>
+      <<<dim3((rows + kWarps - 1) / kWarps, a.hkv, a.b), kThreads, 0, stream>>>(
+          kernel_args<false, kSinks>(a));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Row tiles of up to 2 rows (decode) share the rows among the warps; larger ones
 // give each warp 16 rows (8 at d 256). The wrapper's split plan assumes these tiles.
-template <typename TQ, typename TKV, int D, bool kWindow, bool kCap, bool kBias = false>
-int launch(const BiasArgs& a, cudaStream_t stream) {
+template <typename TQ, typename TKV, int D, bool kWindow, bool kCap, bool kBias = false,
+          bool kSinks = false>
+int launch(const CallArgs& a, cudaStream_t stream) {
   if (a.sq * (a.hq / a.hkv) <= 2)
-    return launch_variant<TQ, TKV, D, 2, false, kWindow, kCap, kBias>(a, stream);
-  return launch_variant<TQ, TKV, D, (D > 128 ? 8 : 16), true, kWindow, kCap, kBias>(a,
-                                                                                     stream);
+    return launch_variant<TQ, TKV, D, 2, false, kWindow, kCap, kBias, kSinks>(a, stream);
+  return launch_variant<TQ, TKV, D, (D > 128 ? 8 : 16), true, kWindow, kCap, kBias, kSinks>(
+      a, stream);
 }
 
-// The bias is built alone: with a window or a softcap it is refused.
+// The bias is built alone: with a window or a softcap it is refused. The sinks are
+// built at d 64 alone or with the window; with a softcap or a bias, or at another
+// head dim, they are refused.
 template <typename TQ, typename TKV, int D>
-int launch_opts(const BiasArgs& a, cudaStream_t s) {
+int launch_opts(const CallArgs& a, cudaStream_t s) {
+  if (a.sinks != nullptr) {
+    if constexpr (D == 64) {
+      if (a.bias == nullptr && a.cap == 0.f)
+        return a.window > 0 ? launch<TQ, TKV, D, true, false, false, true>(a, s)
+                            : launch<TQ, TKV, D, false, false, false, true>(a, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (a.bias != nullptr)
     return a.window > 0 || a.cap > 0.f ? static_cast<int>(cudaErrorInvalidValue)
                                        : launch<TQ, TKV, D, false, false, true>(a, s);
@@ -994,9 +1056,9 @@ int launch_latent_variant(const Args& a, cudaStream_t stream) {
 // softcap or bias. Tiles of 16 rows (one decode token's heads) or 32; the wrapper's
 // split plan assumes these tiles.
 template <typename TQ, typename TKV>
-int launch_latent(const BiasArgs& a, cudaStream_t s) {
+int launch_latent(const CallArgs& a, cudaStream_t s) {
   if (a.v_pages != a.k_pages || a.v_scales != a.k_scales || a.bias != nullptr ||
-      a.window > 0 || a.cap > 0.f)
+      a.sinks != nullptr || a.window > 0 || a.cap > 0.f)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args& args = a;
   if (a.sq * (a.hq / a.hkv) <= 16) return launch_latent_variant<TQ, TKV, 16>(args, s);
@@ -1004,7 +1066,7 @@ int launch_latent(const BiasArgs& a, cudaStream_t s) {
 }
 
 template <typename TQ, typename TKV>
-int launch_d(int d, const BiasArgs& a, cudaStream_t s) {
+int launch_d(int d, const CallArgs& a, cudaStream_t s) {
   if (d == 64) return launch_opts<TQ, TKV, 64>(a, s);
   if (d == 128) return launch_opts<TQ, TKV, 128>(a, s);
   if (d == 256) return launch_opts<TQ, TKV, 256>(a, s);
@@ -1013,7 +1075,7 @@ int launch_d(int d, const BiasArgs& a, cudaStream_t s) {
 }
 
 template <typename TQ>
-int launch_kv(int kv_dtype, int d, const BiasArgs& a, cudaStream_t s) {
+int launch_kv(int kv_dtype, int d, const CallArgs& a, cudaStream_t s) {
   if (kv_dtype == 0 && a.k_scales == nullptr) return launch_d<TQ, float>(d, a, s);
   if (kv_dtype == 1 && a.k_scales == nullptr) return launch_d<TQ, __nv_bfloat16>(d, a, s);
   if (kv_dtype == 2 && a.k_scales != nullptr && a.v_scales != nullptr)
@@ -1029,7 +1091,8 @@ int launch_kv(int kv_dtype, int d, const BiasArgs& a, cudaStream_t s) {
 // 0 for none; softcap: the cap, 0 for none. bias: fp32 over (b, q head, query
 // token, position) with strides bias_sb, bias_sh, bias_sq, bias_sk (elements;
 // 0 on a broadcast axis) and bias_len positions, or null for none; not with a
-// window or a softcap. splits >= 1 key ranges of split_keys
+// window or a softcap. sinks: fp32 [hq] sink logits, or null for none; at d 64
+// only, not with a softcap or a bias. splits >= 1 key ranges of split_keys
 // keys each (a multiple of 32 and of the page size); with splits > 1, part_acc
 // (fp32 [b, hkv, splits, sq * hq / hkv, d]) and part_ml (fp32 [..., 2]) are the
 // caller's scratch. Returns the first nonzero cudaGetLastError() of the launches
@@ -1042,17 +1105,19 @@ extern "C" int np_paged_attention(const void* q, const void* k_pages, const void
                                   int ps_shift, int pages_per_seq, int splits, int split_keys,
                                   float scale, int window, float softcap, const void* bias,
                                   long long bias_sb, long long bias_sh, long long bias_sq,
-                                  long long bias_sk, int bias_len, void* stream) {
+                                  long long bias_sk, int bias_len, const void* sinks,
+                                  void* stream) {
   if (b == 0 || sq == 0) return 0;
   if (splits < 1 || split_keys < 1 || (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BiasArgs a{{q, k_pages, v_pages, static_cast<const float*>(k_scales),
-                    static_cast<const float*>(v_scales), lengths, table, out,
-                    static_cast<float*>(part_acc), static_cast<float*>(part_ml), b, sq, hq, hkv,
-                    total_pages, ps_shift, pages_per_seq, splits, split_keys, scale, window,
-                    softcap},
-                   static_cast<const float*>(bias), bias_sb, bias_sh, bias_sq, bias_sk,
-                   bias_len};
+  const CallArgs a{{{q, k_pages, v_pages, static_cast<const float*>(k_scales),
+                     static_cast<const float*>(v_scales), lengths, table, out,
+                     static_cast<float*>(part_acc), static_cast<float*>(part_ml), b, sq, hq, hkv,
+                     total_pages, ps_shift, pages_per_seq, splits, split_keys, scale, window,
+                     softcap},
+                    static_cast<const float*>(bias), bias_sb, bias_sh, bias_sq, bias_sk,
+                    bias_len},
+                   static_cast<const float*>(sinks)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0) return launch_kv<float>(kv_dtype, d, a, s);
   if (q_dtype == 1) return launch_kv<__nv_bfloat16>(kv_dtype, d, a, s);

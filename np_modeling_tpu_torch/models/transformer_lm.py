@@ -8,8 +8,10 @@ Gemma-2's features: RoPE, RMSNorm (with the ``gamma + 1`` offset), gated
 FFNs (swiglu, geglu), sandwich norms, the embedding scale, a sliding window
 that alternates by layer (``window_pattern``), the attention and final
 logit softcaps and ``query_pre_attn_scalar``; DeepSeek-V2's latent
-attention (``mla``, JAX nn/mla.py) with YaRN RoPE scaling and an untied LM
-head (``lm_head.w`` [d, vocab], no bias); and routed MoE FFNs
+attention (``mla``, JAX nn/mla.py) with YaRN RoPE scaling (on ordinary
+attention too) and an untied LM head (``lm_head.w`` [d, vocab], no bias);
+gpt-oss's attention sinks (``attn_sinks``: a per-head logit in each row's
+softmax, K3's sinks option in the serving engine); and routed MoE FFNs
 (``moe_experts``, ``nn.MoE``: every routing rule, no-drop and capacity
 dispatch, shared experts, the first ``moe_first_dense`` layers dense; the
 forward only, its backward raises). A config outside those raises
@@ -105,7 +107,7 @@ _PORTED = {"positional": ("learned", "rope"), "norm": ("layer", "rms"),
            "activation": ("relu", "gelu"), "norm_first": (True,),
            "tie_embeddings": (True, False), "lm_head_bias": (False,),
            "scan_layers": (False,),
-           "attn_sinks": (False,), "qk_norm": (False,),
+           "attn_sinks": (False, True), "qk_norm": (False,),
            "parallel_residual": (False,), "sandwich_norm": (False, True),
            "embed_scale": (False, True)}
 
@@ -196,7 +198,8 @@ class GPT(nn.Module):
                 rope=c.positional == "rope", rope_base=c.rope_base,
                 rope_dim=c.rope_dim, window=window_for(c, i),
                 attn_scale=attn_scale, attn_softcap=c.attn_logit_softcap,
-                mla=mla, device=device,
+                mla=mla, attn_sinks=c.attn_sinks,
+                rope_scaling=c.rope_scaling, device=device,
                 **moe_fields(c, dense=i < c.moe_first_dense)))
         self.final_norm = (RMSNorm(c.d_model, c.ln_eps, c.rms_offset, device)
                            if c.norm == "rms"

@@ -12,9 +12,12 @@ the bias option of the flash kernels on the card) and segment ids (one
 [b, s] array, or a (q, kv) pair), dense or (``decode=True``) through a
 dense KV cache from ``init_cache``, whose written slots reach the kernel as
 a mask (K1's mask option on the card), or over ``precomputed_kv``. The
-score options are JAX's: ``rope`` (with ``rope_base``, ``rope_dim``)
-rotates q and k, ``window`` slides a causal window, ``attn_scale`` replaces
-1/sqrt(dk) and ``attn_softcap`` caps the scaled scores.
+score options are JAX's: ``rope`` (with ``rope_base``, ``rope_dim`` and
+``rope_scaling``, YaRN's tuple or None) rotates q and k, ``window`` slides a
+causal window, ``attn_scale`` replaces 1/sqrt(dk), ``attn_softcap`` caps
+the scaled scores and ``attn_sinks`` (gpt-oss) adds ``sinks`` [hq], fp32,
+zero-initialised: a per-q-head logit that joins each row's softmax as a key
+with no value (JAX :116-117).
 """
 
 from __future__ import annotations
@@ -39,11 +42,14 @@ class MultiHeadAttention(nn.Module):
                  window: Optional[int] = None,
                  attn_scale: Optional[float] = None,
                  attn_softcap: Optional[float] = None,
-                 kv_features: Optional[int] = None, device=None):
+                 kv_features: Optional[int] = None,
+                 rope_scaling: Optional[tuple] = None,
+                 attn_sinks: bool = False, device=None):
         super().__init__()
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.head_dim, self.dtype, self.causal = head_dim, dtype, causal
         self.rope, self.rope_base, self.rope_dim = rope, rope_base, rope_dim
+        self.rope_scaling = rope_scaling
         self.window, self.attn_scale = window, attn_scale
         self.attn_softcap = attn_softcap
         hq, hkv, dk = self._dims(features)
@@ -54,7 +60,9 @@ class MultiHeadAttention(nn.Module):
             shapes.update(bq=(hq, dk), bk=(hkv, dk), bv=(hkv, dk))
         if use_bias:
             shapes["bo"] = (features,)
-        for name in ("bq", "bk", "bv", "bo"):
+        if attn_sinks:
+            shapes["sinks"] = (hq,)
+        for name in ("bq", "bk", "bv", "bo", "sinks"):
             setattr(self, name, None)
         for name, shape in shapes.items():
             setattr(self, name, nn.Parameter(torch.empty(
@@ -73,7 +81,7 @@ class MultiHeadAttention(nn.Module):
         for name in ("wq", "wk", "wv", "wo"):
             w = getattr(self, name)
             w.copy_(initializers.lecun_normal(generator, w.shape))
-        for name in ("bq", "bk", "bv", "bo"):
+        for name in ("bq", "bk", "bv", "bo", "sinks"):
             b = getattr(self, name)
             if b is not None:
                 b.copy_(initializers.zeros(generator, b.shape))
@@ -92,7 +100,8 @@ class MultiHeadAttention(nn.Module):
         module rotates."""
         if not self.rope:
             return t
-        return ops.apply_rope(t, positions, self.rope_base, self.rope_dim)
+        return ops.apply_rope(t, positions, self.rope_base, self.rope_dim,
+                              self.rope_scaling)
 
     def forward(self, x, key=None, value=None, mask=None, segment_ids=None,
                 positions=None, cache=None, decode=False, collect_kv=False,
@@ -128,7 +137,8 @@ class MultiHeadAttention(nn.Module):
                                     segment_ids=segment_ids,
                                     causal=self.causal, window=self.window,
                                     scale=self.attn_scale,
-                                    softcap=self.attn_softcap)
+                                    softcap=self.attn_softcap,
+                                    sinks=self.sinks)
             return self._out(o)
         k = self._project(key, self.wk, self.bk)
         v = self._project(value, self.wv, self.bv)
@@ -150,13 +160,15 @@ class MultiHeadAttention(nn.Module):
             o = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), mask=mask,
                                     bias=bias, causal=False,
                                     scale=self.attn_scale,
-                                    softcap=self.attn_softcap).to(q.dtype)
+                                    softcap=self.attn_softcap,
+                                    sinks=self.sinks).to(q.dtype)
         else:
             o = ops.flash_attention(q, k, v, mask=mask, bias=bias,
                                     segment_ids=segment_ids,
                                     causal=self.causal, window=self.window,
                                     scale=self.attn_scale,
-                                    softcap=self.attn_softcap)
+                                    softcap=self.attn_softcap,
+                                    sinks=self.sinks)
         out = self._out(o)
         if decode:
             return out, cache

@@ -8,7 +8,9 @@ Counterpart of np_modeling_tpu/nn/transformer.py ``TransformerEncoderBlock``
 ``"geglu"`` is the gated FFN ``w_down(act(y w_gate) * (y w_up))``, biasless,
 with silu or tanh-gelu (JAX :189-197), its weights under ``swiglu``.
 ``sandwich_norm`` (Gemma-2) adds ``post_norm1``/``post_norm2`` on each
-sublayer's output before its residual add (JAX :255-278). ``mla`` (a dict
+sublayer's output before its residual add (JAX :255-278).
+``rope_scaling`` (YaRN's tuple) and ``attn_sinks`` (gpt-oss's per-head sink
+logits) go to the attention (JAX :70, :104). ``mla`` (a dict
 of ``MLAttention`` dims: kv_lora_rank, q_lora_rank, qk_nope_head_dim,
 qk_rope_head_dim, v_head_dim, and the GPT's rope_base / rope_scaling)
 replaces the attention by DeepSeek-V2's latent attention, which composes
@@ -88,7 +90,9 @@ class TransformerEncoderBlock(nn.Module):
                  moe_router_select_bias: bool = False,
                  moe_group_metric: str = "max",
                  moe_hidden_units: Optional[int] = None,
-                 moe_router_bias: bool = False, device=None):
+                 moe_router_bias: bool = False,
+                 rope_scaling: Optional[tuple] = None,
+                 attn_sinks: bool = False, device=None):
         super().__init__()
         if ffn not in ("mlp", "swiglu", "geglu") and not (
                 moe_experts and ffn == "glu_clamp"):
@@ -104,6 +108,9 @@ class TransformerEncoderBlock(nn.Module):
                                  "windows, softcap, qk_norm, sandwich_norm "
                                  "(they would be silently dropped; JAX "
                                  "asserts)")
+            if attn_sinks:
+                raise ValueError("MLA takes no attention sinks (JAX drops "
+                                 "them silently)")
             self.self_attention = MLAttention(
                 features, num_heads, causal=causal, dtype=dtype,
                 ln_eps=ln_eps, device=device, **mla)
@@ -113,7 +120,8 @@ class TransformerEncoderBlock(nn.Module):
                 use_bias=use_bias, qkv_bias=qkv_bias, causal=causal,
                 dtype=dtype, rope=rope, rope_base=rope_base,
                 rope_dim=rope_dim, window=window, attn_scale=attn_scale,
-                attn_softcap=attn_softcap, device=device)
+                attn_softcap=attn_softcap, rope_scaling=rope_scaling,
+                attn_sinks=attn_sinks, device=device)
         self.drop = Dropout(drop_rate)
 
         def make_norm():

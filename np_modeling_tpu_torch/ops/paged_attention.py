@@ -26,12 +26,17 @@ Shapes (the JAX layout):
                ignored. The kernel reads an fp32 bias by its strides (a
                size-1 axis broadcasts): no copy is made, so hand it a view
                with unit stride along positions.
+  sinks        [num_q_heads] fp32 (gpt-oss's attention sinks): a logit a q
+               head that joins each row's softmax as a key with no value,
+               once a row (in the merge when the keys are split). The
+               kernel takes it at head_dim 64, alone or with a window.
 Returns [batch, num_q_heads, head_dim] or [batch, sq, num_q_heads, head_dim]
 in q's dtype.
 
 A sequence with length 0 differs between the two versions, as it does in
 the JAX package: the kernel stores 0, the plain version returns the mean of
-v over the table's positions (its mask value is finite).
+v over the table's positions (its mask value is finite). With sinks both
+give 0 (the sink outweighs every masked key).
 
 The latent option (MLA's absorbed serving form, JAX serving/engine.py
 :1739-1817): at head_dim 576 the kernel takes one page array as both k and
@@ -118,13 +123,17 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices,
 
 def paged_attention_split_reference(q, k_pages, v_pages, lengths,
                                     page_indices, splits, split_keys,
-                                    scale=None, window=None, softcap=None):
+                                    scale=None, window=None, softcap=None,
+                                    sinks=None):
     """Plain PyTorch version of the kernel's split-KV schedule: key range
     [i * split_keys, (i + 1) * split_keys) of each sequence gives a partial
     (m, l, acc) over the positions a row sees in it (l = 0 where it sees
     none: a range past the length or below the window), and the partials
     merge as m = max m_i, o = sum e^(m_i - m) acc_i / sum e^(m_i - m) l_i.
-    Equals ``paged_attention_reference`` wherever a row sees a position."""
+    ``sinks`` join once, after the merge: m' = max(m, sink), l' = l e^(m -
+    m') + e^(sink - m'), o = acc e^(m - m') / l' (0 where no position is
+    seen). Equals ``paged_attention_reference`` wherever a row sees a
+    position."""
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
@@ -161,8 +170,14 @@ def paged_attention_split_reference(q, k_pages, v_pages, lengths,
     mx = torch.where(live, m, DEFAULT_MASK_VALUE).amax(dim=0)
     w = torch.where(live, torch.exp(m - mx), 0.0)
     lsum = (w * l).sum(dim=0)
-    o = (w[..., None] * acc).sum(dim=0) / torch.where(lsum > 0, lsum,
-                                                       1.0)[..., None]
+    acc = (w[..., None] * acc).sum(dim=0)
+    if sinks is not None:
+        sk = sinks.float().reshape(hkv, g)[None, :, None, :]  # [1,hkv,1,g]
+        mn = torch.maximum(mx, sk)
+        c = torch.exp(mx - mn)
+        lsum = lsum * c + torch.exp(sk - mn)
+        acc = acc * c[..., None]
+    o = acc / torch.where(lsum > 0, lsum, 1.0)[..., None]
     o = o.movedim(2, 1).reshape(b, sq, hq, d).to(q.dtype)
     return o[:, 0] if squeeze else o
 
@@ -176,8 +191,10 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
     positive cap) and ``bias`` (fp32, 3-D or 4-D, any width) run in both.
     The kernel takes fp32 or bf16 q, fp32, bf16 or int8 pages, head_dim 64,
     128 or 256, or 576 with one page array as k and v (the latent option),
-    any GQA group, any sq >= 1, page sizes 8..128 (powers of two); it
-    raises on sinks and on a bias with a window or a softcap."""
+    any GQA group, any sq >= 1, page sizes 8..128 (powers of two), and
+    ``sinks`` (fp32 [hq]) at head_dim 64 alone or with a window; it raises
+    on sinks at another head dim or with a softcap or a bias, and on a bias
+    with a window or a softcap."""
     int8_pages = k_pages.dtype == torch.int8 or v_pages.dtype == torch.int8
     scaled = k_scales is not None or v_scales is not None
     if int8_pages != scaled or (scaled and (k_scales is None
@@ -195,9 +212,12 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
         return paged_attention_reference(q, k_pages, v_pages, lengths,
                                          page_indices, scale, window, bias,
                                          softcap, sinks)
-    if sinks is not None:
+    if sinks is not None and (q.shape[-1] != 64 or softcap is not None
+                              or bias is not None):
         raise NotImplementedError(
-            "the CUDA paged-attention kernel does not take sinks yet "
+            "the CUDA paged-attention kernel takes sinks at head_dim 64, "
+            "alone or with a window: sinks at head_dim "
+            f"{q.shape[-1]}, with a softcap or with a bias are not built yet "
             "(ROADMAP.md Queue 2 A, K3)")
     if bias is not None and (window is not None or softcap is not None):
         raise NotImplementedError(
@@ -205,7 +225,7 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
             "with a window or a softcap is not built yet (ROADMAP.md Queue 2 "
             "A, K3)")
     return _launch(q, k_pages, v_pages, k_scales, v_scales, lengths,
-                   page_indices, scale, window, softcap, bias)
+                   page_indices, scale, window, softcap, bias, sinks)
 
 
 # Kernel launches since import (or since a caller reset it to 0): a run
@@ -214,12 +234,14 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
 # launch), launches_int8 those over int8 pages, launches_window those with a
 # sliding window, launches_bias those with a score bias, launches_latent
 # those of the latent option (head_dim 576, one array as k and v),
-# launches_split those whose grid had more than one split.
+# launches_sinks those with attention sinks, launches_split those whose grid
+# had more than one split.
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
 paged_attention.launches_window = 0
 paged_attention.launches_bias = 0
 paged_attention.launches_latent = 0
+paged_attention.launches_sinks = 0
 paged_attention.launches_split = 0
 
 # The split plan (flash-decoding). The kernel's row tiles: up to 2 rows (a
@@ -284,7 +306,7 @@ def _bias_strides(bias, b, hq, sq):
 
 
 def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
-            scale, window, softcap, bias):
+            scale, window, softcap, bias, sinks):
     q4 = q[:, None] if q.dim() == 3 else q
     if q4.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} / pages {tuple(k_pages.shape)}:"
@@ -341,6 +363,11 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
         if bias.device != q.device:
             raise ValueError("the bias must lie on q's CUDA device")
         bias_strides, bias_len = _bias_strides(bias, b, hq, sq)
+    if sinks is not None:
+        if sinks.shape != (hq,) or sinks.device != q.device:
+            raise ValueError(f"sinks {tuple(sinks.shape)} on {sinks.device}: "
+                             f"want [{hq}] on q's CUDA device")
+        sinks = sinks.float().contiguous()
 
     from np_modeling_tpu_torch.ops import cuda_build
     fn = cuda_build.load("paged_attention").lib.np_paged_attention
@@ -348,7 +375,7 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p] + [ctypes.c_longlong] * 4
-                   + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     out = torch.empty_like(q)
     rows, pps = sq * (hq // hkv), page_indices.shape[1]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -373,7 +400,7 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
                 split_keys, scale, 0 if window is None else int(window),
                 0.0 if softcap is None else float(softcap),
                 None if bias is None else bias.data_ptr(), *bias_strides,
-                bias_len, stream)
+                bias_len, None if sinks is None else sinks.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -388,4 +415,6 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
         paged_attention.launches_bias += 1
     if latent:
         paged_attention.launches_latent += 1
+    if sinks is not None:
+        paged_attention.launches_sinks += 1
     return out

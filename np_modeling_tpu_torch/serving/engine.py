@@ -55,6 +55,10 @@ the FFN's place. No-drop routing (``moe_capacity_factor=None``) is per
 token, so chunked prefill is exact; capacity-limited routing depends on
 the token population and takes the dense prefill, and refuses the prefix
 cache and MLA, as JAX asserts (JAX :402-418, :785-791).
+
+Models with attention sinks (``GPTConfig.attn_sinks``, gpt-oss) hand each
+layer's ``sinks`` to paged attention (K3's sinks option on the card); the
+dense prefill runs them through flash attention's rescale.
 """
 
 from __future__ import annotations
@@ -853,7 +857,8 @@ class GenerationEngine:
                                 att_len, state["table"],
                                 scale=attn.attn_scale,
                                 window=attn.window,
-                                softcap=attn.attn_softcap, **kwargs)
+                                softcap=attn.attn_softcap, sinks=attn.sinks,
+                                **kwargs)
         hq, dk, d_out = attn.wo.shape
         o = o.to(x.dtype).reshape(S, t, hq * dk)
         bo = attn.bo.to(x.dtype) if attn.bo is not None else None

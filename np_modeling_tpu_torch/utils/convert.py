@@ -10,9 +10,10 @@ T5's or Seq2SeqTransformer's tree (``layer_{i}/self_attention/wq``,
 ``wq`` or ``q_a`` / ``q_a_norm/gamma`` / ``q_b``, and an untied head's
 ``lm_head/w``; an MoE layer's ``layer_{i}/moe/router``, its 3-D expert
 weights ``w_gate`` / ``w_up`` / ``w_down`` [E, ., .] (or ``w1`` / ``b1`` /
-``w2`` / ``b2``), biases, and ``moe/shared/w_gate|w_up|w_down``), the model
-picked by the config's type, and returns the port's model holding those
-weights. ``params_to_numpy`` and ``tree_to_numpy`` are the way back: a
+``w2`` / ``b2``), biases, and ``moe/shared/w_gate|w_up|w_down``; gpt-oss's
+``layer_{i}/self_attention/sinks`` [hq]), the model picked by the config's
+type, and returns the port's model holding those weights.
+``params_to_numpy`` and ``tree_to_numpy`` are the way back: a
 port model's parameters, or any ``{name: tensor}`` dict such as their
 gradients, as the JAX-shaped nested dict of fp32 numpy arrays, for a
 leaf-by-leaf comparison.

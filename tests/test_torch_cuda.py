@@ -24,12 +24,14 @@ import torch
 
 from chip_smoke import (BIAS_CASES, BIAS_DECODE_CASES, LATENT_CASES,
                         LATENT_PAGES, MASK_CASES, MLA_FLASH_CASES,
-                        PAGED_BIAS_CASES, PAGED_BIAS_PAGES, _bias_fwd_bwd,
+                        PAGED_BIAS_CASES, PAGED_BIAS_PAGES,
+                        PAGED_SINKS_CASES, PAGED_SINKS_OFFSETS,
+                        PAGED_SINKS_PAGES, PAGED_SINKS_WINDOWS, _bias_fwd_bwd,
                         _generate_with_logits, _hold_fp32, _k10_schedule,
                         _schedule, _step0, flash_bias_case,
                         flash_bias_decode_case, flash_mask_case, k10_planned,
                         k10_run, latent_vs_plain, mla_flash_case,
-                        paged_latent_case, paged_bias_case)
+                        paged_latent_case, paged_bias_case, sinks_vs_plain)
 from np_modeling_tpu_torch import models, ops
 from np_modeling_tpu_torch.ops import dispatch, fused
 
@@ -183,16 +185,24 @@ def test_cuda_paged_split_kv_vs_plain(sq, hq, hkv, d, opts, pages, split,
 
 @pytest.mark.parametrize("option", ["bias", "sinks"])
 def test_cuda_paged_unported_options_raise(option):
-    """The bias is built alone: with a window or a softcap it raises, as
-    sinks do (ROADMAP Queue 2 A)."""
+    """The bias is built alone: with a window or a softcap it raises; sinks
+    are built at head_dim 64 alone or with a window: with a softcap, with a
+    bias or at head_dim 128 they raise (ROADMAP Queue 2 A)."""
     q, k, v, lengths, table = (torch.tensor(a).cuda() for a in _paged_case(
         2, None, 4, 2, 64, 16, 4, 10))
     bias = torch.zeros(2, 4, 64, device="cuda")
+    sinks = torch.zeros(4, device="cuda")
     cases = {"bias": [dict(bias=bias, window=8), dict(bias=bias, softcap=5.0)],
-             "sinks": [dict(sinks=torch.zeros(4, device="cuda"))]}[option]
+             "sinks": [dict(sinks=sinks, softcap=5.0),
+                       dict(sinks=sinks, bias=bias)]}[option]
     for kw in cases:
         with pytest.raises(NotImplementedError, match=f"{option}.*Queue 2 A"):
             ops.paged_attention(q, k, v, lengths, table, **kw)
+    if option == "sinks":
+        q, k, v, lengths, table = (torch.tensor(a).cuda() for a in _paged_case(
+            2, None, 4, 2, 128, 16, 4, 10))
+        with pytest.raises(NotImplementedError, match="sinks.*Queue 2 A"):
+            ops.paged_attention(q, k, v, lengths, table, sinks=sinks)
 
 
 @pytest.mark.parametrize("pages", PAGED_BIAS_PAGES)
@@ -256,6 +266,96 @@ def test_cuda_seq2seq_engine_vs_plain_engine():
         streams.append(out)
         assert launched == (0 if plain else 2 * 33)
     assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("pages", PAGED_SINKS_PAGES)
+@pytest.mark.parametrize("case", PAGED_SINKS_CASES,
+                         ids=[c[0] for c in PAGED_SINKS_CASES])
+def test_cuda_paged_sinks_vs_plain(case, pages):
+    """K3's sinks option (gpt-oss: d 64, 64 q heads over 8 kv heads) over
+    chip_smoke's phase (c) cases (``sinks_vs_plain``): decode and a chunk of
+    256, the planned and forced split plans, window 128 and none, sinks 30
+    below, at and 30 above the top score; a length-0 row 0, no NaN, table
+    entries outside a row's reach unread, one sinks launch a call."""
+    for window in PAGED_SINKS_WINDOWS:
+        for offset in PAGED_SINKS_OFFSETS:
+            err, tol, _, _ = sinks_vs_plain(case, pages, offset, window,
+                                            seed=len(case[0]))
+            assert err <= tol
+
+
+def _small_gpt_oss():
+    """gpt-oss's features at a narrow width: 16 q heads over 2 kv heads of 64
+    (GQA 8), biased projections, sinks (drawn N(0, 1)), a window of 16 on
+    even layers, YaRN with gpt-oss's mscale, 8 glu_clamp experts of 128, top
+    4 by the biased router (topk_softmax), no-drop; an untied head."""
+    import chip_smoke
+    fields = dict(chip_smoke.GPT_OSS, vocab_size=512, d_model=256,
+                  num_heads=16, num_kv_heads=2, hidden_units=128,
+                  moe_experts=8, moe_hidden_units=128, attention_window=16)
+    cfg = models.GPTConfig(**fields, num_layers=2, max_len=512)
+    gpt = models.GPT(cfg).init(torch.Generator(device="cuda").manual_seed(9))
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    with torch.no_grad():
+        gpt.embedding.table.mul_(50.0)
+        for i in range(2):
+            sinks = gpt._block_for(i).self_attention.sinks
+            sinks.copy_(torch.randn(sinks.shape, generator=gen,
+                                    device="cuda"))
+    return gpt
+
+
+@pytest.mark.parametrize("pages,chunk", [("float32", 64), ("int8", 64),
+                                         ("float32", None)],
+                         ids=["fp32_chunk64", "int8_chunk64", "fp32_dense"])
+def test_cuda_gpt_oss_engine_vs_plain_engine(pages, chunk):
+    """The small gpt-oss model through the engine (chunks of 64 or the dense
+    prefill through K1 and the sinks' rescale, prompts past the window, fp32
+    or int8 pages): greedy tokens through K3's sinks option equal the plain
+    engine's; one sinks launch a layer a forward (a decode step, or a chunk),
+    half with the window."""
+    from np_modeling_tpu_torch.serving import GenerationEngine
+    gpt = _small_gpt_oss()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 512, n) for n in (300, 7, 129)]
+    streams = []
+    for plain in (False, True):
+        eng = GenerationEngine(gpt, total_pages=160, page_size=16,
+                               max_seqs=4, prefill_chunk_size=chunk,
+                               quantize_kv=pages == "int8")
+        pa = ops.paged_attention
+        with dispatch.force_plain() if plain else contextlib.nullcontext():
+            before = (pa.launches_sinks, pa.launches_window)
+            first = eng.add_requests(dict(enumerate(prompts)))
+            steps = eng.step_many(10)
+            launched = (pa.launches_sinks - before[0],
+                        pa.launches_window - before[1])
+        streams.append({i: [first[i]] + steps[i] for i in first})
+        # chunks: 5 at admission (none when dense); 10 decode steps; 2
+        # layers, 1 windowed
+        forwards = 10 + (5 if chunk else 0)
+        assert launched == ((0, 0) if plain else (2 * forwards, forwards))
+    assert streams[0] == streams[1]
+
+
+def test_cuda_gpt_oss_generate_vs_plain():
+    """The small gpt-oss model's fp32 ``GPT.generate`` (the prompt and each
+    step through the dense caches: K1's mask option, then the sinks'
+    rescale, which needs K1's lse) against the plain path: tokens equal, each
+    step's logits within 1e-4 x max(1, max |logit|); K1 launched once a
+    layer a step."""
+    gpt = _small_gpt_oss()
+    prompt = torch.tensor(np.random.default_rng(12).integers(0, 512, (2, 40)),
+                          device="cuda")
+    before = ops.flash_attention.launches_fwd
+    with torch.no_grad():
+        toks, logits = _generate_with_logits(gpt, prompt, 12)
+    assert ops.flash_attention.launches_fwd - before == 2 * 12
+    with torch.no_grad(), dispatch.force_plain():
+        ptoks, plogits = _generate_with_logits(gpt, prompt, 12)
+    assert torch.equal(toks, ptoks)
+    scale = max(1.0, plogits.abs().max().item())
+    assert (logits - plogits).abs().max().item() / scale <= 1e-4
 
 
 @pytest.mark.parametrize("pages", LATENT_PAGES)

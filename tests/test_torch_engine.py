@@ -121,7 +121,7 @@ def test_unported_engine_options_raise(option):
 
 
 @pytest.mark.parametrize("feature", [
-    dict(norm_first=False), dict(attn_sinks=True), dict(qk_norm=True),
+    dict(norm_first=False), dict(lm_head_bias=True), dict(qk_norm=True),
     dict(parallel_residual=True), dict(scan_layers=True),
     dict(rope_scaling=("linear", 2.0))])
 def test_unported_config_features_raise(feature):

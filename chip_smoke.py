@@ -5,8 +5,9 @@ entry point, that entry point with every product forced through the matmul
 kernel, packed-document training, Gemma-2 serving and generate, Gemma-2
 training, T5 training and decode, Seq2Seq, T5 serving through the
 encoder-decoder engine, DeepSeek-V2-Lite's latent attention (MLA) served
-on latent pages and trained through the training entry point, and
-gpt-oss-20b served with its attention sinks once on one CUDA card.
+on latent pages and trained through the training entry point,
+gpt-oss-20b served with its attention sinks, and BERT-base trained through
+a boolean attention mask, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -57,7 +58,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
       softcap 50, a row without a key, non-causal and under causal with
       window 64, v of mean ~2; fp32 and bf16 at d 64/128/256): o and lse
       within the flash tolerances, the keyless row's lse equal to the plain
-      one and its o the mean of v over all keys. K3's score bias
+      one and its o the mean of v over all keys. K2 and K5 with the mask
+      (its backward, head dim 64; MASK_BWD_CASES: [1, 1], [b, 1] and [1,
+      h] masks and a key-padding [b, 1, 1, skv] expanded to [b, 1, sq,
+      skv], causal and not, GQA 4/2, 300 x 333 and 333 x 300, segment ids
+      merged into the mask, a row that no key sees; fp32 and bf16): o, dq,
+      dk, dv within the flash tolerances, K5 bit-equal run to run, the
+      keyless row's dv equal to its do at every key and its dq nonzero (p
+      = 1 there, as the plain path's lse = the mask value gives); a mask
+      with gradients and a window, a softcap or a bias, or at head dim
+      128, 192 or 256, raises before any launch. K3's score bias
       (PAGED_BIAS_CASES: 3-D biases as the T5 engine hands them over and
       4-D ones, narrower than the table, as wide and wider, sq 1, 5 and 64,
       GQA 1 and 2, d 64/128/256, fp32, bf16 and int8 pages with fp32 and
@@ -343,7 +353,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
       plain engine, profiled by kind with the MoE's share, K3 with sinks on
       a sliding and a full layer beside its bound, the plain version and
       (in rounds) K3 without the sinks, and each run's peak memory
-      (``phase_gpt_oss_serving``).
+      (``phase_gpt_oss_serving``);
+  (E) BERT-base (google-bert/bert-base-uncased's config.json as the JAX
+      package's hf_compat.bert_config maps it: 12 layers, d 768, 12 heads
+      of 64, FFN 3072 gelu_exact, eps 1e-12, post-norm; 109,482,240 /
+      109,483,778 / 110,106,428 parameters with the pooler / the
+      classifier / the MLM head) at full width and depth, fp32, seeded
+      weights, on 16 x 512 Zipf rows of two sentences (lengths 64..512):
+      step 0 with dropout off through the kernels against the plain path
+      by (h)'s fp32 criteria, classification through apply(mask=) with
+      HF's key-padding mask (K1 + mask, K2 + mask) and UniLM's
+      sequence-to-sequence mask (K5 + mask), and the MLM loss with
+      attention_mask (segment ids); then with dropout 0.1, 8 classification
+      steps of adamw through make_train_step, the masks in turn, the last
+      under FUSED_BWD=False, and 4 MLM steps on the batch corrupted by
+      mlm_mask_tokens at 15%: losses finite and falling, 12 mask launches
+      of K1 and of K2 or K5 a classification step; ms a step, peak memory,
+      K1/K2/K5 + mask in a step by torch.profiler, and the three at b16
+      h12 s512 d64 (fp32, and bf16 beside) against the plain version,
+      their bound and SDPA with the boolean mask (``phase_bert``).
 Each path runs with the launch counts set to 0 just before it and read just
 after. Library yardsticks (one PyTorch call computing a kernel's function,
 which the port never calls) are timed beside K1/K2/K5/K12 (scaled_dot_
@@ -1499,6 +1527,176 @@ def phase_flash_mask_vs_plain():
     print(f"(c) flash mask option: {n} cases pass; max abs err fp32 "
           f"{errs[torch.float32]:.3e}, bf16 {errs[torch.bfloat16]:.3e}")
     return errs[torch.float32], errs[torch.bfloat16]
+
+
+# (c): K2 and K5 with the mask (its backward, alone at head dim 64). (name, b,
+# hq, hkv, sq, skv, the mask's kind, causal, segment ids, a keyless row): "11"
+# a [1, 1, sq, skv] mask, "b1" [b, 1, sq, skv], "1h" [1, hq, sq, skv] with the
+# keyless row in one head, "pad" a key-padding [b, 1, 1, skv] expanded to [b,
+# 1, sq, skv] (zero stride on sq, BERT's); random masks keep 60% and the
+# diagonal. GQA 4/2; sq != skv and neither a multiple of any tile (the bf16
+# backward's 64 and 128, the fp32 64). Segment ids (packed documents, q's and
+# kv's the first sq and skv positions of one packing) are merged into the
+# mask on the host.
+MASK_BWD_CASES = (
+    ("broadcast", 2, 4, 2, 300, 333, "11", False, False, False),
+    ("per-row causal", 2, 4, 2, 333, 300, "b1", True, False, False),
+    ("per-head keyless", 2, 4, 2, 300, 333, "1h", False, False, True),
+    ("per-head keyless causal", 2, 4, 2, 300, 333, "1h", True, False, True),
+    ("key padding", 2, 4, 2, 300, 333, "pad", False, False, False),
+    ("key padding segments causal", 2, 4, 2, 333, 300, "pad", True, True,
+     False),
+)
+MASK_BWD_KEYLESS = (0, 1, 150)      # batch, q head and row of the keyless row
+
+
+def flash_mask_bwd_case(case, dtype, rng):
+    """(q, k, v, do, mask, kwargs) of a MASK_BWD_CASES entry at ``dtype``
+    (head dim 64); v has a mean of ~2, so a keyless row averaged over the
+    wrong keys is far off."""
+    import torch
+    _, b, hq, hkv, sq, skv, kind, causal, segments, keyless = case
+    q, k, v, do = _flash_inputs((b, hq, hkv, sq, skv, 64), dtype, rng)
+    v = v + 2
+    if kind == "pad":
+        lens = torch.tensor(rng.integers(skv // 3, skv + 1, b), device="cuda")
+        keep = torch.arange(skv, device="cuda")[None] < lens[:, None]
+        mask = keep[:, None, None, :].expand(b, 1, sq, skv)
+    else:
+        shape = {"11": (1, 1), "b1": (b, 1), "1h": (1, hq)}[kind]
+        mask = torch.tensor(rng.random(shape + (sq, skv)) < 0.6,
+                            device="cuda")
+        n = min(sq, skv)
+        mask[..., torch.arange(n), torch.arange(n)] = True
+        if keyless:
+            mask[0, MASK_BWD_KEYLESS[1], MASK_BWD_KEYLESS[2]] = False
+    kw = dict(causal=causal, scale=0.125)
+    if segments:
+        seg = torch.tensor(pack_rows(rng, b, max(sq, skv))[0], device="cuda")
+        kw["segment_ids"] = (seg[:, :sq].contiguous(),
+                             seg[:, :skv].contiguous())
+    return q, k, v, do, mask, kw
+
+
+def mask_bwd_vs_plain(case, dtype, split, rng, errs=None):
+    """K1 + K2 (or K5 with ``split``) with a MASK_BWD_CASES mask against the
+    plain path: o, dq, dk, dv within the flash tolerances, one K2/K5 mask
+    launch counted; K5's dq, dk, dv equal across two runs bit for bit. With
+    the keyless row: a do on that row alone gives dv = that do at every key
+    of its kv head (p = 1 there, as the plain path's lse = the mask value
+    makes it), 0 elsewhere, and a nonzero dq on the row, within the same
+    tolerances. Returns the printed line."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    errs = errs if errs is not None else {dtype: 0.0}
+    q, k, v, do, mask, kw = flash_mask_bwd_case(case, dtype, rng)
+    tag = (f"flash mask backward {'K1+K5' if split else 'K1+K2'} {case[0]} "
+           f"b{case[1]} hq{case[2]}/{case[3]} {case[4]}x{case[5]} d64 "
+           f"{str(dtype)[6:]}")
+    fa = ops.flash_attention
+    want = _flash_fwd_bwd(q, k, v, do, plain=True, mask=mask, **kw)
+    before = fa.launches_bwd_mask
+    with _schedule(fused_bwd=not split):
+        got = _flash_fwd_bwd(q, k, v, do, plain=False, mask=mask, **kw)
+        again = (_flash_fwd_bwd(q, k, v, do, plain=False, mask=mask, **kw)
+                 if split else None)
+    if fa.launches_bwd_mask != before + (2 if split else 1):
+        raise AssertionError(f"(c) {tag}: mask backward launches not counted")
+    torch.cuda.synchronize()
+    line = _hold(tag, ("o", "dq", "dk", "dv"), got, want, dtype, errs)
+    if split:
+        if not all(torch.equal(x, y) for x, y in zip(got[1:], again[1:])):
+            raise AssertionError(f"(c) {tag}: K5's dq/dk/dv differ between "
+                                 "two runs")
+        line += "; dq, dk, dv bit-equal across two runs"
+    if case[-1]:
+        b0, h0, r0 = MASK_BWD_KEYLESS
+        do1 = torch.zeros_like(do)
+        do1[b0, h0, r0] = do[b0, h0, r0]
+        with _schedule(fused_bwd=not split):
+            got1 = _flash_fwd_bwd(q, k, v, do1, plain=False, mask=mask, **kw)
+        want1 = _flash_fwd_bwd(q, k, v, do1, plain=True, mask=mask, **kw)
+        torch.cuda.synchronize()
+        line += "; do on the keyless row alone: " + _hold(
+            tag, ("dq", "dk", "dv"), got1[1:], want1[1:], dtype, errs)
+        g = q.shape[1] // k.shape[1]
+        dv_want = torch.zeros_like(got1[3], dtype=torch.float32)
+        dv_want[b0, h0 // g] = do1[b0, h0, r0].float()
+        err = (got1[3].float() - dv_want).abs().max().item()
+        bound = _tol(dtype) * max(1.0, dv_want.abs().max().item())
+        dq_row = got1[1][b0, h0, r0].float().abs().max().item()
+        if not (err <= bound and dq_row > 1e-3):
+            raise AssertionError(f"(c) {tag}: the keyless row's dv is {err} "
+                                 f"from its do at every key (bound {bound}), "
+                                 f"its dq max |.| {dq_row}")
+        line += (f"; its dv {err:.2e} from its do at every key, its dq max "
+                 f"|.| {dq_row:.3f}")
+    return line
+
+
+def phase_flash_mask_bwd_vs_plain():
+    """K2 and K5 with the mask (head dim 64, fp32 and bf16) against the
+    plain path over MASK_BWD_CASES (mask_bwd_vs_plain); then the
+    combinations that are not built (a window, a softcap or a bias beside
+    the mask, head dims 128, 192 and 256) raise NotImplementedError naming
+    Queue 2 A before any launch. Returns the max abs errors (fp32, bf16)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    rng = np.random.default_rng(SEED + 45)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for case in MASK_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for split in (False, True):
+                line = mask_bwd_vs_plain(case, dtype, split, rng, errs)
+                n += 1
+                print(f"(c) {case[0]} {str(dtype)[6:]} "
+                      f"{'K5' if split else 'K2'}: max abs err / bound: "
+                      f"{line}")
+    before = (ops.flash_attention.launches_fwd,
+              ops.flash_attention.launches_bwd)
+    for what, kw in mask_bwd_unbuilt_calls(rng):
+        try:
+            kw.pop("call")()
+        except NotImplementedError as e:
+            if "Queue 2 A" not in str(e):
+                raise AssertionError(f"(c) mask backward {what}: {e}")
+        else:
+            raise AssertionError(f"(c) mask backward {what} did not raise")
+    if (ops.flash_attention.launches_fwd,
+            ops.flash_attention.launches_bwd) != before:
+        raise AssertionError("(c) a refused mask backward launched a kernel")
+    print(f"(c) flash mask backward: {n} cases pass; max abs err fp32 "
+          f"{errs[torch.float32]:.3e}, bf16 {errs[torch.bfloat16]:.3e}; a "
+          f"mask with gradients and a window, a softcap or a bias, or at "
+          f"head dim 128, 192 or 256, raises before any launch")
+    return errs[torch.float32], errs[torch.bfloat16]
+
+
+def mask_bwd_unbuilt_calls(rng):
+    """(what, {"call": a zero-argument call}) for each mask-backward
+    combination that is not built: each must raise NotImplementedError
+    naming Queue 2 A."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    out = []
+    for what, d, kw in (("with a window", 64, dict(causal=True, window=8)),
+                        ("with a softcap", 64, dict(softcap=5.0)),
+                        ("with a bias", 64, dict(bias=True)),
+                        ("at head dim 128", 128, {}),
+                        ("at head dim 192", 192, {}),
+                        ("at head dim 256", 256, {})):
+        q, k, v, _ = _flash_inputs((1, 2, 2, 64, 64, d), torch.float32, rng)
+        mask = torch.ones((1, 1, 64, 64), dtype=torch.bool, device="cuda")
+        if kw.get("bias"):
+            kw = dict(bias=torch.zeros((1, 2, 64, 64), device="cuda"))
+
+        def call(q=q, k=k, v=v, mask=mask, kw=kw):
+            return ops.flash_attention(q.requires_grad_(), k, v, mask=mask,
+                                       **kw)
+
+        out.append((what, {"call": call}))
+    return out
 
 
 # K1, K2 and K5 with the score bias: (name, b, hq, hkv, sq, skv, d, the bias's
@@ -5290,22 +5488,24 @@ def _t5_step0(t5, batch, seed, plain):
     return loss.item(), {n: g.detach().clone() for n, g in grads.items()}
 
 
-def _t5_counts():
+def _option_counts():
     """_launch_counts with the flash kernels' bias and mask counts."""
     from np_modeling_tpu_torch import ops
     f = ops.flash_attention
     return {**_launch_counts(), "flash_attention_fwd_bias": f.launches_fwd_bias,
             "flash_attention_bwd_bias": f.launches_bwd_bias,
             "flash_attention_fwd_mask": f.launches_fwd_mask,
-            "flash_attention_fwd_mask_fp32": f.launches_fwd_mask_fp32}
+            "flash_attention_fwd_mask_fp32": f.launches_fwd_mask_fp32,
+            "flash_attention_bwd_mask": f.launches_bwd_mask}
 
 
-def _zero_t5_counts():
+def _zero_option_counts():
     from np_modeling_tpu_torch import ops
     _zero_launch_counts()
     f = ops.flash_attention
     f.launches_fwd_bias = f.launches_bwd_bias = 0
     f.launches_fwd_mask = f.launches_fwd_mask_fp32 = 0
+    f.launches_bwd_mask = 0
 
 
 def _t5_train(t5, batches, steps):
@@ -5324,7 +5524,7 @@ def _t5_train(t5, batches, steps):
                                           src_valid=x["valid"]),
         lambda loss, _: loss, opt)
     gen = torch.Generator().manual_seed(1)
-    _zero_t5_counts()
+    _zero_option_counts()
     losses, seconds = [], []
     torch.cuda.synchronize()
     for i in range(steps):
@@ -5336,7 +5536,7 @@ def _t5_train(t5, batches, steps):
         losses.append(loss)
     losses = torch.stack(losses).tolist()
     del state
-    return losses, seconds, _t5_counts()
+    return losses, seconds, _option_counts()
 
 
 @contextlib.contextmanager
@@ -5656,13 +5856,13 @@ def phase_t5(device_line):
     torch.cuda.empty_cache()
 
     src, valid = (batches[1][key][:T5_DECODE_B] for key in ("src", "valid"))
-    _zero_t5_counts()
+    _zero_option_counts()
     with torch.no_grad():
         _decode_vs_plain(
             f"(y) t5-base fp32 greedy_decode of {T5_GREEDY}",
             lambda: twin.greedy_decode(src, 0, T5_GREEDY, src_valid=valid),
             twin, "_head")
-    launches["decode"] = _t5_counts()
+    launches["decode"] = _option_counts()
     want = T5_BASE["num_decoder_layers"] * T5_GREEDY
     got = (launches["decode"]["flash_attention_fwd_mask_fp32"],
            launches["decode"]["flash_attention_fwd_bias"])
@@ -5769,14 +5969,14 @@ def t5_sources(vocab, seed=SEED + 80):
 def _s2e_counts():
     from np_modeling_tpu_torch import ops
     p = ops.paged_attention
-    return {**_t5_counts(), "paged_attention": p.launches,
+    return {**_option_counts(), "paged_attention": p.launches,
             "paged_attention_bias": p.launches_bias,
             "paged_attention_split": p.launches_split}
 
 
 def _zero_s2e_counts():
     from np_modeling_tpu_torch import ops
-    _zero_t5_counts()
+    _zero_option_counts()
     p = ops.paged_attention
     p.launches = p.launches_bias = p.launches_split = 0
     p.launches_int8 = p.launches_window = 0
@@ -7464,14 +7664,389 @@ def phase_gpt_oss_serving(device_line):
     return res, keys, counts
 
 
-def main(phases="abcdefghijklmnopqrstuvwxyzABCD"):
+# (E) BERT-base: google-bert/bert-base-uncased's config.json
+# (https://huggingface.co/google-bert/bert-base-uncased) as the JAX package's
+# hf_compat.bert_config maps it: vocab 30522, d 768, 12 layers, 12 heads of
+# 64, FFN 3072 with the exact gelu, 512 positions, 2 token types, LayerNorm
+# eps 1e-12, post-norm; fp32 (BertConfig has no compute dtype, as in JAX).
+# Dropout 0.1 is HF's hidden_dropout_prob (the JAX mapping leaves it at 0).
+BERT_BASE = dict(vocab_size=30522, d_model=768, num_heads=12, num_layers=12,
+                 hidden_units=3072, max_len=512, activation="gelu_exact",
+                 ln_eps=1e-12, type_vocab_size=2, norm_first=False,
+                 num_classes=2)
+BERT_PARAMS = 109_482_240       # the bare encoder with its pooler
+BERT_PARAMS_CLS = 109_483_778   # with the 2-class classifier
+BERT_PARAMS_MLM = 110_106_428   # with the classifier and the MLM head
+BERT_DROP = 0.1
+BERT_B, BERT_S = 16, 512
+# Fine-tuning steps (the two masks in turn; the last under FUSED_BWD=False,
+# so K5 runs) and MLM steps, both adamw(BERT_LR) through make_train_step.
+BERT_FT_STEPS, BERT_MLM_STEPS, BERT_LR = 8, 4, 1e-4
+BERT_CLS, BERT_SEP, BERT_PAD, BERT_MASK = 101, 102, 0, 103
+
+
+def bert_base_config(drop_rate=0.0, mlm_head=True):
+    from np_modeling_tpu_torch.models import BertConfig
+    return BertConfig(**BERT_BASE, drop_rate=drop_rate, mlm_head=mlm_head)
+
+
+def bert_batch(seed):
+    """BERT_B rows of BERT_S seeded Zipf tokens, two sentences a row: [CLS]
+    a [SEP] b [SEP] [PAD]..., lengths 64..512 (row 0 the whole 512), the
+    first sentence len // 2 tokens with its [CLS] and [SEP]; token type 0
+    up to it, 1 for the second, 0 on padding (HF's); seeded 2-class labels.
+    Masks: HF's key padding [b, 1, 1, s] expanded to [b, 1, s, s] (a zero
+    stride on sq), and UniLM's sequence-to-sequence mask (Dong et al. 2019,
+    arXiv 1905.03197) with the padding, [b, 1, s, s]: row i sees key j iff
+    j < len and (j < src or j <= i), src = len // 2."""
+    import torch
+    rng = np.random.default_rng(seed)
+    b, s = BERT_B, BERT_S
+    toks = zipf_corpus(BERT_BASE["vocab_size"] - 1000, b, s,
+                       seed=int(rng.integers(2 ** 31))) + 1000
+    lens = rng.integers(64, s + 1, b)
+    lens[0] = s
+    src = lens // 2
+    col = np.arange(s)[None]
+    toks[:, 0] = BERT_CLS
+    toks[np.arange(b), src - 1] = BERT_SEP
+    toks[np.arange(b), lens - 1] = BERT_SEP
+    valid = col < lens[:, None]
+    toks = np.where(valid, toks, BERT_PAD)
+    types = ((col >= src[:, None]) & valid).astype(np.int64)
+    dev = dict(device="cuda")
+    keep = torch.tensor(valid, **dev)
+    j, i = torch.arange(s, **dev), torch.arange(s, **dev)[:, None]
+    srcs = torch.tensor(src, **dev)[:, None, None]
+    unilm = (keep[:, None, :] & ((j < srcs) | (j <= i)))[:, None]
+    return {"tokens": torch.tensor(toks, **dev),
+            "types": torch.tensor(types, **dev),
+            "valid": keep.to(torch.int32), "keep": keep,
+            "lens": lens, "src": src,
+            "labels": torch.tensor(rng.integers(0, 2, b), **dev),
+            "masks": {"padding": keep[:, None, None, :].expand(b, 1, s, s),
+                      "unilm": unilm}}
+
+
+def _bert_cls_loss(model, batch, mask, training=False, rngs=None):
+    """Sequence classification: softmax CE of BertEncoder.apply(mask=) on the
+    batch's labels, the mean over rows."""
+    from np_modeling_tpu_torch import ops
+    logits = model.apply(batch["tokens"], mask=mask, training=training,
+                         rngs=rngs, token_type_ids=batch["types"])
+    return ops.softmax_cross_entropy_with_integer_labels(
+        logits, batch["labels"]).mean()
+
+
+def _bert_step0(model, loss_fn, names, plain):
+    """Forward, backward and clip_by_global_norm(1.0) of ``loss_fn()`` over
+    the parameters ``names`` (kernels, or plain under force_plain())."""
+    from np_modeling_tpu_torch import training
+    from np_modeling_tpu_torch.ops import dispatch
+    model.zero_grad(set_to_none=True)
+    params = dict(model.named_parameters())
+    with dispatch.force_plain() if plain else contextlib.nullcontext():
+        loss = loss_fn()
+        loss.backward()
+        grads, _ = training.clip_by_global_norm(1.0).update(
+            {n: params[n].grad for n in names}, ())
+    return loss.item(), {n: g.detach().clone() for n, g in grads.items()}
+
+
+def _bert_train(model, names, batches, steps, loss_fn, fused_last=True):
+    """``steps`` adamw(BERT_LR) steps through training.make_train_step over
+    the parameters ``names``, batch i being ``batches[i % len]`` and
+    ``loss_fn(model, x, training, rngs)`` the objective (dropout from one
+    seeded generator); the last step under FUSED_BWD=``fused_last``.
+    Returns the losses and each step's seconds (host clock, synchronised)."""
+    import torch
+    from np_modeling_tpu_torch import training
+    params = {n: p for n, p in model.named_parameters() if n in names}
+    opt = training.adamw(BERT_LR)
+    state = opt.init(params)
+    step = training.make_train_step(
+        lambda x, training, rngs: loss_fn(model, x, training, rngs),
+        lambda loss, _: loss, opt)
+    gen = torch.Generator().manual_seed(SEED + 123)
+    losses, seconds = [], []
+    torch.cuda.synchronize()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        fused = fused_last or i < steps - 1
+        with _schedule(fused_bwd=fused):
+            params, state, loss = step(params, state,
+                                       batches[i % len(batches)], None, gen)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss)
+    return torch.stack(losses).tolist(), seconds
+
+
+def _bert_mask_timings(res, batch, device_line):
+    """K1 with the mask, K2 and K5 with the mask at (E)'s attention shape (b16
+    h12 s512 d64, its key-padding mask: [16, 1, 1, 512] expanded), fp32 (the
+    path's) and bf16: wall and device ms, kernel and plain (order plain,
+    kernel, kernel, plain), the bound (bytes: q, k, v, o, the mask's [16,
+    512] bytes once, and do, lse, di, dq, dk, dv backward; operations: 4 d a
+    (q, k) pair the mask keeps forward, 10 d backward, at 67 TFLOP/s fp32 or
+    989 bf16) and F.scaled_dot_product_attention with the same boolean
+    attn_mask, forward and autograd backward, the library call, also in
+    AB_ROUNDS rounds of SDPA, K, K, SDPA. Returns {(kernel, dtype): key}."""
+    import torch
+    import torch.nn.functional as F
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    rng = np.random.default_rng(SEED + 124)
+    b, h, s, d = BERT_B, BERT_BASE["num_heads"], BERT_S, 64
+    mask, keep = batch["masks"]["padding"], batch["keep"]
+    pairs = h * s * int(batch["lens"].sum()) * d
+    keys = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _flash_inputs((b, h, h, s, s, d), dtype, rng)
+        peak = PEAK_F32_S if dtype == torch.float32 else PEAK_BF16_S
+        lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+        kind = str(dtype)[6:]
+        shape = f"b{b} h{h} s{s} d{d} key-padding mask {kind}"
+
+        def fwd():
+            with torch.no_grad():
+                return ops.flash_attention(q, k, v, mask=mask)
+
+        def sdpa():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        name = keys[("K1", kind)] = f"flash forward mask bert {shape}"
+        _both(res, "E", name, fwd, device_line, runs=10)
+        _device_both(res, "E", name, fwd, device_line)
+        res["bound " + name] = _bound(_nbytes(q, k, v, q, keep), 4 * pairs,
+                                      peak)
+        res["library " + name] = _library(
+            "E", f"F.scaled_dot_product_attention(attn_mask=the boolean mask)"
+            f" forward {shape}", sdpa, device_line)
+        ab = _alternate(sdpa, fwd, _device_ms)
+        res["ab " + name] = [statistics.median(x) for x in ab]
+        print(f"(E) {name}: device time {_ab_line(ab, 'SDPA', 'K1')}; bound "
+              f"{res['bound ' + name][0]:.5f} ms ({res['bound ' + name][1]})"
+              f" [{device_line}]")
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+        def lib_bwd():
+            return torch.autograd.grad(o_lib, leaves, do, retain_graph=True)
+
+        lib = _library("E", f"F.scaled_dot_product_attention(attn_mask=the "
+                       f"boolean mask) autograd backward {shape}", lib_bwd,
+                       device_line)
+        with dispatch.force_plain():
+            o_plain = ops.flash_attention(*leaves, mask=mask)
+        bound = _bound(_nbytes(q, k, v, q, q, lse, lse, q, k, v, keep),
+                       10 * pairs, peak)
+        for kernel, fused in (("K2", True), ("K5", False)):
+            with _schedule(fused_bwd=fused):
+                o_kernel = ops.flash_attention(*leaves, mask=mask)
+
+            def bwd(o):
+                return lambda: torch.autograd.grad(o, leaves, do,
+                                                   retain_graph=True)
+
+            name = keys[(kernel, kind)] = (
+                f"flash backward{'' if fused else ' split'} mask bert "
+                f"{shape}")
+            _both(res, "E", name, bwd(o_kernel), device_line, runs=10,
+                  plain_fn=bwd(o_plain))
+            _device_both(res, "E", name, bwd(o_kernel), device_line,
+                         plain_fn=bwd(o_plain))
+            res["bound " + name] = bound
+            res["library " + name] = lib
+            ab = _alternate(lib_bwd, bwd(o_kernel), _device_ms)
+            res["ab " + name] = [statistics.median(x) for x in ab]
+            print(f"(E) {name}: device time {_ab_line(ab, 'SDPA', kernel)}; "
+                  f"bound {bound[0]:.5f} ms ({bound[1]}) [{device_line}]")
+        del leaves, o_lib, o_plain, o_kernel, q, k, v, do
+        torch.cuda.empty_cache()
+    return keys
+
+
+def phase_bert(device_line):
+    """(E) BERT-base (BERT_BASE) trained on the card at full width and all 12
+    layers, fp32, seeded random weights, on BERT_B rows of BERT_S tokens
+    (bert_batch). Step 0 (forward, backward, clip) with dropout off, through
+    the kernels against force_plain(), by (h)'s fp32 criteria (loss 1e-5,
+    each gradient's relative L2 error 1e-4): sequence classification through
+    BertEncoder.apply(mask=) with the key-padding mask (K1 + mask, K2 + mask)
+    and with UniLM's mask under FUSED_BWD=False (K1 + mask, K5 + mask), and
+    the MLM loss with attention_mask (segment ids: K1 and K2 kOptSeg). Then
+    the main path, counts set to 0 just before it and read just after, with
+    dropout 0.1 (K7): BERT_FT_STEPS classification steps through
+    make_train_step, the masks in turn, the last under FUSED_BWD=False; and
+    BERT_MLM_STEPS MLM steps on the batch corrupted by mlm_mask_tokens at
+    15%. Losses finite and falling (the classification loss as the mean of
+    its last two steps against its first two's), the launches a
+    step: 12 K1 with the mask (fp32), 12 K2 or K5 with the mask, and 12 K1 +
+    12 K2 with segment ids an MLM step. Prints ms a step and peak memory,
+    and the step's K1 / K2 / K5 device time by torch.profiler; then
+    _bert_mask_timings. Returns (results, keys, launches)."""
+    import torch
+    from np_modeling_tpu_torch import models
+    t_phase = time.perf_counter()
+    twin = models.BertEncoder(bert_base_config(), device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED + 120))
+    named = dict(twin.named_parameters())
+    n_all = sum(p.numel() for p in named.values())
+    n_cls = n_all - sum(p.numel() for n, p in named.items()
+                        if n.startswith("mlm_"))
+    n_bare = n_cls - sum(p.numel() for n, p in named.items()
+                         if n.startswith("classifier."))
+    print(f"(E) bert-base-uncased (config.json: vocab 30522, d 768, 12 "
+          f"layers, 12 heads of 64, FFN 3072 gelu_exact, 512 positions, 2 "
+          f"token types, LayerNorm eps 1e-12, post-norm), fp32: {n_bare} "
+          f"parameters (encoder and pooler), {n_cls} with the classifier, "
+          f"{n_all} with the MLM head too")
+    if (n_bare, n_cls, n_all) != (BERT_PARAMS, BERT_PARAMS_CLS,
+                                  BERT_PARAMS_MLM):
+        raise AssertionError("(E) parameter counts differ from bert-base's")
+    batch = bert_batch(SEED + 121)
+    print(f"(E) batch {BERT_B} x {BERT_S} Zipf tokens, lengths "
+          f"{batch['lens'].tolist()}, first sentences "
+          f"{batch['src'].tolist()}")
+    cls_names = [n for n in named if not n.startswith("mlm_")]
+    mlm_names = [n for n in named if not n.startswith(("pooler.",
+                                                       "classifier."))]
+    mlm_in, mlm_labels, mlm_w = models.mlm_mask_tokens(
+        torch.Generator(device="cuda").manual_seed(SEED + 122),
+        batch["tokens"], BERT_BASE["vocab_size"], BERT_MASK, 0.15,
+        (BERT_CLS, BERT_SEP, BERT_PAD))
+    print(f"(E) mlm_mask_tokens at 15%: {int(mlm_w.sum())} of "
+          f"{int(batch['valid'].sum())} tokens selected, "
+          f"{int((mlm_in == BERT_MASK).sum())} of them [MASK]")
+
+    def mlm_loss(model, x, training=False, rngs=None):
+        return model.mlm_loss(x["mlm_in"], x["mlm_labels"], x["mlm_w"],
+                              training, rngs, attention_mask=x["valid"])
+
+    batch.update(mlm_in=mlm_in, mlm_labels=mlm_labels, mlm_w=mlm_w)
+    for what, names, fused, masked, loss_fn in (
+            ("classification, the key-padding mask, K1 + K2", cls_names, True,
+             12, lambda: _bert_cls_loss(twin, batch,
+                                        batch["masks"]["padding"])),
+            ("classification, UniLM's mask, K1 + K5", cls_names, False, 12,
+             lambda: _bert_cls_loss(twin, batch, batch["masks"]["unilm"])),
+            ("MLM, attention_mask as segment ids, K1 + K2", mlm_names, True,
+             0, lambda: mlm_loss(twin, batch))):
+        lp, gp = _bert_step0(twin, loss_fn, names, plain=True)
+        _zero_option_counts()
+        with _schedule(fused_bwd=fused):
+            lk, gk = _bert_step0(twin, loss_fn, names, plain=False)
+        counts = _option_counts()
+        bwd = "flash_attention_bwd" if fused else "flash_attention_bwd_split"
+        want = {"flash_attention_fwd": 12, bwd: 12,
+                "flash_attention_bwd_mask": masked,
+                "flash_attention_fwd_mask_fp32": masked}
+        if {key: counts[key] for key in want} != want:
+            raise AssertionError(f"(E) step 0 {what}: launches {counts}")
+        _hold_fp32("(E) bert-base", what, lk, gk, lp, gp)
+        del gk, gp
+    print(f"(E) step-0 comparisons {time.perf_counter() - t_phase:.1f} s")
+
+    model = models.BertEncoder(bert_base_config(BERT_DROP), device="cuda")
+    model.load_state_dict(twin.state_dict())
+    del twin
+    torch.cuda.empty_cache()
+    batches = [dict(batch, mask=batch["masks"][kind])
+               for kind in ("padding", "unilm")]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_option_counts()
+    ft_losses, ft_s = _bert_train(
+        model, cls_names, batches, BERT_FT_STEPS,
+        lambda m, x, training, rngs: _bert_cls_loss(m, x, x["mask"],
+                                                    training, rngs),
+        fused_last=False)
+    ft_counts = _option_counts()
+    _zero_option_counts()
+    mlm_losses, mlm_s = _bert_train(model, mlm_names, [batch],
+                                    BERT_MLM_STEPS, mlm_loss)
+    mlm_counts = _option_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_ft, n_mlm = BERT_FT_STEPS, BERT_MLM_STEPS
+    want_ft = {"flash_attention_fwd": 12 * n_ft,
+               "flash_attention_fwd_mask_fp32": 12 * n_ft,
+               "flash_attention_bwd": 12 * (n_ft - 1),
+               "flash_attention_bwd_split": 12,
+               "flash_attention_bwd_mask": 12 * n_ft,
+               "flash_attention_fwd_dual": 0}
+    want_mlm = {"flash_attention_fwd": 12 * n_mlm,
+                "flash_attention_bwd": 12 * n_mlm,
+                "flash_attention_fwd_mask": 0, "flash_attention_bwd_mask": 0,
+                "flash_attention_bwd_split": 0}
+    for what, losses, secs, counts, want in (
+            ("classification (the masks in turn: key padding, UniLM; the "
+             "last step under FUSED_BWD=False)", ft_losses, ft_s, ft_counts,
+             want_ft),
+            ("MLM (attention_mask as segment ids)", mlm_losses, mlm_s,
+             mlm_counts, want_mlm)):
+        later = sorted(secs[1:])
+        print(f"(E) {len(losses)} {what} steps of adamw({BERT_LR}), dropout "
+              f"{BERT_DROP}: losses {[round(x, 5) for x in losses]}; step 0 "
+              f"{secs[0] * 1e3:.1f} ms, steps 1 to {len(secs) - 1} median "
+              f"{later[len(later) // 2] * 1e3:.1f} ms (min "
+              f"{later[0] * 1e3:.1f}, max {later[-1] * 1e3:.1f}; the host's "
+              f"clock, synchronised a step); launches {counts} "
+              f"[{device_line}]")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"(E) loss not finite: {losses}")
+        got = {key: counts[key] for key in want}
+        if got != want or not counts["dropout"] \
+                or not counts["layer_norm_bwd"]:
+            raise AssertionError(f"(E) {what}: launches {counts}, expected "
+                                 f"{want} and K7, K8")
+    # The masks take turns: the mean of the last two steps (one of each)
+    # against the mean of the first two.
+    if not sum(ft_losses[-2:]) < sum(ft_losses[:2]):
+        raise AssertionError(f"(E) classification loss did not fall: "
+                             f"{ft_losses}")
+    if not mlm_losses[-1] < mlm_losses[0]:
+        raise AssertionError(f"(E) MLM loss did not fall: {mlm_losses}")
+    print(f"(E) peak device memory {peak:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) over the {n_ft + n_mlm} steps")
+
+    def fb(mask_kind, fused):
+        def run():
+            model.zero_grad(set_to_none=True)
+            with _schedule(fused_bwd=fused):
+                _bert_cls_loss(model, batch, batch["masks"][mask_kind],
+                               True, {"dropout": 5}).backward()
+        return run
+
+    for mask_kind, fused, kernel in (("padding", True, "K2"),
+                                     ("unilm", False, "K5")):
+        parts = _kernel_split_ms(fb(mask_kind, fused), (
+            "flash_fwd_f32", "flash_bwd_f32", "flash_bwd_dq_f32"), calls=2)
+        shown = {key: "not measured" if ms is None else f"{ms:.3f} ms"
+                 for key, ms in parts.items()}
+        dq = "" if fused else f" + dq kernel {shown['flash_bwd_dq_f32']}"
+        print(f"(E) a classification step's forward and backward with the "
+              f"{mask_kind} mask, {kernel}: device time by torch.profiler "
+              f"over its 12 layers, K1 + mask {shown['flash_fwd_f32']}, "
+              f"{kernel} + mask {shown['flash_bwd_f32']}{dq} "
+              f"[{device_line}]")
+    model.zero_grad(set_to_none=True)
+    res = {}
+    keys = _bert_mask_timings(res, batch, device_line)
+    del model
+    torch.cuda.empty_cache()
+    print(f"(E) bert phase {time.perf_counter() - t_phase:.1f} s")
+    return res, keys, {"ft": ft_counts, "mlm": mlm_counts}
+
+
+def main(phases="abcdefghijklmnopqrstuvwxyzABCDE"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
     runs the quantized serving path alone, ``"abcqrw"`` Gemma-2 serving and
     generate, ``"abcst"`` Gemma-2 training, ``"abcuvx"`` GPT-2's serving
     features, ``"abcyz"`` T5 and Seq2Seq, ``"abcA"`` T5 serving, ``"abcB"``
     DeepSeek-V2-Lite serving, ``"abcC"`` DeepSeek-V2-Lite training,
-    ``"abcD"`` gpt-oss-20b serving); the JSON summary and the ok line come
-    only from a run of every phase."""
+    ``"abcD"`` gpt-oss-20b serving, ``"abcE"`` BERT-base training); the
+    JSON summary and the ok line come only from a run of every phase."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -7503,6 +8078,7 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCD"):
     sched_err = phase_flash_schedules_vs_plain()
     phase_flash_no_key_vs_plain()
     mask_err = phase_flash_mask_vs_plain()
+    mask_bwd_err = phase_flash_mask_bwd_vs_plain()
     bias_err = phase_flash_bias_vs_plain()
     opt_err = phase_flash_options_vs_plain()
     fused_err = phase_fused_vs_plain()
@@ -7513,7 +8089,7 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCD"):
     since("(c)")
     serving = training_res = entry_res = quant_res = forced_res = None
     packed_res = gemma_res = gemma_train_res = mask_res = t5_res = None
-    s2e_res = dsv2_res = mla_res = oss_res = None
+    s2e_res = dsv2_res = mla_res = oss_res = bert_res = None
     gemma_gen_launches = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
@@ -7637,11 +8213,14 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCD"):
     if "D" in phases:
         oss_res, oss_keys, oss_launches = phase_gpt_oss_serving(device_line)
         since("(D)")
+    if "E" in phases:
+        bert_res, bert_keys, bert_launches = phase_bert(device_line)
+        since("(E)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
     if None in (serving, training_res, entry_res, quant_res, forced_res,
                 packed_res, gemma_res, gemma_train_res, mask_res,
                 gemma_gen_launches, t5_res, s2e_res, dsv2_res, mla_res,
-                oss_res) \
+                oss_res, bert_res) \
             or "z" not in phases:
         return 0
     packed_shape = "b8 h12 s1024 d64 causal bf16"
@@ -7813,6 +8392,23 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCD"):
                  ("local", oss_launches["paged_attention_window"]),
                  ("global", oss_launches["paged_attention_sinks"]
                   - oss_launches["paged_attention_window"]))]
+    # (E): K1 with the mask and K2 / K5 with the mask on BERT-base's fp32
+    # classification steps (12 a step: K2 on 5 steps, K5 on the last), timed
+    # at its attention shape with the key-padding mask; each row also carries
+    # the same timings in bf16 ("bf16"), whose kernels the path does not run.
+    ft = bert_launches["ft"]
+    bert_rows = (("fwd_mask_bert", "K1", 756,
+                  ft["flash_attention_fwd_mask_fp32"], mask_err),
+                 ("bwd_mask", "K2", 1100, ft["flash_attention_bwd"],
+                  mask_bwd_err),
+                 ("bwd_split_mask", "K5", 983, ft["flash_attention_bwd_split"],
+                  mask_bwd_err))
+    rows += [(f"flash_attention_{name}", FLASH_SOURCE,
+              f"np_modeling_tpu/ops/attention.py:{line}", launches, err,
+              bert_res, bert_keys[(kernel, "float32")])
+             for name, kernel, line, launches, err in bert_rows]
+    bert_bf16 = {f"flash_attention_{name}": bert_keys[(kernel, "bfloat16")]
+                 for name, kernel, *_ in bert_rows}
     # "ms": a call's wall time (CUDA events, host included), every entry;
     # "device_ms": calls back to back behind a sleep kernel (device only);
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its
@@ -7850,6 +8446,17 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCD"):
             kernels[-1].update({f"launches_{s}": quant_launches[
                 f"int8_matmul_{s}"] for s in ("skinny", "wide", "simple")})
             kernels[-1]["launches_at_shape"] = k4_at_shape[key]
+        if name in bert_bf16:   # (E): the same timings in bf16
+            k16 = bert_bf16[name]
+            ms16, lib16 = res[k16], res["library " + k16]
+            kernels[-1]["bf16"] = {
+                "shape": k16, "ms": ms16[0], "plain_ms": ms16[1],
+                "device_ms": ms16[2], "plain_device_ms": ms16[3],
+                "bound_ms": res["bound " + k16][0],
+                "bound_by": res["bound " + k16][1], "library_ms": lib16[0],
+                "library_device_ms": lib16[1],
+                "library_device_ms_in_turns": res["ab " + k16][0],
+                "device_ms_in_turns": res["ab " + k16][1]}
         if "schedule " + key in res:  # K10: the timed call's schedule
             kernels[-1]["schedule"] = res["schedule " + key]
             kernels[-1]["launches_by_schedule"] = forced_launches[

@@ -70,8 +70,8 @@
 // Tiles outside the band are never loaded. The cap uses tanhf (the fp32 path is
 // held to 1e-4 relative; tanh.approx.f32 would not keep that).
 //
-// The user mask (kOptMask, the forwards K1 and fp32 only; JAX's mask tile,
-// _tile_mask :454-507): a boolean [b|1, hq|1, sq, skv] (uint8 here, nonzero =
+// The user mask (kOptMask; JAX's mask tile, _tile_mask :454-511, in every forward
+// and backward tile): a boolean [b|1, hq|1, sq, skv] (uint8 here, nonzero =
 // attend; h counts q heads), applied after scale, softcap and the structural
 // masks, on every kv tile (the interior shortcut is off, and causal and the window
 // skip no tile). A masked score takes the mask value, so a row that the mask leaves
@@ -79,11 +79,24 @@
 // P6's rule. Each
 // thread reads its own scores' bytes by the mask's strides (plain loads, issued
 // while the tile's q.k^T runs): broadcast dims are zero-stride views, which a TMA
-// map cannot describe, and a decode step's mask is one row. It is instantiated
-// beside the window and the softcap only; the caller merges segment ids into it.
-// Dense KV-cache decode (sq = 1 and a [1|b, 1, 1, L] mask of the written slots)
-// runs here: a 128-row q tile with one real row, whose q box TMA fills with
+// map cannot describe, and a decode step's mask is one row. In the forwards it is
+// instantiated beside the window and the softcap only; the caller merges segment ids
+// into it. Dense KV-cache decode (sq = 1 and a [1|b, 1, 1, L] mask of the written
+// slots) runs here: a 128-row q tile with one real row, whose q box TMA fills with
 // zeros past sq, and whose stores stop at sq.
+// The backwards (K2, both of K5's kernels) take the mask alone at head dim 64 (causal
+// is a run-time flag), fp32 and bf16. They recompute p = exp(s - lse) with the
+// forward's lse, and on a row that no key sees that lse is the mask value (mask +
+// log(skv) rounds to it in fp32), so p is 1 at every key, masked ones and those
+// above the diagonal included: such a row gives dv = do at every key and a nonzero
+// dq, as the plain path does. So under the mask no q tile is skipped for a kv tile
+// (q_tiles, q_band) and no kv tile for a q tile (kv_tiles), every tile is an edge
+// tile (edge_of), and the interior exp2 shortcut, whose lse * log2(e) would be -inf
+// on such a row, never runs. The bf16 dk/dv kernel's tile is s^T = k q^T: a thread's
+// consecutive scores step along q rows there, and it reads its 32 bytes by (row,
+// key) while the two products run (mask_bits_t); K5's dq kernel has K1's layout and
+// reads them as K1 does (mask_bits_of); the fp32 kernels read each byte beside its
+// score (mask_at).
 //
 // The score bias (kOptBias, every kernel; JAX's bias tile, _fwd_tile :784-785,
 // _dq_tile :1013-1023, _dkvq_tile :1134-1147): an fp32 [b|1, hq|1, sq, skv]
@@ -157,7 +170,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kOptSeg = 1;  // segment ids
 constexpr int kOptWin = 2;  // a sliding window (causal only)
 constexpr int kOptCap = 4;  // a logit softcap
-constexpr int kOptMask = 8; // a boolean mask (K1 and the fp32 forward only)
+constexpr int kOptMask = 8; // a boolean mask (the forwards; the backwards at d 64 alone)
 constexpr int kOptBias = 16; // an additive fp32 score bias (and dbias)
 
 struct Strides {  // element strides of a [b, h, s, d] tensor; d is contiguous
@@ -202,13 +215,14 @@ __device__ __forceinline__ void load_seg(int* dst, const int* seg, long long str
 
 // The score of q row `row` and key `col` from their raw product q . k: scaled;
 // with kOptCap capped (cap_grad = 1 - t^2, the cap's derivative); with kOptBias
-// plus `bias`; the mask value where bounds, causality, the window or (kOptSeg)
-// the segment ids row_ids[ri] != col_ids[ci] mask it. The ids are read only
-// with kOptSeg.
+// plus `bias`; the mask value where bounds, causality, the window, (kOptSeg)
+// the segment ids row_ids[ri] != col_ids[ci] or (kOptMask) the user mask
+// (`masked`, read by the caller: mask_at, mask_bits_t) mask it. The ids are
+// read only with kOptSeg.
 template <int kOpt>
 __device__ __forceinline__ float score(const Params& p, float raw, int row, int col,
                                        const int* row_ids, int ri, const int* col_ids, int ci,
-                                       float& cap_grad, float bias = 0.f) {
+                                       float& cap_grad, float bias = 0.f, bool masked = false) {
   float x = raw * p.scale;
   if constexpr ((kOpt & kOptCap) != 0) {
     const float t = tanhf(x * p.inv_softcap);
@@ -219,7 +233,22 @@ __device__ __forceinline__ float score(const Params& p, float raw, int row, int 
   bool out = row >= p.sq || col >= p.skv || (p.causal && col > row);
   if constexpr ((kOpt & kOptWin) != 0) out = out || col <= row - p.window;
   if constexpr ((kOpt & kOptSeg) != 0) out = out || row_ids[ri] != col_ids[ci];
+  if constexpr ((kOpt & kOptMask) != 0) out = out || masked;
   return out ? kMaskValue : x;
+}
+
+// kOptMask: the user mask of head (bb, hh) (its base), read by its strides.
+__device__ __forceinline__ const uint8_t* mask_base(const Params& p, int bb, int hh) {
+  return p.mask + bb * p.mask_b + hh * p.mask_h;
+}
+
+// kOptMask: does the user mask mask (row, col)? Read only for a row < sq and a key
+// < skv (the bounds mask the others anyway).
+template <int kOpt>
+__device__ __forceinline__ bool mask_at(const Params& p, const uint8_t* base, int row, int col) {
+  if constexpr ((kOpt & kOptMask) != 0)
+    return row < p.sq && col < p.skv && __ldg(base + row * p.mask_q + col * p.mask_k) == 0;
+  return false;
 }
 
 // kOptBias: the bias of head (bb, hh) (its base) at (row, col), read by its
@@ -265,10 +294,12 @@ __device__ __forceinline__ int2 kv_tiles(const Params& p, int q0) {
 
 // The q tiles [x, y) of T rows whose rows see keys [kv0, kv0 + T): with causal
 // from the diagonal, and with a window up to the tile of row kv0 + T - 1 + W - 1.
+// With the user mask all of them: a row that the mask leaves without a key has p = 1
+// at every key, those above the diagonal included.
 template <int T, int kOpt>
 __device__ __forceinline__ int2 q_tiles(const Params& p, int kv0) {
   const int n = (p.sq + T - 1) / T;
-  if (!p.causal) return make_int2(0, n);
+  if (!p.causal || (kOpt & kOptMask) != 0) return make_int2(0, n);
   const int end = (kOpt & kOptWin) != 0 ? min(n, (kv0 + T + p.window - 2) / T + 1) : n;
   return make_int2(kv0 / T, end);
 }
@@ -350,13 +381,31 @@ struct BwdSmem {
 };
 
 // The q tiles [x, y) of kTile rows whose rows see keys [kv0, kv0 + KV): with causal
-// from the diagonal, and with a window up to the tile of row kv0 + KV - 1 + W - 1.
+// from the diagonal, and with a window up to the tile of row kv0 + KV - 1 + W - 1;
+// with the user mask all of them (see q_tiles).
 template <int KV, int kOpt>
 __device__ __forceinline__ int2 q_band(const Params& p, int kv0) {
   const int n = (p.sq + kTile - 1) / kTile;
-  if (!p.causal) return make_int2(0, n);
+  if (!p.causal || (kOpt & kOptMask) != 0) return make_int2(0, n);
   const int end = (kOpt & kOptWin) != 0 ? min(n, (kv0 + KV + p.window - 2) / kTile + 1) : n;
   return make_int2(kv0 / kTile, end);
+}
+
+// kOptMask, the bf16 dk/dv kernel at d 64 / 128: the user mask of this thread's 32
+// scores of s^T (an m64n64 accumulator: kv rows kv0 + kr + g (+ 8), q rows q0 + 8 j +
+// 2 t (+ 1)) as bits, bit i for s[i], read while the tile's products run.
+template <int kOpt>
+__device__ __forceinline__ uint32_t mask_bits_t(const Params& p, const uint8_t* mbase, int q0,
+                                                int kv0, int kr, int g, int t) {
+  uint32_t bits = 0;
+  if constexpr ((kOpt & kOptMask) != 0) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int kl = kr + g + 8 * ((i >> 1) & 1), ql = 8 * (i >> 2) + 2 * t + (i & 1);
+      if (mask_at<kOpt>(p, mbase, q0 + ql, kv0 + kl)) bits |= 1u << i;
+    }
+  }
+  return bits;
 }
 
 // Rows [0, ROWS) of a [rows][D] bf16 tile into SW128 column blocks of ROWS rows
@@ -581,6 +630,9 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
     // With the bias and the cap, p^T alone for dbias (s keeps p^T (1 - t^2)).
     constexpr bool kKeepP = (kOpt & kOptBias) != 0 && (kOpt & kOptCap) != 0 && kDq;
     float pk[32];
+    // kOptMask: head hh's user mask.
+    const uint8_t* mbase = nullptr;
+    if constexpr ((kOpt & kOptMask) != 0) mbase = mask_base(p, bb, hh);
     if constexpr (!kSplitD) {
       // s^T = k q^T and dp^T = v do^T (m64n64, K = d) for this warpgroup's rows, in
       // two groups: p^T is formed while dp^T is still in flight, and dv += p^T do
@@ -596,6 +648,7 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
         wg::wgmma_ss<0, 0>(dp, wg::desc(v_s + kv_off(kd, w), 16, 1024),
                            wg::desc(do_s + q_off(kd), 16, 1024), kd > 0);
       wg::commit();
+      const uint32_t mbits = mask_bits_t<kOpt>(p, mbase, q0, kv0, kr, g, t);
       wg::wait<1>();
       wg::fence_acc(s);
       // p^T = exp(s^T - lse) into ap (bf16); s keeps p^T (* 1 - t^2) for ds^T.
@@ -607,7 +660,8 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
           const int kl = kr + g + 8 * ((i >> 1) & 1), ql = 8 * (i >> 2) + 2 * t + e;
           float cap_grad;
           const float x = score<kOpt>(p, s[i + e], q0 + ql, kv0 + kl, seg_q, ql, seg_kv, kl,
-                                      cap_grad, bias_at<kOpt>(p, bbase, q0 + ql, kv0 + kl));
+                                      cap_grad, bias_at<kOpt>(p, bbase, q0 + ql, kv0 + kl),
+                                      ((mbits >> (i + e)) & 1u) != 0);
           pe[e] = expf(x - lse_s[ql]);
           if constexpr (kKeepP) pk[i + e] = pe[e];
           s[i + e] = (kOpt & kOptCap) != 0 ? pe[e] * cap_grad : pe[e];
@@ -696,7 +750,8 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_bf16(const Params p) {
             const int kl = rw + g + 8 * (e >> 1), ql = 8 * j + 2 * t + (e & 1);
             float cap_grad;
             const float x = score<kOpt>(p, s[i], q0 + ql, kv0 + kl, seg_q, ql, seg_kv, kl,
-                                        cap_grad, bias_at<kOpt>(p, bbase, q0 + ql, kv0 + kl));
+                                        cap_grad, bias_at<kOpt>(p, bbase, q0 + ql, kv0 + kl),
+                                        mask_at<kOpt>(p, mbase, q0 + ql, kv0 + kl));
             const float pe = expf(x - lse_s[ql]);
             float d = pe * (dp[i] - di_s[ql]);
             if constexpr (kDq) store_dbias<kOpt>(p, dbase, q0 + ql, kv0 + kl, d);
@@ -1244,13 +1299,15 @@ struct DqSmem {
 // place, times the cap's derivative 1 - t^2 with kOptCap; the mask on edge tiles only.
 // lse2: lse * log2(e), used on interior tiles only (there lse is real). kOptBias: the
 // bias (bbase, see bias_base) added after the cap on every tile, and s keeps p alone,
-// the cap's derivative going to cg (dbias is p (dp - di), before it).
+// the cap's derivative going to cg (dbias is p (dp - di), before it). mbits
+// (kOptMask): bit i set where the user mask masks s[i] (see mask_bits_of); with the
+// mask every tile is an edge tile.
 template <int R, int kOpt>
 __device__ __forceinline__ void dq_probs(const Params& p, float (&s)[R], float (&cg)[R],
                                          bool edge, int row0, int col0,
                                          const float (&lse)[2], const float (&lse2)[2],
                                          const int (&q_ids)[2], const int (&kv_ids)[R / 2],
-                                         const float* bbase) {
+                                         const float* bbase, uint64_t mbits) {
   constexpr float kLog2e = 1.4426950408889634f;
   if (edge || (kOpt & (kOptCap | kOptBias)) != 0) {
 #pragma unroll
@@ -1272,6 +1329,7 @@ __device__ __forceinline__ void dq_probs(const Params& p, float (&s)[R], float (
         if constexpr ((kOpt & kOptWin) != 0) out = out || col <= row - p.window;
         if constexpr ((kOpt & kOptSeg) != 0)
           out = out || q_ids[h] != kv_ids[2 * (i >> 2) + (i & 1)];
+        if constexpr ((kOpt & kOptMask) != 0) out = out || ((mbits >> i) & 1u) != 0;
         x = out ? kMaskValue : x;
       }
       s[i] = wg::exp2_approx((x - lse[h]) * kLog2e) * cap_grad;
@@ -1377,9 +1435,10 @@ __global__ void __launch_bounds__(384, 1)
     kv_seg = p.kv_seg + bb * p.seg_kv_b;
   }
   // Does tile kv0 need the mask for any of this warpgroup's rows? (Rows past sq read
-  // q and do as zeros, lse and di as 0: their ds = p (0 - 0) is 0 unmasked too.)
+  // q and do as zeros, lse and di as 0: their ds = p (0 - 0) is 0 unmasked too.) With
+  // the user mask every tile does: a row without a key has lse = the mask value.
   auto edge_of = [&](int kv0) {
-    if constexpr ((kOpt & kOptSeg) != 0) return true;
+    if constexpr ((kOpt & (kOptSeg | kOptMask)) != 0) return true;
     bool e = kv0 + KV > p.skv || (p.causal && kv0 + KV - 1 > r0);
     if constexpr ((kOpt & kOptWin) != 0) e = e || kv0 <= r0 + 63 - p.window;
     return e;
@@ -1391,6 +1450,8 @@ __global__ void __launch_bounds__(384, 1)
     bbase = bias_base(p, bb, hh);
     dbase = dbias_base(p, bb, hh);
   }
+  const uint8_t* mbase = nullptr;
+  if constexpr ((kOpt & kOptMask) != 0) mbase = mask_base(p, bb, hh);
 
   float dq[A::kNO][A::kON];
 #pragma unroll
@@ -1415,13 +1476,14 @@ __global__ void __launch_bounds__(384, 1)
     wg::commit();
     int kv_ids[R / 2];
     kv_ids_of<R, kOpt>(kv_ids, p, kv_seg, kv0 + 2 * t);
+    const uint64_t mbits = mask_bits_of<R, kOpt>(p, mbase, row0, kv0 + 2 * t);
     wg::wait<1>();  // s has landed, and the previous tile's dq product is done
     wg::fence_acc(s);
     fence_o<D>(dq);
     fence_a(pa);
     if (leader && i > 0) wg::mbar_arrive(&k_empty[slot ^ 1]);
     dq_probs<R, kOpt>(p, s, cg, edge_of(kv0), row0, kv0 + 2 * t, lse, lse2, q_ids, kv_ids,
-                      bbase);
+                      bbase, mbits);
     wg::wait<0>();  // dp has landed
     wg::fence_acc(dp);
     if (leader) wg::mbar_arrive(&v_empty[slot]);
@@ -1686,6 +1748,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_f32(const Params p) {
     bbase = bias_base(p, bb, hh);
     if constexpr (kDq) dbase = dbias_base(p, bb, hh);
   }
+  const uint8_t* mbase = nullptr;
+  if constexpr ((kOpt & kOptMask) != 0) mbase = mask_base(p, bb, hh);
   load_rows<float, D, LD, T, kThreads>(ks, k + kv0 * p.st_k.s, p.st_k.s, p.skv - kv0);
   load_rows<float, D, LD, T, kThreads>(vs, v + kv0 * p.st_v.s, p.st_v.s, p.skv - kv0);
   if (kOpt & kOptSeg)
@@ -1719,7 +1783,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_f32(const Params p) {
       const int ql = P * j + h;
       float cap_grad;
       const float sc = score<kOpt>(p, x[j], q0 + ql, col, seg, ql, seg_kv, c, cap_grad,
-                                   bias_at<kOpt>(p, bbase, q0 + ql, col));
+                                   bias_at<kOpt>(p, bbase, q0 + ql, col),
+                                   mask_at<kOpt>(p, mbase, q0 + ql, col));
       pt[c * LP + ql] = expf(sc - lse_s[ql]);
       if constexpr ((kOpt & kOptCap) != 0) dst_t[c * LP + ql] = cap_grad;
     }
@@ -1816,6 +1881,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(const Params p) {
     bbase = bias_base(p, bb, hh);
     dbase = dbias_base(p, bb, hh);
   }
+  const uint8_t* mbase = nullptr;
+  if constexpr ((kOpt & kOptMask) != 0) mbase = mask_base(p, bb, hh);
 
   float acc[HD];
 #pragma unroll
@@ -1839,7 +1906,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(const Params p) {
       const int cl = P * j + h;
       float cap_grad;
       const float x = score<kOpt>(p, pr[j], row, kv0 + cl, seg, r, seg + T, cl, cap_grad,
-                                  bias_at<kOpt>(p, bbase, row, kv0 + cl));
+                                  bias_at<kOpt>(p, bbase, row, kv0 + cl),
+                                  mask_at<kOpt>(p, mbase, row, kv0 + cl));
       float d = expf(x - lse) * (dp[j] - di);
       store_dbias<kOpt>(p, dbase, row, kv0 + cl, d);
       if constexpr ((kOpt & kOptCap) != 0) d *= cap_grad;
@@ -1903,6 +1971,20 @@ int with_fwd_opt(int opt, F&& f) {
       return f(std::integral_constant<int, kOptMask | kOptWin | kOptCap>());
   }
   if (opt & kOptMask) return static_cast<int>(cudaErrorInvalidValue);
+  return with_opt(opt, f);
+}
+
+// with_opt for the backwards, which take the mask alone at head dim 64 (BERT's heads;
+// the caller merges segment ids into it): K2 and K5's two kernels, fp32 and bf16, six
+// instantiations. The mask with a window, a softcap, a bias or at another head dim is
+// refused here and, before any launch, by the caller.
+template <int D, typename F>
+int with_bwd_opt(int opt, F&& f) {
+  if (opt & kOptMask) {
+    if constexpr (D == 64)
+      if (opt == kOptMask) return f(std::integral_constant<int, kOptMask>());
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return with_opt(opt, f);
 }
 
@@ -2095,7 +2177,7 @@ int launch_bwd(const Params& p, int dtype, int split, cudaStream_t s) {
     return with_mla_opt(opt, run);
   } else {
     if (opt & kOptBias) return with_bias_opt<D, false>(opt, run);
-    return with_opt(opt, run);
+    return with_bwd_opt<D>(opt, run);
   }
 }
 
@@ -2105,10 +2187,10 @@ int launch_bwd(const Params& p, int dtype, int split, cudaStream_t s) {
 // 128, 192 (no option but segment ids; K12 none) or 256. strides: 24 element
 // strides, (b, h, s) of q, k, v and do, in that
 // order (the forward reads the first 9), then (b, s) of q_seg and of kv_seg,
-// then (b, h, q, k) of the mask (the forward only), then (b, h, q, k) of the
-// bias. q_seg/kv_seg: int32 segment ids, both null for none. mask (the
-// forward only): uint8 [b|1, hq|1, sq, skv], nonzero = attend, null for none;
-// not with segment ids (the caller merges them into it). bias: fp32 [b|1, hq|1,
+// then (b, h, q, k) of the mask, then (b, h, q, k) of the bias. q_seg/kv_seg:
+// int32 segment ids, both null for none. mask: uint8 [b|1, hq|1, sq, skv],
+// nonzero = attend, null for none; not with segment ids (the caller merges them
+// into it); in the backward alone at d 64. bias: fp32 [b|1, hq|1,
 // sq, skv], null for none; with it the backward writes dbias (fp32 [b, hq, sq,
 // skv], zeroed by the caller under causal; null: not stored). window: 0 for none, else
 // W >= 1 (causal only). softcap: 0 for none, else the cap > 0. Outputs and
@@ -2146,8 +2228,9 @@ extern "C" int np_flash_attention_fwd(const void* q, const void* k, const void* 
 
 extern "C" int np_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* dout, const float* lse, const float* di,
-                                      const int* q_seg, const int* kv_seg, const float* bias,
-                                      void* dq, void* dk, void* dv, float* dbias,
+                                      const int* q_seg, const int* kv_seg, const uint8_t* mask,
+                                      const float* bias, void* dq, void* dk, void* dv,
+                                      float* dbias,
                                       const long long* strides, int dtype, int b,
                                       int hq, int hkv, int sq, int skv, int d, int causal,
                                       int split, int window, float scale, float softcap,
@@ -2164,6 +2247,7 @@ extern "C" int np_flash_attention_bwd(const void* q, const void* k, const void* 
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
+  p.mask = mask;
   p.bias = bias;
   p.dbias = dbias;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -104,7 +104,8 @@ class GPTConfig:
 # value; rope_scaling is None or a ("yarn", ...) tuple.
 _PORTED = {"positional": ("learned", "rope"), "norm": ("layer", "rms"),
            "ffn": ("mlp", "swiglu", "geglu", "glu_clamp"),
-           "activation": ("relu", "gelu"), "norm_first": (True,),
+           "activation": ("relu", "gelu", "gelu_exact"),
+           "norm_first": (True,),
            "tie_embeddings": (True, False), "lm_head_bias": (False,),
            "scan_layers": (False,),
            "attn_sinks": (False, True), "qk_norm": (False,),

@@ -5,8 +5,8 @@ backwards, and the wrappers of the hand-written CUDA kernels
 from np_modeling_tpu_torch.ops import dispatch, fused
 from np_modeling_tpu_torch.ops.fused import (
     softmax_cross_entropy_fused, softmax_cross_entropy_fused_reference)
-from np_modeling_tpu_torch.ops.activations import (gelu, get_activation,
-                                                   relu, silu)
+from np_modeling_tpu_torch.ops.activations import (gelu, gelu_exact,
+                                                   get_activation, relu, silu)
 from np_modeling_tpu_torch.ops.attention import (attention_reference,
                                                  flash_attention)
 from np_modeling_tpu_torch.ops.embedding import embedding_lookup
@@ -35,8 +35,9 @@ __all__ = ["QuantizedTensor", "WEIGHT_QUANT_TARGETS", "apply_rope",
            "cross_entropy_probs", "dequantize_int8", "dequantize_params",
            "dispatch", "dropout", "dropout_with_mask", "embedding_lookup",
            "flash_attention", "fused", "fused_lm_head_loss", "gelu",
-           "get_activation", "int8_matmul", "int8_matmul_reference",
-           "layer_norm", "linear", "make_dropout_mask", "matmul",
+           "gelu_exact", "get_activation", "int8_matmul",
+           "int8_matmul_reference", "layer_norm", "linear",
+           "make_dropout_mask", "matmul",
            "matmul_reference", "mse", "paged_attention",
            "paged_attention_reference", "paged_attention_split_reference",
            "quantize_int8",

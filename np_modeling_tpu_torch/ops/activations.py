@@ -4,8 +4,10 @@ Counterpart of np_modeling_tpu/ops/activations.py. ``relu`` passes the
 gradient where x >= 0, x == 0 included (the reference framework's
 convention, JAX :30-32); ``torch.relu``'s own backward does not, so relu is
 a Function here. ``gelu`` is the tanh approximation (HF ``gelu_new``),
-computed in the input's dtype as the JAX op does. ``silu`` is
-``x * sigmoid(x)`` (JAX :126-140), the swiglu FFN's gate.
+computed in the input's dtype as the JAX op does. ``gelu_exact`` is the
+erf form ``x Phi(x)`` (HF ``hidden_act="gelu"``: BERT, GPT-NeoX; JAX
+:96-122), its backward ``Phi(x) + x phi(x)`` written by hand as JAX's.
+``silu`` is ``x * sigmoid(x)`` (JAX :126-140), the swiglu FFN's gate.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import torch
 
 _GELU_C = 0.7978845608028654  # sqrt(2/pi)
+_INV_SQRT2 = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
 
 
 class _Relu(torch.autograd.Function):
@@ -46,6 +50,21 @@ class _Gelu(torch.autograd.Function):
         return dy * (0.5 * (1.0 + t) + 0.5 * x * sech2 * dinner)
 
 
+class _GeluExact(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return 0.5 * x * (1.0 + torch.erf(x * _INV_SQRT2))
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        cdf = 0.5 * (1.0 + torch.erf(x * _INV_SQRT2))
+        pdf = _INV_SQRT_2PI * torch.exp(-0.5 * x * x)
+        return dy * (cdf + x * pdf)
+
+
 class _Silu(torch.autograd.Function):
 
     @staticmethod
@@ -68,16 +87,21 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return _Gelu.apply(x)
 
 
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    return _GeluExact.apply(x)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return _Silu.apply(x)
 
 
-_ACTIVATIONS = {"gelu": gelu, "relu": relu, "silu": silu}
+_ACTIVATIONS = {"gelu": gelu, "gelu_exact": gelu_exact, "relu": relu,
+                "silu": silu}
 
 
 def get_activation(name):
-    """Activation by name (``"relu"`` | ``"gelu"`` | ``"silu"``) or a
-    callable."""
+    """Activation by name (``"relu"`` | ``"gelu"`` | ``"gelu_exact"`` |
+    ``"silu"``) or a callable."""
     if callable(name):
         return name
     if name not in _ACTIVATIONS:

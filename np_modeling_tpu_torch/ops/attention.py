@@ -32,8 +32,14 @@ broadcast dims. The bias runs alone, with segment ids, with K1's mask, and
 with the softcap alone at head_dim 64; with a window, or with the softcap
 beside segment ids or a mask or at another head_dim, it raises
 NotImplementedError on a CUDA tensor
-(uninstantiated, ROADMAP.md Queue 2 A), as does a mask where q, k or v needs
-a gradient (its backward, Queue 2 A), and any other head_dim (ValueError).
+(uninstantiated, ROADMAP.md Queue 2 A), and any other head_dim (ValueError).
+The backwards K2 and K5 take the mask (segment ids merged into it) alone at
+head_dim 64, fp32 and bf16, causal or not: BERT's ``mask=``. A mask with
+gradients and a window, a softcap or a bias, or at head_dim 128/192/256,
+raises NotImplementedError on a CUDA tensor before any launch (Queue 2 A).
+The backwards reproduce the plain path on a row that the mask leaves
+without a key: its lse is the mask value, so p is 1 at every key (dv = do
+there, dq nonzero), as JAX's jnp path gives.
 K12 takes no bias: a bias sends the forward to K1, as JAX does. Sinks run,
 as in JAX, as a plain rescale around the kernels. ``block_q``/``block_kv`` are accepted for
 the JAX signature; the kernels' tiles are their own (the bf16 forward: 128
@@ -236,6 +242,18 @@ def _check_d192(d, window, softcap, mask, bias):
                 f"{' or '.join(given)} (ROADMAP.md Queue 2 A)")
 
 
+def _mask_bwd_unbuilt(d, window, softcap, bias):
+    """Why the backwards cannot take a mask with these options, or None: it
+    is built alone at head_dim 64 (csrc/flash_attention.cu, with_bwd_opt)."""
+    given = [name for name, x in (("a window", window), ("a softcap", softcap),
+                                  ("a bias", bias)) if x is not None]
+    if given:
+        return f"a mask with {' or '.join(given)}"
+    if d != 64:
+        return f"a mask at head_dim {d}"
+    return None
+
+
 def _seg_int32(seg):
     return None if seg is None else seg.to(torch.int32)
 
@@ -370,13 +388,22 @@ def _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg=None,
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, q_seg=None,
                     kv_seg=None, split=False, window=None, softcap=None,
-                    bias=None, need_dbias=True):
+                    bias=None, need_dbias=True, mask=None):
     """K2 (or K5 with ``split``): dq, dk, dv in the JAX layouts, and with
     ``bias`` dbias [b, hq, sq, skv] fp32 (None unless ``need_dbias``), the
     gradient of the post-bias scores, not yet summed over the bias's
-    broadcast dims."""
+    broadcast dims. ``mask`` (alone, head_dim 64) is read as K1 reads it,
+    segment ids merged into it here."""
     _check_kernel_inputs(q, k, v, q_seg, kv_seg)
-    _check_d192(q.shape[-1], window, softcap, None, bias)
+    _check_d192(q.shape[-1], window, softcap, mask, bias)
+    if mask is not None:
+        why = _mask_bwd_unbuilt(q.shape[-1], window, softcap, bias)
+        if why is not None:
+            raise NotImplementedError(f"the flash kernels' backwards are not "
+                                      f"built for {why} (ROADMAP.md Queue 2 "
+                                      f"A)")
+        mask = _mask_u8(_merge_seg_into_mask(mask, q_seg, kv_seg), q, k)
+        q_seg = kv_seg = None
     if bias is not None:        # its combinations were checked forward
         bias = _bias_f32(bias, q, k)
     q, k, v, do = (_kernel_layout(x) for x in (q, k, v, do.to(q.dtype)))
@@ -402,16 +429,19 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale, q_seg=None,
         alloc = torch.zeros if causal else torch.empty
         dbias = alloc((b, hq, sq, skv), dtype=torch.float32, device=q.device)
     _launch("np_flash_attention_bwd",
-            (q, k, v, do, lse, di, q_seg, kv_seg, bias, dq, dk, dv, dbias),
+            (q, k, v, do, lse, di, q_seg, kv_seg, mask, bias, dq, dk, dv,
+             dbias),
             (q, k, v, do), (q_seg, kv_seg),
             (_DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d, int(causal),
-             int(split)), scale, window, softcap, None, bias)
+             int(split)), scale, window, softcap, mask, bias)
     if split:
         flash_attention.launches_bwd_split += 1
     else:
         flash_attention.launches_bwd += 1
     if window is not None:
         flash_attention.launches_bwd_window += 1
+    if mask is not None:
+        flash_attention.launches_bwd_mask += 1
     if bias is not None:
         flash_attention.launches_bwd_bias += 1
     g = hkv_out // hkv
@@ -464,7 +494,8 @@ class _FlashAttention(torch.autograd.Function):
         if kernel:
             dq, dk, dv, dbias = _flash_bwd_cuda(
                 q, k, v, o, lse, do, causal, scale, q_seg, kv_seg, split,
-                window, softcap, bias, need_dbias=ctx.needs_input_grad[3])
+                window, softcap, bias, need_dbias=ctx.needs_input_grad[3],
+                mask=mask)
             if dbias is not None:
                 dbias = _unbroadcast_bias(dbias, bias)
         else:
@@ -514,13 +545,15 @@ def flash_attention(q, k, v, mask=None, bias=None, segment_ids=None, *,
     q_seg, kv_seg = segment_ids if segment_ids is not None else (None, None)
     if sinks is not None and tuple(sinks.shape) != (q.shape[1],):
         raise ValueError(f"sinks must be [hq], got {tuple(sinks.shape)}")
-    if dispatch.use_kernel(q):
-        # The kernels' backwards take no mask yet.
-        if mask is not None and torch.is_grad_enabled() and any(
+    if dispatch.use_kernel(q) and mask is not None \
+            and torch.is_grad_enabled() and any(
                 x.requires_grad for x in (q, k, v, bias) if x is not None):
+        # The backwards take the mask alone at head_dim 64.
+        why = _mask_bwd_unbuilt(d, window, softcap, bias)
+        if why is not None:
             raise NotImplementedError(
-                "the CUDA flash-attention kernels do not take a mask with "
-                "gradients yet (ROADMAP.md Queue 2 A)")
+                f"the CUDA flash-attention backwards are not built for {why} "
+                "(ROADMAP.md Queue 2 A)")
     return _FlashAttention.apply(q, k, v, bias, sinks, mask, q_seg, kv_seg,
                                  causal, window, scale, softcap)
 
@@ -531,8 +564,9 @@ def flash_attention(q, k, v, mask=None, bias=None, segment_ids=None, *,
 # pair of its kernels); of those, the ones with a window count again in
 # launches_fwd_window (K1, K12) and launches_bwd_window (K2, K5), K1's
 # with a mask in launches_fwd_mask (those of the fp32 forward again in
-# launches_fwd_mask_fp32), K1's with a bias in launches_fwd_bias and K2's
-# and K5's (pairs) with a bias in launches_bwd_bias.
+# launches_fwd_mask_fp32), K2's and K5's (pairs) with a mask in
+# launches_bwd_mask, K1's with a bias in launches_fwd_bias and K2's and
+# K5's (pairs) with a bias in launches_bwd_bias.
 flash_attention.launches_fwd = 0
 flash_attention.launches_fwd_dual = 0
 flash_attention.launches_bwd = 0
@@ -541,5 +575,6 @@ flash_attention.launches_fwd_window = 0
 flash_attention.launches_fwd_mask = 0
 flash_attention.launches_fwd_mask_fp32 = 0
 flash_attention.launches_bwd_window = 0
+flash_attention.launches_bwd_mask = 0
 flash_attention.launches_fwd_bias = 0
 flash_attention.launches_bwd_bias = 0

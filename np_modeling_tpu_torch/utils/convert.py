@@ -4,15 +4,19 @@
 arrays (numpy, or anything ``np.asarray`` reads), into any port module whose
 parameter names are the tree's paths with ``.`` for ``/``; a missing, extra
 or mis-shaped leaf raises. ``params_from_numpy`` does so for the JAX GPT's,
-T5's or Seq2SeqTransformer's tree (``layer_{i}/self_attention/wq``,
+T5's, Seq2SeqTransformer's or BertEncoder's tree
+(``layer_{i}/self_attention/wq``,
 ``enc_relpos``, ``decoder/layer_{i}/cross_attention/wk``, ...; an MLA GPT's
 ``layer_{i}/self_attention/kv_a``, ``kv_a_norm/gamma``, ``kv_b``, ``wo`` and
 ``wq`` or ``q_a`` / ``q_a_norm/gamma`` / ``q_b``, and an untied head's
 ``lm_head/w``; an MoE layer's ``layer_{i}/moe/router``, its 3-D expert
 weights ``w_gate`` / ``w_up`` / ``w_down`` [E, ., .] (or ``w1`` / ``b1`` /
 ``w2`` / ``b2``), biases, and ``moe/shared/w_gate|w_up|w_down``; gpt-oss's
-``layer_{i}/self_attention/sinks`` [hq]), the model picked by the config's
-type, and returns the port's model holding those weights.
+``layer_{i}/self_attention/sinks`` [hq]; BERT's ``embedding/table``,
+``pos_embedding/table``, ``type_embedding/table``, ``embed_norm``,
+``layer_{i}/norm1``, ``dense1/linear``, ``pooler``, ``classifier``,
+``mlm_transform``, ``mlm_norm`` and ``mlm_bias``), the model picked by the
+config's type, and returns the port's model holding those weights.
 ``params_to_numpy`` and ``tree_to_numpy`` are the way back: a
 port model's parameters, or any ``{name: tensor}`` dict such as their
 gradients, as the JAX-shaped nested dict of fp32 numpy arrays, for a
@@ -33,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from np_modeling_tpu_torch.models.bert import BertConfig, BertEncoder
 from np_modeling_tpu_torch.models.seq2seq import (Seq2SeqConfig,
                                                   Seq2SeqTransformer)
 from np_modeling_tpu_torch.models.t5 import T5, T5Config
@@ -91,13 +96,13 @@ def load_params(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
 
 
 _MODELS = ((GPTConfig, GPT), (T5Config, T5),
-           (Seq2SeqConfig, Seq2SeqTransformer))
+           (Seq2SeqConfig, Seq2SeqTransformer), (BertConfig, BertEncoder))
 
 
 def params_from_numpy(tree: dict, config, device=None) -> torch.nn.Module:
-    """The model of ``config`` (a ``GPTConfig``, ``T5Config`` or
-    ``Seq2SeqConfig``) on ``device`` (default: the card, as the models)
-    holding the JAX tree's weights."""
+    """The model of ``config`` (a ``GPTConfig``, ``T5Config``,
+    ``Seq2SeqConfig`` or ``BertConfig``) on ``device`` (default: the card,
+    as the models) holding the JAX tree's weights."""
     for cfg_type, model in _MODELS:
         if isinstance(config, cfg_type):
             return load_params(model(config, device=device), tree)

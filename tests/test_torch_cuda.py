@@ -23,14 +23,16 @@ import pytest
 import torch
 
 from chip_smoke import (BIAS_CASES, BIAS_DECODE_CASES, LATENT_CASES,
-                        LATENT_PAGES, MASK_CASES, MLA_FLASH_CASES,
+                        LATENT_PAGES, MASK_BWD_CASES, MASK_CASES,
+                        MLA_FLASH_CASES,
                         PAGED_BIAS_CASES, PAGED_BIAS_PAGES,
                         PAGED_SINKS_CASES, PAGED_SINKS_OFFSETS,
                         PAGED_SINKS_PAGES, PAGED_SINKS_WINDOWS, _bias_fwd_bwd,
                         _generate_with_logits, _hold_fp32, _k10_schedule,
                         _schedule, _step0, flash_bias_case,
                         flash_bias_decode_case, flash_mask_case, k10_planned,
-                        k10_run, latent_vs_plain, mla_flash_case,
+                        k10_run, latent_vs_plain, mask_bwd_unbuilt_calls,
+                        mask_bwd_vs_plain, mla_flash_case,
                         paged_latent_case, paged_bias_case, sinks_vs_plain)
 from np_modeling_tpu_torch import models, ops
 from np_modeling_tpu_torch.ops import dispatch, fused
@@ -703,14 +705,20 @@ def test_cuda_flash_kernels_count_launches():
 
 @pytest.mark.parametrize("option", ["mask", "bias"])
 def test_cuda_flash_unported_options_raise(option):
-    """A mask where q needs a gradient (the kernels' backwards take no mask
-    yet), and a bias with a window, with a softcap beside segment ids or at
-    head_dim 128 (not instantiated), raise on the card."""
+    """A mask where q needs a gradient beside a window, a softcap or a bias,
+    or at head_dim 128, 192 or 256 (the backwards take the mask alone at
+    head_dim 64), and a bias with a window, with a softcap beside segment
+    ids or at head_dim 128 (not instantiated), raise on the card before any
+    launch."""
     q, k, v, _ = _flash_inputs(1, 2, 2, 64, 64, 64, torch.float32)
     if option == "mask":
-        with pytest.raises(NotImplementedError, match="Queue 2 A"):
-            ops.flash_attention(q.requires_grad_(), k, v, mask=torch.ones(
-                1, 1, 64, 64, dtype=torch.bool, device="cuda"))
+        before = (ops.flash_attention.launches_fwd,
+                  ops.flash_attention.launches_bwd)
+        for what, call in mask_bwd_unbuilt_calls(np.random.default_rng(0)):
+            with pytest.raises(NotImplementedError, match="Queue 2 A"):
+                call["call"]()
+        assert (ops.flash_attention.launches_fwd,
+                ops.flash_attention.launches_bwd) == before
         return
     bias = torch.zeros(1, 2, 64, 64, device="cuda")
     with pytest.raises(NotImplementedError, match="Queue 2 A"):
@@ -721,6 +729,58 @@ def test_cuda_flash_unported_options_raise(option):
     q, k, v, _ = _flash_inputs(1, 2, 2, 64, 64, 128, torch.float32)
     with pytest.raises(NotImplementedError, match="Queue 2 A"):
         ops.flash_attention(q, k, v, bias=bias, softcap=5.0)
+
+
+@pytest.mark.parametrize("case", MASK_BWD_CASES,
+                         ids=[c[0].replace(" ", "_") for c in MASK_BWD_CASES])
+@pytest.mark.parametrize("fused_bwd", [True, False], ids=["k2", "k5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_mask_backward_vs_plain(dtype, fused_bwd, case):
+    """K2 and K5 with the mask at head_dim 64 (chip_smoke's MASK_BWD_CASES:
+    [1, 1], [b, 1] and [1, h] masks and an expanded key-padding view, causal
+    and not, GQA 4/2, sq != skv off every tile, segment ids merged, a row
+    that no key sees) against the plain path through mask_bwd_vs_plain: o,
+    dq, dk, dv within the flash tolerances, one mask launch counted a call,
+    K5 bit-equal run to run, the keyless row's dv its do at every key."""
+    rng = np.random.default_rng(9 + MASK_BWD_CASES.index(case))
+    mask_bwd_vs_plain(case, dtype, not fused_bwd, rng)
+
+
+@pytest.mark.parametrize("fused_bwd", [True, False], ids=["k2", "k5"])
+def test_cuda_bert_step_fp32_kernels_vs_plain(fused_bwd):
+    """A 2-layer BERT at head_dim 64 (d 128, 2 heads), fp32: step 0 of the
+    classification loss through apply(mask=) with UniLM's mask and of the
+    MLM loss with attention_mask, through the kernels (K1 + K2, or K5)
+    against force_plain(), by chip_smoke's fp32 step-0 criteria (loss 1e-5,
+    each gradient's relative L2 error 1e-4); 2 mask launches each way."""
+    from chip_smoke import bert_batch, _bert_cls_loss, _bert_step0
+    cfg = models.BertConfig(vocab_size=30522, d_model=128, num_heads=2,
+                            num_layers=2, hidden_units=256, max_len=512,
+                            activation="gelu_exact", ln_eps=1e-12,
+                            type_vocab_size=2, mlm_head=True)
+    bert = models.BertEncoder(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(3))
+    batch = bert_batch(4)
+    inputs, labels, weights = models.mlm_mask_tokens(
+        torch.Generator(device="cuda").manual_seed(5), batch["tokens"],
+        cfg.vocab_size, 103, 0.15, (0, 101, 102))
+    names = [n for n, _ in bert.named_parameters()]
+    cls_names = [n for n in names if not n.startswith("mlm_")]
+    mlm_names = [n for n in names
+                 if not n.startswith(("pooler.", "classifier."))]
+    for what, params, loss_fn, masked in (
+            ("classification", cls_names, lambda: _bert_cls_loss(
+                bert, batch, batch["masks"]["unilm"]), True),
+            ("mlm", mlm_names, lambda: bert.mlm_loss(
+                inputs, labels, weights, attention_mask=batch["valid"]),
+             False)):
+        lp, gp = _bert_step0(bert, loss_fn, params, plain=True)
+        before = ops.flash_attention.launches_bwd_mask
+        with _schedule(fused_bwd=fused_bwd):
+            lk, gk = _bert_step0(bert, loss_fn, params, plain=False)
+        assert ops.flash_attention.launches_bwd_mask == before + (
+            2 if masked else 0)
+        _hold_fp32("bert", what, lk, gk, lp, gp)
 
 
 @pytest.mark.parametrize("case", BIAS_CASES,

@@ -297,7 +297,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
       MoE layer (64 experts of 1408, top 6, 2 shared) on the card against
       the same layer on the CPU, bf16 and fp32, 8 and 64 tokens, seven
       experts tied exactly at the top: the same six experts (the lowest
-      indices) on both, outputs within (c)'s tolerances x max |CPU's|
+      indices) on both, outputs within (c)'s tolerances x max |CPU's|, and
+      the hand-written backward: the gradients of x and of every leaf within
+      the same tolerances x max(1, max |CPU's|), two card runs bit-equal
       (``phase_moe_layer_vs_cpu``); then DeepSeek-V2-Lite
       (deepseek-ai/DeepSeek-V2-Lite's config.json as the JAX package's
       hf_compat maps it, its MoE layers included; DSV2_CUT: 8 of 27 layers,
@@ -314,10 +316,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
       K3 latent beside its bound, the plain version and SDPA over the
       gathered rows, and each run's peak memory
       (``phase_deepseek_serving``);
-  (C) DeepSeek-V2-Lite's latent attention trained on the card, every MoE
-      layer cut to the dense first-layer FFN (DSV2_DENSE_CUT; the MoE's
-      backward is the next slice). The flash
-      kernels at MLA's qk head dim 192 (MLA_FLASH_CASES: ragged 200, GQA
+  (C) DeepSeek-V2-Lite trained on the card with its MoE layers (MLA_TRAIN_CUT:
+      the dense first layer and 2 MoE layers; on an H100 80GB 4 layers peak
+      at 76.46 GiB of its 79.18 and leave no room for a further step). The
+      flash kernels at MLA's qk head dim 192 (MLA_FLASH_CASES: ragged 200, GQA
       8/2, sq 130 < skv 333, sq 257 > skv 100, and the slice's b1 h16 s4096;
       fp32 and bf16, causal and not, with and without segment ids): o, lse,
       dq, dk, dv of K1 + K2 and K1 + K5 within the flash tolerances of the
@@ -325,14 +327,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
       bit. Timings at b1 h16 s4096 d192 causal bf16: K1, K12, K2 and K5
       beside the plain version, the bound and F.scaled_dot_product_attention
       forward and autograd backward (in rounds of SDPA, K, K, SDPA). Step 0
-      at full width and 2 layers on 1 x 4096 Zipf tokens through K1 + K2 and
-      K12 + K5 against force_plain() in fp32 by (h)'s criteria (the
-      attention weights' gradients printed) and in bf16 by (h)'s rule. Then
+      at full width and 2 layers (the dense one and an MoE one) on 1 x 4096
+      Zipf tokens through K1 + K2 and K12 + K5 against force_plain() in fp32
+      by (h)'s criteria (the attention weights' gradients printed) and in
+      bf16 by (h)'s rule, every run's MoE routes pinned to the plain fp32
+      step's (``_route_replay``; near ties would part them otherwise). Then
       the main path: train_gpt.train at MLA_TRAIN_LAYERS layers, bf16
       compute, 1 x 4096 tokens, MLA_TRAIN_STEPS steps (the loss finite and
       falling, K1 and K2 once a layer a step) and MLA_FLAG_STEPS more under
       FUSED_BWD False / FWD_DUAL_KV True (K12 and K5 once a layer a step),
-      the peak memory printed; the closing fp32 GPT.generate (16 greedy
+      the peak memory printed, a step profiled with the "MoE" span's share
+      (forward and backward); the closing fp32 GPT.generate (16 greedy
       tokens after 8) on the trained weights equal to plain generate's (near
       ties as in (B)), logits within F32_TOL, K3's latent option once a
       layer a step over the dense cache viewed as pages, no flash call; K3
@@ -371,7 +376,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
       of K1 and of K2 or K5 a classification step; ms a step, peak memory,
       K1/K2/K5 + mask in a step by torch.profiler, and the three at b16
       h12 s512 d64 (fp32, and bf16 beside) against the plain version,
-      their bound and SDPA with the boolean mask (``phase_bert``).
+      their bound and SDPA with the boolean mask (``phase_bert``);
+  (F) the example's MoE line, train_gpt.main(["--bf16", "--moe", "8"]), at its
+      defaults (d 256, 4 layers of 8 heads of 32, 8 relu experts of 1024,
+      top 2, capacity 1.25: the dense dispatch; batch 8 x 256, 50 steps,
+      the closing sample): K1 + K2 and K1 + K5 at head dims 32 and 16 (run
+      on copies zero-padded to 64) against the plain version
+      (``phase_flash_padded_vs_plain``); step 0 in fp32 with gelu experts,
+      the kernel step's routes replayed in the plain step, by (h)'s fp32
+      criteria; the main path: the losses finite and falling, K1/K2 once a
+      layer a step, K7 and K8 at every site, K1 with the mask on fp32
+      caches once a layer a sample step (``phase_moe_entry``); K1 and K2 at
+      b8 h8 s256 d32 beside the plain version, the bound and SDPA
+      (``flash_timings``).
 Each path runs with the launch counts set to 0 just before it and read just
 after. Library yardsticks (one PyTorch call computing a kernel's function,
 which the port never calls) are timed beside K1/K2/K5/K12 (scaled_dot_
@@ -6254,8 +6271,8 @@ def phase_t5_serving(device_line):
 # layers). (B) serves DSV2_SERVE_LAYERS of them (the dense first layer and 7 MoE
 # layers, DSV2_SERVE_PARAMS parameters): at 27 the whole run outgrew its 1200 s on
 # a slow host. DSV2_MAX_LEN cuts the table a sequence (the published 163840
-# positions) to what the traffic reaches. (C) trains the model with every MoE layer cut to the dense first-layer
-# FFN (DSV2_DENSE_CUT): the MoE's backward is the next slice.
+# positions) to what the traffic reaches. (C) trains the model with its MoE
+# layers at MLA_TRAIN_LAYERS layers.
 DSV2_LITE = dict(vocab_size=102400, d_model=2048, num_heads=16, num_kv_heads=16,
                  head_dim=64, hidden_units=10944, positional="rope",
                  rope_base=10000.0, rope_scaling=("yarn", 40.0, 32.0, 1.0, 4096.0,
@@ -6269,13 +6286,13 @@ DSV2_MOE = dict(moe_experts=64, moe_top_k=6, moe_capacity_factor=None,
                 moe_shared_units=2816, moe_hidden_units=1408, moe_first_dense=1)
 DSV2_LAYERS, DSV2_MAX_LEN, DSV2_SERVE_LAYERS = 27, 2048, 8
 DSV2_PARAMS, DSV2_SERVE_PARAMS = 15_706_484_224, 4_594_374_656
+# An MoE layer: 553,648,128 routed, 17,301,504 shared, 131,072 router and
+# 13,767,168 MLA and norm parameters.
+DSV2_MOE_LAYER_PARAMS = 584_847_872
 DSV2_CUT = (f"{DSV2_SERVE_LAYERS} of {DSV2_LAYERS} layers (the dense first layer "
             f"and {DSV2_SERVE_LAYERS - 1} MoE layers: {DSV2_SERVE_PARAMS:,} of "
             f"{DSV2_PARAMS:,} parameters) and the table a sequence cut from 163840 "
             f"positions to {DSV2_MAX_LEN}")
-DSV2_DENSE_CUT = ("MoE layers 1..26 (64 routed experts of 1408, top 6, 2 shared) "
-                  "replaced by the model's dense first-layer FFN (swiglu 10944), "
-                  "in (C) alone: the MoE's backward is the next slice")
 # The engine: slots, page size, prefill chunk, pages (every slot's table full,
 # and the trash page); prompts of DSV2_PROMPT_MIN..DSV2_PROMPT_MAX seeded Zipf
 # tokens; step_many(DSV2_STEPS) after the admission (``steps`` of
@@ -6312,14 +6329,6 @@ def deepseek_v2_lite_config(dtype=None, layers=DSV2_LAYERS):
     from np_modeling_tpu_torch.models import GPTConfig
     return GPTConfig(**DSV2_LITE, **DSV2_MOE, num_layers=layers,
                      max_len=DSV2_MAX_LEN, dtype=dtype)
-
-
-def deepseek_v2_lite_dense_config(dtype=None, layers=DSV2_LAYERS):
-    """(C)'s DeepSeek-V2-Lite: every layer's FFN the dense first-layer FFN
-    (DSV2_DENSE_CUT), ``layers`` deep, in compute ``dtype``."""
-    from np_modeling_tpu_torch.models import GPTConfig
-    return GPTConfig(**DSV2_LITE, num_layers=layers, max_len=DSV2_MAX_LEN,
-                     dtype=dtype)
 
 
 @contextlib.contextmanager
@@ -6645,6 +6654,37 @@ def _dsv2_moe_layer():
     return m
 
 
+# The MoE layer's backward is held under sum(out * ct) + MOE_AUX_W x aux, ct
+# N(0, 1) from a seed: the aux weight of the JAX package's GPTConfig.
+MOE_AUX_W = 0.01
+
+
+def moe_layer_grads(m, x, ct):
+    """The gradients of ``x`` ("x") and of every leaf of the MoE ``m`` (by
+    name) for the objective sum(out * ct) + MOE_AUX_W x aux, as fp32 tensors
+    on the CPU; the output too."""
+    import torch
+    for p in m.parameters():
+        p.grad = None
+    leaf = x.clone().requires_grad_()
+    out, aux = m.apply_with_aux(leaf)
+    ((out.float() * ct.float()).sum() + MOE_AUX_W * aux).backward()
+    grads = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
+    grads["x"] = leaf.grad.float().cpu()
+    if leaf.grad.dtype != x.dtype:
+        raise AssertionError(f"the MoE's x gradient is {leaf.grad.dtype}, x "
+                             f"{x.dtype}")
+    return out.detach().float().cpu(), grads
+
+
+def _grads_apart(got, want):
+    """The worst leaf: (max |got - want| / max(1, max |want|), its name)."""
+    errs = {n: ((got[n] - want[n]).abs().max()
+                / max(1.0, want[n].abs().max().item())).item() for n in want}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
 def phase_moe_layer_vs_cpu():
     """(B) DeepSeek-V2-Lite's MoE layer (64 experts of 1408, top 6, raw softmax
     gates, 2 shared experts, no-drop) on the card against the same layer on the
@@ -6652,21 +6692,27 @@ def phase_moe_layer_vs_cpu():
     fp32: seven experts (MOE_TIE_EXPERTS) tie exactly at the top of every
     token's scores, so both sides must keep the six lowest of them (the lower
     index first among equals, as jax.lax.top_k), and every chosen expert is
-    equal; the output within BF16_TOL (bf16) or F32_TOL (fp32) x max |CPU's|."""
+    equal; the output within BF16_TOL (bf16) or F32_TOL (fp32) x max |CPU's|.
+    The backward (``moe_layer_grads``): the gradients of x and of every leaf
+    within the same tolerance x max(1, max |CPU's|) a leaf, and two runs on
+    the card equal bit for bit."""
     import torch
     cpu = _dsv2_moe_layer()
     card = copy.deepcopy(cpu).to("cuda")
     for label, t in MOE_LAYER_CASES:
-        x = torch.tensor(np.random.default_rng(SEED + 99 + t).standard_normal(
-            (t, DSV2_LITE["d_model"])), dtype=torch.float32)
+        rng = np.random.default_rng(SEED + 99 + t)
+        x = torch.tensor(rng.standard_normal((t, DSV2_LITE["d_model"])),
+                         dtype=torch.float32)
         x[:, 0] = 3.0
+        ct = torch.tensor(rng.standard_normal(x.shape), dtype=torch.float32)
         for dtype in (torch.float32, torch.bfloat16):
             xc = x.to(dtype)
             with torch.no_grad():
-                want = cpu(xc).float()
-                got = card(xc.cuda()).float().cpu()
                 _, i_cpu, _ = cpu._route(xc)
                 _, i_card, _ = card._route(xc.cuda())
+            want, gcpu = moe_layer_grads(cpu, xc, ct)
+            got, gcard = moe_layer_grads(card, xc.cuda(), ct.cuda())
+            _, again = moe_layer_grads(card, xc.cuda(), ct.cuda())
             tag = f"(B) MoE layer {label} {t} tokens {str(dtype)[6:]}"
             if not torch.equal(i_card.cpu(), i_cpu):
                 raise AssertionError(f"{tag}: the card chose other experts "
@@ -6675,40 +6721,84 @@ def phase_moe_layer_vs_cpu():
                 raise AssertionError(f"{tag}: the tied experts were not taken "
                                      f"lowest first: {i_cpu[0].tolist()}")
             err = ((got - want).abs().max() / want.abs().max()).item()
+            gerr, worst = _grads_apart(gcard, gcpu)
+            differ = [n for n in gcard if not torch.equal(gcard[n], again[n])]
             tol = _tol(dtype)
             print(f"{tag}: experts {i_cpu[0].tolist()} on every token, equal on "
-                  f"both; output {err:.3e} x max |CPU's| apart (tol {tol})")
-            if not err <= tol:
-                raise AssertionError(f"{tag}: output {err:.3e} > {tol}")
+                  f"both; output {err:.3e} x max |CPU's| apart (tol {tol}); "
+                  f"gradients of x and {len(gcpu) - 1} leaves at most "
+                  f"{gerr:.3e} x max(1, max |CPU's|) apart ({worst}; tol "
+                  f"{tol}); two card runs bit-equal: {not differ}")
+            if not (err <= tol and gerr <= tol):
+                raise AssertionError(f"{tag}: output {err:.3e} or gradients "
+                                     f"{gerr:.3e} ({worst}) > {tol}")
+            if differ:
+                raise AssertionError(f"{tag}: two card runs differ in "
+                                     f"{differ}")
     del cpu, card
     torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
 def _moe_spans(experts=None):
-    """Each MoE call inside a torch.profiler span "MoE" in this scope; with a
-    list ``experts``, each call's number of experts that received tokens is
-    appended to it (a read to the host a call)."""
+    """Each MoE call (forward and backward) inside a torch.profiler span "MoE"
+    in this scope; with a list ``experts``, each call's number of experts
+    that received tokens is appended to it (a read to the host a call)."""
     import torch
     from np_modeling_tpu_torch.nn import moe
-    forward, route = moe.MoE._forward, moe.MoE._route
+    forward, backward, route = (moe.MoE._forward, moe.MoE._backward,
+                                moe.MoE._route)
 
     def spanned(self, x):
         with torch.profiler.record_function("MoE"):
             return forward(self, x)
+
+    def spanned_bwd(self, *args):
+        with torch.profiler.record_function("MoE"):
+            return backward(self, *args)
 
     def counted(self, xt):
         gates, i_k, w = route(self, xt)
         experts.append(int(torch.unique(i_k).numel()))
         return gates, i_k, w
 
-    moe.MoE._forward = spanned
+    moe.MoE._forward, moe.MoE._backward = spanned, spanned_bwd
     if experts is not None:
         moe.MoE._route = counted
     try:
         yield
     finally:
-        moe.MoE._forward, moe.MoE._route = forward, route
+        moe.MoE._forward, moe.MoE._backward, moe.MoE._route = (
+            forward, backward, route)
+
+
+@contextlib.contextmanager
+def _route_replay(routes, flips=None):
+    """MoE routing pinned to a run's choices: with ``flips`` None, each
+    MoE._route call in this scope appends its chosen experts to the list
+    ``routes``; else each call takes the next recorded choice in their place
+    (the weights read from this run's own gates at those experts) and appends
+    to ``flips`` how many tokens' own choice differed. Two runs whose
+    router inputs differ by rounding (kernels vs plain, bf16 vs fp32) then
+    route every token alike, and near ties cannot part them."""
+    from np_modeling_tpu_torch.nn import moe
+    route, at = moe.MoE._route, [0]
+
+    def replayed(self, xt):
+        gates, i_k, w = route(self, xt)
+        if flips is None:
+            routes.append(i_k.clone())
+            return gates, i_k, w
+        want = routes[at[0]]
+        at[0] += 1
+        flips.append(int((i_k != want).any(dim=1).sum()))
+        return gates, want, self._weights(self._logits(xt), gates, want)
+
+    moe.MoE._route = replayed
+    try:
+        yield
+    finally:
+        moe.MoE._route = route
 
 
 def _dsv2_route_timings(res, eng, device_line):
@@ -6897,15 +6987,18 @@ def phase_deepseek_serving(device_line):
     return res, keys, counts, counts16
 
 
-# Phase (C): DeepSeek-V2-Lite's latent attention (MLA) trained on the card at its
-# published widths ((B)'s DSV2_LITE with DSV2_DENSE_CUT's MoE cut), through the training
-# entry point. MLAttention's dense form runs the flash kernels at its qk head dim,
-# nope + rope = 192 (v zero-padded to it, as JAX does): K1 and K2 by default, K12 and
-# K5 under JAX's schedule flags. The closing GPT.generate runs K3's latent option over
-# the dense latent cache viewed as pages. MLA_S is YaRN's original length
-# (rope_scaling's original_max_position_embeddings, 4096); MLA_TRAIN_LAYERS of the 27
-# layers are what one card's 80 GB holds with the functional optimizer at 1 x MLA_S
-# tokens (exp_torch_mla.py --depths measures the peak a depth).
+# Phase (C): DeepSeek-V2-Lite trained on the card at its published widths with
+# its MoE layers ((B)'s DSV2_LITE and DSV2_MOE), through the training entry
+# point. MLAttention's dense form runs the flash kernels at its qk head dim,
+# nope + rope = 192 (v zero-padded to it, as JAX does): K1 and K2 by default,
+# K12 and K5 under JAX's schedule flags. The closing GPT.generate runs K3's
+# latent option over the dense latent cache viewed as pages. MLA_S is YaRN's
+# original length (rope_scaling's original_max_position_embeddings, 4096);
+# MLA_TRAIN_LAYERS of the 27 layers (the dense first layer and MoE layers;
+# MLA_TRAIN_CUT) are what one card's 80 GB holds with the functional optimizer
+# at 1 x MLA_S tokens (exp_torch_mla.py --depths measures the peak a depth).
+# The step-0 comparisons run MLA_STEP0_LAYERS layers (the dense one and an MoE
+# one) with every run's routes pinned to the first run's (_route_replay).
 MLA_D, MLA_S = 192, 4096
 MLA_LAYER = (1, 16, 16, MLA_S, MLA_S, MLA_D)      # b, hq, hkv, sq, skv, d
 # The d 192 kernels against their plain version: (label, shape), each in fp32 and
@@ -6918,7 +7011,14 @@ MLA_FLASH_CASES = (
     ("sq > skv", (1, 4, 4, 257, 100, MLA_D)),
     ("slice", MLA_LAYER),
 )
-MLA_TRAIN_LAYERS, MLA_TRAIN_STEPS, MLA_FLAG_STEPS = 20, 8, 2
+MLA_TRAIN_LAYERS, MLA_TRAIN_STEPS, MLA_FLAG_STEPS = 3, 16, 2
+MLA_TRAIN_PARAMS = DSV2_PARAMS - (DSV2_LAYERS - MLA_TRAIN_LAYERS) * \
+    DSV2_MOE_LAYER_PARAMS
+MLA_TRAIN_CUT = (f"{MLA_TRAIN_LAYERS} of {DSV2_LAYERS} layers (the dense first "
+                 f"layer and {MLA_TRAIN_LAYERS - 1} MoE layers of 64 experts of "
+                 f"1408, top 6, 2 shared: {MLA_TRAIN_PARAMS:,} of "
+                 f"{DSV2_PARAMS:,} parameters) and the table cut to {MLA_S} "
+                 f"positions")
 MLA_STEP0_LAYERS, MLA_TRAIN_ROWS = 2, 16
 # train_gpt.main's closing sample: MLA_GEN_STEPS greedy tokens after the first
 # row's first MLA_GEN_PROMPT.
@@ -7018,19 +7118,26 @@ def phase_mla_flash_vs_plain():
 
 def phase_mla_flash_timings(device_line):
     """(C) K1, K12, K2 and K5 at the slice's shape (MLA_LAYER: b1 h16 s4096 d192,
-    causal, bf16): wall and device ms, kernel and plain (order plain, kernel,
-    kernel, plain), beside the bound (4 d operations a causal (q, k) pair
-    forward, 10 d backward, at 989 TFLOP/s) and F.scaled_dot_product_attention
-    (is_causal, its flash backend) forward and autograd backward, the library
-    call, also in AB_ROUNDS rounds of SDPA, K, K, SDPA. Returns (results, {kernel:
-    its key})."""
+    causal, bf16): ``flash_timings``. Returns (results, {kernel: its key})."""
+    return flash_timings("C", "mla", MLA_LAYER, SEED + 110, device_line)
+
+
+def flash_timings(tag, label, layer, seed, device_line,
+                  kernels=("K1", "K12", "K2", "K5")):
+    """``kernels`` at ``layer`` (b, hq, hkv, s, s, d; causal, bf16): wall and
+    device ms, kernel and plain (order plain, kernel, kernel, plain), beside
+    the bound (4 d operations a causal (q, k) pair forward, 10 d backward, at
+    989 TFLOP/s, or the bytes of q, k, v, o (and do, lse, di, dq, dk, dv)
+    once, at the true head dim) and F.scaled_dot_product_attention (is_causal)
+    forward and autograd backward, the library call, also in AB_ROUNDS rounds
+    of SDPA, K, K, SDPA. Returns (results, {kernel: its key})."""
     import torch
     import torch.nn.functional as F
     from np_modeling_tpu_torch import ops
     from np_modeling_tpu_torch.ops import dispatch
     res, keys = {}, {}
-    rng = np.random.default_rng(SEED + 110)
-    q, k, v, do = _flash_inputs(MLA_LAYER, torch.bfloat16, rng)
+    rng = np.random.default_rng(seed)
+    q, k, v, do = _flash_inputs(layer, torch.bfloat16, rng)
     b, hq, s_len, d = q.shape
     pairs = b * hq * d * s_len * (s_len + 1) // 2
     lse = torch.empty((b, hq, s_len), dtype=torch.float32, device="cuda")
@@ -7042,22 +7149,25 @@ def phase_mla_flash_timings(device_line):
         with torch.no_grad():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
-    lib_fwd = _library("C", f"F.scaled_dot_product_attention(is_causal=True) "
+    lib_fwd = _library(tag, f"F.scaled_dot_product_attention(is_causal=True) "
                        f"forward {shape}", sdpa, device_line)
     for kernel, dual in (("K1", False), ("K12", True)):
+        if kernel not in kernels:
+            continue
+
         def fwd(dual=dual):
             with _schedule(dual=dual), torch.no_grad():
                 return ops.flash_attention(q, k, v, causal=True)
 
-        name = f"flash forward{' dual' if dual else ''} mla {shape}"
-        _both(res, "C", name, fwd, device_line, runs=10)
-        _device_both(res, "C", name, fwd, device_line)
+        name = f"flash forward{' dual' if dual else ''} {label} {shape}"
+        _both(res, tag, name, fwd, device_line, runs=10)
+        _device_both(res, tag, name, fwd, device_line)
         res["bound " + name] = fwd_bound
         res["library " + name] = lib_fwd
         ab = _alternate(sdpa, fwd, _device_ms)
         res["ab " + name] = [statistics.median(x) for x in ab]
-        print(f"(C) {name}: device time {_ab_line(ab, 'SDPA', kernel)}; bound "
-              f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}) [{device_line}]")
+        print(f"({tag}) {name}: device time {_ab_line(ab, 'SDPA', kernel)}; "
+              f"bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}) [{device_line}]")
         keys[kernel] = name
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
@@ -7065,21 +7175,24 @@ def phase_mla_flash_timings(device_line):
     def lib_bwd():
         return torch.autograd.grad(o_lib, leaves, do, retain_graph=True)
 
-    res_lib_bwd = _library("C", f"F.scaled_dot_product_attention(is_causal=True)"
-                           f" autograd backward {shape}", lib_bwd, device_line)
+    res_lib_bwd = _library(tag, f"F.scaled_dot_product_attention(is_causal="
+                           f"True) autograd backward {shape}", lib_bwd,
+                           device_line)
     with dispatch.force_plain():
         o_plain = ops.flash_attention(*leaves, causal=True)
     for kernel, fused in (("K2", True), ("K5", False)):
+        if kernel not in kernels:
+            continue
         with _schedule(fused_bwd=fused):
             o_kernel = ops.flash_attention(*leaves, causal=True)
 
         def bwd(o):
             return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
 
-        name = f"flash backward{'' if fused else ' split'} mla {shape}"
-        _both(res, "C", name, bwd(o_kernel), device_line, runs=10,
+        name = f"flash backward{'' if fused else ' split'} {label} {shape}"
+        _both(res, tag, name, bwd(o_kernel), device_line, runs=10,
               plain_fn=bwd(o_plain))
-        _device_both(res, "C", name, bwd(o_kernel), device_line,
+        _device_both(res, tag, name, bwd(o_kernel), device_line,
                      plain_fn=bwd(o_plain))
         res["bound " + name] = bwd_bound
         res["library " + name] = res_lib_bwd
@@ -7088,17 +7201,17 @@ def phase_mla_flash_timings(device_line):
         if not fused:
             res["parts " + name] = _kernel_split_ms(
                 bwd(o_kernel), ("flash_bwd_dq", "flash_bwd_bf16"))
-        print(f"(C) {name}: device time {_ab_line(ab, 'SDPA', kernel)}; bound "
-              f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}) [{device_line}]")
+        print(f"({tag}) {name}: device time {_ab_line(ab, 'SDPA', kernel)}; "
+              f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]}) [{device_line}]")
         keys[kernel] = name
     return res, keys
 
 
 def mla_train_config(dtype, layers, max_len=MLA_S):
-    """DeepSeek-V2-Lite with every FFN dense (DSV2_DENSE_CUT), ``layers``
-    layers and a table of ``max_len`` positions (the loss then runs all of
-    a row's tokens)."""
-    return dataclasses.replace(deepseek_v2_lite_dense_config(dtype, layers),
+    """(B)'s DeepSeek-V2-Lite with its MoE layers, ``layers`` layers and a
+    table of ``max_len`` positions (the loss then runs all of a row's
+    tokens)."""
+    return dataclasses.replace(deepseek_v2_lite_config(dtype, layers),
                                max_len=max_len)
 
 
@@ -7137,16 +7250,21 @@ def _attention_grad_errs(grads, ref):
 
 def phase_mla_training(device_line):
     """(C) Step 0 (forward, backward, clip) of DeepSeek-V2-Lite at full width and
-    MLA_STEP0_LAYERS layers on 1 x MLA_S seeded Zipf tokens through the kernels
-    against the plain step (force_plain): in fp32 with K1 + K2 and with K12 + K5
-    (loss 1e-5 relative, each gradient 1e-4 relative L2, the attention weights'
-    printed), in bf16 by (h)'s rule. Then the main path, counts set to 0 just
-    before it: MLA_TRAIN_STEPS steps of train_gpt.train at MLA_TRAIN_LAYERS
-    layers, bf16 compute (the loss is finite and falls; K1 and K2 once a layer a
-    step), MLA_FLAG_STEPS more under FUSED_BWD False and FWD_DUAL_KV True (K12 and
-    K5 once a layer a step), and the closing sample: GPT.generate in fp32 on the
-    trained weights, MLA_GEN_STEPS greedy tokens after MLA_GEN_PROMPT, equal to
-    plain generate's (near ties allowed as in (B)) with logits within F32_TOL x
+    MLA_STEP0_LAYERS layers (the dense first layer and an MoE layer) on 1 x
+    MLA_S seeded Zipf tokens through the kernels against the plain step
+    (force_plain), every run's MoE routes pinned to the plain fp32 step's
+    (_route_replay; the tokens whose own choice differed printed): in fp32 with
+    K1 + K2 and with K12 + K5 (loss 1e-5 relative, each gradient 1e-4 relative
+    L2, the attention weights' printed), in bf16 by (h)'s rule. Then the main
+    path, counts set to 0 just before it: MLA_TRAIN_STEPS steps of
+    train_gpt.train at MLA_TRAIN_LAYERS layers (MLA_TRAIN_CUT), bf16 compute
+    (the loss is finite and falls; K1 and K2 once a layer a step),
+    MLA_FLAG_STEPS more under FUSED_BWD False and FWD_DUAL_KV True (K12 and K5
+    once a layer a step), the peak device memory; a recipe step profiled with
+    the "MoE" span's share (forward and backward); and the closing sample:
+    GPT.generate in fp32 on the trained weights, MLA_GEN_STEPS greedy tokens
+    after MLA_GEN_PROMPT (the MoE on its gathered route), equal to plain
+    generate's (near ties allowed as in (B)) with logits within F32_TOL x
     max(1, max |logit|), K3's latent option once a layer a step and no flash
     call. Returns the launch counts and the peak device memory."""
     import torch
@@ -7161,10 +7279,22 @@ def phase_mla_training(device_line):
     L0 = MLA_STEP0_LAYERS
     tag = f"(C) {L0} layers, 1 x {MLA_S} tokens,"
     gpt = _mla_gpt(None, L0)
-    lp, ref = _step0(gpt, tokens, seed, plain=True)
+    routes = []
+    with _route_replay(routes):
+        lp, ref = _step0(gpt, tokens, seed, plain=True)
+
+    def replayed(what, **kw):
+        flips = []
+        with _route_replay(routes, flips):
+            out = _step0(**kw)
+        print(f"{tag} {what}: the plain fp32 step's routes replayed; tokens "
+              f"whose own choice differed, MoE layer by layer: {flips}")
+        return out
+
     for fused_bwd, name in ((True, "K1 + K2"), (False, "K12 + K5")):
         with _schedule(fused_bwd=fused_bwd, dual=not fused_bwd):
-            lk, gk = _step0(gpt, tokens, seed, plain=False)
+            lk, gk = replayed(f"fp32 {name}", gpt=gpt, tokens=tokens,
+                              seed=seed, plain=False)
         _hold_fp32(tag, f"{name} vs plain", lk, gk, lp, ref)
         err, worst = _attention_grad_errs(gk, ref)
         print(f"{tag} fp32 {name}: attention weights' gradients within {err:.2e}"
@@ -7173,8 +7303,10 @@ def phase_mla_training(device_line):
     del gpt
     torch.cuda.empty_cache()
     gpt = _mla_gpt(torch.bfloat16, L0)
-    lp16, gp16 = _step0(gpt, tokens, seed, plain=True)
-    lk16, gk16 = _step0(gpt, tokens, seed, plain=False)
+    lp16, gp16 = replayed("bf16 plain", gpt=gpt, tokens=tokens, seed=seed,
+                          plain=True)
+    lk16, gk16 = replayed("bf16 K1 + K2", gpt=gpt, tokens=tokens, seed=seed,
+                          plain=False)
     _hold_bf16(tag, lk16, lp16, gk16, gp16, ref)
     del gpt, ref, gp16, gk16
     torch.cuda.empty_cache()
@@ -7183,14 +7315,17 @@ def phase_mla_training(device_line):
     L = MLA_TRAIN_LAYERS
     gpt = _mla_gpt(torch.bfloat16, L)
     n_params = sum(p.numel() for p in gpt.parameters())
-    print(f"(C) DeepSeek-V2-Lite at full width, depth cut to {L} of 27 layers "
-          f"({DSV2_DENSE_CUT}; a table of {MLA_S} positions): d "
+    print(f"(C) DeepSeek-V2-Lite at full width, cut to {MLA_TRAIN_CUT}: d "
           f"{DSV2_LITE['d_model']}, 16 heads, MLA rank 512, "
-          f"nope 128, rope 64, v 128 (qk head dim {MLA_D}), FFN "
-          f"{DSV2_LITE['hidden_units']}, vocab {vocab}, untied, YaRN; "
+          f"nope 128, rope 64, v 128 (qk head dim {MLA_D}), dense FFN "
+          f"{DSV2_LITE['hidden_units']}, MoE {DSV2_MOE}, vocab {vocab}, "
+          f"untied, YaRN; "
           f"{n_params} params (fp32 master weights), bf16 compute; batch 1 x "
           f"{MLA_S} seeded Zipf tokens; recipe chain(clip_by_global_norm(1.0), "
           f"adamw(warmup_cosine(3e-4, 10, {MLA_TRAIN_STEPS})))")
+    if n_params != MLA_TRAIN_PARAMS:
+        raise AssertionError(f"(C) {n_params} parameters, not "
+                             f"{MLA_TRAIN_PARAMS}")
     torch.cuda.reset_peak_memory_stats()
     _zero_mla_counts()
     t0 = time.perf_counter()
@@ -7230,8 +7365,6 @@ def phase_mla_training(device_line):
                              f"{counts}, expected {want}")
     g32 = GPT(mla_train_config(None, L))
     g32.load_state_dict(gpt.state_dict())
-    del gpt
-    torch.cuda.empty_cache()
     prompt = torch.tensor(corpus[:1, :MLA_GEN_PROMPT], device="cuda")
     toks, logits = _generate_with_logits(g32, prompt, MLA_GEN_STEPS)
     counts = _mla_counts()
@@ -7251,6 +7384,14 @@ def phase_mla_training(device_line):
     if counts != want:
         raise AssertionError(f"(C) launches {counts}, expected {want}")
     del g32
+    torch.cuda.empty_cache()
+    # After the counted path: a recipe step on the trained weights, profiled.
+    with _moe_spans():
+        _profile("C", f"DeepSeek-V2-Lite recipe step (forward, backward, clip, "
+                 f"adamw) 1 x {MLA_S} bf16, {L} layers", _entry_step(
+                     gpt, corpus, batch=1, steps=MLA_TRAIN_STEPS), device_line,
+                 warmup=1, spans=("MoE",))
+    del gpt
     torch.cuda.empty_cache()
     print(f"(C) MLA training phase {time.perf_counter() - t_phase:.1f} s")
     return counts, peak
@@ -8039,14 +8180,161 @@ def phase_bert(device_line):
     return res, keys, {"ft": ft_counts, "mlm": mlm_counts}
 
 
-def main(phases="abcdefghijklmnopqrstuvwxyzABCDE"):
+# Phase (F): the example's MoE usage line (examples/train_gpt.py:6), ``python -m
+# np_modeling_tpu_torch.train_gpt --bf16 --moe 8``, at its defaults: vocab 1024, d
+# 256, 4 layers of 8 heads of 32 (K1 and K2 on copies zero-padded to head dim 64),
+# every FFN 8 relu experts of 1024, top 2, capacity factor 1.25 (the dense [T, E, C]
+# dispatch), aux weight 0.01, dropout 0.1, batch 8 x 256, 50 steps, and the closing
+# greedy sample (16 tokens through K1's mask option on fp32 caches). Step 0 is held
+# on the same model in fp32 with gelu experts in place of relu: a last-bit
+# difference in a pre-activation near 0 flips relu's gradient mask (see (f)).
+MOE_ENTRY_ARGS = ("--bf16", "--moe", "8")
+MOE_ENTRY_GEN_STEPS = 16        # train_gpt.main's closing sample
+
+
+# K1 + K2 and K1 + K5 at head dims under 64 (run on zero-padded copies at 64)
+# against the plain version: (F)'s layer (b8 h8 s256 d32) and a ragged GQA d 16.
+MOE_ENTRY_LAYER = (8, 8, 8, 256, 256, 32)
+PADDED_CASES = (MOE_ENTRY_LAYER, (2, 4, 2, 200, 200, 16))
+
+
+def phase_flash_padded_vs_plain():
+    """(F) K1 + K2 and K1 + K5 at PADDED_CASES, fp32 and bf16, causal and not,
+    against the plain version at the true head dim: o, dq, dk, dv within
+    _tol(dtype) x max(1, max |plain|); each call counted as a launch (no
+    plain fallback). Returns the max abs errors {"fwd"/"bwd": (fp32, bf16)}."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    rng = np.random.default_rng(SEED + 122)
+    errs = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    n = 0
+    for shape in PADDED_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = _flash_inputs(shape, dtype, rng)
+            for causal in (False, True):
+                want = _flash_fwd_bwd(q, k, v, do, causal, plain=True)
+                for fused in (True, False):
+                    before = (ops.flash_attention.launches_fwd,
+                              ops.flash_attention.launches_bwd
+                              + ops.flash_attention.launches_bwd_split)
+                    with _schedule(fused_bwd=fused):
+                        got = _flash_fwd_bwd(q, k, v, do, causal, plain=False)
+                    after = (ops.flash_attention.launches_fwd,
+                             ops.flash_attention.launches_bwd
+                             + ops.flash_attention.launches_bwd_split)
+                    tag = (f"(F) flash {shape} causal={causal} "
+                           f"{str(dtype)[6:]} {'K2' if fused else 'K5'}")
+                    if after != (before[0] + 1, before[1] + 1):
+                        raise AssertionError(f"{tag}: launches {before} -> "
+                                             f"{after}")
+                    for name, x, y in zip(("o", "dq", "dk", "dv"), got, want):
+                        if x.shape != y.shape:
+                            raise AssertionError(f"{tag}: {name} {x.shape}")
+                        err = (x.float() - y.float()).abs().max().item()
+                        bound = _tol(dtype) * max(1.0,
+                                                  y.float().abs().max().item())
+                        if not err <= bound:
+                            raise AssertionError(f"{tag}: {name} max abs err "
+                                                 f"{err} > {bound}")
+                        way = errs["fwd" if name == "o" else "bwd"]
+                        slot = int(dtype == torch.bfloat16)
+                        way[slot] = max(way[slot], err)
+                    n += 1
+    print(f"(F) flash at head dims 32 and 16 through the padding: {n} cases "
+          f"pass; max abs err fwd {errs['fwd']}, bwd {errs['bwd']} (fp32, "
+          f"bf16)")
+    return errs
+
+
+def _entry_counts():
+    from np_modeling_tpu_torch import ops
+    return dict(_launch_counts(),
+                flash_attention_fwd_mask=ops.flash_attention.launches_fwd_mask,
+                flash_attention_fwd_mask_fp32=(
+                    ops.flash_attention.launches_fwd_mask_fp32))
+
+
+def phase_moe_entry(device_line):
+    """(F) The example's ``--bf16 --moe 8`` line through train_gpt.main on the
+    card (MOE_ENTRY_ARGS). First step 0 (forward, backward, clip) of its
+    model in fp32 with gelu experts, through the kernels against the plain
+    step with the kernel run's MoE routes replayed (_route_replay), by (h)'s
+    fp32 criteria. Then the main path, counts set to 0 just before it:
+    train_gpt.main(MOE_ENTRY_ARGS); the losses finite and falling; K1 and K2
+    at head dim 32 (through the padding) once a layer a step, K7 and K8 at
+    every site, and the closing sample's K1 with the mask on fp32 caches once
+    a layer a step, nothing else. Returns the launch counts."""
+    import torch
+    from np_modeling_tpu_torch import train_gpt
+    from np_modeling_tpu_torch.models import GPT
+    t_phase = time.perf_counter()
+    args = train_gpt.parse_args(list(MOE_ENTRY_ARGS))
+    cfg = train_gpt.config(args)
+    L, steps = cfg.num_layers, args.steps
+    if cfg.d_model // cfg.num_heads != 32:
+        raise AssertionError(f"(F) head dim {cfg.d_model // cfg.num_heads}")
+    print(f"(F) train_gpt.main({list(MOE_ENTRY_ARGS)}): vocab {cfg.vocab_size}, "
+          f"d {cfg.d_model}, {L} layers of {cfg.num_heads} heads of "
+          f"{cfg.d_model // cfg.num_heads}, {cfg.moe_experts} {cfg.activation} "
+          f"experts of {cfg.hidden_units}, top {cfg.moe_top_k}, capacity "
+          f"factor {cfg.moe_capacity_factor}, aux weight {cfg.moe_aux_weight}, "
+          f"dropout {cfg.drop_rate}, bf16; batch {args.batch} x {args.seq}, "
+          f"{steps} steps")
+    gpt = GPT(dataclasses.replace(cfg, dtype=None, activation="gelu")).init(
+        torch.Generator(device="cuda").manual_seed(SEED + 120))
+    tokens = torch.tensor(train_gpt.corpus_of(args)[:args.batch],
+                          device="cuda")
+    routes, flips = [], []
+    with _route_replay(routes):
+        lk, gk = _step0(gpt, tokens, SEED + 121, plain=False)
+    with _route_replay(routes, flips):
+        lp, ref = _step0(gpt, tokens, SEED + 121, plain=True)
+    print(f"(F) fp32 step 0, gelu experts: the kernel step's routes replayed in "
+          f"the plain step; tokens whose own choice differed, layer by layer: "
+          f"{flips}")
+    _hold_fp32("(F)", "kernels vs plain, same dropout seed and routes", lk, gk,
+               lp, ref)
+    del gpt, gk, ref
+    torch.cuda.empty_cache()
+
+    _zero_launch_counts()
+    from np_modeling_tpu_torch import ops
+    ops.flash_attention.launches_fwd_mask = 0
+    ops.flash_attention.launches_fwd_mask_fp32 = 0
+    t0 = time.perf_counter()
+    losses = train_gpt.main(list(MOE_ENTRY_ARGS)).tolist()
+    seconds = time.perf_counter() - t0
+    counts = _entry_counts()
+    sites, gen = 2 * L + 1, MOE_ENTRY_GEN_STEPS
+    want = dict.fromkeys(counts, 0)
+    want.update(dropout=2 * sites * steps, layer_norm_fwd=sites * (steps + gen),
+                layer_norm_bwd=sites * steps,
+                flash_attention_fwd=L * (steps + gen),
+                flash_attention_bwd=L * steps,
+                flash_attention_fwd_mask=L * gen,
+                flash_attention_fwd_mask_fp32=L * gen)
+    print(f"(F) train_gpt.main in {seconds:.1f} s; losses "
+          f"{[round(x, 4) for x in losses]}; launches {counts} [{device_line}]")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(F) loss not finite: {losses}")
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"(F) loss at step {steps - 1} ({losses[-1]}) not "
+                             f"below step 1's ({losses[1]})")
+    if counts != want:
+        raise AssertionError(f"(F) launches {counts}, expected {want}")
+    print(f"(F) MoE entry point phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def main(phases="abcdefghijklmnopqrstuvwxyzABCDEF"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
     runs the quantized serving path alone, ``"abcqrw"`` Gemma-2 serving and
     generate, ``"abcst"`` Gemma-2 training, ``"abcuvx"`` GPT-2's serving
     features, ``"abcyz"`` T5 and Seq2Seq, ``"abcA"`` T5 serving, ``"abcB"``
     DeepSeek-V2-Lite serving, ``"abcC"`` DeepSeek-V2-Lite training,
-    ``"abcD"`` gpt-oss-20b serving, ``"abcE"`` BERT-base training); the
-    JSON summary and the ok line come only from a run of every phase."""
+    ``"abcD"`` gpt-oss-20b serving, ``"abcE"`` BERT-base training,
+    ``"abcF"`` the entry point's ``--bf16 --moe 8``); the JSON summary and
+    the ok line come only from a run of every phase."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -8089,7 +8377,7 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCDE"):
     since("(c)")
     serving = training_res = entry_res = quant_res = forced_res = None
     packed_res = gemma_res = gemma_train_res = mask_res = t5_res = None
-    s2e_res = dsv2_res = mla_res = oss_res = bert_res = None
+    s2e_res = dsv2_res = mla_res = oss_res = bert_res = moe_res = None
     gemma_gen_launches = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
@@ -8216,11 +8504,18 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCDE"):
     if "E" in phases:
         bert_res, bert_keys, bert_launches = phase_bert(device_line)
         since("(E)")
+    if "F" in phases:
+        pad_err = phase_flash_padded_vs_plain()
+        moe_launches = phase_moe_entry(device_line)
+        moe_res, moe_keys = flash_timings("F", "moe entry", MOE_ENTRY_LAYER,
+                                          SEED + 123, device_line,
+                                          kernels=("K1", "K2"))
+        since("(F)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
     if None in (serving, training_res, entry_res, quant_res, forced_res,
                 packed_res, gemma_res, gemma_train_res, mask_res,
                 gemma_gen_launches, t5_res, s2e_res, dsv2_res, mla_res,
-                oss_res, bert_res) \
+                oss_res, bert_res, moe_res) \
             or "z" not in phases:
         return 0
     packed_shape = "b8 h12 s1024 d64 causal bf16"
@@ -8409,6 +8704,14 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCDE"):
              for name, kernel, line, launches, err in bert_rows]
     bert_bf16 = {f"flash_attention_{name}": bert_keys[(kernel, "bfloat16")]
                  for name, kernel, *_ in bert_rows}
+    # (F): K1 and K2 at head dim 32 on copies padded to 64, on the --moe 8
+    # entry point's path (K1 also in its closing sample, with the mask), timed
+    # at its attention shape.
+    rows += [(f"flash_attention_{way}_d32_padded", FLASH_SOURCE,
+              f"np_modeling_tpu/ops/attention.py:{line}",
+              moe_launches[f"flash_attention_{way}"], tuple(pad_err[way]),
+              moe_res, moe_keys[kernel])
+             for way, line, kernel in (("fwd", 756, "K1"), ("bwd", 1100, "K2"))]
     # "ms": a call's wall time (CUDA events, host included), every entry;
     # "device_ms": calls back to back behind a sleep kernel (device only);
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its

@@ -1,7 +1,7 @@
 """MLA's training path on one CUDA card: the flash kernels at head dim 192
 and the depth of DeepSeek-V2-Lite that one card trains.
 
-    python3 exp_torch_mla.py [--check] [--timings] [--depths 14,16,18]
+    python3 exp_torch_mla.py [--check] [--timings] [--depths 4,5]
                              [--repeat N] [--recipe LAYERS]
 
 Builds the flash and paged libraries from this checkout and prints ptxas's
@@ -10,7 +10,8 @@ registers and spills of the d 192 instantiations. ``--check`` holds the d
 (``phase_mla_flash_vs_plain``); ``--timings`` times them at the slice's
 shape beside SDPA (``phase_mla_flash_timings``); ``--depths`` runs two steps
 of train_gpt.train on chip_smoke's DeepSeek-V2-Lite training config
-(``mla_train_config``: bf16 compute, 1 x 4096 seeded Zipf tokens) at each
+(``mla_train_config``: its MoE layers, bf16 compute, 1 x 4096 seeded Zipf
+tokens) at each
 depth and prints its peak device memory (torch.cuda.max_memory_allocated)
 and the second step's time, or that it ran out of memory. ``--repeat N``
 runs K2 and K5 N times on one input at the slice's shape (b1 h16 s4096

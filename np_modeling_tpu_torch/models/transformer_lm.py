@@ -13,8 +13,8 @@ attention too) and an untied LM head (``lm_head.w`` [d, vocab], no bias);
 gpt-oss's attention sinks (``attn_sinks``: a per-head logit in each row's
 softmax, K3's sinks option in the serving engine); and routed MoE FFNs
 (``moe_experts``, ``nn.MoE``: every routing rule, no-drop and capacity
-dispatch, shared experts, the first ``moe_first_dense`` layers dense; the
-forward only, its backward raises). A config outside those raises
+dispatch, shared experts, the first ``moe_first_dense`` layers dense;
+forward and backward). A config outside those raises
 NotImplementedError. ``GPT`` owns its parameters under the JAX parameter
 paths (``embedding.table``, ``layer_{i}.self_attention.wq``,
 ``layer_{i}.dense1.linear.w`` or ``layer_{i}.swiglu.w_gate``, ...).
@@ -374,8 +374,8 @@ class GPT(nn.Module):
         ``tokens[..., 1:]``, ``segment_ids`` and ``positions`` cut with
         them. With ``segment_ids``, a position whose next token lies in
         another document is not a target either. An MoE model adds
-        ``moe_aux_weight`` times the summed load-balancing aux; its
-        backward raises (``nn.moe``). ``rngs`` as in ``apply``."""
+        ``moe_aux_weight`` times the summed load-balancing aux (the MoE's
+        backward is ``nn.moe``'s, by hand). ``rngs`` as in ``apply``."""
         c = self.config
         if c.fused_loss and c.final_logit_softcap is not None:
             raise ValueError("fused_loss never materializes logits, so the "

@@ -18,7 +18,10 @@ The causal mask is top-left (``col <= row`` in absolute indices), as in JAX.
 The kernels take causal and non-causal attention, GQA, segment ids, a
 sliding window, a logit softcap (each a template option of the kernels, so
 a call without it runs code without it), any sq/skv >= 1, head_dim 64, 128
-or 256, and fp32 (FMA path) or bf16 (tensor cores). Head_dim 192 (MLA's
+or 256, and fp32 (FMA path) or bf16 (tensor cores); a head_dim under 64
+runs on zero-padded copies of q, k and v at 64 (``_fwd_padded``,
+``_bwd_padded``: the padded columns add 0 to every score, the scale stays
+the caller's, and o, dq, dk and dv are cut back). Head_dim 192 (MLA's
 nope + rope, v zero-padded to it) is built for what MLA passes: causal or
 not, GQA, segment ids, and nothing else (a window, softcap, mask or bias
 there raises NotImplementedError on a CUDA tensor). The forward K1 also
@@ -186,6 +189,37 @@ def _attn_bwd_plain(q, k, v, o, lse, do, mask, bias, causal, window, scale,
 
 
 # ---- the CUDA kernels (K1, K12, K2, K5) -------------------------------------
+
+# The smallest head_dim the kernels are built for: a narrower one runs on
+# zero-padded copies.
+MIN_KERNEL_D = 64
+
+
+def _pad_d(*xs):
+    return [torch.nn.functional.pad(x, (0, MIN_KERNEL_D - x.shape[-1]))
+            for x in xs]
+
+
+def _fwd_padded(fwd, q, k, v, *args, **kw):
+    """``fwd(q, k, v, ...)`` -> (o, lse) at head_dim 64 where q's is less,
+    o cut back to it. The zero columns change no score, and ``fwd`` gets
+    the scale from the caller."""
+    d = q.shape[-1]
+    if d >= MIN_KERNEL_D:
+        return fwd(q, k, v, *args, **kw)
+    o, lse = fwd(*_pad_d(q, k, v), *args, **kw)
+    return o[..., :d], lse
+
+
+def _bwd_padded(bwd, q, k, v, o, lse, do, *args, **kw):
+    """``bwd(q, k, v, o, lse, do, ...)`` -> (dq, dk, dv, dbias) at head_dim
+    64 where q's is less, dq, dk and dv cut back to it."""
+    d = q.shape[-1]
+    if d >= MIN_KERNEL_D:
+        return bwd(q, k, v, o, lse, do, *args, **kw)
+    dq, dk, dv, dbias = bwd(*_pad_d(q, k, v, o), lse, *_pad_d(do), *args,
+                            **kw)
+    return dq[..., :d], dk[..., :d], dv[..., :d], dbias
 
 def _kernel_layout(x):
     """``x`` as the kernels read it: last dim contiguous, 16-byte aligned
@@ -463,13 +497,13 @@ class _FlashAttention(torch.autograd.Function):
             need_lse = sinks is not None or any(ctx.needs_input_grad[:5])
             # JAX's conditions for K12 (:856-858), an even number of kv
             # tiles counted at the width of the forward kernel that runs.
-            tile = _fwd_kv_tile(q.dtype, q.shape[-1])
+            tile = _fwd_kv_tile(q.dtype, max(q.shape[-1], MIN_KERNEL_D))
             dual = (FWD_DUAL_KV and q_seg is None and softcap is None
                     and mask is None and bias is None
                     and -(-k.shape[2] // tile) % 2 == 0)
-            o, lse = _flash_fwd_cuda(q, k, v, causal, scale, need_lse, q_seg,
-                                     kv_seg, dual, window, softcap, mask,
-                                     bias)
+            o, lse = _fwd_padded(_flash_fwd_cuda, q, k, v, causal, scale,
+                                 need_lse, q_seg, kv_seg, dual, window,
+                                 softcap, mask, bias)
         else:
             o, lse = _attn_fwd_plain(
                 q, k, v, _merge_seg_into_mask(mask, q_seg, kv_seg), bias,
@@ -492,10 +526,10 @@ class _FlashAttention(torch.autograd.Function):
         kernel, split, causal, window, scale, softcap = ctx.opts
         dbias = dsinks = None
         if kernel:
-            dq, dk, dv, dbias = _flash_bwd_cuda(
-                q, k, v, o, lse, do, causal, scale, q_seg, kv_seg, split,
-                window, softcap, bias, need_dbias=ctx.needs_input_grad[3],
-                mask=mask)
+            dq, dk, dv, dbias = _bwd_padded(
+                _flash_bwd_cuda, q, k, v, o, lse, do, causal, scale, q_seg,
+                kv_seg, split, window, softcap, bias,
+                need_dbias=ctx.needs_input_grad[3], mask=mask)
             if dbias is not None:
                 dbias = _unbroadcast_bias(dbias, bias)
         else:
@@ -548,8 +582,9 @@ def flash_attention(q, k, v, mask=None, bias=None, segment_ids=None, *,
     if dispatch.use_kernel(q) and mask is not None \
             and torch.is_grad_enabled() and any(
                 x.requires_grad for x in (q, k, v, bias) if x is not None):
-        # The backwards take the mask alone at head_dim 64.
-        why = _mask_bwd_unbuilt(d, window, softcap, bias)
+        # The backwards take the mask alone at head_dim 64 (and below, on
+        # the padded copies).
+        why = _mask_bwd_unbuilt(max(d, MIN_KERNEL_D), window, softcap, bias)
         if why is not None:
             raise NotImplementedError(
                 f"the CUDA flash-attention backwards are not built for {why} "

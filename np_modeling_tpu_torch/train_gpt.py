@@ -2,9 +2,12 @@
 point of the JAX package (examples/train_gpt.py) in the PyTorch port.
 
     python -m np_modeling_tpu_torch.train_gpt --bf16
+    python -m np_modeling_tpu_torch.train_gpt --bf16 --moe 8
 
 It runs on the card; ``--device cpu`` asks for the CPU (the plain
-versions of the kernels).
+versions of the kernels). ``--moe N`` makes every FFN a mixture of N
+experts with JAX's other defaults (top 2, capacity factor 1.25, relu
+experts of 4 x d, aux weight 0.01); the aux joins the loss.
 
 The recipe is the example's: dropout 0.1, ``GPT.loss(training=True)``,
 ``chain(clip_by_global_norm(1.0), adamw(warmup_cosine(3e-4, 10, steps)))``
@@ -13,8 +16,8 @@ from ``data.epochs`` through ``data.prefetch_to_device``. The dropout rng is
 a CPU generator seeded 1 that the model draws one seed from a step, as the
 example splits its key a step. It closes, as the example does, with a
 greedy ``GPT.generate`` sample of 16 tokens after the first row's first 8.
-The example's ``--moe``, ``--shard``, ``--remat`` and ``--ckpt`` options
-are not ported yet.
+The example's ``--shard``, ``--remat`` and ``--ckpt`` options are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -75,22 +78,32 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--heads", type=int, default=8)
     ap.add_argument("--vocab", type=int, default=1024)
     ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--moe", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the plain versions)")
     return ap.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    cfg = models.GPTConfig(
+def config(args: argparse.Namespace) -> models.GPTConfig:
+    """The example's model for the parsed ``args``."""
+    return models.GPTConfig(
         vocab_size=args.vocab, d_model=args.d_model, num_heads=args.heads,
         num_layers=args.layers, hidden_units=4 * args.d_model,
-        max_len=args.seq, drop_rate=0.1,
+        max_len=args.seq, drop_rate=0.1, moe_experts=args.moe,
         dtype=torch.bfloat16 if args.bf16 else None)
-    gpt = models.GPT(cfg, device=args.device).init(
-        torch.Generator(device=args.device).manual_seed(0))
+
+
+def corpus_of(args: argparse.Namespace) -> np.ndarray:
+    """The example's seeded random corpus, 64 batches of ``args.seq``."""
     rng = np.random.default_rng(0)
-    corpus = rng.integers(0, args.vocab, (64 * args.batch, args.seq))
+    return rng.integers(0, args.vocab, (64 * args.batch, args.seq))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    gpt = models.GPT(config(args), device=args.device).init(
+        torch.Generator(device=args.device).manual_seed(0))
+    corpus = corpus_of(args)
     losses, _ = train(gpt, corpus, args.steps, args.batch, args.device)
     sample = gpt.generate(torch.as_tensor(corpus[:1, :8], device=args.device),
                           steps=16)

@@ -375,11 +375,13 @@ def test_cuda_paged_latent_vs_plain(case, pages):
 def test_cuda_latent_and_mla_refusals():
     """d 576 with distinct k and v arrays raises ValueError; a window, a
     softcap or a bias there NotImplementedError. An MLA model at head dims
-    the kernels are not built for (qk 12, latent 20) raises ValueError on
+    the kernels are not built for (qk 96, latent 48) raises ValueError on
     the card, naming the head dims that are built: its dense forward those
-    of the flash kernels, its generate those of the paged kernel; the flash
-    kernels at d 192 (MLA's) raise NotImplementedError on a window, a
-    softcap, a mask or a bias, which no MLA caller passes."""
+    of the flash kernels, its generate those of the paged kernel; one at qk
+    12 (under 64) runs its dense forward on copies padded to 64, equal to
+    the plain path; the flash kernels at d 192 (MLA's) raise
+    NotImplementedError on a window, a softcap, a mask or a bias, which no
+    MLA caller passes."""
     q, rows, lens, table, _, _ = paged_latent_case(2, None, 16, [5, 9],
                                                    "float32", 0, pps=2)
     with pytest.raises(ValueError, match="one page array"):
@@ -388,23 +390,37 @@ def test_cuda_latent_and_mla_refusals():
                dict(bias=torch.zeros(2, 16, 32, device="cuda"))):
         with pytest.raises(NotImplementedError, match="latent"):
             ops.paged_attention(q, rows, rows, lens, table, **kw)
-    cfg = models.GPTConfig(vocab_size=64, d_model=32, num_heads=4,
-                           num_layers=1, hidden_units=48, max_len=32,
-                           positional="rope", norm="rms", ffn="swiglu",
-                           use_bias=False, tie_embeddings=False,
-                           mla=dict(kv_lora_rank=16, q_lora_rank=None,
-                                    qk_nope_head_dim=8, qk_rope_head_dim=4,
-                                    v_head_dim=8))
-    gpt = models.GPT(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+
+    def mla_gpt(nope, rope):
+        cfg = models.GPTConfig(vocab_size=64, d_model=32, num_heads=4,
+                               num_layers=1, hidden_units=48, max_len=32,
+                               positional="rope", norm="rms", ffn="swiglu",
+                               use_bias=False, tie_embeddings=False,
+                               mla=dict(kv_lora_rank=16, q_lora_rank=None,
+                                        qk_nope_head_dim=nope,
+                                        qk_rope_head_dim=rope, v_head_dim=8))
+        return models.GPT(cfg).init(
+            torch.Generator(device="cuda").manual_seed(0))
+
+    gpt = mla_gpt(64, 32)
     toks = torch.zeros(1, 4, dtype=torch.long, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 12: the kernels take 64, "
+    with pytest.raises(ValueError, match="head_dim 96: the kernels take 64, "
                                          "128, 192 or 256"):
         gpt.apply(toks)
-    with pytest.raises(ValueError, match="head_dim 20 .*64, 128, 256, or "
+    with pytest.raises(ValueError, match="head_dim 48 .*64, 128, 256, or "
                                          "576"):
         gpt.generate(toks, 2)
     with dispatch.force_plain():
         assert gpt.generate(toks, 2).shape == (1, 2)
+    narrow = mla_gpt(8, 4)
+    before = ops.flash_attention.launches_fwd
+    with torch.no_grad():
+        got = narrow.apply(toks)
+        with dispatch.force_plain():
+            want = narrow.apply(toks)
+    assert ops.flash_attention.launches_fwd == before + 1
+    assert (got - want).abs().max().item() <= _tol(torch.float32) * max(
+        1.0, want.abs().max().item())
     q, k, v, _ = _flash_inputs(1, 2, 2, 64, 64, 192, torch.bfloat16)
     for kw in (dict(window=8), dict(softcap=5.0),
                dict(mask=torch.ones(1, 1, 64, 64, dtype=torch.bool,
@@ -586,6 +602,64 @@ def test_cuda_moe_vs_cpu(dtype, tokens):
     assert torch.equal(i_card, i_cpu)
     assert bool((i_cpu == torch.tensor(tie[:6])).all())
     assert ((got - want).abs().max() / want.abs().max()).item() <= _tol(dtype)
+
+
+# MoE layers at test widths (d 256) by route, each router's TIE columns equal
+# and leading for every token, so that the card and the CPU route alike:
+# (id, fields, tokens, the tied columns).
+MOE_BWD_CASES = (
+    ("nodrop_gathered", dict(num_experts=64, hidden_units=64,
+                             capacity_factor=None, router_top_k=6,
+                             router_weights="softmax",
+                             shared_experts_units=128, ffn="swiglu"), 8,
+     [3, 9, 17, 20, 33, 40, 63]),
+    ("nodrop_loop", dict(num_experts=64, hidden_units=64,
+                         capacity_factor=None, router_top_k=6,
+                         router_weights="softmax", shared_experts_units=128,
+                         ffn="swiglu"), 48, [3, 9, 17, 20, 33, 40, 63]),
+    ("sorted_drops", dict(num_experts=16, hidden_units=64,
+                          capacity_factor=1.0, router_top_k=2,
+                          ffn="glu_clamp", router_weights="topk_softmax",
+                          router_bias=True), 48, [1, 4, 6]),
+    ("dense_drops", dict(num_experts=8, hidden_units=64, capacity_factor=1.25,
+                         router_top_k=2), 48, [1, 4, 6]),
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", MOE_BWD_CASES, ids=[c[0] for c in MOE_BWD_CASES])
+def test_cuda_moe_backward_vs_cpu(case, dtype):
+    """The MoE's hand-written backward on the card against the CPU's, on each
+    route (no-drop gathered and looped, sorted and dense dispatch with
+    drops), under chip_smoke's objective (``moe_layer_grads``): the gradients
+    of x and of every leaf within 1e-4 (fp32) or 2e-2 (bf16) x max(1, max
+    |CPU's|), and two card runs equal bit for bit."""
+    from chip_smoke import _grads_apart, moe_layer_grads
+    from np_modeling_tpu_torch.nn import MoE
+    _, fields, tokens, tie = case
+    cpu = MoE(256, **fields, device="cpu").init(
+        torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.startswith(("b", "router_")):
+                p.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(6))
+        cpu.router[0, tie[0]] = 3.0
+        cpu.router[:, tie] = cpu.router[:, tie[:1]]
+    card = MoE(256, **fields, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(tokens)
+    x = torch.tensor(rng.standard_normal((tokens, 256)), dtype=torch.float32)
+    x[:, 0] = 3.0
+    ct = torch.tensor(rng.standard_normal(x.shape), dtype=torch.float32)
+    x = x.to(dtype)
+    want, gcpu = moe_layer_grads(cpu, x, ct)
+    got, gcard = moe_layer_grads(card, x.cuda(), ct.cuda())
+    _, again = moe_layer_grads(card, x.cuda(), ct.cuda())
+    assert ((got - want).abs().max() / want.abs().max()).item() <= _tol(dtype)
+    err, worst = _grads_apart(gcard, gcpu)
+    assert err <= _tol(dtype), (worst, err)
+    assert all(torch.equal(gcard[n], again[n]) for n in gcard)
 
 
 def test_cuda_mla_moe_engine_vs_plain_engine():
@@ -868,6 +942,36 @@ def test_cuda_flash_mask_vs_plain(dtype, d, case):
         none = keyless[:, None, :, None].expand(o.shape)
         err = (o.float() - mean.expand(o.shape))[none].abs().max().item()
         assert err <= _tol(dtype) * max(1.0, mean.abs().max().item())
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("fused_bwd", [True, False], ids=["k2", "k5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_narrow_head_dims_padded(d, fused_bwd, dtype):
+    """Head dims under 64 run K1 and K2 (or K5) on copies zero-padded to 64:
+    o, dq, dk and dv at the true width against the plain version, GQA 2,
+    causal, each launch counted (no plain fallback)."""
+    q, k, v, do = _flash_inputs(2, 8, 4, 256, 256, d, dtype)
+    before = (ops.flash_attention.launches_fwd,
+              ops.flash_attention.launches_bwd,
+              ops.flash_attention.launches_bwd_split)
+    results = []
+    for plain in (False, True):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        with (dispatch.force_plain() if plain
+              else _schedule(fused_bwd=fused_bwd)):
+            o = ops.flash_attention(*leaves, causal=True)
+            o.backward(do)
+        results.append([o.detach()] + [x.grad for x in leaves])
+    assert (ops.flash_attention.launches_fwd,
+            ops.flash_attention.launches_bwd,
+            ops.flash_attention.launches_bwd_split) == (
+        before[0] + 1, before[1] + int(fused_bwd),
+        before[2] + int(not fused_bwd))
+    for got, want in zip(*results):
+        assert got.shape == want.shape
+        bound = _tol(dtype) * max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= bound
 
 
 def test_cuda_flash_other_head_dims_raise():

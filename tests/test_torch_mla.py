@@ -460,20 +460,24 @@ def _differ(tcfg, jcfg):
 
 
 def test_phase_b_config_is_the_jax_mapping_of_v2_lite():
-    """chip_smoke's dense-cut DeepSeek-V2-Lite config, phase (C)'s, equals
-    what the JAX package's hf_compat makes of the published config with
-    every layer dense (first_k_dense_replace=27), except the cuts it states:
-    no MoE fields (every layer is the dense first-layer FFN) and max_len."""
+    """chip_smoke's phase (C) DeepSeek-V2-Lite training config
+    (``mla_train_config``, its MoE layers included) equals what the JAX
+    package's hf_compat makes of the published config, except the cuts
+    MLA_TRAIN_CUT states: MLA_TRAIN_LAYERS of the 27 layers and max_len
+    MLA_S; its parameters are the whole model's less the MoE layers cut."""
     import chip_smoke
-    hc, jcfg = _v2_lite_jax_config(27, moe=False)
-    assert hc.first_k_dense_replace == jcfg.num_layers == 27
-    tcfg = chip_smoke.deepseek_v2_lite_dense_config()
+    hc, jcfg = _v2_lite_jax_config(1, moe=True)
+    depth = chip_smoke.MLA_TRAIN_LAYERS
+    tcfg = chip_smoke.mla_train_config(None, depth)
     differ = _differ(tcfg, jcfg)
-    assert set(differ) == {"max_len"}, differ
-    assert tcfg.max_len == chip_smoke.DSV2_MAX_LEN < jcfg.max_len
+    assert set(differ) == {"max_len", "num_layers"}, differ
+    assert tcfg.max_len == chip_smoke.MLA_S < jcfg.max_len
+    assert tcfg.num_layers == depth < jcfg.num_layers == 27
     big = tmodels.GPT(tcfg, device="meta")
+    assert not big.layer_0.moe_experts and big.layer_1.moe_experts == 64
     n = sum(p.numel() for p in big.parameters())
-    assert 2.60e9 < n < 2.62e9
+    assert n == chip_smoke.DSV2_PARAMS - (27 - depth) * (
+        chip_smoke.DSV2_MOE_LAYER_PARAMS) == chip_smoke.MLA_TRAIN_PARAMS
 
 
 def test_phase_b_moe_config_is_the_jax_mapping_of_v2_lite():

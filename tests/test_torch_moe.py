@@ -15,8 +15,8 @@ expert, the lower index. Then an MLA + MoE GPT with ``moe_first_dense=1``
 ``generate``), the engine with chunked prefill and continuous batching
 against JAX's engine (MLA + MoE on latent pages, and a swiglu MoE GPT on
 ordinary pages), a capacity-limited MoE GPT through the engine's dense
-prefill, JAX's refusals, the weights' round trip, and the backward that
-raises. The weights come from the port's ``init`` (biases and the select
+prefill, JAX's refusals and the weights' round trip (the backward is held
+in tests/test_torch_moe_train.py). The weights come from the port's ``init`` (biases and the select
 bias drawn afterwards, so that they count); the JAX side runs under
 ``jax.jit``. fp32 at rtol 1e-5 / atol 2e-5 (BASELINE.md:16); bf16 outputs
 within BF16_TOL x max(1, max |JAX's|), the routing (expert load, dropped
@@ -319,21 +319,6 @@ def test_gpt_apply_loss_and_decode_vs_jax(mla_moe):
     got = t.generate(torch.tensor(prompt), steps=8).numpy()
     np.testing.assert_array_equal(got, want)
     assert len(set(got.ravel().tolist())) > 3
-
-
-def test_loss_backward_raises(mla_moe):
-    """MoE training is the next slice: a backward through the MoE raises,
-    from GPT.loss and from the module alone."""
-    t = mla_moe[0]
-    loss = t.loss(torch.tensor(rng.integers(0, V, (1, 8))))
-    assert loss.requires_grad
-    with pytest.raises(NotImplementedError, match="Queue 1 item 0"):
-        loss.backward()
-    m, _, _ = _moe(dict(CASES[3][1]))
-    x = torch.zeros((3, D), requires_grad=True)
-    out, aux = m.apply_with_aux(x)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        (out.sum() + aux).backward()
 
 
 def _traffic(eng, p1, p2, wrap):

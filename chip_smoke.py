@@ -259,13 +259,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
       decode profiled by kind (as (p)), K3 at that decode on the engine's
       pages for a local and a global layer beside its bound, and K3 on 8
       sequences of 1024 and 4096 tokens (a report, not a check);
-  (s) Gemma-2 2B training at full width, depth cut to 12 layers (6 local,
-      6 global) for memory, bf16 compute: step 0 through K1 + K2 and
-      through K1 + K5 against the plain step, in fp32 at 2 layers on 5,120
-      tokens and in bf16 at 4 layers on 8,192, by (h)'s criteria; then 10
-      steps of train_gpt.train on seeded Zipf rows of 8,192 tokens, batch
-      1: the loss is finite and falls, each step launches K1 and K2 12
-      times (6 with the window) and K12 and K5 never; peak memory printed;
+  (s) Gemma-2 2B training at full width and all 26 layers (13 local, 13
+      global), bf16 compute: step 0 through K1 + K2 and through K1 + K5
+      against the plain step, in fp32 at 2 layers on 5,120 tokens and in
+      bf16 at 4 layers on 8,192, by (h)'s criteria; then 10 steps of
+      train_gpt.train under remat with the optimizer state donated, on
+      seeded Zipf rows of 8,192 tokens, batch 1: the loss is finite and
+      falls, each step launches K1 52 times (the forward and remat's
+      recompute, 26 with the window), K2 26 times (13 with it) and K12 and
+      K5 never; the peak memory under the card's 79.18 GiB, printed with
+      the donated update's own peak above the memory allocated before it;
   (t) Gemma-2 training timings: K1, K2 and K5 at b1 hq8 hkv4 s8192 d256
       softcap 50 for a local layer (window 4096) and a global one beside
       their bounds (in-band pairs), the plain version and compiled
@@ -274,7 +277,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
       K, flex), K12 beside K1 without the cap and compiled flex_attention
       without a score_mod (its library call; K12 against K1 and against
       it in rounds), SDPA without cap or window beside as
-      another function, and the 12-layer step in ms and tokens/s,
+      another function, and the 26-layer remat step in ms and tokens/s,
       profiled by kind (a report, not a check);
   (y) T5 at t5-base's full width and depth: training, greedy and beam
       decode, the flash kernels' bias timings (``phase_t5``);
@@ -316,9 +319,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
       K3 latent beside its bound, the plain version and SDPA over the
       gathered rows, and each run's peak memory
       (``phase_deepseek_serving``);
-  (C) DeepSeek-V2-Lite trained on the card with its MoE layers (MLA_TRAIN_CUT:
-      the dense first layer and 2 MoE layers; on an H100 80GB 4 layers peak
-      at 76.46 GiB of its 79.18 and leave no room for a further step). The
+  (C) DeepSeek-V2-Lite trained on the card with its MoE layers under remat,
+      the optimizer state donated (MLA_TRAIN_CUT: the dense first layer and
+      7 MoE layers; on an H100 80GB 8 layers peak at 69.31 GiB of its 79.18
+      in exp_torch_mla.py --depths, 9 would pass ~74). The
       flash kernels at MLA's qk head dim 192 (MLA_FLASH_CASES: ragged 200, GQA
       8/2, sq 130 < skv 333, sq 257 > skv 100, and the slice's b1 h16 s4096;
       fp32 and bf16, causal and not, with and without segment ids): o, lse,
@@ -334,8 +338,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
       step's (``_route_replay``; near ties would part them otherwise). Then
       the main path: train_gpt.train at MLA_TRAIN_LAYERS layers, bf16
       compute, 1 x 4096 tokens, MLA_TRAIN_STEPS steps (the loss finite and
-      falling, K1 and K2 once a layer a step) and MLA_FLAG_STEPS more under
-      FUSED_BWD False / FWD_DUAL_KV True (K12 and K5 once a layer a step),
+      falling, K1 twice a layer a step, the forward and the recompute, and
+      K2 once) and MLA_FLAG_STEPS more under FUSED_BWD False / FWD_DUAL_KV
+      True (K12 twice and K5 once a layer a step),
       the peak memory printed, a step profiled with the "MoE" span's share
       (forward and backward); the closing fp32 GPT.generate (16 greedy
       tokens after 8) on the trained weights equal to plain generate's (near
@@ -386,8 +391,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
       the kernel step's routes replayed in the plain step, by (h)'s fp32
       criteria; the main path: the losses finite and falling, K1/K2 once a
       layer a step, K7 and K8 at every site, K1 with the mask on fp32
-      caches once a layer a sample step (``phase_moe_entry``); K1 and K2 at
-      b8 h8 s256 d32 beside the plain version, the bound and SDPA
+      caches once a layer a sample step (``phase_moe_entry``); the line
+      once more as ``--remat --ckpt`` and once without ``--remat``, both
+      through K5 under torch's deterministic algorithms: the 50 losses
+      bit-equal, the launches of the recompute counted, both checkpoints
+      reloaded on the card into equal parameters (``remat_vs_plain``); K1
+      and K2 at b8 h8 s256 d32 beside the plain version, the bound and SDPA
       (``flash_timings``).
 Each path runs with the launch counts set to 0 just before it and read just
 after. Library yardsticks (one PyTorch call computing a kernel's function,
@@ -482,15 +491,16 @@ GEMMA_LONG, GEMMA_DECODE = 4600, 16
 # (q), (w), (r) serve 13 of Gemma-2's 26 layers: at 26 the whole run outgrew its
 # 1200 s on a slow host.
 GEMMA_SERVE_LAYERS = 13
-# Phase (s): Gemma-2 2B training at full width, its depth cut to
-# GEMMA_TRAIN_LAYERS (6 local, 6 global: 26 layers do not fit the card with
-# the port's optimizer state), batch 1 x GEMMA_TRAIN_S tokens (Gemma-2's
-# context, past the window), GEMMA_TRAIN_STEPS steps on GEMMA_TRAIN_ROWS
-# seeded Zipf rows; step 0 in fp32 at 2 layers on GEMMA_F32_S tokens (the
-# window still cuts rows 4096.. and the fp32 head fits) and in bf16 at
-# GEMMA_BF16_LAYERS layers on GEMMA_TRAIN_S tokens. GEMMA_LAYER: its
-# attention shape (b, hq, hkv, sq, skv, d); GEMMA_CAP: the attention softcap.
-GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_S, GEMMA_TRAIN_STEPS = 12, 8192, 10
+# Phase (s): Gemma-2 2B training at full width and all GEMMA_TRAIN_LAYERS = 26
+# layers (13 local, 13 global), under remat (each block's activations
+# recomputed in the backward) with the optimizer state donated (updated in
+# place), batch 1 x GEMMA_TRAIN_S tokens (Gemma-2's context, past the window),
+# GEMMA_TRAIN_STEPS steps on GEMMA_TRAIN_ROWS seeded Zipf rows; step 0 in fp32
+# at 2 layers on GEMMA_F32_S tokens (the window still cuts rows 4096.. and the
+# fp32 head fits) and in bf16 at GEMMA_BF16_LAYERS layers on GEMMA_TRAIN_S
+# tokens. GEMMA_LAYER: its attention shape (b, hq, hkv, sq, skv, d);
+# GEMMA_CAP: the attention softcap.
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_S, GEMMA_TRAIN_STEPS = 26, 8192, 10
 GEMMA_TRAIN_ROWS, GEMMA_F32_S, GEMMA_BF16_LAYERS = 16, 5120, 4
 GEMMA_LAYER = (1, 8, 4, GEMMA_TRAIN_S, GEMMA_TRAIN_S, 256)
 GEMMA_CAP = 50.0
@@ -5115,31 +5125,62 @@ def phase_gemma2_timings(gpt, prompts, device_line):
     return res, keys
 
 
-def gemma2_train_config(dtype, layers):
+def gemma2_train_config(dtype, layers, remat=False):
     """gemma2_config with its depth cut to ``layers`` (even: half local)."""
-    return dataclasses.replace(gemma2_config(dtype), num_layers=layers)
+    return dataclasses.replace(gemma2_config(dtype), num_layers=layers,
+                               remat=remat)
 
 
-def _gemma2_gpt(dtype, layers):
+def _gemma2_gpt(dtype, layers, remat=False):
     import torch
     from np_modeling_tpu_torch.models import GPT
-    return GPT(gemma2_train_config(dtype, layers), device="cuda").init(
+    return GPT(gemma2_train_config(dtype, layers, remat), device="cuda").init(
         torch.Generator(device="cuda").manual_seed(SEED))
 
 
+def update_peak(gpt, steps, state, tokens, seed):
+    """One more recipe step (scheduled over ``steps``) on ``tokens``, taken
+    apart: forward and backward, then the donated update of ``state`` with
+    its bytes measured: the device memory allocated just before it and the
+    peak above that during it (torch.cuda.max_memory_allocated). Returns
+    (allocated before the update, the update's own peak) in bytes."""
+    import torch
+    from np_modeling_tpu_torch import train_gpt, training
+    params = dict(gpt.named_parameters())
+    for p in params.values():
+        p.grad = None
+    gpt.loss(tokens, training=True, rngs={"dropout": seed}).backward()
+    grads = {n: p.grad for n, p in params.items()}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    update = train_gpt.recipe(steps).update_
+    updates, _ = update(grads, state, params)
+    training.apply_updates(params, updates)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    for p in params.values():
+        p.grad = None
+    return before, extra
+
+
 def phase_gemma2_training():
-    """(s) Gemma-2 2B training at full width, GEMMA_TRAIN_LAYERS layers,
+    """(s) Gemma-2 2B training at full width, all GEMMA_TRAIN_LAYERS layers,
     weights from SEED, on seeded Zipf rows of GEMMA_TRAIN_S tokens. Step 0
     (forward, backward, clip) through K1 + K2 and through K1 + K5 against
     the plain step: in fp32 at 2 layers (one local, one global) on
     GEMMA_F32_S tokens (loss 1e-5, each gradient 1e-4 relative L2); in bf16
     at GEMMA_BF16_LAYERS layers on GEMMA_TRAIN_S tokens (loss 5e-3, each
     gradient no further from the fp32 plain step's than 1.25 x the plain
-    bf16 step's distance, or 2e-2). Then the main path: GEMMA_TRAIN_STEPS
-    steps of train_gpt.train (clip + adamw + warmup-cosine, batch 1): the
-    loss is finite and lower at the last step than at step 1; each step
-    launches K1 and K2 once a layer (half of them with the window) and K12
-    and K5 never. Returns the model, the corpus and the launch counts."""
+    bf16 step's distance, or 2e-2). Then the main path at 26 layers under
+    remat: GEMMA_TRAIN_STEPS steps of train_gpt.train (clip + adamw +
+    warmup-cosine, the state donated, batch 1): the loss is finite and lower
+    at the last step than at step 1; each step launches K1 twice a layer
+    (the forward and remat's recompute) and K2 once (half of each with the
+    window), K12 and K5 never; the peak memory under 79.18 GiB, printed with
+    the donated update's own peak above the memory allocated before it (one
+    more step, taken apart). Returns the model, the corpus and the launch
+    counts."""
     import torch
     from np_modeling_tpu_torch import train_gpt
     t_phase = time.perf_counter()
@@ -5176,11 +5217,12 @@ def phase_gemma2_training():
     torch.cuda.empty_cache()
     print(f"(s) step-0 comparisons {time.perf_counter() - t_phase:.1f} s")
 
-    cfg = gemma2_train_config(torch.bfloat16, GEMMA_TRAIN_LAYERS)
-    gpt = _gemma2_gpt(torch.bfloat16, GEMMA_TRAIN_LAYERS)
+    cfg = gemma2_train_config(torch.bfloat16, GEMMA_TRAIN_LAYERS, remat=True)
+    gpt = _gemma2_gpt(torch.bfloat16, GEMMA_TRAIN_LAYERS, remat=True)
     n_params = sum(p.numel() for p in gpt.parameters())
-    print(f"(s) Gemma-2 2B at full width, depth cut to {cfg.num_layers} of 26 "
-          f"layers: d {cfg.d_model}, {cfg.num_heads} heads / "
+    print(f"(s) Gemma-2 2B at full width, {cfg.num_layers} of 26 layers, "
+          f"remat, the optimizer state donated: d {cfg.d_model}, "
+          f"{cfg.num_heads} heads / "
           f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}, FFN "
           f"{cfg.hidden_units}, vocab {cfg.vocab_size}, {n_params} params "
           f"(fp32 master weights), bf16 compute; batch 1 x {GEMMA_TRAIN_S} "
@@ -5195,18 +5237,28 @@ def phase_gemma2_training():
     seconds = time.perf_counter() - t0
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    del state
-    torch.cuda.empty_cache()
     layers, steps = cfg.num_layers, GEMMA_TRAIN_STEPS
     want = dict.fromkeys(launches, 0)
-    want.update(flash_attention_fwd=layers * steps,
+    want.update(flash_attention_fwd=2 * layers * steps,
                 flash_attention_bwd=layers * steps,
-                flash_attention_fwd_window=(layers + 1) // 2 * steps,
+                flash_attention_fwd_window=2 * ((layers + 1) // 2) * steps,
                 flash_attention_bwd_window=(layers + 1) // 2 * steps)
     print(f"(s) {steps} steps of the recipe in {seconds:.1f} s; losses "
           f"{[round(x, 4) for x in losses]}; peak device memory "
           f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated); kernel "
           f"launches {launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    before, extra = update_peak(gpt, steps, state,
+                                torch.tensor(corpus[:1], device="cuda"), seed)
+    del state
+    torch.cuda.empty_cache()
+    print(f"(s) the donated update (clip + adamw over {n_params} fp32 "
+          f"parameters): {before / 2 ** 30:.2f} GiB allocated before it "
+          f"(params, grads, mu, nu), its own peak {extra / 2 ** 30:.3f} GiB "
+          f"above that; the largest parameter "
+          f"{max(p.numel() for p in gpt.parameters()) * 4 / 2 ** 30:.3f} GiB")
+    if peak > 79.18 * 2 ** 30:
+        raise AssertionError(f"(s) peak {peak / 2 ** 30:.2f} GiB over the "
+                             f"card's 79.18")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"(s) loss not finite: {losses}")
     if not losses[-1] < losses[1]:
@@ -5425,8 +5477,9 @@ def phase_gemma2_train_timings(gpt, corpus, device_line):
     del q, k, v, do, kr, vr
     torch.cuda.empty_cache()
 
-    name = (f"gemma2 train step ({GEMMA_TRAIN_LAYERS} layers; forward, "
-            f"backward, clip, adamw) b1 s{GEMMA_TRAIN_S} bf16")
+    name = (f"gemma2 train step ({GEMMA_TRAIN_LAYERS} layers, remat; forward, "
+            f"recompute, backward, clip, donated adamw) b1 s{GEMMA_TRAIN_S} "
+            f"bf16")
     wall = _profile("t", name, _entry_step(gpt, corpus, 1, GEMMA_TRAIN_STEPS),
                     device_line, warmup=2)
     print(f"(t) {name}: {wall:.3f} ms, {GEMMA_TRAIN_S / wall * 1e3:.0f} "
@@ -6995,8 +7048,9 @@ def phase_deepseek_serving(device_line):
 # latent option over the dense latent cache viewed as pages. MLA_S is YaRN's
 # original length (rope_scaling's original_max_position_embeddings, 4096);
 # MLA_TRAIN_LAYERS of the 27 layers (the dense first layer and MoE layers;
-# MLA_TRAIN_CUT) are what one card's 80 GB holds with the functional optimizer
-# at 1 x MLA_S tokens (exp_torch_mla.py --depths measures the peak a depth).
+# MLA_TRAIN_CUT) are what one card's 80 GB holds under remat with the
+# optimizer state donated at 1 x MLA_S tokens (exp_torch_mla.py --depths
+# measures the peak a depth).
 # The step-0 comparisons run MLA_STEP0_LAYERS layers (the dense one and an MoE
 # one) with every run's routes pinned to the first run's (_route_replay).
 MLA_D, MLA_S = 192, 4096
@@ -7011,7 +7065,7 @@ MLA_FLASH_CASES = (
     ("sq > skv", (1, 4, 4, 257, 100, MLA_D)),
     ("slice", MLA_LAYER),
 )
-MLA_TRAIN_LAYERS, MLA_TRAIN_STEPS, MLA_FLAG_STEPS = 3, 16, 2
+MLA_TRAIN_LAYERS, MLA_TRAIN_STEPS, MLA_FLAG_STEPS = 8, 16, 2
 MLA_TRAIN_PARAMS = DSV2_PARAMS - (DSV2_LAYERS - MLA_TRAIN_LAYERS) * \
     DSV2_MOE_LAYER_PARAMS
 MLA_TRAIN_CUT = (f"{MLA_TRAIN_LAYERS} of {DSV2_LAYERS} layers (the dense first "
@@ -7215,11 +7269,11 @@ def mla_train_config(dtype, layers, max_len=MLA_S):
                                max_len=max_len)
 
 
-def _mla_gpt(dtype, layers):
+def _mla_gpt(dtype, layers, remat=False):
     import torch
     from np_modeling_tpu_torch.models import GPT
-    return GPT(mla_train_config(dtype, layers)).init(
-        torch.Generator(device="cuda").manual_seed(SEED + 102))
+    cfg = dataclasses.replace(mla_train_config(dtype, layers), remat=remat)
+    return GPT(cfg).init(torch.Generator(device="cuda").manual_seed(SEED + 102))
 
 
 def _mla_counts():
@@ -7257,10 +7311,12 @@ def phase_mla_training(device_line):
     K1 + K2 and with K12 + K5 (loss 1e-5 relative, each gradient 1e-4 relative
     L2, the attention weights' printed), in bf16 by (h)'s rule. Then the main
     path, counts set to 0 just before it: MLA_TRAIN_STEPS steps of
-    train_gpt.train at MLA_TRAIN_LAYERS layers (MLA_TRAIN_CUT), bf16 compute
-    (the loss is finite and falls; K1 and K2 once a layer a step),
-    MLA_FLAG_STEPS more under FUSED_BWD False and FWD_DUAL_KV True (K12 and K5
-    once a layer a step), the peak device memory; a recipe step profiled with
+    train_gpt.train at MLA_TRAIN_LAYERS layers (MLA_TRAIN_CUT) under remat,
+    the optimizer state donated, bf16 compute (the loss is finite and falls;
+    K1 twice a layer a step, the forward and remat's recompute, K2 once),
+    MLA_FLAG_STEPS more under FUSED_BWD False and FWD_DUAL_KV True (K12
+    twice and K5 once a layer a step), the peak device memory; a recipe step
+    profiled with
     the "MoE" span's share (forward and backward); and the closing sample:
     GPT.generate in fp32 on the trained weights, MLA_GEN_STEPS greedy tokens
     after MLA_GEN_PROMPT (the MoE on its gathered route), equal to plain
@@ -7313,9 +7369,10 @@ def phase_mla_training(device_line):
     print(f"(C) step-0 comparisons {time.perf_counter() - t_phase:.1f} s")
 
     L = MLA_TRAIN_LAYERS
-    gpt = _mla_gpt(torch.bfloat16, L)
+    gpt = _mla_gpt(torch.bfloat16, L, remat=True)
     n_params = sum(p.numel() for p in gpt.parameters())
-    print(f"(C) DeepSeek-V2-Lite at full width, cut to {MLA_TRAIN_CUT}: d "
+    print(f"(C) DeepSeek-V2-Lite at full width, cut to {MLA_TRAIN_CUT}, remat, "
+          f"the optimizer state donated: d "
           f"{DSV2_LITE['d_model']}, 16 heads, MLA rank 512, "
           f"nope 128, rope 64, v 128 (qk head dim {MLA_D}), dense FFN "
           f"{DSV2_LITE['hidden_units']}, MoE {DSV2_MOE}, vocab {vocab}, "
@@ -7338,7 +7395,7 @@ def phase_mla_training(device_line):
     print(f"(C) {MLA_TRAIN_STEPS} steps of the recipe in {seconds:.1f} s; "
           f"losses {[round(x, 4) for x in losses]}; launches {counts}")
     want = dict.fromkeys(counts, 0)
-    want.update(flash_attention_fwd=L * MLA_TRAIN_STEPS,
+    want.update(flash_attention_fwd=2 * L * MLA_TRAIN_STEPS,
                 flash_attention_bwd=L * MLA_TRAIN_STEPS)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"(C) loss not finite: {losses}")
@@ -7354,7 +7411,7 @@ def phase_mla_training(device_line):
     flagged = flagged.tolist()
     peak = torch.cuda.max_memory_allocated()
     counts = _mla_counts()
-    want.update(flash_attention_fwd_dual=L * MLA_FLAG_STEPS,
+    want.update(flash_attention_fwd_dual=2 * L * MLA_FLAG_STEPS,
                 flash_attention_bwd_split=L * MLA_FLAG_STEPS)
     print(f"(C) {MLA_FLAG_STEPS} steps under FUSED_BWD False, FWD_DUAL_KV True: "
           f"losses {[round(x, 4) for x in flagged]}; launches {counts}; peak "
@@ -8322,8 +8379,103 @@ def phase_moe_entry(device_line):
                              f"below step 1's ({losses[1]})")
     if counts != want:
         raise AssertionError(f"(F) launches {counts}, expected {want}")
+    remat_vs_plain(args, losses, device_line)
     print(f"(F) MoE entry point phase {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """K5 (FUSED_BWD False: dq written once a row, no atomics) and torch's
+    deterministic algorithms (the embedding's index_add_ in a fixed order)
+    in a scope; torch's warnings about ops without a fixed-order form are
+    printed."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught, \
+            _schedule(fused_bwd=False):
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+    seen = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                   if "determinis" in str(w.message)})
+    print(f"(F) ops without a fixed-order form that ran: {seen or 'none'}")
+
+
+def remat_vs_plain(args, k2_losses, device_line):
+    """(F) The example's line once more as ``MOE_ENTRY_ARGS --remat --ckpt``:
+    its 50 losses equal the run without ``--remat`` bit for bit, and its
+    checkpoint reloads on the card into parameters equal to that run's. Both
+    runs go through K5 under torch's deterministic algorithms
+    (_deterministic): K2 sums dq with fp32 atomics and the embedding's
+    backward is an index_add_, whose orders change from run to run, so two
+    runs of the default line part in their low bits with or without remat
+    (the default line's losses are printed beside them). Checks the remat
+    run's launches: the block's K1, K7 and K8 forwards once more a step
+    (the recompute), K5 once a layer a step."""
+    import tempfile
+    import torch
+    from np_modeling_tpu_torch import ops, train_gpt, training
+    from np_modeling_tpu_torch.models import GPT
+    cfg = train_gpt.config(args)
+    L, steps, gen = cfg.num_layers, args.steps, MOE_ENTRY_GEN_STEPS
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.pt") for k in ("plain", "remat")}
+        runs = {}
+        for k, extra in (("plain", []), ("remat", ["--remat"])):
+            _zero_launch_counts()
+            ops.flash_attention.launches_fwd_mask = 0
+            ops.flash_attention.launches_fwd_mask_fp32 = 0
+            with _deterministic():
+                runs[k] = train_gpt.main([*MOE_ENTRY_ARGS, *extra, "--ckpt",
+                                          paths[k]]).tolist()
+            counts = _entry_counts()
+        sites = 2 * L + 1
+        want = dict.fromkeys(counts, 0)
+        want.update(dropout=2 * sites * steps + 2 * L * steps,
+                    layer_norm_fwd=sites * (steps + gen) + 2 * L * steps,
+                    layer_norm_bwd=sites * steps,
+                    flash_attention_fwd=L * (2 * steps + gen),
+                    flash_attention_bwd_split=L * steps,
+                    flash_attention_fwd_mask=L * gen,
+                    flash_attention_fwd_mask_fp32=L * gen)
+        same = [a == b for a, b in zip(runs["plain"], runs["remat"])]
+        print(f"(F) --remat --ckpt vs the line without --remat, both K5 and "
+              f"deterministic: losses {runs['remat'][:3]}..{runs['remat'][-1]}"
+              f", {sum(same)} of {steps} bit-equal; remat run's launches "
+              f"{counts}; the default line (K2) "
+              f"{sum(a == b for a, b in zip(k2_losses, runs['plain']))} of "
+              f"{steps} equal to the deterministic run's, first parting "
+              f"{next((i for i, (a, b) in enumerate(zip(k2_losses, runs['plain'])) if a != b), None)}"
+              f" [{device_line}]")
+        if not all(same) or len(runs["remat"]) != steps:
+            first = same.index(False) if False in same else len(same)
+            raise AssertionError(
+                f"(F) --remat's losses part from the run without it at step "
+                f"{first}: {runs['remat'][first:first + 3]} vs "
+                f"{runs['plain'][first:first + 3]}")
+        if counts != want:
+            raise AssertionError(f"(F) --remat launches {counts}, expected "
+                                 f"{want}")
+        loaded = {}
+        for k, path in paths.items():
+            fresh = GPT(cfg).init(torch.Generator(device="cuda").manual_seed(
+                SEED + 123))
+            loaded[k] = training.load_checkpoint(
+                path, dict(fresh.named_parameters()))
+        differ = [n for n, p in loaded["plain"].items()
+                  if not torch.equal(p, loaded["remat"][n])]
+        print(f"(F) both checkpoints reloaded on the card: "
+              f"{len(loaded['remat'])} tensors, "
+              f"{len(loaded['remat']) - len(differ)} bit-equal between the "
+              f"remat run and the run without it")
+        if differ:
+            raise AssertionError(f"(F) reloaded parameters differ: "
+                                 f"{differ[:5]}")
 
 
 def main(phases="abcdefghijklmnopqrstuvwxyzABCDEF"):

@@ -10,8 +10,8 @@ registers and spills of the d 192 instantiations. ``--check`` holds the d
 (``phase_mla_flash_vs_plain``); ``--timings`` times them at the slice's
 shape beside SDPA (``phase_mla_flash_timings``); ``--depths`` runs two steps
 of train_gpt.train on chip_smoke's DeepSeek-V2-Lite training config
-(``mla_train_config``: its MoE layers, bf16 compute, 1 x 4096 seeded Zipf
-tokens) at each
+(``mla_train_config``: its MoE layers, bf16 compute, remat, the optimizer
+state donated, 1 x 4096 seeded Zipf tokens) at each
 depth and prints its peak device memory (torch.cuda.max_memory_allocated)
 and the second step's time, or that it ran out of memory. ``--repeat N``
 runs K2 and K5 N times on one input at the slice's shape (b1 h16 s4096
@@ -45,7 +45,7 @@ def depth_probe(layers, device_line):
     torch.cuda.reset_peak_memory_stats()
     times = []
     try:
-        gpt = chip_smoke._mla_gpt(torch.bfloat16, layers)
+        gpt = chip_smoke._mla_gpt(torch.bfloat16, layers, remat=True)
         for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -101,7 +101,7 @@ def recipe_vs_plain(layers, device_line):
                                     chip_smoke.MLA_S,
                                     seed=chip_smoke.SEED + 101)
     for plain in (False, True):
-        gpt = chip_smoke._mla_gpt(torch.bfloat16, layers)
+        gpt = chip_smoke._mla_gpt(torch.bfloat16, layers, remat=True)
         with dispatch.force_plain() if plain else contextlib.nullcontext():
             losses, state = train_gpt.train(gpt, corpus, 8, 1, "cuda",
                                             log=None)

@@ -17,7 +17,10 @@ dispatch, shared experts, the first ``moe_first_dense`` layers dense;
 forward and backward). A config outside those raises
 NotImplementedError. ``GPT`` owns its parameters under the JAX parameter
 paths (``embedding.table``, ``layer_{i}.self_attention.wq``,
-``layer_{i}.dense1.linear.w`` or ``layer_{i}.swiglu.w_gate``, ...).
+``layer_{i}.dense1.linear.w`` or ``layer_{i}.swiglu.w_gate``, ...); with
+``scan_layers`` one block's parameters stacked over the layers,
+``layers.self_attention.wq`` [L, ...], as JAX's scanned tree.
+``remat`` recomputes each block's activations in the backward.
 ``GPT.apply`` is the dense forward over flash attention (or, with
 ``caches`` from ``GPT.init_cache`` and ``decode=True``, the dense KV-cache
 step), ``GPT.generate`` the autoregressive decode over it, greedy or
@@ -28,16 +31,18 @@ paged attention.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from np_modeling_tpu_torch import ops, rng as _rng
 from np_modeling_tpu_torch.nn import (Dropout, Embedding, LayerNorm, Linear,
                                       RMSNorm)
 from np_modeling_tpu_torch.nn.module import (maybe_cast, resolve_rngs,
-                                             split_rngs)
+                                             split_rngs, swapped)
 from np_modeling_tpu_torch.nn.attention import cache_positions
 from np_modeling_tpu_torch.nn.transformer import TransformerEncoderBlock
 
@@ -107,7 +112,6 @@ _PORTED = {"positional": ("learned", "rope"), "norm": ("layer", "rms"),
            "activation": ("relu", "gelu", "gelu_exact"),
            "norm_first": (True,),
            "tie_embeddings": (True, False), "lm_head_bias": (False,),
-           "scan_layers": (False,),
            "attn_sinks": (False, True), "qk_norm": (False,),
            "parallel_residual": (False,), "sandwich_norm": (False, True),
            "embed_scale": (False, True)}
@@ -136,6 +140,13 @@ def check_ported(config: GPTConfig) -> None:
             raise ValueError("window_pattern and moe_first_dense both fork "
                              "the block; composing them is not wired (JAX "
                              "asserts)")
+        if config.scan_layers:
+            raise ValueError("moe_first_dense gives the first layers another "
+                             "parameter structure: use scan_layers=False "
+                             "(JAX asserts)")
+    if config.scan_layers and config.window_pattern > 1:
+        raise ValueError("window_pattern > 1 alternates block behavior per "
+                         "layer; use scan_layers=False (JAX asserts)")
 
 
 def moe_fields(config: GPTConfig, dense: bool = False) -> dict:
@@ -165,6 +176,17 @@ def window_for(config: GPTConfig, i: int):
     return config.attention_window
 
 
+def _stacked(block: nn.Module, n: int) -> nn.Module:
+    """``block`` with each parameter replaced by an uninitialised stack of
+    ``n`` [n, *shape] (JAX's ``scan_layers`` layout, ``layers/...``). The
+    block then runs only within ``swapped``."""
+    for name, p in list(block.named_parameters()):
+        owner_name, _, attr = name.rpartition(".")
+        block.get_submodule(owner_name)._parameters[attr] = nn.Parameter(
+            torch.empty((n, *p.shape), dtype=p.dtype, device=p.device))
+    return block
+
+
 class GPT(nn.Module):
     """The model's modules and parameters, on ``device``: the card
     (``cuda``) unless the caller names another, as JAX places arrays on its
@@ -187,8 +209,9 @@ class GPT(nn.Module):
             mla = dict(c.mla)
             if c.positional == "rope":   # JAX sets them on the block's attn
                 mla.update(rope_base=c.rope_base, rope_scaling=c.rope_scaling)
-        for i in range(c.num_layers):
-            self.add_module(f"layer_{i}", TransformerEncoderBlock(
+
+        def block(i):
+            return TransformerEncoderBlock(
                 c.d_model, c.num_heads, c.hidden_units,
                 num_kv_heads=c.num_kv_heads, dtype=c.dtype,
                 activation=c.activation, ln_eps=c.ln_eps,
@@ -201,7 +224,13 @@ class GPT(nn.Module):
                 attn_scale=attn_scale, attn_softcap=c.attn_logit_softcap,
                 mla=mla, attn_sinks=c.attn_sinks,
                 rope_scaling=c.rope_scaling, device=device,
-                **moe_fields(c, dense=i < c.moe_first_dense)))
+                **moe_fields(c, dense=i < c.moe_first_dense))
+
+        if c.scan_layers:
+            self.layers = _stacked(block(0), c.num_layers)
+        else:
+            for i in range(c.num_layers):
+                self.add_module(f"layer_{i}", block(i))
         self.final_norm = (RMSNorm(c.d_model, c.ln_eps, c.rms_offset, device)
                            if c.norm == "rms"
                            else LayerNorm(c.d_model, c.ln_eps, device))
@@ -213,13 +242,32 @@ class GPT(nn.Module):
     def _block_for(self, i: int) -> TransformerEncoderBlock:
         return getattr(self, f"layer_{i}")
 
+    def _stacks(self):
+        """With ``scan_layers``, each stacked parameter's ``unbind(0)``;
+        else None."""
+        if not self.config.scan_layers:
+            return None
+        return {n: p.unbind(0) for n, p in self.layers.named_parameters()}
+
+    def _layer(self, i: int, stacks=None):
+        """Scope that yields layer ``i``'s block: ``layer_{i}``, or with
+        ``scan_layers`` the one block ``self.layers`` with its parameters
+        reading slice ``i`` of their stacks (``stacks`` from ``_stacks``,
+        shared by the layers of a call, whose gradients then meet in one
+        stack)."""
+        if not self.config.scan_layers:
+            return contextlib.nullcontext(self._block_for(i))
+        stacks = stacks or self._stacks()
+        return swapped(self.layers, {n: s[i] for n, s in stacks.items()})
+
     def init(self, generator: torch.Generator):
         """Fill every parameter from ``generator`` (the JAX distributions)."""
         self.embedding.init(generator)
         if self.config.positional == "learned":
             self.pos_embedding.init(generator)
         for i in range(self.config.num_layers):
-            self._block_for(i).init(generator)
+            with torch.no_grad(), self._layer(i) as block:
+                block.init(generator)
         self.final_norm.init(generator)
         if not self.config.tie_embeddings:
             self.lm_head.init(generator)
@@ -228,67 +276,107 @@ class GPT(nn.Module):
     def apply(self, tokens, training=False, rngs=None, return_hidden=False,
               logits_dtype=None, segment_ids=None, positions=None,
               caches=None, decode=False, collect_kv=False,
-              logits_last_only=False, collect_aux=False):
+              logits_last_only=False, collect_aux=False, inputs_embeds=None):
         """Dense forward (JAX :221-333): token embedding (times
         sqrt(d_model) in its own dtype with ``embed_scale``) plus learned
         positions, cast to the compute dtype, dropout (salt 1000), the
         blocks (layer ``i`` with ``split_rngs(rngs, i)``), the final norm.
-        ``segment_ids`` [b, s]: packed documents, masked from each other
-        inside the flash kernels; ``positions`` ([s] or [b, s]) index the
-        position table (or, under RoPE, rotate q and k) in place of
-        ``arange(s)``, so that positions can restart at each document. In
-        training, ``rngs={"dropout": g}`` with ``g`` a CPU generator (one
-        seed drawn from it a call) or an integer seed. Returns the
-        final-norm hidden states with ``return_hidden=True``, else the
-        logits (``head``), fp32 unless ``logits_dtype`` says otherwise, and
-        capped by ``final_logit_softcap``. ``decode=True`` runs the tokens
-        through ``caches`` (one a layer, from ``init_cache``) at their
-        write index, which also gives the learned positions, and returns
-        ``(logits, caches)``; ``collect_kv=True`` returns ``(logits,
-        [(k, v) a layer])``; else ``collect_aux=True`` returns ``(logits,
-        aux)`` (or ``(hidden, aux)``), the sum of the MoE layers'
-        load-balancing aux, fp32; ``logits_last_only=True`` computes the
-        head on the last position only (JAX :222-333, the unscanned
-        branch)."""
+        ``inputs_embeds`` [b, s, d] takes the token lookup's place
+        (``tokens`` may be None; an ``embed_scale`` model refuses it, as JAX
+        asserts: the caller scales). ``segment_ids`` [b, s]: packed
+        documents, masked from each other inside the flash kernels;
+        ``positions`` ([s] or [b, s]) index the position table (or, under
+        RoPE, rotate q and k) in place of ``arange(s)``, so that positions
+        can restart at each document. In training, ``rngs={"dropout": g}``
+        with ``g`` a CPU generator (one seed drawn from it a call) or an
+        integer seed. With ``remat`` (and a gradient to take, outside
+        decode) each block runs under ``torch.utils.checkpoint`` (JAX's
+        ``jax.checkpoint``, :276-283): its activations are recomputed in the
+        backward, drawing the same dropout masks from the same seeds. With
+        ``scan_layers`` (JAX ``_apply_scanned``, :335-379) the blocks are
+        one block over slice ``i`` of the stacked parameters, and a decode
+        reads and writes slice ``i`` of the stacked caches, all layers at
+        ``caches["index"]``. Returns the final-norm hidden states with
+        ``return_hidden=True``, else the logits (``head``), fp32 unless
+        ``logits_dtype`` says otherwise, and capped by
+        ``final_logit_softcap``. ``decode=True`` runs the tokens through
+        ``caches`` (from ``init_cache``) at their write index, which also
+        gives the learned positions, and returns ``(logits, caches)``;
+        ``collect_kv=True`` returns ``(logits, [(k, v) a layer])``; else
+        ``collect_aux=True`` returns ``(logits, aux)`` (or ``(hidden,
+        aux)``), the sum of the MoE layers' load-balancing aux, fp32;
+        ``logits_last_only=True`` computes the head on the last position
+        only."""
         c = self.config
-        x = self.embedding(tokens)
-        if c.embed_scale:
-            x = x * torch.tensor(c.d_model ** 0.5, dtype=x.dtype)
+        if inputs_embeds is not None:
+            if c.embed_scale:
+                raise ValueError("inputs_embeds bypasses the token embedding;"
+                                 " the caller must pre-scale (embed_scale "
+                                 "models; JAX asserts)")
+            x = inputs_embeds
+        else:
+            x = self.embedding(tokens)
+            if c.embed_scale:
+                x = x * torch.tensor(c.d_model ** 0.5, dtype=x.dtype)
+        s_len, dev = x.shape[-2], x.device
         if c.positional == "learned":
             if positions is None and decode:
                 # Past the table a position reads its last row, as JAX's
                 # clamping gather does (a decode may outrun max_len).
-                positions = cache_positions(
-                    caches[0]["index"], tokens.shape[-1],
-                    tokens.device).clamp(max=c.max_len - 1)
+                index = caches["index"] if c.scan_layers \
+                    else caches[0]["index"]
+                positions = cache_positions(index, s_len, dev).clamp(
+                    max=c.max_len - 1)
             if positions is None:
-                if tokens.shape[-1] > c.max_len:
-                    raise ValueError(f"{tokens.shape[-1]} tokens: the "
-                                     f"position table holds max_len "
-                                     f"{c.max_len}")
-                positions = torch.arange(tokens.shape[-1],
-                                         device=tokens.device)
+                if s_len > c.max_len:
+                    raise ValueError(f"{s_len} tokens: the position table "
+                                     f"holds max_len {c.max_len}")
+                positions = torch.arange(s_len, device=dev)
             x = x + self.pos_embedding(positions)
         block_positions = positions if c.positional == "rope" else None
         rngs = resolve_rngs(rngs) if training else None
         x = self.drop(maybe_cast(x, c.dtype), training, rngs, salt=1000)
+        if c.scan_layers and collect_kv:
+            raise ValueError("collect_kv requires scan_layers=False (JAX "
+                             "asserts)")
+        remat = c.remat and not decode and torch.is_grad_enabled()
+        stacks = self._stacks()
+        stacked_caches = decode and c.scan_layers
+        index = caches["index"] if stacked_caches else None
         extras = [] if decode or collect_kv else None
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
+        aux_total = torch.zeros((), dtype=torch.float32, device=dev) \
             if collect_aux else None
         for i in range(c.num_layers):
-            x = self._block_for(i)(x, training=training,
-                                   rngs=split_rngs(rngs, i),
-                                   segment_ids=segment_ids,
-                                   positions=block_positions,
-                                   cache=caches[i] if decode else None,
-                                   decode=decode, collect_kv=collect_kv,
-                                   collect_aux=collect_aux)
+            if stacked_caches:
+                cache = {k: v if k == "index" else v[i]
+                         for k, v in caches.items()}
+            else:
+                cache = caches[i] if decode else None
+            layer_kw = dict(training=training, rngs=split_rngs(rngs, i),
+                            segment_ids=segment_ids, positions=block_positions,
+                            cache=cache, decode=decode, collect_kv=collect_kv,
+                            collect_aux=collect_aux)
+
+            def run(x, i=i, layer_kw=layer_kw):
+                with self._layer(i, stacks) as block:
+                    return block(x, **layer_kw)
+
+            x = (checkpoint(run, x, use_reentrant=False)
+                 if remat and not collect_kv else run(x))
             if extras is not None:
                 x, extra = x
                 extras.append(extra)
             elif collect_aux:
                 x, aux = x
                 aux_total = aux_total + aux
+            if stacked_caches:
+                for k, v in extra.items():
+                    if k == "index":
+                        index = v
+                    elif v is not cache[k]:     # a cache laid out anew
+                        caches[k][i].copy_(v)
+        if stacked_caches:
+            extras = dict(caches, index=index)
         x = self.final_norm(x)
         if return_hidden:
             if aux_total is not None and extras is None:
@@ -296,7 +384,7 @@ class GPT(nn.Module):
             return x
         if logits_last_only:
             x = x[..., -1:, :]
-        logits = self.head(x).to(logits_dtype or torch.float32)
+        logits = self.head(x, logits_dtype).to(logits_dtype or torch.float32)
         if c.final_logit_softcap is not None:
             cap = torch.tensor(c.final_logit_softcap, dtype=logits.dtype)
             logits = cap * torch.tanh(logits / cap)
@@ -306,21 +394,36 @@ class GPT(nn.Module):
             return logits, aux_total
         return logits
 
-    def head(self, x):
-        """The LM head before the final softcap. Tied: its product
-        accumulates in fp32 (JAX: preferred_element_type), here as the
-        product of the exact fp32 copies of the compute-dtype operands;
-        untied: ``lm_head``, a Linear in the compute dtype (JAX :311-323)."""
+    def head(self, x, logits_dtype=None):
+        """The LM head before the final softcap. Untied: ``lm_head``, a
+        Linear in the compute dtype (JAX :311-323). Tied, JAX's einsum with
+        ``preferred_element_type=float32`` then ``astype(logits_dtype)``:
+        when ``logits_dtype`` is the compute dtype (bf16, as ``GPT.loss``
+        passes it), one product in that dtype with fp32 accumulation and a
+        result in it (``x`` rounded to it first, as JAX's default precision
+        does on a TPU), so that no fp32 [tokens, vocab] tensor exists;
+        otherwise the product of the exact fp32 copies of the compute-dtype
+        operands, rounded once by the caller."""
         if not self.config.tie_embeddings:
             return self.lm_head(x)
         table = maybe_cast(self.embedding.table, self.config.dtype)
+        if logits_dtype == table.dtype != torch.float32:
+            return torch.matmul(x.to(table.dtype), table.t())
         return torch.matmul(x.float(), table.float().t())
 
     def init_cache(self, batch, max_len=None, dtype=torch.float32):
-        """One dense KV cache a layer (JAX :450), of ``max_len`` (default
-        the config's) positions, on the model's device."""
+        """Dense KV caches (JAX :450-457) of ``max_len`` (default the
+        config's) positions, on the model's device: one a layer, or with
+        ``scan_layers`` one whose tensors stack the layers' [L, ...] and
+        whose ``index`` all layers share."""
         c = self.config
         max_len = max_len or c.max_len
+        if c.scan_layers:
+            one = self.layers.init_cache(batch, max_len, c.d_model, dtype)
+            return {k: torch.zeros((c.num_layers, *v.shape), dtype=v.dtype,
+                                   device=v.device)
+                    if torch.is_tensor(v) and k != "index" else v
+                    for k, v in one.items()}
         return [self._block_for(i).init_cache(batch, max_len, c.d_model,
                                               dtype)
                 for i in range(c.num_layers)]
@@ -328,9 +431,10 @@ class GPT(nn.Module):
     @torch.no_grad()
     def generate(self, prompt_tokens, steps: int, generator=None,
                  temperature: float = 0.0, top_k: int | None = None,
-                 top_p: float | None = None):
+                 top_p: float | None = None, prompt_embeds=None):
         """Autoregressive decode through dense KV caches (JAX :461-495):
-        the prompt [b, plen] in one decode step (its head on the last
+        the prompt [b, plen] (or ``prompt_embeds`` [b, plen, d] in its
+        place, JAX :463-478) in one decode step (its head on the last
         position only), then ``steps - 1`` one-token steps; returns the
         ``steps`` new tokens [b, steps]. ``temperature=0`` (or no
         ``generator``) is greedy; otherwise each step draws from
@@ -338,10 +442,12 @@ class GPT(nn.Module):
         ``generator`` (a ``torch.Generator`` on the model's device: the same
         seed gives the same tokens; the bits are not JAX's). The caches are
         fp32, as JAX's: a bf16 model attends over them in fp32."""
-        b, plen = prompt_tokens.shape
+        prompt = prompt_embeds if prompt_embeds is not None else prompt_tokens
+        b, plen = prompt.shape[:2]
         caches = self.init_cache(b, plen + steps)
         logits, caches = self.apply(prompt_tokens, caches=caches,
-                                    decode=True, logits_last_only=True)
+                                    decode=True, logits_last_only=True,
+                                    inputs_embeds=prompt_embeds)
         tok = self._sample(logits[:, -1], generator, temperature, 0, top_k,
                            top_p)
         out = [tok]

@@ -15,6 +15,7 @@ ever read from a device tensor.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -45,6 +46,25 @@ def split_rngs(rngs: Rngs, salt: int) -> Rngs:
         return None
     return {k: rng.fold_seed(rng.seed_of(v), salt)
             for k, v in rngs.items()}
+
+
+@contextlib.contextmanager
+def swapped(module: nn.Module, tensors: dict):
+    """Within the scope, ``module``'s parameter ``name`` (a dotted path)
+    reads ``tensors[name]``; the parameters come back on exit. A
+    ``scan_layers`` GPT runs its one block over a layer's slices of the
+    stacked parameters this way."""
+    saved = []
+    for name, t in tensors.items():
+        owner_name, _, attr = name.rpartition(".")
+        owner = module.get_submodule(owner_name)
+        saved.append((owner, attr, owner._parameters[attr]))
+        owner._parameters[attr] = t
+    try:
+        yield module
+    finally:
+        for owner, attr, p in reversed(saved):
+            owner._parameters[attr] = p
 
 
 class Sequential(nn.Module):

@@ -61,6 +61,7 @@ from torch import nn
 
 from np_modeling_tpu_torch import ops
 from np_modeling_tpu_torch.nn import initializers
+from np_modeling_tpu_torch.nn.module import swapped
 from np_modeling_tpu_torch.ops.activations import activation_grad
 
 # No-drop calls of at most this many (token, expert) assignments take the
@@ -149,21 +150,25 @@ class _MoEForward(torch.autograd.Function):
     def forward(ctx, moe, x, *params):
         out, aux, stats, i_k = moe._forward(x)
         ctx.moe = moe
-        # The parameters are saved so that autograd raises if one changes in
-        # place before the backward, which reads them from the module.
+        # The backward reads the parameters saved here (autograd raises if
+        # one changes in place before it).
         ctx.save_for_backward(x, i_k, *params)
         ctx.mark_non_differentiable(*stats)
         return (out, aux, *stats)
 
     @staticmethod
     def backward(ctx, dout, daux, *_):
-        x, i_k = ctx.saved_tensors[:2]
+        x, i_k, *params = ctx.saved_tensors
         moe = ctx.moe
-        dx, grads = moe._backward(x, i_k, dout, daux)
+        names = [n for n, _ in moe.named_parameters()]
+        # The backward reads the tensors the forward saved, not whatever
+        # the module holds when the backward runs.
+        with swapped(moe, dict(zip(names, params))):
+            dx, grads = moe._backward(x, i_k, dout, daux)
         # Every parameter gets a gradient, zeros where none flows (the
         # select bias): JAX's tree.
         return (None, dx, *(grads[n] if n in grads else torch.zeros_like(p)
-                            for n, p in moe.named_parameters()))
+                            for n, p in zip(names, params)))
 
 
 class MoE(nn.Module):

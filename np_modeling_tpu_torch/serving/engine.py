@@ -114,6 +114,9 @@ class GenerationEngine:
             raise NotImplementedError(f"GenerationEngine option(s) {later} "
                                       + _LATER)
         c = self.gpt.config
+        if c.scan_layers:
+            raise ValueError("engine requires scan_layers=False (JAX "
+                             "asserts)")
         self.device = self.gpt.embedding.table.device
         # ---- sampling (JAX :447-480): a SamplingParams overrides the
         # plain fields, which follow it.

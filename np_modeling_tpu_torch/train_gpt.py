@@ -3,21 +3,25 @@ point of the JAX package (examples/train_gpt.py) in the PyTorch port.
 
     python -m np_modeling_tpu_torch.train_gpt --bf16
     python -m np_modeling_tpu_torch.train_gpt --bf16 --moe 8
+    python -m np_modeling_tpu_torch.train_gpt --bf16 --remat --ckpt gpt.pt
 
 It runs on the card; ``--device cpu`` asks for the CPU (the plain
 versions of the kernels). ``--moe N`` makes every FFN a mixture of N
 experts with JAX's other defaults (top 2, capacity factor 1.25, relu
-experts of 4 x d, aux weight 0.01); the aux joins the loss.
+experts of 4 x d, aux weight 0.01); the aux joins the loss. ``--remat``
+recomputes each block's activations in the backward (``GPTConfig.remat``);
+``--ckpt PATH`` saves the final parameters there
+(``training.save_checkpoint``, the port's own file format).
 
 The recipe is the example's: dropout 0.1, ``GPT.loss(training=True)``,
 ``chain(clip_by_global_norm(1.0), adamw(warmup_cosine(3e-4, 10, steps)))``
-with adamw's defaults, driven by ``training.make_train_step`` over batches
-from ``data.epochs`` through ``data.prefetch_to_device``. The dropout rng is
-a CPU generator seeded 1 that the model draws one seed from a step, as the
+with adamw's defaults, driven by ``training.make_train_step`` (the
+optimizer state donated: updated in place) over batches from
+``data.epochs`` through ``data.prefetch_to_device``. The dropout rng is a
+CPU generator seeded 1 that the model draws one seed from a step, as the
 example splits its key a step. It closes, as the example does, with a
 greedy ``GPT.generate`` sample of 16 tokens after the first row's first 8.
-The example's ``--shard``, ``--remat`` and ``--ckpt`` options are not
-ported yet.
+The example's ``--shard`` option is not ported yet.
 """
 
 from __future__ import annotations
@@ -79,6 +83,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--vocab", type=int, default=1024)
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--moe", type=int, default=0)
+    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--ckpt", type=str, default="")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the plain versions)")
     return ap.parse_args(argv)
@@ -89,7 +95,8 @@ def config(args: argparse.Namespace) -> models.GPTConfig:
     return models.GPTConfig(
         vocab_size=args.vocab, d_model=args.d_model, num_heads=args.heads,
         num_layers=args.layers, hidden_units=4 * args.d_model,
-        max_len=args.seq, drop_rate=0.1, moe_experts=args.moe,
+        max_len=args.seq, drop_rate=0.1, remat=args.remat,
+        moe_experts=args.moe,
         dtype=torch.bfloat16 if args.bf16 else None)
 
 
@@ -105,6 +112,9 @@ def main(argv=None):
         torch.Generator(device=args.device).manual_seed(0))
     corpus = corpus_of(args)
     losses, _ = train(gpt, corpus, args.steps, args.batch, args.device)
+    if args.ckpt:
+        training.save_checkpoint(args.ckpt, dict(gpt.named_parameters()))
+        print("saved", args.ckpt)
     sample = gpt.generate(torch.as_tensor(corpus[:1, :8], device=args.device),
                           steps=16)
     print("sample continuation:", sample.cpu().numpy()[0])

@@ -1,17 +1,26 @@
-"""Training of the PyTorch port: optimizers as gradient transformations,
-schedules, the Trainer and the data iterators."""
+"""Training of the PyTorch port: optimizers as gradient transformations
+(functional and donated), schedules, the Trainer, the data iterators and
+checkpoints."""
 
 from np_modeling_tpu_torch.training import data, schedules
-from np_modeling_tpu_torch.training.optimizers import (AdamState, Optimizer,
+from np_modeling_tpu_torch.training.checkpoint import (load_checkpoint,
+                                                       save_checkpoint)
+from np_modeling_tpu_torch.training.optimizers import (AdamState, EmaState,
+                                                       Optimizer, adafactor,
                                                        adam, adamw,
                                                        apply_updates, chain,
                                                        clip_by_global_norm,
-                                                       sgd)
+                                                       ema_params, lion,
+                                                       momentum, muon, sgd,
+                                                       skip_nonfinite,
+                                                       update_ema_)
 from np_modeling_tpu_torch.training.trainer import (Trainer, make_eval_step,
                                                     make_train_step,
                                                     resolve_loss)
 
-__all__ = ["AdamState", "Optimizer", "Trainer", "adam", "adamw",
-           "apply_updates", "chain", "clip_by_global_norm", "data",
-           "make_eval_step", "make_train_step", "resolve_loss", "schedules",
-           "sgd"]
+__all__ = ["AdamState", "EmaState", "Optimizer", "Trainer", "adafactor",
+           "adam", "adamw", "apply_updates", "chain", "clip_by_global_norm",
+           "data", "ema_params", "lion", "load_checkpoint",
+           "make_eval_step", "make_train_step", "momentum", "muon",
+           "resolve_loss", "save_checkpoint", "schedules", "sgd",
+           "skip_nonfinite", "update_ema_"]

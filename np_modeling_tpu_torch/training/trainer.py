@@ -2,9 +2,13 @@
 optimizer state.
 
 Counterpart of np_modeling_tpu/training/trainer.py (:29-152). JAX jits the
-step and donates its state; here the step runs eagerly and updates the
-parameters in place (``apply_updates``), so there is nothing to jit or
-donate. ``apply_fn(x, training=True, rngs={"dropout": rng})`` is the
+step with its parameters and optimizer state donated (``donate_argnums=(0,
+1)``), so that XLA updates them in place. Here the step runs eagerly: the
+parameters are always updated in place (``apply_updates``), and with
+``donate=True`` (JAX's default) so is the optimizer state, through the
+optimizer's donated ``update_``, which also turns the gradients into the
+updates in place: a step then allocates nothing the size of the model
+beyond the gradients. ``apply_fn(x, training=True, rngs={"dropout": rng})`` is the
 model's forward (a module's own parameters are its state) and ``params`` is
 ``dict(model.named_parameters())``. An rng is a CPU ``torch.Generator`` or
 an integer seed (``np_modeling_tpu_torch.rng``); losses stay device tensors.
@@ -20,7 +24,8 @@ from torch import nn
 from np_modeling_tpu_torch import ops
 from np_modeling_tpu_torch.nn.module import Sequential
 from np_modeling_tpu_torch.rng import fold_seed, seed_of
-from np_modeling_tpu_torch.training.optimizers import Optimizer, apply_updates
+from np_modeling_tpu_torch.training.optimizers import (Optimizer,
+                                                       apply_updates)
 
 LOSSES = {
     "mse": ops.mse,
@@ -37,12 +42,17 @@ def resolve_loss(loss):
 
 
 def make_train_step(apply_fn: Callable, loss_fn, optimizer: Optimizer,
-                    grad_accum: int = 1):
+                    donate: bool = True, grad_accum: int = 1):
     """``step(params, opt_state, x, targets, rng) -> (params, opt_state,
-    loss)``. ``grad_accum > 1`` splits the batch into that many microbatches,
-    folds the microbatch index into the rng (JAX :73), sums their gradients
-    and divides by ``grad_accum`` before the one optimizer update."""
+    loss)``. ``donate=True`` consumes ``opt_state``, as JAX's donated
+    buffer: the returned state is the same object, its tensors updated in
+    place, and the old values are gone; ``donate=False`` leaves it as it
+    was and returns a new one. ``grad_accum > 1`` splits the batch into that
+    many microbatches, folds the microbatch index into the rng (JAX :73),
+    sums their gradients and divides by ``grad_accum`` before the one
+    optimizer update."""
     loss_fn = resolve_loss(loss_fn)
+    update = optimizer.update_ if donate else optimizer.update
 
     def step(params, opt_state, x, targets, rng):
         for p in params.values():
@@ -67,9 +77,12 @@ def make_train_step(apply_fn: Callable, loss_fn, optimizer: Optimizer,
                 li.backward()                  # gradients add up in p.grad
                 loss = loss + li.detach()
             loss = loss / grad_accum
-            grads = {k: p.grad / grad_accum for k, p in params.items()}
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, loss.detach()
+            grads = {k: p.grad.div_(grad_accum) for k, p in params.items()}
+        updates, opt_state = update(grads, opt_state, params)
+        apply_updates(params, updates)
+        for p in params.values():       # the updates' memory goes now
+            p.grad = None
+        return params, opt_state, loss.detach()
 
     return step
 
@@ -110,8 +123,9 @@ class Trainer:
     def fit(self, params, inputs, targets, steps: int,
             optimizer: Optimizer | None = None, log_every: int = 0,
             opt_state=None):
-        """``steps`` full-batch steps; returns (params, opt_state, losses).
-        Pass ``opt_state`` back in to continue training."""
+        """``steps`` full-batch steps of the donated step; returns (params,
+        opt_state, losses). Pass ``opt_state`` back in to continue training
+        (it is consumed: the returned state is the one to keep)."""
         opt = optimizer or self.optimizer
         if opt is None:
             raise ValueError("provide an optimizer")

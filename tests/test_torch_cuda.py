@@ -2039,3 +2039,40 @@ def test_cuda_gpt_step_forced_vs_default():
             assert gk[n].norm() <= 1e-4 * gp[n[:-2] + "wk"].norm(), n
         else:
             assert _rel(gk[n], gp[n]) <= 1e-4, n
+
+
+# ---- the donated optimizer state ------------------------------------------------
+
+def test_cuda_donated_update_equals_functional_at_gemma2_embedding():
+    """chain(clip_by_global_norm(1.0), adamw(warmup_cosine)) donated (state
+    and gradients updated in place) against its functional form on the card,
+    three steps at Gemma-2 2B's embedding shape [256000, 2304] beside a
+    small leaf: every update and state tensor bit for bit, and the donated
+    update's own peak under two of the largest tensor's size (the
+    functional one allocates the moments and updates anew)."""
+    from np_modeling_tpu_torch import train_gpt, training
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = {"embedding.table": (256000, 2304), "final_norm.gamma": (2304,)}
+    params = {k: torch.randn(s, generator=gen, device="cuda")
+              for k, s in shapes.items()}
+    opt = train_gpt.recipe(10)
+    s_fun, s_don = opt.init(params), opt.init(params)
+    update_ = opt.update_
+    big = 256000 * 2304 * 4
+    for _ in range(3):
+        grads = {k: torch.randn(s, generator=gen, device="cuda") * 1e-3
+                 for k, s in shapes.items()}
+        u_fun, s_fun = opt.update(grads, s_fun, params)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        u_don, s_don2 = update_(grads, s_don, params)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        assert s_don2 is s_don and all(u_don[k] is grads[k] for k in grads)
+        assert extra < 2 * big, extra
+        for k in shapes:
+            assert torch.equal(u_don[k], u_fun[k]), k
+        for a, b in zip(training.optimizers._tensors(s_don),
+                        training.optimizers._tensors(s_fun), strict=True):
+            assert torch.equal(a, b)

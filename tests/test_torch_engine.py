@@ -122,7 +122,7 @@ def test_unported_engine_options_raise(option):
 
 @pytest.mark.parametrize("feature", [
     dict(norm_first=False), dict(lm_head_bias=True), dict(qk_norm=True),
-    dict(parallel_residual=True), dict(scan_layers=True),
+    dict(parallel_residual=True), dict(activation="silu"),
     dict(rope_scaling=("linear", 2.0))])
 def test_unported_config_features_raise(feature):
     with pytest.raises(NotImplementedError):

@@ -402,8 +402,8 @@ def test_refusals_as_jax():
         MoE(D, 8, 16, router_top_k=3, device="cpu")
     with pytest.raises(NotImplementedError, match="apply_override"):
         MoE(D, 8, 16, apply_override=lambda p, x: x, device="cpu")
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        tmodels.GPT(tmodels.GPTConfig(**dict(SWIGLU_MOE, scan_layers=True)),
+    with pytest.raises(ValueError, match="scan_layers=False"):
+        tmodels.GPT(tmodels.GPTConfig(**dict(MLA_MOE, scan_layers=True)),
                     device="cpu")
 
 

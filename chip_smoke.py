@@ -7,7 +7,10 @@ training, T5 training and decode, Seq2Seq, T5 serving through the
 encoder-decoder engine, DeepSeek-V2-Lite's latent attention (MLA) served
 on latent pages and trained through the training entry point,
 gpt-oss-20b served with its attention sinks, and BERT-base trained through
-a boolean attention mask, once on one CUDA card.
+a boolean attention mask, and the serving engine's finishing features
+(speculative and prompt-lookup decoding, grammar constraints, multi-LoRA
+adapters and their fine-tune) on GPT-2 XL and GPT-2 small, once on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -22,7 +25,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
   (c) each kernel vs its plain PyTorch version on the card, at the paths'
       shapes. Paged attention: max abs err <= 1e-4 with fp32 pages,
       <= 2e-2 with bf16 pages; with int8 pages (per-token fp32 scales)
-      <= 1e-4 with fp32 q, <= 2e-2 with bf16 q. The int8-weight matmul K4
+      <= 1e-4 with fp32 q, <= 2e-2 with bf16 q; at head dims 16 and 32
+      (NARROW_PAGED_CASES: GQA 4/1, decode and chunks of 5 and 64 tokens,
+      fp32, bf16 and int8 pages with fp32 and bf16 q, the pages padded for
+      the call or stored 64 wide) on the padded route, one padded launch a
+      call, the same tolerances. The int8-weight matmul K4
       (bf16 and fp32 x, bf16 and fp32 out, with and without bias, at the
       FFN's decode and prefill shapes and ragged ones, and each of its
       schedules forced through its plan: skinny at m 1..64 with its own
@@ -142,8 +149,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
       compiled flex_attention (softcap score_mod, band mask_mod) (a
       report, not a check; exp_torch_decode.py times the engine's and
       generate's decode);
-  (x) np_modeling_tpu_torch/serve_gpt.py on the card: joins, leaves,
-      pages home, fork twins;
+  (x) np_modeling_tpu_torch/serve_gpt.py on the card at the JAX example's
+      head dim 16 (pages stored 64 wide): joins, leaves, pages home, fork
+      twins, the speculative section's 3..15 tokens, and every attention
+      call of both lanes one padded K3 launch (SERVE_K3); K3 at the
+      example's decode shape beside the plain version and its bound
+      (``phase_serve_gpt``);
   (j) quantized serving: (d)'s GPT-2 small with its FFN weights quantized
       to int8 (quantize_params_int8 -> params_from_numpy) and int8 KV pages
       (quantize_kv=True), bf16 compute, on (d)'s traffic; checks tokens,
@@ -397,7 +408,41 @@ Phases, each printed on its own lines; any failure exits non-zero:
       bit-equal, the launches of the recompute counted, both checkpoints
       reloaded on the card into equal parameters (``remat_vs_plain``); K1
       and K2 at b8 h8 s256 d32 beside the plain version, the bound and SDPA
-      (``flash_timings``).
+      (``flash_timings``);
+  (G) the serving engine's finishing features at full width, seeded random
+      weights: GPT-2 XL (openai-community/gpt2-xl's config.json: 48 layers,
+      d 1600, 25 heads of 64, FFN 6400, 1024 positions, vocab 50257,
+      1,557,611,200 parameters) with GPT-2 small as its draft, fp32 weights
+      and pages, 8 slots, chunked prefill 256, 8 Zipf prompts of 128..512
+      tokens. (1) the main path, step_speculative_many(8, gamma=4) with the
+      launches counted, and counted by lane in each lane's passes (K3
+      once a layer a prefill chunk and a forward on each lane: the draft's
+      4 + 1 steps and the target's verify of 5 tokens a round; K8 at each
+      norm), its tokens against a twin engine's greedy step() (near-ties
+      printed under NEAR_TIE); (2) GPT-2 small as its own draft: every
+      round 5 tokens but at a near-tie of the verify's logits; (2b) GPT-2
+      small verifying its own copies under seeded weight noise: rounds
+      that accept part of a block (at least one; the accept counts
+      printed), tokens a twin's step()'s; (3) step_lookup(4, 3) against the twin's tokens, the
+      accepted tokens a call printed; (4) sampled speculative decoding
+      (temperature 0.8, top-k 50): tokens in the vocabulary, the acceptance
+      printed; (5) on GPT-2 small, a regex DFA and a choices DFA over a
+      synthetic 50257-string vocabulary (EOS 50256): no token outside its
+      DFA, every finished output fullmatches under Python's re, every
+      unfinished one at a live state the engine holds too, the
+      unconstrained slots' tokens an unconstrained engine's; (6) three
+      rank-16 adapters (B nonzero) and the base over the 8 requests in one
+      batch, dense and chunked prefill, each slot's tokens a plain engine's
+      over lora_merge'd weights; (7) 10 LoRA fine-tune steps of GPT-2 small
+      (bf16, dropout 0.1, 8 x 1024, every linear layer at rank 16): the
+      base bit-unchanged, the loss falling, K1/K2 once a layer a step, K8
+      forward and backward at every norm, K7 launched; (8)
+      speculative_generate over dense caches on GPT-2 XL with the GPT-2
+      small draft: GPT.generate's greedy tokens, K1's mask option once a
+      layer a pass of either model. Then bf16 tokens/s
+      of step(), step_speculative_many and step_lookup on GPT-2 XL (no
+      targets) and K3 at the verify's shape beside the plain version and
+      its bound (``phase_engine_features``).
 Each path runs with the launch counts set to 0 just before it and read just
 after. Library yardsticks (one PyTorch call computing a kernel's function,
 which the port never calls) are timed beside K1/K2/K5/K12 (scaled_dot_
@@ -421,6 +466,7 @@ the last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -3464,21 +3510,6 @@ def phase_gemma2_generate(gpt):
     del lk, lp, lk32, lp32
     torch.cuda.empty_cache()
     return counts
-
-
-def phase_serve_gpt():
-    """(x) np_modeling_tpu_torch/serve_gpt.py on the card: its requests join
-    and leave, every page comes home, the fork's three continuations are
-    greedy twins, and paged attention carried it."""
-    from np_modeling_tpu_torch import ops, serve_gpt
-    ops.paged_attention.launches = 0
-    out = serve_gpt.main([], log=lambda line: print(f"(x) {line}"))
-    twins = list(out["forked"].values())
-    if out["free_pages"] != 255 or any(t != twins[0] for t in twins):
-        raise AssertionError(f"(x) serve_gpt: {out}")
-    if not ops.paged_attention.launches:
-        raise AssertionError("(x) serve_gpt launched no paged attention")
-    print(f"(x) serve_gpt ran: {ops.paged_attention.launches} K3 launches")
 
 
 def bench_gpt_config(dtype, activation="relu"):
@@ -8478,15 +8509,781 @@ def remat_vs_plain(args, k2_losses, device_line):
                                  f"{differ[:5]}")
 
 
-def main(phases="abcdefghijklmnopqrstuvwxyzABCDEF"):
+# ---- K3 at head dims under 64; (G) the engine's finishing features ----------
+
+# (c): K3 at head dims 16 and 32 on the padded route: (head_dim, sq; None is a
+# 3-D decode q), 4 q heads over 1 kv head, fp32 / bf16 / int8 pages with fp32
+# and bf16 q, pages at the head dim (zero-padded to 64 for the call) or stored
+# 64 wide beforehand, as the serving engine stores them.
+NARROW_PAGED_CASES = tuple((d, sq) for d in (16, 32) for sq in (None, 5, 64))
+NARROW_PAGED_PAGES = ("float32", "bfloat16", "int8")
+NARROW_PAGED_Q = ("float32", "bfloat16")
+
+
+def paged_narrow_case(d, sq, pages, q_dtype, stored_wide, seed):
+    """K3 and its plain version on one narrow case: (kernel out, plain out,
+    lengths, tolerance): F32_TOL with fp32 q over fp32 or int8 pages,
+    BF16_TOL with bf16 q or pages."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.ops import dispatch
+    rng = np.random.default_rng(seed)
+    psize, rows = 16, sq or 1
+    lengths = [rows, psize * -(-rows // psize), rows + 45,
+               int(rng.integers(rows + 200, rows + 700))]
+    if rows == 1:
+        lengths.append(0)
+    q, k, v, lens, table = _pa_inputs(len(lengths), sq, 4, 1, d, psize,
+                                      lengths, torch.float32, rng)
+    q = q.to(getattr(torch, q_dtype))
+    kw = {}
+    if pages == "int8":
+        k, v, kw = _int8_pages(k, v)
+    else:
+        k, v = k.to(getattr(torch, pages)), v.to(getattr(torch, pages))
+    if stored_wide:
+        k, v = (torch.nn.functional.pad(x, (0, 64 - d)) for x in (k, v))
+    got = ops.paged_attention(q, k, v, lens, table, **kw)
+    with dispatch.force_plain():
+        want = ops.paged_attention(q, k, v, lens, table, **kw)
+    tol = F32_TOL if q_dtype == "float32" and pages != "bfloat16" \
+        else BF16_TOL
+    return got, want, lens, tol
+
+
+def phase_paged_narrow_vs_plain():
+    """(c) K3 at head dims 16 and 32 (NARROW_PAGED_CASES) against the plain
+    version at the true head dim: each call one padded launch, o of the
+    caller's head dim, a length-0 row 0, and the paged tolerances. Returns
+    (max err fp32, bf16): fp32 q over fp32 or int8 pages, and the cases
+    with bf16 q or pages."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for i, (d, sq) in enumerate(NARROW_PAGED_CASES):
+        for pages in NARROW_PAGED_PAGES:
+            for q_dtype in NARROW_PAGED_Q:
+                for wide in (False, True):
+                    before = ops.paged_attention.launches_padded
+                    got, want, lens, tol = paged_narrow_case(
+                        d, sq, pages, q_dtype, wide, SEED + 130 + i)
+                    torch.cuda.synchronize()
+                    tag = (f"(c) paged d{d} hq4/hkv1 sq={sq} {pages} pages "
+                           f"{q_dtype} q{' stored 64 wide' if wide else ''}")
+                    if ops.paged_attention.launches_padded != before + 1:
+                        raise AssertionError(f"{tag}: not one padded launch")
+                    if got.shape != want.shape or got.shape[-1] != d:
+                        raise AssertionError(f"{tag}: shape {got.shape}")
+                    live = lens > 0
+                    err = (got[live].float() - want[live].float()).abs() \
+                        .max().item()
+                    if not err <= tol:
+                        raise AssertionError(f"{tag}: max abs err {err} > "
+                                             f"{tol}")
+                    if not bool((got[~live] == 0).all()):
+                        raise AssertionError(f"{tag}: length-0 row not 0")
+                    kind = "float32" if tol == F32_TOL else "bfloat16"
+                    errs[kind] = max(errs[kind], err)
+                    n += 1
+    print(f"(c) paged at head dims 16 and 32 through the padding: {n} cases "
+          f"pass: max abs err fp32 q over fp32/int8 pages "
+          f"{errs['float32']:.3e} (tol {F32_TOL}), bf16 q or pages "
+          f"{errs['bfloat16']:.3e} (tol {BF16_TOL})")
+    return errs["float32"], errs["bfloat16"]
+
+
+# (x): serve_gpt.main's K3 launches, one a layer a forward: the first engine
+# (4 layers) prefills 3 prompts in a chunk each and decodes 4 + 4 + 4 steps
+# and step_many(6); the speculative engine's target lane prefills one chunk
+# and verifies 3 rounds, its draft lane (1 layer) prefills one chunk and runs
+# 3 x (4 + 1) steps.
+SERVE_K3 = {"engine": 4 * (3 + 18), "target": 4 * (1 + 3),
+            "draft": 1 * (1 + 3 * 5)}
+# (x)'s K3 timing: the example's decode at 8 slots, 8 q heads of 16 over 2 kv
+# heads, pages stored 64 wide, fp32 (the engine's default pages).
+SERVE_TIMED = (8, 8, 2, 16)
+
+
+def phase_serve_gpt(device_line):
+    """(x) np_modeling_tpu_torch/serve_gpt.py on the card at the JAX
+    example's head dim 16: its requests join and leave, every page comes
+    home, the fork's three continuations are greedy twins, the speculative
+    section gives 3..15 tokens, and every attention call of both lanes went
+    through K3 on the padded route (SERVE_K3). Then K3 at the example's
+    decode shape beside the plain version and its bound. Returns (timings,
+    their key, K3 launches)."""
+    import torch
+    from np_modeling_tpu_torch import ops, serve_gpt
+    ops.paged_attention.launches = ops.paged_attention.launches_padded = 0
+    out = serve_gpt.main([], log=lambda line: print(f"(x) {line}"))
+    launches = ops.paged_attention.launches
+    padded = ops.paged_attention.launches_padded
+    twins = list(out["forked"].values())
+    if out["free_pages"] != 255 or any(t != twins[0] for t in twins) \
+            or not 3 <= len(out["speculative"]) <= 15:
+        raise AssertionError(f"(x) serve_gpt: {out}")
+    want = sum(SERVE_K3.values())
+    print(f"(x) serve_gpt ran at head dim 16: {launches} K3 launches "
+          f"({padded} padded; expected {want}: {SERVE_K3})")
+    if launches != want or padded != want:
+        raise AssertionError(f"(x) K3 launches {launches} ({padded} padded),"
+                             f" expected {want}")
+    rng = np.random.default_rng(SEED + 131)
+    b, hq, hkv, d = SERVE_TIMED
+    lengths = rng.integers(64, 257, b).tolist()
+    q, k, v, lens, table = _pa_inputs(b, None, hq, hkv, d, 16, lengths,
+                                      torch.float32, rng, extra_pages=8)
+    k, v = (torch.nn.functional.pad(x, (0, 64 - d)) for x in (k, v))
+    res = {}
+    key = (f"paged_attention decode b{b} h{hq}/{hkv} d{d} (pages 64 wide) "
+           "ctx64-256 fp32")
+
+    def call():
+        return ops.paged_attention(q, k, v, lens, table)
+
+    _both(res, "x", key, call, device_line)
+    _device_both(res, "x", key, call, device_line)
+    # The function's bytes at its true head dim: the pages' padding is the
+    # engine's layout, not work the function needs.
+    res["bound " + key] = _paged_bound(q, k[..., :d], lens, table,
+                                       peak=PEAK_F32_S)
+    return res, key, launches
+
+
+# Phase (G): the engine's finishing features at full width. The target is
+# GPT-2 XL, openai-community/gpt2-xl's config.json (n_embd 1600, n_head 25,
+# n_layer 48, n_inner null: 4 x 1600, n_positions 1024, vocab 50257,
+# layer_norm_epsilon 1e-5, gelu_new) as the JAX package's
+# hf_compat.gpt2_config (np_modeling_tpu/utils/hf_compat.py:41-60) maps it;
+# the draft is GPT-2 small (gpt2_config), the standard pair with one vocab.
+GPT2_XL = dict(vocab_size=50257, d_model=1600, num_heads=25, num_layers=48,
+               hidden_units=6400, max_len=1024, activation="gelu",
+               ln_eps=LN_EPS)
+GPT2_XL_PARAMS = 1_557_611_200
+# The engines: slots, chunked prefill, page size, pages a lane; 8 Zipf prompts
+# of FEAT_PROMPT tokens; speculative rounds of FEAT_GAMMA proposals; the
+# self-draft's rounds; step_lookup's calls (gamma, n-gram); the sampled run.
+FEAT_SLOTS, FEAT_CHUNK, FEAT_PAGE, FEAT_PAGES = 8, 256, 16, 640
+FEAT_PROMPT = (128, 512)
+FEAT_ROUNDS, FEAT_GAMMA, FEAT_SELF_ROUNDS = 8, 4, 4
+# Check (2b): GPT-2 small drafting for itself with seeded noise of each
+# SPEC_NOISE fraction of each tensor's std on its weights (drafts that agree
+# in part), SPEC_NOISE_ROUNDS rounds each.
+SPEC_NOISE, SPEC_NOISE_ROUNDS = (0.02, 0.1, 0.5), 6
+# Check (8): speculative_generate over dense caches, GPT-2 XL with the GPT-2
+# small draft, the prompts' first SPEC_GEN_PROMPT tokens, SPEC_GEN_STEPS
+# tokens.
+SPEC_GEN_PROMPT, SPEC_GEN_STEPS = 128, 24
+LOOKUP_CALLS, LOOKUP_GAMMA, LOOKUP_NGRAM = 6, 4, 3
+FEAT_SAMPLING = dict(temperature=0.8, top_k=50)
+# Check (5): GPT-2 small under a regex and a choices DFA over a synthetic
+# 50257-string vocabulary (EOS 50256, the empty string), CONSTRAIN_STEPS
+# decode steps; slots 0..4 constrained (CONSTRAIN_WHICH), 5..7 not.
+CONSTRAIN_REGEX = r"(yes|no|[0-9][0-9]?[0-9]?|[a-f]+@x\.(com|org))"
+CONSTRAIN_CHARS = "abcdefghijklmnopqrstuvwxyz0123456789 .-@_"
+CONSTRAIN_WHICH = {0: "re", 1: "re", 2: "ch", 3: "re", 4: "ch"}
+CONSTRAIN_STEPS = 24
+# Check (6): three rank-16 adapters on ATTENTION_TARGETS (B drawn at
+# LORA_B_STD), spread over the 8 requests with the base (LORA_WHICH);
+# LORA_DECODE steps after the prefill.
+LORA_RANK, LORA_B_STD, LORA_DECODE = 16, 0.02, 16
+LORA_WHICH = {1: "a0", 2: "a1", 3: "a2", 5: "a0", 6: "a1", 7: "a2"}
+# Check (7): the LoRA fine-tune of GPT-2 small (bf16, dropout 0.1) on one
+# batch of LORA_B x LORA_S Zipf tokens, LORA_STEPS adam steps at LORA_LR on
+# rank-16 adapters of every linear layer.
+LORA_B, LORA_S, LORA_STEPS, LORA_LR = 8, 1024, 10, 1e-2
+# The bf16 timings: step() calls, speculative rounds and lookup calls.
+FEAT_TIMED_STEPS, FEAT_TIMED_ROUNDS, FEAT_TIMED_LOOKUPS = 16, 8, 8
+
+
+def gpt2_xl_config(dtype=None):
+    from np_modeling_tpu_torch.models import GPTConfig
+    return GPTConfig(**GPT2_XL, dtype=dtype)
+
+
+def feature_prompts(vocab, seed=SEED + 140):
+    """FEAT_SLOTS Zipf prompts (frequencies falling as 1/rank) of
+    FEAT_PROMPT[0]..FEAT_PROMPT[1] tokens."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    lens = rng.integers(FEAT_PROMPT[0], FEAT_PROMPT[1] + 1, FEAT_SLOTS)
+    return {i: rng.choice(vocab, size=int(n), p=p / p.sum())
+            for i, n in enumerate(lens)}
+
+
+def synthetic_vocab(vocab, seed=SEED + 150):
+    """``vocab`` token strings made from ``seed``: every CONSTRAIN_CHARS
+    character alone, then strings of 2..6 of them; the last id is EOS, the
+    empty string."""
+    rng = np.random.default_rng(seed)
+    chars = list(CONSTRAIN_CHARS)
+    toks = list(chars)
+    while len(toks) < vocab - 1:
+        toks.append("".join(rng.choice(chars, int(rng.integers(2, 7)))))
+    return toks + [""]
+
+
+def _feature_engine(gpt, **kw):
+    from np_modeling_tpu_torch.serving import GenerationEngine
+    return GenerationEngine(gpt, total_pages=FEAT_PAGES, page_size=FEAT_PAGE,
+                            max_seqs=FEAT_SLOTS,
+                            prefill_chunk_size=kw.pop("prefill_chunk_size",
+                                                      FEAT_CHUNK), **kw)
+
+
+def _greedy_streams(eng, prompts, n, **add_kw):
+    """An engine's greedy streams over ``prompts`` ({sid: tokens}): the
+    first tokens and ``n`` decode steps (step_many), with the top-2 gap of
+    each token's logits ({(sid, i): gap}; a chunked prefill's first tokens
+    and every decode token)."""
+    gaps, inner = [], eng._lm_head
+
+    def recording(x):
+        lg = inner(x)
+        gaps.append(_top2_gap(lg).reshape(lg.shape[0], -1))
+        return lg
+
+    eng._lm_head = recording
+    try:
+        first = eng.add_requests(prompts, **add_kw)
+        margins = {}
+        if eng._chunked:
+            for row, sid in enumerate(sorted(prompts)):
+                ci = (len(prompts[sid]) - 1) // eng.prefill_chunk_size
+                margins[(sid, 0)] = float(gaps[ci][row, 0])
+        base, slots = len(gaps), dict(eng._slots)
+        out = eng.step_many(n)
+        for sid, slot in slots.items():
+            for i in range(1, n + 1):
+                margins[(sid, i)] = float(gaps[base + i - 1][slot, 0])
+    finally:
+        del eng._lm_head
+    return {sid: [first[sid]] + out[sid] for sid in prompts}, margins
+
+
+def _finish_engine(eng, tag):
+    """Finish every sequence: every lane's pages come home."""
+    for sid in eng.live:
+        eng.finish(sid)
+    for lane in eng._lane_list:
+        if len(lane.free) != lane.total_pages - 1:
+            raise AssertionError(f"(G) {tag}: {len(lane.free)} of "
+                                 f"{lane.total_pages - 1} pages free after "
+                                 "finish")
+
+
+def _lane_launches(eng, stage):
+    """Counts K3's launches of each of ``eng``'s model passes by lane and by
+    ``stage[0]`` (a name the caller sets): every paged-attention call of a
+    lane runs inside its ``_forward_tokens``. Returns the Counter, keyed
+    (stage, "target" | "draft")."""
+    from np_modeling_tpu_torch import ops
+    per_lane, inner = collections.Counter(), eng._forward_tokens
+
+    def counted(state, tokens, lane=None, **kw):
+        before = ops.paged_attention.launches
+        out = inner(state, tokens, lane, **kw)
+        name = "target" if lane is None or lane.is_target else "draft"
+        per_lane[(stage[0], name)] += ops.paged_attention.launches - before
+        return out
+
+    eng._forward_tokens = counted
+    return per_lane
+
+
+def _feature_speculative(xl, small, prompts):
+    """(G) checks (1) to (4) on GPT-2 XL with the GPT-2 small draft, fp32
+    weights and pages. Returns the K3 launches of the main path (the
+    speculative engine's prefill and rounds, both lanes) and their split,
+    counted: {"target", "draft", "verify" (the target lane's in the
+    rounds)}."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    V = xl.config.vocab_size
+    Lt, Ld = xl.config.num_layers, small.config.num_layers
+    # (1) step_speculative_many(FEAT_ROUNDS, FEAT_GAMMA) against a twin's
+    # greedy step(): the main path, launches counted from 0, and by lane.
+    spec = _feature_engine(xl, draft_gpt=small)
+    stage = ["prefill"]
+    per_lane = _lane_launches(spec, stage)
+    _zero_paged_counts()
+    first = spec.add_requests(prompts)
+    stage[0] = "rounds"
+    got = spec.step_speculative_many(FEAT_ROUNDS, FEAT_GAMMA)
+    torch.cuda.synchronize()
+    counts = _paged_counts()
+    del spec._forward_tokens
+    lanes = {lane: per_lane[("prefill", lane)] + per_lane[("rounds", lane)]
+             for lane in ("target", "draft")}
+    lanes["verify"] = per_lane[("rounds", "target")]
+    chunks = -(-max(len(p) for p in prompts.values()) // FEAT_CHUNK)
+    want = {"target": Lt * (chunks + FEAT_ROUNDS),
+            "draft": Ld * (chunks + FEAT_ROUNDS * (FEAT_GAMMA + 1)),
+            "verify": Lt * FEAT_ROUNDS}
+    want_all = {"paged_attention": want["target"] + want["draft"],
+                "layer_norm_fwd": (2 * Lt + 1) * (chunks + FEAT_ROUNDS)
+                + (2 * Ld + 1) * (chunks + FEAT_ROUNDS * (FEAT_GAMMA + 1))}
+    print(f"(G) (1) speculative main path: K3 launches "
+          f"{counts['paged_attention']} (expected "
+          f"{want_all['paged_attention']}), counted by lane: target "
+          f"{lanes['target']} (prefill {per_lane[('prefill', 'target')]}, "
+          f"verify {lanes['verify']}; expected {want['target']}, verify "
+          f"{want['verify']}), draft {lanes['draft']} (prefill "
+          f"{per_lane[('prefill', 'draft')]}, rounds "
+          f"{per_lane[('rounds', 'draft')]}; expected {want['draft']}); K8 "
+          f"{counts['layer_norm_fwd']} (expected "
+          f"{want_all['layer_norm_fwd']})")
+    if lanes["target"] + lanes["draft"] != counts["paged_attention"]:
+        raise AssertionError(f"(G) K3 launches by lane {lanes} do not sum to "
+                             f"the count {counts['paged_attention']}")
+    for k, n in {**want_all, **want}.items():
+        got_n = counts[k] if k in want_all else lanes[k]
+        if got_n != n:
+            raise AssertionError(f"(G) {k} launches {got_n}, expected {n}")
+    spec_streams = {sid: [first[sid]] + got[sid] for sid in prompts}
+    per_round = sum(len(t) for t in got.values()) / (FEAT_ROUNDS * len(got))
+    print(f"(G) (1) {FEAT_ROUNDS} rounds of gamma {FEAT_GAMMA}: "
+          f"{per_round:.3f} tokens a sequence a round "
+          f"({[len(t) for t in got.values()]} tokens)")
+    _finish_engine(spec, "(1)")
+    del spec
+    plain = _feature_engine(xl)
+    plain_streams, margins = _greedy_streams(
+        plain, prompts, FEAT_ROUNDS * (FEAT_GAMMA + 1))
+    _finish_engine(plain, "(1) plain")
+    _same_greedy("(G) (1) step_speculative_many vs step():", spec_streams,
+                 plain_streams, margins)
+
+    # (2) GPT-2 small as its own draft: every round gamma + 1 tokens, but
+    # where the verify's top-2 logits lie within NEAR_TIE.
+    eng = _feature_engine(small, draft_gpt=small)
+    eng.add_requests(prompts)
+    gaps, inner = [], eng._lm_head
+
+    def recording(x):
+        lg = inner(x)
+        gaps.append(_top2_gap(lg))
+        return lg
+
+    eng._lm_head = recording
+    short = []
+    for r in range(FEAT_SELF_ROUNDS):
+        out = eng.step_speculative(FEAT_GAMMA)
+        for sid, toks in out.items():
+            if len(toks) < FEAT_GAMMA + 1:
+                gap = float(gaps[-1][eng._slots[sid], len(toks) - 1])
+                if not gap < NEAR_TIE:
+                    raise AssertionError(
+                        f"(G) (2) self-draft round {r} seq {sid}: "
+                        f"{len(toks)} tokens, verify top-2 gap {gap}")
+                short.append((r, sid, len(toks), gap))
+    del eng._lm_head
+    for r, sid, n, gap in short:
+        print(f"(G) (2) NEAR_TIE: round {r} seq {sid}: {n} tokens, verify "
+              f"top-2 gap {gap:.3e}")
+    print(f"(G) (2) GPT-2 small as its own draft: {FEAT_SELF_ROUNDS} rounds "
+          f"x {len(prompts)} sequences, {len(short)} short of "
+          f"{FEAT_GAMMA + 1} tokens (near-ties)")
+    _finish_engine(eng, "(2)")
+    _feature_partial(small, prompts)
+
+    # (3) step_lookup against the twin's greedy stream.
+    lk = _feature_engine(xl)
+    first = lk.add_requests(prompts)
+    lk_streams = {sid: [t] for sid, t in first.items()}
+    per_call = []
+    for _ in range(LOOKUP_CALLS):
+        out = lk.step_lookup(LOOKUP_GAMMA, LOOKUP_NGRAM)
+        per_call.append(sum(len(t) for t in out.values()))
+        for sid, toks in out.items():
+            lk_streams[sid] += toks
+    _finish_engine(lk, "(3)")
+    print(f"(G) (3) step_lookup({LOOKUP_GAMMA}, {LOOKUP_NGRAM}): tokens a "
+          f"call over {len(prompts)} sequences {per_call} (at least "
+          f"{len(prompts)}, at most {len(prompts) * (LOOKUP_GAMMA + 1)})")
+    _same_greedy("(G) (3) step_lookup vs step():", lk_streams, plain_streams,
+                 margins)
+
+    # (4) sampled speculative decoding.
+    sp = _feature_engine(xl, draft_gpt=small, seed=SEED, **FEAT_SAMPLING)
+    sp.add_requests(prompts)
+    out = sp.step_speculative_many(FEAT_ROUNDS // 2, FEAT_GAMMA)
+    toks = np.concatenate([np.asarray(t) for t in out.values()])
+    rounds = FEAT_ROUNDS // 2 * len(out)
+    accepted = (len(toks) - rounds) / (rounds * FEAT_GAMMA)
+    print(f"(G) (4) sampled speculative decoding ({FEAT_SAMPLING}): "
+          f"{len(toks)} tokens in {FEAT_ROUNDS // 2} rounds, acceptance "
+          f"{accepted:.4f} of the draft's proposals")
+    if not ((toks >= 0) & (toks < V)).all() or not all(
+            1 <= len(t) <= FEAT_ROUNDS // 2 * (FEAT_GAMMA + 1)
+            for t in out.values()):
+        raise AssertionError(f"(G) (4) sampled tokens {out}")
+    _finish_engine(sp, "(4)")
+    return counts["paged_attention"], lanes
+
+
+def _perturbed(gpt, noise, seed):
+    """A copy of ``gpt`` with seeded normal noise of ``noise`` x each
+    tensor's std added to its weights (constant tensors stay as they are)."""
+    import torch
+    from np_modeling_tpu_torch.models import GPT
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    copy_ = GPT(gpt.config, device="cuda").init(gen)
+    for p, q in zip(copy_.parameters(), gpt.parameters()):
+        p.copy_(q + noise * q.std() * torch.randn(
+            q.shape, generator=gen, device="cuda", dtype=q.dtype))
+    return copy_
+
+
+def _feature_partial(small, prompts):
+    """(G) check (2b): GPT-2 small verifying drafts of its own perturbed
+    copies (SPEC_NOISE), so that rounds accept part of a block and both
+    lanes roll back mid-block. step_speculative's tokens equal a twin's
+    greedy step()'s; the accept counts a round are printed, and at least
+    one round accepts 1..gamma-1 drafts."""
+    plain = _feature_engine(small)
+    plain_streams, margins = _greedy_streams(
+        plain, prompts, SPEC_NOISE_ROUNDS * (FEAT_GAMMA + 1))
+    _finish_engine(plain, "(2b) plain")
+    partial = 0
+    for i, noise in enumerate(SPEC_NOISE):
+        eng = _feature_engine(small, draft_gpt=_perturbed(small, noise,
+                                                          SEED + 143 + i))
+        streams = {sid: [t] for sid, t in eng.add_requests(prompts).items()}
+        hist = collections.Counter()
+        for _ in range(SPEC_NOISE_ROUNDS):
+            for sid, toks in eng.step_speculative(FEAT_GAMMA).items():
+                hist[len(toks) - 1] += 1
+                streams[sid] += toks
+        _finish_engine(eng, f"(2b) noise {noise}")
+        print(f"(G) (2b) GPT-2 small drafting for itself, noise {noise} x "
+              f"each tensor's std: rounds by drafts accepted "
+              f"{dict(sorted(hist.items()))}")
+        _same_greedy(f"(G) (2b) noise {noise}: step_speculative vs step():",
+                     streams, plain_streams, margins)
+        partial += sum(hist[n] for n in range(1, FEAT_GAMMA))
+    if not partial:
+        raise AssertionError("(G) (2b) no round accepted part of its block")
+
+
+def _feature_speculative_generate(xl, small, prompts):
+    """(G) check (8): ``speculative_generate`` over dense caches (per-row
+    write indices, K1's mask option) on GPT-2 XL with the GPT-2 small draft
+    against ``GPT.generate``'s greedy tokens, near-ties aside (the top-2
+    gaps of a full forward over the plain tokens). Returns K1's mask
+    launches of the speculative run, checked against one a layer a pass."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.models import speculative_generate
+    toks = torch.tensor(np.stack([p[:SPEC_GEN_PROMPT]
+                                  for p in prompts.values()]),
+                        dtype=torch.long, device="cuda")
+    _zero_launch_counts()
+    ops.flash_attention.launches_fwd_mask = 0
+    got, (accepted, rounds) = speculative_generate(
+        xl, small, toks, SPEC_GEN_STEPS, gamma=FEAT_GAMMA, return_stats=True)
+    torch.cuda.synchronize()
+    mask = ops.flash_attention.launches_fwd_mask
+    Lt, Ld = xl.config.num_layers, small.config.num_layers
+    want = Lt * (1 + rounds) + Ld * (1 + rounds * (FEAT_GAMMA + 1))
+    print(f"(G) (8) speculative_generate b{toks.shape[0]} prompt "
+          f"{SPEC_GEN_PROMPT} steps {SPEC_GEN_STEPS} gamma {FEAT_GAMMA}: "
+          f"{rounds} rounds, {accepted} drafts accepted; K1 mask launches "
+          f"{mask} (expected {want}: target {Lt} x {1 + rounds} passes, "
+          f"draft {Ld} x {1 + rounds * (FEAT_GAMMA + 1)})")
+    if mask != want:
+        raise AssertionError(f"(G) (8) K1 mask launches {mask}, expected "
+                             f"{want}")
+    plain = xl.generate(toks, SPEC_GEN_STEPS)
+    lg = xl.apply(torch.cat([toks, plain[:, :-1]], dim=1))
+    gaps = _top2_gap(lg[:, SPEC_GEN_PROMPT - 1:].float())
+    rows = range(toks.shape[0])
+    _same_greedy("(G) (8) speculative_generate vs GPT.generate:",
+                 {r: got[r].tolist() for r in rows},
+                 {r: plain[r].tolist() for r in rows},
+                 {(r, i): float(gaps[r, i]) for r in rows
+                  for i in range(SPEC_GEN_STEPS)})
+    return mask
+
+
+def _feature_constraints(small, prompts):
+    """(G) check (5): GPT-2 small (fp32) under a regex DFA and a choices DFA
+    over the synthetic vocabulary: no emitted token leaves its DFA, every
+    finished output fullmatches (a finished choice is one of the choices),
+    every unfinished one stands at a live state that the engine's own
+    dfa_state equals, and the unconstrained slots' tokens equal an
+    unconstrained engine's."""
+    import re
+    from np_modeling_tpu_torch.serving.constrain import (dfa_from_choices,
+                                                         dfa_from_regex)
+    V = small.config.vocab_size
+    eos = V - 1
+    vocab = synthetic_vocab(V)
+    t0 = time.perf_counter()
+    rdfa = dfa_from_regex(CONSTRAIN_REGEX, vocab, eos)
+    rng = np.random.default_rng(SEED + 151)
+    choices = [rng.integers(0, eos, int(n)).tolist() for n in (1, 2, 3)]
+    cdfa = dfa_from_choices(choices, V, eos)
+    print(f"(G) (5) DFAs over a {V}-string vocabulary: regex "
+          f"{CONSTRAIN_REGEX!r} {rdfa.n_states} states, choices {choices} "
+          f"{cdfa.n_states} states, built in {time.perf_counter() - t0:.2f} s")
+    eng = _feature_engine(small, constraints={"re": rdfa, "ch": cdfa})
+    got, _ = _greedy_streams(eng, prompts, CONSTRAIN_STEPS,
+                             constraints=CONSTRAIN_WHICH)
+    states = eng._state["dfa_state"].tolist()
+    slots = dict(eng._slots)
+    _finish_engine(eng, "(5)")
+    plain = _feature_engine(small)
+    want, margins = _greedy_streams(plain, prompts, CONSTRAIN_STEPS)
+    _finish_engine(plain, "(5) plain")
+    finished = 0
+    for sid, name in CONSTRAIN_WHICH.items():
+        dfa = rdfa if name == "re" else cdfa
+        state, body = dfa.start, []
+        for tok in got[sid]:
+            nxt = int(dfa.trans[state, tok])
+            if nxt < 0:
+                raise AssertionError(f"(G) (5) seq {sid}: token {tok} "
+                                     f"leaves {name}'s DFA at state {state}")
+            if tok == eos:
+                break
+            state = nxt
+            body.append(tok)
+        text = "".join(vocab[t] for t in body)
+        if tok == eos:
+            finished += 1
+            ok = (re.fullmatch(CONSTRAIN_REGEX, text, re.S) if name == "re"
+                  else body in choices)
+            print(f"(G) (5) seq {sid} ({name}) finished: {text!r}")
+            if not ok:
+                raise AssertionError(f"(G) (5) seq {sid}: {text!r} is not in "
+                                     f"{name}'s language")
+        else:
+            print(f"(G) (5) seq {sid} ({name}) unfinished at state {state}: "
+                  f"{text!r}")
+            if not (dfa.trans[state] >= 0).any() \
+                    or states[slots[sid]] != state:
+                raise AssertionError(f"(G) (5) seq {sid}: state {state} dead "
+                                     f"or the engine's {states[slots[sid]]}")
+    free = [sid for sid in prompts if sid not in CONSTRAIN_WHICH]
+    _same_greedy("(G) (5) unconstrained slots vs an unconstrained engine:",
+                 {s: got[s] for s in free}, {s: want[s] for s in free},
+                 margins)
+    print(f"(G) (5) {len(CONSTRAIN_WHICH)} constrained sequences, "
+          f"{finished} finished, every token inside its DFA")
+
+
+def _feature_lora(xl, prompts):
+    """(G) check (6): three rank-16 adapters and the base over the 8
+    requests in one batch, dense and chunked prefill, each slot's tokens
+    equal a plain engine's over lora_merge'd weights (near-ties aside)."""
+    import torch
+    from np_modeling_tpu_torch.nn.module import swapped
+    from np_modeling_tpu_torch.training.lora import (ATTENTION_TARGETS,
+                                                     lora_init, lora_merge)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    adapters = {}
+    for name in sorted(set(LORA_WHICH.values())):
+        ad = lora_init(gen, xl, LORA_RANK, ATTENTION_TARGETS)
+        for pair in ad.values():
+            pair["b"] = LORA_B_STD * torch.randn(
+                pair["b"].shape, generator=gen, device="cuda")
+        adapters[name] = ad
+    want, margins = {}, {}
+    for name in [None] + sorted(adapters):
+        sids = {s: p for s, p in prompts.items() if LORA_WHICH.get(s) == name}
+        with torch.no_grad():
+            merged = lora_merge(xl, adapters[name]) if name else {}
+        with swapped(xl, merged):
+            eng = _feature_engine(xl)
+            streams, m = _greedy_streams(eng, sids, LORA_DECODE)
+            _finish_engine(eng, f"(6) plain {name}")
+        want.update(streams)
+        margins.update(m)
+        del merged, eng
+    for chunk in (None, FEAT_CHUNK):
+        eng = _feature_engine(xl, lora_adapters=adapters,
+                              prefill_chunk_size=chunk)
+        got, _ = _greedy_streams(eng, prompts, LORA_DECODE,
+                                 adapters=LORA_WHICH)
+        _finish_engine(eng, "(6)")
+        del eng
+        _same_greedy(f"(G) (6) {len(adapters)} adapters + base in one batch, "
+                     f"{'dense' if chunk is None else 'chunked'} prefill, vs "
+                     "plain engines over merged weights:", got, want, margins)
+    torch.cuda.empty_cache()
+
+
+def _feature_finetune():
+    """(G) check (7): LORA_STEPS LoRA fine-tune steps of GPT-2 small (bf16,
+    dropout 0.1) on one LORA_B x LORA_S batch: the base bit-unchanged, the
+    loss lower after the steps, and K1, K2, K7 and K8 launched (K1 and K2
+    once a layer a step, K8's forward at each of the 2L + 1 norms a step
+    and its backward at 2L of them: the first block's norm1 reads only
+    frozen tensors, so autograd runs no backward there). Returns the launch
+    counts."""
+    import torch
+    from np_modeling_tpu_torch import training
+    from np_modeling_tpu_torch.models import GPT
+    from np_modeling_tpu_torch.training.lora import (ALL_LINEAR_TARGETS,
+                                                     lora_init, lora_params,
+                                                     make_lora_train_step)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 170)
+    gpt = GPT(gpt2_config(torch.bfloat16, drop_rate=0.1),
+              device="cuda").init(gen)
+    base = {n: p.detach().clone() for n, p in gpt.named_parameters()}
+    ad = lora_init(gen, gpt, LORA_RANK, ALL_LINEAR_TARGETS)
+    opt = training.adam(LORA_LR)
+    state = opt.init(lora_params(ad))
+    step = make_lora_train_step(gpt, opt)
+    tokens = torch.tensor(zipf_corpus(gpt.config.vocab_size, LORA_B, LORA_S,
+                                      seed=SEED + 171), device="cuda")
+    _zero_launch_counts()
+    losses = []
+    for i in range(LORA_STEPS):
+        ad, state, loss = step(ad, state, tokens, SEED + i)
+        losses.append(float(loss))
+    counts = _launch_counts()
+    L = gpt.config.num_layers
+    print(f"(G) (7) LoRA fine-tune of GPT-2 small (rank {LORA_RANK}, every "
+          f"linear layer, bf16, dropout 0.1, {LORA_B} x {LORA_S}): losses "
+          f"{[round(x, 4) for x in losses]}; launches {counts}")
+    want = {"flash_attention_fwd": L * LORA_STEPS,
+            "flash_attention_bwd": L * LORA_STEPS,
+            "layer_norm_fwd": (2 * L + 1) * LORA_STEPS,
+            "layer_norm_bwd": 2 * L * LORA_STEPS}
+    for k, n in want.items():
+        if counts[k] != n:
+            raise AssertionError(f"(G) (7) {k} launches {counts[k]}, "
+                                 f"expected {n}")
+    if not counts["dropout"] > 0:
+        raise AssertionError("(G) (7) dropout K7 never launched")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"(G) (7) losses {losses} did not fall")
+    changed = [n for n, p in gpt.named_parameters() if not torch.equal(
+        p, base[n])]
+    if changed:
+        raise AssertionError(f"(G) (7) base parameters changed: {changed}")
+    return counts
+
+
+def _feature_timings(xl, small, prompts, device_line):
+    """(G) bf16 tokens/s of step(), step_speculative_many and step_lookup on
+    GPT-2 XL (bf16 compute and pages, one copy of the fp32 weights), each
+    after a warm call, prefill left out; then K3 at the verify shape (8
+    rows of gamma + 1 tokens, 25 heads of 64, the prompts' lengths, bf16)
+    beside the plain version and its bound. Returns (timings, key)."""
+    import torch
+    from np_modeling_tpu_torch import ops
+    from np_modeling_tpu_torch.models import GPT
+    xl16 = GPT(gpt2_xl_config(torch.bfloat16), device="meta")
+    xl16.load_state_dict(xl.state_dict(), assign=True)
+    small16 = GPT(gpt2_config(torch.bfloat16), device="meta")
+    small16.load_state_dict(small.state_dict(), assign=True)
+    res = {}
+
+    def timed(tag, eng, call, calls):
+        eng.add_requests(prompts)
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(sum(len(t) if isinstance(t, list) else 1
+                    for t in call().values()) for _ in range(calls))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        res[f"tokens/s {tag}"] = n / dt
+        print(f"(G) bf16 GPT-2 XL {tag}: {n} tokens in {dt * 1e3:.1f} ms, "
+              f"{n / dt:.1f} tokens/s [{device_line}]")
+        _finish_engine(eng, tag)
+
+    kv = dict(kv_dtype=torch.bfloat16)
+    eng = _feature_engine(xl16, **kv)
+    timed("step()", eng, eng.step, FEAT_TIMED_STEPS)
+    eng = _feature_engine(xl16, draft_gpt=small16, **kv)
+    timed(f"step_speculative_many({FEAT_TIMED_ROUNDS}, {FEAT_GAMMA})", eng,
+          lambda: eng.step_speculative_many(FEAT_TIMED_ROUNDS, FEAT_GAMMA), 1)
+    eng = _feature_engine(xl16, **kv)
+    timed(f"step_lookup({LOOKUP_GAMMA}, {LOOKUP_NGRAM}) x "
+          f"{FEAT_TIMED_LOOKUPS}", eng,
+          lambda: eng.step_lookup(LOOKUP_GAMMA, LOOKUP_NGRAM),
+          FEAT_TIMED_LOOKUPS)
+    del xl16, small16, eng
+
+    rng = np.random.default_rng(SEED + 141)
+    sq, b, h, d = FEAT_GAMMA + 1, FEAT_SLOTS, GPT2_XL["num_heads"], 64
+    lengths = [len(p) + sq for p in prompts.values()]
+    q, k, v, lens, table = _pa_inputs(b, sq, h, h, d, FEAT_PAGE, lengths,
+                                      torch.bfloat16, rng)
+    key = (f"paged_attention verify b{b} sq{sq} h{h} d{d} ctx"
+           f"{min(lengths)}-{max(lengths)} bf16")
+
+    def call():
+        return ops.paged_attention(q, k, v, lens, table)
+
+    _both(res, "G", key, call, device_line)
+    _device_both(res, "G", key, call, device_line)
+    seen = int(lens.sum())
+    nbytes = 2 * _nbytes(q, lens, table) + 2 * seen * h * d * 2
+    res["bound " + key] = _bound(nbytes, 4 * seen * sq * h * d)
+    return res, key
+
+
+def phase_engine_features(device_line):
+    """(G) The engine's finishing features at full width, seeded random
+    weights: GPT-2 XL (GPT2_XL, GPT2_XL_PARAMS) with GPT-2 small as its
+    draft, fp32 weights and pages, 8 slots, chunked prefill 256, 8 Zipf
+    prompts of 128..512 tokens (``_feature_speculative``: speculative
+    rounds against a twin's greedy step(), the self-draft, step_lookup,
+    sampled speculative decoding), grammar constraints on GPT-2 small
+    (``_feature_constraints``), three LoRA adapters on GPT-2 XL
+    (``_feature_lora``), the LoRA fine-tune (``_feature_finetune``) and the
+    bf16 timings (``_feature_timings``). Returns (timings, the verify's
+    timing key, {"verify": the target lane's K3 launches of the main path,
+    ...})."""
+    import torch
+    from np_modeling_tpu_torch.models import GPT
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 142)
+    xl = GPT(gpt2_xl_config(), device="cuda").init(gen)
+    n_params = sum(p.numel() for p in xl.parameters())
+    print(f"(G) GPT-2 XL: {xl.config.num_layers} layers, d "
+          f"{xl.config.d_model}, {xl.config.num_heads} heads of 64, FFN "
+          f"{xl.config.hidden_units}, {n_params} parameters (expected "
+          f"{GPT2_XL_PARAMS}); draft GPT-2 small")
+    if n_params != GPT2_XL_PARAMS:
+        raise AssertionError(f"(G) GPT-2 XL has {n_params} parameters")
+    small = GPT(gpt2_config(None), device="cuda").init(gen)
+    prompts = feature_prompts(xl.config.vocab_size)
+    print(f"(G) prompt lengths {[len(p) for p in prompts.values()]}")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        launches, lanes = _feature_speculative(xl, small, prompts)
+        spec_gen = _feature_speculative_generate(xl, small, prompts)
+        print(f"(G) checks (1)-(4), (8) {time.perf_counter() - t0:.1f} s")
+        _feature_constraints(small, prompts)
+        _feature_lora(xl, prompts)
+        print(f"(G) checks (5)-(6) {time.perf_counter() - t0:.1f} s")
+    finetune = _feature_finetune()
+    with torch.no_grad():
+        res, key = _feature_timings(xl, small, prompts, device_line)
+    print(f"(G) phase {time.perf_counter() - t0:.1f} s")
+    del xl, small
+    torch.cuda.empty_cache()
+    return res, key, {"paged_attention": launches, **lanes,
+                      "speculative_generate_mask": spec_gen,
+                      "finetune": finetune}
+
+
+def main(phases="abcdefghijklmnopqrstuvwxyzABCDEFG"):
     """Runs the phases named in ``phases`` (a, b and c always; ``"abcj"``
     runs the quantized serving path alone, ``"abcqrw"`` Gemma-2 serving and
     generate, ``"abcst"`` Gemma-2 training, ``"abcuvx"`` GPT-2's serving
     features, ``"abcyz"`` T5 and Seq2Seq, ``"abcA"`` T5 serving, ``"abcB"``
     DeepSeek-V2-Lite serving, ``"abcC"`` DeepSeek-V2-Lite training,
     ``"abcD"`` gpt-oss-20b serving, ``"abcE"`` BERT-base training,
-    ``"abcF"`` the entry point's ``--bf16 --moe 8``); the JSON summary and
-    the ok line come only from a run of every phase."""
+    ``"abcF"`` the entry point's ``--bf16 --moe 8``, ``"abcG"`` the
+    engine's finishing features); the JSON summary and the ok line come
+    only from a run of every phase."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -8512,6 +9309,7 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCDEF"):
     paged256_err = phase_paged_options_vs_plain()
     paged_bias_err = phase_paged_bias_vs_plain()
     sinks_err = phase_paged_sinks_vs_plain()
+    narrow_err = phase_paged_narrow_vs_plain()
     k4_err = phase_int8_matmul_vs_plain()
     k4_err = tuple(map(max, k4_err, phase_int8_schedules_vs_plain()))
     flash_err = phase_flash_vs_plain()
@@ -8530,6 +9328,7 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCDEF"):
     serving = training_res = entry_res = quant_res = forced_res = None
     packed_res = gemma_res = gemma_train_res = mask_res = t5_res = None
     s2e_res = dsv2_res = mla_res = oss_res = bert_res = moe_res = None
+    serve_res = feat_res = None
     gemma_gen_launches = None
     if "d" in phases or "j" in phases:
         gpt = gpt2_small()
@@ -8562,7 +9361,7 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCDEF"):
             mask_res, mask_keys = phase_mask_timings(device_line)
         since("(u), (v)")
     if "x" in phases:
-        phase_serve_gpt()
+        serve_res, serve_key, serve_launches = phase_serve_gpt(device_line)
         since("(x)")
     if "f" in phases:
         t0 = time.perf_counter()
@@ -8663,11 +9462,14 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCDEF"):
                                           SEED + 123, device_line,
                                           kernels=("K1", "K2"))
         since("(F)")
+    if "G" in phases:
+        feat_res, feat_key, feat_launches = phase_engine_features(device_line)
+        since("(G)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{device_line}]")
     if None in (serving, training_res, entry_res, quant_res, forced_res,
                 packed_res, gemma_res, gemma_train_res, mask_res,
                 gemma_gen_launches, t5_res, s2e_res, dsv2_res, mla_res,
-                oss_res, bert_res, moe_res) \
+                oss_res, bert_res, moe_res, serve_res, feat_res) \
             or "z" not in phases:
         return 0
     packed_shape = "b8 h12 s1024 d64 causal bf16"
@@ -8864,6 +9666,17 @@ def main(phases="abcdefghijklmnopqrstuvwxyzABCDEF"):
               moe_launches[f"flash_attention_{way}"], tuple(pad_err[way]),
               moe_res, moe_keys[kernel])
              for way, line, kernel in (("fwd", 756, "K1"), ("bwd", 1100, "K2"))]
+    # K3 on this slice's paths: the target lane's verify of gamma + 1 tokens in
+    # (G)'s speculative main path (its launches counted in the target lane's
+    # passes of the rounds), timed at its shape in bf16; head dim 16 on the
+    # padded route, every call of (x)'s serve_gpt (both lanes), timed at the
+    # example's decode shape.
+    rows += [("paged_attention_verify", PAGED_SOURCE,
+              "np_modeling_tpu/ops/paged_attention.py:221",
+              feat_launches["verify"], paged_err, feat_res, feat_key),
+             ("paged_attention_d16_padded", PAGED_SOURCE,
+              "np_modeling_tpu/ops/paged_attention.py:221", serve_launches,
+              narrow_err, serve_res, serve_key)]
     # "ms": a call's wall time (CUDA events, host included), every entry;
     # "device_ms": calls back to back behind a sleep kernel (device only);
     # "bound_ms": the larger of this call's bytes over 3.35 TB/s and its

@@ -190,7 +190,10 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
     only with int8 pages. ``window`` (a positive width), ``softcap`` (a
     positive cap) and ``bias`` (fp32, 3-D or 4-D, any width) run in both.
     The kernel takes fp32 or bf16 q, fp32, bf16 or int8 pages, head_dim 64,
-    128 or 256, or 576 with one page array as k and v (the latent option),
+    128 or 256 (a narrower one runs on q and pages zero-padded to 64, with
+    the scale of the true head_dim; pages may come padded already, as the
+    serving engine stores them), or 576 with one page array as k and v (the
+    latent option),
     any GQA group, any sq >= 1, page sizes 8..128 (powers of two), and
     ``sinks`` (fp32 [hq]) at head_dim 64 alone or with a window; it raises
     on sinks at another head dim or with a softcap or a bias, and on a bias
@@ -205,11 +208,20 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
         raise ValueError(f"window {window}: want a positive integer width")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap {softcap}: want a positive cap")
+    d = q.shape[-1]
+    if k_pages.shape[-1] != d and not (
+            d < MIN_KERNEL_D and k_pages.shape[-1] == MIN_KERNEL_D):
+        raise ValueError(f"q's head_dim {d}, pages' {k_pages.shape[-1]}: "
+                         "want equal, or pages zero-padded to "
+                         f"{MIN_KERNEL_D} under a narrower q")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if not dispatch.use_kernel(q):
         if scaled:
             k_pages = k_pages.float() * k_scales
             v_pages = v_pages.float() * v_scales
-        return paged_attention_reference(q, k_pages, v_pages, lengths,
+        # Padded pages: their zero columns add nothing to a score or to o.
+        return paged_attention_reference(q, k_pages[..., :d],
+                                         v_pages[..., :d], lengths,
                                          page_indices, scale, window, bias,
                                          softcap, sinks)
     if sinks is not None and (q.shape[-1] != 64 or softcap is not None
@@ -224,9 +236,24 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
             "the CUDA paged-attention kernel takes the bias alone: a bias "
             "with a window or a softcap is not built yet (ROADMAP.md Queue 2 "
             "A, K3)")
-    return _launch(q, k_pages, v_pages, k_scales, v_scales, lengths,
-                   page_indices, scale, window, softcap, bias, sinks)
+    if d >= MIN_KERNEL_D:
+        return _launch(q, k_pages, v_pages, k_scales, v_scales, lengths,
+                       page_indices, scale, window, softcap, bias, sinks)
+    # A head_dim under 64 (JAX pads to a multiple of 128, :391-399): q, and
+    # pages not already padded, zero-padded to 64 for this call. A zero
+    # column changes no score, nor an int8 page's absmax scale; the scale
+    # stays the caller's and o is cut back.
+    pad = [torch.nn.functional.pad(x, (0, MIN_KERNEL_D - x.shape[-1]))
+           if x.shape[-1] < MIN_KERNEL_D else x
+           for x in (q, k_pages, v_pages)]
+    out = _launch(*pad, k_scales, v_scales, lengths, page_indices, scale,
+                  window, softcap, bias, sinks)
+    paged_attention.launches_padded += 1
+    return out[..., :d]
 
+
+# The kernel's narrowest head_dim: a narrower q runs zero-padded to it.
+MIN_KERNEL_D = 64
 
 # Kernel launches since import (or since a caller reset it to 0): a run
 # shows with it that its attention went through the kernel. launches counts
@@ -235,7 +262,8 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices, scale=None,
 # sliding window, launches_bias those with a score bias, launches_latent
 # those of the latent option (head_dim 576, one array as k and v),
 # launches_sinks those with attention sinks, launches_split those whose grid
-# had more than one split.
+# had more than one split, launches_padded those of a head_dim under 64 run
+# at 64.
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
 paged_attention.launches_window = 0
@@ -243,6 +271,7 @@ paged_attention.launches_bias = 0
 paged_attention.launches_latent = 0
 paged_attention.launches_sinks = 0
 paged_attention.launches_split = 0
+paged_attention.launches_padded = 0
 
 # The split plan (flash-decoding). The kernel's row tiles: up to 2 rows (a
 # decode's g rows), else 64 (32 at head_dim 256). A grid of fewer than

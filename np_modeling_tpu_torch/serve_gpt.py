@@ -6,12 +6,11 @@ port.
 
 It runs on the card; ``--device cpu`` asks for the CPU (the plain versions
 of the kernels). Requests join and leave mid-stream (continuous batching),
-and one prompt is forked into three greedy continuations that share its
-pages. The model is the example's (d 128, 8 q heads over 2 kv heads, 4
-layers, vocab 512) with heads of 64 in place of its 16: the port's paged
-kernel takes head dims 64, 128 and 256. The example's closing speculative
-section needs ``draft_gpt``, which is not ported yet (ROADMAP.md Queue 1
-item 3).
+one prompt is forked into three greedy continuations that share its pages,
+and a draft model proposes for three speculative rounds. The model is the
+example's (d 128, 8 q heads of 16 over 2 kv heads, 4 layers, vocab 512;
+its pages are stored 64 wide, the paged kernel's narrowest head dim), the
+draft d 32 with 2 heads of 16 and one layer.
 """
 
 from __future__ import annotations
@@ -25,7 +24,8 @@ from np_modeling_tpu_torch import models, serving
 
 
 def main(argv=None, log=print):
-    """Runs the example; returns {"outputs", "forked", "free_pages"}."""
+    """Runs the example; returns {"outputs", "forked", "free_pages",
+    "speculative"}."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--quantize-kv", action="store_true")
     ap.add_argument("--device", default="cuda",
@@ -34,7 +34,7 @@ def main(argv=None, log=print):
 
     cfg = models.GPTConfig(vocab_size=512, d_model=128, num_heads=8,
                            num_kv_heads=2, num_layers=4, hidden_units=512,
-                           max_len=256, head_dim=64)
+                           max_len=256)
     gpt = models.GPT(cfg, device=args.device).init(
         torch.Generator(device=args.device).manual_seed(0))
 
@@ -77,7 +77,20 @@ def main(argv=None, log=print):
         f"{ {sid: t[:4] for sid, t in forked.items()} }")
     for sid in (2, 3, 4):
         engine.finish(sid)
-    return {"outputs": outputs, "forked": forked, "free_pages": free}
+
+    # ---- speculative decoding with a draft model ------------------------
+    dcfg = models.GPTConfig(vocab_size=512, d_model=32, num_heads=2,
+                            num_layers=1, hidden_units=128, max_len=256)
+    draft = models.GPT(dcfg, device=args.device).init(
+        torch.Generator(device=args.device).manual_seed(1))
+    spec = serving.GenerationEngine(gpt, total_pages=256, page_size=16,
+                                    max_seqs=8, draft_gpt=draft)
+    spec.add_request(0, prompt)
+    toks = spec.step_speculative_many(rounds=3, gamma=4)[0]
+    log(f"speculative decode: {len(toks)} tokens in 3 rounds (train the "
+        "draft on the target's outputs to raise acceptance)")
+    return {"outputs": outputs, "forked": forked, "free_pages": free,
+            "speculative": toks}
 
 
 if __name__ == "__main__":

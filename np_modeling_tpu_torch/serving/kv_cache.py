@@ -7,6 +7,9 @@ in place. Pairs with ops.paged_attention. ``quantize=True`` stores int8
 pages with fp32 per-token scales [num_kv_heads, total_pages, page_size, 1]
 (``ops.quantize_int8`` on each appended token), half the bytes of bf16
 pages; ``attention_kwargs()`` hands the scales to ops.paged_attention.
+Pages keep the head_dim they are given (JAX's layout): under 64,
+ops.paged_attention pads them for each call on the card, where the serving
+engine stores its own pages 64 wide instead.
 """
 
 from __future__ import annotations

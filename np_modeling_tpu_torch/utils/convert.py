@@ -17,6 +17,8 @@ weights ``w_gate`` / ``w_up`` / ``w_down`` [E, ., .] (or ``w1`` / ``b1`` /
 ``layer_{i}/norm1``, ``dense1/linear``, ``pooler``, ``classifier``,
 ``mlm_transform``, ``mlm_norm`` and ``mlm_bias``), the model picked by the
 config's type, and returns the port's model holding those weights.
+``adapters_from_numpy`` / ``adapters_to_numpy`` carry a LoRA adapter tree
+(``{path: {"a", "b"}}``, ``training.lora``) across and back.
 ``params_to_numpy`` and ``tree_to_numpy`` are the way back: a
 port model's parameters, or any ``{name: tensor}`` dict such as their
 gradients, as the JAX-shaped nested dict of fp32 numpy arrays, for a
@@ -107,6 +109,24 @@ def params_from_numpy(tree: dict, config, device=None) -> torch.nn.Module:
         if isinstance(config, cfg_type):
             return load_params(model(config, device=device), tree)
     raise TypeError(f"no port model for a {type(config).__name__}")
+
+
+def adapters_from_numpy(tree: dict, device=None) -> dict:
+    """A JAX LoRA adapter tree ``{path: {"a": A, "b": B}}`` (numpy, or
+    anything ``np.asarray`` reads; ``training.lora_init``'s) as the port's:
+    the same paths, fp32 tensors on ``device`` (default: the card)."""
+    device = torch.device("cuda") if device is None else device
+    return {path: {k: torch.tensor(np.asarray(v, dtype=np.float32),
+                                   device=device) for k, v in ad.items()}
+            for path, ad in tree.items()}
+
+
+def adapters_to_numpy(adapters: dict) -> dict:
+    """The port's adapter tree as JAX's, fp32 numpy arrays (copies: a
+    fine-tune step updates the adapters in place)."""
+    return {path: {k: v.detach().cpu().float().numpy().copy()
+                   for k, v in ad.items()}
+            for path, ad in adapters.items()}
 
 
 def tree_to_numpy(named: dict) -> dict:

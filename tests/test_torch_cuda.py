@@ -24,7 +24,8 @@ import torch
 
 from chip_smoke import (BIAS_CASES, BIAS_DECODE_CASES, LATENT_CASES,
                         LATENT_PAGES, MASK_BWD_CASES, MASK_CASES,
-                        MLA_FLASH_CASES,
+                        MLA_FLASH_CASES, NARROW_PAGED_CASES,
+                        NARROW_PAGED_PAGES, NARROW_PAGED_Q,
                         PAGED_BIAS_CASES, PAGED_BIAS_PAGES,
                         PAGED_SINKS_CASES, PAGED_SINKS_OFFSETS,
                         PAGED_SINKS_PAGES, PAGED_SINKS_WINDOWS, _bias_fwd_bwd,
@@ -33,7 +34,8 @@ from chip_smoke import (BIAS_CASES, BIAS_DECODE_CASES, LATENT_CASES,
                         flash_bias_decode_case, flash_mask_case, k10_planned,
                         k10_run, latent_vs_plain, mask_bwd_unbuilt_calls,
                         mask_bwd_vs_plain, mla_flash_case,
-                        paged_latent_case, paged_bias_case, sinks_vs_plain)
+                        paged_latent_case, paged_bias_case,
+                        paged_narrow_case, sinks_vs_plain)
 from np_modeling_tpu_torch import models, ops
 from np_modeling_tpu_torch.ops import dispatch, fused
 
@@ -2076,3 +2078,74 @@ def test_cuda_donated_update_equals_functional_at_gemma2_embedding():
         for a, b in zip(training.optimizers._tensors(s_don),
                         training.optimizers._tensors(s_fun), strict=True):
             assert torch.equal(a, b)
+
+
+# ---- K3 at head dims under 64, and the speculative engine ---------------------
+
+@pytest.mark.parametrize("stored_wide", [False, True])
+@pytest.mark.parametrize("q_dtype", NARROW_PAGED_Q)
+@pytest.mark.parametrize("pages", NARROW_PAGED_PAGES)
+@pytest.mark.parametrize("case", NARROW_PAGED_CASES)
+def test_cuda_paged_narrow_head_dims_vs_plain(case, pages, q_dtype,
+                                              stored_wide):
+    """K3 at head dims 16 and 32 on the padded route (pages padded for the
+    call, or stored 64 wide as the engine stores them) against the plain
+    version at the true head dim: one padded launch a call."""
+    d, sq = case
+    before = ops.paged_attention.launches_padded
+    got, want, lens, tol = paged_narrow_case(d, sq, pages, q_dtype,
+                                             stored_wide, 130)
+    assert ops.paged_attention.launches_padded == before + 1
+    live = lens > 0
+    assert got.shape == want.shape and got.shape[-1] == d
+    err = (got[live].float() - want[live].float()).abs().max().item()
+    assert err <= tol, err
+    assert bool((got[~live] == 0).all())
+
+
+def test_cuda_speculative_engine_round_vs_step():
+    """One greedy speculative round (a 2-layer GPT with heads of 16 and a
+    1-layer draft, fp32) gives the plain engine's step() tokens; every
+    attention call of both lanes went through K3, padded."""
+    from np_modeling_tpu_torch.serving import GenerationEngine
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = dict(vocab_size=128, num_layers=2, hidden_units=128, max_len=128)
+    gpt = models.GPT(models.GPTConfig(d_model=64, num_heads=4,
+                                      num_kv_heads=2, **cfg)).init(gen)
+    draft = models.GPT(models.GPTConfig(d_model=32, num_heads=2,
+                                        **dict(cfg, num_layers=1))).init(gen)
+    prompts = {0: np.arange(9) % 7, 1: np.arange(20) % 5}
+    kw = dict(total_pages=64, page_size=8, max_seqs=4)
+    spec = GenerationEngine(gpt, draft_gpt=draft, **kw)
+    ops.paged_attention.launches = ops.paged_attention.launches_padded = 0
+    first = spec.add_requests(prompts)
+    out = spec.step_speculative(3)
+    # one chunk on each lane, the draft's 3 + 1 steps, the target's verify
+    assert ops.paged_attention.launches == 2 + 1 + 4 + 2
+    assert ops.paged_attention.launches_padded == 9
+    plain = GenerationEngine(gpt, **kw)
+    assert plain.add_requests(prompts) == first
+    want = plain.step_many(4)
+    for sid, toks in out.items():
+        assert 1 <= len(toks) <= 4 and toks == want[sid][:len(toks)]
+
+
+def test_cuda_speculative_generate_vs_generate():
+    """speculative_generate over dense caches (per-row write indices, K1's
+    mask option; a 2-layer GPT with heads of 64 and a 1-layer draft, fp32)
+    gives GPT.generate's greedy tokens; every pass of either model launched
+    K1 with its mask once a layer."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cfg = dict(vocab_size=128, hidden_units=256, max_len=128)
+    gpt = models.GPT(models.GPTConfig(d_model=128, num_heads=2,
+                                      num_layers=2, **cfg)).init(gen)
+    draft = models.GPT(models.GPTConfig(d_model=64, num_heads=1,
+                                        num_layers=1, **cfg)).init(gen)
+    prompt = torch.tensor(np.arange(3 * 11).reshape(3, 11) % 13,
+                          device="cuda")
+    ops.flash_attention.launches_fwd_mask = 0
+    got, (_, rounds) = models.speculative_generate(
+        gpt, draft, prompt, 12, gamma=3, return_stats=True)
+    assert ops.flash_attention.launches_fwd_mask == (
+        2 * (1 + rounds) + 1 * (1 + rounds * 4))
+    assert torch.equal(got, gpt.generate(prompt, 12))

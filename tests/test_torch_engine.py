@@ -110,14 +110,39 @@ def test_out_of_pages_is_all_or_nothing():
     assert teng.free_pages == free0 - 8 and teng.live == [0]
 
 
-@pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(constraints={"any": object()}),
-    dict(draft_gpt=object()), dict(lora_adapters={"a": {}}),
-    dict(constraints={}), dict(lora_adapters={})])
-def test_unported_engine_options_raise(option):
-    gpt = tmodels.GPT(tmodels.GPTConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError):
-        GenerationEngine(gpt, **{**ENGINE, **option})
+def _refusals():
+    """(engine options, a call on the engine or None, the error): ``mesh``,
+    the one option not ported, and the JAX engine's own refusals."""
+    from np_modeling_tpu_torch.serving.constrain import dfa_from_choices
+    dfa = dfa_from_choices([[1, 2]], CFG["vocab_size"], 0)
+    return [
+        (dict(mesh=object()), None, NotImplementedError),
+        (dict(constraints={"c": dfa}, draft="self"), None, ValueError),
+        (dict(enable_prefix_cache=True, draft="self"), None, ValueError),
+        (dict(per_request_sampling=True, draft="self"), None, ValueError),
+        (dict(lora_adapters={"a": "lora"}),
+         lambda eng: eng.add_request(0, [1, 2, 3], adapter="b"), ValueError),
+        (dict(constraints={"c": dfa}),
+         lambda eng: eng.add_request(0, [1, 2, 3], constraint="d"),
+         ValueError)]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_unported_engine_options_raise(case):
+    """``mesh`` raises NotImplementedError; the JAX engine's asserts raise
+    ValueError: constraints, the prefix cache or per-request sampling with
+    a draft lane, an unknown adapter, an unknown constraint."""
+    from np_modeling_tpu_torch.training.lora import lora_init
+    option, call, error = _refusals()[case]
+    gpt = tmodels.GPT(tmodels.GPTConfig(**CFG), device="cpu").init(
+        torch.Generator())
+    if option.pop("draft", None):
+        option["draft_gpt"] = gpt
+    if option.get("lora_adapters"):
+        option["lora_adapters"] = {"a": lora_init(torch.Generator(), gpt, 2)}
+    with pytest.raises(error, match=None if call is None else "unknown"):
+        eng = GenerationEngine(gpt, **{**ENGINE, **option})
+        call(eng)
 
 
 @pytest.mark.parametrize("feature", [

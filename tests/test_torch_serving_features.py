@@ -403,9 +403,12 @@ def test_engine_option_errors():
     with pytest.raises(ValueError, match="prefix cache"):
         GenerationEngine(tgpt, prefill_chunk_size=None,
                          enable_prefix_cache=True)
-    for call in (eng.step_lookup, eng.step_speculative):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(ValueError, match="draft_gpt"):
+        eng.step_speculative()
+    sampled = GenerationEngine(tgpt, total_pages=16, page_size=4,
+                               temperature=0.8)
+    with pytest.raises(ValueError, match="greedy"):
+        sampled.step_lookup()
 
 
 def test_serve_gpt_main_on_the_cpu():
